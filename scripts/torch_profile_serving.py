@@ -1,0 +1,128 @@
+#!/usr/bin/env python3
+"""Where the time goes when the PyTorch port serves yi-6b from a stream.
+
+    python3 scripts/torch_profile_serving.py      # on a machine with one CUDA card
+
+Builds the kernels, then runs chip_smoke.py's served workload
+(``chip_smoke.serving_setup``: full-width yi-6b, random bf16 weights from
+its seed, four requests of 512/1000/1536/2000 prompt tokens and 16 new
+tokens each, through ``serve_stream`` and ``ContinuousLMEngine``) under
+``torch.profiler``, with the prefill and decode calls marked. Prints the
+device time by phase and by kernel class, the device's busy and idle
+share of the wall time, and the top kernels; writes them and the full
+table to ``chiprun_out/``. Times are taken under the profiler, which
+slows the host. Exits non-zero with no CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402  (puts src/ on the path)
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total", None) or getattr(evt, "self_cuda_time_total", 0.0))
+
+
+def _kernel_class(name: str) -> str:
+    n = name.lower()
+    if "flash_attention" in n:
+        return "flash_attention (this repo's kernel)"
+    if any(t in n for t in ("gemm", "cutlass", "sm90_xmma", "nvjet", "cublas")):
+        return "matmul (cuBLAS)"
+    if any(t in n for t in ("index", "gather", "scatter")):
+        return "index / gather / scatter"
+    if "reduce" in n or "softmax" in n:
+        return "reductions / softmax"
+    if "copy" in n or "cat" in n:
+        return "copies / casts"
+    return "elementwise and other"
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    if not torch.cuda.is_available():
+        print("torch_profile_serving: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _build
+    from repro_torch.serve.lm_engine import serve_stream
+
+    card = chip_smoke.card_line()
+    _build.build_all()
+    _, model, engine, log, reqs = chip_smoke.serving_setup()
+
+    prefill, decode = model.prefill, model.decode_step
+
+    def marked_prefill(*a, **k):
+        with record_function("phase:prefill"):
+            return prefill(*a, **k)
+
+    def marked_decode(*a, **k):
+        with record_function("phase:decode"):
+            return decode(*a, **k)
+
+    model.prefill, model.decode_step = marked_prefill, marked_decode
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        served = serve_stream(engine, log, "lm-requests", "lm-completions")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    if served != len(reqs):
+        raise RuntimeError(f"served {served} of {len(reqs)} requests")
+
+    events = prof.key_averages()
+    # device-side events only (kernels, memcpy, memset): the host ops that
+    # launched them carry the same time again, and the phase markers'
+    # device spans cover them
+    kernels = [
+        e for e in events
+        if str(e.device_type).endswith("CUDA") and _device_us(e) > 0 and not e.key.startswith("phase:")
+    ]
+    busy_us = sum(_device_us(e) for e in kernels)
+    by_class: dict[str, float] = {}
+    for e in kernels:
+        by_class[_kernel_class(e.key)] = by_class.get(_kernel_class(e.key), 0.0) + _device_us(e)
+    phases = {}
+    for e in events:
+        if e.key.startswith("phase:"):
+            # the marker's span on the device timeline, first kernel to last, gaps included
+            phases.setdefault(e.key, {"calls": 0, "device_span_ms": 0.0})
+            phases[e.key]["calls"] = max(phases[e.key]["calls"], e.count)
+            phases[e.key]["device_span_ms"] += _device_us(e) / 1e3
+    top = sorted(kernels, key=_device_us, reverse=True)[:15]
+    summary = {
+        "card": card, "wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
+        "phases": phases,
+        "by_class_ms": {k: v / 1e3 for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])},
+        "top_kernels": [
+            {"name": e.key[:120], "calls": e.count, "device_ms": _device_us(e) / 1e3} for e in top
+        ],
+    }
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "profile_serving.json").write_text(json.dumps(summary, indent=1))
+    (out / "profile_serving.txt").write_text(
+        events.table(
+            sort_by="self_device_time_total" if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total",
+            row_limit=60, max_name_column_width=100,
+        )
+    )
+    print(f"[{card}]")
+    print(json.dumps(summary, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

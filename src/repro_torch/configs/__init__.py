@@ -1,0 +1,27 @@
+"""Architecture registry: ``<arch id>`` -> ArchConfig (+ reduced smoke twin).
+
+The port registers the architectures it can run; yi-6b is the first.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+from repro_torch.configs import yi_6b
+from repro_torch.models.model import ArchConfig
+
+_MODULES = [yi_6b]
+
+ARCHS: dict[str, Any] = {m.ID: m for m in _MODULES}
+
+
+def names() -> list[str]:
+    return list(ARCHS)
+
+
+def get(arch_id: str) -> ArchConfig:
+    return ARCHS[arch_id].config()
+
+
+def get_reduced(arch_id: str) -> ArchConfig:
+    return ARCHS[arch_id].reduced_config()

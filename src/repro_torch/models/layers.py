@@ -1,0 +1,253 @@
+"""Shared transformer layers (port of ``repro.models.layers``, one device).
+
+Conventions follow the JAX package: parameters are dicts of tensors with
+the same keys and shapes as there (the caller indexes one layer out of
+the stacked ``(L, ...)`` leaves), activations are (B, S, H, D), RoPE uses
+the *interleaved* pairing, and softmax weights are cast to the query
+dtype before the PV product.
+
+Differences that belong to PyTorch: prefill attention goes through
+``kernels.ops.attention_op`` (the Hopper kernel on the card) where JAX
+runs ``_chunked_attention``; and the decode paths write the new token's
+K/V into the cache tensors in place (no functional copy of a multi-GB
+cache per step) and return those same tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ops import attention_op
+
+__all__ = [
+    "AttnParams",
+    "attention",
+    "decode_attention",
+    "mlp",
+    "paged_decode_attention",
+    "rms_norm",
+    "rope",
+    "softcap",
+]
+
+MASKED = -1e30
+
+
+# ---------------------------------------------------------------------- norms
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, *, plus_one: bool = False) -> torch.Tensor:
+    """RMSNorm in f32 (gemma-style ``(1 + w)`` scaling when plus_one)."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    scale = (1.0 + w.float()) if plus_one else w.float()
+    return (y * scale).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: cap * tanh(x / cap)."""
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+# ----------------------------------------------------------------------- RoPE
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Interleaved rotary embedding.
+
+    x: (B, S, H, D) with D even; positions: (S,) or (B, S).
+    """
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].float() * freqs  # (B?, S, half)
+    cos = torch.cos(ang)[:, :, None, :]  # (B?, S, 1, half)
+    sin = torch.sin(ang)[:, :, None, :]
+    xf = x.float().reshape(x.shape[:-1] + (half, 2))
+    x0, x1 = xf[..., 0], xf[..., 1]
+    y0 = x0 * cos - x1 * sin
+    y1 = x0 * sin + x1 * cos
+    return torch.stack([y0, y1], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# ------------------------------------------------------------------------ MLP
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., d) @ w (d, *out) -> (..., *out)."""
+    out = x @ w.reshape(w.shape[0], -1).to(x.dtype)
+    return out.reshape(x.shape[:-1] + w.shape[1:])
+
+
+def mlp(p: dict, x: torch.Tensor, kind: str, act: str = "silu") -> torch.Tensor:
+    h = _proj(x, p["w_in"])
+    actf = {"silu": F.silu, "gelu": lambda t: F.gelu(t, approximate="tanh")}[act]
+    if kind == "gated":
+        h = actf(_proj(x, p["w_gate"])) * h
+    else:
+        h = actf(h)
+    return _proj(h, p["w_out"])
+
+
+# ------------------------------------------------------------------ attention
+@dataclasses.dataclass(frozen=True)
+class AttnParams:
+    """Static attention hyper-params for one block kind."""
+
+    n_heads: int
+    n_kv: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    use_rope: bool = True
+    causal: bool = True
+    window: int | None = None  # sliding-window size (local attention)
+    softcap: float | None = None  # gemma2 attn-logit capping
+    bias: bool = False  # qwen2 QKV bias
+    cross: bool = False  # enc-dec cross attention (K/V from encoder)
+
+
+def _project_qkv(p: dict, x: torch.Tensor, ap: AttnParams, positions: torch.Tensor):
+    q = _proj(x, p["wq"])
+    k = _proj(x, p["wk"])
+    v = _proj(x, p["wv"])
+    if ap.bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    if ap.use_rope:
+        q = rope(q, positions, ap.rope_theta)
+        k = rope(k, positions, ap.rope_theta)
+    return q, k, v
+
+
+def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B,S,Kv,D) -> (B,S,H,D), kv head h serves q heads [h*rep, (h+1)*rep)."""
+    rep = n_heads // k.shape[2]
+    return k if rep == 1 else k.repeat_interleave(rep, dim=2)
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) x (H, D, d) -> (B, S, d)."""
+    b, s = out.shape[:2]
+    return out.reshape(b, s, -1) @ wo.reshape(-1, wo.shape[-1]).to(out.dtype)
+
+
+def attention(
+    p: dict,
+    x: torch.Tensor,  # (B, S, d)
+    ap: AttnParams,
+    positions: torch.Tensor | None = None,  # (S,)
+    return_kv: bool = False,  # prefill: also return unrepeated K/V
+):
+    """Full-sequence causal self-attention (training / prefill)."""
+    if ap.cross:
+        raise NotImplementedError("cross attention is not ported yet")
+    s = x.shape[1]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(p, x, ap, positions)
+    out = attention_op(q, k, v, causal=ap.causal, window=ap.window, softcap=ap.softcap)
+    y = _out_proj(out, p["wo"])
+    if return_kv:
+        return y, k, v
+    return y
+
+
+def _attend(q, kf, vf, valid, ap: AttnParams) -> torch.Tensor:
+    """One query token over a (B, S, Kv, D) key/value view; valid: (B or 1, S)."""
+    kf = _repeat_kv(kf, ap.n_heads).to(q.dtype)
+    vf = _repeat_kv(vf, ap.n_heads).to(q.dtype)
+    scale = 1.0 / math.sqrt(ap.head_dim)
+    sc = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() * scale
+    sc = softcap(sc, ap.softcap) if ap.softcap else sc
+    sc = torch.where(valid[:, None, None, :], sc, torch.full_like(sc, MASKED))
+    w = torch.softmax(sc, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, vf)
+
+
+# ------------------------------------------------------------- decode (1-tok)
+def decode_attention(
+    p: dict,
+    x: torch.Tensor,  # (B, 1, d)
+    cache_k: torch.Tensor,  # (B, S_cache, Kv, D), written in place
+    cache_v: torch.Tensor,
+    cache_pos: torch.Tensor,  # int count of tokens already in cache: scalar
+    #                           (whole batch in lockstep) or (B,) per row
+    ap: AttnParams,
+):
+    """One-token decode against a contiguous KV cache (non-ring, self
+    attention); returns (out, cache_k, cache_v) with the caches updated in
+    place."""
+    if ap.cross:
+        raise NotImplementedError("cross attention is not ported yet")
+    b = x.shape[0]
+    s_cache = cache_k.shape[1]
+    pos = cache_pos.to(device=x.device, dtype=torch.long)
+    per_row = pos.dim() == 1
+    positions = pos[:, None] if per_row else pos.reshape(1)
+
+    q, kn, vn = _project_qkv(p, x, ap, positions)
+    if per_row:
+        rows = torch.arange(b, device=x.device)
+        cache_k[rows, pos] = kn[:, 0].to(cache_k.dtype)
+        cache_v[rows, pos] = vn[:, 0].to(cache_v.dtype)
+    else:
+        cache_k.index_copy_(1, pos.reshape(1), kn.to(cache_k.dtype))
+        cache_v.index_copy_(1, pos.reshape(1), vn.to(cache_v.dtype))
+    out = _attend(q, cache_k, cache_v, _decode_valid(pos, s_cache, window=ap.window), ap)
+    return _out_proj(out, p["wo"]), cache_k, cache_v
+
+
+def _decode_valid(pos: torch.Tensor, s_cache: int, *, window: int | None) -> torch.Tensor:
+    """Slots holding positions 0..pos (the token just written included),
+    within the sliding window if any: (B, S) for per-row pos, (1, S) else."""
+    idx = torch.arange(s_cache, device=pos.device)[None, :]
+    p = pos.reshape(-1, 1)
+    valid = idx <= p
+    if window is not None:
+        valid &= idx > p - window
+    return valid
+
+
+def paged_decode_attention(
+    p: dict,
+    x: torch.Tensor,  # (B, 1, d)
+    cache_k: torch.Tensor,  # (N_blocks, block, Kv, D) physical pool, written in place
+    cache_v: torch.Tensor,
+    cache_pos: torch.Tensor,  # (B,) per-row token counts
+    block_table: torch.Tensor,  # (B, max_blocks) physical block ids; virtual
+    #                             position p of row b lives at
+    #                             (block_table[b, p // block], p % block)
+    ap: AttnParams,
+):
+    """One-token decode against a paged (block-table) KV cache.
+
+    The new token's K/V is scattered to its (block, offset); rows whose
+    position drifted past their table clamp to the last entry (an
+    all-zeros table routes idle rows to scratch block 0). Reads gather
+    each row's blocks into a (B, max_blocks * block) view and mask
+    everything past the row's position (stale freed blocks included) to
+    -1e30. Returns (out, cache_k, cache_v), the caches updated in place.
+    """
+    b = x.shape[0]
+    n_phys, blk_sz, n_kv, hd = cache_k.shape
+    max_blocks = block_table.shape[1]
+    pos = cache_pos.to(device=x.device, dtype=torch.long)
+    q, kn, vn = _project_qkv(p, x, ap, pos[:, None])
+
+    rows = torch.arange(b, device=x.device)
+    tbl_idx = torch.clamp(pos // blk_sz, max=max_blocks - 1)
+    blk = block_table[rows, tbl_idx].long()
+    off = pos % blk_sz
+    cache_k[blk, off] = kn[:, 0].to(cache_k.dtype)
+    cache_v[blk, off] = vn[:, 0].to(cache_v.dtype)
+
+    s_virt = max_blocks * blk_sz
+    bt = block_table.long()
+    kf = cache_k[bt].reshape(b, s_virt, n_kv, hd)
+    vf = cache_v[bt].reshape(b, s_virt, n_kv, hd)
+    out = _attend(q, kf, vf, _decode_valid(pos, s_virt, window=ap.window), ap)
+    return _out_proj(out, p["wo"]), cache_k, cache_v
