@@ -1,21 +1,27 @@
 #!/usr/bin/env python3
-"""Where the time goes when the PyTorch port serves yi-6b from a stream.
+"""Where the time goes when the PyTorch port serves an LM from a stream.
 
-    python3 scripts/torch_profile_serving.py      # on a machine with one CUDA card
+    python3 scripts/torch_profile_serving.py                # yi-6b
+    python3 scripts/torch_profile_serving.py --model mamba2  # mamba2-2.7b
 
-Builds the kernels, then runs chip_smoke.py's served workload
-(``chip_smoke.serving_setup``: full-width yi-6b, random bf16 weights from
-its seed, four requests of 512/1000/1536/2000 prompt tokens and 16 new
-tokens each, through ``serve_stream`` and ``ContinuousLMEngine``) under
-``torch.profiler``, with the prefill and decode calls marked. Prints the
-device time by phase and by kernel class, the device's busy and idle
-share of the wall time, and the top kernels; writes them and the full
-table to ``chiprun_out/``. Times are taken under the profiler, which
-slows the host. Exits non-zero with no CUDA device.
+On a machine with one CUDA card. Builds the kernels, then runs one of
+chip_smoke.py's served workloads under ``torch.profiler``, with the
+prefill and decode calls marked: yi-6b (``chip_smoke.serving_setup``:
+full width, random bf16 weights from its seed, four requests of
+512/1000/1536/2000 prompt tokens and 16 new tokens each, through
+``serve_stream`` and ``ContinuousLMEngine``), or mamba2-2.7b
+(``chip_smoke.ssm_setup``: full width, random bf16 weights, one wave of
+four 2000-token prompts and 16 new tokens each through ``LMEngine``).
+Prints the device time by phase and by kernel class, the device's busy
+and idle share of the wall time, and the top kernels; writes them and
+the full table to ``chiprun_out/profile_serving[_mamba2].*``. Times are
+taken under the profiler, which slows the host. Exits non-zero with no
+CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import sys
 import time
@@ -35,6 +41,8 @@ def _kernel_class(name: str) -> str:
     n = name.lower()
     if "flash_attention" in n:
         return "flash_attention (this repo's kernel)"
+    if "ssd_scan" in n:
+        return "ssd_scan (this repo's kernel)"
     if any(t in n for t in ("gemm", "cutlass", "sm90_xmma", "nvjet", "cublas")):
         return "matmul (cuBLAS)"
     if any(t in n for t in ("index", "gather", "scatter")):
@@ -50,6 +58,9 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("yi-6b", "mamba2"), default="yi-6b")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_serving: no CUDA device", file=sys.stderr)
         return 2
@@ -58,7 +69,19 @@ def main() -> int:
 
     card = chip_smoke.card_line()
     _build.build_all()
-    _, model, engine, log, reqs = chip_smoke.serving_setup()
+    if args.model == "mamba2":
+        _, model, engine, log, prompts = chip_smoke.ssm_setup("bfloat16")
+        n_reqs, suffix = len(prompts), "_mamba2"
+
+        def serve():
+            return serve_stream(engine, log, "lm-prompts", "lm-completions", chip_smoke.SSM_PROMPT_LEN,
+                                max_new=chip_smoke.MAX_NEW)
+    else:
+        _, model, engine, log, reqs = chip_smoke.serving_setup()
+        n_reqs, suffix = len(reqs), ""
+
+        def serve():
+            return serve_stream(engine, log, "lm-requests", "lm-completions")
 
     prefill, decode = model.prefill, model.decode_step
 
@@ -74,11 +97,11 @@ def main() -> int:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        served = serve_stream(engine, log, "lm-requests", "lm-completions")
+        served = serve()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    if served != len(reqs):
-        raise RuntimeError(f"served {served} of {len(reqs)} requests")
+    if served != n_reqs:
+        raise RuntimeError(f"served {served} of {n_reqs} requests")
 
     events = prof.key_averages()
     # device-side events only (kernels, memcpy, memset): the host ops that
@@ -101,7 +124,7 @@ def main() -> int:
             phases[e.key]["device_span_ms"] += _device_us(e) / 1e3
     top = sorted(kernels, key=_device_us, reverse=True)[:15]
     summary = {
-        "card": card, "wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
+        "card": card, "model": args.model, "wall_ms": wall_s * 1e3, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
         "phases": phases,
         "by_class_ms": {k: v / 1e3 for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])},
@@ -111,8 +134,8 @@ def main() -> int:
     }
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_serving.json").write_text(json.dumps(summary, indent=1))
-    (out / "profile_serving.txt").write_text(
+    (out / f"profile_serving{suffix}.json").write_text(json.dumps(summary, indent=1))
+    (out / f"profile_serving{suffix}.txt").write_text(
         events.table(
             sort_by="self_device_time_total" if hasattr(events[0], "self_device_time_total")
             else "self_cuda_time_total",

@@ -1,10 +1,11 @@
 """Model-layout entry points to the kernels (port of ``repro.kernels.ops``).
 
-The model keeps activations as (B, S, H, D) with grouped (GQA) K/V. The
-JAX wrapper moves axes and repeats K/V heads before its kernel; here the
-(B, H, S, D) views are strided views of the model's tensors and the
-kernel reads the kv head of each query head itself, so nothing is
-copied on the card.
+The model keeps activations as (B, S, H, D) with grouped (GQA) K/V and
+grouped SSD B/C. The JAX wrappers move axes and repeat K/V heads or B/C
+groups before their kernels; here the (B, H, S, D) views are strided
+views of the model's tensors and each kernel reads the kv head or group
+of each head itself, so nothing is copied on the card (for mamba2's one
+group over 80 heads a repeat would copy B and C 80 times).
 """
 
 from __future__ import annotations
@@ -12,8 +13,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 
-__all__ = ["attention_op"]
+__all__ = ["attention_op", "ssd_op"]
 
 
 def attention_op(
@@ -31,3 +33,23 @@ def attention_op(
         causal=causal, window=window, softcap=softcap,
     )
     return out.transpose(1, 2)
+
+
+def ssd_op(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H), post-softplus
+    A: torch.Tensor,  # (H,), negative
+    Bm: torch.Tensor,  # (B, S, G, N)
+    Cm: torch.Tensor,  # (B, S, G, N)
+    init_state: torch.Tensor | None = None,  # (B, H, N, P) f32
+    *,
+    chunk: int = 256,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """SSD in model layout; returns (y (B, S, H, P) in x's dtype, final
+    state (B, H, N, P) f32). dt and A enter in f32, so dA = dt * A is f32;
+    x * dt is rounded to x's dtype before the scan's arithmetic."""
+    y, st = ssd_scan(
+        x.transpose(1, 2), dt.float().transpose(1, 2), A.float(),
+        Bm.transpose(1, 2), Cm.transpose(1, 2), init_state, chunk=chunk,
+    )
+    return y.transpose(1, 2), st

@@ -1,1 +1,1 @@
-"""Dense transformer layers and the model assembler (ports of ``repro.models``)."""
+"""Dense transformer layers, the Mamba-2 mixer and the model assembler (ports of ``repro.models``)."""

@@ -1,4 +1,4 @@
-"""Model assembler (port of ``repro.models.model``): dense decoders on one device.
+"""Model assembler (port of ``repro.models.model``): one-kind stacks on one device.
 
 ``StreamModel`` is an ``nn.Module`` holding the JAX package's parameter
 tree with the same nested keys and shapes, the layer stack included as a
@@ -6,10 +6,12 @@ leading dim (``slots/s0/mixer/wq`` is ``(L, d, H, hd)``), so that
 ``convert.params_from_jax`` moves weights across one for one. The layer
 loop is a Python loop over ``L``.
 
-Only the dense ``("attn",)`` pattern is ported; the other block kinds
-(local/ring attention, SSM, RG-LRU, MoE, encoder-decoder, frontends)
-raise ``NotImplementedError``. Caches keep the JAX layout, stacked on the
-layer dim, and are updated in place.
+The dense ``("attn",)`` pattern (yi-6b) and the Mamba-2 ``("ssm",)``
+pattern (mamba2) are ported, with or without an MLP and with tied or
+untied embeddings; the other block kinds (local/ring attention, RG-LRU,
+MoE, encoder-decoder, frontends) raise ``NotImplementedError``. Caches
+keep the JAX layout, stacked on the layer dim, and are updated in place.
+The paged cache serves the dense pattern only, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AttnParams
 from repro_torch.models.policy import Policy, torch_dtype
+from repro_torch.models.ssm import F32_LEAVES, SSMParams, ssm_init, ssm_init_state, ssm_mixer, ssm_shapes
 
 __all__ = ["ArchConfig", "StreamModel"]
 
@@ -53,7 +56,7 @@ class ArchConfig:
     embed_scale: bool = False
     tie_embeddings: bool = False
     moe: Any = None  # MoEParams in the JAX package; not ported yet
-    ssm: Any = None  # SSMParams; not ported yet
+    ssm: SSMParams | None = None
     rglru: Any = None  # RGLRUParams; not ported yet
     enc_dec: bool = False
     enc_layers: int = 0
@@ -90,9 +93,9 @@ class ArchConfig:
 
 def _unsupported(cfg: ArchConfig) -> list[str]:
     checks = {
-        f"pattern {cfg.pattern!r}": cfg.pattern != ("attn",),
+        f"pattern {cfg.pattern!r}": cfg.pattern not in (("attn",), ("ssm",)),
+        "ssm pattern without SSMParams": cfg.pattern == ("ssm",) and cfg.ssm is None,
         "moe": cfg.moe is not None,
-        "ssm": cfg.ssm is not None,
         "rglru": cfg.rglru is not None,
         "enc_dec": cfg.enc_dec,
         f"frontend {cfg.frontend!r}": cfg.frontend != "none",
@@ -100,22 +103,25 @@ def _unsupported(cfg: ArchConfig) -> list[str]:
         f"norm {cfg.norm!r}": cfg.norm != "rms",
         "post_norms": cfg.post_norms,
         "embed_scale": cfg.embed_scale,
-        "tie_embeddings": cfg.tie_embeddings,
         "attn_bias": cfg.attn_bias,
-        f"mlp_kind {cfg.mlp_kind!r}": cfg.mlp_kind not in ("gated", "plain"),
+        f"mlp_kind {cfg.mlp_kind!r}": cfg.mlp_kind not in ("gated", "plain", "none"),
     }
     return [k for k, bad in checks.items() if bad]
 
 
-def _params(shapes: dict, dtype, device) -> nn.ParameterDict:
+def _params(shapes: dict, dtype, device, f32: tuple[str, ...] = ()) -> nn.ParameterDict:
+    """Empty parameters of ``dtype``; the leaves named in ``f32`` are float32."""
     return nn.ParameterDict({
-        k: nn.Parameter(torch.empty(s, dtype=dtype, device=device), requires_grad=False)
+        k: nn.Parameter(
+            torch.empty(s, dtype=torch.float32 if k in f32 else dtype, device=device),
+            requires_grad=False,
+        )
         for k, s in shapes.items()
     })
 
 
 class StreamModel(nn.Module):
-    """Dense decoder with explicit caches; parameters in the JAX tree layout."""
+    """Dense or Mamba-2 decoder with explicit caches; parameters in the JAX tree layout."""
 
     def __init__(
         self,
@@ -133,29 +139,34 @@ class StreamModel(nn.Module):
         self.policy = policy
         self.device = resolve_device(device)
         self.n_groups = cfg.n_layers
-        self.ap = cfg.attn_params("attn")
+        self.kind = cfg.pattern[0]
+        self.ap = cfg.attn_params("attn") if self.kind == "attn" else None
         dtype = torch_dtype(policy.param_dtype)
-        n, d, f, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.hd
-        mlp_shapes = {"w_in": (n, d, f), "w_out": (n, f, d)}
-        if cfg.mlp_kind == "gated":
-            mlp_shapes["w_gate"] = (n, d, f)
-        block = nn.ModuleDict({
-            "norm1": _params({"w": (n, d)}, dtype, self.device),
-            "mixer": _params({
+        n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+        block = nn.ModuleDict({"norm1": _params({"w": (n, d)}, dtype, self.device)})
+        if self.kind == "ssm":
+            block["mixer"] = _params(ssm_shapes(n, d, cfg.ssm), dtype, self.device, f32=F32_LEAVES)
+        else:
+            hd = cfg.hd
+            block["mixer"] = _params({
                 "wq": (n, d, cfg.n_heads, hd),
                 "wk": (n, d, cfg.n_kv_heads, hd),
                 "wv": (n, d, cfg.n_kv_heads, hd),
                 "wo": (n, cfg.n_heads, hd, d),
-            }, dtype, self.device),
-            "norm2": _params({"w": (n, d)}, dtype, self.device),
-            "mlp": _params(mlp_shapes, dtype, self.device),
-        })
+            }, dtype, self.device)
+        if cfg.mlp_kind != "none":
+            mlp_shapes = {"w_in": (n, d, f), "w_out": (n, f, d)}
+            if cfg.mlp_kind == "gated":
+                mlp_shapes["w_gate"] = (n, d, f)
+            block["norm2"] = _params({"w": (n, d)}, dtype, self.device)
+            block["mlp"] = _params(mlp_shapes, dtype, self.device)
         self.tree = nn.ModuleDict({
             "embed": _params({"w": (cfg.vocab_padded, d)}, dtype, self.device),
             "final_norm": _params({"w": (1, d)}, dtype, self.device),
             "slots": nn.ModuleDict({"s0": block}),
-            "unembed": _params({"w": (d, cfg.vocab_padded)}, dtype, self.device),
         })
+        if not cfg.tie_embeddings:
+            self.tree["unembed"] = _params({"w": (d, cfg.vocab_padded)}, dtype, self.device)
         self._layers: list[dict] | None = None
         if generator is not None:
             self.init(generator)
@@ -163,16 +174,19 @@ class StreamModel(nn.Module):
     # ------------------------------------------------------------ parameters
     def param_tree(self) -> dict:
         """The parameters as the JAX package's nested dict (``embed`` and
-        ``unembed`` are leaves there, so they are here)."""
+        ``unembed`` are leaves there, so they are here; a tied model has
+        no ``unembed``)."""
         t = self.tree
-        return {
+        tree = {
             "embed": t["embed"]["w"],
             "final_norm": {"w": t["final_norm"]["w"]},
             "slots": {"s0": {
                 name: dict(sub.items()) for name, sub in t["slots"]["s0"].items()
             }},
-            "unembed": t["unembed"]["w"],
         }
+        if "unembed" in t:
+            tree["unembed"] = t["unembed"]["w"]
+        return tree
 
     @torch.no_grad()
     def load_params(self, tree: dict) -> None:
@@ -194,13 +208,14 @@ class StreamModel(nn.Module):
 
     @torch.no_grad()
     def init(self, generator: torch.Generator | int) -> None:
-        """Random weights with the JAX init's scales (``layers._normal``):
-        normal / sqrt(fan_in), drawn in f32 and cast; norms are ones.
-        An int seeds a new generator on the model's device."""
+        """Random weights with the JAX init's scales (``layers._normal``,
+        ``ssm.ssm_init``): normal / sqrt(fan_in), drawn in f32 and cast;
+        norms are ones; the SSM's decays, skips and dt biases are its
+        fixed values. An int seeds a new generator on the model's device."""
         if isinstance(generator, int):
             generator = torch.Generator(device=self.device).manual_seed(generator)
         cfg = self.cfg
-        d, hd = cfg.d_model, cfg.hd
+        d = cfg.d_model
 
         def normal(p, scale):
             x = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=self.device)
@@ -211,15 +226,20 @@ class StreamModel(nn.Module):
         tree["final_norm"]["w"].fill_(1.0)
         blk = tree["slots"]["s0"]
         blk["norm1"]["w"].fill_(1.0)
-        blk["norm2"]["w"].fill_(1.0)
-        for k in ("wq", "wk", "wv"):
-            normal(blk["mixer"][k], 1.0 / math.sqrt(d))
-        normal(blk["mixer"]["wo"], 1.0 / math.sqrt(cfg.n_heads * hd))
-        normal(blk["mlp"]["w_in"], 1.0 / math.sqrt(d))
-        if "w_gate" in blk["mlp"]:
-            normal(blk["mlp"]["w_gate"], 1.0 / math.sqrt(d))
-        normal(blk["mlp"]["w_out"], 1.0 / math.sqrt(cfg.d_ff))
-        normal(tree["unembed"], 1.0 / math.sqrt(d))
+        if self.kind == "ssm":
+            ssm_init(blk["mixer"], d, cfg.ssm, normal)
+        else:
+            for k in ("wq", "wk", "wv"):
+                normal(blk["mixer"][k], 1.0 / math.sqrt(d))
+            normal(blk["mixer"]["wo"], 1.0 / math.sqrt(cfg.n_heads * cfg.hd))
+        if "mlp" in blk:
+            blk["norm2"]["w"].fill_(1.0)
+            normal(blk["mlp"]["w_in"], 1.0 / math.sqrt(d))
+            if "w_gate" in blk["mlp"]:
+                normal(blk["mlp"]["w_gate"], 1.0 / math.sqrt(d))
+            normal(blk["mlp"]["w_out"], 1.0 / math.sqrt(cfg.d_ff))
+        if "unembed" in tree:
+            normal(tree["unembed"], 1.0 / math.sqrt(d))
         self._layers = None
 
     def _layer_params(self) -> list[dict]:
@@ -236,23 +256,38 @@ class StreamModel(nn.Module):
     def _norm(self, w, x):
         return L.rms_norm(x, w, self.cfg.norm_eps, plus_one=self.cfg.norm_plus_one)
 
-    def _mlp(self, blk, x):
+    def _add_mlp(self, blk, x):
+        """x plus the block's MLP of x (x itself when the config has no MLP)."""
         cfg = self.cfg
-        return L.mlp(blk["mlp"], self._norm(blk["norm2"]["w"], x), cfg.mlp_kind, cfg.mlp_act)
+        if cfg.mlp_kind == "none":
+            return x
+        return x + L.mlp(blk["mlp"], self._norm(blk["norm2"]["w"], x), cfg.mlp_kind, cfg.mlp_act)
+
+    def _ssm(self, blk, h, slot, i):
+        """The SSM mixer of layer ``i``; with ``slot`` it starts from the
+        layer's cached state and writes the new one back in place."""
+        cfg = self.cfg
+        state = None if slot is None else {"conv": slot["conv"][i], "ssd": slot["ssd"][i]}
+        out, new = ssm_mixer(blk["mixer"], h, cfg.ssm, state, cfg.norm_eps)
+        if slot is not None:
+            slot["conv"][i].copy_(new["conv"])
+            slot["ssd"][i].copy_(new["ssd"])
+        return out
 
     def _run_stack(self, x, positions, caches=None):
-        """Full-sequence pass; with ``caches`` (prefill) each layer's K/V is
-        written into them."""
+        """Full-sequence pass; with ``caches`` (prefill) each layer's K/V or
+        SSM state is written into them."""
         slot = caches["slots"]["s0"] if caches is not None else None
         for i, blk in enumerate(self._layer_params()):
             h = self._norm(blk["norm1"]["w"], x)
-            if slot is None:
+            if self.kind == "ssm":
+                out = self._ssm(blk, h, slot, i)
+            elif slot is None:
                 out = L.attention(blk["mixer"], h, self.ap, positions)
             else:
                 out, k, v = L.attention(blk["mixer"], h, self.ap, positions, return_kv=True)
                 _fill_kv_cache(slot, i, k, v)
-            x = x + out
-            x = x + self._mlp(blk, x)
+            x = self._add_mlp(blk, x + out)
         return x
 
     def _embed_tokens(self, tokens):
@@ -262,7 +297,10 @@ class StreamModel(nn.Module):
 
     def _logits(self, x):
         x = self._norm(self.tree["final_norm"]["w"][0], x)
-        logits = x @ self.tree["unembed"]["w"].to(x.dtype)
+        if self.cfg.tie_embeddings:
+            logits = x @ self.tree["embed"]["w"].to(x.dtype).T
+        else:
+            logits = x @ self.tree["unembed"]["w"].to(x.dtype)
         return L.softcap(logits, self.cfg.final_softcap).float()
 
     # ------------------------------------------------------------ public API
@@ -274,8 +312,15 @@ class StreamModel(nn.Module):
         return self._logits(self._run_stack(x, positions))
 
     def init_cache(self, batch_size: int, s_cache: int, dtype=None):
-        """Contiguous decode cache: k/v (L, B, s_cache, Kv, hd), pos (L,)."""
+        """Contiguous decode cache: k/v (L, B, s_cache, Kv, hd), pos (L,);
+        for the SSM pattern the per-layer states conv (L, B, W-1, C) and
+        ssd (L, B, H, N, P), both f32 (``s_cache`` and ``dtype`` unused)."""
         cfg = self.cfg
+        if self.kind == "ssm":
+            st = ssm_init_state(batch_size, cfg.ssm, self.device)
+            return {"slots": {"s0": {
+                k: v.unsqueeze(0).repeat((self.n_groups,) + (1,) * v.dim()) for k, v in st.items()
+            }}}
         dtype = torch_dtype(self.policy.kv_cache_dtype) if dtype is None else dtype
         shape = (self.n_groups, batch_size, s_cache, cfg.n_kv_heads, cfg.hd)
         return {"slots": {"s0": {
@@ -292,6 +337,10 @@ class StreamModel(nn.Module):
         self, batch_size: int, n_blocks: int, block_size: int, max_blocks: int, dtype=None,
     ):
         cfg = self.cfg
+        if cfg.pattern != ("attn",):
+            raise NotImplementedError(
+                f"paged KV cache supports dense 'attn' patterns only (got {cfg.pattern!r})"
+            )
         dtype = torch_dtype(self.policy.kv_cache_dtype) if dtype is None else dtype
         n = self.n_groups
         kv = (n, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
@@ -341,12 +390,15 @@ class StreamModel(nn.Module):
         """One decode step for tokens (B, 1). Positions come from the cache:
         scalar per layer for ``init_cache``, per row for the paged cache (the
         JAX signature's ``pos`` feeds only learned position embeddings, which
-        are not ported). Returns (logits (B, 1, vocab_padded), caches)."""
+        are not ported); SSM layers need none. Returns (logits (B, 1,
+        vocab_padded), caches)."""
         slot = caches["slots"]["s0"]
         x = self._embed_tokens(tokens)
         for i, blk in enumerate(self._layer_params()):
             h = self._norm(blk["norm1"]["w"], x)
-            if "bt" in slot:
+            if self.kind == "ssm":
+                out = self._ssm(blk, h, slot, i)
+            elif "bt" in slot:
                 out, _, _ = L.paged_decode_attention(
                     blk["mixer"], h, slot["k"][i], slot["v"][i], slot["pos"][i],
                     slot["bt"][i], self.ap,
@@ -355,9 +407,9 @@ class StreamModel(nn.Module):
                 out, _, _ = L.decode_attention(
                     blk["mixer"], h, slot["k"][i], slot["v"][i], slot["pos"][i], self.ap,
                 )
-            x = x + out
-            x = x + self._mlp(blk, x)
-        slot["pos"] += 1
+            x = self._add_mlp(blk, x + out)
+        if "pos" in slot:
+            slot["pos"] += 1
         return self._logits(x), caches
 
 

@@ -24,12 +24,16 @@ def test_import_with_jax_and_repro_blocked():
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.')) for k, v in sys.modules.items() if v is not None)\n"
+        "print(' '.join(mods))\n"
         "print(len(mods))\n"
     )
     env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 10
+    lines = out.stdout.strip().splitlines()
+    assert int(lines[-1]) >= 10
+    for mod in ("repro_torch.kernels.ssd_scan", "repro_torch.models.ssm", "repro_torch.configs.mamba2_2_7b"):
+        assert mod in lines[-2].split(), mod
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))

@@ -1,5 +1,5 @@
-"""The port's CUDA kernel on the card: held against its plain version, and
-driven through the model.
+"""The port's CUDA kernels on the card: each held against its plain version,
+and driven through a model.
 
 Every test here needs a CUDA device: they carry the ``cuda`` marker and
 skip without one. The file imports no JAX, so it runs on a machine that
@@ -17,13 +17,16 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
-from repro_torch.kernels.ops import attention_op
+from repro_torch.kernels import ssd_scan as K2
+from repro_torch.kernels.ops import attention_op, ssd_op
 from repro_torch.models.model import StreamModel
 from repro_torch.models.policy import Policy
 
 pytestmark = pytest.mark.cuda
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
+# the SSD scan's: error relative to max(|want|.max(), 1), tests/test_kernels.py:66-74
+SSD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 
 
 @pytest.fixture
@@ -87,3 +90,85 @@ def test_model_forward_on_card_runs_the_kernel(card):
     torch.cuda.synchronize()
     assert fa.LAUNCHES == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), on_cpu(tokens), atol=1e-4, rtol=1e-4)
+
+
+def _ssd_inputs(seed, b, s, h, p, n, g, dtype, device, state):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, dt=dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, getattr(torch, dt))
+
+    x, bm, cm = t(b, s, h, p), t(b, s, g, n), t(b, s, g, n)
+    dt = torch.nn.functional.softplus(t(b, s, h, dt="float32"))
+    A = -torch.exp(t(h, dt="float32"))
+    st0 = t(b, h, n, p, dt="float32") if state else None
+    return x, dt, A, bm, cm, st0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,g,chunk,state", [
+    (2, 256, 4, 64, 128, 2, 64, True),  # grouped, chunks divide S
+    (1, 300, 8, 32, 64, 1, 128, True),  # ragged last chunk
+    (1, 64, 4, 16, 32, 4, 64, False),  # one group a head, zero initial state
+    (1, 100, 80, 64, 128, 1, 256, False),  # mamba2's heads, S shorter than the chunk
+])
+def test_ssd_kernel_on_card(card, dtype, b, s, h, p, n, g, chunk, state):
+    """The CUDA kernel against its plain version (groups repeated), on the card."""
+    x, dt, A, bm, cm, st0 = _ssd_inputs(7 + s, b, s, h, p, n, g, dtype, card, state)
+    before = K2.LAUNCHES
+    y, st = ssd_op(x, dt, A, bm, cm, st0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K2.LAUNCHES == before + 1
+    rep = h // g
+    yr, sr = ref.ssd(
+        x.transpose(1, 2), dt.transpose(1, 2), A,
+        bm.transpose(1, 2).repeat_interleave(rep, 1), cm.transpose(1, 2).repeat_interleave(rep, 1), st0,
+    )
+    assert y.dtype == x.dtype and st.dtype == torch.float32
+    for got, want in ((y, yr.transpose(1, 2)), (st, sr)):
+        err = float((got.float() - want.float()).abs().max() / max(float(want.float().abs().max()), 1.0))
+        assert err < SSD_TOL[dtype], err
+
+
+def test_ssd_kernel_chunk_invariance(card):
+    """As tests/test_models.py:122 holds ``ssd_chunked``: the kernel's y and
+    final state do not depend on the chunk (24 divides no tile and leaves a
+    ragged last chunk; 256 is longer than S)."""
+    x, dt, A, bm, cm, st0 = _ssd_inputs(1, 1, 64, 2, 16, 16, 1, "float32", card, True)
+    outs = [ssd_op(x, dt, A, bm, cm, st0, chunk=c) for c in (8, 16, 24, 32, 64, 256)]
+    for y, st in outs[1:]:
+        torch.testing.assert_close(y, outs[0][0], atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(st, outs[0][1], atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_kernel_rejects_unsupported_shapes(card):
+    """Head dims other than 16/32/64 and state dims off the multiple of 16
+    raise before any launch."""
+    before = K2.LAUNCHES
+    for p, n in ((48, 32), (32, 24)):
+        x, dt, A, bm, cm, _ = _ssd_inputs(1, 1, 32, 2, p, n, 1, "float32", card, False)
+        with pytest.raises(ValueError):
+            ssd_op(x, dt, A, bm, cm)
+    assert K2.LAUNCHES == before
+
+
+def test_mamba2_on_card_runs_the_kernel(card):
+    """Reduced mamba2 on the card: the forward launches the kernel once a
+    layer and gives the logits its CPU twin (plain scan) gives; a prefill
+    leaves the states the CPU prefill leaves."""
+    cfg = configs.get_reduced("mamba2-2.7b")
+    policy = Policy("float32", "float32", "float32")
+    on_card = StreamModel(cfg, policy, device=card, generator=0)
+    on_cpu = StreamModel(cfg, policy, device="cpu", generator=None)
+    on_cpu.load_params(on_card.param_tree())
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, (2, 150)))
+    before = K2.LAUNCHES
+    got = on_card(tokens.to(card))
+    torch.cuda.synchronize()
+    assert K2.LAUNCHES == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), on_cpu(tokens), atol=1e-4, rtol=1e-4)
+    lg, cache = on_card.prefill(tokens[:, :37].to(card), 0, cache_dtype=torch.float32)
+    lg_cpu, cache_cpu = on_cpu.prefill(tokens[:, :37], 0, cache_dtype=torch.float32)
+    torch.testing.assert_close(lg.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+    for key in ("conv", "ssd"):
+        torch.testing.assert_close(cache["slots"]["s0"][key].cpu(), cache_cpu["slots"]["s0"][key], atol=1e-4, rtol=1e-4)

@@ -160,9 +160,25 @@ def test_prefill_then_decode_matches_forward(pair):
         _close(lg[:, 0], full[:, i], atol=1e-4)
 
 
+def test_tied_dense_logits_match():
+    """tie_embeddings on the dense pattern: no unembed, logits x @ embed^T."""
+    cfg = dataclasses.replace(JC.get_reduced("yi-6b"), tie_embeddings=True)
+    jm = JModel(cfg, JPolicy(param_dtype="float32", compute_dtype="float32"))
+    jp = jm.init(jax.random.PRNGKey(1))
+    tm = StreamModel(
+        dataclasses.replace(TC.get_reduced("yi-6b"), tie_embeddings=True),
+        Policy("float32", "float32", "float32"), device="cpu", generator=None,
+    )
+    assert "unembed" not in jp and "unembed" not in tm.param_tree()
+    tm.load_params(convert.params_from_jax(jax.tree.map(np.asarray, jp)))
+    toks = np.random.default_rng(9).integers(0, cfg.vocab, (2, 17)).astype(np.int32)
+    lj, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    _close(tm(torch.from_numpy(toks)), lj, atol=1e-4)
+
+
 def test_unported_configs_raise():
     base = TC.get_reduced("yi-6b")
-    for change in ({"pattern": ("local", "attn")}, {"tie_embeddings": True}, {"norm": "ln"}):
+    for change in ({"pattern": ("local", "attn")}, {"embed_scale": True}, {"norm": "ln"}):
         with pytest.raises(NotImplementedError):
             StreamModel(dataclasses.replace(base, **change), device="cpu")
 
