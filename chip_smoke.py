@@ -6,19 +6,25 @@
 Phases: (1) the card's name and power limit; (2) build every CUDA kernel
 of the port from ``src/repro_torch/kernels/csrc`` with nvcc; (3) hold
 each kernel against its plain PyTorch version on the card, at its
-serving path's shapes and a sweep of modes, and time kernel, plain
-version and (where one exists) one library call: K1 (flash attention),
-then K2 (SSD scan); (4) serve four requests of mixed prompt lengths from
-a stream topic through full-width yi-6b (32 layers, d 4096, random bf16
-weights from a seed) with ``ContinuousLMEngine`` and check what comes
-back; (5) drop yi-6b and serve a topic of four 2000-token prompts through
-full-width mamba2-2.7b (64 layers, d 2560, random bf16 weights from a
-seed) with the wave engine ``LMEngine`` and check what comes back, then
-serve it again with the same weights and f32 activations, where every
-token is held to the teacher-forced forward at the tight slack;
-(6) print the ``kernels`` line; (7) print the result line. Each serving
-path is driven with every kernel's launch count set to 0 just before it
-and read just after.
+serving paths' shapes and a sweep of modes, and time kernel, plain
+version and (where one exists) one library call: K1 (flash attention,
+head dims 64, 128 and 256), then K2 (SSD scan), then K3 (RG-LRU scan);
+(4) serve four requests of mixed prompt lengths from a stream topic
+through full-width yi-6b (32 layers, d 4096, random bf16 weights from a
+seed) with ``ContinuousLMEngine`` and check what comes back; (5) drop
+yi-6b and serve a topic of four 2000-token prompts through full-width
+mamba2-2.7b (64 layers, d 2560, random bf16 weights from a seed) with the
+wave engine ``LMEngine`` and check what comes back, then serve it again
+with the same weights and f32 activations, where every token is held to
+the teacher-forced forward at the tight slack; (6) drop mamba2 and serve
+a topic of four 3000-token prompts through full-width recurrentgemma-9b
+(38 layers, d 4096: 26 RG-LRU layers on K3, 12 local-attention layers of
+window 2048 on K1 at head dim 256; random bf16 weights from a seed) with
+``LMEngine`` and check what comes back (its bf16 drift stays within the
+tight slack, so every token is held there and no f32 twin is needed);
+(7) print the ``kernels`` line;
+(8) print the result line. Each serving path is driven with every
+kernel's launch count set to 0 just before it and read just after.
 
 It imports nothing of JAX or of the JAX package. With no CUDA device, or
 run from a directory without the repository, it exits non-zero and
@@ -55,7 +61,29 @@ GREEDY_SLACK = 0.25  # logits: a served token may trail the forward's max by thi
 # slack sits about halfway between on a ratio scale
 SSM_BF16_DRIFT_SLACK = 2.0
 SSM_PROMPT_LEN = 2000  # mamba2 path: one wave of 4 fixed-length prompts
-SSM_REQUESTS = 4
+WAVE_REQUESTS = 4  # the wave paths' slots and requests
+# recurrentgemma path: past the 2048 window, so the prefill's window mask,
+# the rolled ring fill and the ring's wrap on decode all run; 3000 = 46 x
+# 64 + 56 = 11 x 256 + 184 is ragged for K1's tiles and any time block
+RG_PROMPT_LEN = 3000
+# recurrentgemma with bf16 activations needs no more than GREEDY_SLACK:
+# its served tokens trail the teacher-forced forward by one or two bf16
+# steps of the logits (0.0625 and 0.125 on two prompt sets), and with f32
+# activations by 0; faults planted in the decode cache give 0.625 (the
+# window applied to ring slots) to 14.9 (the RG-LRU state zeroed), while
+# zeroing the conv state (0.25) or writing the ring one slot off (0.0625)
+# hides within bf16 rounding (scripts/torch_ssm_drift.py --model
+# recurrentgemma and this script on an H100 80GB HBM3 at 700 W; PERF.md,
+# Findings)
+# K3 is held to a float64 run of its plain version: the f32 plain
+# version's 1 - a * a cancels when a is near 1 and alone strays past 1e-5
+# (PERF.md, Findings). At tests/test_kernels.py's shapes and decays the
+# tolerance is that file's, |got - want| <= tol + tol |want| with tol
+# 1e-5; at the path's shape, with the model's decays (a up to ~0.9995)
+# over 3000 steps, 1e-4 (a lost carry or a wrong decay gives errors of
+# the order of rms(h))
+RGLRU_TOL = 1e-5
+RGLRU_F64_TOL = 1e-4
 
 
 def card_line() -> str:
@@ -137,6 +165,10 @@ def check_attention(card, fa, ref, b, s, h, kv, d, dtype, causal, window, cap, g
             row["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kr, vr, is_causal=causal), 20
             )
+        elif cap is None:  # a boolean mask: not the flash backend, which takes no mask
+            pos = torch.arange(s, device="cuda")
+            keep = (pos[None, :] > pos[:, None] - window) & (pos[None, :] <= pos[:, None] if causal else True)
+            row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=keep), 20)
         row["bound_ms"], row["bound_by"] = attention_bound(b, h, kv, s, d, dtype, causal, window)
     print(f"[{card}] flash_attention {json.dumps(row)}", flush=True)
     if not ok:
@@ -159,12 +191,23 @@ def phase_kernels(card, fa, ref):
     for causal, window in ((True, None), (False, 128)):  # head_dim 64, batch 2, ragged
         for dtype in ("float32", "bfloat16"):
             rows.append(check_attention(card, fa, ref, 2, 777, 8, 2, 64, dtype, causal, window, None, gen, False))
-    # the serving path's own calls: one per layer per request, bf16, causal
+    # recurrentgemma's local attention: 16 heads over 1 kv head, hd 256,
+    # window 128 and its own 2048 (whose skipped key tiles matter past S
+    # 2048), ragged S; and the f32-activation run's call at the path's shape
+    for s, window in ((1000, 128), (2500, 2048)):
+        for dtype in ("float32", "bfloat16"):
+            rows.append(check_attention(card, fa, ref, 1, s, 16, 1, 256, dtype, True, window, None, gen, False))
+    rows.append(check_attention(card, fa, ref, WAVE_REQUESTS, RG_PROMPT_LEN, 16, 1, 256, "float32", True, 2048,
+                                None, gen, False))
+    # the serving paths' own calls: yi-6b's one per layer per request, bf16,
+    # causal; recurrentgemma's one per local layer for the wave, bf16, window 2048
     main = [
         check_attention(card, fa, ref, 1, s, 32, 4, 128, "bfloat16", True, None, None, gen, True)
         for s in PROMPT_LENS
     ]
-    return rows, main
+    rg_main = check_attention(card, fa, ref, WAVE_REQUESTS, RG_PROMPT_LEN, 16, 1, 256, "bfloat16", True, 2048,
+                              None, gen, True)
+    return rows, main, rg_main
 
 
 def ssd_bound(b, h, g, s, p, n, chunk, dtype: str, state: bool) -> tuple[float, str]:
@@ -282,9 +325,9 @@ def phase_ssd_kernel(card, ref):
     # the serving path's calls: one per layer, the wave's 4 prompts, the
     # model's decays, the zero initial state from the cache; in f32 as the
     # f32-activation run gives it, and in bf16, timed
-    rows.append(check_ssd(card, ref, SSM_REQUESTS, SSM_PROMPT_LEN, 80, 64, 128, 1, 256, "float32",
+    rows.append(check_ssd(card, ref, WAVE_REQUESTS, SSM_PROMPT_LEN, 80, 64, 128, 1, 256, "float32",
                           "zero", gen, False, model_decays=True))
-    main = check_ssd(card, ref, SSM_REQUESTS, SSM_PROMPT_LEN, 80, 64, 128, 1, 256, "bfloat16",
+    main = check_ssd(card, ref, WAVE_REQUESTS, SSM_PROMPT_LEN, 80, 64, 128, 1, 256, "bfloat16",
                      "zero", gen, True, model_decays=True)
     return rows, main
 
@@ -326,7 +369,7 @@ def serving_setup():
     return cfg, model, engine, log, reqs
 
 
-def phase_serve(card, fa, k2):
+def phase_serve(card, kernels: dict):
     import numpy as np
     import torch
 
@@ -341,12 +384,15 @@ def phase_serve(card, fa, k2):
           f"{n_params} params bf16, set-up and warm-up {setup_s:.3f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
 
-    fa.LAUNCHES = k2.LAUNCHES = 0
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
     t_start = time.perf_counter()
     served = serve_stream(engine, log, "lm-requests", "lm-completions")
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches = fa.LAUNCHES
+    launches = kernels["flash_attention"].LAUNCHES
+    others = {name: mod.LAUNCHES for name, mod in kernels.items() if name != "flash_attention"}
+    assert not any(others.values()), others
 
     peak = torch.cuda.max_memory_allocated()
     got = {}
@@ -397,12 +443,98 @@ def phase_serve(card, fa, k2):
     return out
 
 
-def ssm_setup(compute_dtype: str):
-    """The mamba2 workload: full-width mamba2-2.7b with random bf16 weights
-    from SEED (the same for either activation dtype) behind a wave
-    ``LMEngine`` of SSM_REQUESTS slots, warmed up by one short wave, and a
-    topic of SSM_REQUESTS fixed-length prompts in the JAX package's record
-    format (int32[prompt_len] each)."""
+def rglru_bound(b, s, c, h0: bool) -> tuple[float, str]:
+    """Least time for the RG-LRU scan: max(bytes / HBM rate, ops / peak).
+
+    Bytes: x and log_a read and h written once (B S C f32 each), h0 read
+    when given and h_last written (B C f32). Operations: 8 an element (two
+    exps, the 1 - e, the max, the sqrt, the product with x, and the
+    chain's multiply-add) at the CUDA cores' f32 rate."""
+    nbytes = 4 * (3 * b * s * c + b * c * (2 if h0 else 1))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 8 * b * s * c / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_rglru(card, ref, b, s, c, gen, h0: bool, model_decays: bool, timed: bool):
+    """K3 vs its plain version run in float64 on one input, element by
+    element within |got - want| <= tol + tol |want| (tol RGLRU_TOL with the
+    tests' decays, log a = -|N| * 0.3; RGLRU_F64_TOL with the model's,
+    log a = log(u) r / 2, u ~ U(0.81, 0.998) per channel, r a sigmoid
+    gate); the f32 plain version's own distance from the float64 run is
+    printed beside. With ``timed`` also times the kernel and both plain
+    runs. Raises if the kernel disagrees."""
+    import torch
+
+    from repro_torch.kernels.ops import rglru_op
+
+    x = torch.randn((b, s, c), generator=gen, device="cuda")
+    if model_decays:
+        u = torch.rand((c,), generator=gen, device="cuda") * (0.998 - 0.81) + 0.81
+        r = torch.sigmoid(torch.randn((b, s, c), generator=gen, device="cuda"))
+        log_a = torch.log(u) * r / 2
+    else:
+        log_a = -torch.randn((b, s, c), generator=gen, device="cuda").abs() * 0.3
+    h_init = torch.randn((b, c), generator=gen, device="cuda") if h0 else None
+
+    def kernel():
+        return rglru_op(x, log_a, h_init)
+
+    def plain():
+        return ref.rglru(x, log_a, h_init)
+
+    def plain64():
+        return ref.rglru(x.double(), log_a.double(), None if h_init is None else h_init.double())
+
+    (h, hl), (hr, _), (h64, hl64) = kernel(), plain(), plain64()
+    torch.cuda.synchronize()
+    tol = RGLRU_F64_TOL if model_decays else RGLRU_TOL
+    row = {"b": b, "s": s, "c": c, "h0": h0, "model_decays": model_decays, "tol": tol,
+           "rms_h": float(h64.square().mean().sqrt())}
+    ok = bool(torch.isfinite(h).all()) and bool(torch.isfinite(hl).all())
+    for name, got in (("kernel", h), ("plain_f32", hr)):
+        err = (got.double() - h64).abs()
+        row[f"{name}_vs_f64_max_abs_err"] = float(err.max())
+        row[f"{name}_vs_f64_el_err"] = float((err / (tol + tol * h64.abs())).max())  # <= 1 passes
+    row["max_abs_err"] = max(row["kernel_vs_f64_max_abs_err"], float((hl.double() - hl64).abs().max()))
+    ok = ok and row["kernel_vs_f64_el_err"] <= 1.0
+    ok = ok and bool(((hl.double() - hl64).abs() <= tol + tol * hl64.abs()).all())
+    row["ok"] = ok
+    if timed:
+        row["ms"] = time_ms(kernel, 20)
+        row["plain_ms"] = time_ms(plain, 2)
+        row["plain_f64_ms"] = time_ms(plain64, 1)
+        row["library_ms"] = None  # no single PyTorch call computes the RG-LRU recurrence
+        row["bound_ms"], row["bound_by"] = rglru_bound(b, s, c, h0)
+    print(f"[{card}] rglru_scan {json.dumps(row)}", flush=True)
+    if not ok:
+        raise AssertionError(f"rglru_scan disagrees with its plain version: {row}")
+    return row
+
+
+def phase_rglru_kernel(card, ref):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    # tests/test_kernels.py:77-87's shapes and decays with h0, then ragged S
+    rows = [
+        check_rglru(card, ref, b, s, c, gen, True, False, False)
+        for b, s, c in ((1, 128, 64), (2, 256, 128), (3, 64, 256), (2, 1000, 96), (1, 1000, 512))
+    ]
+    # the teacher-forced forward's call (B 1: a quarter of the path's
+    # threads), then the serving path's: one per RG-LRU layer of the wave,
+    # the model's decays, the zero h0 the cache hands it
+    rows.append(check_rglru(card, ref, 1, RG_PROMPT_LEN + MAX_NEW - 1, 4096, gen, False, True, True))
+    main = check_rglru(card, ref, WAVE_REQUESTS, RG_PROMPT_LEN, 4096, gen, True, True, True)
+    return rows, main
+
+
+def wave_setup(arch: str, compute_dtype: str, prompt_len: int):
+    """A wave workload: full-width ``arch`` with random bf16 weights from
+    SEED (the same for either activation dtype) behind a wave ``LMEngine``
+    of WAVE_REQUESTS slots holding ``prompt_len + MAX_NEW`` cache slots,
+    warmed up by one short wave (64 tokens: for a local layer, shorter than
+    its window), and a topic of WAVE_REQUESTS fixed-length prompts in the
+    JAX package's record format (int32[prompt_len] each)."""
     import numpy as np
 
     from repro_torch import configs
@@ -411,9 +543,9 @@ def ssm_setup(compute_dtype: str):
     from repro_torch.models.policy import Policy
     from repro_torch.serve.lm_engine import LMEngine, Request
 
-    cfg = configs.get("mamba2-2.7b")
+    cfg = configs.get(arch)
     model = StreamModel(cfg, Policy(compute_dtype=compute_dtype), device="cuda", generator=SEED)
-    engine = LMEngine(model, n_slots=SSM_REQUESTS, device="cuda")
+    engine = LMEngine(model, n_slots=WAVE_REQUESTS, s_cache=prompt_len + MAX_NEW, device="cuda")
     rng = np.random.default_rng(SEED + 1)
     engine.submit(Request(-1, rng.integers(0, cfg.vocab, 64).astype(np.int32), 2))
     engine.run_until_drained()
@@ -421,85 +553,93 @@ def ssm_setup(compute_dtype: str):
 
     log = StreamLog()
     log.create_topic("lm-prompts")
-    prompts = rng.integers(0, cfg.vocab, (SSM_REQUESTS, SSM_PROMPT_LEN)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab, (WAVE_REQUESTS, prompt_len)).astype(np.int32)
     log.produce_batch("lm-prompts", [row.tobytes() for row in prompts])
     return cfg, model, engine, log, prompts
 
 
-def phase_serve_ssm(card, fa, k2, compute_dtype: str):
+def phase_serve_wave(card, kernels: dict, arch: str, compute_dtype: str, prompt_len: int, slack: float):
+    """Serve ``wave_setup``'s topic and check what comes back. ``kernels``
+    maps each kernel's name to its module; the wave's prefill must launch
+    K1 once an attention layer, K2 once an SSM layer and K3 once an RG-LRU
+    layer, and nothing else (decode runs no kernel of the port)."""
     import numpy as np
     import torch
 
     from repro_torch.serve.lm_engine import serve_stream
 
     t0 = time.perf_counter()
-    cfg, model, engine, log, prompts = ssm_setup(compute_dtype)
+    cfg, model, engine, log, prompts = wave_setup(arch, compute_dtype, prompt_len)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    tag = f"mamba2 ({compute_dtype} activations)"
-    print(f"[{card}] mamba2-2.7b full width: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"d_inner {cfg.ssm.d_inner}, {cfg.ssm.n_heads} heads x {cfg.ssm.head_dim}, N {cfg.ssm.state_dim}, "
+    tag = f"{arch} ({compute_dtype} activations)"
+    print(f"[{card}] {arch} full width: {cfg.n_layers} layers, pattern {cfg.pattern}, d {cfg.d_model}, "
           f"{n_params} params bf16, {compute_dtype} activations, set-up and warm-up {setup_s:.3f} s",
           flush=True)
     torch.cuda.reset_peak_memory_stats()
 
-    fa.LAUNCHES = k2.LAUNCHES = 0
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
     t_start = time.perf_counter()
-    served = serve_stream(engine, log, "lm-prompts", "lm-completions", SSM_PROMPT_LEN, max_new=MAX_NEW)
+    served = serve_stream(engine, log, "lm-prompts", "lm-completions", prompt_len, max_new=MAX_NEW)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
-    launches, fa_launches = k2.LAUNCHES, fa.LAUNCHES
+    launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
 
     peak = torch.cuda.max_memory_allocated()
     got = {}
     for buf in log.read("lm-completions", 0, 0, 64).values:
         rec = np.frombuffer(buf, np.int32)
         got[int(rec[0])] = rec[1:].copy()
-    assert served == SSM_REQUESTS and sorted(got) == list(range(SSM_REQUESTS)), (served, sorted(got))
+    assert served == WAVE_REQUESTS and sorted(got) == list(range(WAVE_REQUESTS)), (served, sorted(got))
     for rid, g in got.items():
         assert len(g) == MAX_NEW and ((g >= 0) & (g < cfg.vocab_padded)).all(), (rid, g)
     assert engine.waves == 2, engine.waves  # the warm-up wave and the served one
-    want_launches = cfg.n_layers  # the wave's prefill: one per layer
-    assert launches == want_launches, f"ssd_scan launched {launches}, want {want_launches}"
-    assert fa_launches == 0, fa_launches
+    kinds = [kind for kind, *_ in model._layer_params()]
+    want = {  # the wave's prefill: one launch per layer of the kernel's kind
+        "flash_attention": sum(k in ("attn", "local") for k in kinds),
+        "ssd_scan": kinds.count("ssm"),
+        "rglru_scan": kinds.count("rec"),
+    }
+    assert launches == want, f"{arch}: launches {launches}, want {want}"
 
     # each served token must be a greedy choice of the teacher-forced
-    # full-sequence forward (the scan through the kernel, against decode
-    # through the recurrent state): with f32 activations every token within
-    # GREEDY_SLACK; with bf16 activations the first token (the prefill's,
-    # the same scan as the forward's) within GREEDY_SLACK and the decoded
-    # ones within SSM_BF16_DRIFT_SLACK
+    # full-sequence forward (the prefill's kernels over the whole sequence,
+    # against decode through the recurrent states and caches): the first
+    # token (the prefill's, the same kernels as the forward's) within
+    # GREEDY_SLACK and the decoded ones within ``slack``
     gaps = []
-    for rid in range(SSM_REQUESTS):
+    for rid in range(WAVE_REQUESTS):
         seq = np.concatenate([prompts[rid], got[rid][:-1]])
-        logits = model(torch.from_numpy(seq[None].astype(np.int64)).cuda())[0, SSM_PROMPT_LEN - 1:]
+        logits = model(torch.from_numpy(seq[None].astype(np.int64)).cuda())[0, prompt_len - 1:]
         assert bool(torch.isfinite(logits).all())
         served_tok = torch.from_numpy(got[rid].astype(np.int64)).cuda()
         gap = logits.max(-1).values - logits.gather(-1, served_tok[:, None])[:, 0]
         gaps.append([round(float(x), 4) for x in gap])
+        del logits
     first_gap = max(g[0] for g in gaps)
-    worst = max(max(g) for g in gaps)
-    drift_slack = GREEDY_SLACK if compute_dtype == "float32" else SSM_BF16_DRIFT_SLACK
+    worst = max(max(g[1:]) for g in gaps)
     assert first_gap <= GREEDY_SLACK, f"the first served tokens trail the forward's greedy choice by {first_gap}"
-    assert worst <= drift_slack, f"served tokens trail the forward's greedy choice by {worst} ({gaps})"
+    assert worst <= slack, f"served tokens trail the forward's greedy choice by {worst} ({gaps})"
 
-    first = max(engine.first_token_s[rid] for rid in range(SSM_REQUESTS))
+    first = max(engine.first_token_s[rid] for rid in range(WAVE_REQUESTS))
     ttft = (first - t_start) * 1e3
-    decode_tokens = SSM_REQUESTS * (MAX_NEW - 1)
+    decode_tokens = WAVE_REQUESTS * (MAX_NEW - 1)
     decode_s = t_end - first
     out = {
-        "requests": SSM_REQUESTS, "prompt_len": SSM_PROMPT_LEN, "max_new": MAX_NEW,
+        "arch": arch, "requests": WAVE_REQUESTS, "prompt_len": prompt_len, "max_new": MAX_NEW,
         "prefill_ms": ttft, "ttft_ms": ttft, "decode_tokens": decode_tokens, "decode_s": decode_s,
         "decode_tokens_per_s": decode_tokens / decode_s, "total_s": t_end - t_start,
         "peak_bytes": peak, "launches": launches, "compute_dtype": compute_dtype,
-        "greedy_first_gap": first_gap, "greedy_worst_gap": worst, "greedy_gaps": gaps,
+        "greedy_first_gap": first_gap, "greedy_worst_decoded_gap": worst, "greedy_slack": slack,
+        "greedy_gaps": gaps,
     }
-    print(f"[{card}] {tag} wave of {SSM_REQUESTS} x {SSM_PROMPT_LEN}: prefill (TTFT) {ttft:.3f} ms", flush=True)
+    print(f"[{card}] {tag} wave of {WAVE_REQUESTS} x {prompt_len}: prefill (TTFT) {ttft:.3f} ms", flush=True)
     print(f"[{card}] {tag} decode {decode_tokens} tokens in {decode_s:.4f} s: "
           f"{decode_tokens / decode_s:.3f} tokens/s", flush=True)
-    print(f"[{card}] {tag} peak device memory {peak} bytes; ssd_scan launches {launches}; "
-          f"greedy gap first {first_gap:.4f}, worst {worst:.4f}", flush=True)
+    print(f"[{card}] {tag} peak device memory {peak} bytes; launches {launches}; "
+          f"greedy gap first {first_gap:.4f}, worst decoded {worst:.4f} (slack {slack})", flush=True)
     del engine, model
     return out
 
@@ -511,9 +651,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ssd_scan as k2
+    from repro_torch.kernels import flash_attention, rglru_scan, ssd_scan
 
+    kernels = {"flash_attention": flash_attention, "ssd_scan": ssd_scan, "rglru_scan": rglru_scan}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -524,58 +664,88 @@ def main() -> int:
     print(f"build: {build_s:.3f} s", flush=True)
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry function" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    rows, main_rows = phase_kernels(card, fa, ref)
+    rows, main_rows, rg_attn_main = phase_kernels(card, flash_attention, ref)
     ssd_rows, ssd_main = phase_ssd_kernel(card, ref)
-    serving = phase_serve(card, fa, k2)
-    gc.collect()
-    torch.cuda.empty_cache()  # each serving phase's peak memory is its own
-    serving_ssm = phase_serve_ssm(card, fa, k2, "bfloat16")
-    gc.collect()
-    torch.cuda.empty_cache()
-    serving_ssm_f32 = phase_serve_ssm(card, fa, k2, "float32")
+    rglru_rows, rglru_main = phase_rglru_kernel(card, ref)
+    serving = phase_serve(card, kernels)
+    # mamba2's bf16 drift needs a slack above GREEDY_SLACK, so an f32 twin
+    # holds every token at it; recurrentgemma's does not
+    paths = {}
+    for arch, compute_dtype, prompt_len, slack in (
+        ("mamba2-2.7b", "bfloat16", SSM_PROMPT_LEN, SSM_BF16_DRIFT_SLACK),
+        ("mamba2-2.7b", "float32", SSM_PROMPT_LEN, GREEDY_SLACK),
+        ("recurrentgemma-9b", "bfloat16", RG_PROMPT_LEN, GREEDY_SLACK),
+    ):
+        gc.collect()
+        torch.cuda.empty_cache()  # each serving phase's peak memory is its own
+        paths[arch, compute_dtype] = phase_serve_wave(card, kernels, arch, compute_dtype, prompt_len, slack)
+    serving_ssm, serving_rg = paths["mamba2-2.7b", "bfloat16"], paths["recurrentgemma-9b", "bfloat16"]
 
+    # K1 runs on two paths: yi-6b's four calls (one per served prompt
+    # length) and recurrentgemma's one (its wave), each timed once, summed
+    attn_main = main_rows + [rg_attn_main]
     entry = {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
-        "launches": serving["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
-        "matched": all(r["ok"] for r in rows + main_rows),
-        "shapes": "one call at each served prompt length (1,S,32,128) S=%s bf16 causal, summed"
-        % "/".join(map(str, PROMPT_LENS)),
+        "launches": serving["launches"] + serving_rg["launches"]["flash_attention"],
+        "launches_by_path": {
+            "yi-6b": serving["launches"], "recurrentgemma-9b": serving_rg["launches"]["flash_attention"],
+        },
+        "max_abs_err": max(r["max_abs_err"] for r in attn_main),
+        "matched": all(r["ok"] for r in rows + attn_main),
+        "shapes": "one call at each of yi-6b's prompt lengths (1,S,32,128) S=%s bf16 causal, and "
+        "recurrentgemma's (%d,%d,16,256) kv 1 bf16 causal window 2048, summed"
+        % ("/".join(map(str, PROMPT_LENS)), WAVE_REQUESTS, RG_PROMPT_LEN),
+        "recurrentgemma_d256": {k: rg_attn_main[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")},
     }
     for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-        entry[key] = sum(r[key] for r in main_rows)
-    entry["bound_by"] = max(main_rows, key=lambda r: r["bound_ms"])["bound_by"]  # the largest term
+        entry[key] = sum(r[key] for r in attn_main)
+    entry["bound_by"] = max(attn_main, key=lambda r: r["bound_ms"])["bound_by"]  # the largest term
     ssd_entry = {
         "name": "ssd_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:33",
-        "launches": serving_ssm["launches"],
+        "launches": serving_ssm["launches"]["ssd_scan"],
         "max_abs_err": ssd_main["max_abs_err"],
         "matched": all(r["ok"] for r in ssd_rows + [ssd_main]),
         "shapes": "one call per layer of the wave (%d,%d,80,64) N128 G1 chunk 256 bf16"
-        % (SSM_REQUESTS, SSM_PROMPT_LEN),
+        % (WAVE_REQUESTS, SSM_PROMPT_LEN),
     }
     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
         ssd_entry[key] = ssd_main[key]
-    kernels = {"kernels": [entry, ssd_entry]}
+    rglru_entry = {
+        "name": "rglru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:30",
+        "launches": serving_rg["launches"]["rglru_scan"],
+        "max_abs_err": rglru_main["max_abs_err"],
+        "matched": all(r["ok"] for r in rglru_rows + [rglru_main]),
+        "shapes": "one call per RG-LRU layer of the wave (%d,%d,4096) f32, the model's decays, "
+        "against a float64 run" % (WAVE_REQUESTS, RG_PROMPT_LEN),
+    }
+    for key in ("ms", "plain_ms", "plain_f64_ms", "bound_ms", "bound_by", "library_ms"):
+        rglru_entry[key] = rglru_main[key]
+    kernels_line = {"kernels": [entry, ssd_entry, rglru_entry]}
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "torch": torch.__version__, "build_s": build_s, "checks": rows,
-        "main_path_kernel": main_rows, "serving": serving, "ssd_checks": ssd_rows,
-        "ssd_main_path_kernel": ssd_main, "serving_ssm": serving_ssm,
-        "serving_ssm_f32_activations": serving_ssm_f32, "kernels": kernels["kernels"],
+        "main_path_kernel": attn_main, "serving": serving, "ssd_checks": ssd_rows,
+        "ssd_main_path_kernel": ssd_main, "rglru_checks": rglru_rows, "rglru_main_path_kernel": rglru_main,
+        "serving_waves": {f"{arch} {dt}": out for (arch, dt), out in paths.items()},
+        "kernels": kernels_line["kernels"],
     }, indent=1))
 
-    print(json.dumps(kernels), flush=True)
+    print(json.dumps(kernels_line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Where the time goes when the PyTorch port serves an LM from a stream.
 
-    python3 scripts/torch_profile_serving.py                # yi-6b
-    python3 scripts/torch_profile_serving.py --model mamba2  # mamba2-2.7b
+    python3 scripts/torch_profile_serving.py                        # yi-6b
+    python3 scripts/torch_profile_serving.py --model mamba2          # mamba2-2.7b
+    python3 scripts/torch_profile_serving.py --model recurrentgemma  # recurrentgemma-9b
 
 On a machine with one CUDA card. Builds the kernels, then runs one of
 chip_smoke.py's served workloads under ``torch.profiler``, with the
 prefill and decode calls marked: yi-6b (``chip_smoke.serving_setup``:
 full width, random bf16 weights from its seed, four requests of
 512/1000/1536/2000 prompt tokens and 16 new tokens each, through
-``serve_stream`` and ``ContinuousLMEngine``), or mamba2-2.7b
-(``chip_smoke.ssm_setup``: full width, random bf16 weights, one wave of
-four 2000-token prompts and 16 new tokens each through ``LMEngine``).
+``serve_stream`` and ``ContinuousLMEngine``), or a wave path
+(``chip_smoke.wave_setup``: full width, random bf16 weights, one wave of
+four prompts and 16 new tokens each through ``LMEngine``): mamba2-2.7b
+with 2000-token prompts, recurrentgemma-9b with 3000-token ones.
 Prints the device time by phase and by kernel class, the device's busy
 and idle share of the wall time, and the top kernels; writes them and
-the full table to ``chiprun_out/profile_serving[_mamba2].*``. Times are
+the full table to ``chiprun_out/profile_serving[_<model>].*``. Times are
 taken under the profiler, which slows the host. Exits non-zero with no
 CUDA device.
 """
@@ -43,6 +45,8 @@ def _kernel_class(name: str) -> str:
         return "flash_attention (this repo's kernel)"
     if "ssd_scan" in n:
         return "ssd_scan (this repo's kernel)"
+    if "rglru_scan" in n:
+        return "rglru_scan (this repo's kernel)"
     if any(t in n for t in ("gemm", "cutlass", "sm90_xmma", "nvjet", "cublas")):
         return "matmul (cuBLAS)"
     if any(t in n for t in ("index", "gather", "scatter")):
@@ -59,7 +63,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("yi-6b", "mamba2"), default="yi-6b")
+    ap.add_argument("--model", choices=("yi-6b", "mamba2", "recurrentgemma"), default="yi-6b")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_serving: no CUDA device", file=sys.stderr)
@@ -69,13 +73,16 @@ def main() -> int:
 
     card = chip_smoke.card_line()
     _build.build_all()
-    if args.model == "mamba2":
-        _, model, engine, log, prompts = chip_smoke.ssm_setup("bfloat16")
-        n_reqs, suffix = len(prompts), "_mamba2"
+    if args.model != "yi-6b":
+        arch, prompt_len = {
+            "mamba2": ("mamba2-2.7b", chip_smoke.SSM_PROMPT_LEN),
+            "recurrentgemma": ("recurrentgemma-9b", chip_smoke.RG_PROMPT_LEN),
+        }[args.model]
+        _, model, engine, log, prompts = chip_smoke.wave_setup(arch, "bfloat16", prompt_len)
+        n_reqs, suffix = len(prompts), f"_{args.model}"
 
         def serve():
-            return serve_stream(engine, log, "lm-prompts", "lm-completions", chip_smoke.SSM_PROMPT_LEN,
-                                max_new=chip_smoke.MAX_NEW)
+            return serve_stream(engine, log, "lm-prompts", "lm-completions", prompt_len, max_new=chip_smoke.MAX_NEW)
     else:
         _, model, engine, log, reqs = chip_smoke.serving_setup()
         n_reqs, suffix = len(reqs), ""

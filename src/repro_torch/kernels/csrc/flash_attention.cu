@@ -24,16 +24,21 @@
 // not stored. Query tiles are issued last-first, so the causal tiles with
 // the most keys start first.
 //
-// Bound. At the serving shapes (S up to 2000, H 32, D 128) the work is
-// ~4*S^2*D*H/2 flops against ~4*S*H*D*2 bytes: hundreds of flops a byte,
-// far above the card's ridge, so the kernel is bound by operations.
+// Head dims 64, 128 and 256 (recurrentgemma's local attention, whose
+// window of 2048 makes the skipped key tiles matter at S past it).
+//
+// Bound. At the serving shapes (S up to 3000, D 128 or 256) the work is
+// ~4*D*H flops per unmasked (query, key) pair against ~4*S*H*D*2 bytes:
+// hundreds of flops a byte, far above the card's ridge, so the kernel is
+// bound by operations.
 //
 // bf16 (the serving path): both products run on the tensor cores as
 // mma.sync.m16n8k16 with f32 accumulators. 4 warps own 16 query rows each;
-// Q's fragments stay in registers for the whole key loop, the scores of a
-// 16 x 64 tile never leave registers (the accumulator layout of QK^T is
-// the operand layout of PV), and V's fragments come from the row-major V
-// tile through ldmatrix.trans. Tiles are staged with 16-byte loads, rows
+// Q's fragments are read from the shared Q tile at each k-step (held in
+// registers for the whole key loop beside a D-wide accumulator they would
+// spill at D 256), the scores of a 16 x 64 tile never leave registers (the
+// accumulator layout of QK^T is the operand layout of PV), and V's
+// fragments come from the row-major V tile through ldmatrix.trans. Tiles are staged with 16-byte loads, rows
 // padded by 8 elements so fragment loads hit 32 distinct banks. Loads do
 // not yet overlap the products (cp.async / TMA and wgmma come later).
 //
@@ -297,19 +302,9 @@ __global__ void __launch_bounds__(MMA_THREADS)
   bf16* ob = o + b * so.b + h * so.h;
 
   load_tile<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
-  __syncthreads();
   // this warp's rows: g and g + 8 of its 16
   const int row = warp * 16 + g;
   const int qi[2] = {q0 + row, q0 + row + 8};
-  uint32_t qf[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const bf16* p = qs + row * P + kk * 16 + 2 * t;
-    qf[kk][0] = ld32(p);
-    qf[kk][1] = ld32(p + 8 * P);
-    qf[kk][2] = ld32(p + 8);
-    qf[kk][3] = ld32(p + 8 * P + 8);
-  }
 
   float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};  // l: this thread's share of the row
   float acc[OT][4];
@@ -324,7 +319,7 @@ __global__ void __launch_bounds__(MMA_THREADS)
     __syncthreads();  // the previous tile's K and V are no longer read
     load_tile<D>(ks, kb, sk.s, k0, S);
     load_tile<D>(vs, vb, sv.s, k0, S);
-    __syncthreads();
+    __syncthreads();  // K and V (and, before the first tile, Q) are in place
 
     // scores: s[j] is the 16 x 8 tile of keys k0 + 8j ..; element e sits at
     // row g + 8 (e / 2), key 2t + (e % 2)
@@ -334,12 +329,17 @@ __global__ void __launch_bounds__(MMA_THREADS)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk)
+    for (int kk = 0; kk < KS; ++kk) {
+      // Q's fragment for this k-step, read from the Q tile: holding all KS
+      // of them for the whole key loop would spill at D 256
+      const bf16* pq = qs + row * P + kk * 16 + 2 * t;
+      const uint32_t qf[4] = {ld32(pq), ld32(pq + 8 * P), ld32(pq + 8), ld32(pq + 8 * P + 8)};
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
         const bf16* p = ks + (8 * j + g) * P + kk * 16 + 2 * t;
-        mma_bf16(s[j], qf[kk], ld32(p), ld32(p + 8));
+        mma_bf16(s[j], qf, ld32(p), ld32(p + 8));
       }
+    }
 
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -424,6 +424,20 @@ cudaError_t launch(Kernel<T> kern, int threads, size_t smem, const void* q, cons
   return cudaGetLastError();
 }
 
+// dtype: 0 = float32, 1 = bfloat16
+template <int D>
+cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v, void* o, Strides sq,
+                     Strides sk, Strides sv, Strides so, int B, int H, int rep, Mask mask,
+                     cudaStream_t stream) {
+  if (dtype == 0)
+    return launch<float>(flash_attention_f32_kernel<D>, F32_THREADS, f32_smem_bytes<D>(), q, k, v,
+                         o, sq, sk, sv, so, B, H, rep, mask, stream);
+  if (dtype == 1)
+    return launch<bf16>(flash_attention_bf16_kernel<D>, MMA_THREADS, mma_smem_bytes<D>(), q, k, v,
+                        o, sq, sk, sv, so, B, H, rep, mask, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -442,19 +456,16 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void*
   const Mask mask{S, causal, window, scale, softcap};
   const int rep = H / KV;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return int(launch<float>(flash_attention_f32_kernel<64>, F32_THREADS, f32_smem_bytes<64>(),
-                             q, k, v, o, sq, sk, sv, so, B, H, rep, mask, st));
-  if (dtype == 0 && D == 128)
-    return int(launch<float>(flash_attention_f32_kernel<128>, F32_THREADS, f32_smem_bytes<128>(),
-                             q, k, v, o, sq, sk, sv, so, B, H, rep, mask, st));
-  if (dtype == 1 && D == 64)
-    return int(launch<bf16>(flash_attention_bf16_kernel<64>, MMA_THREADS, mma_smem_bytes<64>(),
-                            q, k, v, o, sq, sk, sv, so, B, H, rep, mask, st));
-  if (dtype == 1 && D == 128)
-    return int(launch<bf16>(flash_attention_bf16_kernel<128>, MMA_THREADS, mma_smem_bytes<128>(),
-                            q, k, v, o, sq, sk, sv, so, B, H, rep, mask, st));
-  return int(cudaErrorInvalidValue);
+  switch (D) {
+    case 64:
+      return int(dispatch<64>(dtype, q, k, v, o, sq, sk, sv, so, B, H, rep, mask, st));
+    case 128:
+      return int(dispatch<128>(dtype, q, k, v, o, sq, sk, sv, so, B, H, rep, mask, st));
+    case 256:
+      return int(dispatch<256>(dtype, q, k, v, o, sq, sk, sv, so, B, H, rep, mask, st));
+    default:
+      return int(cudaErrorInvalidValue);
+  }
 }
 
 const char* repro_cuda_error_string(int code) {

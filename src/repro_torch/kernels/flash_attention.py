@@ -6,7 +6,8 @@ same function as ``ref.mha``: causal / sliding-window / softcap attention
 with an online softmax in f32.
 
 What bounds it on the H100: at the prefill shapes (S in the thousands,
-H 32, D 128) attention does hundreds of flops for every byte it must
+D 128 for yi-6b, 256 for recurrentgemma's windowed local attention)
+attention does hundreds of flops for every byte it must
 move, far above the card's ridge, so it is bound by operations and never
 by memory. The design (``csrc/flash_attention.cu``) keeps every score and
 the softmax statistics on chip, one block per (64-query tile, head,
@@ -14,8 +15,9 @@ batch) with the kv loop inside the block, skips the key tiles the mask
 rules out entirely (halving causal work, as ``pl.when`` does on the TPU),
 and reads the kv head of each query head straight from the unrepeated
 GQA tensors through strides. In bf16, the serving path, both products
-run on the tensor cores (``mma.sync``); in f32 they run as FMAs on the
-CUDA cores, since TF32 would not hold the f32 tolerance.
+run on the tensor cores (``mma.sync``), Q's fragments read from shared
+memory at each k-step so that D 256 does not spill; in f32 they run as
+FMAs on the CUDA cores, since TF32 would not hold the f32 tolerance.
 
 On a CPU tensor the wrapper computes the plain version instead; on a CUDA
 tensor it launches the kernel or raises.
@@ -36,7 +38,7 @@ __all__ = ["LAUNCHES", "flash_attention"]
 LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 _fn = None
 
 

@@ -13,9 +13,10 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 
-__all__ = ["attention_op", "ssd_op"]
+__all__ = ["attention_op", "rglru_op", "ssd_op"]
 
 
 def attention_op(
@@ -53,3 +54,18 @@ def ssd_op(
         Bm.transpose(1, 2), Cm.transpose(1, 2), init_state, chunk=chunk,
     )
     return y.transpose(1, 2), st
+
+
+def rglru_op(
+    x: torch.Tensor,  # (B, S, C) gated input
+    log_a: torch.Tensor,  # (B, S, C) log decay
+    h0: torch.Tensor | None = None,  # (B, C)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU recurrence; returns (h (B, S, C) f32, h_last (B, C) f32).
+
+    Everything enters in f32, as the JAX wrapper casts it. Unlike that
+    wrapper (whose kernel walks blocks of ``t_block`` steps and asserts
+    they divide S) any S is taken: the kernel walks each channel's
+    sequence whole, so it has no time block to choose.
+    """
+    return rglru_scan(x.float(), log_a.float(), None if h0 is None else h0.float())

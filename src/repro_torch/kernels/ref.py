@@ -10,7 +10,7 @@ import math
 
 import torch
 
-__all__ = ["mha", "ssd"]
+__all__ = ["mha", "rglru", "ssd"]
 
 
 def mha(
@@ -70,3 +70,30 @@ def ssd(
         state = state * decay[:, :, t, None, None] + upd
         ys.append(torch.einsum("bhn,bhnp->bhp", Cm[:, :, t].float(), state))
     return torch.stack(ys, dim=2).to(x.dtype), state
+
+
+def rglru(
+    x: torch.Tensor,  # (B, S, C) gated input
+    log_a: torch.Tensor,  # (B, S, C) log decay, <= 0
+    h0: torch.Tensor | None = None,  # (B, C)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential RG-LRU recurrence (the definitional oracle):
+    ``h_t = a_t h_{t-1} + sqrt(max(1 - a_t a_t, 0)) x_t``, ``a = exp(log_a)``.
+
+    The input weight is the ``a * a`` form of the JAX oracle (``ref.py:83``);
+    the kernel follows the TPU kernel's ``exp(2 log_a)``, which differs from
+    it in the last bits when a is near 1. The state is f32, or float64 when
+    x is (a float64 run is the yardstick both are held to at long S).
+    Returns (h (B, S, C), h_last (B, C)) in that dtype.
+    """
+    b, s, c = x.shape
+    dt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    h = torch.zeros((b, c), dtype=dt, device=x.device) if h0 is None else h0.to(dt)
+    a_all = torch.exp(log_a.to(dt))
+    x = x.to(dt)
+    hs = []
+    for t in range(s):
+        a = a_all[:, t]
+        h = a * h + torch.sqrt(torch.clamp(1.0 - a * a, min=0.0)) * x[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h

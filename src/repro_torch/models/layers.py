@@ -177,10 +177,12 @@ def decode_attention(
     cache_pos: torch.Tensor,  # int count of tokens already in cache: scalar
     #                           (whole batch in lockstep) or (B,) per row
     ap: AttnParams,
+    *,
+    ring: bool = False,  # the cache is a window-sized ring (local layers)
 ):
-    """One-token decode against a contiguous KV cache (non-ring, self
-    attention); returns (out, cache_k, cache_v) with the caches updated in
-    place."""
+    """One-token decode against a contiguous KV cache (self attention);
+    returns (out, cache_k, cache_v) with the caches updated in place. In a
+    ring the new K/V goes to slot ``pos % S_cache``."""
     if ap.cross:
         raise NotImplementedError("cross attention is not ported yet")
     b = x.shape[0]
@@ -190,24 +192,29 @@ def decode_attention(
     positions = pos[:, None] if per_row else pos.reshape(1)
 
     q, kn, vn = _project_qkv(p, x, ap, positions)
+    slot = pos % s_cache if ring else pos
     if per_row:
         rows = torch.arange(b, device=x.device)
-        cache_k[rows, pos] = kn[:, 0].to(cache_k.dtype)
-        cache_v[rows, pos] = vn[:, 0].to(cache_v.dtype)
+        cache_k[rows, slot] = kn[:, 0].to(cache_k.dtype)
+        cache_v[rows, slot] = vn[:, 0].to(cache_v.dtype)
     else:
-        cache_k.index_copy_(1, pos.reshape(1), kn.to(cache_k.dtype))
-        cache_v.index_copy_(1, pos.reshape(1), vn.to(cache_v.dtype))
-    out = _attend(q, cache_k, cache_v, _decode_valid(pos, s_cache, window=ap.window), ap)
+        cache_k.index_copy_(1, slot.reshape(1), kn.to(cache_k.dtype))
+        cache_v.index_copy_(1, slot.reshape(1), vn.to(cache_v.dtype))
+    valid = _decode_valid(pos, s_cache, ring=ring, window=ap.window)
+    out = _attend(q, cache_k, cache_v, valid, ap)
     return _out_proj(out, p["wo"]), cache_k, cache_v
 
 
-def _decode_valid(pos: torch.Tensor, s_cache: int, *, window: int | None) -> torch.Tensor:
+def _decode_valid(pos: torch.Tensor, s_cache: int, *, ring: bool, window: int | None) -> torch.Tensor:
     """Slots holding positions 0..pos (the token just written included),
-    within the sliding window if any: (B, S) for per-row pos, (1, S) else."""
+    within the sliding window for a window layer that is not a ring: (B, S)
+    for per-row pos, (1, S) else. In a ring a slot index is no position:
+    the ring holds the last S_cache positions, so the window needs no mask
+    and only the slots not yet written (idx > pos) are invalid."""
     idx = torch.arange(s_cache, device=pos.device)[None, :]
     p = pos.reshape(-1, 1)
     valid = idx <= p
-    if window is not None:
+    if not ring and window is not None:
         valid &= idx > p - window
     return valid
 
@@ -249,5 +256,5 @@ def paged_decode_attention(
     bt = block_table.long()
     kf = cache_k[bt].reshape(b, s_virt, n_kv, hd)
     vf = cache_v[bt].reshape(b, s_virt, n_kv, hd)
-    out = _attend(q, kf, vf, _decode_valid(pos, s_virt, window=ap.window), ap)
+    out = _attend(q, kf, vf, _decode_valid(pos, s_virt, ring=False, window=ap.window), ap)
     return _out_proj(out, p["wo"]), cache_k, cache_v

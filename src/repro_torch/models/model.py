@@ -1,17 +1,22 @@
-"""Model assembler (port of ``repro.models.model``): one-kind stacks on one device.
+"""Model assembler (port of ``repro.models.model``): block patterns on one device.
 
 ``StreamModel`` is an ``nn.Module`` holding the JAX package's parameter
-tree with the same nested keys and shapes, the layer stack included as a
-leading dim (``slots/s0/mixer/wq`` is ``(L, d, H, hd)``), so that
-``convert.params_from_jax`` moves weights across one for one. The layer
-loop is a Python loop over ``L``.
+tree with the same nested keys and shapes: one stack per position of the
+pattern, ``slots/s{i}``, its leaves stacked on ``n_groups = n_layers //
+len(pattern)`` (``slots/s0/mixer/wq`` is ``(n_groups, d, H, hd)``), and
+the leftover layers as ``tail/s{i}`` with a leading dim of 1, so that
+``convert.params_from_jax`` moves weights across one for one. The layers
+run group by group, each group's slots in pattern order, then the tail,
+as a Python loop.
 
-The dense ``("attn",)`` pattern (yi-6b) and the Mamba-2 ``("ssm",)``
-pattern (mamba2) are ported, with or without an MLP and with tied or
-untied embeddings; the other block kinds (local/ring attention, RG-LRU,
-MoE, encoder-decoder, frontends) raise ``NotImplementedError``. Caches
-keep the JAX layout, stacked on the layer dim, and are updated in place.
-The paged cache serves the dense pattern only, as in JAX.
+Block kinds ``attn`` (dense, yi-6b), ``local`` (sliding window with a
+ring decode cache), ``ssm`` (Mamba-2, mamba2) and ``rec`` (RG-LRU,
+recurrentgemma) are ported, with or without an MLP, tied or untied
+embeddings and gemma's embedding scale; the other kinds and fields (MoE,
+encoder-decoder, frontends, layer norm, sandwich norms, learned
+positions) raise ``NotImplementedError``. Caches keep the JAX layout,
+stacked on the group dim for slots and not for the tail, and are updated
+in place. The paged cache serves the dense pattern only, as in JAX.
 """
 
 from __future__ import annotations
@@ -25,9 +30,12 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as M
 from repro_torch.models.layers import AttnParams
 from repro_torch.models.policy import Policy, torch_dtype
-from repro_torch.models.ssm import F32_LEAVES, SSMParams, ssm_init, ssm_init_state, ssm_mixer, ssm_shapes
+from repro_torch.models.rglru import RGLRUParams
+from repro_torch.models.ssm import SSMParams
 
 __all__ = ["ArchConfig", "StreamModel"]
 
@@ -57,7 +65,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     moe: Any = None  # MoEParams in the JAX package; not ported yet
     ssm: SSMParams | None = None
-    rglru: Any = None  # RGLRUParams; not ported yet
+    rglru: RGLRUParams | None = None
     enc_dec: bool = False
     enc_layers: int = 0
     enc_seq: int = 0
@@ -91,18 +99,20 @@ class ArchConfig:
         )
 
 
+_KINDS = ("attn", "local", "ssm", "rec")
+
+
 def _unsupported(cfg: ArchConfig) -> list[str]:
     checks = {
-        f"pattern {cfg.pattern!r}": cfg.pattern not in (("attn",), ("ssm",)),
-        "ssm pattern without SSMParams": cfg.pattern == ("ssm",) and cfg.ssm is None,
+        f"pattern {cfg.pattern!r}": not cfg.pattern or any(k not in _KINDS for k in cfg.pattern),
+        "ssm pattern without SSMParams": "ssm" in cfg.pattern and cfg.ssm is None,
+        "rec pattern without RGLRUParams": "rec" in cfg.pattern and cfg.rglru is None,
         "moe": cfg.moe is not None,
-        "rglru": cfg.rglru is not None,
         "enc_dec": cfg.enc_dec,
         f"frontend {cfg.frontend!r}": cfg.frontend != "none",
         "learned_pos": cfg.learned_pos,
         f"norm {cfg.norm!r}": cfg.norm != "rms",
         "post_norms": cfg.post_norms,
-        "embed_scale": cfg.embed_scale,
         "attn_bias": cfg.attn_bias,
         f"mlp_kind {cfg.mlp_kind!r}": cfg.mlp_kind not in ("gated", "plain", "none"),
     }
@@ -121,7 +131,7 @@ def _params(shapes: dict, dtype, device, f32: tuple[str, ...] = ()) -> nn.Parame
 
 
 class StreamModel(nn.Module):
-    """Dense or Mamba-2 decoder with explicit caches; parameters in the JAX tree layout."""
+    """Decoder of a block pattern with explicit caches; parameters in the JAX tree layout."""
 
     def __init__(
         self,
@@ -138,14 +148,37 @@ class StreamModel(nn.Module):
         self.cfg = cfg
         self.policy = policy
         self.device = resolve_device(device)
-        self.n_groups = cfg.n_layers
-        self.kind = cfg.pattern[0]
-        self.ap = cfg.attn_params("attn") if self.kind == "attn" else None
+        pat = cfg.pattern
+        self.n_groups = cfg.n_layers // len(pat)
+        self.tail = cfg.n_layers - self.n_groups * len(pat)  # leftover layers
         dtype = torch_dtype(policy.param_dtype)
-        n, d, f = cfg.n_layers, cfg.d_model, cfg.d_ff
+        d = cfg.d_model
+        self.tree = nn.ModuleDict({
+            "embed": _params({"w": (cfg.vocab_padded, d)}, dtype, self.device),
+            "final_norm": _params({"w": (1, d)}, dtype, self.device),
+            "slots": nn.ModuleDict({
+                f"s{i}": self._block(k, self.n_groups, dtype) for i, k in enumerate(pat)
+            }),
+        })
+        if self.tail:
+            self.tree["tail"] = nn.ModuleDict({
+                f"s{i}": self._block(pat[i], 1, dtype) for i in range(self.tail)
+            })
+        if not cfg.tie_embeddings:
+            self.tree["unembed"] = _params({"w": (d, cfg.vocab_padded)}, dtype, self.device)
+        self._layers: list[tuple] | None = None
+        if generator is not None:
+            self.init(generator)
+
+    def _block(self, kind: str, n: int, dtype) -> nn.ModuleDict:
+        """One slot's parameters, stacked over ``n`` layers."""
+        cfg = self.cfg
+        d, f = cfg.d_model, cfg.d_ff
         block = nn.ModuleDict({"norm1": _params({"w": (n, d)}, dtype, self.device)})
-        if self.kind == "ssm":
-            block["mixer"] = _params(ssm_shapes(n, d, cfg.ssm), dtype, self.device, f32=F32_LEAVES)
+        if kind == "ssm":
+            block["mixer"] = _params(M.ssm_shapes(n, d, cfg.ssm), dtype, self.device, f32=M.F32_LEAVES)
+        elif kind == "rec":
+            block["mixer"] = _params(R.rglru_shapes(n, d, cfg.rglru), dtype, self.device, f32=R.F32_LEAVES)
         else:
             hd = cfg.hd
             block["mixer"] = _params({
@@ -160,30 +193,25 @@ class StreamModel(nn.Module):
                 mlp_shapes["w_gate"] = (n, d, f)
             block["norm2"] = _params({"w": (n, d)}, dtype, self.device)
             block["mlp"] = _params(mlp_shapes, dtype, self.device)
-        self.tree = nn.ModuleDict({
-            "embed": _params({"w": (cfg.vocab_padded, d)}, dtype, self.device),
-            "final_norm": _params({"w": (1, d)}, dtype, self.device),
-            "slots": nn.ModuleDict({"s0": block}),
-        })
-        if not cfg.tie_embeddings:
-            self.tree["unembed"] = _params({"w": (d, cfg.vocab_padded)}, dtype, self.device)
-        self._layers: list[dict] | None = None
-        if generator is not None:
-            self.init(generator)
+        return block
+
+    def _blocks(self):
+        """(section, slot name, kind, stacked params) of every block stack."""
+        pat = self.cfg.pattern
+        for sec in ("slots", "tail"):
+            if sec in self.tree:
+                for name, blk in self.tree[sec].items():
+                    yield sec, name, pat[int(name[1:])], blk
 
     # ------------------------------------------------------------ parameters
     def param_tree(self) -> dict:
         """The parameters as the JAX package's nested dict (``embed`` and
         ``unembed`` are leaves there, so they are here; a tied model has
-        no ``unembed``)."""
+        no ``unembed``, a model whose layers fill whole groups no ``tail``)."""
         t = self.tree
-        tree = {
-            "embed": t["embed"]["w"],
-            "final_norm": {"w": t["final_norm"]["w"]},
-            "slots": {"s0": {
-                name: dict(sub.items()) for name, sub in t["slots"]["s0"].items()
-            }},
-        }
+        tree: dict[str, Any] = {"embed": t["embed"]["w"], "final_norm": {"w": t["final_norm"]["w"]}}
+        for sec, name, _, blk in self._blocks():
+            tree.setdefault(sec, {})[name] = {part: dict(sub.items()) for part, sub in blk.items()}
         if "unembed" in t:
             tree["unembed"] = t["unembed"]["w"]
         return tree
@@ -209,9 +237,10 @@ class StreamModel(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator | int) -> None:
         """Random weights with the JAX init's scales (``layers._normal``,
-        ``ssm.ssm_init``): normal / sqrt(fan_in), drawn in f32 and cast;
-        norms are ones; the SSM's decays, skips and dt biases are its
-        fixed values. An int seeds a new generator on the model's device."""
+        ``ssm.ssm_init``, ``rglru.rglru_init``): normal / sqrt(fan_in),
+        drawn in f32 and cast; norms are ones; the SSM's decays, skips and
+        dt biases are its fixed values, the RG-LRU's Lambda is drawn from
+        its uniform law. An int seeds a new generator on the model's device."""
         if isinstance(generator, int):
             generator = torch.Generator(device=self.device).manual_seed(generator)
         cfg = self.cfg
@@ -221,79 +250,107 @@ class StreamModel(nn.Module):
             x = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=self.device)
             p.copy_(x.mul_(scale))
 
+        def uniform(p, lo, hi):
+            x = torch.rand(p.shape, generator=generator, dtype=torch.float32, device=self.device)
+            p.copy_(x.mul_(hi - lo).add_(lo))
+
         tree = self.param_tree()
         normal(tree["embed"], 1.0 / math.sqrt(d))
         tree["final_norm"]["w"].fill_(1.0)
-        blk = tree["slots"]["s0"]
-        blk["norm1"]["w"].fill_(1.0)
-        if self.kind == "ssm":
-            ssm_init(blk["mixer"], d, cfg.ssm, normal)
-        else:
-            for k in ("wq", "wk", "wv"):
-                normal(blk["mixer"][k], 1.0 / math.sqrt(d))
-            normal(blk["mixer"]["wo"], 1.0 / math.sqrt(cfg.n_heads * cfg.hd))
-        if "mlp" in blk:
-            blk["norm2"]["w"].fill_(1.0)
-            normal(blk["mlp"]["w_in"], 1.0 / math.sqrt(d))
-            if "w_gate" in blk["mlp"]:
-                normal(blk["mlp"]["w_gate"], 1.0 / math.sqrt(d))
-            normal(blk["mlp"]["w_out"], 1.0 / math.sqrt(cfg.d_ff))
+        for sec, name, kind, _ in self._blocks():
+            blk = tree[sec][name]
+            blk["norm1"]["w"].fill_(1.0)
+            if kind == "ssm":
+                M.ssm_init(blk["mixer"], d, cfg.ssm, normal)
+            elif kind == "rec":
+                R.rglru_init(blk["mixer"], d, cfg.rglru, normal, uniform)
+            else:
+                for k in ("wq", "wk", "wv"):
+                    normal(blk["mixer"][k], 1.0 / math.sqrt(d))
+                normal(blk["mixer"]["wo"], 1.0 / math.sqrt(cfg.n_heads * cfg.hd))
+            if "mlp" in blk:
+                blk["norm2"]["w"].fill_(1.0)
+                normal(blk["mlp"]["w_in"], 1.0 / math.sqrt(d))
+                if "w_gate" in blk["mlp"]:
+                    normal(blk["mlp"]["w_gate"], 1.0 / math.sqrt(d))
+                normal(blk["mlp"]["w_out"], 1.0 / math.sqrt(cfg.d_ff))
         if "unembed" in tree:
             normal(tree["unembed"], 1.0 / math.sqrt(d))
         self._layers = None
 
-    def _layer_params(self) -> list[dict]:
-        """Per-layer views of the stacked block params (built once)."""
+    def _layer_params(self) -> list[tuple]:
+        """``(kind, section, slot name, index, params)`` of every layer in
+        execution order: group by group, each group's slots in pattern
+        order, then the tail; params are per-layer views (built once)."""
         if self._layers is None:
-            blk = self.param_tree()["slots"]["s0"]
+            tree = self.param_tree()
+            pat = self.cfg.pattern
+
+            def view(sec, name, i):
+                return {part: {k: v[i] for k, v in sub.items()} for part, sub in tree[sec][name].items()}
+
             self._layers = [
-                {name: {k: v[i] for k, v in sub.items()} for name, sub in blk.items()}
-                for i in range(self.n_groups)
-            ]
+                (kind, "slots", f"s{j}", g, view("slots", f"s{j}", g))
+                for g in range(self.n_groups) for j, kind in enumerate(pat)
+            ] + [(pat[j], "tail", f"s{j}", 0, view("tail", f"s{j}", 0)) for j in range(self.tail)]
         return self._layers
 
     # ----------------------------------------------------------------- stack
     def _norm(self, w, x):
         return L.rms_norm(x, w, self.cfg.norm_eps, plus_one=self.cfg.norm_plus_one)
 
-    def _add_mlp(self, blk, x):
-        """x plus the block's MLP of x (x itself when the config has no MLP)."""
+    def _layer(self, kind: str, blk: dict, x, positions, st: dict | None = None):
+        """One block: x plus its mixer, then plus its MLP. With ``st`` (the
+        layer's view of the cache) a full-sequence pass (prefill) writes the
+        layer's K/V or recurrent state into it and a one-token pass decodes
+        from it; either way in place."""
         cfg = self.cfg
+        h = self._norm(blk["norm1"]["w"], x)
+        if kind in ("ssm", "rec"):
+            if kind == "ssm":
+                out, new = M.ssm_mixer(blk["mixer"], h, cfg.ssm, st, cfg.norm_eps)
+            else:
+                out, new = R.rglru_mixer(blk["mixer"], h, cfg.rglru, st)
+            if st is not None:
+                for k, v in new.items():
+                    st[k].copy_(v)
+        elif st is not None and x.shape[1] == 1:  # decode
+            ap = cfg.attn_params(kind)
+            if "bt" in st:
+                out, _, _ = L.paged_decode_attention(blk["mixer"], h, st["k"], st["v"], st["pos"], st["bt"], ap)
+            else:
+                out, _, _ = L.decode_attention(
+                    blk["mixer"], h, st["k"], st["v"], st["pos"], ap, ring=kind == "local",
+                )
+            st["pos"].add_(1)
+        elif st is not None:  # prefill: fill the cache while attending
+            out, k, v = L.attention(blk["mixer"], h, cfg.attn_params(kind), positions, return_kv=True)
+            _fill_kv_cache(st, k, v)
+        else:
+            out = L.attention(blk["mixer"], h, cfg.attn_params(kind), positions)
+        x = x + out
         if cfg.mlp_kind == "none":
             return x
         return x + L.mlp(blk["mlp"], self._norm(blk["norm2"]["w"], x), cfg.mlp_kind, cfg.mlp_act)
 
-    def _ssm(self, blk, h, slot, i):
-        """The SSM mixer of layer ``i``; with ``slot`` it starts from the
-        layer's cached state and writes the new one back in place."""
-        cfg = self.cfg
-        state = None if slot is None else {"conv": slot["conv"][i], "ssd": slot["ssd"][i]}
-        out, new = ssm_mixer(blk["mixer"], h, cfg.ssm, state, cfg.norm_eps)
-        if slot is not None:
-            slot["conv"][i].copy_(new["conv"])
-            slot["ssd"][i].copy_(new["ssd"])
-        return out
-
     def _run_stack(self, x, positions, caches=None):
-        """Full-sequence pass; with ``caches`` (prefill) each layer's K/V or
-        SSM state is written into them."""
-        slot = caches["slots"]["s0"] if caches is not None else None
-        for i, blk in enumerate(self._layer_params()):
-            h = self._norm(blk["norm1"]["w"], x)
-            if self.kind == "ssm":
-                out = self._ssm(blk, h, slot, i)
-            elif slot is None:
-                out = L.attention(blk["mixer"], h, self.ap, positions)
-            else:
-                out, k, v = L.attention(blk["mixer"], h, self.ap, positions, return_kv=True)
-                _fill_kv_cache(slot, i, k, v)
-            x = self._add_mlp(blk, x + out)
+        """Every layer in order; with ``caches`` each layer reads and writes
+        its own view of them (prefill or decode)."""
+        for kind, sec, name, i, blk in self._layer_params():
+            st = None
+            if caches is not None:
+                st = caches[sec][name]
+                if sec == "slots":
+                    st = {k: v[i] for k, v in st.items()}
+            x = self._layer(kind, blk, x, positions, st)
         return x
 
     def _embed_tokens(self, tokens):
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        embed = self.tree["embed"]["w"]
-        return embed[tokens].to(torch_dtype(self.policy.compute_dtype))
+        x = self.tree["embed"]["w"][tokens].to(torch_dtype(self.policy.compute_dtype))
+        if self.cfg.embed_scale:  # the scale rounded to the compute dtype, as in JAX
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
+        return x
 
     def _logits(self, x):
         x = self._norm(self.tree["final_norm"]["w"][0], x)
@@ -311,23 +368,42 @@ class StreamModel(nn.Module):
         positions = torch.arange(x.shape[1], device=self.device)
         return self._logits(self._run_stack(x, positions))
 
-    def init_cache(self, batch_size: int, s_cache: int, dtype=None):
-        """Contiguous decode cache: k/v (L, B, s_cache, Kv, hd), pos (L,);
-        for the SSM pattern the per-layer states conv (L, B, W-1, C) and
-        ssd (L, B, H, N, P), both f32 (``s_cache`` and ``dtype`` unused)."""
+    def _slot_cache(self, kind: str, b: int, s_cache: int, dtype) -> dict:
+        """One layer's zero cache: K/V of ``s_cache`` slots (``min(window,
+        s_cache)`` ring slots for a local layer) and its position count, or
+        the SSM / RG-LRU states (f32)."""
         cfg = self.cfg
-        if self.kind == "ssm":
-            st = ssm_init_state(batch_size, cfg.ssm, self.device)
-            return {"slots": {"s0": {
-                k: v.unsqueeze(0).repeat((self.n_groups,) + (1,) * v.dim()) for k, v in st.items()
-            }}}
+        if kind == "ssm":
+            return M.ssm_init_state(b, cfg.ssm, self.device)
+        if kind == "rec":
+            return R.rglru_init_state(b, cfg.rglru, self.device)
+        sz = min(cfg.window, s_cache) if kind == "local" and cfg.window else s_cache
+        kv = (b, sz, cfg.n_kv_heads, cfg.hd)
+        return {
+            "k": torch.zeros(kv, dtype=dtype, device=self.device),
+            "v": torch.zeros(kv, dtype=dtype, device=self.device),
+            "pos": torch.zeros((), dtype=torch.int32, device=self.device),
+        }
+
+    def init_cache(self, batch_size: int, s_cache: int, dtype=None):
+        """Contiguous decode cache per slot, stacked on the group dim
+        (``slots/s{i}``: k/v (n_groups, B, sz, Kv, hd) and pos (n_groups,)
+        for attention, conv (n_groups, B, W-1, C) and ssd or h for the
+        SSM and RG-LRU states, f32) and unstacked for the tail."""
         dtype = torch_dtype(self.policy.kv_cache_dtype) if dtype is None else dtype
-        shape = (self.n_groups, batch_size, s_cache, cfg.n_kv_heads, cfg.hd)
-        return {"slots": {"s0": {
-            "k": torch.zeros(shape, dtype=dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=dtype, device=self.device),
-            "pos": torch.zeros((self.n_groups,), dtype=torch.int32, device=self.device),
-        }}}
+        pat = self.cfg.pattern
+
+        def stack(st):
+            return {k: v.unsqueeze(0).repeat((self.n_groups,) + (1,) * v.dim()) for k, v in st.items()}
+
+        caches = {"slots": {
+            f"s{i}": stack(self._slot_cache(k, batch_size, s_cache, dtype)) for i, k in enumerate(pat)
+        }}
+        if self.tail:
+            caches["tail"] = {
+                f"s{i}": self._slot_cache(pat[i], batch_size, s_cache, dtype) for i in range(self.tail)
+            }
+        return caches
 
     # ------------------------------------------------------------ paged cache
     # One physical pool of (n_blocks, block_size) KV blocks per layer, no
@@ -388,42 +464,25 @@ class StreamModel(nn.Module):
     @torch.no_grad()
     def decode_step(self, caches, tokens):
         """One decode step for tokens (B, 1). Positions come from the cache:
-        scalar per layer for ``init_cache``, per row for the paged cache (the
-        JAX signature's ``pos`` feeds only learned position embeddings, which
-        are not ported); SSM layers need none. Returns (logits (B, 1,
-        vocab_padded), caches)."""
-        slot = caches["slots"]["s0"]
-        x = self._embed_tokens(tokens)
-        for i, blk in enumerate(self._layer_params()):
-            h = self._norm(blk["norm1"]["w"], x)
-            if self.kind == "ssm":
-                out = self._ssm(blk, h, slot, i)
-            elif "bt" in slot:
-                out, _, _ = L.paged_decode_attention(
-                    blk["mixer"], h, slot["k"][i], slot["v"][i], slot["pos"][i],
-                    slot["bt"][i], self.ap,
-                )
-            else:
-                out, _, _ = L.decode_attention(
-                    blk["mixer"], h, slot["k"][i], slot["v"][i], slot["pos"][i], self.ap,
-                )
-            x = self._add_mlp(blk, x + out)
-        if "pos" in slot:
-            slot["pos"] += 1
+        scalar per attention layer for ``init_cache``, per row for the paged
+        cache (the JAX signature's ``pos`` feeds only learned position
+        embeddings, which are not ported); recurrent layers need none.
+        Returns (logits (B, 1, vocab_padded), caches)."""
+        x = self._run_stack(self._embed_tokens(tokens), None, caches)
         return self._logits(x), caches
 
 
-def _fill_kv_cache(slot: dict, i: int, k, v) -> None:
-    """Write layer ``i``'s prefill K/V (B, S, Kv, D) into a cache of ``sz``
-    slots; with S > sz keep the last sz positions rotated so that slot ==
-    position % sz (the ring layout of the JAX function)."""
-    sz = slot["k"].shape[2]
+def _fill_kv_cache(st: dict, k, v) -> None:
+    """Write one layer's prefill K/V (B, S, Kv, D) into its cache view of
+    ``sz`` slots; with S >= sz keep the last sz positions rotated so that
+    slot == position % sz (the ring layout of the JAX function)."""
+    sz = st["k"].shape[1]
     s = k.shape[1]
     if s >= sz:
         shift = s % sz
-        slot["k"][i] = torch.roll(k[:, s - sz:], shift, dims=1).to(slot["k"].dtype)
-        slot["v"][i] = torch.roll(v[:, s - sz:], shift, dims=1).to(slot["v"].dtype)
+        st["k"].copy_(torch.roll(k[:, s - sz:], shift, dims=1))
+        st["v"].copy_(torch.roll(v[:, s - sz:], shift, dims=1))
     else:
-        slot["k"][i, :, :s] = k.to(slot["k"].dtype)
-        slot["v"][i, :, :s] = v.to(slot["v"].dtype)
-    slot["pos"][i] = s
+        st["k"][:, :s] = k.to(st["k"].dtype)
+        st["v"][:, :s] = v.to(st["v"].dtype)
+    st["pos"].fill_(s)

@@ -95,7 +95,14 @@ def _tokens(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 # ------------------------------------------------------------- wave engine
 class LMEngine:
-    """Fixed-slot wave batching around prefill + decode_step."""
+    """Fixed-slot wave batching around prefill + decode_step.
+
+    ``s_cache`` is the cache length a row gets; a local-attention layer's
+    ring holds ``min(window, s_cache)`` of it, so an ``s_cache`` below the
+    window narrows what that layer sees, as in the JAX engine: serve a
+    windowed model with ``s_cache`` of at least prompt plus new tokens (or
+    the window) to serve the function its forward computes.
+    """
 
     def __init__(
         self,

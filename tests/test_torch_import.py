@@ -32,7 +32,8 @@ def test_import_with_jax_and_repro_blocked():
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
     assert int(lines[-1]) >= 10
-    for mod in ("repro_torch.kernels.ssd_scan", "repro_torch.models.ssm", "repro_torch.configs.mamba2_2_7b"):
+    for mod in ("repro_torch.kernels.ssd_scan", "repro_torch.models.ssm", "repro_torch.configs.mamba2_2_7b",
+                "repro_torch.kernels.rglru_scan", "repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_9b"):
         assert mod in lines[-2].split(), mod
 
 

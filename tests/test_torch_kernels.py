@@ -83,6 +83,15 @@ def test_attention_op_ragged_matches_jax_ref(causal, window):
     np.testing.assert_allclose(got.numpy(), want, atol=TOL["float32"], rtol=TOL["float32"])
 
 
+@pytest.mark.parametrize("window", [None, 64])
+def test_attention_op_head_dim_256_matches_jax(window):
+    """recurrentgemma's head dim, one kv head over 4 query heads, causal,
+    with and without a window shorter than S."""
+    arrays = _inputs(13, 1, 256, 4, 1, 256)
+    want, got = _both(arrays, "float32", window=window, block_q=128, block_k=128)
+    np.testing.assert_allclose(got, want, atol=TOL["float32"], rtol=TOL["float32"])
+
+
 def test_cpu_path_counts_no_launch():
     before = fa.LAUNCHES
     attention_op(*(torch.from_numpy(a) for a in _inputs(1, 1, 64, 2, 2, 64)))

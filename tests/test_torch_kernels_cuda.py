@@ -17,8 +17,9 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as K3
 from repro_torch.kernels import ssd_scan as K2
-from repro_torch.kernels.ops import attention_op, ssd_op
+from repro_torch.kernels.ops import attention_op, rglru_op, ssd_op
 from repro_torch.models.model import StreamModel
 from repro_torch.models.policy import Policy
 
@@ -51,6 +52,8 @@ def _inputs(seed, b, s, h, kv, d, dtype, device):
     (1000, 32, 4, 128, True, None, None),
     (300, 8, 2, 64, False, 128, None),
     (257, 4, 4, 128, True, None, 50.0),
+    (1000, 16, 1, 256, True, 128, None),  # recurrentgemma's heads, ragged S
+    (2500, 4, 1, 256, True, 2048, None),  # its window, whose skipped key tiles matter past S 2048
 ])
 def test_flash_attention_kernel_on_card(card, dtype, s, h, kv, d, causal, window, cap):
     """The CUDA kernel against its plain version, on the card."""
@@ -172,3 +175,86 @@ def test_mamba2_on_card_runs_the_kernel(card):
     torch.testing.assert_close(lg.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
     for key in ("conv", "ssd"):
         torch.testing.assert_close(cache["slots"]["s0"][key].cpu(), cache_cpu["slots"]["s0"][key], atol=1e-4, rtol=1e-4)
+
+
+# K3 is held to a float64 run of its plain version: on the card the f32
+# plain version's 1 - a * a, which cancels when a is near 1, alone strays
+# past tests/test_kernels.py:86's 1e-5
+RGLRU_TOL = 1e-5
+
+
+def _rglru_inputs(seed, b, s, c, device, model_decays=False):
+    """x and log_a: the tests' decays -|N| * 0.3, or the model's, log a =
+    log(u) r / 2 with u ~ U(0.81, 0.998) and r a sigmoid gate (a up to
+    about 0.9995); h0 drawn."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, c)).astype(np.float32)
+    if model_decays:
+        u = rng.uniform(0.81, 0.998, c).astype(np.float32)
+        r = 1 / (1 + np.exp(-rng.standard_normal((b, s, c))))
+        log_a = (np.log(u) * r / 2).astype(np.float32)
+    else:
+        log_a = (-np.abs(rng.standard_normal((b, s, c))) * 0.3).astype(np.float32)
+    h0 = rng.standard_normal((b, c)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(device) for a in (x, log_a, h0))
+
+
+def _hold_to_float64(x, log_a, h0, tol):
+    h, hl = rglru_op(x, log_a, h0)
+    want, want_last = ref.rglru(x.double(), log_a.double(), h0.double())
+    assert h.dtype == hl.dtype == torch.float32
+    torch.testing.assert_close(h.double(), want, atol=tol, rtol=tol)
+    torch.testing.assert_close(hl.double(), want_last, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("b,s,c", [
+    (1, 128, 64), (2, 256, 128), (3, 64, 256),  # tests/test_kernels.py:77's shapes
+    (2, 1000, 96), (1, 1000, 512),  # ragged S
+])
+def test_rglru_kernel_on_card(card, b, s, c):
+    """The CUDA kernel against its plain version, with h0, on the card, at
+    tests/test_kernels.py:86's 1e-5."""
+    x, log_a, h0 = _rglru_inputs(s + c, b, s, c, card)
+    before = K3.LAUNCHES
+    _hold_to_float64(x, log_a, h0, RGLRU_TOL)
+    torch.cuda.synchronize()
+    assert K3.LAUNCHES == before + 1
+
+
+@pytest.mark.parametrize("model_decays", [False, True])
+def test_rglru_kernel_long_sequence_against_float64(card, model_decays):
+    """S 3000 over the model's 4096 channels, with the tests' decays and
+    with the model's (a up to about 0.9995), within 1e-4: the tolerance
+    chip_smoke.py holds the path's call to."""
+    _hold_to_float64(*_rglru_inputs(2, 1, 3000, 4096, card, model_decays=model_decays), 1e-4)
+
+
+def test_recurrentgemma_on_card_runs_the_kernels(card):
+    """Reduced recurrentgemma with K1's head dim 64 on the card: the forward
+    launches K3 once a recurrent layer and K1 once a local layer and gives
+    the logits its CPU twin (plain versions) gives; a prefill past the
+    window and decode steps past the ring's wrap leave the logits and
+    states the CPU leaves."""
+    cfg = dataclasses.replace(configs.get_reduced("recurrentgemma-9b"), head_dim=64)
+    policy = Policy("float32", "float32", "float32")
+    on_card = StreamModel(cfg, policy, device=card, generator=0)
+    on_cpu = StreamModel(cfg, policy, device="cpu", generator=None)
+    on_cpu.load_params(on_card.param_tree())
+    n_rec = sum(kind == "rec" for kind, *_ in on_card._layer_params())
+    tokens = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab, (2, 150)))
+    k1, k3 = fa.LAUNCHES, K3.LAUNCHES
+    got = on_card(tokens.to(card))
+    torch.cuda.synchronize()
+    assert (K3.LAUNCHES - k3, fa.LAUNCHES - k1) == (n_rec, cfg.n_layers - n_rec) == (4, 1)
+    torch.testing.assert_close(got.cpu(), on_cpu(tokens), atol=1e-4, rtol=1e-4)
+    lg, cache = on_card.prefill(tokens[:, :37].to(card), 48, cache_dtype=torch.float32)
+    lg_cpu, cache_cpu = on_cpu.prefill(tokens[:, :37], 48, cache_dtype=torch.float32)
+    for i in range(37, 45):
+        torch.testing.assert_close(lg.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+        lg, cache = on_card.decode_step(cache, tokens[:, i : i + 1].to(card))
+        lg_cpu, cache_cpu = on_cpu.decode_step(cache_cpu, tokens[:, i : i + 1])
+        lg, lg_cpu = lg[:, 0], lg_cpu[:, 0]
+    for sec in cache:
+        for name, st in cache[sec].items():
+            for key, t in st.items():
+                torch.testing.assert_close(t.cpu(), cache_cpu[sec][name][key], atol=1e-4, rtol=1e-4)

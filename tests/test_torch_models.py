@@ -78,7 +78,7 @@ def test_prefill_attention_matches(pair):
     ap_j = cfg.attn_params("attn")
     x = np.random.default_rng(3).standard_normal((2, 24, 64)).astype(np.float32)
     yj, kj, vj = JL.attention(jblk["mixer"], jnp.asarray(x), ap_j, jm.policy, return_kv=True)
-    yt, kt, vt = TL.attention(tblk["mixer"], torch.from_numpy(x), tm.ap, return_kv=True)
+    yt, kt, vt = TL.attention(tblk["mixer"], torch.from_numpy(x), tm.cfg.attn_params("attn"), return_kv=True)
     for got, want in ((yt, yj), (kt, kj), (vt, vj)):
         _close(got, want)
 
@@ -98,7 +98,7 @@ def test_decode_attention_matches(pair, per_row):
     )
     tk, tv = torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy())
     yt, kt, vt = TL.decode_attention(
-        tblk["mixer"], torch.from_numpy(x), tk, tv, torch.as_tensor(pos), tm.ap
+        tblk["mixer"], torch.from_numpy(x), tk, tv, torch.as_tensor(pos), tm.cfg.attn_params("attn")
     )
     assert kt is tk and vt is tv  # written in place
     for got, want in ((yt, yj), (kt, kj), (vt, vj)):
@@ -120,7 +120,7 @@ def test_paged_decode_attention_matches(pair):
     )
     yt, kt, vt = TL.paged_decode_attention(
         tblk["mixer"], torch.from_numpy(x), torch.from_numpy(ck.copy()), torch.from_numpy(cv.copy()),
-        torch.from_numpy(pos), torch.from_numpy(bt), tm.ap,
+        torch.from_numpy(pos), torch.from_numpy(bt), tm.cfg.attn_params("attn"),
     )
     live = [0, 2]  # the idle row's output and its scratch-block write are discarded
     _close(yt[live], np.asarray(yj)[live])
@@ -178,7 +178,7 @@ def test_tied_dense_logits_match():
 
 def test_unported_configs_raise():
     base = TC.get_reduced("yi-6b")
-    for change in ({"pattern": ("local", "attn")}, {"embed_scale": True}, {"norm": "ln"}):
+    for change in ({"post_norms": True}, {"learned_pos": True}, {"norm": "ln"}):
         with pytest.raises(NotImplementedError):
             StreamModel(dataclasses.replace(base, **change), device="cpu")
 

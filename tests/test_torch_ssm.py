@@ -360,7 +360,7 @@ def test_bf16_prefill_and_decode_distance_from_jax():
 
 def test_unsupported_ssm_configs_raise():
     base = TC.get_reduced(ARCH)
-    for change in ({"ssm": None}, {"pattern": ("ssm", "attn")}, {"embed_scale": True}):
+    for change in ({"ssm": None}, {"enc_dec": True}, {"moe": object()}):
         with pytest.raises(NotImplementedError):
             StreamModel(dataclasses.replace(base, **change), device="cpu")
     with pytest.raises(NotImplementedError):
