@@ -13,49 +13,96 @@
 // Layout. q and o are (B, S, H, D) and k, v are (B, S, Kv, D) in memory
 // (the model's layout); the caller passes element strides for batch,
 // sequence and head, and the head_dim stride must be 1. Query head h
-// reads kv head h / (H / Kv): GQA needs no repeated copy of K/V.
+// reads kv head h / (H / Kv): GQA needs no repeated copy of K/V. Head
+// dims 64, 128 and 256 (recurrentgemma's local attention, window 2048).
 //
-// Shared design. One block per (64-query tile, head, batch). A loop over
-// 64-key tiles inside the block takes the place of the TPU grid's
-// sequential kv axis; tiles the causal or window mask rules out entirely
-// are never visited (the Pallas kernel's pl.when(needed)). S need not
-// divide the tile: keys past S score -inf (they add exactly 0 even while
-// a row's running max is still the -1e30 mask value) and rows past S are
-// not stored. Query tiles are issued last-first, so the causal tiles with
-// the most keys start first.
+// Shared design. A loop over key tiles inside each block takes the place
+// of the TPU grid's sequential kv axis; tiles the causal or window mask
+// rules out entirely are never visited (the Pallas kernel's
+// pl.when(needed)). S need not divide a tile: keys past S score -inf (they
+// add exactly 0 even while a row's running max is still the -1e30 mask
+// value) and rows past S are not stored.
 //
-// Head dims 64, 128 and 256 (recurrentgemma's local attention, whose
-// window of 2048 makes the skipped key tiles matter at S past it).
+// Bound. At the serving shapes (S 512 to 3000, D 128 or 256) the work is
+// 4*D flops per unmasked (query, key) pair and head against 2*D*(2H +
+// 2Kv) bytes a position: yi-6b at S 2000 does 32.8 GFLOP on 21 MB
+// (0.033 ms at 989 TFLOP/s against 0.006 ms at 3.35 TB/s),
+// recurrentgemma's wave 265 GFLOP on 55 MB (0.268 against 0.016 ms). Far
+// above the card's ridge: the bound is the tensor cores' rate, and the
+// design is about keeping them fed.
 //
-// Bound. At the serving shapes (S up to 3000, D 128 or 256) the work is
-// ~4*D*H flops per unmasked (query, key) pair against ~4*S*H*D*2 bytes:
-// hundreds of flops a byte, far above the card's ridge, so the kernel is
-// bound by operations.
+// bf16 (the serving path). It replaces a first version built on Ampere's
+// mma.sync.m16n8k16, with K and V staged through registers behind two
+// __syncthreads a key tile, Q re-read from shared memory at every k-step
+// and every score taken through the mask; that version ran at 12% of its
+// bound at yi-6b's S 2000 and 17% on recurrentgemma's wave. Here:
+//  - Blocks. One block per (query tile, head, batch): a producer
+//    warpgroup and CONSUMERS warpgroups of 64 query rows each (Tiles<D>).
+//    The grid's slowest axis is the query tile, last tile first, so that
+//    the causal blocks with the most key tiles start first across all
+//    heads and batches.
+//  - Loads. One thread of the producer brings Q once, then each key
+//    tile's K and V through a ring of STAGES slots in shared memory with
+//    TMA (cp.async.bulk.tensor, 128-byte swizzle, 64-column boxes, since
+//    a box row of a 128-byte swizzle holds at most 64 bf16). Each slot's
+//    K and V have their own full (transaction-count) and free mbarriers,
+//    so K is refilled as soon as its S product is done. Tensor maps are
+//    encoded on the host at each call from the caller's strides (4-d: D,
+//    S, heads, batch), so a box past S comes back zero-filled and never
+//    reads the next head; GQA picks kv head h / rep by coordinate.
+//    setmaxnreg hands the producer's registers to the consumers.
+//  - Products. S = Q.K^T is wgmma.mma_async with both operands in shared
+//    memory (K-major). P is rounded to bf16 in registers, where the
+//    accumulator layout of S is wgmma's register-A layout, and O += P.V
+//    is wgmma with A from registers and the (keys, D) V tile as the
+//    MN-major B operand.
+//  - Softmax in base 2, scale * log2(e) folded into one multiply (the
+//    softcap, when set, on every tile before the fold); the causal,
+//    window and ragged-edge masks only on tiles that straddle an edge.
+//  - Refinements, each a named constant below so that
+//    scripts/torch_kernel_ab.py --ablate can build the kernel without it
+//    and time both in turns (PERF.md): OVERLAP (a warpgroup issues tile
+//    i's S before tile i-1's PV and runs tile i's softmax while the PV
+//    runs) and PINGPONG (the two consumer warpgroups take turns to issue
+//    their products, so that one's softmax runs under the other's).
+//  - Measured choices (scripts/torch_kernel_ab.py on the H100, PERF.md):
+//    128-row query tiles at every D, since 64-row ones (one consumer
+//    warpgroup, twice the blocks) were 14-40% slower on the card at every
+//    path shape, yi-6b's S 512 (128 blocks on 132 SMs) too. Not measured
+//    against alternatives: two ring slots, the fewest that let a tile's
+//    loads run under the previous tile's products; key tiles of 128 at D
+//    64 / 128 and of 64 at D 256, where the 64 x 256 f32 O accumulator
+//    takes 128 registers a thread.
+// What is left between the kernel and its bound (it reaches 42% of it at
+// yi-6b's S 2000) is not measured apart: the softmax's exp2 work, the
+// causal blocks' unequal lengths and the epilogue's stores are the
+// candidates. At yi-6b's S 512 and 1000 a call takes longer to issue
+// from Python than the kernel runs.
 //
-// bf16 (the serving path): both products run on the tensor cores as
-// mma.sync.m16n8k16 with f32 accumulators. 4 warps own 16 query rows each;
-// Q's fragments are read from the shared Q tile at each k-step (held in
-// registers for the whole key loop beside a D-wide accumulator they would
-// spill at D 256), the scores of a 16 x 64 tile never leave registers (the
-// accumulator layout of QK^T is the operand layout of PV), and V's
-// fragments come from the row-major V tile through ldmatrix.trans. Tiles are staged with 16-byte loads, rows
-// padded by 8 elements so fragment loads hit 32 distinct banks. Loads do
-// not yet overlap the products (cp.async / TMA and wgmma come later).
+// ptxas (sm_90a, CUDA 12.8): bf16 at D 64, 128 and 256 launches at 168
+// registers a thread (setmaxnreg then gives the producer 40 and the
+// consumers 232), no spills, 16 barriers (the ping-pong's are named at run
+// time); dynamic shared memory 83,016 / 164,936 / 197,704 bytes, one
+// block an SM. f32 (unchanged): 80 / 112 / 127 registers, no spills.
 //
 // f32 (the checks at 2e-5): the products run as f32 FMAs on the CUDA
 // cores, 256 threads each holding a 4x4 block of scores and a 4x(D/16)
 // block of the accumulator; the tensor cores' TF32 would not hold 2e-5.
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched from the driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int BQ = 64;  // queries per block
-constexpr int BK = 64;  // keys per tile
+constexpr int BQ = 64;  // f32 path: queries per block
+constexpr int BK = 64;  // f32 path: keys per tile
 constexpr float MASKED = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
   int64_t b, s, h;  // element strides; head_dim stride is 1
@@ -76,12 +123,23 @@ struct Mask {
     return kj < S ? x : -INFINITY;  // past the ragged edge: no key at all
   }
 
-  // the key tiles some query in [q0, q0 + BQ) may attend to
+  // the TK-key tiles some query in [q0, q0 + TQ) may attend to
+  template <int TQ = BQ, int TK = BK>
   __device__ __forceinline__ int2 key_tiles(int q0) const {
-    const int q_last = min(q0 + BQ, S) - 1;
-    const int hi = causal ? q_last / BK : (S - 1) / BK;
-    const int lo = window > 0 ? max(0, q0 - window + 1) / BK : 0;
+    const int q_last = min(q0 + TQ, S) - 1;
+    const int hi = causal ? q_last / TK : (S - 1) / TK;
+    const int lo = window > 0 ? max(0, q0 - window + 1) / TK : 0;
     return make_int2(lo, hi);
+  }
+
+  // whether every (query, key) pair of the 64 rows from qw and the keys
+  // [k0, k0 + TK) is kept: no causal, window or ragged edge crosses them
+  template <int TK>
+  __device__ __forceinline__ bool interior(int qw, int k0) const {
+    const int q_last = min(qw + 63, S - 1);
+    if (k0 + TK > S) return false;
+    if (causal && k0 + TK - 1 > qw) return false;
+    return !(window > 0 && k0 <= q_last - window);
   }
 };
 
@@ -226,17 +284,92 @@ __global__ void __launch_bounds__(F32_THREADS)
   }
 }
 
-// ----------------------------------------------------------- bf16, tensor cores
+// ------------------------------------------------- bf16: Hopper primitives
 using bf16 = __nv_bfloat16;
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
 
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * (size_t(BQ) + 2 * size_t(BK)) * (D + 8);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+
+// arrive once and add `bytes` to the transactions the current phase awaits
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the phase of parity `parity` has completed (a fresh barrier
+// counts its phase of parity 1 as completed)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one (64 columns x rows) box of a 4-d tensor map into shared memory,
+// completing on `bar`; coordinates innermost first
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a tile in 128-byte-swizzled atoms (8
+// rows x 128 B, 1024-byte aligned, as TMA writes them). A K-major operand
+// steps 16 columns by adding 32 bytes to the start address (`lbo` unused);
+// for an MN-major one `lbo` is the distance between 64-column atom
+// columns and `sbo` between 8-row groups along K.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
+  d |= uint64_t((lbo >> 4) & 0x3FFF) << 16;
+  d |= uint64_t((sbo >> 4) & 0x3FFF) << 32;
+  d |= uint64_t(1) << 62;  // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of the warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pin registers that an asynchronous wgmma reads or writes, so that the
+// compiler neither moves nor reads them across its issue or its wait
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -244,197 +377,453 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a (16x16, row) . b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ float ex2(float x) {  // 2^x; -inf gives 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The wgmma shapes the kernel issues. Accumulator element 4j + 2r + c of a
+// thread (warp w, lane 4g + t of its warpgroup) is row 16w + g + 8r,
+// column 8j + 2t + c of the 64 x N tile.
+// d (+)= A . B^T for a 64 x 64 tile: A (64 x 16) and B (64 x 16) from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// four transposed 8x8 b16 matrices; lanes 8i..8i+7 address matrix i's rows
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
+// d (+)= A . B^T for a 64 x 128 tile: A (64 x 16) and B (128 x 16) from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// rows [r0, r0 + 64) of a (rows, D) bf16 matrix into a padded tile; rows
-// past S are zero. 16-byte copies: the wrapper checks the alignment.
+// d += A . B for a 64 x 64 tile: A (64 x 16 bf16) from registers, B (16 x 64) from shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A . B for a 64 x 128 tile: A (64 x 16 bf16) from registers, B (16 x 128) from shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ------------------------------------------------------ bf16: the kernel
+// Refinements over the plain pipeline; scripts/torch_kernel_ab.py --ablate
+// builds the kernel with each set to false and times it (PERF.md).
+constexpr bool OVERLAP = true;   // tile i's softmax runs under tile i-1's PV
+constexpr bool PINGPONG = true;  // the two consumer warpgroups take turns to issue
+
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* tile, const bf16* src, int64_t row_stride,
-                                          int r0, int S) {
-  constexpr int P = D + 8;
-  constexpr int CH = D / 8;  // 16-byte chunks a row
-  for (int idx = threadIdx.x; idx < 64 * CH; idx += MMA_THREADS) {
-    const int r = idx / CH, c = (idx % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(tile + r * P + c) = val;
-  }
+struct Tiles {
+  static constexpr int CONSUMERS = 2;                // warpgroups of 64 query rows
+  static constexpr int BM = 64 * CONSUMERS;          // queries a block
+  static constexpr int BN = D == 256 ? 64 : 128;     // keys a tile: S's accumulator beside O's
+  static constexpr int STAGES = 2;                   // K/V ring slots
+  static constexpr int ON = D == 256 ? 128 : D;      // O columns a PV wgmma
+  static constexpr int OH = D / ON;                  // PV wgmmas a k-step
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  static constexpr uint32_t Q_BYTES = BM * D * 2;
+  static constexpr uint32_t KV_BYTES = BN * D * 2;   // one K or V tile
+  static constexpr size_t SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES + 8 * (1 + 4 * STAGES);
+  // with two consumers, 384 threads launch at 168 registers; setmaxnreg
+  // moves the producer's share to the consumers (128 x 40 + 256 x 232)
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = 232;
+};
+
+// one arrival on `bar` from each warp of the calling warpgroup
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
 }
 
+// Shared memory: Q, then STAGES K tiles, then STAGES V tiles, then the
+// barriers. A (rows, D) tile is D / 64 atom columns of rows x 128 B each,
+// as TMA writes a 64-column box with 128-byte swizzle.
 template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                                const bf16* __restrict__ v, bf16* __restrict__ o, Strides sq,
-                                Strides sk, Strides sv, Strides so, int rep, Mask mask) {
-  constexpr int P = D + 8;    // padded row stride of the Q, K and V tiles
-  constexpr int KS = D / 16;  // k-steps of QK^T
-  constexpr int NT = BK / 8;  // 8-key column tiles of the scores
-  constexpr int OT = D / 8;   // 8-wide column tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // BQ x P
-  bf16* ks = qs + BQ * P;                         // BK x P
-  bf16* vs = ks + BK * P;                         // BK x P
+__global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
+    flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                                Strides so, int rep, Mask mask, float scale_log2) {
+  using T = Tiles<D>;
+  constexpr int BM = T::BM, BN = T::BN, ST = T::STAGES, ON = T::ON, OH = T::OH;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* ks = qs + T::Q_BYTES;
+  uint8_t* vs = ks + ST * T::KV_BYTES;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(vs + ST * T::KV_BYTES);
+  uint64_t* full_k = full_q + 1;  // a slot's K (or V) tile has landed
+  uint64_t* full_v = full_k + ST;
+  uint64_t* free_k = full_v + ST;  // every consumer warp is done with it
+  uint64_t* free_v = free_k + ST;
 
   const int S = mask.S;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // fragment row group and column pair
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bf16* kb = k + b * sk.b + (h / rep) * sk.h;
-  const bf16* vb = v + b * sv.b + (h / rep) * sv.h;
-  bf16* ob = o + b * so.b + h * so.h;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int2 kt = mask.key_tiles<BM, BN>(q0);
+  const int n_tiles = kt.y - kt.x + 1;  // visited from kt.y down to kt.x
+  const int wg = threadIdx.x / 128;
 
-  load_tile<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
-  // this warp's rows: g and g + 8 of its 16
-  const int row = warp * 16 + g;
-  const int qi[2] = {q0 + row, q0 + row + 8};
-
-  float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};  // l: this thread's share of the row
-  float acc[OT][4];
-#pragma unroll
-  for (int n = 0; n < OT; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int2 kt_range = mask.key_tiles(q0);
-  for (int kt = kt_range.x; kt <= kt_range.y; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile's K and V are no longer read
-    load_tile<D>(ks, kb, sk.s, k0, S);
-    load_tile<D>(vs, vb, sv.s, k0, S);
-    __syncthreads();  // K and V (and, before the first tile, Q) are in place
-
-    // scores: s[j] is the 16 x 8 tile of keys k0 + 8j ..; element e sits at
-    // row g + 8 (e / 2), key 2t + (e % 2)
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      // Q's fragment for this k-step, read from the Q tile: holding all KS
-      // of them for the whole key loop would spill at D 256
-      const bf16* pq = qs + row * P + kk * 16 + 2 * t;
-      const uint32_t qf[4] = {ld32(pq), ld32(pq + 8 * P), ld32(pq + 8), ld32(pq + 8 * P + 8)};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const bf16* p = ks + (8 * j + g) * P + kk * 16 + 2 * t;
-        mma_bf16(s[j], qf, ld32(p), ld32(p + 8));
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&free_k[s], 4 * T::CONSUMERS);  // one arrival per consumer warp
+      mbar_init(&free_v[s], 4 * T::CONSUMERS);
     }
-
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = mask.apply(s[j][e], qi[e / 2], k0 + 8 * j + 2 * t + (e % 2));
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    float corr[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {  // the 4 lanes of a quad share a row
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      corr[r] = expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= corr[r];
-    }
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m[e / 2]);
-        l[e / 2] += s[j][e];
-      }
-#pragma unroll
-    for (int n = 0; n < OT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[n][e] *= corr[e / 2];
-
-    // acc += p . V, 16 keys a step; p's accumulator layout is mma's A layout
-    const int mi = lane / 8, ri = lane % 8;  // ldmatrix: matrix and row this lane addresses
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < OT; n += 2) {
-        uint32_t bv[4];  // keys +0..7 / +8..15 of columns 8n.., then of 8(n+1)..
-        ldmatrix_x4_trans(bv, vs + (kk * 16 + (mi & 1) * 8 + ri) * P + (n + (mi >> 1)) * 8);
-        mma_bf16(acc[n], a, bv[0], bv[1]);
-        mma_bf16(acc[n + 1], a, bv[2], bv[3]);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full
+    if constexpr (T::CONSUMERS == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(T::PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, T::Q_BYTES);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
+      for (int d = 0; d < D / 64; ++d) tma_load(qs + d * BM * 128, &tq, full_q, d * 64, q0, h, b);
+      const int hk = h / rep;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % ST;
+        const uint32_t free_parity = ((i / ST) & 1) ^ 1;
+        const int k0 = (kt.y - i) * BN;
+        mbar_wait(&free_k[s], free_parity);
+        mbar_expect_tx(&full_k[s], T::KV_BYTES);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (qi[r] >= S) continue;
-    const float safe = l[r] == 0.f ? 1.f : l[r];
-    bf16* dst = ob + qi[r] * so.s + 2 * t;
+        for (int d = 0; d < D / 64; ++d)
+          tma_load(ks + s * T::KV_BYTES + d * BN * 128, &tk, &full_k[s], d * 64, k0, hk, b);
+        mbar_wait(&free_v[s], free_parity);
+        mbar_expect_tx(&full_v[s], T::KV_BYTES);
 #pragma unroll
-    for (int n = 0; n < OT; ++n)
-      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
-          pack_bf16(acc[n][2 * r] / safe, acc[n][2 * r + 1] / safe);
+        for (int d = 0; d < D / 64; ++d)
+          tma_load(vs + s * T::KV_BYTES + d * BN * 128, &tv, &full_v[s], d * 64, k0, hk, b);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns the query rows qw .. qw + 63
+    if constexpr (T::CONSUMERS == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::CONSUMER_REGS));
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int qw = q0 + 64 * cw;
+    const int qi0 = qw + 16 * warp + g;  // this thread's rows: qi0 and qi0 + 8
+    const uint8_t* q_rows = qs + cw * 64 * 128;
+
+    float acc[OH][ON / 2];  // O: column 8j + 2t + c of row r in acc[j / (ON / 8)][4 (j % (ON / 8)) + 2r + c]
+#pragma unroll
+    for (int x = 0; x < OH; ++x)
+#pragma unroll
+      for (int y = 0; y < ON / 2; ++y) acc[x][y] = 0.f;
+    float m[2] = {MASKED, MASKED}, l[2] = {0.f, 0.f};  // l: this thread's share of the row
+    uint32_t pa[BN / 16][4];  // p of the tile whose PV is next, as wgmma's A fragments
+
+    // S = Q . K^T of the K tile in slot `slot`: D / 16 k-steps
+    auto issue_s = [&](float (&sc)[BN / 2], int slot) {
+      const uint64_t da = sw128_desc(q_rows, 16, 1024);
+      const uint64_t db = sw128_desc(ks + slot * T::KV_BYTES, 16, 1024);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        // descriptor addresses count 16-byte units
+        const uint64_t a = da + (kk / 4) * (BM * 8) + (kk % 4) * 2;
+        const uint64_t bb = db + (kk / 4) * (BN * 8) + (kk % 4) * 2;
+        if constexpr (BN == 128)
+          wgmma_ss_n128(sc, a, bb, kk > 0);
+        else
+          wgmma_ss_n64(sc, a, bb, kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P . V of the V tile in slot `slot`: BN / 16 k-steps of 16 keys
+    auto issue_pv = [&](int slot) {
+      const uint64_t db = sw128_desc(vs + slot * T::KV_BYTES, BN * 128, 1024);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int x = 0; x < OH; ++x) {
+          const uint64_t bb = db + x * (ON / 64) * (BN * 8) + kk * 128;
+          if constexpr (ON == 128)
+            wgmma_rs_n128(acc[x], pa[kk], bb);
+          else
+            wgmma_rs_n64(acc[x], pa[kk], bb);
+        }
+      wgmma_commit();
+    };
+    // the tile's scores into p (in place, base 2), the running max and sum;
+    // leaves each row's correction of the earlier tiles in corr
+    auto softmax = [&](float (&sc)[BN / 2], int k0, float (&corr)[2]) {
+      if (mask.softcap > 0.f) {
+        const float inv_cap = mask.scale / mask.softcap, cap_log2 = mask.softcap * LOG2E;
+#pragma unroll
+        for (int x = 0; x < BN / 2; ++x) sc[x] = cap_log2 * tanhf(sc[x] * inv_cap);
+      } else {
+#pragma unroll
+        for (int x = 0; x < BN / 2; ++x) sc[x] *= scale_log2;
+      }
+      if (!mask.interior<BN>(qw, k0)) {  // the per-element mask only where an edge crosses
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qi = qi0 + 8 * (e / 2), kj = k0 + 8 * j + 2 * t + (e % 2);
+            bool ok = true;
+            if (mask.causal) ok = kj <= qi;
+            if (mask.window > 0) ok = ok && kj > qi - mask.window;
+            const float x = ok ? sc[4 * j + e] : MASKED;
+            sc[4 * j + e] = kj < S ? x : -INFINITY;
+          }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int x = 0; x < BN / 2; ++x) mx[(x / 2) % 2] = fmaxf(mx[(x / 2) % 2], sc[x]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // the 4 lanes of a quad share a row
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        corr[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+        l[r] *= corr[r];
+      }
+#pragma unroll
+      for (int x = 0; x < BN / 2; ++x) {
+        sc[x] = ex2(sc[x] - m[(x / 2) % 2]);
+        l[(x / 2) % 2] += sc[x];
+      }
+    };
+    // p rounded to bf16 as wgmma's A fragments: k-step kk of the PV covers
+    // the score column blocks 2kk and 2kk + 1
+    auto pack_p = [&](const float (&sc)[BN / 2]) {
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        pa[j / 2][(j % 2) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+      }
+    };
+    // PINGPONG: warpgroup cw waits on named barrier 1 + cw before it
+    // issues and then lets the other one issue. Both walk the same key
+    // tiles, n_tiles + 1 turns each; a tile that adds nothing to a
+    // warpgroup's rows is masked whole (its weights vanish once the row
+    // meets its first kept key). Warpgroup 0 goes first.
+    auto my_turn = [&]() {
+      if constexpr (PINGPONG && T::CONSUMERS == 2)
+        asm volatile("bar.sync %0, 256;\n" ::"r"(1 + cw) : "memory");
+    };
+    auto their_turn = [&]() {
+      if constexpr (PINGPONG && T::CONSUMERS == 2)
+        asm volatile("bar.arrive %0, 256;\n" ::"r"(2 - cw) : "memory");
+    };
+    if (cw == 1) their_turn();
+
+    mbar_wait(full_q, 0);
+    {  // the first tile: its S alone
+      float sc[BN / 2], corr[2];
+      mbar_wait(&full_k[0], 0);
+      my_turn();
+      wgmma_fence();
+      issue_s(sc, 0);
+      their_turn();
+      wgmma_wait<0>();
+      pin(sc);
+      warp_arrive(&free_k[0]);
+      softmax(sc, kt.y * BN, corr);
+      pack_p(sc);
+    }
+    for (int i = 1; i < n_tiles; ++i) {
+      // tile i's S and tile i-1's PV in one turn
+      const int s = i % ST, prev = (i - 1) % ST;
+      float sc[BN / 2], corr[2];
+      mbar_wait(&full_k[s], (i / ST) & 1);
+      mbar_wait(&full_v[prev], ((i - 1) / ST) & 1);
+      my_turn();
+      pin(pa);
+#pragma unroll
+      for (int x = 0; x < OH; ++x) pin(acc[x]);
+      wgmma_fence();
+      issue_s(sc, s);
+      issue_pv(prev);
+      their_turn();
+      wgmma_wait<OVERLAP ? 1 : 0>();  // S is done; with OVERLAP the PV may still run
+      pin(sc);
+      warp_arrive(&free_k[s]);
+      softmax(sc, (kt.y - i) * BN, corr);
+      wgmma_wait<0>();  // the PV is done: its V slot and pa are free
+#pragma unroll
+      for (int x = 0; x < OH; ++x) pin(acc[x]);
+      pin(pa);
+      warp_arrive(&free_v[prev]);
+#pragma unroll
+      for (int x = 0; x < OH; ++x)
+#pragma unroll
+        for (int y = 0; y < ON / 2; ++y) acc[x][y] *= corr[(y / 2) % 2];
+      pack_p(sc);
+    }
+    {  // the last tile's PV alone
+      const int last = n_tiles - 1;
+      mbar_wait(&full_v[last % ST], (last / ST) & 1);
+      my_turn();
+      pin(pa);
+#pragma unroll
+      for (int x = 0; x < OH; ++x) pin(acc[x]);
+      wgmma_fence();
+      issue_pv(last % ST);
+      if (cw == 0) their_turn();  // warpgroup 1's last turn: nobody waits for it
+      wgmma_wait<0>();
+#pragma unroll
+      for (int x = 0; x < OH; ++x) pin(acc[x]);
+      pin(pa);
+    }
+
+    // O = acc / l, rows past S not stored; a quad writes 16 bytes of a row
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = qi0 + 8 * r;
+      if (qi >= S) continue;
+      const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
+      bf16* dst = o + b * so.b + h * so.h + qi * so.s + 2 * t;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int x = j / (ON / 8), y = 4 * (j % (ON / 8)) + 2 * r;
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(acc[x][y] * inv, acc[x][y + 1] * inv);
+      }
+    }
   }
 }
 
-template <typename T>
-using Kernel = void (*)(const T*, const T*, const T*, T*, Strides, Strides, Strides, Strides,
-                        int, Mask);
+// ------------------------------------------------------------------ host
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-template <typename T>
-cudaError_t launch(Kernel<T> kern, int threads, size_t smem, const void* q, const void* k,
-                   const void* v, void* o, Strides sq, Strides sk, Strides sv, Strides so,
-                   int B, int H, int rep, Mask mask, cudaStream_t stream) {
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so the
+// library needs no -lcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a bf16 (D, S, heads, B) view with the caller's element
+// strides (innermost first), read in boxes of 64 columns x `rows` with
+// 128-byte swizzle; elements past an extent read as zero. TMA takes
+// strides that are positive multiples of 16 bytes (the wrapper checks); a
+// dimension of extent 1 is never stepped, so its stride is replaced by one
+// that TMA takes, whatever the caller's.
+bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B, Strides st,
+              int rows) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(heads), cuuint64_t(B)};
+  cuuint64_t strides[3] = {cuuint64_t(st.s) * 2, cuuint64_t(st.h) * 2, cuuint64_t(st.b) * 2};
+  cuuint64_t any = cuuint64_t(D) * 2;
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] > 1 && strides[i] > any) any = strides[i];
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] == 1) strides[i] = any;
+  const cuuint32_t box[4] = {64, cuuint32_t(rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The dynamic shared-memory limit is an attribute of the current card's
+// context: raise it once for each card a kernel is launched on (the call
+// costs host time at every launch otherwise).
+cudaError_t size_smem_once(const void* kern, int bytes, std::atomic<uint64_t>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;  // past 64 cards: set at every call
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, Strides sq,
+                        Strides sk, Strides sv, Strides so, int B, int H, int KV, Mask mask,
+                        cudaStream_t stream) {
+  using T = Tiles<D>;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, D, mask.S, H, B, sq, T::BM) ||
+      !make_map(&mk, k, D, mask.S, KV, B, sk, T::BN) ||
+      !make_map(&mv, v, D, mask.S, KV, B, sv, T::BN))
+    return cudaErrorInvalidValue;
+  auto kern = flash_attention_bf16_kernel<D>;
+  static std::atomic<uint64_t> sized{0};  // the cards whose shared-memory limit is raised
+  const cudaError_t err = size_smem_once(reinterpret_cast<const void*>(kern), int(T::SMEM), sized);
+  if (err != cudaSuccess) return err;
+  // the query tile is the slowest axis: each wave of blocks mixes heads
+  const dim3 grid(H, B, (mask.S + T::BM - 1) / T::BM);
+  kern<<<grid, T::THREADS, T::SMEM, stream>>>(mq, mk, mv, static_cast<bf16*>(o), so, H / KV, mask,
+                                              mask.scale * LOG2E);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, Strides sq,
+                       Strides sk, Strides sv, Strides so, int B, int H, int rep, Mask mask,
+                       cudaStream_t stream) {
+  auto kern = flash_attention_f32_kernel<D>;
+  const size_t smem = f32_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kern),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((mask.S + BQ - 1) / BQ, H, B);
-  kern<<<grid, threads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                        static_cast<const T*>(v), static_cast<T*>(o), sq, sk,
-                                        sv, so, rep, mask);
+  kern<<<grid, F32_THREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                            static_cast<const float*>(v), static_cast<float*>(o), sq,
+                                            sk, sv, so, rep, mask);
   return cudaGetLastError();
 }
 
 // dtype: 0 = float32, 1 = bfloat16
 template <int D>
 cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v, void* o, Strides sq,
-                     Strides sk, Strides sv, Strides so, int B, int H, int rep, Mask mask,
+                     Strides sk, Strides sv, Strides so, int B, int H, int KV, Mask mask,
                      cudaStream_t stream) {
-  if (dtype == 0)
-    return launch<float>(flash_attention_f32_kernel<D>, F32_THREADS, f32_smem_bytes<D>(), q, k, v,
-                         o, sq, sk, sv, so, B, H, rep, mask, stream);
-  if (dtype == 1)
-    return launch<bf16>(flash_attention_bf16_kernel<D>, MMA_THREADS, mma_smem_bytes<D>(), q, k, v,
-                        o, sq, sk, sv, so, B, H, rep, mask, stream);
+  if (dtype == 0) return launch_f32<D>(q, k, v, o, sq, sk, sv, so, B, H, H / KV, mask, stream);
+  if (dtype == 1) return launch_bf16<D>(q, k, v, o, sq, sk, sv, so, B, H, KV, mask, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -443,7 +832,9 @@ cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v, voi
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0 mean none.
-// Returns cudaGetLastError() after the launch (0 on success).
+// bf16 reads through TMA: 16-byte aligned data, strides positive multiples
+// of 8 elements where the extent is above 1 (the wrapper checks). Returns
+// cudaGetLastError() after the launch (0 on success).
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
                               int B, int H, int KV, int S, int D, int64_t q_sb, int64_t q_ss,
                               int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -454,15 +845,14 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void*
   const Strides sq{q_sb, q_ss, q_sh}, sk{k_sb, k_ss, k_sh}, sv{v_sb, v_ss, v_sh},
       so{o_sb, o_ss, o_sh};
   const Mask mask{S, causal, window, scale, softcap};
-  const int rep = H / KV;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return int(dispatch<64>(dtype, q, k, v, o, sq, sk, sv, so, B, H, rep, mask, st));
+      return int(dispatch<64>(dtype, q, k, v, o, sq, sk, sv, so, B, H, KV, mask, st));
     case 128:
-      return int(dispatch<128>(dtype, q, k, v, o, sq, sk, sv, so, B, H, rep, mask, st));
+      return int(dispatch<128>(dtype, q, k, v, o, sq, sk, sv, so, B, H, KV, mask, st));
     case 256:
-      return int(dispatch<256>(dtype, q, k, v, o, sq, sk, sv, so, B, H, rep, mask, st));
+      return int(dispatch<256>(dtype, q, k, v, o, sq, sk, sv, so, B, H, KV, mask, st));
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -113,3 +113,81 @@ def test_flash_attention_rejects_bad_inputs(bad):
     with pytest.raises((TypeError, ValueError)):
         fa.flash_attention(q, k, v)
 
+
+
+def _view(shape, stride, offset=0, dtype=torch.bfloat16):
+    """A (B, heads, S, D) view with element ``stride`` into a fresh buffer,
+    ``offset`` elements from its start."""
+    n = offset + 1 + sum((d - 1) * st for d, st in zip(shape, stride))
+    return torch.zeros(n, dtype=dtype).as_strided(shape, stride, offset)
+
+
+def _fused_qkv(b, s, h, kv, d):
+    """q, k, v as slices of one (B, S, H + 2 Kv, D) projection, in (B, heads, S, D)."""
+    buf = torch.zeros((b, s, h + 2 * kv, d), dtype=torch.bfloat16)
+    return tuple(t.transpose(1, 2) for t in (buf[:, :, :h], buf[:, :, h:h + kv], buf[:, :, h + kv:]))
+
+
+@pytest.mark.parametrize("case", [
+    "contiguous", "heads_major", "fused_qkv", "padded_heads", "batch_1_odd_batch_stride",
+    "heads_1_odd_head_stride", "f32_any_stride",
+])
+def test_check_layout_accepts(case):
+    """Layouts the CUDA kernel takes: head_dim contiguous; in bf16 a 16-byte
+    aligned base and positive strides in multiples of 8 elements, except
+    along an axis of extent 1, which is never stepped."""
+    views = {
+        "contiguous": lambda: [torch.zeros((2, 64, 8, 128), dtype=torch.bfloat16).transpose(1, 2)],
+        "heads_major": lambda: [torch.zeros((2, 8, 64, 256), dtype=torch.bfloat16)],
+        "fused_qkv": lambda: list(_fused_qkv(2, 50, 8, 2, 128)),
+        "padded_heads": lambda: [torch.zeros((1, 40, 4, 192), dtype=torch.bfloat16)[..., :128].transpose(1, 2)],
+        "batch_1_odd_batch_stride": lambda: [_view((1, 4, 40, 64), (3, 64, 256, 1))],
+        "heads_1_odd_head_stride": lambda: [_view((2, 1, 40, 64), (40 * 64, 5, 64, 1))],
+        "f32_any_stride": lambda: [_view((2, 3, 40, 64), (3 * 40 * 68, 68, 3 * 68, 1), dtype=torch.float32)],
+    }[case]()
+    for t in views:
+        fa.check_layout("t", t.shape, t.stride(), t.data_ptr(), t.dtype)
+
+
+@pytest.mark.parametrize("case", [
+    "head_dim_96", "head_dim_strided", "misaligned_base", "seq_stride_not_in_8s",
+    "head_stride_not_in_8s", "zero_seq_stride", "zero_head_stride",
+])
+def test_check_layout_refuses(case):
+    """Layouts the CUDA kernel does not take raise ValueError before any
+    launch: a head_dim other than 64/128/256 or not contiguous; in bf16 a
+    base off 16 bytes, or a stride of an axis longer than 1 that is not a
+    positive multiple of 8 elements (TMA's 16 bytes)."""
+    t = {
+        "head_dim_96": lambda: torch.zeros((1, 4, 40, 96), dtype=torch.bfloat16),
+        "head_dim_strided": lambda: torch.zeros((1, 4, 64, 40), dtype=torch.float32).transpose(2, 3),
+        "misaligned_base": lambda: _view((1, 4, 40, 64), (4 * 40 * 64, 40 * 64, 64, 1), offset=1),
+        "seq_stride_not_in_8s": lambda: _view((1, 4, 40, 64), (40 * 260, 64, 260, 1)),
+        "head_stride_not_in_8s": lambda: _view((1, 4, 40, 64), (40 * 4 * 72, 68, 4 * 72, 1)),
+        "zero_seq_stride": lambda: torch.zeros((1, 4, 1, 64), dtype=torch.bfloat16).expand(1, 4, 40, 64),
+        "zero_head_stride": lambda: torch.zeros((1, 1, 40, 64), dtype=torch.bfloat16).expand(1, 4, 40, 64),
+    }[case]()
+    with pytest.raises(ValueError):
+        fa.check_layout("t", t.shape, t.stride(), t.data_ptr(), t.dtype)
+
+
+@pytest.mark.parametrize("arch,head_dim", [("yi-6b", 128), ("recurrentgemma-9b", 256)])
+def test_check_layout_accepts_the_models_views(arch, head_dim):
+    """The q, k, v views the model hands the kernel (``_project_qkv``, then
+    ``attention_op``'s transpose) in bf16, at the published head dims."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import StreamModel
+    from repro_torch.models.policy import Policy
+
+    cfg = dataclasses.replace(configs.get_reduced(arch), head_dim=head_dim)
+    model = StreamModel(cfg, Policy(compute_dtype="bfloat16"), device="cpu", generator=0)
+    kind, _, _, _, p = next(layer for layer in model._layer_params() if layer[0] in ("attn", "local"))
+    x = torch.randn((2, 37, cfg.d_model), generator=torch.Generator().manual_seed(0)).bfloat16()
+    q, k, v = L._project_qkv(p["mixer"], x, cfg.attn_params(kind), torch.arange(37))
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        t = t.transpose(1, 2)
+        assert t.dtype == torch.bfloat16 and t.shape[-1] == head_dim
+        fa.check_layout(name, t.shape, t.stride(), t.data_ptr(), t.dtype)

@@ -70,12 +70,105 @@ def test_flash_attention_kernel_on_card(card, dtype, s, h, kv, d, causal, window
 
 
 def test_bf16_kernel_rejects_misaligned_rows(card):
-    """The bf16 kernel stages rows with 16-byte loads: a head stride that
-    is not a multiple of 8 elements raises before any launch."""
+    """The bf16 kernel reads through TMA, whose strides are multiples of
+    16 bytes: a head stride that is not a multiple of 8 elements raises
+    before any launch."""
     q, k, v = _inputs(4, 1, 64, 4, 4, 68, "bfloat16", card)
     before = fa.LAUNCHES
     with pytest.raises(ValueError):
         attention_op(q[..., :64], k[..., :64], v[..., :64])
+    assert fa.LAUNCHES == before
+
+
+def _hold_attention(q, k, v, causal=True, window=None, cap=None):
+    """attention_op on the card against ref.mha on repeated K/V, at
+    chip_smoke.py's criterion |got - want| <= tol + tol |want|; one launch."""
+    h, kv = q.shape[2], k.shape[2]
+    before = fa.LAUNCHES
+    got = attention_op(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    kr, vr = kt.repeat_interleave(h // kv, 1), vt.repeat_interleave(h // kv, 1)
+    want = ref.mha(qt, kr, vr, causal=causal, window=window, softcap=cap).transpose(1, 2)
+    tol = TOL[str(q.dtype).removeprefix("torch.")]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# The bf16 kernel's tiles: 128 query rows a block (two warpgroups of 64),
+# key tiles of 128 at D 64 / 128 and 64 at D 256; S around each edge
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 1000, 2047])
+def test_flash_attention_bf16_tile_edges(card, s, d):
+    """Ragged S at and around the query and key tiles' edges, causal."""
+    _hold_attention(*_inputs(s + d, 2, s, 4, 2, d, "bfloat16", card))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("window", [127, 128, 129])
+def test_flash_attention_bf16_window_edges(card, window, d, causal):
+    """Windows one short of, at and one past a tile, causal or not: the
+    window's edge cuts key tiles the kernel masks, and tiles wholly outside
+    it are skipped."""
+    _hold_attention(*_inputs(window + d, 1, 700, 4, 1, d, "bfloat16", card), causal=causal, window=window)
+
+
+@pytest.mark.parametrize("rep", [1, 4, 16])
+def test_flash_attention_bf16_gqa(card, rep):
+    """Query head h reads kv head h // rep through the tensor maps' coordinates."""
+    _hold_attention(*_inputs(rep, 1, 300, 16, 16 // rep, 128, "bfloat16", card))
+
+
+@pytest.mark.parametrize("d,s,causal", [(128, 512, False), (128, 1000, True), (256, 512, False)])
+def test_flash_attention_bf16_softcap(card, d, s, causal):
+    """Softcap 50 applies on every tile, the interior ones (no mask) too."""
+    q, k, v = _inputs(d + s, 1, s, 4, 2, d, "bfloat16", card)
+    _hold_attention(q * 8, k * 8, v, causal=causal, cap=50.0)  # scores of tens: the cap bites
+
+
+def _strided_views(case, b, s, h, kv, d, device):
+    """(q, k, v) in model layout (B, S, heads, D), not contiguous."""
+    rng = np.random.default_rng(17)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, torch.bfloat16)
+
+    if case == "fused_qkv":  # slices of one (B, S, H + 2 Kv, D) projection
+        buf = t(b, s, h + 2 * kv, d)
+        return buf[:, :, :h], buf[:, :, h:h + kv], buf[:, :, h + kv:]
+    if case == "padded_heads":  # rows of D + 64, the last 64 unused
+        return t(b, s, h, d + 64)[..., :d], t(b, s, kv, d + 64)[..., :d], t(b, s, kv, d + 64)[..., :d]
+    # heads-major memory: (B, heads, S, D) tensors seen in model layout
+    return t(b, h, s, d).transpose(1, 2), t(b, kv, s, d).transpose(1, 2), t(b, kv, s, d).transpose(1, 2)
+
+
+@pytest.mark.parametrize("d", [128, 256])
+@pytest.mark.parametrize("case", ["fused_qkv", "padded_heads", "heads_major"])
+def test_flash_attention_bf16_strided_views(card, case, d):
+    """Non-contiguous q, k, v views, read through the strides in the tensor maps."""
+    q, k, v = _strided_views(case, 2, 333, 8, 2, d, card)
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    _hold_attention(q, k, v)
+
+
+@pytest.mark.parametrize("case", ["misaligned_base", "seq_stride_not_in_8s", "zero_seq_stride", "head_dim_96"])
+def test_flash_attention_bf16_rejects_layouts_tma_does_not_take(card, case):
+    """What TMA does not take raises before any launch."""
+    q, k, v = _inputs(4, 1, 64, 4, 4, 64, "bfloat16", card)
+    if case == "misaligned_base":  # one element past a 16-byte boundary
+        flat = torch.zeros(q.numel() + 1, dtype=q.dtype, device=card)
+        q = flat[1:].view(q.shape)
+    elif case == "seq_stride_not_in_8s":
+        q = torch.zeros((1, 64, 4 * 64 + 4), dtype=q.dtype, device=card)[..., :256].unflatten(-1, (4, 64))
+    elif case == "zero_seq_stride":
+        k = k[:, :1].expand(k.shape)
+    else:
+        q, k, v = (torch.zeros((1, 64, 4, 96), dtype=q.dtype, device=card) for _ in range(3))
+    before = fa.LAUNCHES
+    with pytest.raises(ValueError):
+        attention_op(q, k, v)
     assert fa.LAUNCHES == before
 
 
