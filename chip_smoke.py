@@ -85,6 +85,12 @@ RG_PROMPT_LEN = 3000
 # the order of rms(h))
 RGLRU_TOL = 1e-5
 RGLRU_F64_TOL = 1e-4
+# K2's checks beside its path's own calls, (b, s, h, p, n, g, chunk), each
+# in f32 and bf16 with a random initial state that the tests' slow decays
+# carry a long way: tests/test_kernels.py:49-53's shapes (G = 1, 2 and H)
+# and a ragged S
+SSD_SWEEP = ((1, 128, 2, 32, 64, 1, 32), (2, 256, 4, 64, 128, 2, 64), (1, 64, 4, 16, 32, 4, 64),
+             (2, 1000, 8, 64, 128, 1, 256))
 
 
 def card_line() -> str:
@@ -312,15 +318,10 @@ def phase_ssd_kernel(card, ref):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = []
-    # tests/test_kernels.py:49-53's shapes (G = 1, 2 and H), with an initial
-    # state that the tests' slow decays carry a long way
-    for b, h, s, p, n, g, chunk in ((1, 2, 128, 32, 64, 1, 32), (2, 4, 256, 64, 128, 2, 64),
-                                    (1, 4, 64, 16, 32, 4, 64)):
+    for b, s, h, p, n, g, chunk in SSD_SWEEP:
         for dtype in ("float32", "bfloat16"):
             rows.append(check_ssd(card, ref, b, s, h, p, n, g, chunk, dtype, "random", gen, False))
-    # ragged S with an initial state; the teacher-forced forward's own shape
-    for dtype in ("float32", "bfloat16"):
-        rows.append(check_ssd(card, ref, 2, 1000, 8, 64, 128, 1, 256, dtype, "random", gen, False))
+    # the teacher-forced forward's own shape
     rows.append(check_ssd(card, ref, 1, SSM_PROMPT_LEN + 15, 80, 64, 128, 1, 256, "bfloat16",
                           None, gen, False, model_decays=True))
     # the serving path's calls: one per layer, the wave's 4 prompts, the

@@ -43,8 +43,8 @@ def _kernel_class(name: str) -> str:
     n = name.lower()
     if "flash_attention" in n:
         return "flash_attention (this repo's kernel)"
-    if "ssd_scan" in n:
-        return "ssd_scan (this repo's kernel)"
+    if any(t in n for t in ("ssd_scan", "ssd_chunk_states", "ssd_state_pass", "ssd_chunk_out")):
+        return "ssd_scan (this repo's kernel)"  # f32: one kernel; bf16: its three phases
     if "rglru_scan" in n:
         return "rglru_scan (this repo's kernel)"
     if any(t in n for t in ("gemm", "cutlass", "sm90_xmma", "nvjet", "cublas")):

@@ -248,6 +248,128 @@ def test_ssd_kernel_rejects_unsupported_shapes(card):
     assert K2.LAUNCHES == before
 
 
+# the bf16 kernel's edges (chunk-parallel, wgmma): each call held to its
+# plain version by chip_smoke.check_ssd's two criteria at SSD_TOL, the
+# error relative to max(|want|.max(), 1) and, element by element,
+# |got - want| <= tol (rms(want) + |want|); dt on the bf16 grid, where the
+# plain version's x * dt rounding (ref.py:62) and the kernel's
+# (ssd_scan.py:117) are the same number
+def _bf16_case(seed, b, s, h, p, n, g, state, device):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+
+    x, bm, cm = t(b, s, h, p).bfloat16(), t(b, s, g, n).bfloat16(), t(b, s, g, n).bfloat16()
+    dt = torch.nn.functional.softplus(t(b, s, h)).bfloat16().float()
+    A = -torch.exp(t(h))
+    st0 = {None: None, "zero": torch.zeros((b, h, n, p), device=device), "random": t(b, h, n, p)}[state]
+    return x, dt, A, bm, cm, st0
+
+
+def _held(got, want, tol):
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    rel = float(err.max()) / max(float(want.abs().max()), 1.0)
+    el = float((err / (float(want.square().mean().sqrt()) + want.abs())).max())
+    return bool(torch.isfinite(got).all()) and rel < tol and el <= tol, (rel, el)
+
+
+def _hold_ssd(x, dt, A, bm, cm, st0, chunk, tol=SSD_TOL["bfloat16"]):
+    """One kernel call (one launch counted) against ref.ssd; returns (y, state)."""
+    before = K2.LAUNCHES
+    y, st = ssd_op(x, dt, A, bm, cm, st0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K2.LAUNCHES == before + 1
+    assert y.shape == x.shape and y.dtype == x.dtype and st.dtype == torch.float32
+    rep = x.shape[2] // bm.shape[2]
+    yr, sr = ref.ssd(
+        x.transpose(1, 2), dt.transpose(1, 2), A, bm.transpose(1, 2).repeat_interleave(rep, 1),
+        cm.transpose(1, 2).repeat_interleave(rep, 1), st0,
+    )
+    for name, got, want in (("y", y, yr.transpose(1, 2)), ("state", st, sr)):
+        ok, errs = _held(got, want, tol)
+        assert ok, (name, errs)
+    return y, st
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 255, 256, 257, 2000, 2015])
+def test_ssd_bf16_sequence_edges(card, s):
+    """S at the 64-row tiles' and the 256-position chunks' edges, and the
+    serving and forward lengths; a random initial state."""
+    _hold_ssd(*_bf16_case(s, 1, s, 4, 64, 128, 1, "random", card), chunk=256)
+
+
+@pytest.mark.parametrize("chunk", [8, 64, 100, 256])
+def test_ssd_bf16_chunks(card, chunk):
+    """Chunks that are shorter than a tile, one tile, ragged (100) and
+    four tiles, over a ragged S."""
+    _hold_ssd(*_bf16_case(chunk, 2, 300, 4, 64, 128, 2, "random", card), chunk=chunk)
+
+
+@pytest.mark.parametrize("g", [1, 2, 8])
+def test_ssd_bf16_groups(card, g):
+    """B and C of head h from group h // (H / G): one group, two, one a head."""
+    _hold_ssd(*_bf16_case(3 + g, 2, 200, 8, 32, 64, g, "random", card), chunk=64)
+
+
+@pytest.mark.parametrize("n", [16, 64, 128])
+@pytest.mark.parametrize("p", [16, 32, 64])
+def test_ssd_bf16_head_and_state_dims(card, p, n):
+    """P padded to 64 and N to a multiple of 64 inside; only the real ones stored."""
+    _hold_ssd(*_bf16_case(p + n, 1, 150, 4, p, n, 2, "random", card), chunk=128)
+
+
+@pytest.mark.parametrize("state", [None, "zero", "random"])
+def test_ssd_bf16_initial_state(card, state):
+    _hold_ssd(*_bf16_case(11, 2, 520, 8, 64, 128, 1, state, card), chunk=256)
+
+
+@pytest.mark.parametrize("chunk", [8, 64, 100])
+def test_ssd_bf16_chunk_invariance(card, chunk):
+    """y and the final state do not depend on the chunk beyond the bf16 gate."""
+    args = _bf16_case(5, 1, 333, 4, 64, 128, 1, "random", card)
+    y0, st0 = ssd_op(*args, chunk=256)
+    y, st = ssd_op(*args, chunk=chunk)
+    for got, want in ((y, y0), (st, st0)):
+        ok, errs = _held(got, want, SSD_TOL["bfloat16"])
+        assert ok, errs
+
+
+@pytest.mark.parametrize("case", ["fused_bc", "heads_major_x"])
+def test_ssd_bf16_strided_views(card, case):
+    """The model's views: x the heads of a (B, S, H P) activation, B and C
+    slices of one fused (B, S, 2 G N) projection (ssm_mixer); and x stored
+    heads-major, handed over as a transposed view."""
+    b, s, h, p, n, g = 2, 300, 8, 64, 128, 2
+    x, dt, A, bm, cm, st0 = _bf16_case(17, b, s, h, p, n, g, "random", card)
+    if case == "fused_bc":
+        x = x.reshape(b, s, h * p).reshape(b, s, h, p)
+        bc = torch.cat([bm.reshape(b, s, g * n), cm.reshape(b, s, g * n)], dim=-1)
+        bm, cm = bc[..., : g * n].reshape(b, s, g, n), bc[..., g * n :].reshape(b, s, g, n)
+        assert bm.stride(1) == 2 * g * n and cm.data_ptr() != bm.data_ptr()
+    else:
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    _hold_ssd(x, dt, A, bm, cm, st0, chunk=256)
+
+
+@pytest.mark.parametrize("case", ["misaligned_base", "seq_stride_not_in_8s", "last_dim_strided"])
+def test_ssd_bf16_rejects_layouts_it_does_not_take(card, case):
+    """Views that 16-byte vector loads cannot read raise before any launch."""
+    b, s, h, p, n = 1, 64, 2, 32, 32
+    x, dt, A, bm, cm, _ = _bf16_case(1, b, s, h, p, n, 1, None, card)
+    if case == "misaligned_base":
+        x = torch.zeros(b * s * h * p + 1, dtype=torch.bfloat16, device=card)[1:].view(b, s, h, p)
+    elif case == "seq_stride_not_in_8s":
+        bm = torch.zeros((b, s, 1, n + 4), dtype=torch.bfloat16, device=card)[..., :n]
+    else:
+        cm = torch.zeros((b, s, 1, 2 * n), dtype=torch.bfloat16, device=card)[..., ::2]
+    before = K2.LAUNCHES
+    with pytest.raises(ValueError):
+        ssd_op(x, dt, A, bm, cm)
+    assert K2.LAUNCHES == before
+
+
 def test_mamba2_on_card_runs_the_kernel(card):
     """Reduced mamba2 on the card: the forward launches the kernel once a
     layer and gives the logits its CPU twin (plain scan) gives; a prefill

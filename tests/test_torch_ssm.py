@@ -36,7 +36,7 @@ from repro.serve import lm_engine as J
 import repro_torch.configs as TC
 from repro_torch import convert
 from repro_torch.core.log import StreamLog
-from repro_torch.kernels import ref, ssd_scan as K2
+from repro_torch.kernels import ops as ops_module, ref, ssd_scan as K2
 from repro_torch.kernels.ops import ssd_op
 from repro_torch.models import ssm as TS
 from repro_torch.models.model import StreamModel
@@ -196,6 +196,177 @@ def test_ssd_scan_rejects_bad_inputs(bad):
         st0 = st0[..., :8]
     with pytest.raises((TypeError, ValueError)):
         K2.ssd_scan(x, dt, A, bm, cm, st0)
+
+
+# ------------------------------------- the bf16 kernel's arithmetic, on the CPU
+def _kernel_model(x, dt, A, bm, cm, st0, chunk, rounded):
+    """The bf16 CUDA kernel's three phases (csrc/ssd_scan.cu) in torch ops,
+    model layout: x (B,S,H,P), dt (B,S,H) f32, A (H,), B/C (B,S,G,N).
+
+    (1) each chunk's contribution D_c = B^T (xdt o e^{ca_last - ca}) and
+    decay e^{ca_last}; (2) state_{c+1} = e^{ca_last} state_c + D_c from
+    st0; (3) y = e^{ca} (C . state_c) + ((C B^T) o L) xdt. xdt = x * dt
+    rounded to x's dtype (ssd_scan.py:117). With ``rounded`` it rounds
+    where the kernel does: the decayed xdt of D_c as bf16 hi + lo, the
+    incoming state to bf16 for C . state, the decayed scores to bf16."""
+    b, s, h, p = x.shape
+    rep = h // bm.shape[2]
+    bh = bm.float().repeat_interleave(rep, dim=2)  # (B, S, H, N)
+    ch = cm.float().repeat_interleave(rep, dim=2)
+    xdt = (x.float() * dt[..., None]).to(x.dtype).float()
+    bf = lambda t: t.bfloat16().float() if rounded else t  # noqa: E731
+    state = torch.zeros((b, h, bm.shape[3], p)) if st0 is None else st0.float()
+    ys = []
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, min(c0 + chunk, s))
+        ca = torch.cumsum(dt[:, sl] * A, dim=1)  # (B, L, H)
+        last = ca[:, -1]  # (B, H)
+        w = xdt[:, sl] * torch.exp(last[:, None] - ca)[..., None]
+        if rounded:
+            hi = w.bfloat16().float()
+            w = hi + (w - hi).bfloat16().float()
+        d_c = torch.einsum("blhn,blhp->bhnp", bh[:, sl], w)
+        y = torch.einsum("blhn,bhnp->blhp", ch[:, sl], bf(state)) * torch.exp(ca)[..., None]
+        ln = ca.shape[1]
+        keep = torch.tril(torch.ones(ln, ln, dtype=torch.bool))
+        diff = ca[:, :, None, :] - ca[:, None, :, :]  # (B, L_i, L_j, H)
+        decay = torch.exp(torch.where(keep[None, :, :, None], diff, -torch.inf))  # masked before the exp
+        scores = torch.einsum("bihn,bjhn->bijh", ch[:, sl], bh[:, sl]) * decay
+        y = y + torch.einsum("bijh,bjhp->bihp", bf(scores), xdt[:, sl])
+        ys.append(y)
+        state = torch.exp(last)[..., None, None] * state + d_c
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+@pytest.mark.parametrize("s", [37, 301])
+@pytest.mark.parametrize("chunk", [8, 64, 100, 256])
+def test_kernel_model_f32_matches_ref(s, chunk):
+    """The decomposition without its roundings is the function: in f32,
+    ragged S, a random initial state, 1e-5 of the largest output."""
+    h, g = 4, 2
+    x, dt, A, bm, cm, st0 = (torch.from_numpy(a) for a in _scan_inputs(40 + s + chunk, 2, s, h, 16, 32, g))
+    y, st = _kernel_model(x, dt, A, bm, cm, st0, chunk, rounded=False)
+    yr, sr = ref.ssd(
+        x.transpose(1, 2), dt.transpose(1, 2), A, bm.transpose(1, 2).repeat_interleave(h // g, 1),
+        cm.transpose(1, 2).repeat_interleave(h // g, 1), st0,
+    )
+    assert _rel_err(y.numpy(), yr.transpose(1, 2).numpy()) < 1e-5
+    assert _rel_err(st.numpy(), sr.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("b,h,s,p,n,g,chunk", [
+    (1, 2, 128, 32, 64, 1, 32),
+    (2, 4, 256, 64, 128, 2, 64),
+    (1, 4, 64, 16, 32, 4, 64),
+])
+def test_kernel_model_bf16_matches_jax_ssd_op(b, h, s, p, n, g, chunk):
+    """With the kernel's roundings, on bf16 inputs, against the JAX
+    ``ssd_op`` (its Pallas kernel in interpret mode, all f32 inside) at
+    tests/test_kernels.py:49-53's shapes, within the bf16 gate."""
+    arrays = _scan_inputs(h * 31 + s, b, s, h, p, n, g)
+    x, dt, A, bm, cm, st0 = arrays
+    yj, sj = jax_ssd_op(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(dt), jnp.asarray(A), jnp.asarray(bm, jnp.bfloat16),
+        jnp.asarray(cm, jnp.bfloat16), jnp.asarray(st0), chunk=chunk,
+    )
+    bf = lambda a: torch.from_numpy(a).bfloat16()  # noqa: E731
+    y, st = _kernel_model(bf(x), torch.from_numpy(dt), torch.from_numpy(A), bf(bm), bf(cm),
+                          torch.from_numpy(st0), chunk, rounded=True)
+    assert y.dtype == torch.bfloat16
+    assert _rel_err(y.float().numpy(), np.asarray(yj.astype(jnp.float32))) < SCAN_TOL["bfloat16"]
+    assert _rel_err(st.numpy(), np.asarray(sj)) < SCAN_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("chunk", [64, 256])
+def test_kernel_model_hi_lo_split_keeps_the_state(chunk):
+    """The state update's hi + lo split keeps the final state within 1e-5
+    of the unrounded decomposition's on the same bf16 inputs (2e-6 here;
+    the hi part alone gives 1e-3); the roundings of y's own products
+    reach y only."""
+    h, s = 4, 301
+    x, dt, A, bm, cm, st0 = _scan_inputs(9 + chunk, 2, s, h, 64, 128, 1)
+    bf = lambda a: torch.from_numpy(a).bfloat16()  # noqa: E731
+    args = (bf(x), torch.from_numpy(dt), torch.from_numpy(A), bf(bm), bf(cm), torch.from_numpy(st0), chunk)
+    _, st_exact = _kernel_model(*args, rounded=False)
+    _, st_split = _kernel_model(*args, rounded=True)
+    assert _rel_err(st_split.numpy(), st_exact.numpy()) < 1e-5
+
+
+def _view(shape, stride, dtype=torch.bfloat16, offset=0):
+    base = torch.zeros(offset + 1 + sum((n - 1) * st for n, st in zip(shape, stride)), dtype=dtype)
+    return base.as_strided(shape, stride, offset)
+
+
+@pytest.mark.parametrize("case", [
+    "model_layout", "heads_major", "group_broadcast_over_batch", "batch_1_odd_batch_stride",
+    "f32_any_stride", "dt_any_stride",
+])
+def test_check_layout_accepts(case):
+    """Views the CUDA kernel takes: the last axis contiguous; in bf16 a
+    16-byte aligned base and strides in multiples of 8 elements (0, a
+    broadcast, too) along axes longer than 1; dt in any strides."""
+    t = {
+        "model_layout": lambda: torch.zeros((2, 40, 8, 64), dtype=torch.bfloat16).transpose(1, 2),
+        "heads_major": lambda: torch.zeros((2, 8, 40, 32), dtype=torch.bfloat16),
+        "group_broadcast_over_batch": lambda: torch.zeros((1, 40, 1, 128), dtype=torch.bfloat16)
+        .expand(3, 40, 1, 128).transpose(1, 2),
+        "batch_1_odd_batch_stride": lambda: _view((1, 4, 40, 16), (3, 16, 64, 1)),
+        "f32_any_stride": lambda: _view((2, 3, 40, 64), (3 * 40 * 67, 67, 3 * 67, 1), dtype=torch.float32),
+        "dt_any_stride": lambda: torch.zeros((2, 40, 5), dtype=torch.float32).transpose(1, 2),
+    }[case]()
+    K2.check_layout("t", t.shape, t.stride(), t.data_ptr(), t.dtype)
+
+
+@pytest.mark.parametrize("case", [
+    "last_dim_strided_bf16", "last_dim_strided_f32", "misaligned_base", "seq_stride_not_in_8s",
+    "head_stride_not_in_8s", "batch_stride_not_in_8s",
+])
+def test_check_layout_refuses(case):
+    """Views the CUDA kernel does not take raise ValueError before any
+    launch: a last axis that is not contiguous in any dtype; in bf16 a base
+    off 16 bytes, or a stride of an axis longer than 1 that is not a
+    multiple of 8 elements (16 bytes)."""
+    t = {
+        "last_dim_strided_bf16": lambda: torch.zeros((1, 4, 64, 40), dtype=torch.bfloat16).transpose(2, 3),
+        "last_dim_strided_f32": lambda: torch.zeros((1, 4, 64, 40), dtype=torch.float32).transpose(2, 3),
+        "misaligned_base": lambda: _view((1, 4, 40, 64), (4 * 40 * 64, 64, 4 * 64, 1), offset=1),
+        "seq_stride_not_in_8s": lambda: _view((1, 4, 40, 64), (40 * 260, 64, 260, 1)),
+        "head_stride_not_in_8s": lambda: _view((1, 4, 40, 64), (40 * 4 * 72, 68, 4 * 72, 1)),
+        "batch_stride_not_in_8s": lambda: _view((2, 4, 40, 64), (4 * 40 * 64 + 4, 64, 4 * 64, 1)),
+    }[case]()
+    with pytest.raises(ValueError):
+        K2.check_layout("t", t.shape, t.stride(), t.data_ptr(), t.dtype)
+
+
+@pytest.mark.parametrize("width", ["reduced", "full"])
+def test_check_layout_accepts_the_mixers_views(width, monkeypatch):
+    """The x, dt, B and C views that ``ssm_mixer`` hands the kernel (the
+    heads of the conv output, dt after softplus, the B and C slices of the
+    fused projection) in bf16, at mamba2's reduced and published widths:
+    one layer, a short sequence."""
+    cfg = TC.get_reduced(ARCH) if width == "reduced" else TC.get(ARCH)
+    d, sp = cfg.d_model, cfg.ssm
+    gen = torch.Generator().manual_seed(0)
+    p = {
+        k: torch.zeros(shape, dtype=torch.float32 if k in TS.F32_LEAVES else torch.bfloat16)
+        for k, shape in TS.ssm_shapes(1, d, sp).items()
+    }
+    TS.ssm_init(p, d, sp, lambda t, scale: t.copy_(torch.randn(t.shape, generator=gen) * scale))
+    seen = {}
+    real = K2.ssd_scan
+
+    def capture(x, dt, A, Bm, Cm, init_state=None, *, chunk):
+        seen.update(x=x, dt=dt, Bm=Bm, Cm=Cm)
+        return real(x, dt, A, Bm, Cm, init_state, chunk=chunk)
+
+    monkeypatch.setattr(ops_module, "ssd_scan", capture)
+    xin = torch.randn((2, 9, d), generator=gen).bfloat16()
+    TS.ssm_mixer({k: v[0] for k, v in p.items()}, xin, sp)
+    assert set(seen) == {"x", "dt", "Bm", "Cm"}
+    assert seen["x"].shape == (2, sp.n_heads, 9, sp.head_dim) and seen["x"].dtype == torch.bfloat16
+    assert seen["Bm"].shape == (2, sp.n_groups, 9, sp.state_dim) and seen["Cm"].dtype == torch.bfloat16
+    for name, t in seen.items():
+        K2.check_layout(name, t.shape, t.stride(), t.data_ptr(), t.dtype)
 
 
 # ---------------------------------------------------------- mixer and model
