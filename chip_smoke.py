@@ -85,6 +85,14 @@ RG_PROMPT_LEN = 3000
 # the order of rms(h))
 RGLRU_TOL = 1e-5
 RGLRU_F64_TOL = 1e-4
+# K3's checks beside its path's own calls, (b, s, c), with a random h0 and
+# the tests' decays: tests/test_kernels.py:77-87's shapes, then ragged S
+RGLRU_SWEEP = ((1, 128, 64), (2, 256, 128), (3, 64, 256), (2, 1000, 96), (1, 1000, 512))
+# ... and at the edges of the kernel's tiles (csrc/rglru_scan.cu: 32
+# channels a block, 16 steps a warp, time blocks of 256): S = 1, one
+# warp's steps + 1, T - 1, T, T + 1 and a ragged S past 3 T; C below,
+# above and off the channel tile; B 1 and 3
+RGLRU_EDGES = ((1, 1, 64), (1, 17, 33), (3, 255, 100), (1, 256, 96), (3, 257, 40), (1, 845, 4096))
 # K2's checks beside its path's own calls, (b, s, h, p, n, g, chunk), each
 # in f32 and bf16 with a random initial state that the tests' slow decays
 # carry a long way: tests/test_kernels.py:49-53's shapes (G = 1, 2 and H)
@@ -457,17 +465,12 @@ def rglru_bound(b, s, c, h0: bool) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_rglru(card, ref, b, s, c, gen, h0: bool, model_decays: bool, timed: bool):
-    """K3 vs its plain version run in float64 on one input, element by
-    element within |got - want| <= tol + tol |want| (tol RGLRU_TOL with the
-    tests' decays, log a = -|N| * 0.3; RGLRU_F64_TOL with the model's,
-    log a = log(u) r / 2, u ~ U(0.81, 0.998) per channel, r a sigmoid
-    gate); the f32 plain version's own distance from the float64 run is
-    printed beside. With ``timed`` also times the kernel and both plain
-    runs. Raises if the kernel disagrees."""
+def rglru_inputs(b, s, c, gen, h0: str | None, model_decays: bool):
+    """x, log_a and h0 on the card for one K3 call: log a = -|N| * 0.3 (the
+    tests' decays) or log(u) r / 2, u ~ U(0.81, 0.998) per channel and r a
+    sigmoid gate (the model's); h0 None, "zero" (as the cache hands it) or
+    "random"."""
     import torch
-
-    from repro_torch.kernels.ops import rglru_op
 
     x = torch.randn((b, s, c), generator=gen, device="cuda")
     if model_decays:
@@ -476,7 +479,23 @@ def check_rglru(card, ref, b, s, c, gen, h0: bool, model_decays: bool, timed: bo
         log_a = torch.log(u) * r / 2
     else:
         log_a = -torch.randn((b, s, c), generator=gen, device="cuda").abs() * 0.3
-    h_init = torch.randn((b, c), generator=gen, device="cuda") if h0 else None
+    h_init = {None: None, "zero": torch.zeros((b, c), device="cuda"),
+              "random": torch.randn((b, c), generator=gen, device="cuda")}[h0]
+    return x, log_a, h_init
+
+
+def check_rglru(card, ref, b, s, c, gen, h0: str | None, model_decays: bool, timed: bool):
+    """K3 vs its plain version run in float64 on one input
+    (``rglru_inputs``), element by element within |got - want| <= tol +
+    tol |want| (tol RGLRU_TOL with the tests' decays, RGLRU_F64_TOL with
+    the model's); the f32 plain version's own distance from the float64
+    run is printed beside. With ``timed`` also times the kernel and both
+    plain runs. Raises if the kernel disagrees."""
+    import torch
+
+    from repro_torch.kernels.ops import rglru_op
+
+    x, log_a, h_init = rglru_inputs(b, s, c, gen, h0, model_decays)
 
     def kernel():
         return rglru_op(x, log_a, h_init)
@@ -506,7 +525,7 @@ def check_rglru(card, ref, b, s, c, gen, h0: bool, model_decays: bool, timed: bo
         row["plain_ms"] = time_ms(plain, 2)
         row["plain_f64_ms"] = time_ms(plain64, 1)
         row["library_ms"] = None  # no single PyTorch call computes the RG-LRU recurrence
-        row["bound_ms"], row["bound_by"] = rglru_bound(b, s, c, h0)
+        row["bound_ms"], row["bound_by"] = rglru_bound(b, s, c, h0 is not None)
     print(f"[{card}] rglru_scan {json.dumps(row)}", flush=True)
     if not ok:
         raise AssertionError(f"rglru_scan disagrees with its plain version: {row}")
@@ -517,16 +536,16 @@ def phase_rglru_kernel(card, ref):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    # tests/test_kernels.py:77-87's shapes and decays with h0, then ragged S
-    rows = [
-        check_rglru(card, ref, b, s, c, gen, True, False, False)
-        for b, s, c in ((1, 128, 64), (2, 256, 128), (3, 64, 256), (2, 1000, 96), (1, 1000, 512))
-    ]
+    rows = [check_rglru(card, ref, b, s, c, gen, "random", False, False) for b, s, c in RGLRU_SWEEP]
     # the teacher-forced forward's call (B 1: a quarter of the path's
-    # threads), then the serving path's: one per RG-LRU layer of the wave,
-    # the model's decays, the zero h0 the cache hands it
-    rows.append(check_rglru(card, ref, 1, RG_PROMPT_LEN + MAX_NEW - 1, 4096, gen, False, True, True))
-    main = check_rglru(card, ref, WAVE_REQUESTS, RG_PROMPT_LEN, 4096, gen, True, True, True)
+    # blocks), then the serving path's: one per RG-LRU layer of the wave,
+    # the model's decays; the main row draws a random h0, the stricter
+    # check of the carry, and the row beside it the zero h0 the cache
+    # hands the path
+    rows.append(check_rglru(card, ref, 1, RG_PROMPT_LEN + MAX_NEW - 1, 4096, gen, None, True, True))
+    main = check_rglru(card, ref, WAVE_REQUESTS, RG_PROMPT_LEN, 4096, gen, "random", True, True)
+    rows.append(check_rglru(card, ref, WAVE_REQUESTS, RG_PROMPT_LEN, 4096, gen, "zero", True, True))
+    rows += [check_rglru(card, ref, b, s, c, gen, "random", False, False) for b, s, c in RGLRU_EDGES]
     return rows, main
 
 

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
-"""Time K1 (flash attention) or K2 (SSD scan) of two checkouts on one card, in turns.
+"""Time K1 (flash attention), K2 (SSD scan) or K3 (RG-LRU scan) of two checkouts on one card, in turns.
 
     mkdir -p build/ab_parent && git archive <parent commit> | tar -x -C build/ab_parent
-    python3 scripts/torch_kernel_ab.py --parent build/ab_parent [--kernel attention|ssd] [--ablate] [--rounds N]
+    python3 scripts/torch_kernel_ab.py --parent build/ab_parent [--kernel attention|ssd|rglru] [--ablate] [--rounds N]
 
 ``--parent`` is another checkout of the repository, unpacked in a
 directory that .gitignore lists. Each round runs the parent, this
 checkout, this checkout again and the parent, each in a fresh process
 that imports ``repro_torch`` from its own ``src/`` and builds its own
 kernels, and hands that checkout's wrapper to this checkout's
-``chip_smoke.check_attention`` or ``chip_smoke.check_ssd``, which holds
+``chip_smoke.check_attention``, ``check_ssd`` or ``check_rglru``, which holds
 the kernel against its plain version and times it and the plain version
 (and, for K1, the library call ``F.scaled_dot_product_attention`` on
 pre-repeated K/V; with a boolean mask where there is a window) with CUDA
@@ -31,7 +31,19 @@ calls are the kernel's on the serving paths, bf16:
   also carries ``el_err_state``, the final state's
   largest error against the plain version relative to rms + |want|, and
   ``kernel_us``, each CUDA kernel's device time a call from
-  torch.profiler.
+  torch.profiler;
+- K3 (``--kernel rglru``, f32): recurrentgemma-9b's wave, (4, 3000, 4096)
+  with the model's decays and a random h0 (the stricter check of the
+  carry) and again with the zero h0 the cache hands it, and the
+  teacher-forced forward's (1, 3015, 4096) with no h0; then
+  ``chip_smoke.RGLRU_SWEEP``'s and ``RGLRU_EDGES``'s shapes with the
+  tests' decays and a random h0: every K3 call that ``chip_smoke.py``
+  checks (a variant of ``--ablate``: the path's random-h0 and forward
+  calls). Each row also carries ``flushed_ms``, the mean of 20 calls each
+  timed alone by CUDA events after 256 MB were written to evict the 50 MB
+  L2 (at B 1 the inputs are 99 MB and a back-to-back call finds part of
+  them in L2), and ``kernel_vs_f64_el_err``, the largest error against
+  the float64 run relative to the check's tolerance.
 
 ``--ablate`` adds, in the same turns, this checkout's kernel built with
 each of its refinements switched off (the named constants in the
@@ -41,13 +53,15 @@ consumer warpgroup (64-row query tiles) instead of two; for K2
 ``SPLIT_XD`` (the state update's decayed xdt as one bf16 operand instead
 of hi + lo), ``FAST_DECAY``, ``STATE_BF16``, ``P1_ROWS`` (the whole
 chunk at once), ``P1_BLOCKS`` (no register cap), ``OUT_WARPGROUPS`` (two)
-and ``HEADS_PER_BLOCK`` (one).
+and ``HEADS_PER_BLOCK`` (one); for K3 ``PREFETCH``, ``FAST_EXP`` and
+``FAST_SQRT``, 8 warps a block (``WARPS``: time blocks of 128 steps, two
+blocks an SM) and 32 warps of 8 steps (``STEPS``: 1024 threads a block).
 
 Prints each process's rows, then a summary (per side, the median over
 its processes, and the change over the parent, over SDPA and the bound
 over the change) beside the card's name and power limit; writes both to
-``chiprun_out/kernel_ab.json`` (``kernel_ab_ssd.json`` for K2). Needs a
-CUDA card.
+``kernel_ab.json`` in the output directory (``kernel_ab_ssd.json`` for
+K2, ``kernel_ab_rglru.json`` for K3). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -67,6 +81,7 @@ import chip_smoke as cs  # noqa: E402  (imports neither torch nor repro_torch he
 SOURCES = {
     "attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "ssd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "rglru": "src/repro_torch/kernels/csrc/rglru_scan.cu",
 }
 # each variant: the lines of the kernel's source it changes, old -> new (each old line must occur once)
 VARIANTS = {
@@ -84,8 +99,17 @@ VARIANTS = {
         "two_warpgroups_p3": [("constexpr int OUT_WARPGROUPS = 3;", "constexpr int OUT_WARPGROUPS = 2;")],
         "one_head_p3": [("constexpr int HEADS_PER_BLOCK = 2;", "constexpr int HEADS_PER_BLOCK = 1;")],
     },
+    "rglru": {
+        "no_prefetch": [("constexpr bool PREFETCH = true;", "constexpr bool PREFETCH = false;")],
+        "no_fast_exp": [("constexpr bool FAST_EXP = true;", "constexpr bool FAST_EXP = false;")],
+        "no_fast_sqrt": [("constexpr bool FAST_SQRT = true;", "constexpr bool FAST_SQRT = false;")],
+        "warps_8": [("constexpr int WARPS = 16;", "constexpr int WARPS = 8;")],
+        "warps_32_steps_8": [("constexpr int WARPS = 16;", "constexpr int WARPS = 32;"),
+                             ("constexpr int STEPS = 16;", "constexpr int STEPS = 8;")],
+    },
 }
-TIMES = ("ms", "graph_ms", "library_ms", "library_graph_ms")
+TIMES = ("ms", "graph_ms", "flushed_ms", "library_ms", "library_graph_ms")
+ERRORS = ("el_err_state", "kernel_vs_f64_el_err")
 
 
 def k1_calls():
@@ -113,6 +137,26 @@ def time_graph_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_flushed_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls, each timed alone by
+    CUDA events after 256 MB are written, which evicts the L2 and keeps
+    the device busy while the host enqueues the call."""
+    import torch
+
+    flush = torch.empty(2**26, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def kernel_us(fn, iters: int) -> dict:
@@ -188,10 +232,52 @@ def measure_ssd(root: Path, label: str) -> dict:
     return out
 
 
+def rglru_calls():
+    """K3's calls that chip_smoke.py checks: its path's, then its sweep and
+    edges; each (b, s, c, h0, model decays)."""
+    b, s = cs.WAVE_REQUESTS, cs.RG_PROMPT_LEN
+    calls = [
+        (f"recurrentgemma-9b serving ({b},{s},4096) h0 random", (b, s, 4096, "random", True)),
+        (f"recurrentgemma-9b forward (1,{s + cs.MAX_NEW - 1},4096) no h0", (1, s + cs.MAX_NEW - 1, 4096, None, True)),
+        (f"recurrentgemma-9b serving ({b},{s},4096) h0 zero", (b, s, 4096, "zero", True)),
+    ]
+    calls += [(f"sweep ({bb},{ss},{c})", (bb, ss, c, "random", False)) for bb, ss, c in cs.RGLRU_SWEEP + cs.RGLRU_EDGES]
+    return calls
+
+
+def measure_rglru(root: Path, label: str) -> dict:
+    """Check and time one checkout's K3 (this process imports its ``src``)."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import rglru_scan
+    from repro_torch.kernels.ops import rglru_op
+
+    assert Path(rglru_scan.__file__).resolve().is_relative_to(root.resolve()), rglru_scan.__file__
+    _build.load("rglru_scan")
+    ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("rglru_scan", "").splitlines()
+             if any(w in ln.lower() for w in ("registers", "spill", "warning"))]
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    out: dict = {"label": label, "root": str(root), "ptxas": ptxas, "calls": {}}
+    calls = rglru_calls()
+    if label not in ("parent", "change"):  # a variant: the path's random-h0 and forward calls
+        calls = calls[:2]
+    for key, (b, s, c, h0, model) in calls:
+        row = cs.check_rglru(label, ref, b, s, c, gen, h0, model, True)
+        x, log_a, h_init = cs.rglru_inputs(b, s, c, gen, h0, model)
+        row["graph_ms"] = time_graph_ms(lambda: rglru_op(x, log_a, h_init), 20)
+        row["flushed_ms"] = time_flushed_ms(lambda: rglru_op(x, log_a, h_init), 20)
+        out["calls"][key] = row
+    return out
+
+
 def measure(root: Path, label: str, kernel: str) -> dict:
-    """Check and time one checkout's K1 or K2 (this process imports its ``src``)."""
+    """Check and time one checkout's K1, K2 or K3 (this process imports its ``src``)."""
     if kernel == "ssd":
         return measure_ssd(root, label)
+    if kernel == "rglru":
+        return measure_rglru(root, label)
     sys.path.insert(0, str(root / "src"))
     import torch
     import torch.nn.functional as F
@@ -251,7 +337,7 @@ def summarise(runs: list, labels: list) -> dict:
     for key, row in runs[0]["calls"].items():
         entry = {"bound_ms": row["bound_ms"], "bound_by": row["bound_by"]}
         for label in labels:
-            for t in TIMES + ("el_err_state",):
+            for t in TIMES + ERRORS:
                 vals = [r["calls"].get(key, {}).get(t) for r in runs if r["label"] == label]
                 entry[f"{label}_{t}"] = vals
                 entry[f"{label}_{t}_median"] = med(vals)
@@ -327,6 +413,9 @@ def main() -> int:
                          for label in present)
         if args.kernel == "attention":
             cols += f"  SDPA {e['change_library_ms_median']:.4f} ({e['change_library_graph_ms_median']:.4f})"
+        elif args.kernel == "rglru":
+            cols += "  flushed " + " ".join(f"{label} {e[f'{label}_flushed_ms_median']:.4f}" for label in present)
+            cols += "  el_err " + " ".join(f"{label} {e[f'{label}_kernel_vs_f64_el_err_median']:.3g}" for label in present)
         else:
             cols += "  el_err_state " + " ".join(f"{label} {e[f'{label}_el_err_state_median']:.3g}" for label in present)
             cols += "  kernel us " + " ".join(

@@ -65,7 +65,7 @@ def rglru_op(
 
     Everything enters in f32, as the JAX wrapper casts it. Unlike that
     wrapper (whose kernel walks blocks of ``t_block`` steps and asserts
-    they divide S) any S is taken: the kernel walks each channel's
-    sequence whole, so it has no time block to choose.
+    they divide S) any S is taken: the kernel masks its ragged last time
+    block, whose size is its own constant, so the caller chooses none.
     """
     return rglru_scan(x.float(), log_a.float(), None if h0 is None else h0.float())

@@ -7,11 +7,14 @@ sqrt(1 - a_t^2) x_t`` with ``a = exp(log_a)``, from ``h0``, in f32.
 
 What bounds it on the H100: a few flops per element against 12 bytes
 moved (x and log_a read, h written, all f32), so bytes. The design
-(``csrc/rglru_scan.cu``) gives each (batch, channel) one thread that walks
-the sequence with the state in a register (the TPU's sequential grid
-axis), neighbouring threads on neighbouring channels so every warp access
-is one line, and loads 32 timesteps ahead of the dependent FMA chain so
-enough bytes are in flight. S need not divide anything.
+(``csrc/rglru_scan.cu``) gives a block one batch row and 32 channels
+(one lane each, so every warp access is one line) and walks its time
+blocks of 256 steps in order with the running state in a register:
+inside a time block each of 16 warps composes 16 steps' affine maps,
+one warp folds the warps' maps into the state, and every thread writes
+``h = Q + P carry``; the next time block's loads are in flight
+meanwhile. Each byte is read and written once, and S and C need not
+divide anything: the ragged time block and channel tile are masked.
 
 The kernel's input weight is the TPU kernel's ``sqrt(max(1 -
 exp(2 log_a), 0))`` (``rglru_scan.py:49``), evaluated as ``-expm1(2
@@ -40,16 +43,19 @@ LAUNCHES = 0
 _fn = None
 
 
+def _bind(lib: ctypes.CDLL):
+    fn = lib.repro_rglru_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.repro_cuda_error_string
+
+
 def _kernel():
     global _fn
     if _fn is None:
-        lib = _build.load("rglru_scan")
-        fn = lib.repro_rglru_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_int64] * 8 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _fn = (fn, lib.repro_cuda_error_string)
+        _fn = _bind(_build.load("rglru_scan"))
     return _fn
 
 
@@ -80,14 +86,22 @@ def rglru_scan(
         return ref.rglru(x, log_a, h0)
     if x.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda or cpu tensors, not {x.device}")
-    b, s, c = x.shape
     if x.stride(2) != 1 or log_a.stride(2) != 1:
         raise ValueError("x and log_a must be contiguous along channels")
     if h0 is not None and h0.stride(1) != 1:
         h0 = h0.contiguous()
+    h, h_last = _launch(_kernel(), x, log_a, h0)
+    LAUNCHES += 1
+    return h, h_last
+
+
+def _launch(kernel, x, log_a, h0):
+    """One launch of ``kernel`` (a bound ``repro_rglru_scan_fwd``) on checked
+    CUDA inputs; returns (h, h_last) or raises."""
+    fn, err_str = kernel
+    b, s, c = x.shape
     h = torch.empty((b, s, c), dtype=torch.float32, device=x.device)
     h_last = torch.empty((b, c), dtype=torch.float32, device=x.device)
-    fn, err_str = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(
@@ -98,5 +112,4 @@ def rglru_scan(
         )
     if rc != 0:
         raise RuntimeError(f"rglru_scan launch failed: {err_str(rc).decode()} ({rc})")
-    LAUNCHES += 1
     return h, h_last

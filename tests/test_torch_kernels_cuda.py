@@ -444,6 +444,92 @@ def test_rglru_kernel_long_sequence_against_float64(card, model_decays):
     _hold_to_float64(*_rglru_inputs(2, 1, 3000, 4096, card, model_decays=model_decays), 1e-4)
 
 
+def _held64(x, log_a, h0, tol):
+    """The kernel against the float64 plain version, element by element."""
+    h, hl = rglru_op(x, log_a, h0)
+    want, want_last = ref.rglru(x.double(), log_a.double(), None if h0 is None else h0.double())
+    torch.testing.assert_close(h.double(), want, atol=tol, rtol=tol)
+    torch.testing.assert_close(hl.double(), want_last, atol=tol, rtol=tol)
+
+
+# the kernel's tiles (csrc/rglru_scan.cu): 32 channels a block, 16 steps a
+# warp, time blocks of 256 steps
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 255, 256, 257, 845])
+def test_rglru_kernel_sequence_edges(card, s):
+    """S at a warp's steps and the time block, and past three time blocks,
+    at B 3 and a C off the channel tile, with h0, within 1e-5."""
+    _held64(*_rglru_inputs(s, 3, s, 100, card), RGLRU_TOL)
+
+
+@pytest.mark.parametrize("c", [1, 31, 32, 33, 100, 4096])
+def test_rglru_kernel_channel_edges(card, c):
+    """C below, at and above the channel tile, and the model's, at B 1."""
+    _held64(*_rglru_inputs(c, 1, 300, c, card), RGLRU_TOL)
+
+
+@pytest.mark.parametrize("h0", [None, "zero", "random"])
+def test_rglru_kernel_initial_state(card, h0):
+    """No h0, the zero h0 the cache hands the path, and a random one, with
+    the model's decays over S 3000, against float64 at the path's 1e-4."""
+    x, log_a, h_init = _rglru_inputs(8, 2, 3000, 256, card, model_decays=True)
+    h_init = {None: None, "zero": torch.zeros_like(h_init), "random": h_init}[h0]
+    _held64(x, log_a, h_init, 1e-4)
+
+
+@pytest.mark.parametrize("case", ["fused_x_log_a", "sequence_major", "strided_h0"])
+def test_rglru_kernel_strided_views(card, case):
+    """Views the wrapper takes with their strides: x and log_a halves of
+    one (B, S, 2C) tensor, a (S, B, C) tensor seen as (B, S, C), and an h0
+    with a channel stride (made contiguous by the wrapper)."""
+    b, s, c = 2, 600, 96
+    x, log_a, h0 = _rglru_inputs(21, b, s, c, card)
+    if case == "fused_x_log_a":
+        both = torch.cat([x, log_a], dim=2)
+        x, log_a = both[..., :c], both[..., c:]
+    elif case == "sequence_major":
+        x, log_a = (t.transpose(0, 1).contiguous().transpose(0, 1) for t in (x, log_a))
+    else:
+        h0 = torch.stack([h0, h0], dim=2).flatten(1)[:, ::2]
+    assert x.stride(2) == 1 and (case != "strided_h0" or h0.stride(1) == 2)
+    _held64(x, log_a, h0, RGLRU_TOL)
+
+
+def test_rglru_kernel_rejects_channel_strides(card):
+    """x and log_a must have a unit channel stride: anything else raises,
+    and nothing is launched."""
+    x, log_a, h0 = _rglru_inputs(4, 1, 64, 32, card)
+    before = K3.LAUNCHES
+    with pytest.raises(ValueError):
+        K3.rglru_scan(x.transpose(1, 2).contiguous().transpose(1, 2), log_a, h0)
+    assert K3.LAUNCHES == before
+
+
+def test_rglru_kernel_time_tile_invariance(card, tmp_path):
+    """The same input through the kernel and through a build of its source
+    with 4 warps of 3 steps (time blocks of 12 instead of 256): within 1e-5
+    of each other, with the model's decays."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "rglru_scan.cu").read_text()
+    for old, new in (("constexpr int WARPS = 16;", "constexpr int WARPS = 4;"),
+                     ("constexpr int STEPS = 16;", "constexpr int STEPS = 3;")):
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    (tmp_path / "rglru_scan.cu").write_text(src)
+    lib = tmp_path / "librglru_scan.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(tmp_path / "rglru_scan.cu")],
+                   check=True, capture_output=True)
+    x, log_a, h0 = _rglru_inputs(13, 2, 1000, 100, card, model_decays=True)
+    h, hl = rglru_op(x, log_a, h0)
+    h12, hl12 = K3._launch(K3._bind(ctypes.CDLL(str(lib))), x, log_a, h0)
+    torch.testing.assert_close(h12, h, atol=RGLRU_TOL, rtol=RGLRU_TOL)
+    torch.testing.assert_close(hl12, hl, atol=RGLRU_TOL, rtol=RGLRU_TOL)
+    assert not torch.equal(h12, h)  # the two builds round differently: the tiles took effect
+
+
 def test_recurrentgemma_on_card_runs_the_kernels(card):
     """Reduced recurrentgemma with K1's head dim 64 on the card: the forward
     launches K3 once a recurrent layer and K1 once a local layer and gives
