@@ -11,21 +11,26 @@ version and (where one exists) one library call: K1 (flash attention,
 head dims 64, 128 and 256), then K2 (SSD scan), then K3 (RG-LRU scan);
 (4) serve four requests of mixed prompt lengths from a stream topic
 through full-width yi-6b (32 layers, d 4096, random bf16 weights from a
-seed) with ``ContinuousLMEngine`` and check what comes back; (5) drop
-yi-6b and serve a topic of four 2000-token prompts through full-width
-mamba2-2.7b (64 layers, d 2560, random bf16 weights from a seed) with the
-wave engine ``LMEngine`` and check what comes back, then serve it again
+seed) with ``ContinuousLMEngine`` and check what comes back; (5) serve
+eight requests through the same model behind ``LMServingGroup`` (two
+transactional workers on a three-broker cluster, request and response
+topics of two partitions at replication factor 3, the response leader
+killed after the first four) and check that each comes back exactly once
+and greedy; (6) drop yi-6b and serve a topic of four 2000-token prompts
+through full-width mamba2-2.7b (64 layers, d 2560, random bf16 weights
+from a seed) with the wave engine ``LMEngine`` and check what comes
+back, then serve it again
 with the same weights and f32 activations, where every token is held to
-the teacher-forced forward at the tight slack; (6) drop mamba2 and serve
+the teacher-forced forward at the tight slack; (7) drop mamba2 and serve
 a topic of four 3000-token prompts through full-width recurrentgemma-9b
 (38 layers, d 4096: 26 RG-LRU layers on K3, 12 local-attention layers of
 window 2048 on K1 at head dim 256; random bf16 weights from a seed) with
 ``LMEngine`` and check what comes back (its bf16 drift stays within the
 tight slack, so every token is held there and no f32 twin is needed);
-(7) print the ``kernels`` line (K1's times summed over its two paths,
-and each path's own under ``by_path``);
-(8) print the result line. Each serving path is driven with every
-kernel's launch count set to 0 just before it and read just after.
+(8) print the ``kernels`` line (K1's times summed over its paths, and
+each path's own under ``by_path``); (9) print the result line. Each
+serving path is driven with every kernel's launch count set to 0 just
+before it and read just after.
 
 It imports nothing of JAX or of the JAX package. With no CUDA device, or
 run from a directory without the repository, it exits non-zero and
@@ -61,6 +66,14 @@ GREEDY_SLACK = 0.25  # logits: a served token may trail the forward's max by thi
 # lost, stale or misplaced decode state gives gaps above 4 there, so the
 # slack sits about halfway between on a ratio scale
 SSM_BF16_DRIFT_SLACK = 2.0
+# yi-6b behind the serving group: two transactional workers on a request
+# topic of two partitions (replication factor 3 on 3 brokers), PROMPT_LENS
+# twice; the phase fails if the read_committed view lacks a request this
+# long after the response leader's kill (the reference's chaos test allows
+# 60 s for the reduced model)
+GROUP_WORKERS = 2
+GROUP_PARTITIONS = 2
+GROUP_DEADLINE_S = 300.0
 SSM_PROMPT_LEN = 2000  # mamba2 path: one wave of 4 fixed-length prompts
 WAVE_REQUESTS = 4  # the wave paths' slots and requests
 # recurrentgemma path: past the 2048 window, so the prefill's window mask,
@@ -380,7 +393,6 @@ def serving_setup():
 
 
 def phase_serve(card, kernels: dict):
-    import numpy as np
     import torch
 
     from repro_torch.serve.lm_engine import decode_completion, serve_stream
@@ -419,16 +431,8 @@ def phase_serve(card, kernels: dict):
     assert launches == want_launches, f"flash_attention launched {launches}, want {want_launches}"
 
     # each served token must be a greedy choice of the teacher-forced
-    # full-sequence forward (prefill attention through the kernel, against
-    # decode attention through the paged cache), up to bf16 near-ties
-    worst = 0.0
-    for r in reqs:
-        seq = np.concatenate([r.prompt, got[r.req_id][:-1]])
-        logits = model(torch.from_numpy(seq[None].astype(np.int64)).cuda())[0, len(r.prompt) - 1:]
-        assert bool(torch.isfinite(logits).all())
-        served_tok = torch.from_numpy(got[r.req_id].astype(np.int64)).cuda()
-        gap = logits.max(-1).values - logits.gather(-1, served_tok[:, None])[:, 0]
-        worst = max(worst, float(gap.max()))
+    # forward, up to bf16 near-ties
+    worst = greedy_worst_gap(model, reqs, got)
     assert worst <= GREEDY_SLACK, f"served tokens trail the forward's greedy choice by {worst}"
 
     firsts = [engine.first_token_s[r.req_id] for r in reqs]
@@ -449,7 +453,190 @@ def phase_serve(card, kernels: dict):
     print(f"[{card}] decode {decode_tokens} tokens in {decode_s:.4f} s: "
           f"{decode_tokens / decode_s:.3f} tokens/s", flush=True)
     print(f"[{card}] peak device memory {peak} bytes; flash_attention launches {launches}", flush=True)
-    del engine, model
+    del engine  # the model stays for the serving group's phase
+    return out, cfg, model
+
+
+def greedy_worst_gap(model, reqs, got: dict) -> float:
+    """How far the served tokens trail the greedy choice of the
+    teacher-forced full-sequence forward (prefill attention through the
+    kernel, against decode attention through the paged cache): the
+    largest gap in logits over every token of every request."""
+    import numpy as np
+    import torch
+
+    worst = 0.0
+    for r in reqs:
+        seq = np.concatenate([r.prompt, got[r.req_id][:-1]])
+        logits = model(torch.from_numpy(seq[None].astype(np.int64)).cuda())[0, len(r.prompt) - 1:]
+        assert bool(torch.isfinite(logits).all())
+        served_tok = torch.from_numpy(got[r.req_id].astype(np.int64)).cuda()
+        gap = logits.max(-1).values - logits.gather(-1, served_tok[:, None])[:, 0]
+        worst = max(worst, float(gap.max()))
+        del logits
+    return worst
+
+
+def group_setup(cfg, model):
+    """The serving group's workload: a BrokerCluster(3) holding a request
+    and a response topic of GROUP_PARTITIONS partitions each at
+    replication factor 3, an LMServingGroup of GROUP_WORKERS
+    transactional workers, each a ContinuousLMEngine over ``model`` sized
+    as ``serving_setup``'s and warmed up by one short request outside the
+    topic, and the requests: PROMPT_LENS twice, tenant ``i % 4``.
+    Returns (cluster, group, requests)."""
+    import numpy as np
+
+    from repro_torch.core.cluster import BrokerCluster
+    from repro_torch.core.log import LogConfig
+    from repro_torch.serve.lm_engine import ContinuousLMEngine, LMServingGroup, Request
+
+    max_blocks = -(-(max(PROMPT_LENS) + MAX_NEW - 1) // BLOCK)
+    rng = np.random.default_rng(SEED + 4)
+    engines = []
+    for _ in range(GROUP_WORKERS):
+        engine = ContinuousLMEngine(
+            model, n_slots=4, n_blocks=4 * max_blocks + 1, block_size=BLOCK,
+            max_blocks=max_blocks, device="cuda",
+        )
+        engine.submit(Request(-1, rng.integers(0, cfg.vocab, 64).astype(np.int32), 2))
+        engine.run_until_drained()
+        engine.first_token_s.clear()
+        engines.append(engine)
+
+    cluster = BrokerCluster(3, default_acks="all")
+    for topic in ("lm-req", "lm-resp"):
+        cluster.create_topic(topic, LogConfig(num_partitions=GROUP_PARTITIONS, replication_factor=3))
+    group = LMServingGroup(cluster, engines, input_topic="lm-req", response_topic="lm-resp", transactional=True)
+    reqs = [
+        Request(i, rng.integers(0, cfg.vocab, n).astype(np.int32), MAX_NEW, tenant=i % 4)
+        for i, n in enumerate(PROMPT_LENS * 2)
+    ]
+    return cluster, group, reqs
+
+
+def committed_completions(cluster) -> tuple[dict, dict]:
+    """Read-committed audit of the response topic: req_id -> (tenant,
+    tokens), and how often each req_id appears. A partition whose leader
+    is being elected reads as not there yet."""
+    from repro_torch.core.cluster import ClusterError
+    from repro_torch.serve.lm_engine import decode_completion
+
+    got, counts = {}, {}
+    for part in range(GROUP_PARTITIONS):
+        try:
+            end = cluster.end_offset("lm-resp", part)
+        except ClusterError:
+            continue
+        off = 0
+        while off < end:
+            try:
+                batch = cluster.read("lm-resp", part, off, 256, isolation="read_committed")
+            except ClusterError:
+                break
+            for buf in batch.values:
+                rid, tenant, gen = decode_completion(buf)
+                got[rid] = (tenant, gen)
+                counts[rid] = counts.get(rid, 0) + 1
+            off = batch.next_offset
+    return got, counts
+
+
+def phase_serve_group(card, kernels: dict, cfg, model):
+    """Serve ``group_setup``'s requests through the LMServingGroup across a
+    broker failover, as tests/test_serving_chaos.py does: half of them,
+    then the response partition 0's leader is killed while replication
+    runs, and the rest are served under controller ticks until all are in
+    the read_committed view. Every request must come back exactly once,
+    each token a greedy choice of the forward within GREEDY_SLACK; K1
+    launches once a layer per prefill, and a request re-served after an
+    aborted transaction is prefilled again."""
+    import torch
+
+    from repro_torch.core.cluster import ClusterError
+    from repro_torch.serve.lm_engine import encode_request, tenant_key
+
+    t0 = time.perf_counter()
+    cluster, group, reqs = group_setup(cfg, model)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    print(f"[{card}] yi-6b serving group: {GROUP_WORKERS} transactional workers, {GROUP_PARTITIONS} "
+          f"partitions at replication factor 3 on 3 brokers, set-up and warm-up {setup_s:.3f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    half = len(reqs) // 2
+
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
+    t_start = time.perf_counter()
+    for r in reqs[:half]:
+        cluster.produce("lm-req", encode_request(r), key=tenant_key(r.tenant))
+    first_served = group.poll_all()
+    torch.cuda.synchronize()
+    t_kill = time.perf_counter()
+    cluster.start_replication(interval_s=0.002, workers=2)
+    try:
+        killed = cluster.leader_for("lm-resp", 0)
+        cluster.kill_broker(killed)
+        for r in reqs[half:]:
+            cluster.produce("lm-req", encode_request(r), key=tenant_key(r.tenant))
+        deadline = time.monotonic() + GROUP_DEADLINE_S
+        ticks = cluster_errors = 0
+        while True:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the serving group did not serve all {len(reqs)} requests "
+                                     f"within {GROUP_DEADLINE_S} s of the broker kill")
+            ticks += 1
+            cluster.controller_tick()
+            try:
+                group.poll_all()
+            except ClusterError:
+                cluster_errors += 1
+                continue  # election window: abort and rewind, retry the tick
+            got, counts = committed_completions(cluster)
+            if len(got) == len(reqs):
+                break
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    finally:
+        cluster.stop_replication()
+    launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    assert sorted(got) == [r.req_id for r in reqs], sorted(got)
+    dups = {rid: n for rid, n in counts.items() if n != 1}
+    assert not dups, f"completions published more than once: {dups}"
+    for r in reqs:
+        tenant, g = got[r.req_id]
+        assert tenant == r.tenant, (r.req_id, tenant)
+        assert len(g) == MAX_NEW and ((g >= 0) & (g < cfg.vocab_padded)).all(), (r.req_id, g)
+    attn = launches.pop("flash_attention")
+    assert not any(launches.values()), launches
+    assert attn % cfg.n_layers == 0 and attn >= cfg.n_layers * len(reqs), (
+        f"flash_attention launched {attn}, want a multiple of {cfg.n_layers} of at least "
+        f"{cfg.n_layers * len(reqs)}")
+    reserved = attn // cfg.n_layers - len(reqs)
+    admissions = [w.engine.admissions - 1 for w in group.workers]  # less each warm-up
+    assert sum(admissions) == attn // cfg.n_layers, (admissions, attn)
+    worst = greedy_worst_gap(model, reqs, {rid: g for rid, (_, g) in got.items()})
+    assert worst <= GREEDY_SLACK, f"served tokens trail the forward's greedy choice by {worst}"
+
+    served = {w.worker_id: w.served for w in group.workers}
+    out = {
+        "requests": len(reqs), "prompt_lens": list(PROMPT_LENS) * 2, "max_new": MAX_NEW,
+        "workers": GROUP_WORKERS, "partitions": GROUP_PARTITIONS, "brokers": 3, "killed_broker": killed,
+        "first_half_s": t_kill - t_start, "second_half_s": t_end - t_kill, "total_s": t_end - t_start,
+        "first_half_served": first_served, "served": served, "reserved": reserved, "ticks": ticks,
+        "cluster_errors": cluster_errors, "admissions": admissions,
+        "peak_bytes": peak, "launches": attn, "greedy_worst_gap": worst,
+    }
+    print(f"[{card}] yi-6b group first half: {half} requests, {first_served} served in "
+          f"{t_kill - t_start:.4f} s", flush=True)
+    print(f"[{card}] yi-6b group second half: broker {killed} (leader of lm-resp/0) killed, "
+          f"{len(reqs) - half} more requests, all {len(reqs)} committed exactly once after "
+          f"{t_end - t_kill:.4f} s, {ticks} ticks, {cluster_errors} cluster errors", flush=True)
+    print(f"[{card}] yi-6b group completions per worker {served}; re-served requests {reserved}", flush=True)
+    print(f"[{card}] yi-6b group peak device memory {peak} bytes; flash_attention launches {attn}; "
+          f"greedy worst gap {worst:.4f} (slack {GREEDY_SLACK})", flush=True)
     return out
 
 
@@ -703,7 +890,9 @@ def main() -> int:
     rows, main_rows, rg_attn_main = phase_kernels(card, flash_attention, ref)
     ssd_rows, ssd_main = phase_ssd_kernel(card, ref)
     rglru_rows, rglru_main = phase_rglru_kernel(card, ref)
-    serving = phase_serve(card, kernels)
+    serving, yi_cfg, yi_model = phase_serve(card, kernels)
+    serving_group = phase_serve_group(card, kernels, yi_cfg, yi_model)
+    del yi_model
     # mamba2's bf16 drift needs a slack above GREEDY_SLACK, so an f32 twin
     # holds every token at it; recurrentgemma's does not
     paths = {}
@@ -726,7 +915,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
-        "launches": serving["launches"] + serving_rg["launches"]["flash_attention"],
+        "launches": serving["launches"] + serving_group["launches"] + serving_rg["launches"]["flash_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in attn_main),
         "matched": all(r["ok"] for r in rows + attn_main),
         "shapes": "one call at each of yi-6b's prompt lengths (1,S,32,128) S=%s bf16 causal, and "
@@ -734,6 +923,7 @@ def main() -> int:
         % ("/".join(map(str, PROMPT_LENS)), WAVE_REQUESTS, RG_PROMPT_LEN),
         "by_path": {
             "yi-6b": path_summary(serving["launches"], main_rows),
+            "yi-6b-group": path_summary(serving_group["launches"], main_rows),
             "recurrentgemma-9b": path_summary(serving_rg["launches"]["flash_attention"], [rg_attn_main]),
         },
     }
@@ -772,7 +962,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "torch": torch.__version__, "build_s": build_s, "checks": rows,
-        "main_path_kernel": attn_main, "serving": serving, "ssd_checks": ssd_rows,
+        "main_path_kernel": attn_main, "serving": serving, "serving_group": serving_group, "ssd_checks": ssd_rows,
         "ssd_main_path_kernel": ssd_main, "rglru_checks": rglru_rows, "rglru_main_path_kernel": rglru_main,
         "serving_waves": {f"{arch} {dt}": out for (arch, dt), out in paths.items()},
         "kernels": kernels_line["kernels"],

@@ -1,9 +1,14 @@
-"""LM serving from a stream (port of ``repro.serve.lm_engine``)."""
+"""LM serving from a stream, alone or behind a consumer group (port of
+``repro.serve.lm_engine`` and of ``repro.serve.engine``'s transactional
+publisher)."""
 
+from repro_torch.serve.engine import TxnOutputPublisher
 from repro_torch.serve.lm_engine import (
     ContinuousLMEngine,
     KVBlockTable,
     LMEngine,
+    LMServingGroup,
+    LMServingWorker,
     Request,
     decode_completion,
     decode_request,
@@ -17,7 +22,10 @@ __all__ = [
     "ContinuousLMEngine",
     "KVBlockTable",
     "LMEngine",
+    "LMServingGroup",
+    "LMServingWorker",
     "Request",
+    "TxnOutputPublisher",
     "decode_completion",
     "decode_request",
     "encode_completion",

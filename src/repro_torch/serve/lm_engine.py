@@ -11,7 +11,14 @@
 The engines take the model (which holds its parameters) in place of the
 JAX engines' ``(model, params)`` pair, and run where the model lives.
 :func:`serve_stream` drains a request topic through either engine and
-writes completions to a response topic. The record codecs are
+writes completions to a response topic. :class:`LMServingGroup` puts
+engines behind one consumer group instead (the paper's Algorithm 2 for
+LMs): per-tenant keys partition the request topic, the group's range
+assignment load-balances partitions across workers, a worker that dies
+loses its partitions to the survivors, and on a replicated
+:class:`~repro_torch.core.cluster.BrokerCluster` completions commit
+exactly once with the request offsets they answer. The workers are host
+code; they run where their engines run. The record codecs are
 byte-identical to the JAX package's, so both can share a topic.
 """
 
@@ -26,13 +33,17 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.analysis.witness import make_lock
+from repro_torch.core.consumer import ConsumerGroup, RebalanceError
 from repro_torch.core.log import StreamLog
 from repro_torch.models.model import StreamModel
+from repro_torch.serve.engine import TxnOutputPublisher
 
 __all__ = [
     "ContinuousLMEngine",
     "KVBlockTable",
     "LMEngine",
+    "LMServingGroup",
+    "LMServingWorker",
     "Request",
     "decode_completion",
     "decode_request",
@@ -376,6 +387,158 @@ class ContinuousLMEngine:
     @property
     def lane_utilization(self) -> float:
         return self.useful_steps / max(self.lane_steps, 1)
+
+
+# -------------------------------------------------------- cluster serving
+class LMServingWorker:
+    """One serving worker: group consumer -> engine -> response topic.
+
+    The Algorithm 2 loop with LM state: poll requests from the group's
+    assigned partitions, submit to the engine, drain, publish keyed
+    completions. ``transactional=True`` (clusters only) publishes
+    completions atomically with the consumed request offsets
+    (:class:`~repro_torch.serve.engine.TxnOutputPublisher`): a worker crash
+    mid-serve can neither lose nor duplicate a completion — the
+    re-delivered requests re-serve deterministically (greedy decode) and
+    the aborted first attempt stays invisible to read_committed readers.
+    A full engine queue pauses the consumer (backpressure) instead of
+    buffering unboundedly.
+    """
+
+    def __init__(
+        self,
+        worker_id: str,
+        log,
+        group: ConsumerGroup,
+        engine,
+        response_topic: str,
+        *,
+        transactional: bool = False,
+        max_queue: int = 64,
+    ):
+        self.worker_id = worker_id
+        self.log = log
+        self.engine = engine
+        self.response_topic = response_topic
+        self.max_queue = max_queue
+        txn = transactional and hasattr(log, "init_producer")
+        self.consumer = group.join(
+            worker_id, isolation_level="read_committed" if txn else None
+        )
+        self.publisher = (
+            TxnOutputPublisher(
+                log, self.consumer, worker_id,
+                transactional_id=f"{group.group_id}-{worker_id}",
+            )
+            if txn
+            else None
+        )
+        self._tenants: dict[int, int] = {}  # req_id -> tenant for keyed publish
+        self.served = 0
+        self.alive = True
+
+    def poll_serve(self, max_records: int = 64) -> int:
+        """One tick: poll -> submit -> drain -> publish+commit. Returns
+        completions published (0 also covers rejoin/recovery ticks)."""
+        if not self.alive:
+            return 0
+        if self.worker_id not in self.consumer.group.members:
+            # evicted while alive (heartbeats lapsed under load): re-enter
+            # and resume from committed offsets next tick
+            self.consumer.rejoin()
+            return 0
+        if self.engine.qsize() >= self.max_queue:
+            self.consumer.pause()
+        else:
+            self.consumer.resume()
+        try:
+            polled = self.consumer.poll(max_records)
+        except RebalanceError:
+            self.consumer.rejoin()
+            return 0
+        for batch in polled:
+            for buf in batch.values:
+                req = decode_request(buf)
+                self._tenants[req.req_id] = req.tenant
+                self.engine.submit(req)
+        completions = self.engine.run_until_drained()
+        if not polled and not completions:
+            return 0
+        recs, keys = [], []
+        for rid, gen in completions:
+            tenant = self._tenants.pop(rid, 0)
+            recs.append(encode_completion(rid, tenant, gen))
+            keys.append(tenant_key(tenant))
+        if self.publisher is not None:
+            done = self.publisher.publish(self.response_topic, [recs], keys=[keys])
+            self.served += done
+            return done
+        self.log.ensure_topic(self.response_topic)
+        for rec, key in zip(recs, keys):
+            self.log.produce(self.response_topic, rec, key=key)
+        self.consumer.commit()
+        self.served += len(recs)
+        return len(recs)
+
+    def kill(self) -> None:
+        """Simulated crash: stops heartbeating (the group expires it)."""
+        self.alive = False
+
+
+class LMServingGroup:
+    """N serving workers on one consumer group over the request topic —
+    the LM analogue of the JAX package's ``InferenceDeployment``.
+    Per-tenant keys partition the request topic, the group's range
+    assignment load-balances partitions across workers, and a worker
+    that stops heartbeating loses its partitions to the survivors."""
+
+    def __init__(
+        self,
+        log,
+        engines: list,
+        *,
+        input_topic: str,
+        response_topic: str,
+        group_id: str = "lm-serve",
+        transactional: bool = False,
+        session_timeout_s: float = 5.0,
+        max_queue: int = 64,
+        clock=None,
+    ):
+        self.log = log
+        self.group = ConsumerGroup(
+            log,
+            group_id=group_id,
+            topics=[input_topic],
+            session_timeout_s=session_timeout_s,
+            clock=clock,
+        )
+        self.workers = [
+            LMServingWorker(
+                f"worker-{i}", log, self.group, eng, response_topic,
+                transactional=transactional, max_queue=max_queue,
+            )
+            for i, eng in enumerate(engines)
+        ]
+
+    def poll_all(self) -> int:
+        for w in self.workers:  # live workers heartbeat, dead ones don't
+            if w.alive and w.worker_id in self.group.members:
+                self.group.heartbeat(w.worker_id)
+        self.group.expire_dead_members()
+        return sum(w.poll_serve() for w in self.workers)
+
+    def kill_worker(self, idx: int) -> None:
+        self.workers[idx].kill()
+
+    def drain(self, max_iters: int = 100) -> int:
+        total = 0
+        for _ in range(max_iters):
+            got = self.poll_all()
+            total += got
+            if got == 0:
+                break
+        return total
 
 
 # ---------------------------------------------------------- topic serving
