@@ -5,32 +5,41 @@
 
 Phases: (1) the card's name and power limit; (2) build every CUDA kernel
 of the port from ``src/repro_torch/kernels/csrc`` with nvcc; (3) hold
-each kernel against its plain PyTorch version on the card, at its
-serving paths' shapes and a sweep of modes, and time kernel, plain
-version and (where one exists) one library call: K1 (flash attention,
-head dims 64, 128 and 256), then K2 (SSD scan), then K3 (RG-LRU scan);
-(4) serve four requests of mixed prompt lengths from a stream topic
-through full-width yi-6b (32 layers, d 4096, random bf16 weights from a
-seed) with ``ContinuousLMEngine`` and check what comes back; (5) serve
+each kernel against its plain PyTorch version on the card, at its paths'
+shapes and a sweep of modes, and time kernel, plain version and (where
+one exists) one library call: K1 (flash attention, head dims 64, 128 and
+256), K1's backward (dq, dk, dv against autograd through the plain
+version; head dims 64 and 128) and its forward's row log-sum-exp, then
+K2 (SSD scan), then K3 (RG-LRU scan); (4) train full-width yi-6b (16 of
+its 32 layers, d 4096, bf16 weights from a seed) from a stream:
+a seeded Markov corpus ingested into a 4-partition topic and announced
+on the control topic, ``TrainingJob(streaming=True)`` with AdamW for 8
+steps of 4 x 1024 tokens and its streaming eval, checking finite,
+falling losses and K1's launches forward and backward; then the
+gradients of one full-width attention layer at the training shape,
+through K1 forward + backward against the plain version; (5) serve four
+requests of mixed prompt lengths from a stream topic
+through full-width yi-6b (32 layers, random bf16 weights from a
+seed) with ``ContinuousLMEngine`` and check what comes back; (6) serve
 eight requests through the same model behind ``LMServingGroup`` (two
 transactional workers on a three-broker cluster, request and response
 topics of two partitions at replication factor 3, the response leader
 killed after the first four) and check that each comes back exactly once
-and greedy; (6) drop yi-6b and serve a topic of four 2000-token prompts
+and greedy; (7) drop yi-6b and serve a topic of four 2000-token prompts
 through full-width mamba2-2.7b (64 layers, d 2560, random bf16 weights
 from a seed) with the wave engine ``LMEngine`` and check what comes
 back, then serve it again
 with the same weights and f32 activations, where every token is held to
-the teacher-forced forward at the tight slack; (7) drop mamba2 and serve
+the teacher-forced forward at the tight slack; (8) drop mamba2 and serve
 a topic of four 3000-token prompts through full-width recurrentgemma-9b
 (38 layers, d 4096: 26 RG-LRU layers on K3, 12 local-attention layers of
 window 2048 on K1 at head dim 256; random bf16 weights from a seed) with
 ``LMEngine`` and check what comes back (its bf16 drift stays within the
 tight slack, so every token is held there and no f32 twin is needed);
-(8) print the ``kernels`` line (K1's times summed over its paths, and
-each path's own under ``by_path``); (9) print the result line. Each
-serving path is driven with every kernel's launch count set to 0 just
-before it and read just after.
+(9) print the ``kernels`` line (K1's times summed over its paths, and
+each path's own under ``by_path``; K1's backward as its own entry);
+(10) print the result line. Each path is driven with every kernel's
+launch count set to 0 just before it and read just after.
 
 It imports nothing of JAX or of the JAX package. With no CUDA device, or
 run from a directory without the repository, it exits non-zero and
@@ -114,12 +123,46 @@ SSD_SWEEP = ((1, 128, 2, 32, 64, 1, 32), (2, 256, 4, 64, 128, 2, 64), (1, 64, 4,
              (2, 1000, 8, 64, 128, 1, 256))
 
 
+# K1's backward against autograd through the plain version: the error of
+# dq, dk and dv relative to each one's largest element. f32: the forward's
+# 2e-5 (its FMAs in another order; measured 3e-6 at the training shape);
+# bf16: the forward's 2e-2 (P and dS enter their products rounded to bf16)
+BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+LOG2E = 1.4426950408889634
+LSE_TOL = 1e-4  # the base-2 log-sum-exp, absolute (values near log2(S) + a few)
+# the training path: full-width yi-6b cut to 16 of its 32 layers (bf16
+# params and grads and f32 AdamW moments are 12 bytes a parameter: 72.7 GB
+# at 32 layers, 39.5 GB at 16), a seeded Markov corpus
+# (examples/torch_train_lm.py) of 64 sequences of 1024 tokens, 8 steps of
+# batch 4, streaming eval over the held-out eighth
+TRAIN_LAYERS = 16
+TRAIN_SEQS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP = 64, 1024, 4, 8, 2
+TRAIN_VAL_RATE = 0.125
+TRAIN_ATTN = (TRAIN_BATCH, TRAIN_SEQ, 32, 4, 128)  # (B, S, H, Kv, D) of its attention calls
+# the first loss: ln(64000) = 11.07 plus half the variance of random
+# logits (unembed 1/sqrt(d) on a unit-RMS hidden state: about 0.5)
+TRAIN_LOSS0_BAND = (10.5, 12.5)
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def reset_counts(kernels: dict) -> None:
+    """Every kernel's launch count to 0 (K1's backward included)."""
+    for mod in kernels.values():
+        mod.LAUNCHES = 0
+    kernels["flash_attention"].BWD_LAUNCHES = 0
+
+
+def read_counts(kernels: dict) -> dict:
+    out = {name: mod.LAUNCHES for name, mod in kernels.items()}
+    out["flash_attention_bwd"] = kernels["flash_attention"].BWD_LAUNCHES
+    return out
 
 
 def time_ms(fn, iters: int) -> float:
@@ -236,6 +279,264 @@ def phase_kernels(card, fa, ref):
     rg_main = check_attention(card, fa, ref, WAVE_REQUESTS, RG_PROMPT_LEN, 16, 1, 256, "bfloat16", True, 2048,
                               None, gen, True)
     return rows, main, rg_main
+
+
+def attention_bwd_bound(b, h, kv, s, d, dtype: str, causal, window) -> tuple[float, str]:
+    """Least time for K1's backward: max(bytes / HBM rate, operations /
+    peak). Operations: five products of 2 D a (query, key) pair and head
+    (S and dP again, dV, dQ, dK), 10 D H an unmasked pair. Bytes: q, k, v,
+    o, do and lse read once, dq, dk and dv written once."""
+    elem = 2 if dtype == "bfloat16" else 4
+    nbytes = elem * b * s * d * (3 * h + 2 * kv) + elem * b * s * d * (h + 2 * kv) + 4 * b * h * s
+    flops = 10 * d * h * b * mask_pairs(s, causal, window)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, gen, timed):
+    """K1's backward kernel against autograd through the plain version on
+    one input: dq, dk, dv (dk, dv summed over each kv group), each held to
+    its largest element (BWD_TOL). With ``timed`` also times the kernel,
+    the plain backward (autograd of ``ref.mha``, its graph built once) and
+    SDPA's backward on pre-repeated K/V as a yardstick. Raises if they
+    disagree."""
+    import torch
+    import torch.nn.functional as F
+
+    dt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    q, k, v, do = randn(b, s, h, d), randn(b, s, kv, d), randn(b, s, kv, d), randn(b, s, h, d)
+    qt, kt, vt, dot = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), do.transpose(1, 2)
+    rep = h // kv
+    out, lse = fa.flash_attention(qt, kt, vt, causal=causal, window=window, return_lse=True)
+
+    def kernel():
+        return fa.flash_attention_bwd(qt, kt, vt, out, dot, lse, causal=causal, window=window)
+
+    leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+    plain_out = ref.mha(leaves[0], leaves[1].repeat_interleave(rep, 1), leaves[2].repeat_interleave(rep, 1),
+                        causal=causal, window=window)
+
+    def plain():
+        return torch.autograd.grad(plain_out, leaves, dot, retain_graph=True)
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    tol = BWD_TOL[dtype]
+    rel = [float((g.float() - w.float()).abs().max() / w.float().abs().max()) for g, w in zip(got, want)]
+    ok = all(bool(torch.isfinite(g).all()) for g in got) and max(rel) <= tol
+    row = {
+        "b": b, "s": s, "h": h, "kv": kv, "d": d, "dtype": dtype, "causal": causal, "window": window,
+        "rel_err_dq_dk_dv": rel, "max_abs_err": max(float((g.float() - w.float()).abs().max())
+                                                    for g, w in zip(got, want)),
+        "tol": tol, "ok": ok,
+    }
+    if timed:
+        row["ms"] = time_ms(kernel, 20)
+        row["plain_ms"] = time_ms(plain, 3)
+        row["library_ms"] = None
+        if window is None:
+            sq, sk, sv = (t.detach().requires_grad_(True)
+                          for t in (qt, kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)))
+            s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
+            row["library_ms"] = time_ms(lambda: torch.autograd.grad(s_out, (sq, sk, sv), dot, retain_graph=True), 20)
+        row["bound_ms"], row["bound_by"] = attention_bwd_bound(b, h, kv, s, d, dtype, causal, window)
+    print(f"[{card}] flash_attention_bwd {json.dumps(row)}", flush=True)
+    if not ok:
+        raise AssertionError(f"flash_attention_bwd disagrees with its plain version: {row}")
+    return row
+
+
+def phase_kernels_bwd(card, fa, ref):
+    """K1's backward and its forward's row log-sum-exp, beside the serving
+    checks: the training shape in f32 and bf16, head dim 64, a ragged S,
+    windows with and without the causal mask, GQA 1 / 2 / 8; the lse
+    against torch.logsumexp of the plain scores; the forward's output with
+    and without lse, to the bit. Then the training path's own forward and
+    backward calls, timed."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    b, s, h, kv, d = TRAIN_ATTN
+    rows = [check_attention_bwd(card, fa, ref, b, s, h, kv, d, "float32", True, None, gen, False)]
+    for bb, ss, hh, kk, dd, causal, window in ((2, 777, 8, 2, 64, True, None), (1, 1000, 32, 4, 128, True, 128),
+                                              (1, 300, 4, 4, 64, False, 50), (2, 513, 8, 1, 128, True, None)):
+        for dtype in ("float32", "bfloat16"):
+            rows.append(check_attention_bwd(card, fa, ref, bb, ss, hh, kk, dd, dtype, causal, window, gen, False))
+    lse_rows = []
+    for bb, ss, hh, kk, dd, dtype, window in ((b, s, h, kv, d, "bfloat16", None), (2, 777, 8, 2, 64, "float32", 100)):
+        q, k, v = (torch.randn((bb, ss, n, dd), generator=gen, device="cuda").to(getattr(torch, dtype)).transpose(1, 2)
+                   for n in (hh, kk, kk))
+        out, lse = fa.flash_attention(q, k, v, causal=True, window=window, return_lse=True)
+        same = torch.equal(out, fa.flash_attention(q, k, v, causal=True, window=window))
+        sc = ref.scores(q, k.repeat_interleave(hh // kk, 1), causal=True, window=window)
+        lse_err = float((lse - torch.logsumexp(sc, -1) * LOG2E).abs().max())
+        lse_rows.append({"shape": [bb, ss, hh, kk, dd], "dtype": dtype, "window": window, "bit_identical": same,
+                         "lse_max_abs_err": lse_err, "tol": LSE_TOL})
+        print(f"[{card}] flash_attention lse {json.dumps(lse_rows[-1])}", flush=True)
+        if not same or not lse_err <= LSE_TOL:
+            raise AssertionError(f"K1's lse output is off: {lse_rows[-1]}")
+    fwd_main = check_attention(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, None, gen, True)
+    bwd_main = check_attention_bwd(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, gen, True)
+    return rows, lse_rows, fwd_main, bwd_main
+
+
+def load_example(name: str):
+    """A module of examples/ (no package) by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_train(card, kernels: dict):
+    """Train full-width yi-6b (TRAIN_LAYERS of its layers, bf16) from a
+    stream: a seeded Markov corpus of TRAIN_SEQS x TRAIN_SEQ tokens
+    ingested as RAW records into a 4-partition topic (validation_rate
+    TRAIN_VAL_RATE) and announced for a registered model, configuration
+    and deployment; ``TrainingJob(streaming=True)`` with AdamW on a
+    warm-up + cosine schedule takes TRAIN_STEPS steps of TRAIN_BATCH and
+    runs its streaming eval. Checks finite, falling losses, the first near
+    ln(vocab), K1's launches forward and backward, and the registry's
+    result. Returns the phase's numbers and the trained first layer's
+    attention weights."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import LogConfig, Registry, StreamLog
+    from repro_torch.data import ingest
+    from repro_torch.data.formats import RawCodec
+    from repro_torch.models.model import StreamModel
+    from repro_torch.models.policy import Policy
+    from repro_torch.train import TrainingJob, adamw, cosine_schedule
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(configs.get("yi-6b"), n_layers=TRAIN_LAYERS)
+    model = StreamModel(cfg, Policy(), device="cuda", generator=None)
+    log, reg = StreamLog(), Registry()
+    spec = reg.register_model("yi-6b-train")
+    dep = reg.deploy(reg.create_configuration([spec.model_id]).config_id, "train")
+    corpus = load_example("torch_train_lm").synth_corpus(TRAIN_SEQS, cfg.vocab, seq=TRAIN_SEQ, seed=SEED)
+    log.create_topic("corpus", LogConfig(num_partitions=4))
+    msg = ingest(log, "corpus", RawCodec("int32", (TRAIN_SEQ,), "int32", ()),
+                 {"data": corpus, "label": np.zeros(TRAIN_SEQS, np.int32)}, dep.deployment_id,
+                 validation_rate=TRAIN_VAL_RATE)
+    losses, stamps, eval_calls = [], [], [0]
+
+    def loss_fn(p, batch):
+        loss, metrics = model.loss(p, {"tokens": batch["data"]})
+        if torch.is_grad_enabled():
+            losses.append(metrics["loss"].detach())
+            stamps.append(time.perf_counter())  # the step's start: the job syncs on each step's loss
+        else:
+            eval_calls[0] += 1
+        return loss, metrics
+
+    job = TrainingJob(log, reg, dep.deployment_id, spec.model_id, loss_fn=loss_fn, init_fn=model.init,
+                      opt=adamw(cosine_schedule(3e-4, TRAIN_WARMUP, TRAIN_STEPS)), seed=SEED, device="cuda")
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t_start = time.perf_counter()
+    res = job.run(batch_size=TRAIN_BATCH, max_steps=TRAIN_STEPS, streaming=True)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [float(x) for x in losses]
+    n_params = sum(p.numel() for p in model.parameters())
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]  # steps 1 .. n-1; step 0 builds
+    steady = sorted(step_ms[1:]) if len(step_ms) > 1 else step_ms
+    med_ms = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_eval = int(round(TRAIN_SEQS * TRAIN_VAL_RATE)) // min(TRAIN_BATCH, int(round(TRAIN_SEQS * TRAIN_VAL_RATE)))
+    want = {
+        "flash_attention": cfg.n_layers * (TRAIN_STEPS + n_eval),
+        "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS,
+        "ssd_scan": 0, "rglru_scan": 0,
+    }
+    out = {
+        "layers": cfg.n_layers, "params": n_params, "steps": res.steps, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "losses": losses, "eval_loss": res.eval_metrics.get("loss"), "eval_batches": eval_calls[0],
+        "step_ms": step_ms, "median_step_ms": med_ms, "tokens_per_s": tokens / (med_ms / 1e3),
+        "run_s": t_end - t_start, "setup_s": setup_s, "peak_bytes": peak, "launches": counts,
+        "want_launches": want, "records": msg.total_msg, "loss_band": list(TRAIN_LOSS0_BAND),
+    }
+    print(f"[{card}] yi-6b training: {cfg.n_layers} of 32 layers, {n_params} params bf16, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, {res.steps} steps in {t_end - t_start:.3f} s", flush=True)
+    print(f"[{card}] losses {['%.4f' % x for x in losses]}, eval {out['eval_loss']}", flush=True)
+    print(f"[{card}] step ms {['%.1f' % x for x in step_ms]}, median {med_ms:.3f} ms, "
+          f"{out['tokens_per_s']:.1f} tokens/s", flush=True)
+    print(f"[{card}] peak device memory {peak} bytes; launches {json.dumps(counts)}", flush=True)
+    assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
+    assert TRAIN_LOSS0_BAND[0] <= losses[0] <= TRAIN_LOSS0_BAND[1], (losses[0], TRAIN_LOSS0_BAND)
+    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+    assert np.isfinite(out["eval_loss"]) and eval_calls[0] == n_eval, (out["eval_loss"], eval_calls[0])
+    assert counts == want, f"launches {counts}, want {want}"
+    results = reg.results_for(dep.deployment_id)
+    assert len(results) == 1 and results[0].metrics["loss"] == res.metrics["loss"], results
+    layer0 = {k: v[0].detach().clone() for k, v in model.tree["slots"]["s0"]["mixer"].items()}
+    del job, res, model
+    return out, layer0
+
+
+def phase_train_grads(card, ref, mixer: dict):
+    """The trained model's first attention layer (``mixer``: its wq, wk,
+    wv, wo) at the training shape: the gradients of a fixed random
+    projection of its output with respect to a random x and the four
+    weights, through K1 forward + backward, against the same computation
+    through the plain version on the card; each leaf's error relative to
+    its largest element, within K1's bf16 tolerance."""
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels.ops import attention_op
+    from repro_torch.models import layers as L
+
+    cfg = configs.get("yi-6b")
+    ap = cfg.attn_params("attn")
+    b, s, h, kv, hd = TRAIN_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    d = cfg.d_model
+    leaves = {"x": randn(b, s, d), **{k: mixer[k] for k in ("wq", "wk", "wv", "wo")}}
+    proj = randn(b, s, d)
+    positions = torch.arange(s, device="cuda")
+
+    def grads(kernel: bool):
+        t = {k: v.detach().requires_grad_(True) for k, v in leaves.items()}
+        q, k, v = L._project_qkv(t, t["x"], ap, positions)
+        if kernel:
+            out = attention_op(q, k, v, causal=True)
+        else:
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            out = ref.mha(qt, kt.repeat_interleave(h // kv, 1), vt.repeat_interleave(h // kv, 1)).transpose(1, 2)
+        y = L._out_proj(out, t["wo"])
+        g = torch.autograd.grad((y.float() * proj.float()).sum(), list(t.values()))
+        return dict(zip(t, g))
+
+    got, want = grads(True), grads(False)
+    torch.cuda.synchronize()
+    rel = {k: float((got[k].float() - want[k].float()).abs().max() / want[k].float().abs().max()) for k in got}
+    row = {"shape": list(TRAIN_ATTN), "rel_err": rel, "tol": BWD_TOL["bfloat16"]}
+    print(f"[{card}] yi-6b attention layer gradients, kernel vs plain {json.dumps(row)}", flush=True)
+    assert all(math.isfinite(e) and e <= BWD_TOL["bfloat16"] for e in rel.values()), row
+    return row
 
 
 def ssd_bound(b, h, g, s, p, n, chunk, dtype: str, state: bool) -> tuple[float, str]:
@@ -406,14 +707,13 @@ def phase_serve(card, kernels: dict):
           f"{n_params} params bf16, set-up and warm-up {setup_s:.3f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
 
-    for mod in kernels.values():
-        mod.LAUNCHES = 0
+    reset_counts(kernels)
     t_start = time.perf_counter()
     served = serve_stream(engine, log, "lm-requests", "lm-completions")
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = kernels["flash_attention"].LAUNCHES
-    others = {name: mod.LAUNCHES for name, mod in kernels.items() if name != "flash_attention"}
+    others = {name: n for name, n in read_counts(kernels).items() if name != "flash_attention"}
     assert not any(others.values()), others
 
     peak = torch.cuda.max_memory_allocated()
@@ -565,8 +865,7 @@ def phase_serve_group(card, kernels: dict, cfg, model):
     torch.cuda.reset_peak_memory_stats()
     half = len(reqs) // 2
 
-    for mod in kernels.values():
-        mod.LAUNCHES = 0
+    reset_counts(kernels)
     t_start = time.perf_counter()
     for r in reqs[:half]:
         cluster.produce("lm-req", encode_request(r), key=tenant_key(r.tenant))
@@ -600,6 +899,7 @@ def phase_serve_group(card, kernels: dict, cfg, model):
     finally:
         cluster.stop_replication()
     launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+    assert kernels["flash_attention"].BWD_LAUNCHES == 0, "serving launched the backward"
     peak = torch.cuda.max_memory_allocated()
 
     assert sorted(got) == [r.req_id for r in reqs], sorted(got)
@@ -787,13 +1087,13 @@ def phase_serve_wave(card, kernels: dict, arch: str, compute_dtype: str, prompt_
           flush=True)
     torch.cuda.reset_peak_memory_stats()
 
-    for mod in kernels.values():
-        mod.LAUNCHES = 0
+    reset_counts(kernels)
     t_start = time.perf_counter()
     served = serve_stream(engine, log, "lm-prompts", "lm-completions", prompt_len, max_new=MAX_NEW)
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
+    assert kernels["flash_attention"].BWD_LAUNCHES == 0, "serving launched the backward"
 
     peak = torch.cuda.max_memory_allocated()
     got = {}
@@ -888,8 +1188,17 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     rows, main_rows, rg_attn_main = phase_kernels(card, flash_attention, ref)
+    bwd_rows, lse_rows, train_fwd_main, bwd_main = phase_kernels_bwd(card, flash_attention, ref)
     ssd_rows, ssd_main = phase_ssd_kernel(card, ref)
     rglru_rows, rglru_main = phase_rglru_kernel(card, ref)
+    # training first: its ~60 GB are freed before the serving models load
+    training, trained_layer = phase_train(card, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_grads = phase_train_grads(card, ref, trained_layer)
+    del trained_layer
+    gc.collect()
+    torch.cuda.empty_cache()
     serving, yi_cfg, yi_model = phase_serve(card, kernels)
     serving_group = phase_serve_group(card, kernels, yi_cfg, yi_model)
     del yi_model
@@ -906,24 +1215,29 @@ def main() -> int:
         paths[arch, compute_dtype] = phase_serve_wave(card, kernels, arch, compute_dtype, prompt_len, slack)
     serving_ssm, serving_rg = paths["mamba2-2.7b", "bfloat16"], paths["recurrentgemma-9b", "bfloat16"]
 
-    # K1 runs on two paths: yi-6b's four calls (one per served prompt
-    # length) and recurrentgemma's one (its wave), each timed once; the
-    # sums cover both, by_path holds each path's own
-    attn_main = main_rows + [rg_attn_main]
+    # K1 runs on three paths: yi-6b's serving calls (one per served prompt
+    # length), yi-6b's training call (its forward, with lse) and
+    # recurrentgemma's one (its wave), each timed once; the sums cover
+    # all, by_path holds each path's own
+    attn_main = main_rows + [train_fwd_main, rg_attn_main]
+    train_fwd_launches = training["launches"]["flash_attention"]
     entry = {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
-        "launches": serving["launches"] + serving_group["launches"] + serving_rg["launches"]["flash_attention"],
+        "launches": serving["launches"] + serving_group["launches"] + train_fwd_launches
+        + serving_rg["launches"]["flash_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in attn_main),
         "matched": all(r["ok"] for r in rows + attn_main),
-        "shapes": "one call at each of yi-6b's prompt lengths (1,S,32,128) S=%s bf16 causal, and "
-        "recurrentgemma's (%d,%d,16,256) kv 1 bf16 causal window 2048, summed"
-        % ("/".join(map(str, PROMPT_LENS)), WAVE_REQUESTS, RG_PROMPT_LEN),
+        "shapes": "one call at each of yi-6b's prompt lengths (1,S,32,128) S=%s bf16 causal, yi-6b's "
+        "training call (%d,%d,32,128) kv 4 bf16 causal, and recurrentgemma's (%d,%d,16,256) kv 1 bf16 "
+        "causal window 2048, summed"
+        % ("/".join(map(str, PROMPT_LENS)), TRAIN_BATCH, TRAIN_SEQ, WAVE_REQUESTS, RG_PROMPT_LEN),
         "by_path": {
             "yi-6b": path_summary(serving["launches"], main_rows),
             "yi-6b-group": path_summary(serving_group["launches"], main_rows),
+            "yi-6b-train": path_summary(train_fwd_launches, [train_fwd_main]),
             "recurrentgemma-9b": path_summary(serving_rg["launches"]["flash_attention"], [rg_attn_main]),
         },
     }
@@ -956,12 +1270,28 @@ def main() -> int:
     }
     for key in ("ms", "plain_ms", "plain_f64_ms", "bound_ms", "bound_by", "library_ms"):
         rglru_entry[key] = rglru_main[key]
-    kernels_line = {"kernels": [entry, ssd_entry, rglru_entry]}
+    bwd_entry = {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        # no TPU kernel: JAX differentiates its plain chunked attention
+        "replaces": "none (JAX differentiates src/repro/models/layers.py:314)",
+        "launches": training["launches"]["flash_attention_bwd"],
+        "max_abs_err": bwd_main["max_abs_err"],
+        "matched": all(r["ok"] for r in bwd_rows + [bwd_main]) and train_grads is not None,
+        "shapes": "yi-6b's training call (%d,%d,32,128) kv 4 bf16 causal, one a layer a step"
+        % (TRAIN_BATCH, TRAIN_SEQ),
+        "by_path": {"yi-6b-train": path_summary(training["launches"]["flash_attention_bwd"], [bwd_main])},
+    }
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        bwd_entry[key] = bwd_main[key]
+    kernels_line = {"kernels": [entry, bwd_entry, ssd_entry, rglru_entry]}
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "torch": torch.__version__, "build_s": build_s, "checks": rows,
+        "bwd_checks": bwd_rows, "lse_checks": lse_rows, "training": training, "training_grads": train_grads,
         "main_path_kernel": attn_main, "serving": serving, "serving_group": serving_group, "ssd_checks": ssd_rows,
         "ssd_main_path_kernel": ssd_main, "rglru_checks": rglru_rows, "rglru_main_path_kernel": rglru_main,
         "serving_waves": {f"{arch} {dt}": out for (arch, dt), out in paths.items()},

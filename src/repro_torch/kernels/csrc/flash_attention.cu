@@ -88,6 +88,17 @@
 // f32 (the checks at 2e-5): the products run as f32 FMAs on the CUDA
 // cores, 256 threads each holding a 4x4 block of scores and a 4x(D/16)
 // block of the accumulator; the tensor cores' TF32 would not hold 2e-5.
+//
+// Row log-sum-exp for the backward (flash_attention_bwd.cu). With a
+// non-null `lse` (a contiguous (B, H, S) f32 tensor) both paths also write
+// each row's log-sum-exp in BASE 2 of its scores in base-2 units:
+// lse2 = log2(sum_k 2^(s_k log2 e)) for the scaled (and capped, masked)
+// score s_k, so that the backward recovers p = 2^(s log2 e - lse2). The
+// bf16 path keeps its running max in those units already (m + log2 l);
+// the f32 path converts its natural-base max and sum ((m + ln l) log2 e).
+// A row whose denominator is 0 gets +inf, which makes every p of it 0 in
+// the backward; rows past S are not stored. With lse == null nothing else
+// changes: the serving path's output is the same to the bit.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched from the driver at run time
 #include <cuda_bf16.h>
@@ -167,8 +178,9 @@ constexpr size_t f32_smem_bytes() {
 template <int D>
 __global__ void __launch_bounds__(F32_THREADS)
     flash_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                               const float* __restrict__ v, float* __restrict__ o, Strides sq,
-                               Strides sk, Strides sv, Strides so, int rep, Mask mask) {
+                               const float* __restrict__ v, float* __restrict__ o,
+                               float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
+                               Strides so, int rep, Mask mask) {
   constexpr int KP = D + 1;   // padded row stride of the Q and K tiles
   constexpr int PP = BK + 1;  // padded row stride of the P tile
   constexpr int DC = D / 16;  // accumulator columns per thread
@@ -281,6 +293,8 @@ __global__ void __launch_bounds__(F32_THREADS)
     const float safe = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int c = 0; c < DC; ++c) ob[qi * so.s + tx + 16 * c] = acc[i][c] / safe;
+    if (lse != nullptr && tx == 0)
+      lse[(int64_t(b) * gridDim.y + h) * S + qi] = l[i] == 0.f ? INFINITY : (m[i] + logf(l[i])) * LOG2E;
   }
 }
 
@@ -468,7 +482,8 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
     flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-                                Strides so, int rep, Mask mask, float scale_log2) {
+                                float* __restrict__ lse, Strides so, int rep, Mask mask,
+                                float scale_log2) {
   using T = Tiles<D>;
   constexpr int BM = T::BM, BN = T::BN, ST = T::STAGES, ON = T::ON, OH = T::OH;
   extern __shared__ uint8_t smem_raw[];
@@ -717,6 +732,8 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
         const int x = j / (ON / 8), y = 4 * (j % (ON / 8)) + 2 * r;
         *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(acc[x][y] * inv, acc[x][y + 1] * inv);
       }
+      if (lse != nullptr && t == 0)  // m is in base-2 units already
+        lse[(int64_t(b) * gridDim.x + h) * S + qi] = l[r] == 0.f ? INFINITY : m[r] + log2f(l[r]);
     }
   }
 }
@@ -781,7 +798,7 @@ cudaError_t size_smem_once(const void* kern, int bytes, std::atomic<uint64_t>& d
 }
 
 template <int D>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, Strides sq,
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, Strides sq,
                         Strides sk, Strides sv, Strides so, int B, int H, int KV, Mask mask,
                         cudaStream_t stream) {
   using T = Tiles<D>;
@@ -796,13 +813,13 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, St
   if (err != cudaSuccess) return err;
   // the query tile is the slowest axis: each wave of blocks mixes heads
   const dim3 grid(H, B, (mask.S + T::BM - 1) / T::BM);
-  kern<<<grid, T::THREADS, T::SMEM, stream>>>(mq, mk, mv, static_cast<bf16*>(o), so, H / KV, mask,
-                                              mask.scale * LOG2E);
+  kern<<<grid, T::THREADS, T::SMEM, stream>>>(mq, mk, mv, static_cast<bf16*>(o), lse, so, H / KV,
+                                              mask, mask.scale * LOG2E);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, Strides sq,
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, Strides sq,
                        Strides sk, Strides sv, Strides so, int B, int H, int rep, Mask mask,
                        cudaStream_t stream) {
   auto kern = flash_attention_f32_kernel<D>;
@@ -812,18 +829,19 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, Str
   if (err != cudaSuccess) return err;
   const dim3 grid((mask.S + BQ - 1) / BQ, H, B);
   kern<<<grid, F32_THREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
-                                            static_cast<const float*>(v), static_cast<float*>(o), sq,
-                                            sk, sv, so, rep, mask);
+                                            static_cast<const float*>(v), static_cast<float*>(o), lse,
+                                            sq, sk, sv, so, rep, mask);
   return cudaGetLastError();
 }
 
 // dtype: 0 = float32, 1 = bfloat16
 template <int D>
-cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v, void* o, Strides sq,
+cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v, void* o, float* lse,
+                     Strides sq,
                      Strides sk, Strides sv, Strides so, int B, int H, int KV, Mask mask,
                      cudaStream_t stream) {
-  if (dtype == 0) return launch_f32<D>(q, k, v, o, sq, sk, sv, so, B, H, H / KV, mask, stream);
-  if (dtype == 1) return launch_bf16<D>(q, k, v, o, sq, sk, sv, so, B, H, KV, mask, stream);
+  if (dtype == 0) return launch_f32<D>(q, k, v, o, lse, sq, sk, sv, so, B, H, H / KV, mask, stream);
+  if (dtype == 1) return launch_bf16<D>(q, k, v, o, lse, sq, sk, sv, so, B, H, KV, mask, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -832,10 +850,13 @@ cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v, voi
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0 mean none.
+// lse: null, or a contiguous (B, H, S) f32 output of each row's base-2
+// log-sum-exp (see the note at the top).
 // bf16 reads through TMA: 16-byte aligned data, strides positive multiples
 // of 8 elements where the extent is above 1 (the wrapper checks). Returns
 // cudaGetLastError() after the launch (0 on success).
-int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype,
+int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
+                              int dtype,
                               int B, int H, int KV, int S, int D, int64_t q_sb, int64_t q_ss,
                               int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                               int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
@@ -848,11 +869,11 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return int(dispatch<64>(dtype, q, k, v, o, sq, sk, sv, so, B, H, KV, mask, st));
+      return int(dispatch<64>(dtype, q, k, v, o, lse, sq, sk, sv, so, B, H, KV, mask, st));
     case 128:
-      return int(dispatch<128>(dtype, q, k, v, o, sq, sk, sv, so, B, H, KV, mask, st));
+      return int(dispatch<128>(dtype, q, k, v, o, lse, sq, sk, sv, so, B, H, KV, mask, st));
     case 256:
-      return int(dispatch<256>(dtype, q, k, v, o, sq, sk, sv, so, B, H, KV, mask, st));
+      return int(dispatch<256>(dtype, q, k, v, o, lse, sq, sk, sv, so, B, H, KV, mask, st));
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 from repro_torch.kernels.rglru_scan import rglru_scan
 from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -28,11 +28,17 @@ def attention_op(
     window: int | None = None,
     softcap: float | None = None,
 ) -> torch.Tensor:
-    """Attention in model layout; returns (B, S, H, D)."""
-    out = flash_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window, softcap=softcap,
-    )
+    """Attention in model layout; returns (B, S, H, D).
+
+    When grad mode is on and an input requires grad, the call goes through
+    :class:`FlashAttention`, whose backward is the backward kernel (the
+    plain version on the CPU); otherwise it is the forward alone, as it
+    serves."""
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        out = FlashAttention.apply(qt, kt, vt, causal, window, softcap)
+    else:
+        out = flash_attention(qt, kt, vt, causal=causal, window=window, softcap=softcap)
     return out.transpose(1, 2)
 
 

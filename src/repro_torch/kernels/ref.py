@@ -10,7 +10,7 @@ import math
 
 import torch
 
-__all__ = ["mha", "rglru", "ssd"]
+__all__ = ["mha", "rglru", "scores", "ssd"]
 
 
 def mha(
@@ -23,6 +23,21 @@ def mha(
     softcap: float | None = None,
 ) -> torch.Tensor:
     """Naive full-materialisation attention: f32 scores, -1e30 mask, f32 softmax."""
+    sc = scores(q, k, causal=causal, window=window, softcap=softcap)
+    w = torch.softmax(sc, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+
+
+def scores(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,  # (B, H, S, D)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+    softcap: float | None = None,
+) -> torch.Tensor:
+    """The f32 (B, H, S, S) scores ``mha`` takes its softmax of: scaled,
+    capped, and -1e30 where the mask rules a pair out."""
     s = q.shape[2]
     d = q.shape[3]
     sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
@@ -36,9 +51,7 @@ def mha(
         ok &= kp <= qp
     if window is not None:
         ok &= kp > qp - window
-    sc = torch.where(ok[None, None], sc, torch.full_like(sc, -1e30))
-    w = torch.softmax(sc, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
+    return torch.where(ok[None, None], sc, torch.full_like(sc, -1e30))
 
 
 def ssd(

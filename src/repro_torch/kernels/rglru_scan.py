@@ -86,6 +86,13 @@ def rglru_scan(
         return ref.rglru(x, log_a, h0)
     if x.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda or cpu tensors, not {x.device}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, log_a, h0)):
+        # the kernel's output is outside autograd: a loss through it would
+        # give its inputs no gradient and raise nothing
+        raise NotImplementedError(
+            "rglru_scan has no backward kernel yet (it comes with recurrentgemma training); "
+            "call it under torch.no_grad() or on inputs that do not require grad"
+        )
     if x.stride(2) != 1 or log_a.stride(2) != 1:
         raise ValueError("x and log_a must be contiguous along channels")
     if h0 is not None and h0.stride(1) != 1:

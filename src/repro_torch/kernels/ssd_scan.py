@@ -165,6 +165,13 @@ def ssd_scan(
         return ref.ssd(x, dt, A, br, cr, init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not {x.device}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, init_state)):
+        # the kernel's output is outside autograd: a loss through it would
+        # give its inputs no gradient and raise nothing
+        raise NotImplementedError(
+            "ssd_scan has no backward kernel yet (it comes with mamba2 training); "
+            "call it under torch.no_grad() or on inputs that do not require grad"
+        )
     chunk = min(chunk, s)
     if p not in _HEAD_DIMS:
         raise ValueError(f"head_dim {p} not in {_HEAD_DIMS}")

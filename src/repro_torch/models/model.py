@@ -17,6 +17,13 @@ encoder-decoder, frontends, layer norm, sandwich norms, learned
 positions) raise ``NotImplementedError``. Caches keep the JAX layout,
 stacked on the group dim for slots and not for the tail, and are updated
 in place. The paged cache serves the dense pattern only, as in JAX.
+
+Training: :meth:`StreamModel.hidden` and the chunked
+:meth:`StreamModel.loss` take a parameter tree in the JAX layout (the
+model's own, ``param_tree()``, whose leaves are its parameters) as the
+JAX functions do, and are differentiable. The parameters are built with
+``requires_grad=False`` for serving; a trainer turns it on
+(``requires_grad_(True)``).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import math
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch import resolve_device
@@ -235,12 +243,14 @@ class StreamModel(nn.Module):
         self._layers = None
 
     @torch.no_grad()
-    def init(self, generator: torch.Generator | int) -> None:
+    def init(self, generator: torch.Generator | int) -> dict:
         """Random weights with the JAX init's scales (``layers._normal``,
         ``ssm.ssm_init``, ``rglru.rglru_init``): normal / sqrt(fan_in),
         drawn in f32 and cast; norms are ones; the SSM's decays, skips and
         dt biases are its fixed values, the RG-LRU's Lambda is drawn from
-        its uniform law. An int seeds a new generator on the model's device."""
+        its uniform law. An int seeds a new generator on the model's device.
+        Returns the parameter tree (``param_tree()``), as the JAX ``init``
+        returns its params."""
         if isinstance(generator, int):
             generator = torch.Generator(device=self.device).manual_seed(generator)
         cfg = self.cfg
@@ -277,23 +287,39 @@ class StreamModel(nn.Module):
         if "unembed" in tree:
             normal(tree["unembed"], 1.0 / math.sqrt(d))
         self._layers = None
+        return tree
 
-    def _layer_params(self) -> list[tuple]:
+    def _layer_params(self, tree: dict | None = None) -> list[tuple]:
         """``(kind, section, slot name, index, params)`` of every layer in
         execution order: group by group, each group's slots in pattern
-        order, then the tail; params are per-layer views (built once)."""
-        if self._layers is None:
-            tree = self.param_tree()
-            pat = self.cfg.pattern
+        order, then the tail; params are per-layer views.
 
-            def view(sec, name, i):
-                return {part: {k: v[i] for k, v in sub.items()} for part, sub in tree[sec][name].items()}
+        Serving (grad mode off, the model's own tree) builds the views once
+        and keeps them. Under grad mode, or for a given ``tree``, they are
+        built anew on every call, each stacked leaf unbound into its
+        layers: a view made once under ``no_grad`` would carry no gradient,
+        and one ``unbind`` writes the stacked gradient in one piece where a
+        select per layer would add a full-size zero tensor per layer."""
+        fresh = tree is not None or torch.is_grad_enabled()
+        if not fresh and self._layers is not None:
+            return self._layers
+        tree = self.param_tree() if tree is None else tree
+        pat = self.cfg.pattern
+        split = {
+            (sec, name): {part: {k: v.unbind(0) for k, v in sub.items()} for part, sub in blk.items()}
+            for sec in ("slots", "tail") if sec in tree for name, blk in tree[sec].items()
+        }
 
-            self._layers = [
-                (kind, "slots", f"s{j}", g, view("slots", f"s{j}", g))
-                for g in range(self.n_groups) for j, kind in enumerate(pat)
-            ] + [(pat[j], "tail", f"s{j}", 0, view("tail", f"s{j}", 0)) for j in range(self.tail)]
-        return self._layers
+        def view(sec, name, i):
+            return {part: {k: v[i] for k, v in sub.items()} for part, sub in split[sec, name].items()}
+
+        layers = [
+            (kind, "slots", f"s{j}", g, view("slots", f"s{j}", g))
+            for g in range(self.n_groups) for j, kind in enumerate(pat)
+        ] + [(pat[j], "tail", f"s{j}", 0, view("tail", f"s{j}", 0)) for j in range(self.tail)]
+        if not fresh:
+            self._layers = layers
+        return layers
 
     # ----------------------------------------------------------------- stack
     def _norm(self, w, x):
@@ -333,10 +359,10 @@ class StreamModel(nn.Module):
             return x
         return x + L.mlp(blk["mlp"], self._norm(blk["norm2"]["w"], x), cfg.mlp_kind, cfg.mlp_act)
 
-    def _run_stack(self, x, positions, caches=None):
+    def _run_stack(self, x, positions, caches=None, tree=None):
         """Every layer in order; with ``caches`` each layer reads and writes
         its own view of them (prefill or decode)."""
-        for kind, sec, name, i, blk in self._layer_params():
+        for kind, sec, name, i, blk in self._layer_params(tree):
             st = None
             if caches is not None:
                 st = caches[sec][name]
@@ -345,9 +371,10 @@ class StreamModel(nn.Module):
             x = self._layer(kind, blk, x, positions, st)
         return x
 
-    def _embed_tokens(self, tokens):
+    def _embed_tokens(self, tokens, tree=None):
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        x = self.tree["embed"]["w"][tokens].to(torch_dtype(self.policy.compute_dtype))
+        embed = self.tree["embed"]["w"] if tree is None else tree["embed"]
+        x = embed[tokens].to(torch_dtype(self.policy.compute_dtype))
         if self.cfg.embed_scale:  # the scale rounded to the compute dtype, as in JAX
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
         return x
@@ -367,6 +394,50 @@ class StreamModel(nn.Module):
         x = self._embed_tokens(tokens)
         positions = torch.arange(x.shape[1], device=self.device)
         return self._logits(self._run_stack(x, positions))
+
+    def hidden(self, params: dict, batch: dict):
+        """Forward to the final hidden states (before the final norm) with
+        the parameters of ``params`` (a tree in the JAX layout). Returns
+        (h (B, S, d), aux); aux is 0 (no MoE is ported)."""
+        x = self._embed_tokens(batch["tokens"], params)
+        positions = torch.arange(x.shape[1], device=self.device)
+        x = self._run_stack(x, positions, tree=params)
+        return x, torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def loss(self, params: dict, batch: dict, *, loss_chunk: int = 1024):
+        """Next-token cross entropy with a **chunked** unembed and softmax
+        (port of the JAX ``loss``): the unembed product, the logsumexp and
+        the label pick run per sequence chunk under activation
+        checkpointing, so one (B, chunk, vocab) block of logits is live at
+        a time, in the backward too. Labels >= vocab add nothing and are
+        not counted. Returns (loss + aux, {"loss": loss, "aux": aux})."""
+        cfg = self.cfg
+        h, aux = self.hidden(params, batch)
+        h = self._norm(params["final_norm"]["w"][0], h)
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        pred_h, labels = h[:, :-1], tokens[:, 1:]
+        n = pred_h.shape[1]
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        dt = torch.promote_types(h.dtype, w.dtype)  # the einsum's promotion in JAX
+
+        def chunk_nll(hc, lc):
+            logits = L.softcap(hc.to(dt) @ w.to(dt), cfg.final_softcap).float()
+            mask = (lc < cfg.vocab).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            inside = (lc >= 0) & (lc < cfg.vocab_padded)  # JAX's one_hot picks 0 outside
+            picked = logits.gather(-1, torch.where(inside, lc, 0)[..., None])[..., 0]
+            picked = torch.where(inside, picked, torch.zeros_like(picked))
+            return ((lse - picked) * mask).sum(), mask.sum()
+
+        chunk = min(loss_chunk, n)
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=self.device)
+        for c0 in range(0, n, chunk):  # whole chunks, then the ragged tail, in the scan's order
+            nll, k = torch.utils.checkpoint.checkpoint(
+                chunk_nll, pred_h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], use_reentrant=False,
+            )
+            tot, cnt = tot + nll, cnt + k
+        loss = tot / torch.clamp(cnt, min=1.0)
+        return loss + aux, {"loss": loss, "aux": aux}
 
     def _slot_cache(self, kind: str, b: int, s_cache: int, dtype) -> dict:
         """One layer's zero cache: K/V of ``s_cache`` slots (``min(window,

@@ -34,7 +34,10 @@ def test_import_with_jax_and_repro_blocked():
     assert int(lines[-1]) >= 10
     for mod in ("repro_torch.kernels.ssd_scan", "repro_torch.models.ssm", "repro_torch.configs.mamba2_2_7b",
                 "repro_torch.kernels.rglru_scan", "repro_torch.models.rglru", "repro_torch.configs.recurrentgemma_9b",
-                "repro_torch.core.cluster", "repro_torch.core.consumer", "repro_torch.serve.engine"):
+                "repro_torch.core.cluster", "repro_torch.core.consumer", "repro_torch.serve.engine",
+                "repro_torch.core.control", "repro_torch.core.registry", "repro_torch.data",
+                "repro_torch.data.formats", "repro_torch.data.pipeline", "repro_torch.train",
+                "repro_torch.train.optimizer", "repro_torch.train.checkpoint", "repro_torch.train.trainer"):
         assert mod in lines[-2].split(), mod
 
 

@@ -191,3 +191,103 @@ def test_check_layout_accepts_the_models_views(arch, head_dim):
         t = t.transpose(1, 2)
         assert t.dtype == torch.bfloat16 and t.shape[-1] == head_dim
         fa.check_layout(name, t.shape, t.stride(), t.data_ptr(), t.dtype)
+
+
+# ------------------------------------------------------------------ backward
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window", [
+    (2, 4, 2, 33, 64, True, None),
+    (1, 8, 1, 40, 128, True, 7),
+    (1, 2, 2, 20, 64, False, None),
+])
+def test_attention_gradient_matches_jax(b, h, kv, s, d, causal, window):
+    """Under grad mode ``attention_op`` goes through ``FlashAttention``,
+    whose plain version on the CPU is autograd through ``ref.mha``; its
+    gradients (dk, dv summed over each kv group) against ``jax.grad`` of
+    the JAX oracle on repeated K/V, at 1e-5 of each gradient's largest
+    element (f32)."""
+    import jax
+
+    q, k, v = _inputs(11, b, s, h, kv, d)
+    do = np.random.default_rng(12).standard_normal((b, s, h, d)).astype(np.float32)
+    rep = h // kv
+
+    def jloss(q, k, v):
+        t = lambda x: jnp.swapaxes(x, 1, 2)
+        kr, vr = jnp.repeat(t(k), rep, axis=1), jnp.repeat(t(v), rep, axis=1)
+        out = jref.mha(t(q), kr, vr, causal=causal, window=window)
+        return jnp.sum(t(out) * do)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = attention_op(tq, tk, tv, causal=causal, window=window)
+    assert "FlashAttention" in type(out.grad_fn).__name__ or any(
+        "FlashAttention" in type(f[0]).__name__ for f in out.grad_fn.next_functions if f[0] is not None
+    )
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        assert np.abs(g.numpy() - w).max() <= 1e-5 * np.abs(w).max()
+
+
+def test_attention_op_serves_without_the_function():
+    """No grad (or no input that requires it): the forward alone, as it serves."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(13, 1, 16, 4, 2, 64))
+    assert attention_op(q, k, v).grad_fn is None
+    with torch.no_grad():
+        assert attention_op(q.requires_grad_(True), k, v).grad_fn is None
+
+
+def test_flash_attention_returns_base2_lse_on_cpu():
+    q, k, v = (torch.from_numpy(x).transpose(1, 2) for x in _inputs(14, 2, 24, 4, 2, 64))
+    out, lse = fa.flash_attention(q, k, v, causal=True, window=9, return_lse=True)
+    assert lse.shape == (2, 4, 24) and lse.dtype == torch.float32
+    sc = torch.einsum("bhqd,bhkd->bhqk", q, k.repeat_interleave(2, 1)) / 8.0
+    pos = torch.arange(24)
+    ok = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - 9)
+    want = torch.logsumexp(sc.masked_fill(~ok, float("-inf")), -1) / np.log(2.0)
+    np.testing.assert_allclose(lse.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, fa.flash_attention(q, k, v, causal=True, window=9))
+
+
+@pytest.mark.parametrize("case", ["contiguous", "fused_qkv", "batch_1_odd_batch_stride", "f32_any_stride"])
+def test_check_bwd_layout_accepts(case):
+    """The backward kernel reads bf16 16 bytes at a time: a 16-byte aligned
+    base, strides in multiples of 8 elements (an axis of extent 1 is never
+    stepped), head_dim contiguous; f32 any strides."""
+    views = {
+        "contiguous": lambda: [torch.zeros((2, 64, 8, 128), dtype=torch.bfloat16).transpose(1, 2)],
+        "fused_qkv": lambda: list(_fused_qkv(2, 50, 8, 2, 64)),
+        "batch_1_odd_batch_stride": lambda: [_view((1, 4, 40, 64), (3, 64, 256, 1))],
+        "f32_any_stride": lambda: [_view((2, 3, 40, 64), (3 * 40 * 68, 68, 3 * 68, 1), dtype=torch.float32)],
+    }[case]()
+    for t in views:
+        fa.check_bwd_layout("t", t.shape, t.stride(), t.data_ptr(), t.dtype)
+
+
+@pytest.mark.parametrize("case,err", [
+    ("head_dim_256", NotImplementedError),
+    ("head_dim_96", NotImplementedError),
+    ("head_dim_strided", ValueError),
+    ("misaligned_base", ValueError),
+    ("seq_stride_not_in_8s", ValueError),
+    ("zero_head_stride", ValueError),
+])
+def test_check_bwd_layout_refuses(case, err):
+    t = {
+        "head_dim_256": lambda: torch.zeros((1, 4, 40, 256), dtype=torch.bfloat16),
+        "head_dim_96": lambda: torch.zeros((1, 4, 40, 96), dtype=torch.float32),
+        "head_dim_strided": lambda: torch.zeros((1, 4, 64, 40), dtype=torch.float32).transpose(2, 3),
+        "misaligned_base": lambda: _view((1, 4, 40, 64), (4 * 40 * 64, 40 * 64, 64, 1), offset=1),
+        "seq_stride_not_in_8s": lambda: _view((1, 4, 40, 64), (40 * 260, 64, 260, 1)),
+        "zero_head_stride": lambda: torch.zeros((1, 1, 40, 64), dtype=torch.bfloat16).expand(1, 4, 40, 64),
+    }[case]()
+    with pytest.raises(err):
+        fa.check_bwd_layout("t", t.shape, t.stride(), t.data_ptr(), t.dtype)
+
+
+def test_cpu_backward_counts_no_launch():
+    fa.BWD_LAUNCHES = 0
+    q, k, v = (torch.from_numpy(x).requires_grad_(True) for x in _inputs(15, 1, 16, 4, 2, 64))
+    attention_op(q, k, v).sum().backward()
+    assert fa.BWD_LAUNCHES == 0 and q.grad is not None

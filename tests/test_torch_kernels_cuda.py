@@ -559,3 +559,168 @@ def test_recurrentgemma_on_card_runs_the_kernels(card):
         for name, st in cache[sec].items():
             for key, t in st.items():
                 torch.testing.assert_close(t.cpu(), cache_cpu[sec][name][key], atol=1e-4, rtol=1e-4)
+
+
+# ------------------------------------------------------------- K1 backward
+# dq, dk, dv against autograd through the plain version, each relative to
+# its largest element: f32 at the forward's 2e-5 (FMAs in another order),
+# bf16 at the forward's 2e-2 (P and dS enter their products as bf16)
+BWD_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _bwd_case(seed, b, s, h, kv, d, dtype, device):
+    q, k, v = (t.transpose(1, 2) for t in _inputs(seed, b, s, h, kv, d, dtype, device))
+    rng = np.random.default_rng(seed + 1)
+    do = torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(np.float32)).to(device, getattr(torch, dtype))
+    return q, k, v, do.transpose(1, 2)
+
+
+def _plain_grads(q, k, v, do, causal, window):
+    rep = q.shape[1] // k.shape[1]
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = ref.mha(leaves[0], leaves[1].repeat_interleave(rep, 1), leaves[2].repeat_interleave(rep, 1),
+                  causal=causal, window=window)
+    return torch.autograd.grad(out, leaves, do)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window", [
+    (2, 256, 8, 8, 64, True, None),     # rep 1, tile-aligned S
+    (1, 333, 8, 4, 128, True, None),    # rep 2, ragged S
+    (2, 1024, 32, 4, 128, True, None),  # rep 8, yi-6b's heads
+    (1, 777, 16, 2, 64, True, 100),     # rep 8, causal window, ragged
+    (1, 300, 4, 2, 128, False, 50),     # window alone
+    (1, 200, 4, 1, 64, False, None),    # no mask
+])
+def test_flash_attention_bwd_on_card(card, dtype, b, s, h, kv, d, causal, window):
+    q, k, v, do = _bwd_case(21, b, s, h, kv, d, dtype, card)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    n = fa.BWD_LAUNCHES
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    want = _plain_grads(q, k, v, do, causal, window)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == n + 1
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        err = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+        assert err <= BWD_TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,h,kv,d,window", [(1000, 32, 4, 128, None), (777, 8, 2, 64, 100), (300, 4, 1, 256, 64)])
+def test_flash_attention_lse_on_card(card, dtype, s, h, kv, d, window):
+    """The forward's base-2 row log-sum-exp against torch.logsumexp of the
+    plain version's scores (every head dim the forward takes)."""
+    q, k, v = (t.transpose(1, 2) for t in _inputs(22, 2, s, h, kv, d, dtype, card))
+    _, lse = fa.flash_attention(q, k, v, causal=True, window=window, return_lse=True)
+    sc = ref.scores(q, k.repeat_interleave(h // kv, 1), causal=True, window=window)
+    want = torch.logsumexp(sc, -1) / np.log(2.0)
+    assert lse.shape == (2, h, s) and float((lse - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_serving_output_identical_with_and_without_lse(card, dtype, d):
+    q, k, v = (t.transpose(1, 2) for t in _inputs(23, 1, 517, 8, 2, d, dtype, card))
+    with_lse, _ = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert torch.equal(with_lse, fa.flash_attention(q, k, v, causal=True))
+
+
+def test_attention_op_gradient_through_the_kernels(card):
+    """Under grad mode attention_op runs the forward with lse and the
+    backward kernel, once each, and gives autograd's gradients."""
+    q, k, v = (t.requires_grad_(True) for t in _inputs(24, 2, 300, 8, 2, 128, "bfloat16", card))
+    do = torch.randn((2, 300, 8, 128), device=card, dtype=torch.bfloat16)
+    n_f, n_b = fa.LAUNCHES, fa.BWD_LAUNCHES
+    got = torch.autograd.grad(attention_op(q, k, v, causal=True), (q, k, v), do)
+    assert (fa.LAUNCHES - n_f, fa.BWD_LAUNCHES - n_b) == (1, 1)
+    want = _plain_grads(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), do.transpose(1, 2), True, None)
+    for g, w in zip(got, want):
+        assert float((g.float() - w.transpose(1, 2).float()).abs().max() / w.float().abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("d,cap", [(256, None), (128, 50.0)])
+def test_flash_attention_bwd_refuses_what_it_lacks(card, d, cap):
+    q, k, v = (t.requires_grad_(True) for t in _inputs(25, 1, 64, 4, 2, d, "bfloat16", card))
+    with pytest.raises(NotImplementedError):
+        attention_op(q, k, v, causal=True, softcap=cap)
+
+
+def test_scans_refuse_inputs_that_require_grad(card):
+    """K2 and K3 have no backward yet: on the card an input that requires
+    grad raises (a kernel output outside autograd would be a silent zero
+    gradient); under no_grad they run."""
+    x = torch.randn((1, 64, 2, 64), device=card, requires_grad=True)
+    dt = torch.rand((1, 64, 2), device=card) + 0.1
+    A = -torch.ones(2, device=card)
+    bm = torch.randn((1, 64, 1, 32), device=card)
+    with pytest.raises(NotImplementedError):
+        ssd_op(x, dt, A, bm, bm)
+    with torch.no_grad():
+        ssd_op(x, dt, A, bm, bm)
+    xr = torch.randn((1, 64, 32), device=card, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        rglru_op(xr, -torch.rand((1, 64, 32), device=card))
+    with torch.no_grad():
+        rglru_op(xr, -torch.rand((1, 64, 32), device=card))
+
+
+def test_device_feed_on_card(card):
+    """Each batch comes through a pinned buffer and a copy stream; the
+    caller's stream waits on the copy, so values arrive whole, in order,
+    at depth 2 and serially."""
+    from repro_torch.data import device_feed
+
+    rng = np.random.default_rng(26)
+    host = [{"data": rng.integers(0, 100, (4, 1024)).astype(np.int32), "label": np.arange(4, dtype=np.int32)}
+            for _ in range(6)]
+    for depth in (0, 2):
+        feed = device_feed(iter(host), device=card, depth=depth)
+        got = list(feed)
+        feed.close()
+        assert len(got) == len(host)
+        for g, h in zip(got, host):
+            assert g["data"].device.type == "cuda"
+            assert all(np.array_equal(g[k].cpu().numpy(), h[k]) for k in h)
+
+
+def test_training_job_resume_on_card(card, tmp_path):
+    """Reduced yi-6b at K1's head dim 64 in bf16, trained from a stream on
+    the card through K1 forward and backward: a job killed mid-run and
+    resumed from its checkpoint ends on the uninterrupted run's loss."""
+    import importlib.util
+    from pathlib import Path
+
+    import repro_torch.core as core
+    from repro_torch.data import ingest
+    from repro_torch.data.formats import RawCodec
+    from repro_torch.train import TrainingJob, adamw
+
+    spec_ = importlib.util.spec_from_file_location(
+        "torch_train_lm", Path(__file__).resolve().parents[1] / "examples" / "torch_train_lm.py")
+    ex = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(ex)
+    cfg = dataclasses.replace(configs.get_reduced("yi-6b"), head_dim=64)
+    corpus = ex.synth_corpus(40, cfg.vocab, seq=65, seed=7)
+    log, reg = core.StreamLog(), core.Registry()
+    spec = reg.register_model("yi-6b-smoke")
+    dep = reg.deploy(reg.create_configuration([spec.model_id]).config_id, "train")
+    log.create_topic("corpus", core.LogConfig(num_partitions=2))
+    ingest(log, "corpus", RawCodec("int32", (65,), "int32", ()),
+           {"data": corpus, "label": np.zeros(40, np.int32)}, dep.deployment_id, validation_rate=0.2)
+    model = StreamModel(cfg, Policy(), device=card, generator=None)
+
+    def run(d, **kw):
+        job = TrainingJob(log, reg, dep.deployment_id, spec.model_id,
+                          loss_fn=lambda p, b: model.loss(p, {"tokens": b["data"]}), init_fn=model.init,
+                          opt=adamw(1e-3), ckpt_dir=str(d), ckpt_every=4, seed=3, device=card)
+        return job.run(batch_size=4, max_steps=10, streaming=True, fetch_records=8, **kw)
+
+    n_b = fa.BWD_LAUNCHES
+    ref_run = run(tmp_path / "ref")
+    assert fa.BWD_LAUNCHES - n_b == 10 * cfg.n_layers
+    with pytest.raises(RuntimeError, match="injected crash"):
+        run(tmp_path / "c", crash_after=5)
+    res = run(tmp_path / "c", resume=True)
+    assert res.steps == 10 and np.isfinite(res.metrics["loss"])
+    assert res.metrics["loss"] == pytest.approx(ref_run.metrics["loss"], abs=1e-4)
