@@ -350,13 +350,33 @@ def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, ge
     return row
 
 
+def check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen, calls: int = 3):
+    """K1's backward called ``calls`` times on one bf16 causal input: dq,
+    dk and dv the same to the bit every time (its GQA split adds partial
+    sums in a fixed order, with no atomics). Raises if not."""
+    import torch
+
+    q, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "qo")
+    k, v = (torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "kv")
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    same = all(all(torch.equal(x, y) for x, y in zip(first, fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)))
+               for _ in range(calls - 1))
+    row = {"b": b, "s": s, "h": h, "kv": kv, "d": d, "dtype": "bfloat16", "causal": True, "calls": calls,
+           "bit_identical": same, "ok": same}
+    print(f"[{card}] flash_attention_bwd determinism {json.dumps(row)}", flush=True)
+    if not same:
+        raise AssertionError(f"flash_attention_bwd gave other bits on the same input: {row}")
+    return row
+
+
 def phase_kernels_bwd(card, fa, ref):
     """K1's backward and its forward's row log-sum-exp, beside the serving
     checks: the training shape in f32 and bf16, head dim 64, a ragged S,
     windows with and without the causal mask, GQA 1 / 2 / 8; the lse
     against torch.logsumexp of the plain scores; the forward's output with
     and without lse, to the bit. Then the training path's own forward and
-    backward calls, timed."""
+    backward calls, timed, and the backward's determinism at that shape."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -381,6 +401,7 @@ def phase_kernels_bwd(card, fa, ref):
             raise AssertionError(f"K1's lse output is off: {lse_rows[-1]}")
     fwd_main = check_attention(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, None, gen, True)
     bwd_main = check_attention_bwd(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, gen, True)
+    rows.append(check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen))
     return rows, lse_rows, fwd_main, bwd_main
 
 

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Time K1 (flash attention), K2 (SSD scan) or K3 (RG-LRU scan) of two checkouts on one card, in turns.
+"""Time K1 (flash attention), its backward, K2 (SSD scan) or K3 (RG-LRU scan) of two checkouts on one card, in turns.
 
     mkdir -p build/ab_parent && git archive <parent commit> | tar -x -C build/ab_parent
-    python3 scripts/torch_kernel_ab.py --parent build/ab_parent [--kernel attention|ssd|rglru] [--ablate] [--rounds N]
+    python3 scripts/torch_kernel_ab.py --parent build/ab_parent [--kernel attention|attention_bwd|ssd|rglru] \
+        [--ablate] [--rounds N]
 
 ``--parent`` is another checkout of the repository, unpacked in a
 directory that .gitignore lists. Each round runs the parent, this
 checkout, this checkout again and the parent, each in a fresh process
 that imports ``repro_torch`` from its own ``src/`` and builds its own
 kernels, and hands that checkout's wrapper to this checkout's
-``chip_smoke.check_attention``, ``check_ssd`` or ``check_rglru``, which holds
+``chip_smoke.check_attention``, ``check_attention_bwd``, ``check_ssd`` or
+``check_rglru``, which holds
 the kernel against its plain version and times it and the plain version
 (and, for K1, the library call ``F.scaled_dot_product_attention`` on
 pre-repeated K/V; with a boolean mask where there is a window) with CUDA
@@ -22,6 +24,14 @@ calls are the kernel's on the serving paths, bf16:
 - K1 (``--kernel attention``, the default): yi-6b's four prefills,
   (1, S, 32/4, 128) causal at ``chip_smoke.PROMPT_LENS``, and
   recurrentgemma-9b's wave, (4, 3000, 16/1, 256) causal, window 2048;
+- K1's backward (``--kernel attention_bwd``): the training path's call,
+  (4, 1024, 32/4, 128) bf16 causal, and ``phase_kernels_bwd``'s head-dim
+  64 row, (2, 777, 8/2, 64) causal, each held to autograd through
+  ``ref.mha`` at ``BWD_TOL`` beside SDPA's backward on pre-repeated K/V
+  (``library_ms``). Each row also carries ``bit_identical`` (two calls on
+  one input give the same dq, dk and dv to the bit) and ``kernel_us``,
+  each CUDA kernel's device time a call (Di, dQ, dK/dV, the reduction)
+  from torch.profiler;
 - K2 (``--kernel ssd``): mamba2-2.7b's wave, (4, 2000, 80/1, 64), N 128,
   chunk 256, the model's decays, a zero initial state, in bf16 and in
   f32, and the teacher-forced forward's (1, 2015, 80/1, 64) with no
@@ -49,7 +59,10 @@ calls are the kernel's on the serving paths, bf16:
 each of its refinements switched off (the named constants in the
 kernel's source set to false in a copy of ``src/`` under
 ``build/ab_variants/``): for K1 ``OVERLAP`` and ``PINGPONG``, and one
-consumer warpgroup (64-row query tiles) instead of two; for K2
+consumer warpgroup (64-row query tiles) instead of two; for K1's
+backward ``FUSED_DI`` (Di in a pass of its own) and ``STAGGER``,
+``GQA_SPLIT`` 1, 4 and 8 instead of 2, ``KV_CONSUMERS`` 1 (64-key dK/dV
+blocks) and ``DQ_KEYS`` 64 (the dQ kernel's key tiles); for K2
 ``SPLIT_XD`` (the state update's decayed xdt as one bf16 operand instead
 of hi + lo), ``FAST_DECAY``, ``STATE_BF16``, ``P1_ROWS`` (the whole
 chunk at once), ``P1_BLOCKS`` (no register cap), ``OUT_WARPGROUPS`` (two)
@@ -60,8 +73,9 @@ blocks an SM) and 32 warps of 8 steps (``STEPS``: 1024 threads a block).
 Prints each process's rows, then a summary (per side, the median over
 its processes, and the change over the parent, over SDPA and the bound
 over the change) beside the card's name and power limit; writes both to
-``kernel_ab.json`` in the output directory (``kernel_ab_ssd.json`` for
-K2, ``kernel_ab_rglru.json`` for K3). Needs a CUDA card.
+``kernel_ab.json`` in the output directory (``kernel_ab_attention_bwd.json``
+for K1's backward, ``kernel_ab_ssd.json`` for K2, ``kernel_ab_rglru.json``
+for K3). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -80,6 +94,7 @@ import chip_smoke as cs  # noqa: E402  (imports neither torch nor repro_torch he
 
 SOURCES = {
     "attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+    "attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "ssd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
     "rglru": "src/repro_torch/kernels/csrc/rglru_scan.cu",
 }
@@ -89,6 +104,15 @@ VARIANTS = {
         "no_overlap": [("constexpr bool OVERLAP = true;", "constexpr bool OVERLAP = false;")],
         "no_pingpong": [("constexpr bool PINGPONG = true;", "constexpr bool PINGPONG = false;")],
         "rows_64": [("static constexpr int CONSUMERS = 2;", "static constexpr int CONSUMERS = 1;")],
+    },
+    "attention_bwd": {
+        "no_fused_di": [("constexpr bool FUSED_DI = true;", "constexpr bool FUSED_DI = false;")],
+        "no_stagger": [("constexpr bool STAGGER = true;", "constexpr bool STAGGER = false;")],
+        "split_1": [("constexpr int GQA_SPLIT = 2;", "constexpr int GQA_SPLIT = 1;")],
+        "split_4": [("constexpr int GQA_SPLIT = 2;", "constexpr int GQA_SPLIT = 4;")],
+        "split_8": [("constexpr int GQA_SPLIT = 2;", "constexpr int GQA_SPLIT = 8;")],
+        "kv_keys_64": [("constexpr int KV_CONSUMERS = 2;", "constexpr int KV_CONSUMERS = 1;")],
+        "dq_keys_64": [("constexpr int DQ_KEYS = 128;", "constexpr int DQ_KEYS = 64;")],
     },
     "ssd": {
         "no_split": [("constexpr bool SPLIT_XD = true;", "constexpr bool SPLIT_XD = false;")],
@@ -109,6 +133,7 @@ VARIANTS = {
     },
 }
 TIMES = ("ms", "graph_ms", "flushed_ms", "library_ms", "library_graph_ms")
+FLAGS = ("bit_identical", "max_abs_err", "rel_err_dq_dk_dv")
 ERRORS = ("el_err_state", "kernel_vs_f64_el_err")
 
 
@@ -176,6 +201,46 @@ def kernel_us(fn, iters: int) -> dict:
         if e.device_time_total > 0:
             name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].split()[-1]
             out[name] = e.device_time_total / iters
+    return out
+
+
+def bwd_calls():
+    """K1 backward's calls: the training path's, then phase_kernels_bwd's head-dim 64 row;
+    each (b, s, h, kv, d), bf16, causal."""
+    b, s, h, kv, d = cs.TRAIN_ATTN
+    return [(f"yi-6b training ({b},{s},{h}/{kv},{d}) bf16 causal", (b, s, h, kv, d)),
+            ("(2,777,8/2,64) bf16 causal", (2, 777, 8, 2, 64))]
+
+
+def measure_attention_bwd(root: Path, label: str) -> dict:
+    """Check and time one checkout's K1 backward (this process imports its ``src``)."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import flash_attention as fa
+
+    assert Path(fa.__file__).resolve().is_relative_to(root.resolve()), fa.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("flash_attention_bwd", "").splitlines()
+             if any(w in ln.lower() for w in ("registers", "spill", "warning", "function properties"))]
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 4)
+    out: dict = {"label": label, "root": str(root), "ptxas": ptxas, "calls": {}}
+    for key, (b, s, h, kv, d) in bwd_calls():
+        row = cs.check_attention_bwd(label, fa, ref, b, s, h, kv, d, "bfloat16", True, None, gen, True)
+        q, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "qo")
+        k, v = (torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "kv")
+        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+
+        def call():
+            return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+
+        first, second = call(), call()
+        row["bit_identical"] = all(torch.equal(x, y) for x, y in zip(first, second))
+        row["graph_ms"] = time_graph_ms(call, 20)
+        row["kernel_us"] = kernel_us(call, 10)
+        out["calls"][key] = row
     return out
 
 
@@ -276,6 +341,8 @@ def measure(root: Path, label: str, kernel: str) -> dict:
     """Check and time one checkout's K1, K2 or K3 (this process imports its ``src``)."""
     if kernel == "ssd":
         return measure_ssd(root, label)
+    if kernel == "attention_bwd":
+        return measure_attention_bwd(root, label)
     if kernel == "rglru":
         return measure_rglru(root, label)
     sys.path.insert(0, str(root / "src"))
@@ -341,6 +408,9 @@ def summarise(runs: list, labels: list) -> dict:
                 vals = [r["calls"].get(key, {}).get(t) for r in runs if r["label"] == label]
                 entry[f"{label}_{t}"] = vals
                 entry[f"{label}_{t}_median"] = med(vals)
+            for f in FLAGS:
+                entry[f"{label}_{f}"] = [r["calls"][key][f] for r in runs
+                                         if r["label"] == label and f in r["calls"].get(key, {})]
             per_kernel = [r["calls"].get(key, {}).get("kernel_us", {}) for r in runs if r["label"] == label]
             entry[f"{label}_kernel_us_median"] = {
                 name: med([d.get(name) for d in per_kernel]) for name in sorted({n for d in per_kernel for n in d})
@@ -413,6 +483,12 @@ def main() -> int:
                          for label in present)
         if args.kernel == "attention":
             cols += f"  SDPA {e['change_library_ms_median']:.4f} ({e['change_library_graph_ms_median']:.4f})"
+        elif args.kernel == "attention_bwd":
+            cols += f"  SDPA {e['change_library_ms_median']:.4f}"
+            cols += "  kernel us " + " ".join(
+                f"{label} " + "/".join(f"{n} {v:.1f}" for n, v in e[f"{label}_kernel_us_median"].items())
+                for label in present)
+            cols += "  bit-identical " + " ".join(f"{label} {all(e[f'{label}_bit_identical'])}" for label in present)
         elif args.kernel == "rglru":
             cols += "  flushed " + " ".join(f"{label} {e[f'{label}_flushed_ms_median']:.4f}" for label in present)
             cols += "  el_err " + " ".join(f"{label} {e[f'{label}_kernel_vs_f64_el_err_median']:.3g}" for label in present)

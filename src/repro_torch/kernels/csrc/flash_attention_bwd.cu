@@ -25,30 +25,79 @@
 // bytes (q, k, v, o, do, lse in; dq, dk, dv out) are 0.02 ms at 3.35 TB/s.
 // So the bound is the tensor cores' rate.
 //
-// Design: simple and deterministic first; making it fast is later work.
-//  - Three kernels a call, in order on the caller's stream: Di on its own
-//    (a warp a row), then dK/dV, then dQ.
-//  - dK/dV: one block per (64-key tile, kv head, batch), four warps of 16
-//    keys. The block walks the query tiles of EVERY query head of its GQA
-//    group (8 on yi-6b) and sums dK and dV in registers, so no atomics and
-//    no scratch. Query tiles the mask rules out for the whole key tile are
-//    never visited.
-//  - dQ: one block per (64-query tile, head, batch), four warps of 16
-//    queries, walking the key tiles the mask allows, dQ in registers.
-//  - bf16: every product is Ampere's mma.sync.m16n8k16 (bf16 in, f32
-//    accumulate) on tiles in padded shared memory (row stride D + 8, so
-//    ldmatrix reads no bank twice), loaded with 16-byte vector loads and
-//    no overlap of loads and products. P and dS enter their products
-//    rounded to bf16 from the f32 accumulator, whose layout is mma's
-//    register-A layout. Queries a dK/dV step: 64 at D 64, 32 at D 128, so
-//    the dK and dV accumulators (2 x 16 x D f32 a warp) fit in registers.
-//  - f32 (the checks at f32 precision): the products run as f32 FMAs on
-//    the CUDA cores, 256 threads each holding a 4 x 4 block of scores and
-//    4 x (D / 16) of an accumulator, as the forward's f32 kernel does; the
-//    tensor cores' TF32 would not hold f32's tolerance.
-//  - The ragged S edge: rows past S load as zeros and score as masked;
-//    nothing past S is stored.
+// bf16 (the training path). It replaces a first version on Ampere's
+// mma.sync with no overlap of loads and products, four warps a block and
+// dK/dV blocks that each walked all 8 query heads of a GQA group (1.064 ms
+// at the training shape, 8% of the bound). Here every product is wgmma and
+// every tile comes by TMA (64 x 64 boxes, 128-byte swizzle, 4-d tensor maps
+// (D, S, heads, B) encoded at each call from the caller's strides, so a
+// box past S reads zeros). Two kernels a call and, with a GQA split, a
+// short pass, in order on the caller's stream:
+//  - dQ (and Di): the forward's skeleton. A block per (128-query tile,
+//    head, batch), last tile first; a producer thread brings Q and dO once
+//    and 128-key K / V tiles through a two-slot ring (full / free
+//    mbarriers, V freed as soon as dP is done); two consumer warpgroups of
+//    64 query rows compute S = Q K^T and dP = dO V^T from shared memory, P
+//    and dS in registers, and dQ += dS K with the K tile as the MN-major B
+//    operand. setmaxnreg gives the producer 24 registers, the consumers 240.
+//  - dK/dV: a block per (128 keys, kv head, head group, batch), key tile 0
+//    first under the causal mask (the most queries see it). K and V come
+//    once; a producer warp streams 64-query steps through a two-slot ring
+//    (Q and dO by TMA, lse2 and Di copied by its lanes). Each of two
+//    consumer warpgroups owns 64 keys: S^T = K Q^T and dP^T = V dO^T from
+//    shared memory, P^T and dS^T in registers (rounded to bf16 as wgmma's
+//    A fragments: the accumulator layout is the register-A layout), dV +=
+//    P^T dO and dK += dS^T Q with the dO and Q tiles as MN-major B operands,
+//    so one swizzled tile serves both its uses.
+//  - The GQA split: a kv head's rep query heads go to G = the largest
+//    divisor of rep up to GQA_SPLIT blocks (yi-6b: 8 heads, G 2: 256 dK/dV
+//    blocks on 132 SMs instead of 128, whose longest would walk 128 steps).
+//    With G > 1 each block stores its f32 partial dK and dV, and
+//    reduce_dkdv_kernel adds the G partials in the order g = 0 .. G - 1:
+//    the same bits at every call, no atomics.
+//  - Masks: tiles the mask rules out are never visited; the per-element
+//    mask only on a tile an edge crosses. Queries past S carry lse2 = +inf
+//    (P = 0), keys past S are masked, nothing past S is stored.
+//  - dQ stays a kernel of its own (S and dP computed again: 7 products a
+//    pair, not the bound's 5, 0.1217 ms at the training shape at best):
+//    folding it into dK/dV would sum dQ across key tiles, which needs
+//    atomics or an ordered reduction across blocks.
+// Named refinements and choices, each measured on and off at the training
+// shape by scripts/torch_kernel_ab.py --kernel attention_bwd --ablate
+// (medians of 4 processes, NVIDIA H100 80GB HBM3, 700 W; all 0.3729 ms,
+// graph 0.3614: dK/dV 171.8 us, dQ 178.5, the pass 12.8):
+//  - FUSED_DI: each dQ consumer computes its rows' Di = rowsum(dO o O)
+//    from global memory under its first tile's products and stores it for
+//    dK/dV (it adds 23.6 us to dQ; a pass of its own takes 37.3): off
+//    0.3868 ms.
+//  - STAGGER: S and dP (S^T and dP^T) are two wgmma groups, P is computed
+//    while dP runs, and in dK/dV dV is issued before dS^T is computed:
+//    off 0.3750 ms.
+//  - GQA_SPLIT 2: 1 gives 0.4596 ms, 4 0.3962, 8 0.4558 (the pass grows
+//    with G: 27.4 / 52.4 us).
+//  - KV_CONSUMERS 2 (128-key dK/dV blocks): 1 gives 0.4515 ms.
+//  - DQ_KEYS 128: 64-key dQ tiles give 0.3753 ms.
+//  Measured slower and left out (PERF.md, Findings): the consumer warpgroups
+//  taking turns to issue (the forward's PINGPONG); dQ issuing a tile's S
+//  and dP with the previous tile's dQ; the G blocks as a cluster summing
+//  through distributed shared memory in place of the pass.
+// Scratch beyond Di (the wrapper sizes it by
+// repro_flash_attention_bwd_scratch): with G > 1 the partials, G x 2 x B x
+// S x Kv x D f32, 33.5 MB at the training shape, written once and read
+// once (at least 0.020 ms at 3.35 TB/s; the pass measures 12.8 us, the
+// partials partly in L2).
+// ptxas (sm_90a, CUDA 12.8): dQ and dK/dV at D 64 and 128 launch at 168
+// registers (setmaxnreg then 24 / 240), no spills; dynamic shared memory
+// dK/dV 133,160 / 67,624 bytes and dQ 197,704 / 99,400 at D 128 / 64, one
+// block an SM; the pass 32 registers.
+//
+// f32 (the checks at f32 precision): the products run as f32 FMAs on the
+// CUDA cores, 256 threads each holding a 4 x 4 block of scores and 4 x
+// (D / 16) of an accumulator, as the forward's f32 kernel does; the tensor
+// cores' TF32 would not hold f32's tolerance. Its Di is a pass of its own
+// (a warp a row).
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched from the driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -59,7 +108,7 @@
 namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int TILE = 64;  // keys a dK/dV block, queries a dQ block, keys a dQ step
+constexpr int TILE = 64;  // f32: keys a dK/dV block, queries a dQ block, keys a dQ step
 
 struct Strides {
   int64_t b, s, h;  // element strides; head_dim stride is 1
@@ -73,19 +122,37 @@ struct Mask {
     if (causal && kj > qi) return false;
     return !(window > 0 && kj <= qi - window);
   }
-  // the first and last query that may see a key of [k0, k0 + TILE)
+  // the first and last query that may see a key of [k0, k0 + TK)
+  template <int TK = TILE>
   __device__ __forceinline__ int2 queries(int k0) const {
-    const int k_last = min(k0 + TILE, S) - 1;
+    const int k_last = min(k0 + TK, S) - 1;
     const int lo = causal ? k0 : 0;
     const int hi = window > 0 ? min(S - 1, k_last + window - 1) : S - 1;
     return make_int2(lo, hi);
   }
-  // the key tiles some query of [q0, q0 + TILE) may see
+  // the TK-key tiles some query of [q0, q0 + TQ) may see
+  template <int TQ = TILE, int TK = TILE>
   __device__ __forceinline__ int2 key_tiles(int q0) const {
-    const int q_last = min(q0 + TILE, S) - 1;
-    const int hi = causal ? q_last / TILE : (S - 1) / TILE;
-    const int lo = window > 0 ? max(0, q0 - window + 1) / TILE : 0;
+    const int q_last = min(q0 + TQ, S) - 1;
+    const int hi = causal ? q_last / TK : (S - 1) / TK;
+    const int lo = window > 0 ? max(0, q0 - window + 1) / TK : 0;
     return make_int2(lo, hi);
+  }
+  // whether every pair of the 64 query rows from qw and the keys [k0, k0 +
+  // TK) is kept (rows past S aside: their lse2 is +inf)
+  template <int TK>
+  __device__ __forceinline__ bool interior(int qw, int k0) const {
+    const int q_last = min(qw + 63, S - 1);
+    if (k0 + TK > S) return false;
+    if (causal && k0 + TK - 1 > qw) return false;
+    return !(window > 0 && k0 <= q_last - window);
+  }
+  // the same for the 64 keys from kw and the queries [q0, q0 + TQ)
+  template <int TQ>
+  __device__ __forceinline__ bool interior_keys(int kw, int q0) const {
+    if (kw + 64 > S) return false;
+    if (causal && kw + 63 > q0) return false;
+    return !(window > 0 && kw <= min(q0 + TQ, S) - 1 - window);
   }
 };
 
@@ -111,34 +178,94 @@ __global__ void delta_kernel(const T* __restrict__ o, const T* __restrict__ dout
   if (lane == 0) delta[row] = acc;
 }
 
-// ------------------------------------------------ bf16: mma.sync building blocks
+// ------------------------------------------------- bf16: Hopper primitives
+// A copy of flash_attention.cu:301-445 (mbarriers, TMA, the shared-memory
+// descriptor, the wgmma wrappers): each source builds alone.
 using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// four 8 x 8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
 }
 
-// d += A (16 x 16, row-major fragments) . B (16 x 8, column fragments b0, b1).
-// Accumulator element e of lane 4g + t: row g + 8 (e / 2), column 2t + e % 2.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+// arrive once and add `bytes` to the transactions the current phase awaits
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// spin until the phase of parity `parity` has completed (a fresh barrier
+// counts its phase of parity 1 as completed)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one (64 columns x rows) box of a 4-d tensor map into shared memory,
+// completing on `bar`; coordinates innermost first
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a tile in 128-byte-swizzled atoms (8
+// rows x 128 B, 1024-byte aligned, as TMA writes them). A K-major operand
+// steps 16 columns by adding 32 bytes to the start address (`lbo` unused);
+// for an MN-major one `lbo` is the distance between 64-column atom
+// columns and `sbo` between 8-row groups along K.
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (smem_u32(p) & 0x3FFFF) >> 4;
+  d |= uint64_t((lbo >> 4) & 0x3FFF) << 16;
+  d |= uint64_t((sbo >> 4) & 0x3FFF) << 32;
+  d |= uint64_t(1) << 62;  // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N of the warpgroup's committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pin registers that an asynchronous wgmma reads or writes, so that the
+// compiler neither moves nor reads them across its issue or its wait
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -152,272 +279,565 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; -inf gives 0
   return y;
 }
 
-// Addresses of ldmatrix.x4 for a 16 x 16 block at (r0, c0) of a row-major
-// tile with row stride ld:
-//  - as an A operand (rows are A's rows): a0..a3;
-__device__ __forceinline__ const bf16* a_addr(const bf16* tile, int ld, int r0, int c0, int lane) {
-  return tile + (r0 + lane % 8 + 8 * ((lane / 8) % 2)) * ld + c0 + 8 * (lane / 16);
-}
-//  - as the B operand of two 8-column n-tiles whose columns are the tile's
-//    rows r0 .. r0 + 15 (B = tile^T, k along the tile's columns):
-//    {b0, b1} of n-tile r0 and of n-tile r0 + 8;
-__device__ __forceinline__ const bf16* bt_addr(const bf16* tile, int ld, int r0, int c0, int lane) {
-  return tile + (r0 + lane % 8 + 8 * (lane / 16)) * ld + c0 + 8 * ((lane / 8) % 2);
-}
-//  - with .trans, as the B operand of two n-tiles at columns c0 and c0 + 8
-//    of the tile (k along the tile's rows r0 .. r0 + 15).
-__device__ __forceinline__ const bf16* bn_addr(const bf16* tile, int ld, int r0, int c0, int lane) {
-  return tile + (r0 + lane % 8 + 8 * ((lane / 8) % 2)) * ld + c0 + 8 * (lane / 16);
+// The wgmma shapes the kernels issue. Accumulator element 4j + 2r + c of a
+// thread (warp w, lane 4g + t of its warpgroup) is row 16w + g + 8r,
+// column 8j + 2t + c of the 64 x N tile.
+// d (+)= A . B^T for a 64 x 64 tile: A (64 x 16) and B (64 x 16) from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// rows [row0, row0 + rows) of a (S, D) bf16 view with row stride `st` into a
-// padded tile; rows past S read as zero. 16-byte loads: the wrapper checks
-// a 16-byte aligned base and strides in multiples of 8 elements.
-template <int D, int THREADS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t st, int row0, int rows,
-                                          int S) {
-  constexpr int LD = D + 8, VEC = D / 8;
-  for (int idx = threadIdx.x; idx < rows * VEC; idx += THREADS) {
-    const int r = idx / VEC, c = (idx % VEC) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) val = *reinterpret_cast<const uint4*>(src + (row0 + r) * st + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+// d (+)= A . B^T for a 64 x 128 tile: A (64 x 16) and B (128 x 16) from shared memory, both K-major
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A . B for a 64 x 64 tile: A (64 x 16 bf16) from registers, B (16 x 64) from shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A . B for a 64 x 128 tile: A (64 x 16 bf16) from registers, B (16 x 128) from shared memory, MN-major
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ------------------------------------------------------ bf16: the kernels
+// d (+)= A . B^T of a 64 x N tile, both operands K-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int accumulate) {
+  if constexpr (N == 128)
+    wgmma_ss_n128(d, a, b, accumulate);
+  else
+    wgmma_ss_n64(d, a, b, accumulate);
+}
+// d += A . B of a 64 x N tile, A from registers, B MN-major in shared memory
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 128)
+    wgmma_rs_n128(d, a, b);
+  else
+    wgmma_rs_n64(d, a, b);
+}
+
+// A (rows, D) tile in shared memory is D / 64 atom columns of rows x 128 B,
+// as TMA writes 64-column boxes with 128-byte swizzle. The descriptor of
+// 16-column k-step kk of a K-major operand that starts at `desc` in a tile
+// of R rows (descriptor addresses count 16-byte units):
+template <int R>
+__device__ __forceinline__ uint64_t k_step(uint64_t desc, int kk) {
+  return desc + (kk / 4) * (R * 8) + (kk % 4) * 2;
+}
+
+// rows [row0, row0 + R) of head `head`, batch b into a tile of R rows: R / 64
+// x D / 64 boxes of 64 x 64 (a box past S reads zeros and counts its bytes)
+template <int R, int D>
+__device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map, uint64_t* bar, int row0,
+                                          int head, int b) {
+#pragma unroll
+  for (int d = 0; d < D / 64; ++d)
+#pragma unroll
+    for (int r = 0; r < R / 64; ++r)
+      tma_load(dst + d * R * 128 + r * 64 * 128, map, bar, d * 64, row0 + 64 * r, head, b);
+}
+
+// p = 2^(s scale log2(e) - lse2) of the 64 x N scores in place (0 where
+// the mask drops the pair), as wgmma accumulators whose element 4j + 2r +
+// c is at (row0 + 8r, col0 + 8j + 2t + c). ROW_Q says whether rows are
+// queries (dQ) or keys (dK/dV, the transposed products); lse2 comes from
+// the caller per element.
+template <int N, bool ROW_Q, typename Lse>
+__device__ __forceinline__ void probs(float (&sc)[N / 2], const Mask& mask, bool interior, int row0, int col0,
+                                      int t, float scale_log2, Lse lse_of) {
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x) {
+    const int r = (x / 2) % 2, c = 8 * (x / 4) + 2 * t + (x % 2);
+    const float p = ex2(sc[x] * scale_log2 - lse_of(r, c));
+    const bool ok = interior || (ROW_Q ? mask.ok(row0 + 8 * r, col0 + c) : mask.ok(col0 + c, row0 + 8 * r));
+    sc[x] = ok ? p : 0.f;
+  }
+}
+// ds = p (dp - Di) in place of dp (0 where p is: the tiles hold finite values)
+template <int N, typename Di>
+__device__ __forceinline__ void dscores(const float (&p)[N / 2], float (&dp)[N / 2], int t, Di di_of) {
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x) dp[x] = p[x] * (dp[x] - di_of((x / 2) % 2, 8 * (x / 4) + 2 * t + (x % 2)));
+}
+
+// 64 x N scores rounded to bf16 as wgmma's A fragments: k-step kk covers
+// the column blocks 2kk and 2kk + 1
+template <int N>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[N / 16][4], const float (&sc)[N / 2]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    a[j / 2][(j % 2) * 2] = pack_bf16(sc[4 * j], sc[4 * j + 1]);
+    a[j / 2][(j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
   }
 }
 
+// one arrival on `bar` from each warp of the calling warpgroup
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+}
+
+// Refinements and measured choices; scripts/torch_kernel_ab.py --kernel
+// attention_bwd --ablate builds the kernels with each changed and times
+// them (PERF.md).
+constexpr bool FUSED_DI = true;  // dQ's kernel computes Di from O and dO: no pass of its own
+constexpr bool STAGGER = true;   // P is computed under dP's product, dS (dK/dV) under dV's
+constexpr int GQA_SPLIT = 2;     // blocks a kv head's query heads are split over (at most)
+constexpr int KV_CONSUMERS = 2;  // dK/dV: warpgroups of 64 keys a block
+constexpr int DQ_KEYS = 128;     // dQ: keys a tile of the K / V ring
+
 template <int D>
-struct Bf16Tiles {
-  static constexpr int LD = D + 8;                // padded row, bf16
-  static constexpr int BQ = D == 128 ? 32 : 64;   // queries a dK/dV step
-  static constexpr size_t SMEM_KV = 2 * size_t(2 * TILE * LD + 2 * BQ * LD) + 2 * 4 * BQ;
-  static constexpr size_t SMEM_Q = 2 * size_t(4 * TILE * LD);
+struct KvTiles {  // dK/dV: a block per (64 x CONSUMERS keys, kv head, head group, batch)
+  static constexpr int CONSUMERS = KV_CONSUMERS;
+  static constexpr int BN = 64 * CONSUMERS;  // keys a block
+  static constexpr int BQ = 64;              // queries a step
+  static constexpr int STAGES = 2;           // Q / dO / lse2 / Di ring slots
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  static constexpr uint32_t KV_BYTES = BN * D * 2;  // the K (or V) tile
+  static constexpr uint32_t Q_BYTES = BQ * D * 2;   // a slot's Q (or dO) tile
+  static constexpr size_t SMEM =
+      1024 + 2 * size_t(KV_BYTES) + 2 * STAGES * size_t(Q_BYTES) + 2 * STAGES * BQ * 4 + 8 * (1 + 2 * STAGES);
+  // two consumers: 384 threads launch at 168 registers, and setmaxnreg
+  // moves the producer's share to them (128 x 24 + 256 x 240 = 384 x 168;
+  // asking for more than the launch holds never returns)
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = 240;
+  static_assert(CONSUMERS != 2 || 128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 384 * 168);
 };
 
-// ------------------------------------------------------------ bf16: dK, dV
 template <int D>
-__global__ void __launch_bounds__(128)
-    dkdv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, Strides sq, Strides sk,
-                     Strides sv, Strides sdo, Strides sdk, Strides sdv, int H, int rep, Mask mask,
-                     float scale, float scale_log2) {
-  using T = Bf16Tiles<D>;
-  constexpr int LD = T::LD, BQ = T::BQ, NT = BQ / 8, DT = D / 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vs = ks + TILE * LD;
-  bf16* qs = vs + TILE * LD;
-  bf16* dos = qs + BQ * LD;
-  float* lse_s = reinterpret_cast<float*>(dos + BQ * LD);
-  float* dl_s = lse_s + BQ;
+struct QTiles {  // dQ: a block per (128 queries, head, batch), the forward's shape
+  static constexpr int CONSUMERS = 2;
+  static constexpr int BM = 64 * CONSUMERS;    // queries a block
+  static constexpr int BN = DQ_KEYS;           // keys a tile: S and dP beside dQ's accumulator
+  static constexpr int STAGES = 2;             // K / V ring slots
+  static constexpr int THREADS = 128 * (1 + CONSUMERS);
+  static constexpr uint32_t Q_BYTES = BM * D * 2;
+  static constexpr uint32_t KV_BYTES = BN * D * 2;
+  static constexpr size_t SMEM = 1024 + 2 * size_t(Q_BYTES) + 2 * STAGES * size_t(KV_BYTES) + 8 * (1 + 4 * STAGES);
+  static constexpr int PRODUCER_REGS = 24;
+  static constexpr int CONSUMER_REGS = 240;
+  static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 384 * 168);
+};
 
-  const int S = mask.S;
-  const int k0 = blockIdx.x * TILE, hk = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int kw = 16 * warp;  // this warp's key rows in the tile
-  load_tile<D, 128>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, TILE, S);
-  load_tile<D, 128>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, TILE, S);
+// the blocks a kv head's `rep` query heads are split over: the largest
+// divisor of rep up to GQA_SPLIT
+__host__ __device__ inline int gqa_split(int rep) {
+  int g = GQA_SPLIT < rep ? GQA_SPLIT : rep;
+  while (rep % g) --g;
+  return g;
+}
 
-  float dka[DT][4], dva[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+// ---- dQ (and, with FUSED_DI, Di). Shared memory: Q, dO, STAGES K tiles,
+// STAGES V tiles, then the barriers.
+template <int D>
+__global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
+    dq_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                   const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
+                   float* __restrict__ delta, bf16* __restrict__ dq, Strides so, Strides sdo, Strides sdq,
+                   int rep, Mask mask, float scale, float scale_log2) {
+  using T = QTiles<D>;
+  constexpr int BM = T::BM, BN = T::BN, ST = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* qs = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* dos = qs + T::Q_BYTES;
+  uint8_t* ks = dos + T::Q_BYTES;
+  uint8_t* vs = ks + ST * T::KV_BYTES;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(vs + ST * T::KV_BYTES);  // Q and dO
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + ST;
+  uint64_t* free_k = full_v + ST;
+  uint64_t* free_v = free_k + ST;
 
-  const int2 qr = mask.queries(k0);
-  for (int r = 0; r < rep; ++r) {
-    const int h = hk * rep + r;
-    const bf16* qh = q + b * sq.b + h * sq.h;
-    const bf16* doh = dout + b * sdo.b + h * sdo.h;
-    const float* lse_h = lse + (int64_t(b) * H + h) * S;
-    const float* dl_h = delta + (int64_t(b) * H + h) * S;
-    for (int q0 = (qr.x / BQ) * BQ; q0 <= qr.y; q0 += BQ) {
-      __syncthreads();  // the previous step's tiles are no longer read
-      load_tile<D, 128>(qs, qh, sq.s, q0, BQ, S);
-      load_tile<D, 128>(dos, doh, sdo.s, q0, BQ, S);
-      for (int i = threadIdx.x; i < BQ; i += 128) {
-        const int qi = q0 + i;
-        lse_s[i] = qi < S ? lse_h[qi] : INFINITY;
-        dl_s[i] = qi < S ? dl_h[qi] : 0.f;
-      }
-      __syncthreads();
+  const int S = mask.S, H = gridDim.x;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;  // the longest rows first
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int2 kt = mask.key_tiles<BM, BN>(q0);
+  const int n_tiles = kt.y - kt.x + 1;
+  const int wg = threadIdx.x / 128;
 
-      // S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys x BQ queries
-      float st[NT][4], dpt[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        ldsm_x4(ak, a_addr(ks, LD, kw, 16 * kk, lane));
-        ldsm_x4(av, a_addr(vs, LD, kw, 16 * kk, lane));
-#pragma unroll
-        for (int np = 0; np < BQ / 16; ++np) {
-          uint32_t bq[4], bd[4];
-          ldsm_x4(bq, bt_addr(qs, LD, 16 * np, 16 * kk, lane));
-          ldsm_x4(bd, bt_addr(dos, LD, 16 * np, 16 * kk, lane));
-          mma(st[2 * np], ak, bq[0], bq[1]);
-          mma(st[2 * np + 1], ak, bq[2], bq[3]);
-          mma(dpt[2 * np], av, bd[0], bd[1]);
-          mma(dpt[2 * np + 1], av, bd[2], bd[3]);
-        }
-      }
-      // P^T and dS^T in place
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kj = k0 + kw + g + 8 * (e / 2), qc = 8 * j + 2 * t + (e % 2);
-          const float p = mask.ok(q0 + qc, kj) ? ex2(st[j][e] * scale_log2 - lse_s[qc]) : 0.f;
-          st[j][e] = p;
-          dpt[j][e] = p * (dpt[j][e] - dl_s[qc]);
-        }
-      // dV += P^T dO and dK += dS^T Q (scale applied at the end)
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        const uint32_t ap[4] = {pack_bf16(st[2 * kk][0], st[2 * kk][1]),
-                                pack_bf16(st[2 * kk][2], st[2 * kk][3]),
-                                pack_bf16(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                                pack_bf16(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-        const uint32_t as[4] = {pack_bf16(dpt[2 * kk][0], dpt[2 * kk][1]),
-                                pack_bf16(dpt[2 * kk][2], dpt[2 * kk][3]),
-                                pack_bf16(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                                pack_bf16(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
-#pragma unroll
-        for (int nd = 0; nd < D / 16; ++nd) {
-          uint32_t bd[4], bq[4];
-          ldsm_x4_t(bd, bn_addr(dos, LD, 16 * kk, 16 * nd, lane));
-          ldsm_x4_t(bq, bn_addr(qs, LD, 16 * kk, 16 * nd, lane));
-          mma(dva[2 * nd], ap, bd[0], bd[1]);
-          mma(dva[2 * nd + 1], ap, bd[2], bd[3]);
-          mma(dka[2 * nd], as, bq[0], bq[1]);
-          mma(dka[2 * nd + 1], as, bq[2], bq[3]);
-        }
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&free_k[s], 4 * T::CONSUMERS);
+      mbar_init(&free_v[s], 4 * T::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: one thread brings Q and dO once, then keeps the K / V ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(T::PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, 2 * T::Q_BYTES);
+      load_rows<BM, D>(qs, &tq, full_q, q0, h, b);
+      load_rows<BM, D>(dos, &tdo, full_q, q0, h, b);
+      const int hk = h / rep;
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % ST;
+        const uint32_t free_parity = ((i / ST) & 1) ^ 1;
+        const int k0 = (kt.x + i) * BN;
+        mbar_wait(&free_k[s], free_parity);
+        mbar_expect_tx(&full_k[s], T::KV_BYTES);
+        load_rows<BN, D>(ks + s * T::KV_BYTES, &tk, &full_k[s], k0, hk, b);
+        mbar_wait(&free_v[s], free_parity);
+        mbar_expect_tx(&full_v[s], T::KV_BYTES);
+        load_rows<BN, D>(vs + s * T::KV_BYTES, &tv, &full_v[s], k0, hk, b);
       }
     }
-  }
+  } else {
+    // ---- consumers: warpgroup cw owns the query rows qw .. qw + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::CONSUMER_REGS));
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int qw = q0 + 64 * cw;
+    const int qi0 = qw + 16 * warp + g;  // this thread's rows: qi0 and qi0 + 8
+
+    // each row's lse2 and Di; with FUSED_DI, Di = rowsum(dO o O) here, the
+    // four lanes of a quad taking every fourth 16-byte chunk of the row.
+    // Run under the first tile's products.
+    float lse_r[2], dl_r[2];
+    auto row_stats = [&]() {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int qi = qi0 + 8 * r;
+        const int64_t row = (int64_t(b) * H + h) * S + qi;
+        if constexpr (FUSED_DI) {
+          float acc = 0.f;
+          if (qi < S) {
+            const bf16* orow = o + b * so.b + h * so.h + qi * so.s;
+            const bf16* drow = dout + b * sdo.b + h * sdo.h + qi * sdo.s;
+#pragma unroll
+            for (int c = t; c < D / 8; c += 4) {
+              const uint4 ov = *reinterpret_cast<const uint4*>(orow + 8 * c);
+              const uint4 dv = *reinterpret_cast<const uint4*>(drow + 8 * c);
+              const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+              const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const float2 of = __bfloat1622float2(op[e]), df = __bfloat1622float2(dp[e]);
+                acc = fmaf(of.x, df.x, acc);
+                acc = fmaf(of.y, df.y, acc);
+              }
+            }
+          }
+          acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+          acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+          dl_r[r] = acc;
+          if (t == 0 && qi < S) delta[row] = acc;
+        } else {
+          dl_r[r] = qi < S ? delta[row] : 0.f;
+        }
+        lse_r[r] = qi < S ? lse[row] : INFINITY;
+      }
+    };
+
+    float acc[D / 2];  // dQ / scale
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+    const uint64_t dq_a = sw128_desc(qs + cw * 64 * 128, 16, 1024);
+    const uint64_t ddo_a = sw128_desc(dos + cw * 64 * 128, 16, 1024);
+    mbar_wait(full_q, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % ST;
+      const int k0 = (kt.x + i) * BN;
+      uint8_t* kslot = ks + s * T::KV_BYTES;
+      float sc[BN / 2], dp[BN / 2];
+      mbar_wait(&full_k[s], (i / ST) & 1);
+      mbar_wait(&full_v[s], (i / ST) & 1);
+      // S = Q K^T and dP = dO V^T, D / 16 k-steps each
+      wgmma_fence();
+      {
+        const uint64_t dk_b = sw128_desc(kslot, 16, 1024);
+        const uint64_t dv_b = sw128_desc(vs + s * T::KV_BYTES, 16, 1024);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<BN>(sc, k_step<BM>(dq_a, kk), k_step<BN>(dk_b, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<BN>(dp, k_step<BM>(ddo_a, kk), k_step<BN>(dv_b, kk), kk > 0);
+        wgmma_commit();
+      }
+      if (i == 0) row_stats();
+      if constexpr (STAGGER)
+        wgmma_wait<1>();  // S is done; dP may still run
+      else
+        wgmma_wait<0>();
+      pin(sc);
+      probs<BN, true>(sc, mask, mask.interior<BN>(qw, k0), qi0, k0, t, scale_log2,
+                      [&](int r, int) { return lse_r[r]; });
+      wgmma_wait<0>();
+      pin(dp);
+      warp_arrive(&free_v[s]);
+      dscores<BN>(sc, dp, t, [&](int r, int) { return dl_r[r]; });
+      uint32_t da[BN / 16][4];
+      pack_a<BN>(da, dp);
+      // dQ += dS K: the K tile as the MN-major B operand
+      pin(acc);
+      pin(da);
+      wgmma_fence();
+      {
+        const uint64_t dk_n = sw128_desc(kslot, BN * 128, 1024);
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<D>(acc, da[kk], dk_n + kk * 128);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+      pin(da);
+      warp_arrive(&free_k[s]);
+    }
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kj = k0 + kw + g + 8 * r;
-    if (kj >= S) continue;
-    bf16* dkr = dk + b * sdk.b + hk * sdk.h + kj * sdk.s + 2 * t;
-    bf16* dvr = dv + b * sdv.b + hk * sdv.h + kj * sdv.s + 2 * t;
+    for (int r = 0; r < 2; ++r) {
+      const int qi = qi0 + 8 * r;
+      if (qi >= S) continue;
+      bf16* dst = dq + b * sdq.b + h * sdq.h + qi * sdq.s + 2 * t;
 #pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      *reinterpret_cast<uint32_t*>(dkr + 8 * j) =
-          pack_bf16(dka[j][2 * r] * scale, dka[j][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dvr + 8 * j) = pack_bf16(dva[j][2 * r], dva[j][2 * r + 1]);
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
     }
   }
 }
 
-// ----------------------------------------------------------------- bf16: dQ
+// ---- dK, dV. A block owns BN keys of kv head hk and walks the query
+// steps of its group's share of the query heads (rep / G of them). With
+// G == 1 it stores dK and dV; otherwise f32 partial sums into `part`,
+// laid out (G, 2, B, KV, S, D), that reduce_dkdv_kernel adds in order.
+// Shared memory: K, V, STAGES Q tiles, STAGES dO tiles, STAGES x BQ lse2,
+// the same of Di, then the barriers.
 template <int D>
-__global__ void __launch_bounds__(128)
-    dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
-                   Strides sdq, int H, int rep, Mask mask, float scale, float scale_log2) {
-  using T = Bf16Tiles<D>;
-  constexpr int LD = T::LD, NT = TILE / 8, DT = D / 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* dos = qs + TILE * LD;
-  bf16* ks = dos + TILE * LD;
-  bf16* vs = ks + TILE * LD;
+__global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
+    dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                     const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, float* __restrict__ part, Strides sdk, Strides sdv, int H,
+                     int rep, int G, Mask mask, float scale, float scale_log2) {
+  using T = KvTiles<D>;
+  constexpr int BN = T::BN, BQ = T::BQ, ST = T::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ks = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint8_t* vs = ks + T::KV_BYTES;
+  uint8_t* qs = vs + T::KV_BYTES;
+  uint8_t* dos = qs + ST * T::Q_BYTES;
+  float* lse_s = reinterpret_cast<float*>(dos + ST * T::Q_BYTES);
+  float* dl_s = lse_s + ST * BQ;
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(dl_s + ST * BQ);
+  uint64_t* full = full_kv + 1;  // a slot's Q, dO, lse2 and Di are in
+  uint64_t* free_ = full + ST;   // every consumer warp is done with the slot
 
-  const int S = mask.S;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;  // the longest rows first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / rep;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int qw = 16 * warp;
-  load_tile<D, 128>(qs, q + b * sq.b + h * sq.h, sq.s, q0, TILE, S);
-  load_tile<D, 128>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, TILE, S);
-  float lse_r[2], dl_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + qw + g + 8 * r;
-    lse_r[r] = qi < S ? lse[(int64_t(b) * H + h) * S + qi] : INFINITY;
-    dl_r[r] = qi < S ? delta[(int64_t(b) * H + h) * S + qi] : 0.f;
+  const int S = mask.S, KV = gridDim.x / G;
+  // causal: key tile 0, which the most queries see, first
+  const int tile = mask.causal ? blockIdx.z : gridDim.z - 1 - blockIdx.z;
+  const int k0 = tile * BN, hk = blockIdx.x / G, grp = blockIdx.x % G, b = blockIdx.y;
+  const int heads = rep / G, h0 = hk * rep + grp * heads;  // this block's query heads
+  const int2 qr = mask.queries<BN>(k0);
+  const int qt0 = qr.x / BQ, n_q = qr.y / BQ - qt0 + 1;
+  const int n_steps = heads * n_q;  // step i: head h0 + i / n_q, queries (qt0 + i % n_q) BQ
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA's transaction arrival and the producer warp's lanes
+      mbar_init(&free_[s], 4 * T::CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float dqa[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+  __syncthreads();
 
-  const bf16* kh = k + b * sk.b + hk * sk.h;
-  const bf16* vh = v + b * sv.b + hk * sv.h;
-  const int2 kt = mask.key_tiles(q0);
-  for (int it = kt.x; it <= kt.y; ++it) {
-    const int k0 = it * TILE;
-    __syncthreads();  // the previous key tile is no longer read
-    load_tile<D, 128>(ks, kh, sk.s, k0, TILE, S);
-    load_tile<D, 128>(vs, vh, sv.s, k0, TILE, S);
-    __syncthreads();
-
-    float sc[NT][4], dp[NT][4];
+  if (wg == 0) {
+    // ---- producer: one warp; lane 0 brings K and V once, then each step's
+    // Q and dO tiles by TMA, while the lanes copy its lse2 and Di
+    if constexpr (T::CONSUMERS == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(T::PRODUCER_REGS));
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(full_kv, 2 * T::KV_BYTES);
+        load_rows<BN, D>(ks, &tk, full_kv, k0, hk, b);
+        load_rows<BN, D>(vs, &tv, full_kv, k0, hk, b);
+      }
+      for (int i = 0; i < n_steps; ++i) {
+        const int s = i % ST, h = h0 + i / n_q, q0 = (qt0 + i % n_q) * BQ;
+        mbar_wait(&free_[s], ((i / ST) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * T::Q_BYTES);
+          load_rows<BQ, D>(qs + s * T::Q_BYTES, &tq, &full[s], q0, h, b);
+          load_rows<BQ, D>(dos + s * T::Q_BYTES, &tdo, &full[s], q0, h, b);
+        }
+        const int64_t row = (int64_t(b) * H + h) * S;
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ad[4];
-      ldsm_x4(aq, a_addr(qs, LD, qw, 16 * kk, lane));
-      ldsm_x4(ad, a_addr(dos, LD, qw, 16 * kk, lane));
-#pragma unroll
-      for (int np = 0; np < TILE / 16; ++np) {
-        uint32_t bk[4], bv[4];
-        ldsm_x4(bk, bt_addr(ks, LD, 16 * np, 16 * kk, lane));
-        ldsm_x4(bv, bt_addr(vs, LD, 16 * np, 16 * kk, lane));
-        mma(sc[2 * np], aq, bk[0], bk[1]);
-        mma(sc[2 * np + 1], aq, bk[2], bk[3]);
-        mma(dp[2 * np], ad, bv[0], bv[1]);
-        mma(dp[2 * np + 1], ad, bv[2], bv[3]);
+        for (int x = lane; x < BQ; x += 32) {
+          const int qi = q0 + x;
+          lse_s[s * BQ + x] = qi < S ? lse[row + qi] : INFINITY;  // rows past S: p = 0
+          dl_s[s * BQ + x] = qi < S ? delta[row + qi] : 0.f;
+        }
+        mbar_arrive(&full[s]);
       }
     }
-    // dS in place of the scores
+  } else {
+    // ---- consumers: warpgroup cw owns the keys kw .. kw + 63
+    if constexpr (T::CONSUMERS == 2)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::CONSUMER_REGS));
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int kw = k0 + 64 * cw;
+    const int kj0 = kw + 16 * warp + g;  // this thread's keys: kj0 and kj0 + 8
+
+    float dka[D / 2], dva[D / 2];  // dK / scale and dV
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int x = 0; x < D / 2; ++x) dka[x] = dva[x] = 0.f;
+    const uint64_t dk_a = sw128_desc(ks + cw * 64 * 128, 16, 1024);
+    const uint64_t dv_a = sw128_desc(vs + cw * 64 * 128, 16, 1024);
+    mbar_wait(full_kv, 0);
+    for (int i = 0; i < n_steps; ++i) {
+      const int s = i % ST, q0 = (qt0 + i % n_q) * BQ;
+      uint8_t* qslot = qs + s * T::Q_BYTES;
+      uint8_t* dslot = dos + s * T::Q_BYTES;
+      float st[BQ / 2], dpt[BQ / 2];
+      mbar_wait(&full[s], (i / ST) & 1);
+      // S^T = K Q^T and dP^T = V dO^T, D / 16 k-steps each
+      wgmma_fence();
+      {
+        const uint64_t dq_b = sw128_desc(qslot, 16, 1024), ddo_b = sw128_desc(dslot, 16, 1024);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = q0 + qw + g + 8 * (e / 2), kj = k0 + 8 * j + 2 * t + (e % 2);
-        const float p = mask.ok(qi, kj) ? ex2(sc[j][e] * scale_log2 - lse_r[e / 2]) : 0.f;
-        sc[j][e] = p * (dp[j][e] - dl_r[e / 2]);
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<BQ>(st, k_step<BN>(dk_a, kk), k_step<BQ>(dq_b, kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<BQ>(dpt, k_step<BN>(dv_a, kk), k_step<BQ>(ddo_b, kk), kk > 0);
+        wgmma_commit();
       }
-    // dQ += dS K
+      if constexpr (STAGGER)
+        wgmma_wait<1>();  // S^T is done; dP^T may still run
+      else
+        wgmma_wait<0>();
+      pin(st);
+      const float* ls = lse_s + s * BQ;
+      const float* dl = dl_s + s * BQ;
+      probs<BQ, false>(st, mask, mask.interior_keys<BQ>(kw, q0), kj0, q0, t, scale_log2,
+                       [&](int, int c) { return ls[c]; });
+      uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
+      pack_a<BQ>(pa, st);
+      // dV += P^T dO, then dK += dS^T Q: the dO and Q tiles as MN-major B operands
+      const uint64_t dq_n = sw128_desc(qslot, BQ * 128, 1024), ddo_n = sw128_desc(dslot, BQ * 128, 1024);
+      pin(dva);
+      pin(pa);
+      if constexpr (STAGGER) {  // dV under dS^T's elementwise work
+        wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < TILE / 16; ++kk) {
-      const uint32_t as[4] = {pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-                              pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-                              pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-                              pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+        for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dva, pa[kk], ddo_n + kk * 128);
+        wgmma_commit();
+        wgmma_wait<1>();  // dP^T is done; dV may still run
+      } else {
+        wgmma_wait<0>();
+      }
+      pin(dpt);
+      dscores<BQ>(st, dpt, t, [&](int, int c) { return dl[c]; });
+      pack_a<BQ>(sa, dpt);
+      pin(dka);
+      pin(sa);
+      wgmma_fence();
+      if constexpr (!STAGGER) {
 #pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
-        uint32_t bk[4];
-        ldsm_x4_t(bk, bn_addr(ks, LD, 16 * kk, 16 * nd, lane));
-        mma(dqa[2 * nd], as, bk[0], bk[1]);
-        mma(dqa[2 * nd + 1], as, bk[2], bk[3]);
+        for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dva, pa[kk], ddo_n + kk * 128);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dka, sa[kk], dq_n + kk * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(dka);
+      pin(dva);
+      pin(pa);
+      pin(sa);
+      warp_arrive(&free_[s]);
+    }
+
+    const int B = gridDim.y;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kj = kj0 + 8 * r;
+      if (kj >= S) continue;
+      if (part == nullptr) {  // one block a kv head: store
+        bf16* dkr = dk + b * sdk.b + hk * sdk.h + kj * sdk.s + 2 * t;
+        bf16* dvr = dv + b * sdv.b + hk * sdv.h + kj * sdv.s + 2 * t;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<uint32_t*>(dkr + 8 * j) =
+              pack_bf16(dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
+          *reinterpret_cast<uint32_t*>(dvr + 8 * j) = pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+        }
+      } else {  // a partial sum of the group's share
+        const int64_t plane = int64_t(B) * KV * S * D;
+        float* pk = part + int64_t(2 * grp) * plane + ((int64_t(b) * KV + hk) * S + kj) * D + 2 * t;
+        float* pv = pk + plane;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          *reinterpret_cast<float2*>(pk + 8 * j) = make_float2(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
+          *reinterpret_cast<float2*>(pv + 8 * j) = make_float2(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+        }
       }
     }
   }
+}
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qi = q0 + qw + g + 8 * r;
-    if (qi >= S) continue;
-    bf16* dst = dq + b * sdq.b + h * sdq.h + qi * sdq.s + 2 * t;
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-      *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-          pack_bf16(dqa[j][2 * r] * scale, dqa[j][2 * r + 1] * scale);
+// ---- the G partial sums of dK and dV added in the order g = 0 .. G - 1
+// (the same bits at every call), dK scaled, stored as bf16; 4 elements a thread
+__global__ void reduce_dkdv_kernel(const float* __restrict__ part, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                                   Strides sdk, Strides sdv, int G, int KV, int S, int D, int64_t plane,
+                                   float scale) {
+  const int64_t idx = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (idx >= 2 * plane) return;
+  const int which = idx >= plane;  // 0: dK, 1: dV
+  const int64_t e = idx - which * plane;
+  float4 acc = *reinterpret_cast<const float4*>(part + which * plane + e);
+  for (int g = 1; g < G; ++g) {
+    const float4 x = *reinterpret_cast<const float4*>(part + (2 * g + which) * plane + e);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
   }
+  const float f = which ? 1.f : scale;
+  const int d = int(e % D), s = int((e / D) % S), hk = int((e / (int64_t(D) * S)) % KV);
+  const int b = int(e / (int64_t(D) * S * KV));
+  const Strides st = which ? sdv : sdk;
+  bf16* dst = (which ? dv : dk) + b * st.b + hk * st.h + s * st.s + d;
+  *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(acc.x * f, acc.y * f), pack_bf16(acc.z * f, acc.w * f));
 }
 
 // --------------------------------------------------------- f32, CUDA cores
@@ -658,6 +1078,51 @@ __global__ void __launch_bounds__(F32_THREADS)
 }
 
 // ------------------------------------------------------------------ host
+// A copy of flash_attention.cu:742-798: the tensor-map encoder, the map,
+// the shared-memory attribute.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, found through the runtime, so the
+// library needs no -lcuda
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a bf16 (D, S, heads, B) view with the caller's element
+// strides (innermost first), read in boxes of 64 columns x 64 rows with
+// 128-byte swizzle; elements past an extent read as zero. TMA takes
+// strides that are positive multiples of 16 bytes (the wrapper checks); a
+// dimension of extent 1 is never stepped, so its stride is replaced by one
+// that TMA takes, whatever the caller's.
+bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B, Strides st) {
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(S), cuuint64_t(heads), cuuint64_t(B)};
+  cuuint64_t strides[3] = {cuuint64_t(st.s) * 2, cuuint64_t(st.h) * 2, cuuint64_t(st.b) * 2};
+  cuuint64_t any = cuuint64_t(D) * 2;
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] > 1 && strides[i] > any) any = strides[i];
+  for (int i = 0; i < 3; ++i)
+    if (dims[i + 1] == 1) strides[i] = any;
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // The dynamic shared-memory limit is an attribute of the current card's
 // context: raise it once for each card a kernel is launched on.
 cudaError_t size_smem_once(const void* kern, int bytes, std::atomic<uint64_t>& done) {
@@ -692,31 +1157,52 @@ cudaError_t launch_delta(const Args& a, int D, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// floats of `delta` a bf16 call uses: Di (B x H x S, rounded up to 64 so
+// that the partials after it are 256-byte aligned), then with a GQA split
+// the partial sums of dK and dV
+int64_t bf16_scratch_floats(int B, int H, int KV, int S, int D) {
+  const int64_t di = (int64_t(B) * H * S + 63) / 64 * 64;
+  const int G = gqa_split(H / KV);
+  return G > 1 ? di + int64_t(G) * 2 * B * KV * S * D : di;
+}
+
 template <int D>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
-  using T = Bf16Tiles<D>;
-  cudaError_t err = launch_delta<bf16>(a, D, stream);
-  if (err != cudaSuccess) return err;
-  const int S = a.mask.S, tiles = (S + TILE - 1) / TILE, rep = a.H / a.KV;
+  using TQ = QTiles<D>;
+  using TK = KvTiles<D>;
+  const int S = a.mask.S, rep = a.H / a.KV, G = gqa_split(rep);
   const float scale_log2 = a.scale * LOG2E;
-  static std::atomic<uint64_t> sized_kv{0}, sized_q{0};
-  auto kv = dkdv_bf16_kernel<D>;
-  err = size_smem_once(reinterpret_cast<const void*>(kv), int(T::SMEM_KV), sized_kv);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(&mq, a.q, D, S, a.H, a.B, a.sq) || !make_map(&mk, a.k, D, S, a.KV, a.B, a.sk) ||
+      !make_map(&mv, a.v, D, S, a.KV, a.B, a.sv) || !make_map(&mdo, a.dout, D, S, a.H, a.B, a.sdo))
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  if constexpr (!FUSED_DI) {
+    err = launch_delta<bf16>(a, D, stream);
+    if (err != cudaSuccess) return err;
+  }
+  static std::atomic<uint64_t> sized_q{0}, sized_kv{0};
+  auto qk = dq_bf16_kernel<D>;
+  err = size_smem_once(reinterpret_cast<const void*>(qk), int(TQ::SMEM), sized_q);
   if (err != cudaSuccess) return err;
-  kv<<<dim3(tiles, a.KV, a.B), 128, T::SMEM_KV, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dk),
-      static_cast<bf16*>(a.dv), a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv, a.H, rep, a.mask, a.scale,
-      scale_log2);
+  qk<<<dim3(a.H, a.B, (S + TQ::BM - 1) / TQ::BM), TQ::THREADS, TQ::SMEM, stream>>>(
+      mq, mk, mv, mdo, static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout), a.lse, a.delta,
+      static_cast<bf16*>(a.dq), a.so, a.sdo, a.sdq, rep, a.mask, a.scale, scale_log2);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto qk = dq_bf16_kernel<D>;
-  err = size_smem_once(reinterpret_cast<const void*>(qk), int(T::SMEM_Q), sized_q);
+  float* part = G > 1 ? a.delta + (int64_t(a.B) * a.H * S + 63) / 64 * 64 : nullptr;
+  auto kv = dkdv_bf16_kernel<D>;
+  err = size_smem_once(reinterpret_cast<const void*>(kv), int(TK::SMEM), sized_kv);
   if (err != cudaSuccess) return err;
-  qk<<<dim3(tiles, a.H, a.B), 128, T::SMEM_Q, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-      static_cast<const bf16*>(a.dout), a.lse, a.delta, static_cast<bf16*>(a.dq), a.sq, a.sk,
-      a.sv, a.sdo, a.sdq, a.H, rep, a.mask, a.scale, scale_log2);
+  kv<<<dim3(G * a.KV, a.B, (S + TK::BN - 1) / TK::BN), TK::THREADS, TK::SMEM, stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), part, a.sdk,
+      a.sdv, a.H, rep, G, a.mask, a.scale, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || G == 1) return err;
+  const int64_t plane = int64_t(a.B) * a.KV * S * D;
+  constexpr int THREADS = 256;
+  reduce_dkdv_kernel<<<unsigned((2 * plane / 4 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
+      part, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sdk, a.sdv, G, a.KV, S, D, plane, a.scale);
   return cudaGetLastError();
 }
 
@@ -761,11 +1247,13 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 24 element strides, (batch,
 // sequence, head) of q, k, v, o, do, dq, dk and dv in that order. lse is
-// the forward's contiguous (B, H, S) base-2 log-sum-exp; delta a (B, H, S)
-// f32 scratch the call fills. window <= 0 means none. bf16 loads 16 bytes
-// at a time: 16-byte aligned data, strides multiples of 8 elements (the
-// wrapper checks). Launches three kernels on `stream`; returns
-// cudaGetLastError() after the last launch that ran (0 on success).
+// the forward's contiguous (B, H, S) base-2 log-sum-exp; delta an f32
+// scratch of repro_flash_attention_bwd_scratch(...) floats that the call
+// fills (its first B x H x S are Di). window <= 0 means none. bf16 reads
+// through TMA and 16 bytes at a time: 16-byte aligned data, strides
+// multiples of 8 elements (the wrapper checks). Launches its kernels on
+// `stream`; returns cudaGetLastError() after the last launch that ran (0
+// on success).
 int repro_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const float* lse, float* delta, void* dq, void* dk,
                               void* dv, int dtype, int B, int H, int KV, int S, int D,
@@ -787,6 +1275,14 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v, const
     default:
       return int(cudaErrorInvalidValue);
   }
+}
+
+// The floats of f32 scratch `delta` that repro_flash_attention_bwd needs
+// for these shapes (-1 for arguments it refuses).
+int64_t repro_flash_attention_bwd_scratch(int dtype, int B, int H, int KV, int S, int D) {
+  if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || H % KV != 0) return -1;
+  if (dtype == 1) return bf16_scratch_floats(B, H, KV, S, D);
+  return int64_t(B) * H * S;
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -37,7 +37,10 @@ The gradient. With ``return_lse=True`` the forward also returns each
 row's base-2 log-sum-exp (``lse2``, f32 (B, H, S)), and
 :func:`flash_attention_bwd` launches the backward kernel
 (``csrc/flash_attention_bwd.cu``, no TPU counterpart: JAX differentiates
-its plain ``_chunked_attention``) from the saved q, k, v, o and lse2.
+its plain ``_chunked_attention``) from the saved q, k, v, o and lse2: in
+bf16 a dQ kernel (which also computes Di) and a dK/dV kernel, both on
+``wgmma`` with TMA rings, and with a GQA split an ordered pass that adds
+the f32 partial dK / dV sums, whose scratch the wrapper allocates.
 :class:`FlashAttention` joins the two as a ``torch.autograd.Function``;
 its plain version on the CPU is autograd through ``ref.mha``. The
 backward takes head dims 64 and 128 and no softcap.
@@ -64,7 +67,7 @@ __all__ = [
 
 # kernel launches since import (or since a caller last set it to 0)
 LAUNCHES = 0
-BWD_LAUNCHES = 0  # of the backward's C entry point (three kernels each)
+BWD_LAUNCHES = 0  # of the backward's C entry point (two to three CUDA kernels each)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
@@ -212,9 +215,12 @@ def _bwd_kernel():
             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
+        scratch = lib.repro_flash_attention_bwd_scratch
+        scratch.argtypes = [ctypes.c_int] * 6
+        scratch.restype = ctypes.c_int64
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _bwd_fn = (fn, lib.repro_cuda_error_string)
+        _bwd_fn = (fn, scratch, lib.repro_cuda_error_string)
     return _bwd_fn
 
 
@@ -294,11 +300,12 @@ def flash_attention_bwd(
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     dk = torch.empty((b, s, kv, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     dv = torch.empty((b, s, kv, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 24)(*(
         st for t in (q, k, v, o, do, dq, dk, dv) for st in (t.stride(0), t.stride(2), t.stride(1))
     ))
-    fn, err_str = _bwd_kernel()
+    fn, scratch, err_str = _bwd_kernel()
+    # Di, then (bf16 with a GQA split) the f32 partial sums of dK and dV
+    delta = torch.empty(scratch(_DTYPES[q.dtype], b, h, kv, s, d), dtype=torch.float32, device=q.device)
     dev = q.get_device()
     with torch.cuda.device(dev):
         rc = fn(

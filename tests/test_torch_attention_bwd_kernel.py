@@ -1,0 +1,282 @@
+"""K1's backward (``csrc/flash_attention_bwd.cu``, bf16 path) on the CPU:
+the tiles it visits and the arithmetic it does, in its order.
+
+The CUDA kernels cannot run here, so this file mirrors them in Python:
+
+- ``kv_steps`` / ``q_tiles`` are the ranges the dK/dV and dQ blocks walk
+  (``Mask::queries`` and ``Mask::key_tiles`` at the kernels' tile sizes),
+  and ``interior_keys`` / ``interior_rows`` the tests that let a block skip
+  the per-element mask. They are held against a brute-force scan of the
+  mask: a tile that is skipped but holds a kept pair fails, and so does an
+  "interior" tile that holds a dropped pair.
+- ``kernel_model`` computes dq, dk and dv as the kernels do: P from the
+  forward's base-2 log-sum-exp, Di = rowsum(dO o O), dQ by query tile over
+  its key tiles, dK and dV by key tile over the query steps of each GQA
+  group's heads, the groups' f32 partial sums added in group order, and
+  (``bf16=True``) P and dS rounded to bf16 where the kernels round them.
+  In f32 it is held to autograd through ``ref.mha`` and to ``jax.grad`` of
+  the JAX package's ``layers._chunked_attention`` on the same numpy inputs
+  at 2e-5 of each gradient's largest element (the f32 tolerance the card
+  holds the kernel to; sums in another order); with the bf16 rounding, to
+  autograd at 2e-2 (``chip_smoke.BWD_TOL``'s bf16 tolerance).
+
+The tile sizes and the GQA split are read from the kernel's source, so
+the mirror follows it. The kernels themselves are held on the card by
+tests/test_torch_kernels_cuda.py and chip_smoke.py.
+"""
+
+import math
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models.layers import AttnParams, _chunked_attention
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
+
+SRC = (Path(fa.__file__).resolve().parent / "csrc" / "flash_attention_bwd.cu").read_text()
+LOG2E = 1.4426950408889634
+F32_TOL, BF16_TOL = 2e-5, 2e-2
+
+
+def _source_int(pattern: str) -> int:
+    m = re.search(pattern, SRC)
+    assert m is not None, f"{pattern!r} not in the kernel's source"
+    return int(m.group(1))
+
+
+GQA_SPLIT = _source_int(r"constexpr int GQA_SPLIT = (\d+);")
+KV_CONSUMERS = _source_int(r"constexpr int KV_CONSUMERS = (\d+);")
+BN_KV = 64 * KV_CONSUMERS  # KvTiles::BN: keys a dK/dV block
+BQ = _source_int(r"static constexpr int BQ = (\d+);")  # KvTiles::BQ: queries a dK/dV step
+BM = 64 * _source_int(r"struct QTiles \{[^}]*?static constexpr int CONSUMERS = (\d+);")  # queries a dQ block
+DQ_KEYS = _source_int(r"constexpr int DQ_KEYS = (\d+);")  # QTiles::BN: keys a dQ tile
+
+
+def gqa_split(rep: int) -> int:
+    """``gqa_split``: the largest divisor of rep up to GQA_SPLIT."""
+    g = min(GQA_SPLIT, rep)
+    while rep % g:
+        g -= 1
+    return g
+
+
+def kv_steps(s, causal, window, k0, bn=BN_KV, bq=BQ):
+    """The query steps (their first rows) the dK/dV block of keys [k0, k0 + bn) walks."""
+    k_last = min(k0 + bn, s) - 1
+    lo = k0 if causal else 0
+    hi = min(s - 1, k_last + window - 1) if window else s - 1
+    return range(lo // bq * bq, hi + 1, bq)
+
+
+def q_tiles(s, causal, window, q0, bn, bm=BM):
+    """The bn-key tiles the dQ block of queries [q0, q0 + bm) walks."""
+    q_last = min(q0 + bm, s) - 1
+    hi = q_last // bn if causal else (s - 1) // bn
+    lo = max(0, q0 - window + 1) // bn if window else 0
+    return range(lo, hi + 1)
+
+
+def interior_rows(s, causal, window, qw, k0, tk):
+    """``Mask::interior``: 64 query rows from qw against keys [k0, k0 + tk)."""
+    q_last = min(qw + 63, s - 1)
+    if k0 + tk > s or (causal and k0 + tk - 1 > qw):
+        return False
+    return not (window and k0 <= q_last - window)
+
+
+def interior_keys(s, causal, window, kw, q0, tq=BQ):
+    """``Mask::interior_keys``: 64 keys from kw against queries [q0, q0 + tq)."""
+    if kw + 64 > s or (causal and kw + 63 > q0):
+        return False
+    return not (window and kw <= min(q0 + tq, s) - 1 - window)
+
+
+def kept(s, causal, window):
+    """(query, key) pairs the mask keeps, (S, S) bool: ``Mask::ok``."""
+    q, k = np.arange(s)[:, None], np.arange(s)[None, :]
+    ok = np.ones((s, s), bool)
+    if causal:
+        ok &= k <= q
+    if window:
+        ok &= k > q - window
+    return ok
+
+
+# S at and around every tile size the kernels use (64, 128), ragged
+SEQS = (1, 2, 63, 64, 65, 127, 128, 129, 191, 192, 193, 255, 256, 257, 300, 383, 384, 385, 513, 777)
+MASKS = [(True, None), (True, 1), (True, 64), (True, 100), (True, 129), (False, 50), (False, 128), (False, None)]
+
+
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_dkdv_walk_covers_every_kept_pair(causal, window):
+    """Every kept pair lies in a query step its key tile visits; every step
+    visited starts inside S; a warpgroup's step called interior holds only
+    kept pairs (queries past S aside)."""
+    for s in SEQS:
+        ok = kept(s, causal, window)
+        for k0 in range(0, s, BN_KV):
+            steps = list(kv_steps(s, causal, window, k0))
+            assert steps and all(0 <= q0 < s for q0 in steps)
+            need = {q // BQ * BQ for q in np.nonzero(ok[:, k0 : k0 + BN_KV].any(1))[0]}
+            assert need <= set(steps), (s, k0, sorted(need - set(steps)))
+            for kw in range(k0, k0 + BN_KV, 64):
+                for q0 in steps:
+                    if interior_keys(s, causal, window, kw, q0):
+                        assert ok[q0 : min(q0 + BQ, s), kw : kw + 64].all(), (s, kw, q0)
+
+
+@pytest.mark.parametrize("bn", [64, 128])
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_dq_walk_covers_every_kept_pair(bn, causal, window):
+    """Every kept pair lies in a key tile its query tile visits; every tile
+    visited starts inside S; a warpgroup's tile called interior holds only
+    kept pairs (rows past S aside). At key tiles of 128 (the kernel's
+    DQ_KEYS) and 64 (scripts/torch_kernel_ab.py's dq_keys_64)."""
+    for s in SEQS:
+        ok = kept(s, causal, window)
+        for q0 in range(0, s, BM):
+            tiles = list(q_tiles(s, causal, window, q0, bn))
+            assert tiles and all(0 <= kt * bn < s for kt in tiles)
+            need = {k // bn for k in np.nonzero(ok[q0 : q0 + BM].any(0))[0]}
+            assert need <= set(tiles), (s, q0, sorted(need - set(tiles)))
+            for qw in range(q0, q0 + BM, 64):
+                for kt in tiles:
+                    if qw < s and interior_rows(s, causal, window, qw, kt * bn, bn):
+                        assert ok[qw : min(qw + 64, s), kt * bn : (kt + 1) * bn].all(), (s, qw, kt)
+
+
+@pytest.mark.parametrize("rep", [1, 2, 3, 4, 6, 8, 16])
+def test_gqa_split_gives_each_head_one_block(rep):
+    """The G blocks of a kv head take rep / G query heads each, every head once."""
+    g = gqa_split(rep)
+    assert 1 <= g <= GQA_SPLIT and rep % g == 0
+    heads = [hk * rep + grp * (rep // g) + r for hk in range(3) for grp in range(g) for r in range(rep // g)]
+    assert sorted(heads) == list(range(3 * rep))
+
+
+def _mask_t(s, causal, window):
+    return torch.from_numpy(kept(s, causal, window))
+
+
+def kernel_model(q, k, v, do, causal, window, bf16=False):
+    """dq, dk, dv (q, do (B, H, S, D); k, v (B, Kv, S, D)) in the kernels' order."""
+    b, h, s, d = q.shape
+    kv = k.shape[1]
+    rep, g = h // kv, gqa_split(h // kv)
+    scale = 1.0 / math.sqrt(d)
+    sl2 = scale * LOG2E
+    rnd = (lambda x: x.bfloat16().float()) if bf16 else (lambda x: x)
+    kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    # the forward's outputs: O and the base-2 row log-sum-exp of the scaled scores
+    out = ref.mha(q, kr, vr, causal=causal, window=window)
+    lse2 = torch.logsumexp(ref.scores(q, kr, causal=causal, window=window), -1) * LOG2E
+    di = (do * out).sum(-1)  # Di, (B, H, S)
+    ok = _mask_t(s, causal, window)
+
+    # dQ: a block per BM queries, its key tiles in order; all heads at once
+    bn = DQ_KEYS
+    dq = torch.zeros_like(q)
+    for q0 in range(0, s, BM):
+        rows = slice(q0, min(q0 + BM, s))
+        for kt in q_tiles(s, causal, window, q0, bn):
+            cols = slice(kt * bn, min((kt + 1) * bn, s))
+            keep = ok[rows, cols]
+            p = torch.exp2(q[:, :, rows] @ kr[:, :, cols].transpose(-1, -2) * sl2 - lse2[:, :, rows, None])
+            dp = do[:, :, rows] @ vr[:, :, cols].transpose(-1, -2)
+            ds = torch.where(keep, p * (dp - di[:, :, rows, None]), 0.0)
+            dq[:, :, rows] += rnd(ds) @ kr[:, :, cols]
+    dq = dq * scale
+
+    # dK, dV: a block per (BN_KV keys, kv head, group); each group's f32 partial sums
+    part_k = torch.zeros((g, b, kv, s, d))
+    part_v = torch.zeros((g, b, kv, s, d))
+    for k0 in range(0, s, BN_KV):
+        cols = slice(k0, min(k0 + BN_KV, s))
+        for hk in range(kv):
+            for grp in range(g):
+                for i in range(rep // g):
+                    hh = hk * rep + grp * (rep // g) + i
+                    for q0 in kv_steps(s, causal, window, k0):
+                        rows = slice(q0, min(q0 + BQ, s))
+                        keep = ok[rows, cols].T
+                        st = k[:, hk, cols] @ q[:, hh, rows].transpose(-1, -2)
+                        pt = torch.where(keep, torch.exp2(st * sl2 - lse2[:, hh, None, rows]), 0.0)
+                        dpt = v[:, hk, cols] @ do[:, hh, rows].transpose(-1, -2)
+                        dst = torch.where(keep, pt * (dpt - di[:, hh, None, rows]), 0.0)
+                        part_v[grp, :, hk, cols] += rnd(pt) @ do[:, hh, rows]
+                        part_k[grp, :, hk, cols] += rnd(dst) @ q[:, hh, rows]
+    dk, dv = part_k[0].clone(), part_v[0].clone()
+    for grp in range(1, g):  # reduce_dkdv_kernel: in group order
+        dk += part_k[grp]
+        dv += part_v[grp]
+    return dq, dk * scale, dv
+
+
+def _inputs(seed, b, s, h, kv, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d),
+                                                                        (b, s, h, d))]
+
+
+def _autograd(q, k, v, do, causal, window):
+    rep = q.shape[1] // k.shape[1]
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = ref.mha(leaves[0], leaves[1].repeat_interleave(rep, 1), leaves[2].repeat_interleave(rep, 1),
+                  causal=causal, window=window)
+    return torch.autograd.grad(out, leaves, do)
+
+
+def _jax_grads(arrays, causal, window):
+    """jax.grad of layers._chunked_attention on (B, S, heads, D) arrays, as (B, heads, S, D) torch tensors."""
+    q, k, v, do = (jnp.asarray(a) for a in arrays)
+    s, h, d = q.shape[1], q.shape[2], q.shape[3]
+    ap = AttnParams(n_heads=h, n_kv=k.shape[2], head_dim=d, causal=causal, window=window, q_block=64)
+    pos = jnp.arange(s)
+    _, vjp = jax.vjp(lambda q_, k_, v_: _chunked_attention(q_, k_, v_, pos, pos, ap, grouped=False), q, k, v)
+    return [torch.from_numpy(np.array(g)).transpose(1, 2) for g in vjp(do)]
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,causal,window", [
+    (2, 129, 8, 2, 64, True, None),    # rep 4: G 2; S a tile + 1
+    (1, 255, 8, 1, 128, True, None),   # rep 8; S two dK/dV tiles - 1
+    (1, 200, 4, 4, 64, True, 70),      # rep 1: G 1, no partials; causal window
+    (2, 130, 6, 2, 128, False, 50),    # rep 3: G 1; window alone
+    (1, 257, 16, 2, 64, True, 129),    # rep 8; S a tile multiple + 1, window past a tile
+    (1, 192, 4, 2, 128, False, None),  # no mask
+])
+def test_kernel_model_matches_autograd_and_jax(b, s, h, kv, d, causal, window):
+    arrays = _inputs(31, b, s, h, kv, d)
+    q, k, v, do = (torch.from_numpy(a).transpose(1, 2) for a in arrays)
+    got = kernel_model(q, k, v, do, causal, window)
+    want = _autograd(q, k, v, do, causal, window)
+    want_jax = _jax_grads(arrays, causal, window)
+    for name, g, w, wj in zip(("dq", "dk", "dv"), got, want, want_jax):
+        assert g.shape == w.shape == wj.shape
+        assert _rel(g, w) <= F32_TOL, (name, _rel(g, w))
+        assert _rel(g, wj) <= F32_TOL, (name, _rel(g, wj))
+
+
+@pytest.mark.parametrize("s,h,kv,d,causal,window", [
+    (300, 8, 1, 128, True, None),
+    (257, 8, 2, 64, True, 100),
+    (129, 4, 2, 128, False, 64),
+])
+def test_kernel_model_bf16_rounding_within_tolerance(s, h, kv, d, causal, window):
+    """With bf16 inputs and P and dS rounded to bf16 where the kernels round
+    them, the gradients stay within the card's bf16 tolerance of autograd."""
+    arrays = _inputs(32, 1, s, h, kv, d)
+    q, k, v, do = (torch.from_numpy(a).bfloat16().float().transpose(1, 2) for a in arrays)
+    got = kernel_model(q, k, v, do, causal, window, bf16=True)
+    want = _autograd(q, k, v, do, causal, window)
+    errs = [_rel(g, w) for g, w in zip(got, want)]
+    assert max(errs) <= BF16_TOL, errs

@@ -606,6 +606,82 @@ def test_flash_attention_bwd_on_card(card, dtype, b, s, h, kv, d, causal, window
         assert err <= BWD_TOL[dtype], err
 
 
+# the bf16 kernels' tiles (csrc/flash_attention_bwd.cu): dK/dV blocks of
+# 128 keys walking 64-query steps, dQ blocks of 128 queries walking key
+# tiles of 128; S at, below and above each
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 255, 257])
+def test_flash_attention_bwd_ragged_tiles(card, d, s):
+    q, k, v, do = _bwd_case(27, 2, s, 8, 2, d, "bfloat16", card)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    for g, w in zip(got, _plain_grads(q, k, v, do, True, None)):
+        assert float((g.float() - w.float()).abs().max() / w.float().abs().max()) <= BWD_TOL["bfloat16"]
+
+
+# GQA groups of 1 to 16 query heads (the split takes up to GQA_SPLIT
+# blocks a kv head), under the causal mask, a window, and both
+@pytest.mark.parametrize("rep", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 96), (True, 96)])
+def test_flash_attention_bwd_gqa_and_masks(card, rep, causal, window):
+    q, k, v, do = _bwd_case(28, 1, 333, 2 * rep, 2, 128 if rep % 2 else 64, "bfloat16", card)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    for g, w in zip(got, _plain_grads(q, k, v, do, causal, window)):
+        assert float((g.float() - w.float()).abs().max() / w.float().abs().max()) <= BWD_TOL["bfloat16"]
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", [(4, 1024, 32, 4, 128), (2, 777, 8, 2, 64), (1, 300, 4, 4, 128)])
+def test_flash_attention_bwd_is_deterministic(card, b, s, h, kv, d):
+    """Two calls on one input give the same dq, dk and dv to the bit: the
+    GQA split's partial sums are added in a fixed order, with no atomics."""
+    q, k, v, do = _bwd_case(29, b, s, h, kv, d, "bfloat16", card)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    for _ in range(3):
+        again = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bwd_strided_views(card, d):
+    """q, k, v as views of one fused (B, S, H + 2 Kv, D) projection, o and
+    do in (B, H, S, D) storage, do also sliced from a head dim 4 wider (a
+    row stride TMA refuses, so the wrapper makes it contiguous): the
+    gradients of the contiguous inputs, to the bit."""
+    b, s, h, kv = 2, 300, 8, 2
+    rng = np.random.default_rng(30)
+    fused = torch.from_numpy(rng.standard_normal((b, s, h + 2 * kv, d)).astype(np.float32)).to(card, torch.bfloat16)
+    q, k, v = (fused[:, :, a:z].transpose(1, 2) for a, z in ((0, h), (h, h + kv), (h + kv, h + 2 * kv)))
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    wide = torch.from_numpy(rng.standard_normal((b, h, s, d + 4)).astype(np.float32)).to(card, torch.bfloat16)
+    do = wide[..., :d]
+    assert not do.is_contiguous() and do.stride(2) % 8
+    got = fa.flash_attention_bwd(q, k, v, out.contiguous(), do, lse, causal=True)
+    want = fa.flash_attention_bwd(*(t.contiguous() for t in (q, k, v, out)), do.contiguous(), lse, causal=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(got, _plain_grads(q, k, v, do, True, None)):
+        assert float((g.float() - w.float()).abs().max() / w.float().abs().max()) <= BWD_TOL["bfloat16"]
+
+
+def test_flash_attention_bwd_builds_without_spills(card, tmp_path):
+    """ptxas's report of the backward's source: every kernel spills nothing
+    and setmaxnreg is kept."""
+    import re
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(tmp_path / "lib.so"),
+                          str(_build.CSRC / "flash_attention_bwd.cu")], check=True, capture_output=True, text=True)
+    log = res.stdout + res.stderr
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    assert len(spills) >= 8, log  # dQ, dK/dV, f32 dQ, f32 dK/dV at two head dims, Di, the reduction
+    assert all(a == "0" and b == "0" for a, b in spills), log
+    assert "C7508" not in log and "setmaxnreg ignored" not in log, log
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("s,h,kv,d,window", [(1000, 32, 4, 128, None), (777, 8, 2, 64, 100), (300, 4, 1, 256, 64)])
 def test_flash_attention_lse_on_card(card, dtype, s, h, kv, d, window):
