@@ -10,7 +10,12 @@ shapes and a sweep of modes, and time kernel, plain version and (where
 one exists) one library call: K1 (flash attention, head dims 64, 128 and
 256), K1's backward (dq, dk, dv against autograd through the plain
 version; head dims 64 and 128) and its forward's row log-sum-exp, then
-K2 (SSD scan), then K3 (RG-LRU scan); (4) train full-width yi-6b (16 of
+K2 (SSD scan), then K3 (RG-LRU scan); (3b) the paper's loop
+(examples/torch_quickstart.py): copd-mlp trained from a stream on a
+three-broker cluster and served by a two-replica ``InferenceDeployment``,
+then by a transactional one across a kill of the predictions topic's
+leader, then the ``Supervisor`` restarting a crashed training job from
+its checkpoint; (4) train full-width yi-6b (16 of
 its 32 layers, d 4096, bf16 weights from a seed) from a stream:
 a seeded Markov corpus ingested into a 4-partition topic and announced
 on the control topic, ``TrainingJob(streaming=True)`` with AdamW for 8
@@ -25,7 +30,11 @@ eight requests through the same model behind ``LMServingGroup`` (two
 transactional workers on a three-broker cluster, request and response
 topics of two partitions at replication factor 3, the response leader
 killed after the first four) and check that each comes back exactly once
-and greedy; (7) drop yi-6b and serve a topic of four 2000-token prompts
+and greedy; (6b) serve sixteen 1024-token prompts through the same model
+behind a two-replica ``InferenceDeployment`` (examples/torch_serve_lm.py's
+prefill and decode steps, two prompts a partition a prefill), replica 0
+killed after the first eight, and check each completion once and greedy;
+(7) drop yi-6b and serve a topic of four 2000-token prompts
 through full-width mamba2-2.7b (64 layers, d 2560, random bf16 weights
 from a seed) with the wave engine ``LMEngine`` and check what comes
 back, then serve it again
@@ -142,6 +151,21 @@ TRAIN_ATTN = (TRAIN_BATCH, TRAIN_SEQ, 32, 4, 128)  # (B, S, H, Kv, D) of its att
 # the first loss: ln(64000) = 11.07 plus half the variance of random
 # logits (unembed 1/sqrt(d) on a unit-RMS hidden state: about 0.5)
 TRAIN_LOSS0_BAND = (10.5, 12.5)
+# the paper loop (examples/torch_quickstart.py): copd-mlp at its own
+# widths (5 -> 32 -> 4) on the synthetic HCOPD stream (220 records,
+# validation 0.2), trained as tests/test_system.py:17 trains it and held
+# to that test's gates; 16 requests served by 2 replicas
+COPD_BATCH, COPD_EPOCHS, COPD_LR, COPD_REQUESTS = 10, 25, 1e-2, 16
+COPD_PRED_TOL = 1e-5  # served probabilities against the port's forward on the CPU
+# the transactional round serves logits, which tell the requests apart:
+# each committed record must lie this close (relative to the largest
+# logit) to exactly one request's logits on the CPU
+COPD_LOGIT_TOL = 1e-5
+SUP_MAX_STEPS, SUP_CRASH_AFTER = 40, 15  # the supervisor's configuration (tests/test_supervisor.py)
+# yi-6b behind InferenceDeployment, as examples/serve_lm.py runs its LM:
+# RAW int32 records of 1024 prompt tokens, 8 new tokens each, 2 prompts on
+# each of 4 partitions a round, 2 replicas on a controlled clock
+DEPLOY_PROMPT, DEPLOY_GEN, DEPLOY_PARTITIONS, DEPLOY_PER_PARTITION = 1024, 8, 4, 2
 
 
 def card_line() -> str:
@@ -278,7 +302,10 @@ def phase_kernels(card, fa, ref):
     ]
     rg_main = check_attention(card, fa, ref, WAVE_REQUESTS, RG_PROMPT_LEN, 16, 1, 256, "bfloat16", True, 2048,
                               None, gen, True)
-    return rows, main, rg_main
+    # the yi-6b deployment's prefill: one partition's prompts a call, bf16, causal
+    deploy_main = check_attention(card, fa, ref, DEPLOY_PER_PARTITION, DEPLOY_PROMPT, 32, 4, 128, "bfloat16", True,
+                                  None, None, gen, True)
+    return rows, main, rg_main, deploy_main
 
 
 def attention_bwd_bound(b, h, kv, s, d, dtype: str, causal, window) -> tuple[float, str]:
@@ -836,30 +863,35 @@ def group_setup(cfg, model):
     return cluster, group, reqs
 
 
+def committed_records(cluster, topic: str, part: int) -> list[bytes]:
+    """Read-committed audit of one partition: its records up to its end,
+    or as far as they could be read. A partition whose leader is being
+    elected reads as not there yet."""
+    from repro_torch.core.cluster import ClusterError
+
+    out, off = [], 0
+    try:
+        end = cluster.end_offset(topic, part)
+        while off < end:
+            batch = cluster.read(topic, part, off, 256, isolation="read_committed")
+            out.extend(bytes(v) for v in batch.values)
+            off = batch.next_offset
+    except ClusterError:
+        pass
+    return out
+
+
 def committed_completions(cluster) -> tuple[dict, dict]:
     """Read-committed audit of the response topic: req_id -> (tenant,
-    tokens), and how often each req_id appears. A partition whose leader
-    is being elected reads as not there yet."""
-    from repro_torch.core.cluster import ClusterError
+    tokens), and how often each req_id appears."""
     from repro_torch.serve.lm_engine import decode_completion
 
     got, counts = {}, {}
     for part in range(GROUP_PARTITIONS):
-        try:
-            end = cluster.end_offset("lm-resp", part)
-        except ClusterError:
-            continue
-        off = 0
-        while off < end:
-            try:
-                batch = cluster.read("lm-resp", part, off, 256, isolation="read_committed")
-            except ClusterError:
-                break
-            for buf in batch.values:
-                rid, tenant, gen = decode_completion(buf)
-                got[rid] = (tenant, gen)
-                counts[rid] = counts.get(rid, 0) + 1
-            off = batch.next_offset
+        for buf in committed_records(cluster, "lm-resp", part):
+            rid, tenant, gen = decode_completion(buf)
+            got[rid] = (tenant, gen)
+            counts[rid] = counts.get(rid, 0) + 1
     return got, counts
 
 
@@ -958,6 +990,314 @@ def phase_serve_group(card, kernels: dict, cfg, model):
     print(f"[{card}] yi-6b group completions per worker {served}; re-served requests {reserved}", flush=True)
     print(f"[{card}] yi-6b group peak device memory {peak} bytes; flash_attention launches {attn}; "
           f"greedy worst gap {worst:.4f} (slack {GREEDY_SLACK})", flush=True)
+    return out
+
+
+def copd_setup(log, reg, topic: str, n_models: int = 1, training_kwargs=None):
+    """``n_models`` registered copd-mlp models in one configuration, its
+    training deployment, and the synthetic HCOPD stream ingested for it
+    into ``topic`` (2 partitions at replication factor 3) by two
+    idempotent producer threads (validation_rate 0.2). Returns (specs,
+    deployment, dataset, message)."""
+    from repro_torch.configs import copd_mlp
+    from repro_torch.core.log import LogConfig
+    from repro_torch.data import ingest
+    from repro_torch.data.formats import AvroCodec, FieldSpec
+
+    specs = [reg.register_model("copd-mlp") for _ in range(n_models)]
+    dep = reg.deploy(reg.create_configuration([s.model_id for s in specs]).config_id, "train",
+                     training_kwargs=training_kwargs)
+    codec = AvroCodec([FieldSpec("data", "float32", (copd_mlp.N_FEATURES,))], [FieldSpec("label", "int32", ())])
+    log.create_topic(topic, LogConfig(num_partitions=2, replication_factor=3))
+    dataset = copd_mlp.synth_dataset()
+    msg = ingest(log, topic, codec, dataset, dep.deployment_id, validation_rate=0.2, num_threads=2, idempotent=True)
+    return specs, dep, dataset, msg
+
+
+def match_rows(got, want, tol: float) -> list[int]:
+    """For each row of ``got``, the one row of ``want`` within ``tol`` of
+    it (max abs difference); raises if a row has none or several."""
+    import numpy as np
+
+    dist = np.abs(got[:, None, :] - want[None, :, :]).max(-1)
+    near = dist <= tol
+    if not (near.sum(1) == 1).all():
+        raise AssertionError(f"rows without exactly one match within {tol}: {np.flatnonzero(near.sum(1) != 1)}")
+    return [int(i) for i in near.argmax(1)]
+
+
+def phase_paper_loop(card, kernels: dict):
+    """The paper's loop on the card, as examples/torch_quickstart.py runs
+    it: copd-mlp trained from a stream on a BrokerCluster(3) (Algorithm 1)
+    and served by a 2-replica InferenceDeployment (Algorithm 2); then a
+    transactional deployment on fresh topics across a kill of the
+    predictions topic's leader; then the Supervisor (§IV-B) over a
+    2-model configuration whose first job crashes once. The copd model
+    launches no kernel of the port; the counts are held at 0."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import copd_mlp
+    from repro_torch.core import METRICS_TOPIC, BrokerCluster, Registry, Supervisor
+    from repro_torch.core.cluster import ClusterError
+    from repro_torch.core.log import LogConfig
+    from repro_torch.serve import InferenceDeployment
+    from repro_torch.train import TrainingJob, adamw
+
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    log, reg = BrokerCluster(3), Registry()
+    reporter = log.start_metrics_reporter(interval_s=0.25)
+    (spec,), dep, dataset, msg = copd_setup(log, reg, "copd")
+    stamps = []
+
+    def loss_fn(p, batch):
+        if torch.is_grad_enabled():
+            stamps.append(time.perf_counter())  # the step's start: the job syncs on each step's loss
+        return copd_mlp.loss_fn(p, batch)
+
+    job = TrainingJob(log, reg, dep.deployment_id, spec.model_id, loss_fn=loss_fn, init_fn=copd_mlp.init,
+                      opt=adamw(COPD_LR), device="cuda")
+    t_train = time.perf_counter()
+    res = job.run(batch_size=COPD_BATCH, epochs=COPD_EPOCHS)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t_train
+    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    med_ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]  # step 0 warms up
+    uploaded = reg.results_for(dep.deployment_id)
+    print(f"[{card}] copd-mlp: {msg.total_msg} records, {res.steps} steps of {COPD_BATCH} in {train_s:.3f} s, "
+          f"median step {med_ms:.3f} ms ({1e3 / med_ms:.1f} steps/s); trained {res.metrics}, eval {res.eval_metrics}",
+          flush=True)
+    assert res.eval_metrics["accuracy"] > 0.9, res.eval_metrics  # tests/test_system.py:17
+    assert len(uploaded) == 1 and uploaded[0].metrics["loss"] < 0.5, uploaded
+
+    # Algorithm 2: 2 replicas, one request partition each
+    params = job._final_state["params"]
+    cpu_params = {k: v.detach().cpu() for k, v in params.items()}
+    log.create_topic("requests", LogConfig(num_partitions=2))
+    infer = InferenceDeployment(log, reg, uploaded[0].result_id,
+                                predict_fn=lambda d: copd_mlp.predict(params, d["data"]),
+                                input_topic="requests", output_topic="predictions", replicas=2)
+    reqs = dataset["data"][:COPD_REQUESTS]
+    half = COPD_REQUESTS // 2
+    log.produce_batch("requests", [r.tobytes() for r in reqs[:half]], partition=0)
+    log.produce_batch("requests", [r.tobytes() for r in reqs[half:]], partition=1)
+    t_drain = time.perf_counter()
+    served = infer.drain()
+    drain_s = time.perf_counter() - t_drain
+    infer.close()
+    log.stop_metrics_reporter()
+    lag = sum(sum(r.consumer.lag().values()) for r in infer.replicas if r.alive)
+    n_preds = log.end_offset("predictions", 0)
+    preds = log.read("predictions", 0, 0, 4 * COPD_REQUESTS).to_matrix().view(np.float32)
+    want = copd_mlp.predict(cpu_params, reqs).numpy()  # replica order: partition 0's batch, then 1's
+    pred_err = float(np.abs(preds - want).max())
+    acc = float((preds.argmax(1) == dataset["label"][:COPD_REQUESTS]).mean())
+    print(f"[{card}] copd-mlp served {served} predictions via 2 replicas in {drain_s:.4f} s; lag {lag}; accuracy "
+          f"{acc:.2f}; max abs error against the CPU forward {pred_err:.3g} (tol {COPD_PRED_TOL}); "
+          f"{reporter.published} metrics snapshots on {METRICS_TOPIC}", flush=True)
+    assert served == n_preds == COPD_REQUESTS and preds.shape == want.shape, (served, n_preds, preds.shape)
+    assert lag == 0, lag
+    assert pred_err <= COPD_PRED_TOL, pred_err
+
+    # the same model behind a transactional deployment on fresh topics, the
+    # predictions topic's leader killed between two drains
+    for topic, parts in (("requests-txn", 2), ("predictions-txn", 1)):
+        log.create_topic(topic, LogConfig(num_partitions=parts, replication_factor=3))
+
+    @torch.no_grad()
+    def logits(d):
+        return copd_mlp.forward(params, d["data"])
+
+    txn = InferenceDeployment(log, reg, uploaded[0].result_id, predict_fn=logits, input_topic="requests-txn",
+                              output_topic="predictions-txn", replicas=2, transactional=True)
+    quarter = COPD_REQUESTS // 4
+    for p in range(2):
+        log.produce_batch("requests-txn", [r.tobytes() for r in reqs[p * quarter:(p + 1) * quarter]], partition=p)
+    t_txn = time.perf_counter()
+    first = txn.drain()
+    t_kill = time.perf_counter()
+    log.start_replication(interval_s=0.002, workers=2)
+    try:
+        killed = log.leader_for("predictions-txn", 0)
+        log.kill_broker(killed)
+        for p in range(2):
+            log.produce_batch("requests-txn", [r.tobytes() for r in reqs[half + p * quarter:half + (p + 1) * quarter]],
+                              partition=p)
+        deadline = time.monotonic() + GROUP_DEADLINE_S
+        ticks = cluster_errors = 0
+        got = []
+        while len(got) < COPD_REQUESTS:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{len(got)} of {COPD_REQUESTS} transactional predictions committed "
+                                     f"within {GROUP_DEADLINE_S} s of the broker kill")
+            ticks += 1
+            log.controller_tick()
+            try:
+                txn.poll_all()
+            except ClusterError:
+                cluster_errors += 1
+                continue  # election window: abort and rewind, retry the tick
+            got = committed_records(log, "predictions-txn", 0)
+        t_end = time.perf_counter()
+    finally:
+        log.stop_replication()
+        txn.close()
+    want_logits = copd_mlp.forward(cpu_params, reqs).numpy()
+    got_logits = np.frombuffer(b"".join(got), np.float32).reshape(len(got), -1)
+    matched = match_rows(got_logits, want_logits, COPD_LOGIT_TOL * float(np.abs(want_logits).max()))
+    print(f"[{card}] copd-mlp transactional: {first} committed in {t_kill - t_txn:.4f} s, broker {killed} (leader "
+          f"of predictions-txn/0) killed, all {len(got)} committed exactly once {t_end - t_kill:.4f} s later, "
+          f"{ticks} ticks, {cluster_errors} cluster errors", flush=True)
+    assert first == 2 * quarter, first
+    assert sorted(matched) == list(range(COPD_REQUESTS)), f"requests answered other than once: {sorted(matched)}"
+
+    # the supervisor, on a cluster and registry of its own (it runs every
+    # pending training deployment): a 2-model configuration, the first job
+    # crashing once
+    sup_log, sup_reg = BrokerCluster(3), Registry()
+    crashes = {"left": 1}
+
+    def factory(dep_, spec_, ckpt_dir):
+        crash_after = SUP_CRASH_AFTER if crashes["left"] > 0 else None
+        crashes["left"] = 0
+
+        class Job(TrainingJob):
+            def run(self, **kw):
+                return super().run(crash_after=crash_after, **kw)
+
+        return Job(sup_log, sup_reg, dep_.deployment_id, spec_.model_id, loss_fn=copd_mlp.loss_fn, init_fn=copd_mlp.init,
+                   opt=adamw(COPD_LR), ckpt_dir=ckpt_dir, ckpt_every=10, device="cuda")
+
+    _, sup_dep, _, _ = copd_setup(sup_log, sup_reg, "copd", 2, {"batch_size": COPD_BATCH, "max_steps": SUP_MAX_STEPS})
+    t_sup = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        outcomes = Supervisor(sup_log, sup_reg, factory, ckpt_root=root, max_restarts=2).reconcile()
+    sup_s = time.perf_counter() - t_sup
+    status = sup_reg.deployment(sup_dep.deployment_id).status
+    print(f"[{card}] supervisor: {[(o.model_id, o.attempts, o.ok) for o in outcomes]}, deployment {status}, "
+          f"{sup_s:.3f} s", flush=True)
+    assert [(o.ok, o.attempts) for o in outcomes] == [(True, 2), (True, 1)], outcomes
+    assert status == "finished", status
+    assert len(sup_reg.results_for(sup_dep.deployment_id)) == 2
+
+    counts = read_counts(kernels)
+    assert not any(counts.values()), f"the copd loop launched a kernel of the port: {counts}"
+    return {
+        "card": card, "records": msg.total_msg, "batch": COPD_BATCH, "epochs": COPD_EPOCHS, "steps": res.steps,
+        "train_s": train_s, "median_step_ms": med_ms, "steps_per_s": 1e3 / med_ms, "metrics": res.metrics,
+        "eval_metrics": res.eval_metrics, "uploaded_loss": uploaded[0].metrics["loss"], "served": served,
+        "lag": lag, "served_accuracy": acc, "pred_max_abs_err": pred_err, "pred_tol": COPD_PRED_TOL,
+        "drain_s": drain_s, "txn_first_drain_s": t_kill - t_txn, "txn_after_kill_s": t_end - t_kill,
+        "txn_killed_broker": killed, "txn_ticks": ticks, "txn_cluster_errors": cluster_errors,
+        "supervisor": [dataclasses.asdict(o) for o in outcomes], "supervisor_s": sup_s,
+        "phase_s": time.perf_counter() - t0, "launches": counts,
+    }
+
+
+def phase_deploy_lm(card, kernels: dict, cfg, model):
+    """Full-width yi-6b behind a 2-replica InferenceDeployment, as
+    examples/serve_lm.py runs its LM (``make_generate``: the prefill step,
+    then DEPLOY_GEN decode steps): round 1 puts DEPLOY_PER_PARTITION
+    prompts on each of DEPLOY_PARTITIONS partitions and drains; replica 0
+    is killed and the clock moves past the session timeout; round 2 puts
+    as many new prompts and drains. Checks every completion once, replica
+    1 alone in round 2, every token a greedy choice of the forward within
+    GREEDY_SLACK, and K1 once a layer a prefill call."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import Registry, StreamLog
+    from repro_torch.core.log import LogConfig
+    from repro_torch.serve import InferenceDeployment
+    from repro_torch.serve.lm_engine import Request
+
+    generate = load_example("torch_serve_lm").make_generate(model, DEPLOY_PROMPT, DEPLOY_GEN)
+    calls = []
+
+    def predict(d):
+        out = generate({"prompt": d["data"]})
+        calls.append((d["data"].copy(), out))
+        return out
+
+    log, reg = StreamLog(), Registry()
+    spec = reg.register_model("yi-6b")
+    dep = reg.deploy(reg.create_configuration([spec.model_id]).config_id, "train")
+    result = reg.upload_result(dep.deployment_id, spec.model_id, {"loss": 0.0}, input_format="RAW",
+                               input_config={"data_type": "int32", "data_reshape": [DEPLOY_PROMPT],
+                                             "label_type": "int32", "label_reshape": []})
+    log.create_topic("deploy-prompts", LogConfig(num_partitions=DEPLOY_PARTITIONS))
+    clock = [0.0]
+    infer = InferenceDeployment(log, reg, result.result_id, predict_fn=predict, input_topic="deploy-prompts",
+                                output_topic="deploy-completions", replicas=2, session_timeout_s=30.0,
+                                clock=lambda: clock[0])
+    per_round = DEPLOY_PARTITIONS * DEPLOY_PER_PARTITION
+    rng = np.random.default_rng(SEED + 6)
+    prompts = rng.integers(0, cfg.vocab, (2 * per_round, DEPLOY_PROMPT)).astype(np.int32)
+    # a timed predict call outside the rounds (it also warms the path up)
+    one = {"prompt": prompts[:DEPLOY_PER_PARTITION]}
+    predict_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        generate(one)
+        torch.cuda.synchronize()
+        predict_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts(kernels)
+    rounds, processed = [], []
+    for rnd in range(2):
+        if rnd:
+            infer.kill_replica(0)
+            clock[0] += 60.0  # past the session timeout: replica 1 takes every partition
+        batch = prompts[rnd * per_round:(rnd + 1) * per_round]
+        for part in range(DEPLOY_PARTITIONS):
+            rows = batch[part * DEPLOY_PER_PARTITION:(part + 1) * DEPLOY_PER_PARTITION]
+            log.produce_batch("deploy-prompts", [r.tobytes() for r in rows], partition=part)
+        t = time.perf_counter()
+        served = infer.drain()
+        torch.cuda.synchronize()
+        rounds.append({"served": served, "wall_s": time.perf_counter() - t})
+        processed.append([r.stats.processed for r in infer.replicas])
+    infer.close()
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+
+    records = [bytes(v) for v in log.read("deploy-completions", 0, 0, 4 * per_round).values]
+    by_prompt = {p.tobytes(): out.cpu().numpy() for batch_in, out_t in calls
+                 for p, out in zip(batch_in, out_t)}
+    assert [r["served"] for r in rounds] == [per_round, per_round], rounds
+    assert len(records) == 2 * per_round and len(calls) == 2 * DEPLOY_PARTITIONS, (len(records), len(calls))
+    assert sorted(by_prompt) == sorted(p.tobytes() for p in prompts), "a prompt was served other than once"
+    assert sorted(records) == sorted(v.astype(np.int32).tobytes() for v in by_prompt.values()), \
+        "the completions topic differs from what the replicas computed"
+    assert processed == [[per_round // 2, per_round // 2], [per_round // 2, per_round * 3 // 2]], processed
+    reqs = [Request(i, p, DEPLOY_GEN) for i, p in enumerate(prompts)]
+    got = {i: by_prompt[p.tobytes()] for i, p in enumerate(prompts)}
+    for g in got.values():
+        assert g.shape == (DEPLOY_GEN,) and ((g >= 0) & (g < cfg.vocab_padded)).all(), g
+    worst = greedy_worst_gap(model, reqs, got)
+    assert worst <= GREEDY_SLACK, f"served tokens trail the forward's greedy choice by {worst}"
+    attn = counts.pop("flash_attention")
+    assert attn == cfg.n_layers * len(calls) > 0, f"flash_attention launched {attn}, want {cfg.n_layers} x {len(calls)}"
+    assert not any(counts.values()), counts
+    out = {
+        "card": card, "prompt_len": DEPLOY_PROMPT, "new_tokens": DEPLOY_GEN, "partitions": DEPLOY_PARTITIONS,
+        "per_partition": DEPLOY_PER_PARTITION, "rounds": rounds, "processed": processed,
+        "prefill_calls": len(calls), "predict_ms": predict_ms, "peak_bytes": peak, "launches": attn,
+        "greedy_worst_gap": worst,
+    }
+    for i, r in enumerate(rounds):
+        print(f"[{card}] yi-6b deployment round {i + 1}: {r['served']} prompts of {DEPLOY_PROMPT} tokens, "
+              f"{DEPLOY_GEN} new each, in {r['wall_s']:.4f} s; per replica {processed[i]}", flush=True)
+    print(f"[{card}] yi-6b deployment: a predict call of {DEPLOY_PER_PARTITION} prompts (prefill + {DEPLOY_GEN} "
+          f"decode steps) {['%.3f' % x for x in predict_ms]} ms; peak device memory {peak} bytes; flash_attention "
+          f"launches {attn} for {len(calls)} prefill calls; greedy worst gap {worst:.4f} (slack {GREEDY_SLACK})",
+          flush=True)
     return out
 
 
@@ -1208,10 +1548,11 @@ def main() -> int:
             if any(w in line.lower() for w in ("registers", "spill", "compiling entry function", "wgmma", "warning")):
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    rows, main_rows, rg_attn_main = phase_kernels(card, flash_attention, ref)
+    rows, main_rows, rg_attn_main, deploy_attn_main = phase_kernels(card, flash_attention, ref)
     bwd_rows, lse_rows, train_fwd_main, bwd_main = phase_kernels_bwd(card, flash_attention, ref)
     ssd_rows, ssd_main = phase_ssd_kernel(card, ref)
     rglru_rows, rglru_main = phase_rglru_kernel(card, ref)
+    paper_loop = phase_paper_loop(card, kernels)
     # training first: its ~60 GB are freed before the serving models load
     training, trained_layer = phase_train(card, kernels)
     gc.collect()
@@ -1222,6 +1563,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving, yi_cfg, yi_model = phase_serve(card, kernels)
     serving_group = phase_serve_group(card, kernels, yi_cfg, yi_model)
+    deployment = phase_deploy_lm(card, kernels, yi_cfg, yi_model)
     del yi_model
     # mamba2's bf16 drift needs a slack above GREEDY_SLACK, so an f32 twin
     # holds every token at it; recurrentgemma's does not
@@ -1236,11 +1578,12 @@ def main() -> int:
         paths[arch, compute_dtype] = phase_serve_wave(card, kernels, arch, compute_dtype, prompt_len, slack)
     serving_ssm, serving_rg = paths["mamba2-2.7b", "bfloat16"], paths["recurrentgemma-9b", "bfloat16"]
 
-    # K1 runs on three paths: yi-6b's serving calls (one per served prompt
-    # length), yi-6b's training call (its forward, with lse) and
+    # K1 runs on four kinds of call: yi-6b's serving calls (one per served
+    # prompt length), yi-6b's training call (its forward, with lse), the
+    # yi-6b deployment's prefill (one partition's prompts) and
     # recurrentgemma's one (its wave), each timed once; the sums cover
     # all, by_path holds each path's own
-    attn_main = main_rows + [train_fwd_main, rg_attn_main]
+    attn_main = main_rows + [train_fwd_main, deploy_attn_main, rg_attn_main]
     train_fwd_launches = training["launches"]["flash_attention"]
     entry = {
         "name": "flash_attention",
@@ -1248,17 +1591,19 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
         "launches": serving["launches"] + serving_group["launches"] + train_fwd_launches
-        + serving_rg["launches"]["flash_attention"],
+        + deployment["launches"] + serving_rg["launches"]["flash_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in attn_main),
         "matched": all(r["ok"] for r in rows + attn_main),
         "shapes": "one call at each of yi-6b's prompt lengths (1,S,32,128) S=%s bf16 causal, yi-6b's "
-        "training call (%d,%d,32,128) kv 4 bf16 causal, and recurrentgemma's (%d,%d,16,256) kv 1 bf16 "
-        "causal window 2048, summed"
-        % ("/".join(map(str, PROMPT_LENS)), TRAIN_BATCH, TRAIN_SEQ, WAVE_REQUESTS, RG_PROMPT_LEN),
+        "training call (%d,%d,32,128) kv 4 bf16 causal, the yi-6b deployment's prefill (%d,%d,32,128) kv 4 "
+        "bf16 causal, and recurrentgemma's (%d,%d,16,256) kv 1 bf16 causal window 2048, summed"
+        % ("/".join(map(str, PROMPT_LENS)), TRAIN_BATCH, TRAIN_SEQ, DEPLOY_PER_PARTITION, DEPLOY_PROMPT,
+           WAVE_REQUESTS, RG_PROMPT_LEN),
         "by_path": {
             "yi-6b": path_summary(serving["launches"], main_rows),
             "yi-6b-group": path_summary(serving_group["launches"], main_rows),
             "yi-6b-train": path_summary(train_fwd_launches, [train_fwd_main]),
+            "yi-6b-deployment": path_summary(deployment["launches"], [deploy_attn_main]),
             "recurrentgemma-9b": path_summary(serving_rg["launches"]["flash_attention"], [rg_attn_main]),
         },
     }
@@ -1313,7 +1658,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "torch": torch.__version__, "build_s": build_s, "checks": rows,
         "bwd_checks": bwd_rows, "lse_checks": lse_rows, "training": training, "training_grads": train_grads,
-        "main_path_kernel": attn_main, "serving": serving, "serving_group": serving_group, "ssd_checks": ssd_rows,
+        "main_path_kernel": attn_main, "serving": serving, "serving_group": serving_group,
+        "paper_loop": paper_loop, "deployment_lm": deployment, "ssd_checks": ssd_rows,
         "ssd_main_path_kernel": ssd_main, "rglru_checks": rglru_rows, "rglru_main_path_kernel": rglru_main,
         "serving_waves": {f"{arch} {dt}": out for (arch, dt), out in paths.items()},
         "kernels": kernels_line["kernels"],

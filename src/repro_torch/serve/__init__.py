@@ -1,8 +1,14 @@
-"""LM serving from a stream, alone or behind a consumer group (port of
-``repro.serve.lm_engine`` and of ``repro.serve.engine``'s transactional
-publisher)."""
+"""Serving from a stream (port of ``repro.serve``): the paper's
+inference deployment (Algorithm 2) with its LM serve steps, and the LM
+engines, alone or behind a consumer group."""
 
-from repro_torch.serve.engine import TxnOutputPublisher
+from repro_torch.serve.engine import (
+    InferenceDeployment,
+    InferenceReplica,
+    TxnOutputPublisher,
+    build_prefill_step,
+    build_serve_step,
+)
 from repro_torch.serve.lm_engine import (
     ContinuousLMEngine,
     KVBlockTable,
@@ -20,12 +26,16 @@ from repro_torch.serve.lm_engine import (
 
 __all__ = [
     "ContinuousLMEngine",
+    "InferenceDeployment",
+    "InferenceReplica",
     "KVBlockTable",
     "LMEngine",
     "LMServingGroup",
     "LMServingWorker",
     "Request",
     "TxnOutputPublisher",
+    "build_prefill_step",
+    "build_serve_step",
     "decode_completion",
     "decode_request",
     "encode_completion",

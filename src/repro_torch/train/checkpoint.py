@@ -51,7 +51,9 @@ def _items(tree: Any, prefix: tuple = ()):
 
 def _to_numpy(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        # a copy even on the CPU, where .cpu() would share the storage: the
+        # optimizer updates the parameters in place while save_async writes
+        t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
             t = t.float()  # numpy has no bf16: stored as f32, losslessly
         return t.numpy()

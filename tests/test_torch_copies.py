@@ -19,6 +19,7 @@ COPIES = [
     "core/consumer.py",
     "core/control.py",
     "core/registry.py",
+    "core/supervisor.py",
     "data/formats.py",
     "analysis/ranks.py",
     "analysis/witness.py",
@@ -60,10 +61,12 @@ PIPELINE_COPIES = [
 
 
 def _definitions(path: Path) -> dict[str, str]:
+    """Each top-level function or class: its decorators and its source."""
     text = path.read_text()
     tree = ast.parse(text)
     return {
-        node.name: ast.get_source_segment(text, node, padded=True)
+        node.name: "".join(f"@{ast.unparse(d)}\n" for d in node.decorator_list)
+        + ast.get_source_segment(text, node, padded=True)
         for node in tree.body
         if isinstance(node, (ast.FunctionDef, ast.ClassDef))
     }
@@ -82,3 +85,39 @@ def test_pipeline_copies_all_but_the_device_code():
     assert original - copy == {"ShardedFeeder"}
     assert copy - original == {"_CudaFeed"}
     assert original - {"ShardedFeeder", "device_feed"} == set(PIPELINE_COPIES)
+
+
+# serve/engine.py: the publisher, Algorithm 2's deployment and its helpers
+# are verbatim; the replica is verbatim but for the line that collects a
+# prediction on the host (np.asarray cannot take a CUDA tensor); the serve
+# steps are the port's own (the model holds its weights)
+ENGINE_COPIES = ["TxnOutputPublisher", "ReplicaStats", "_decode_data", "InferenceDeployment"]
+COLLECT = ("            preds = np.asarray(preds)\n", "            preds = _to_numpy(preds)\n")
+
+
+@pytest.mark.parametrize("name", ENGINE_COPIES)
+def test_engine_definition_is_verbatim(name):
+    original = _definitions(REPO / "src" / "repro" / "serve" / "engine.py")
+    copy = _definitions(REPO / "src" / "repro_torch" / "serve" / "engine.py")
+    assert copy[name] == original[name]
+
+
+def test_engine_replica_is_verbatim_but_its_collect_line():
+    original = _definitions(REPO / "src" / "repro" / "serve" / "engine.py")["InferenceReplica"]
+    copy = _definitions(REPO / "src" / "repro_torch" / "serve" / "engine.py")["InferenceReplica"]
+    assert original.count(COLLECT[0]) == 1 and copy.count(COLLECT[1]) == 1
+    assert copy == original.replace(*COLLECT)
+
+
+def test_engine_defines_what_the_jax_module_does():
+    original = set(_definitions(REPO / "src" / "repro" / "serve" / "engine.py"))
+    copy = set(_definitions(REPO / "src" / "repro_torch" / "serve" / "engine.py"))
+    assert original - copy == set()
+    assert copy - original == {"_no_mesh", "_to_numpy"}
+    assert original - {"InferenceReplica", "build_serve_step", "build_prefill_step"} == set(ENGINE_COPIES)
+
+
+def test_copd_synth_dataset_is_verbatim():
+    original = _definitions(REPO / "src" / "repro" / "configs" / "copd_mlp.py")
+    copy = _definitions(REPO / "src" / "repro_torch" / "configs" / "copd_mlp.py")
+    assert copy["synth_dataset"] == original["synth_dataset"]

@@ -37,7 +37,8 @@ def test_import_with_jax_and_repro_blocked():
                 "repro_torch.core.cluster", "repro_torch.core.consumer", "repro_torch.serve.engine",
                 "repro_torch.core.control", "repro_torch.core.registry", "repro_torch.data",
                 "repro_torch.data.formats", "repro_torch.data.pipeline", "repro_torch.train",
-                "repro_torch.train.optimizer", "repro_torch.train.checkpoint", "repro_torch.train.trainer"):
+                "repro_torch.train.optimizer", "repro_torch.train.checkpoint", "repro_torch.train.trainer",
+                "repro_torch.core.supervisor", "repro_torch.configs.copd_mlp"):
         assert mod in lines[-2].split(), mod
 
 
