@@ -22,7 +22,12 @@ on the control topic, ``TrainingJob(streaming=True)`` with AdamW for 8
 steps of 4 x 1024 tokens and its streaming eval, checking finite,
 falling losses and K1's launches forward and backward; then the
 gradients of one full-width attention layer at the training shape,
-through K1 forward + backward against the plain version; (5) serve four
+through K1 forward + backward against the plain version; (4b) the 8-bit
+AdamW update's kernel against its plain version (one layer slice of each
+of yi-6b's stacked leaf shapes and embed, bf16 and f32, three updates
+from the zero state) and timed over the whole 32-layer tree; (4c) the
+same training workload on yi-6b at all 32 layers with ``adamw8bit``, its
+update one kernel launch a leaf a step, freed before serving; (5) serve four
 requests of mixed prompt lengths from a stream topic
 through full-width yi-6b (32 layers, random bf16 weights from a
 seed) with ``ContinuousLMEngine`` and check what comes back; (6) serve
@@ -46,7 +51,8 @@ window 2048 on K1 at head dim 256; random bf16 weights from a seed) with
 ``LMEngine`` and check what comes back (its bf16 drift stays within the
 tight slack, so every token is held there and no f32 twin is needed);
 (9) print the ``kernels`` line (K1's times summed over its paths, and
-each path's own under ``by_path``; K1's backward as its own entry);
+each path's own under ``by_path``; K1's backward and the 8-bit update as
+entries of their own);
 (10) print the result line. Each path is driven with every kernel's
 launch count set to 0 just before it and read just after.
 
@@ -148,6 +154,25 @@ TRAIN_LAYERS = 16
 TRAIN_SEQS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP = 64, 1024, 4, 8, 2
 TRAIN_VAL_RATE = 0.125
 TRAIN_ATTN = (TRAIN_BATCH, TRAIN_SEQ, 32, 4, 128)  # (B, S, H, Kv, D) of its attention calls
+# the full-depth training path: yi-6b at all 32 layers and its published
+# widths, trained with adamw8bit (int8 moments: about 6 bytes a parameter of
+# state, 36.7 GB in all, where f32 moments would need 72.7), otherwise
+# phase_train's workload
+FULL_LAYERS = 32
+# the 8-bit update against its plain version on the card: one layer slice
+# of each of yi-6b's stacked leaf shapes (trailing 128: wq; 11008: w_in and
+# w_gate; 4096: w_out) and embed, in bf16 and f32, 3 updates from the zero
+# state; p within the CPU tests' tolerance (tests/test_torch_optimizer8.py:
+# 1e-5 relative in f32, one bf16 step), m codes and scales equal, v codes
+# at most 1 apart on at most 0.1% of entries
+OPT8_SHAPES = ((4096, 32, 128), (4096, 11008), (11008, 4096), (64000, 4096))
+OPT8_UPDATES = 3
+OPT8_RTOL = {"float32": 1e-5, "bfloat16": 2 ** -8}
+OPT8_V_SHARE = 1e-3
+# its operations an element: dequantize m (1) and v (6: two adds, a
+# product, exp2, a subtraction, a max), the m and v updates (3 + 4), u (7),
+# p (2), requantize m (6) and v (10), each counted once
+OPT8_OPS = 39
 # the first loss: ln(64000) = 11.07 plus half the variance of random
 # logits (unembed 1/sqrt(d) on a unit-RMS hidden state: about 0.5)
 TRAIN_LOSS0_BAND = (10.5, 12.5)
@@ -442,17 +467,18 @@ def load_example(name: str):
     return mod
 
 
-def phase_train(card, kernels: dict):
-    """Train full-width yi-6b (TRAIN_LAYERS of its layers, bf16) from a
+def phase_train(card, kernels: dict, layers: int = TRAIN_LAYERS, opt_name: str = "adamw"):
+    """Train full-width yi-6b (``layers`` of its layers, bf16) from a
     stream: a seeded Markov corpus of TRAIN_SEQS x TRAIN_SEQ tokens
     ingested as RAW records into a 4-partition topic (validation_rate
     TRAIN_VAL_RATE) and announced for a registered model, configuration
-    and deployment; ``TrainingJob(streaming=True)`` with AdamW on a
-    warm-up + cosine schedule takes TRAIN_STEPS steps of TRAIN_BATCH and
-    runs its streaming eval. Checks finite, falling losses, the first near
-    ln(vocab), K1's launches forward and backward, and the registry's
-    result. Returns the phase's numbers and the trained first layer's
-    attention weights."""
+    and deployment; ``TrainingJob(streaming=True)`` with ``opt_name``
+    (AdamW or adamw8bit) on a warm-up + cosine schedule takes TRAIN_STEPS
+    steps of TRAIN_BATCH and runs its streaming eval. Checks finite,
+    falling losses, the first near ln(vocab), K1's launches forward and
+    backward, the 8-bit update's (one a leaf a step with adamw8bit, none
+    with AdamW), and the registry's result. Returns the phase's numbers and
+    the trained first layer's attention weights."""
     import dataclasses
 
     import numpy as np
@@ -464,10 +490,12 @@ def phase_train(card, kernels: dict):
     from repro_torch.data.formats import RawCodec
     from repro_torch.models.model import StreamModel
     from repro_torch.models.policy import Policy
-    from repro_torch.train import TrainingJob, adamw, cosine_schedule
+    from repro_torch.train import TrainingJob, adamw, adamw8bit, cosine_schedule
+    from repro_torch.train.optimizer import tree_leaves
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(configs.get("yi-6b"), n_layers=TRAIN_LAYERS)
+    cfg = dataclasses.replace(configs.get("yi-6b"), n_layers=layers)
+    make_opt = {"adamw": adamw, "adamw8bit": adamw8bit}[opt_name]
     model = StreamModel(cfg, Policy(), device="cuda", generator=None)
     log, reg = StreamLog(), Registry()
     spec = reg.register_model("yi-6b-train")
@@ -489,7 +517,7 @@ def phase_train(card, kernels: dict):
         return loss, metrics
 
     job = TrainingJob(log, reg, dep.deployment_id, spec.model_id, loss_fn=loss_fn, init_fn=model.init,
-                      opt=adamw(cosine_schedule(3e-4, TRAIN_WARMUP, TRAIN_STEPS)), seed=SEED, device="cuda")
+                      opt=make_opt(cosine_schedule(3e-4, TRAIN_WARMUP, TRAIN_STEPS)), seed=SEED, device="cuda")
     setup_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -508,20 +536,23 @@ def phase_train(card, kernels: dict):
     med_ms = steady[len(steady) // 2]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n_eval = int(round(TRAIN_SEQS * TRAIN_VAL_RATE)) // min(TRAIN_BATCH, int(round(TRAIN_SEQS * TRAIN_VAL_RATE)))
+    n_leaves = len(tree_leaves(model.param_tree()))
     want = {
         "flash_attention": cfg.n_layers * (TRAIN_STEPS + n_eval),
         "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS,
         "ssd_scan": 0, "rglru_scan": 0,
+        "adamw8bit": n_leaves * TRAIN_STEPS if opt_name == "adamw8bit" else 0,
     }
     out = {
-        "layers": cfg.n_layers, "params": n_params, "steps": res.steps, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "layers": cfg.n_layers, "optimizer": opt_name, "leaves": n_leaves, "params": n_params, "steps": res.steps,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "losses": losses, "eval_loss": res.eval_metrics.get("loss"), "eval_batches": eval_calls[0],
         "step_ms": step_ms, "median_step_ms": med_ms, "tokens_per_s": tokens / (med_ms / 1e3),
         "run_s": t_end - t_start, "setup_s": setup_s, "peak_bytes": peak, "launches": counts,
         "want_launches": want, "records": msg.total_msg, "loss_band": list(TRAIN_LOSS0_BAND),
     }
-    print(f"[{card}] yi-6b training: {cfg.n_layers} of 32 layers, {n_params} params bf16, batch {TRAIN_BATCH} x "
-          f"{TRAIN_SEQ}, {res.steps} steps in {t_end - t_start:.3f} s", flush=True)
+    print(f"[{card}] yi-6b training: {cfg.n_layers} of 32 layers, {n_params} params bf16, {opt_name}, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {res.steps} steps in {t_end - t_start:.3f} s", flush=True)
     print(f"[{card}] losses {['%.4f' % x for x in losses]}, eval {out['eval_loss']}", flush=True)
     print(f"[{card}] step ms {['%.1f' % x for x in step_ms]}, median {med_ms:.3f} ms, "
           f"{out['tokens_per_s']:.1f} tokens/s", flush=True)
@@ -536,6 +567,192 @@ def phase_train(card, kernels: dict):
     layer0 = {k: v[0].detach().clone() for k, v in model.tree["slots"]["s0"]["mixer"].items()}
     del job, res, model
     return out, layer0
+
+
+def phase_train_full(card, kernels: dict):
+    """phase_train's workload on yi-6b at all FULL_LAYERS layers, trained
+    with adamw8bit: its gates, and the 8-bit update's kernel launched once
+    a leaf a step."""
+    out, _ = phase_train(card, kernels, layers=FULL_LAYERS, opt_name="adamw8bit")
+    return out
+
+
+def opt8_bytes(p) -> int:
+    """Bytes the 8-bit update of leaf ``p`` must move: p read and written,
+    g read, the m and v codes read and written, the m scale (4 bytes) and
+    the v pair (8) of each 256-block read and written."""
+    n_blocks = p.numel() // p.shape[-1] * (-(-p.shape[-1] // 256))
+    return p.numel() * (3 * p.element_size() + 4) + n_blocks * 2 * (4 + 8)
+
+
+def opt8_bound(leaves: list) -> tuple[float, str]:
+    """Least time for the 8-bit update of ``leaves``: max(bytes / HBM rate,
+    OPT8_OPS an element / the f32 rate)."""
+    t_bytes = sum(opt8_bytes(p) for p in leaves) / HBM_BYTES_PER_S
+    t_ops = OPT8_OPS * sum(p.numel() for p in leaves) / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def opt8_scalars(step: int) -> dict:
+    """The 8-bit update's keyword arguments at ``step`` (lr 3e-4, b1 0.9,
+    b2 0.95): lr and the bias corrections as 0-d f32 host tensors."""
+    import torch
+
+    b1, b2 = 0.9, 0.95
+    stepf = torch.tensor(step, dtype=torch.float32)
+    return dict(lr=torch.tensor(3e-4, dtype=torch.float32), bc1=1 - torch.tensor(b1, dtype=torch.float32) ** stepf,
+                bc2=1 - torch.tensor(b2, dtype=torch.float32) ** stepf, b1=b1, b2=b2, eps=1e-8, weight_decay=0.01)
+
+
+def opt8_compare(got: list, want: list, dtype: str, **where) -> dict:
+    """The gate on one update: (p, m codes, m scales, v codes, v scales)
+    from the kernel against the plain version's. p within OPT8_RTOL, m
+    codes and scales equal, v codes at most 1 apart on at most
+    OPT8_V_SHARE of entries."""
+    import torch
+
+    err = float((got[0].float() - want[0].float()).abs().max())
+    p_ok = bool(torch.allclose(got[0].float(), want[0].float(), rtol=OPT8_RTOL[dtype], atol=1e-7))
+    m_ok = torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    dv = (got[3].int() - want[3].int()).abs()
+    share = float((dv > 0).float().mean())
+    v_ok = int(dv.max()) <= 1 and share <= OPT8_V_SHARE
+    return {**where, "dtype": dtype, "p_max_abs_err": err, "p_bit_equal": bool(torch.equal(got[0], want[0])),
+            "m_equal": m_ok, "v_codes_apart_share": share,
+            "v_scales_max_abs_err": float((got[4] - want[4]).abs().max()), "ok": p_ok and m_ok and v_ok}
+
+
+def check_opt8_tree(label: str, k8, ref, gen) -> dict:
+    """The 8-bit update over the whole FULL_LAYERS-layer yi-6b tree (random
+    bf16 params and grads, the zero 8-bit state), one call of ``k8``'s
+    wrapper a leaf at the shapes the training path gives it: times the
+    kernel (20 calls after a warm-up), then holds one more update of each
+    leaf (step 2's scalars, from the state the timing left) against
+    ``ref.adamw8bit_update`` on clones of that leaf, then times the plain
+    version, and computes the bound."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.model import StreamModel
+    from repro_torch.models.policy import Policy
+    from repro_torch.train import adamw8bit
+    from repro_torch.train.optimizer import tree_leaves
+
+    torch.cuda.empty_cache()
+    cfg = configs.get("yi-6b")
+    model = StreamModel(cfg, Policy(), device="cuda", generator=SEED)
+    names = [".".join(path) for path in tree_paths(model.param_tree())]
+    params = tree_leaves(model.param_tree())
+    grads = [(torch.randn(p.shape, generator=gen, device="cuda", dtype=torch.float32) * 1e-3).to(p.dtype)
+             for p in params]
+    states = []
+    for p in params:
+        st = adamw8bit(1e-3).init({"p": p})
+        states.append([st["m"]["p"]["codes"], st["m"]["p"]["scales"], st["v"]["p"]["codes"], st["v"]["p"]["scales"]])
+    kw = opt8_scalars(1)
+
+    def kernel_tree():
+        for p, g, st in zip(params, grads, states):
+            k8.adamw8bit_update(p, g, *st, **kw)
+
+    def plain_tree():
+        for p, g, st in zip(params, grads, states):
+            ref.adamw8bit_update(p, g, *st, **kw)
+
+    with torch.no_grad():
+        ms = time_ms(kernel_tree, 20)
+        rows = []
+        for name, p, g, st in zip(names, params, grads, states):
+            want = [p.clone(), *(t.clone() for t in st)]
+            k8.adamw8bit_update(p, g, *st, **opt8_scalars(2))
+            ref.adamw8bit_update(want[0], g, *want[1:], **opt8_scalars(2))
+            torch.cuda.synchronize()
+            rows.append(opt8_compare([p, *st], want, str(p.dtype).removeprefix("torch."), leaf=name,
+                                     shape=list(p.shape), step=2))
+            del want
+        plain_ms = time_ms(plain_tree, 2)
+    bound_ms, bound_by = opt8_bound(params)
+    out = {
+        "label": label, "checks": rows, "max_abs_err": max(r["p_max_abs_err"] for r in rows),
+        "v_codes_apart_share": max(r["v_codes_apart_share"] for r in rows), "leaves": len(params),
+        "params": sum(p.numel() for p in params), "bytes": sum(opt8_bytes(p) for p in params), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "ok": all(r["ok"] for r in rows),
+    }
+    del model, params, grads, states
+    return out
+
+
+def tree_paths(tree, prefix=()) -> list:
+    """The key paths of a nested dict's leaves, in JAX's order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [path for k in sorted(tree) for path in tree_paths(tree[k], prefix + (k,))]
+    return [prefix]
+
+
+def phase_optimizer_kernel(card):
+    """The 8-bit update's kernel against its plain version on the card, at
+    OPT8_SHAPES in bf16 and f32, OPT8_UPDATES updates each from the zero
+    state at step 1 (both trajectories run apart and are held after each
+    update), with the first 256-block's gradient zero; then over the whole
+    FULL_LAYERS-layer yi-6b tree (its 12 leaves, one launch each, at the
+    training path's shapes: ``check_opt8_tree``), timed and held leaf by
+    leaf against the plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import adamw8bit as k8
+    from repro_torch.kernels import ref
+    from repro_torch.train import adamw8bit
+
+    rows = []
+    launches0 = k8.LAUNCHES
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def quantized(st):
+        return [st["m"]["p"]["codes"], st["m"]["p"]["scales"], st["v"]["p"]["codes"], st["v"]["p"]["scales"]]
+
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for shape in OPT8_SHAPES:
+            p = (torch.randn(shape, generator=gen, device="cuda") * 0.02).to(dt)
+            st = adamw8bit(1e-3).init({"p": p})
+            got = [p.clone(), *quantized(st)]
+            want = [p.clone(), *(t.clone() for t in quantized(st))]
+            for step in range(1, OPT8_UPDATES + 1):
+                g = (torch.randn(shape, generator=gen, device="cuda") * 1e-3).to(dt)
+                g.view(-1, shape[-1])[0, :256] = 0
+                k8.adamw8bit_update(got[0], g, *got[1:], **opt8_scalars(step))
+                ref.adamw8bit_update(want[0], g, *want[1:], **opt8_scalars(step))
+                torch.cuda.synchronize()
+                row = opt8_compare(got, want, dtype, shape=list(shape), step=step)
+                rows.append(row)
+                assert row["ok"], f"adamw8bit kernel vs plain: {row}"
+            del p, st, got, want, g
+    checks = k8.LAUNCHES - launches0
+    print(f"[{card}] adamw8bit kernel vs plain: {len(rows)} updates agree, "
+          f"p max abs err {max(r['p_max_abs_err'] for r in rows):.3g}, "
+          f"p bit-equal in {sum(r['p_bit_equal'] for r in rows)}, v codes apart on at most "
+          f"{max(r['v_codes_apart_share'] for r in rows):.3g} of entries", flush=True)
+
+    tree = check_opt8_tree(card, k8, ref, gen)
+    for row in tree["checks"]:
+        assert row["ok"], f"adamw8bit kernel vs plain on the {FULL_LAYERS}-layer tree: {row}"
+    print(f"[{card}] adamw8bit over the {FULL_LAYERS}-layer tree ({tree['leaves']} leaves, {tree['params']} params, "
+          f"{tree['bytes']} bytes): kernel {tree['ms']:.4f} ms, plain {tree['plain_ms']:.4f} ms, "
+          f"bound {tree['bound_ms']:.4f} ms ({tree['bound_by']}), {tree['bound_ms'] / tree['ms']:.1%} of it; "
+          f"each leaf held to the plain version: p max abs err {tree['max_abs_err']:.3g}, p bit-equal in "
+          f"{sum(r['p_bit_equal'] for r in tree['checks'])} of {len(tree['checks'])}", flush=True)
+    assert np.isfinite(tree["ms"]) and tree["ms"] > 0
+    out = {
+        "checks": rows, "check_launches": checks, "tree_checks": tree["checks"],
+        "max_abs_err": max(r["p_max_abs_err"] for r in rows + tree["checks"]),
+        "v_codes_apart_share": max(r["v_codes_apart_share"] for r in rows + tree["checks"]),
+        "ok": all(r["ok"] for r in rows + tree["checks"]),
+    }
+    for key in ("leaves", "params", "bytes", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        out[key] = tree[key]
+    return out
 
 
 def phase_train_grads(card, ref, mixer: dict):
@@ -1470,6 +1687,7 @@ def phase_serve_wave(card, kernels: dict, arch: str, compute_dtype: str, prompt_
         "flash_attention": sum(k in ("attn", "local") for k in kinds),
         "ssd_scan": kinds.count("ssm"),
         "rglru_scan": kinds.count("rec"),
+        "adamw8bit": 0,
     }
     assert launches == want, f"{arch}: launches {launches}, want {want}"
 
@@ -1532,9 +1750,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels import flash_attention, rglru_scan, ssd_scan
+    from repro_torch.kernels import adamw8bit, flash_attention, rglru_scan, ssd_scan
 
-    kernels = {"flash_attention": flash_attention, "ssd_scan": ssd_scan, "rglru_scan": rglru_scan}
+    kernels = {"flash_attention": flash_attention, "ssd_scan": ssd_scan, "rglru_scan": rglru_scan,
+               "adamw8bit": adamw8bit}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1561,6 +1780,13 @@ def main() -> int:
     del trained_layer
     gc.collect()
     torch.cuda.empty_cache()
+    opt8 = phase_optimizer_kernel(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # all 32 layers with the 8-bit state: freed before the serving models load
+    training_full = phase_train_full(card, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
     serving, yi_cfg, yi_model = phase_serve(card, kernels)
     serving_group = phase_serve_group(card, kernels, yi_cfg, yi_model)
     deployment = phase_deploy_lm(card, kernels, yi_cfg, yi_model)
@@ -1585,17 +1811,18 @@ def main() -> int:
     # all, by_path holds each path's own
     attn_main = main_rows + [train_fwd_main, deploy_attn_main, rg_attn_main]
     train_fwd_launches = training["launches"]["flash_attention"]
+    full_fwd_launches = training_full["launches"]["flash_attention"]
     entry = {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
-        "launches": serving["launches"] + serving_group["launches"] + train_fwd_launches
+        "launches": serving["launches"] + serving_group["launches"] + train_fwd_launches + full_fwd_launches
         + deployment["launches"] + serving_rg["launches"]["flash_attention"],
         "max_abs_err": max(r["max_abs_err"] for r in attn_main),
         "matched": all(r["ok"] for r in rows + attn_main),
         "shapes": "one call at each of yi-6b's prompt lengths (1,S,32,128) S=%s bf16 causal, yi-6b's "
-        "training call (%d,%d,32,128) kv 4 bf16 causal, the yi-6b deployment's prefill (%d,%d,32,128) kv 4 "
+        "training call (%d,%d,32,128) kv 4 bf16 causal (16 and 32 layers), the yi-6b deployment's prefill (%d,%d,32,128) kv 4 "
         "bf16 causal, and recurrentgemma's (%d,%d,16,256) kv 1 bf16 causal window 2048, summed"
         % ("/".join(map(str, PROMPT_LENS)), TRAIN_BATCH, TRAIN_SEQ, DEPLOY_PER_PARTITION, DEPLOY_PROMPT,
            WAVE_REQUESTS, RG_PROMPT_LEN),
@@ -1603,6 +1830,7 @@ def main() -> int:
             "yi-6b": path_summary(serving["launches"], main_rows),
             "yi-6b-group": path_summary(serving_group["launches"], main_rows),
             "yi-6b-train": path_summary(train_fwd_launches, [train_fwd_main]),
+            "yi-6b-train-full": path_summary(full_fwd_launches, [train_fwd_main]),
             "yi-6b-deployment": path_summary(deployment["launches"], [deploy_attn_main]),
             "recurrentgemma-9b": path_summary(serving_rg["launches"]["flash_attention"], [rg_attn_main]),
         },
@@ -1642,22 +1870,44 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         # no TPU kernel: JAX differentiates its plain chunked attention
         "replaces": "none (JAX differentiates src/repro/models/layers.py:314)",
-        "launches": training["launches"]["flash_attention_bwd"],
+        "launches": training["launches"]["flash_attention_bwd"] + training_full["launches"]["flash_attention_bwd"],
         "max_abs_err": bwd_main["max_abs_err"],
         "matched": all(r["ok"] for r in bwd_rows + [bwd_main]) and train_grads is not None,
-        "shapes": "yi-6b's training call (%d,%d,32,128) kv 4 bf16 causal, one a layer a step"
+        "shapes": "yi-6b's training call (%d,%d,32,128) kv 4 bf16 causal, one a layer a step (16 and 32 layers)"
         % (TRAIN_BATCH, TRAIN_SEQ),
-        "by_path": {"yi-6b-train": path_summary(training["launches"]["flash_attention_bwd"], [bwd_main])},
+        "by_path": {
+            "yi-6b-train": path_summary(training["launches"]["flash_attention_bwd"], [bwd_main]),
+            "yi-6b-train-full": path_summary(training_full["launches"]["flash_attention_bwd"], [bwd_main]),
+        },
     }
     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
         bwd_entry[key] = bwd_main[key]
-    kernels_line = {"kernels": [entry, bwd_entry, ssd_entry, rglru_entry]}
+    opt8_launches = training_full["launches"]["adamw8bit"]
+    opt8_entry = {
+        "name": "adamw8bit",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/adamw8bit.cu",
+        "replaces": "none (JAX's adamw8bit is XLA ops: src/repro/train/optimizer.py:237)",
+        "launches": opt8_launches,
+        "max_abs_err": opt8["max_abs_err"],
+        "matched": opt8["ok"],
+        "shapes": "one call a leaf a step over yi-6b's %d-layer tree (%d leaves, %d params, bf16), timed as the "
+        "whole tree" % (FULL_LAYERS, opt8["leaves"], opt8["params"]),
+        "by_path": {"yi-6b-train-full": {
+            "launches": opt8_launches, "ms": opt8["ms"], "plain_ms": opt8["plain_ms"], "bound_ms": opt8["bound_ms"],
+            "bound_by": opt8["bound_by"], "library_ms": None, "bound_ms_over_ms": opt8["bound_ms"] / opt8["ms"],
+        }},
+    }
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        opt8_entry[key] = opt8[key]
+    kernels_line = {"kernels": [entry, bwd_entry, ssd_entry, rglru_entry, opt8_entry]}
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "torch": torch.__version__, "build_s": build_s, "checks": rows,
         "bwd_checks": bwd_rows, "lse_checks": lse_rows, "training": training, "training_grads": train_grads,
+        "optimizer_kernel": opt8, "training_full": training_full,
         "main_path_kernel": attn_main, "serving": serving, "serving_group": serving_group,
         "paper_loop": paper_loop, "deployment_lm": deployment, "ssd_checks": ssd_rows,
         "ssd_main_path_kernel": ssd_main, "rglru_checks": rglru_rows, "rglru_main_path_kernel": rglru_main,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time K1 (flash attention), its backward, K2 (SSD scan) or K3 (RG-LRU scan) of two checkouts on one card, in turns.
+"""Time K1 (flash attention), its backward, K2 (SSD scan), K3 (RG-LRU scan) or the 8-bit AdamW update of two
+checkouts on one card, in turns.
 
     mkdir -p build/ab_parent && git archive <parent commit> | tar -x -C build/ab_parent
-    python3 scripts/torch_kernel_ab.py --parent build/ab_parent [--kernel attention|attention_bwd|ssd|rglru] \
+    python3 scripts/torch_kernel_ab.py --parent build/ab_parent [--kernel attention|attention_bwd|ssd|rglru|adamw8bit] \
         [--ablate] [--rounds N]
 
 ``--parent`` is another checkout of the repository, unpacked in a
@@ -10,8 +11,8 @@ directory that .gitignore lists. Each round runs the parent, this
 checkout, this checkout again and the parent, each in a fresh process
 that imports ``repro_torch`` from its own ``src/`` and builds its own
 kernels, and hands that checkout's wrapper to this checkout's
-``chip_smoke.check_attention``, ``check_attention_bwd``, ``check_ssd`` or
-``check_rglru``, which holds
+``chip_smoke.check_attention``, ``check_attention_bwd``, ``check_ssd``,
+``check_rglru`` or ``check_opt8_tree``, which holds
 the kernel against its plain version and times it and the plain version
 (and, for K1, the library call ``F.scaled_dot_product_attention`` on
 pre-repeated K/V; with a boolean mask where there is a window) with CUDA
@@ -54,6 +55,13 @@ calls are the kernel's on the serving paths, bf16:
   L2 (at B 1 the inputs are 99 MB and a back-to-back call finds part of
   them in L2), and ``kernel_vs_f64_el_err``, the largest error against
   the float64 run relative to the check's tolerance.
+- the 8-bit AdamW update (``--kernel adamw8bit``): the training path's
+  calls, one a leaf over yi-6b's 32-layer tree (bf16, 12 leaves), timed
+  as the whole tree and held leaf by leaf against
+  ``ref.adamw8bit_update`` (``chip_smoke.check_opt8_tree``); the row's
+  ``max_abs_err`` is the largest over the leaves and ``matched`` says
+  whether every leaf met chip_smoke's gate. No library call, no CUDA
+  graph time.
 
 ``--ablate`` adds, in the same turns, this checkout's kernel built with
 each of its refinements switched off (the named constants in the
@@ -97,6 +105,7 @@ SOURCES = {
     "attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "ssd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
     "rglru": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+    "adamw8bit": "src/repro_torch/kernels/csrc/adamw8bit.cu",
 }
 # each variant: the lines of the kernel's source it changes, old -> new (each old line must occur once)
 VARIANTS = {
@@ -131,9 +140,10 @@ VARIANTS = {
         "warps_32_steps_8": [("constexpr int WARPS = 16;", "constexpr int WARPS = 32;"),
                              ("constexpr int STEPS = 16;", "constexpr int STEPS = 8;")],
     },
+    "adamw8bit": {},
 }
 TIMES = ("ms", "graph_ms", "flushed_ms", "library_ms", "library_graph_ms")
-FLAGS = ("bit_identical", "max_abs_err", "rel_err_dq_dk_dv")
+FLAGS = ("bit_identical", "max_abs_err", "rel_err_dq_dk_dv", "matched")
 ERRORS = ("el_err_state", "kernel_vs_f64_el_err")
 
 
@@ -337,8 +347,31 @@ def measure_rglru(root: Path, label: str) -> dict:
     return out
 
 
+def measure_adamw8bit(root: Path, label: str) -> dict:
+    """Check and time one checkout's 8-bit update over the 32-layer tree (this process imports its ``src``)."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import adamw8bit as k8
+
+    assert Path(k8.__file__).resolve().is_relative_to(root.resolve()), k8.__file__
+    _build.build_all()
+    ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("adamw8bit", "").splitlines()
+             if any(w in ln.lower() for w in ("registers", "spill", "warning", "function properties"))]
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 7)
+    tree = cs.check_opt8_tree(label, k8, ref, gen)
+    row = {key: tree[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                                       "v_codes_apart_share", "leaves", "params", "bytes")}
+    row["matched"] = tree["ok"]
+    key = f"yi-6b {cs.FULL_LAYERS}-layer tree, {tree['leaves']} leaves, bf16"
+    return {"label": label, "root": str(root), "ptxas": ptxas, "calls": {key: row}}
+
+
 def measure(root: Path, label: str, kernel: str) -> dict:
-    """Check and time one checkout's K1, K2 or K3 (this process imports its ``src``)."""
+    """Check and time one checkout's K1, K1's backward, K2, K3 or 8-bit update (this process imports its ``src``)."""
+    if kernel == "adamw8bit":
+        return measure_adamw8bit(root, label)
     if kernel == "ssd":
         return measure_ssd(root, label)
     if kernel == "attention_bwd":
@@ -479,6 +512,11 @@ def main() -> int:
     (out_dir / name).write_text(json.dumps({"summary": summary, "runs": runs}, indent=1))
     for key, e in summary["calls"].items():
         present = [label for label in labels if e[f"{label}_ms_median"] is not None]
+        if args.kernel == "adamw8bit":
+            cols = "  ".join(f"{label} {e[f'{label}_ms_median']:.4f} (matched {all(e[f'{label}_matched'])}, "
+                             f"max abs err {max(e[f'{label}_max_abs_err']):.3g})" for label in present)
+            print(f"[{card}] {key}: ms {cols}  bound {e['bound_ms']:.4f}", flush=True)
+            continue
         cols = "  ".join(f"{label} {e[f'{label}_ms_median']:.4f} ({e[f'{label}_graph_ms_median']:.4f})"
                          for label in present)
         if args.kernel == "attention":

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
 """Where the time goes when the PyTorch port trains yi-6b.
 
-    python3 scripts/torch_profile_training.py [--steps 3]
+    python3 scripts/torch_profile_training.py [--steps 3] [--layers 16] [--opt adamw|adamw8bit]
 
 On a machine with one CUDA card. Builds the kernels, then takes
-chip_smoke.py's training workload (full-width yi-6b cut to its 16
-layers, bf16 weights from its seed, AdamW with f32 moments, batches of 4
-x 1024 tokens of its seeded Markov corpus) through the calls a
+chip_smoke.py's training workload (full-width yi-6b cut to ``--layers``
+of its 32 layers, 16 by default, bf16 weights from its seed, AdamW with
+f32 moments or ``adamw8bit``, batches of 4 x 1024 tokens of its seeded
+Markov corpus) through the calls a
 ``TrainingJob`` step makes: ``StreamModel.loss``, ``torch.autograd.grad``
 over the parameter tree and the optimizer's ``update``, each marked as a
 phase. Two warm-up steps, then ``--steps`` steps under
 ``torch.profiler``. Prints the host-clock step time, the device time by
 phase and by kernel class, the device's busy and idle share of the wall
 time and the top kernels; writes them and the full table to
-``chiprun_out/profile_training.*``. Times under the profiler slow the
+``chiprun_out/profile_training.*`` (``profile_training_<layers>_<opt>.*``
+for other than the defaults). Times under the profiler slow the
 host. Exits non-zero with no CUDA device.
 """
 
@@ -38,6 +40,8 @@ def _device_us(evt) -> float:
 
 def _kernel_class(name: str) -> str:
     n = name.lower()
+    if "adamw8bit" in n:
+        return "adamw8bit (this repo's kernel)"
     if any(t in n for t in ("dkdv_", "dq_bf16", "dq_f32", "delta_kernel")):
         return "flash_attention_bwd (this repo's kernel)"
     if "flash_attention" in n:
@@ -60,6 +64,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--layers", type=int, default=chip_smoke.TRAIN_LAYERS)
+    ap.add_argument("--opt", choices=("adamw", "adamw8bit"), default="adamw")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile_training: no CUDA device", file=sys.stderr)
@@ -68,18 +74,19 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.models.model import StreamModel
     from repro_torch.models.policy import Policy
-    from repro_torch.train import adamw, cosine_schedule
+    from repro_torch.train import adamw, adamw8bit, cosine_schedule
     from repro_torch.train.optimizer import tree_leaves, tree_unflatten
 
     card = chip_smoke.card_line()
     _build.build_all()
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(configs.get("yi-6b"), n_layers=chip_smoke.TRAIN_LAYERS)
+    cfg = dataclasses.replace(configs.get("yi-6b"), n_layers=args.layers)
     model = StreamModel(cfg, Policy(), device="cuda", generator=chip_smoke.SEED)
     params = model.param_tree()
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    opt = adamw(cosine_schedule(3e-4, chip_smoke.TRAIN_WARMUP, chip_smoke.TRAIN_STEPS))
+    make_opt = {"adamw": adamw, "adamw8bit": adamw8bit}[args.opt]
+    opt = make_opt(cosine_schedule(3e-4, chip_smoke.TRAIN_WARMUP, chip_smoke.TRAIN_STEPS))
     state = opt.init(params)
     corpus = chip_smoke.load_example("torch_train_lm").synth_corpus(
         chip_smoke.TRAIN_SEQS, cfg.vocab, seq=chip_smoke.TRAIN_SEQ, seed=chip_smoke.SEED)
@@ -124,7 +131,7 @@ def main() -> int:
             phases[e.key]["device_span_ms"] += _device_us(e) / 1e3
     top = sorted(kernels, key=_device_us, reverse=True)[:20]
     summary = {
-        "card": card, "layers": cfg.n_layers, "batch": b, "seq": chip_smoke.TRAIN_SEQ, "steps": args.steps,
+        "card": card, "layers": cfg.n_layers, "optimizer": args.opt, "batch": b, "seq": chip_smoke.TRAIN_SEQ, "steps": args.steps,
         "losses": losses, "wall_ms": wall_s * 1e3, "step_ms": wall_s * 1e3 / args.steps,
         "device_busy_ms": busy_us / 1e3, "device_idle_share": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
         "peak_bytes": peak, "phases": phases,
@@ -135,8 +142,10 @@ def main() -> int:
     }
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_training.json").write_text(json.dumps(summary, indent=1))
-    (out / "profile_training.txt").write_text(
+    default = (args.layers, args.opt) == (chip_smoke.TRAIN_LAYERS, "adamw")
+    stem = "profile_training" if default else f"profile_training_{args.layers}_{args.opt}"
+    (out / f"{stem}.json").write_text(json.dumps(summary, indent=1))
+    (out / f"{stem}.txt").write_text(
         events.table(
             sort_by="self_device_time_total" if hasattr(events[0], "self_device_time_total")
             else "self_cuda_time_total",

@@ -1,0 +1,126 @@
+"""The 8-bit AdamW update of one leaf: a CUDA kernel written by hand for Hopper.
+
+No TPU kernel stands behind it: the JAX package's ``adamw8bit`` is XLA
+ops (``src/repro/train/optimizer.py:237-247``, ``upd``), which XLA fuses
+into a few loops. Written as eager torch ops the same update makes some
+twenty passes over each parameter (dequantize, log2, exp2, the block
+reductions, requantize), so the port does it in one kernel
+(``csrc/adamw8bit.cu``): read p, g, the m codes and scale and the v codes
+and ``(lo, step)``; dequantize; update m, v and p in f32 in ``upd``'s
+order; requantize m (absmax) and v (log2 grid); write p, the codes and
+the scales in place. Its plain version is ``ref.adamw8bit_update``.
+
+What bounds it on the H100: a few dozen operations an element against
+about 10 bytes (bf16 p read and written, g read, each code read and
+written, the scales), so bytes; the design gives a warp one 256-element
+block (8 elements a lane in registers, warp shuffles for the absmax and
+the log range), so every byte of state is read once and written once and
+nothing is staged in shared memory.
+
+On a CPU tensor the wrapper computes the plain version instead; on a CUDA
+tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+__all__ = ["LAUNCHES", "adamw8bit_update", "check"]
+
+# kernel launches since import (or since a caller last set it to 0)
+LAUNCHES = 0
+
+_fn = None
+
+
+def _bind(lib: ctypes.CDLL):
+    fn = lib.repro_adamw8bit_update
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2 + [ctypes.c_float] * 9 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.repro_cuda_error_string
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        _fn = _bind(_build.load("adamw8bit"))
+    return _fn
+
+
+def check(p, g, m_codes, m_scales, v_codes, v_scales) -> None:
+    """Raise on what the update does not take: dtypes, shapes, devices."""
+    if p.dim() == 0:
+        raise ValueError("adamw8bit blocks the trailing dim: a 0-d leaf has none")
+    if p.dtype not in (torch.float32, torch.bfloat16) or g.dtype != p.dtype:
+        raise TypeError(f"p must be f32 or bf16 and g of its dtype, got {p.dtype} and {g.dtype}")
+    if m_codes.dtype != torch.int8 or v_codes.dtype != torch.int8:
+        raise TypeError(f"codes must be int8, got {m_codes.dtype} and {v_codes.dtype}")
+    if m_scales.dtype != torch.float32 or v_scales.dtype != torch.float32:
+        raise TypeError(f"scales must be f32, got {m_scales.dtype} and {v_scales.dtype}")
+    nblk = ref.pad_to_block(p.shape[-1]) // ref.QBLOCK
+    want = {
+        "g": (g, tuple(p.shape)), "m codes": (m_codes, tuple(p.shape)), "v codes": (v_codes, tuple(p.shape)),
+        "m scales": (m_scales, tuple(p.shape[:-1]) + (nblk,)),
+        "v scales": (v_scales, tuple(p.shape[:-1]) + (nblk, 2)),
+    }
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} != {shape} for a leaf of {tuple(p.shape)}")
+    if any(t.device != p.device for t, _ in want.values()):
+        raise ValueError("adamw8bit_update inputs must lie on one device")
+
+
+def adamw8bit_update(
+    p: torch.Tensor,  # (..., n) f32 or bf16, updated in place
+    g: torch.Tensor,  # (..., n) p's dtype, already clipped
+    m_codes: torch.Tensor,  # (..., n) int8, in place
+    m_scales: torch.Tensor,  # (..., nblk) f32, in place
+    v_codes: torch.Tensor,  # (..., n) int8, in place
+    v_scales: torch.Tensor,  # (..., nblk, 2) f32 (lo, step), in place
+    *,
+    lr: torch.Tensor,  # 0-d f32 on the host
+    bc1: torch.Tensor,  # 0-d f32 on the host
+    bc2: torch.Tensor,  # 0-d f32 on the host
+    b1: float,
+    b2: float,
+    eps: float,
+    weight_decay: float,
+) -> None:
+    """One leaf of ``adamw8bit``'s update, in place (nblk = ceil(n / 256))."""
+    global LAUNCHES
+    check(p, g, m_codes, m_scales, v_codes, v_scales)
+    if p.device.type == "cpu":
+        ref.adamw8bit_update(p, g, m_codes, m_scales, v_codes, v_scales, lr=lr, bc1=bc1, bc2=bc2, b1=b1, b2=b2, eps=eps,
+                      weight_decay=weight_decay)
+        return
+    if p.device.type != "cuda":
+        raise ValueError(f"adamw8bit_update runs on cuda or cpu tensors, not {p.device}")
+    tensors = (p, g, m_codes, m_scales, v_codes, v_scales)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("adamw8bit_update updates contiguous leaves in place")
+    if p.numel() == 0:
+        return
+    n = p.shape[-1]
+    # 8 neighbouring elements a lane (16-byte loads) where every row starts
+    # on 8 elements and every base on 16 bytes; else one element a lane per
+    # 32 (any n, any alignment)
+    vec = n % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+    fn, err_str = _kernel()
+    with torch.cuda.device(p.device):
+        stream = torch.cuda.current_stream(p.device).cuda_stream
+        rc = fn(
+            p.data_ptr(), g.data_ptr(), m_codes.data_ptr(), m_scales.data_ptr(), v_codes.data_ptr(),
+            v_scales.data_ptr(), p.numel() // n, n, int(p.dtype == torch.bfloat16), int(vec),
+            # the host's f32 scalars: no sync on the card
+            float(lr), b1, 1 - b1, b2, 1 - b2, eps, weight_decay, float(bc1), float(bc2), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"adamw8bit launch failed: {err_str(rc).decode()} ({rc})")
+    LAUNCHES += 1

@@ -1,7 +1,11 @@
 """Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``).
 
 Each is the definitional oracle its kernel is held against, and the path a
-kernel wrapper takes for a tensor that lies on the CPU.
+kernel wrapper takes for a tensor that lies on the CPU. The 8-bit AdamW
+update's (``adamw8bit_update``) comes with the quantizers of
+``repro.train.optimizer`` (``_quantize:68``, ``_dequantize:88``,
+``_quantize_log:102``, ``_dequantize_log:125``), which the port's
+``adamw8bit`` also uses for its state.
 """
 
 from __future__ import annotations
@@ -10,7 +14,10 @@ import math
 
 import torch
 
-__all__ = ["mha", "rglru", "scores", "ssd"]
+__all__ = [
+    "QBLOCK", "V_FLOOR", "adamw8bit_update", "dequantize", "dequantize_log", "layer_slices", "mha", "pad_to_block",
+    "quantize", "quantize_log", "rglru", "scores", "ssd",
+]
 
 
 def mha(
@@ -110,3 +117,104 @@ def rglru(
         h = a * h + torch.sqrt(torch.clamp(1.0 - a * a, min=0.0)) * x[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1), h
+
+
+# ------------------------------------------- the 8-bit AdamW update and its grids
+QBLOCK = 256  # quantization block along the trailing dim
+V_FLOOR = 1e-16  # offset so v=0 is representable in log space
+
+
+def layer_slices(t: torch.Tensor, like: torch.Tensor | None = None) -> list[torch.Tensor]:
+    """A stacked leaf (3 dims or more: the layer stack first) as its layer
+    slices; any other leaf whole. With ``like``, ``t`` (a moment's codes
+    or scales) is cut as the parameter ``like`` is. The torch-ops forms
+    walk a stack one slice at a time so that their f32 temporaries are one
+    layer's (one f32 copy of yi-6b's stacked MLP weight at 16 layers is
+    2.9 GB); slicing changes no elementwise result, nor a quantization
+    that blocks the trailing dim alone."""
+    return list(t.unbind(0)) if (t if like is None else like).dim() >= 3 else [t]
+
+
+def pad_to_block(n: int) -> int:
+    return -(-n // QBLOCK) * QBLOCK
+
+
+def _pad_last(x: torch.Tensor, npad: int) -> torch.Tensor:
+    n = x.shape[-1]
+    if npad == n:
+        return x
+    return torch.nn.functional.pad(x, (0, npad - n))
+
+
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c as an IEEE quotient on any device: on the card PyTorch turns a
+    division by a host scalar into a product with its reciprocal, which is
+    not the reference's quotient, so the divisor is a tensor on x's device."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _blocks(x: torch.Tensor) -> tuple[torch.Tensor, int, int]:
+    """(x zero-padded to whole blocks as (..., nblk, 256), n, npad)."""
+    shape = tuple(x.shape)
+    n = shape[-1]
+    npad = pad_to_block(n)
+    return _pad_last(x, npad).reshape(shape[:-1] + (npad // QBLOCK, QBLOCK)), n, npad
+
+
+def _unblock(blocks: torch.Tensor, shape: tuple, n: int, npad: int) -> torch.Tensor:
+    return blocks.reshape(tuple(shape[:-1]) + (npad,))[..., :n].contiguous()
+
+
+def quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (f32) -> (int8 codes of x's shape, f32 scales (..., nblk)): linear
+    absmax over 256-blocks of the trailing dim, zero-padded."""
+    blocks, n, npad = _blocks(x)
+    scale = _div(blocks.abs().amax(-1, keepdim=True), 127.0)
+    safe = torch.where(scale == 0, 1.0, scale)
+    codes = torch.clamp(torch.round(blocks / safe), -127, 127).to(torch.int8)
+    return _unblock(codes, x.shape, n, npad), scale[..., 0]
+
+
+def dequantize(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    blocks, n, npad = _blocks(codes.to(torch.float32))
+    return _unblock(blocks * scales[..., None], codes.shape, n, npad)
+
+
+def quantize_log(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Non-negative x (f32) -> (int8 codes on a per-block log2 grid, f32
+    scales (..., nblk, 2) holding (lo, step)). The zero padding of a
+    partial block enters the log range as log2(1e-16)."""
+    blocks, n, npad = _blocks(x)
+    blocks = torch.log2(blocks + V_FLOOR)
+    lo = blocks.amin(-1, keepdim=True)
+    hi = blocks.amax(-1, keepdim=True)
+    step = torch.clamp_min(_div(hi - lo, 254.0), 1e-8)
+    codes = torch.clamp(torch.round((blocks - lo) / step) - 127, -127, 127).to(torch.int8)
+    return _unblock(codes, x.shape, n, npad), torch.cat([lo, step], -1)
+
+
+def dequantize_log(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    blocks, n, npad = _blocks(codes.to(torch.float32))
+    lo, step = scales[..., :1], scales[..., 1:]
+    out = torch.clamp_min(torch.exp2(lo + (blocks + 127.0) * step) - V_FLOOR, 0.0)
+    return _unblock(out, codes.shape, n, npad)
+
+
+@torch.no_grad()
+def adamw8bit_update(p, g, m_codes, m_scales, v_codes, v_scales, *, lr, bc1, bc2, b1, b2, eps, weight_decay):
+    """One leaf of ``adamw8bit``'s update in torch ops, in place: the
+    reference's ``upd`` (``optimizer.py:237-247``), op for op, a layer
+    slice at a time. ``lr``, ``bc1`` and ``bc2`` are 0-d f32 tensors; ``g``
+    is already clipped."""
+    lr, bc1, bc2 = (t.to(p.device) for t in (lr, bc1, bc2))
+    parts = zip(*(layer_slices(t, p) for t in (p, g, m_codes, m_scales, v_codes, v_scales)))
+    for ps, gs, mc, ms, vc, vs in parts:
+        gf = gs.float()
+        m = b1 * dequantize(mc, ms) + (1 - b1) * gf
+        v = b2 * dequantize_log(vc, vs) + (1 - b2) * gf * gf
+        pf = ps.float()
+        u = (m / bc1) / (torch.sqrt(v / bc2) + eps) + weight_decay * pf
+        ps.copy_((pf - lr * u).to(ps.dtype))
+        for (c, s), (cd, sd) in ((quantize(m), (mc, ms)), (quantize_log(v), (vc, vs))):
+            cd.copy_(c)
+            sd.copy_(s)

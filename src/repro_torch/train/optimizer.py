@@ -1,6 +1,6 @@
-"""AdamW with f32 moments, the cosine schedule and global-norm clipping
-(port of ``repro.train.optimizer``: ``adamw:153``, ``cosine_schedule:33``,
-``clip_by_global_norm:48``).
+"""AdamW with f32 moments, AdamW with 8-bit moments, the cosine schedule
+and global-norm clipping (port of ``repro.train.optimizer``: ``adamw:153``,
+``adamw8bit:202``, ``cosine_schedule:33``, ``clip_by_global_norm:48``).
 
 The arithmetic is the JAX package's, step for step: the schedule and the
 bias corrections in f32 on the host; m and v in f32; the step count
@@ -9,12 +9,22 @@ gradient's dtype (for bf16 gradients that is a rounding of its own);
 weight decay on every leaf; the new value computed in f32 and cast to the
 parameter's dtype.
 
+``adamw8bit`` keeps m and v as int8 codes with f32 scales for each
+256-element block of the trailing dim only: m on a linear absmax grid, v
+on a log2 grid whose ``(lo, step)`` per block are a trailing pair (the
+reference's ``_quantize``, ``_quantize_log``; the port's are in
+``kernels/ref.py``). A partial block is padded with zeros, which count
+in its absmax and in its log2 range. Its state is ``{"step", "m":
+{codes, scales}, "v": {codes, scales}}`` under the params' tree, as
+JAX's is. The update of one leaf is one call of
+``kernels.adamw8bit.adamw8bit_update``: a CUDA kernel on the card, its
+plain version ``kernels.ref.adamw8bit_update`` on the CPU.
+
 Differences that belong to PyTorch: ``update`` writes the parameters, the
 moments and the (clipped) gradients in place and returns the same
-objects, and it walks a stacked leaf (``(L, ...)``) one layer slice at a
-time, so its f32 temporaries are one layer's, not the stack's (one f32
-copy of yi-6b's stacked MLP weight at 16 layers is 2.9 GB). Slicing does
-not change an elementwise result. The 8-bit optimizer is not ported yet.
+objects, and the torch-ops forms walk a stacked leaf (``(L, ...)``) one
+layer slice at a time (``kernels.ref.layer_slices``), so their f32
+temporaries are one layer's, not the stack's.
 
 Trees are nested dicts of tensors in the JAX layout; their leaves are
 visited in the order JAX flattens a dict (sorted keys).
@@ -28,13 +38,25 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["Optimizer", "adamw", "clip_by_global_norm", "cosine_schedule", "tree_leaves", "tree_unflatten"]
+from repro_torch.kernels import adamw8bit as kernel
+from repro_torch.kernels.ref import QBLOCK, layer_slices, pad_to_block, quantize_log
+
+__all__ = [
+    "Optimizer", "adamw", "adamw8bit", "clip_by_global_norm", "cosine_schedule", "is_quantized",
+    "tree_leaves", "tree_unflatten",
+]
 
 
-def tree_leaves(tree) -> list:
-    """The leaves of a nested dict, in JAX's order (sorted keys)."""
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+def is_quantized(x) -> bool:
+    """An 8-bit moment leaf: ``{"codes", "scales"}`` (JAX's ``is_q``)."""
+    return isinstance(x, dict) and "codes" in x
+
+
+def tree_leaves(tree, is_leaf: Callable[[Any], bool] | None = None) -> list:
+    """The leaves of a nested dict, in JAX's order (sorted keys); a node
+    for which ``is_leaf`` holds is a leaf."""
+    if isinstance(tree, dict) and not (is_leaf is not None and is_leaf(tree)):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k], is_leaf)]
     return [tree]
 
 
@@ -48,12 +70,6 @@ def tree_unflatten(like, leaves) -> Any:
         return next(it)
 
     return build(like)
-
-
-def _slices(t: torch.Tensor) -> list[torch.Tensor]:
-    """A stacked leaf (3 dims or more: the layer stack first) as its layer
-    slices; any other leaf whole."""
-    return list(t.unbind(0)) if t.dim() >= 3 else [t]
 
 
 # --------------------------------------------------------------- lr schedules
@@ -77,12 +93,12 @@ def clip_by_global_norm(grads, max_norm: float):
     leaves = tree_leaves(grads)
     g2 = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for g in leaves:
-        for gs in _slices(g):
+        for gs in layer_slices(g):
             g2 = g2 + torch.sum(torch.square(gs.float()))
     norm = torch.sqrt(g2)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     for g in leaves:
-        for gs in _slices(g):
+        for gs in layer_slices(g):
             gs.copy_((gs.float() * scale).to(gs.dtype))
     return grads, norm
 
@@ -128,13 +144,63 @@ def adamw(
         for p, g, m, v in leaves:
             dev = p.device
             lr_d, bc1_d, bc2_d = (t.to(dev) for t in (lr_t, bc1, bc2))
-            for ps, gs, ms, vs in zip(_slices(p), _slices(g), _slices(m), _slices(v)):
+            for ps, gs, ms, vs in zip(layer_slices(p), layer_slices(g), layer_slices(m), layer_slices(v)):
                 gf = gs.float()
                 ms.mul_(b1).add_(gf * (1 - b1))
                 vs.mul_(b2).add_(gf.mul(1 - b2).mul_(gf))
                 pf = ps.float()
                 u = (ms / bc1_d) / (torch.sqrt(vs / bc2_d) + eps) + weight_decay * pf
                 ps.copy_((pf - lr_d * u).to(ps.dtype))
+        state["step"] = step
+        return params, state
+
+    return Optimizer(init, update)
+
+
+def adamw8bit(
+    lr: float | Callable = 1e-3,
+    b1: float = 0.9,
+    b2: float = 0.95,
+    eps: float = 1e-8,
+    weight_decay: float = 0.01,
+    max_grad_norm: float | None = 1.0,
+) -> Optimizer:
+    lr_fn = lr if callable(lr) else (lambda _: torch.tensor(lr, dtype=torch.float32))
+
+    def zero_m(p):  # quantize of zeros: codes 0, scales 0
+        nblk = pad_to_block(p.shape[-1]) // QBLOCK
+        return {"codes": torch.zeros(p.shape, dtype=torch.int8, device=p.device),
+                "scales": torch.zeros(p.shape[:-1] + (nblk,), dtype=torch.float32, device=p.device)}
+
+    def zero_v(p):  # quantize_log of zeros: codes -127, each block (log2(1e-16), 1e-8)
+        nblk = pad_to_block(p.shape[-1]) // QBLOCK
+        pair = quantize_log(torch.zeros(1, dtype=torch.float32, device=p.device))[1]
+        return {"codes": torch.full(p.shape, -127, dtype=torch.int8, device=p.device),
+                "scales": pair.expand(p.shape[:-1] + (nblk, 2)).contiguous()}
+
+    def init(params):
+        leaves = tree_leaves(params)
+        return {
+            "step": torch.zeros((), dtype=torch.int32),
+            "m": tree_unflatten(params, [zero_m(p) for p in leaves]),
+            "v": tree_unflatten(params, [zero_v(p) for p in leaves]),
+        }
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        if max_grad_norm is not None:
+            grads, _ = clip_by_global_norm(grads, max_grad_norm)
+        step = state["step"] + 1
+        lr_t = lr_fn(step).to(torch.float32)
+        stepf = step.to(torch.float32)
+        bc1 = 1 - torch.tensor(b1, dtype=torch.float32) ** stepf
+        bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** stepf
+        # the m and v leaves are {codes, scales} under the params' tree (_tree_map4)
+        leaves = zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"], is_quantized),
+                     tree_leaves(state["v"], is_quantized))
+        for p, g, mq, vq in leaves:
+            kernel.adamw8bit_update(p, g, mq["codes"], mq["scales"], vq["codes"], vq["scales"], lr=lr_t,
+                                    bc1=bc1, bc2=bc2, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
         state["step"] = step
         return params, state
 

@@ -12,13 +12,15 @@ import pytest
 import torch
 
 from repro.train import checkpoint as jck
+from repro.train.optimizer import adamw8bit as jadamw8bit
 import repro_torch.configs as TC
 import repro_torch.core as core
 import repro_torch.data as data
 from repro_torch.data.formats import RawCodec
 from repro_torch.models.model import StreamModel
 from repro_torch.models.policy import Policy
-from repro_torch.train import TrainingJob, adamw
+from repro_torch import convert
+from repro_torch.train import TrainingJob, adamw, adamw8bit
 from repro_torch.train import checkpoint as ck
 from repro_torch.train.optimizer import tree_leaves
 
@@ -123,6 +125,58 @@ def test_port_checkpoint_restores_in_jax(tmp_path):
     assert offsets == {"r": 11} and meta["next_step"] == 4
 
 
+def _jax_8bit_state(seed):
+    """A JAX adamw8bit state one update in (a stacked bf16 leaf with a
+    partial block, an f32 leaf of trailing dim 128), and its params."""
+    rng = np.random.default_rng(seed)
+    jp = {"w": jnp.asarray(rng.standard_normal((2, 3, 300)).astype(ml_dtypes.bfloat16)),
+          "b": jnp.asarray(rng.standard_normal((4, 128)).astype(np.float32))}
+    opt = jadamw8bit(1e-2)
+    g = {k: jnp.asarray(rng.standard_normal(v.shape).astype(np.float32)).astype(v.dtype) for k, v in jp.items()}
+    jp, js = opt.update(g, opt.init(jp), jp)
+    return {"params": jp, "opt": js}
+
+
+def _assert_8bit_state_equal(got, want):
+    """Leaf for leaf, dtypes kept: codes int8, scales f32, step int32."""
+    for (path, a), (_, b) in zip(ck._items(got), ck._items(want)):
+        a = np.asarray(a.float() if a.dtype == torch.bfloat16 else a) if isinstance(a, torch.Tensor) else a
+        b = np.asarray(b.float() if isinstance(b, torch.Tensor) and b.dtype == torch.bfloat16 else b)
+        if path[-1] == "codes":
+            assert a.dtype == b.dtype == np.int8, path
+        np.testing.assert_array_equal(np.asarray(a, np.float32), np.asarray(b, np.float32), err_msg=str(path))
+
+
+def test_jax_8bit_checkpoint_restores_in_the_port(tmp_path):
+    """An adamw8bit state written by the JAX package fills the port's
+    adamw8bit template (init of the same params): int8 codes, f32 scales."""
+    jstate = _jax_8bit_state(0)
+    jck.save(str(tmp_path), 1, jstate, offsets={"r": 5}, meta={"next_step": 1})
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jstate["params"]))
+    template = {"params": {k: torch.zeros_like(v) for k, v in tparams.items()}, "opt": adamw8bit(1e-2).init(tparams)}
+    state, offsets, _ = ck.restore(str(tmp_path), template)
+    assert state["opt"]["m"]["w"]["codes"].dtype == torch.int8 and int(state["opt"]["step"]) == 1
+    want = {"params": tparams, "opt": convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate["opt"]))}
+    _assert_8bit_state_equal(state, want)
+    assert offsets == {"r": 5}
+
+
+def test_port_8bit_checkpoint_restores_in_jax(tmp_path):
+    """The port's adamw8bit state, written by its CheckpointManager,
+    restores in the JAX package against JAX's own init as the template."""
+    jstate = _jax_8bit_state(1)
+    tstate = {"params": convert.params_from_jax(jax.tree.map(np.asarray, jstate["params"])),
+              "opt": convert.opt_state_from_jax(jax.tree.map(np.asarray, jstate["opt"]))}
+    mgr = ck.CheckpointManager(str(tmp_path))
+    mgr.save_async(1, tstate, offsets={"r": 6}, meta={"next_step": 1})
+    mgr.wait()
+    template = {"params": jstate["params"], "opt": jadamw8bit(1e-2).init(jstate["params"])}
+    state, offsets, _ = jck.restore(str(tmp_path), template)
+    assert state["opt"]["v"]["b"]["codes"].dtype == jnp.int8 and state["params"]["w"].dtype == jnp.bfloat16
+    _assert_8bit_state_equal(jax.tree.map(np.asarray, state), jax.tree.map(np.asarray, jstate))
+    assert offsets == {"r": 6}
+
+
 def _synth_corpus(n, vocab, seq, seed):
     """examples/torch_train_lm.py's generator (examples/ is no package)."""
     import importlib.util
@@ -147,11 +201,15 @@ def _stream():
     return log, reg, spec, dep
 
 
-@pytest.mark.parametrize("streaming", [False, True])
-def test_resume_matches_uninterrupted(tmp_path, streaming):
+@pytest.mark.parametrize("streaming,opt", [
+    pytest.param(False, adamw, id="False"), pytest.param(True, adamw, id="True"),
+    pytest.param(False, adamw8bit, id="False-adamw8bit"), pytest.param(True, adamw8bit, id="True-adamw8bit"),
+])
+def test_resume_matches_uninterrupted(tmp_path, streaming, opt):
     """Mirrors of tests/test_checkpoint.py:60 (offset-coupled resume) and
     :102 (streaming resume) on reduced yi-6b: kill a job mid-run, resume
-    it from its checkpoint (step + stream offsets), land on the
+    it from its checkpoint (step + stream offsets, and the optimizer's
+    state: f32 moments, or adamw8bit's codes and scales), land on the
     uninterrupted run's final loss (1e-5)."""
     log, reg, spec, dep = _stream()
     model = StreamModel(TC.get_reduced("yi-6b"), Policy("float32", "float32", "float32"), device="cpu",
@@ -160,7 +218,7 @@ def test_resume_matches_uninterrupted(tmp_path, streaming):
     def run(d, **kw):
         job = TrainingJob(log, reg, dep.deployment_id, spec.model_id,
                           loss_fn=lambda p, b: model.loss(p, {"tokens": b["data"]}),
-                          init_fn=model.init, opt=adamw(1e-2), ckpt_dir=str(d), ckpt_every=4,
+                          init_fn=model.init, opt=opt(1e-2), ckpt_dir=str(d), ckpt_every=4,
                           seed=3, device="cpu")
         # fetch_records=8 keeps several polls per epoch in play, so the
         # resumed run re-enters mid-stream, not at a poll boundary
@@ -173,7 +231,7 @@ def test_resume_matches_uninterrupted(tmp_path, streaming):
     assert res.steps == 14
     assert res.metrics["loss"] == pytest.approx(ref.metrics["loss"], abs=1e-5)
     # offsets recorded in the checkpoint point at the consumed stream
-    template = {"params": model.param_tree(), "opt": adamw(1e-2).init(model.param_tree())}
+    template = {"params": model.param_tree(), "opt": opt(1e-2).init(model.param_tree())}
     _, offsets, meta = ck.restore(str(tmp_path / "c"), template)
     assert meta["deployment_id"] == dep.deployment_id
     assert all(v > 0 for v in offsets.values())

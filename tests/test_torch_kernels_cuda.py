@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch import configs
+from repro_torch.kernels import adamw8bit as K8
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as K3
@@ -760,17 +761,14 @@ def test_device_feed_on_card(card):
             assert all(np.array_equal(g[k].cpu().numpy(), h[k]) for k in h)
 
 
-def test_training_job_resume_on_card(card, tmp_path):
-    """Reduced yi-6b at K1's head dim 64 in bf16, trained from a stream on
-    the card through K1 forward and backward: a job killed mid-run and
-    resumed from its checkpoint ends on the uninterrupted run's loss."""
+def _resume_on_card(card, tmp_path, opt):
     import importlib.util
     from pathlib import Path
 
     import repro_torch.core as core
     from repro_torch.data import ingest
     from repro_torch.data.formats import RawCodec
-    from repro_torch.train import TrainingJob, adamw
+    from repro_torch.train import TrainingJob
 
     spec_ = importlib.util.spec_from_file_location(
         "torch_train_lm", Path(__file__).resolve().parents[1] / "examples" / "torch_train_lm.py")
@@ -789,7 +787,7 @@ def test_training_job_resume_on_card(card, tmp_path):
     def run(d, **kw):
         job = TrainingJob(log, reg, dep.deployment_id, spec.model_id,
                           loss_fn=lambda p, b: model.loss(p, {"tokens": b["data"]}), init_fn=model.init,
-                          opt=adamw(1e-3), ckpt_dir=str(d), ckpt_every=4, seed=3, device=card)
+                          opt=opt(1e-3), ckpt_dir=str(d), ckpt_every=4, seed=3, device=card)
         return job.run(batch_size=4, max_steps=10, streaming=True, fetch_records=8, **kw)
 
     n_b = fa.BWD_LAUNCHES
@@ -800,3 +798,156 @@ def test_training_job_resume_on_card(card, tmp_path):
     res = run(tmp_path / "c", resume=True)
     assert res.steps == 10 and np.isfinite(res.metrics["loss"])
     assert res.metrics["loss"] == pytest.approx(ref_run.metrics["loss"], abs=1e-4)
+    return model
+
+
+def test_training_job_resume_on_card(card, tmp_path):
+    """Reduced yi-6b at K1's head dim 64 in bf16, trained from a stream on
+    the card through K1 forward and backward: a job killed mid-run and
+    resumed from its checkpoint ends on the uninterrupted run's loss."""
+    from repro_torch.train import adamw
+
+    _resume_on_card(card, tmp_path, adamw)
+
+
+def test_training_job_resume_on_card_adamw8bit(card, tmp_path):
+    """The same with adamw8bit: its state (codes and scales on the card)
+    goes through the checkpoint, and every update is one kernel launch a
+    leaf: 21 updates (10; 5 before the crash; 6 after resuming from the
+    step-4 checkpoint)."""
+    from repro_torch.train import adamw8bit
+    from repro_torch.train.optimizer import tree_leaves
+
+    n8 = K8.LAUNCHES
+    model = _resume_on_card(card, tmp_path, adamw8bit)
+    assert K8.LAUNCHES - n8 == len(tree_leaves(model.param_tree())) * 21
+
+
+# ------------------------------------------------------- the 8-bit AdamW update
+def _state8(shape, zero: bool, seed: int, device):
+    """(m codes, m scales, v codes, v scales): adamw8bit's zero state, or one
+    quantized from random moments (m ~ N(0, 1e-3), v spread over 20
+    octaves below 1e-4) by the port's quantizers."""
+    from repro_torch.train import adamw8bit
+
+    if zero:
+        st = adamw8bit(1e-3).init({"p": torch.zeros(shape, device=device)})
+        return (st["m"]["p"]["codes"], st["m"]["p"]["scales"], st["v"]["p"]["codes"], st["v"]["p"]["scales"])
+    rng = np.random.default_rng(seed)
+    m = torch.from_numpy((rng.standard_normal(shape) * 1e-3).astype(np.float32)).to(device)
+    v = torch.from_numpy((1e-4 * np.exp2(-20 * rng.random(shape))).astype(np.float32)).to(device)
+    return (*ref.quantize(m), *ref.quantize_log(v))
+
+
+def _scalars8(step: int):
+    lr = torch.tensor(3e-4, dtype=torch.float32)
+    stepf = torch.tensor(step, dtype=torch.float32)
+    return dict(lr=lr, bc1=1 - torch.tensor(0.9, dtype=torch.float32) ** stepf,
+                bc2=1 - torch.tensor(0.95, dtype=torch.float32) ** stepf, b1=0.9, b2=0.95, eps=1e-8,
+                weight_decay=0.01)
+
+
+def _assert_update8_close(got, want, dtype):
+    """chip_smoke.py's gate: p within the CPU tests' tolerance (1e-5
+    relative in f32, one bf16 step), m codes and scales equal, v codes at
+    most 1 apart on at most 0.1% of entries."""
+    (p, mc, ms, vc, vs), (p0, mc0, ms0, vc0, vs0) = got, want
+    rtol = 1e-5 if dtype == torch.float32 else 2 ** -8
+    torch.testing.assert_close(p.float(), p0.float(), rtol=rtol, atol=1e-7)
+    assert torch.equal(mc, mc0) and torch.equal(ms, ms0)
+    d = (vc.int() - vc0.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+    torch.testing.assert_close(vs, vs0, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("step", [1, 100])
+@pytest.mark.parametrize("shape", [(2, 3, 128), (5, 300), (3, 4096), (2, 11008), (77,)])
+def test_adamw8bit_kernel_matches_plain(card, dtype, step, shape):
+    """The kernel against its plain version on the card: yi-6b's trailing
+    dims (128, 4096, 11008), a partial block, a 1-d leaf; a zero state at
+    step 1, a random one at step 100; the first block's gradient zero."""
+    rng = np.random.default_rng(step + shape[-1])
+    p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.02).to(card, dtype)
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 1e-3).to(card, dtype)
+    g.view(-1, shape[-1])[0, :256] = 0
+    state = _state8(shape, step == 1, step, card)
+    kw = _scalars8(step)
+    want = [t.clone() for t in (p, *state)]
+    ref.adamw8bit_update(want[0], g, *want[1:], **kw)
+    got = [t.clone() for t in (p, *state)]
+    n = K8.LAUNCHES
+    K8.adamw8bit_update(got[0], g, *got[1:], **kw)
+    torch.cuda.synchronize()
+    assert K8.LAUNCHES == n + 1
+    _assert_update8_close(got, want, dtype)
+
+
+def test_adamw8bit_kernel_updates_in_place(card):
+    p = torch.randn((4, 4096), device=card, dtype=torch.bfloat16)
+    g = torch.randn_like(p) * 1e-3
+    state = _state8(p.shape, True, 0, card)
+    before = [p.clone(), *(t.clone() for t in state)]
+    ptrs = [t.data_ptr() for t in (p, *state)]
+    K8.adamw8bit_update(p, g, *state, **_scalars8(1))
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in (p, *state)] == ptrs
+    assert all(not torch.equal(a, b) for a, b in zip((p, *state), before))
+
+
+def test_adamw8bit_kernel_unaligned_rows(card):
+    """A contiguous leaf whose base is not 16-byte aligned takes the
+    element-a-lane path: the same result as the plain version."""
+    shape = (3, 4096)
+    flat = torch.randn(1 + 3 * 4096, device=card) * 0.02
+    p = flat[1:].view(shape)
+    assert p.is_contiguous() and p.data_ptr() % 16 != 0
+    g = torch.randn(shape, device=card) * 1e-3
+    state = _state8(shape, False, 3, card)
+    kw = _scalars8(7)
+    want = [t.clone() for t in (p, *state)]
+    ref.adamw8bit_update(want[0], g, *want[1:], **kw)
+    got = [p, *(t.clone() for t in state)]
+    K8.adamw8bit_update(got[0], g, *got[1:], **kw)
+    torch.cuda.synchronize()
+    _assert_update8_close(got, want, torch.float32)
+
+
+def test_adamw8bit_kernel_refuses_mixed_devices(card):
+    p = torch.zeros((2, 256), device=card)
+    state = _state8(p.shape, True, 0, card)
+    n = K8.LAUNCHES
+    with pytest.raises(ValueError):
+        K8.adamw8bit_update(p, torch.zeros((2, 256)), *state, **_scalars8(1))
+    with pytest.raises(ValueError):
+        K8.adamw8bit_update(p, torch.zeros_like(p), state[0].cpu(), *state[1:], **_scalars8(1))
+    assert K8.LAUNCHES == n
+
+
+def test_adamw8bit_optimizer_on_card_launches_a_kernel_a_leaf(card):
+    """``adamw8bit.update`` on a tree on the card: one launch a leaf, and
+    the same result as the same update through the plain version."""
+    from repro_torch.train import adamw8bit
+    from repro_torch.train import optimizer as T
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = {"a": torch.randn((2, 3, 128), device=card, generator=gen).to(torch.bfloat16),
+              "b": torch.randn((300,), device=card, generator=gen)}
+    grads = {k: torch.randn(v.shape, device=card, generator=gen).to(v.dtype) for k, v in params.items()}
+    opt = adamw8bit(1e-3)
+    state = opt.init(params)
+    ref_p = {k: v.clone() for k, v in params.items()}
+    ref_s = {"m": {k: {f: t.clone() for f, t in q.items()} for k, q in state["m"].items()},
+             "v": {k: {f: t.clone() for f, t in q.items()} for k, q in state["v"].items()}}
+    n = K8.LAUNCHES
+    opt.update({k: v.clone() for k, v in grads.items()}, state, params)
+    torch.cuda.synchronize()
+    assert K8.LAUNCHES == n + 2 and int(state["step"]) == 1
+    clipped, _ = T.clip_by_global_norm({k: v.clone() for k, v in grads.items()}, 1.0)
+    for k in params:
+        ref.adamw8bit_update(ref_p[k], clipped[k], ref_s["m"][k]["codes"], ref_s["m"][k]["scales"],
+                             ref_s["v"][k]["codes"], ref_s["v"][k]["scales"], **{**_scalars8(1), "lr": torch.tensor(1e-3)})
+        _assert_update8_close(
+            (params[k], state["m"][k]["codes"], state["m"][k]["scales"], state["v"][k]["codes"], state["v"][k]["scales"]),
+            (ref_p[k], ref_s["m"][k]["codes"], ref_s["m"][k]["scales"], ref_s["v"][k]["codes"], ref_s["v"][k]["scales"]),
+            params[k].dtype)

@@ -7,7 +7,7 @@ Tolerances: the loss and every gradient leaf at 1e-5 relative to the
 leaf's largest element (f32 with sums in another order); AdamW against
 JAX's at 1e-6 (f32 leaf) and one bf16 step (bf16 leaf); the 5-step
 TrainingJob loss trajectories at 1e-4 (the same f32 arithmetic, five
-AdamW steps apart).
+AdamW or adamw8bit steps apart).
 """
 
 import dataclasses
@@ -23,7 +23,7 @@ import repro.data as jdata
 from repro.models.model import StreamModel as JModel
 from repro.models.policy import Policy as JPolicy
 from repro.train import TrainingJob as JTrainingJob
-from repro.train.optimizer import adamw as jadamw, cosine_schedule as jcosine
+from repro.train.optimizer import adamw as jadamw, adamw8bit as jadamw8bit, cosine_schedule as jcosine
 import repro_torch.configs as TC
 import repro_torch.core as core
 import repro_torch.data as data
@@ -31,7 +31,7 @@ from repro_torch import convert
 from repro_torch.data.formats import RawCodec
 from repro_torch.models.model import StreamModel
 from repro_torch.models.policy import Policy
-from repro_torch.train import TrainingJob, adamw, build_train_step, clip_by_global_norm, cosine_schedule
+from repro_torch.train import TrainingJob, adamw, adamw8bit, build_train_step, clip_by_global_norm, cosine_schedule
 from repro_torch.train.optimizer import tree_leaves
 from repro_torch.train.trainer import _to_microbatches
 
@@ -304,11 +304,19 @@ def _stream(n=48, seed=8):
     return log, reg, spec, dep
 
 
-@pytest.mark.parametrize("streaming", [False, True])
-def test_training_job_trajectory_matches_jax(pair, streaming):
+_OPTS = {"adamw": (jadamw, adamw), "adamw8bit": (jadamw8bit, adamw8bit)}  # (JAX's, the port's)
+
+
+@pytest.mark.parametrize("streaming,opt", [
+    pytest.param(False, "adamw", id="False"), pytest.param(True, "adamw", id="True"),
+    pytest.param(False, "adamw8bit", id="False-adamw8bit"), pytest.param(True, "adamw8bit", id="True-adamw8bit"),
+])
+def test_training_job_trajectory_matches_jax(pair, streaming, opt):
     """The roadmap's gate: 5 steps of TrainingJob in each package on the
     same moved params and the same ingested stream give the same losses
-    (1e-4), and the same streaming or held-out eval."""
+    (1e-4), and the same streaming or held-out eval, with AdamW and with
+    adamw8bit."""
+    jopt, topt = _OPTS[opt]
     jm, jp, _, moved = pair
     _, tcfg = _cfgs()
     log, reg, spec, dep = _stream()
@@ -320,7 +328,7 @@ def test_training_job_trajectory_matches_jax(pair, streaming):
         return loss, met
 
     jres = JTrainingJob(log, reg, dep.deployment_id, spec.model_id, loss_fn=jloss, init_fn=lambda _: jp,
-                        opt=jadamw(jcosine(3e-3, 2, 5)), seed=0).run(
+                        opt=jopt(jcosine(3e-3, 2, 5)), seed=0).run(
         batch_size=4, max_steps=5, streaming=streaming, fetch_records=16)
     tm = StreamModel(tcfg, Policy("float32", "float32", "float32"), device="cpu", generator=None)
     tl = []
@@ -336,7 +344,7 @@ def test_training_job_trajectory_matches_jax(pair, streaming):
         return loss, met
 
     job = TrainingJob(log, reg, dep.deployment_id, spec.model_id, loss_fn=tloss, init_fn=init_fn,
-                      opt=adamw(cosine_schedule(3e-3, 2, 5)), seed=0, device="cpu")
+                      opt=topt(cosine_schedule(3e-3, 2, 5)), seed=0, device="cpu")
     tres = job.run(batch_size=4, max_steps=5, streaming=streaming, fetch_records=16)
     assert tres.steps == jres.steps == 5
     np.testing.assert_allclose(tl[:5], jl[:5], rtol=TRAJ_TOL)
