@@ -23,11 +23,14 @@ steps of 4 x 1024 tokens and its streaming eval, checking finite,
 falling losses and K1's launches forward and backward; then the
 gradients of one full-width attention layer at the training shape,
 through K1 forward + backward against the plain version; (4b) the 8-bit
-AdamW update's kernel against its plain version (one layer slice of each
-of yi-6b's stacked leaf shapes and embed, bf16 and f32, three updates
-from the zero state) and timed over the whole 32-layer tree; (4c) the
-same training workload on yi-6b at all 32 layers with ``adamw8bit``, its
-update one kernel launch a leaf a step, freed before serving; (5) serve four
+AdamW update's kernel and the global-norm kernel whose clip scale it
+applies, against their plain versions (one layer slice of each of
+yi-6b's stacked leaf shapes and embed, bf16 and f32, three clipped
+updates from the zero state) and timed over the whole 32-layer tree,
+with the optimizer phase (norm and updates) and the norm's library
+yardstick; (4c) the same training workload on yi-6b at all 32 layers
+with ``adamw8bit``, a norm launch a leaf and one to finish and an update
+launch a leaf a step, freed before serving; (5) serve four
 requests of mixed prompt lengths from a stream topic
 through full-width yi-6b (32 layers, random bf16 weights from a
 seed) with ``ContinuousLMEngine`` and check what comes back; (6) serve
@@ -51,8 +54,8 @@ window 2048 on K1 at head dim 256; random bf16 weights from a seed) with
 ``LMEngine`` and check what comes back (its bf16 drift stays within the
 tight slack, so every token is held there and no f32 twin is needed);
 (9) print the ``kernels`` line (K1's times summed over its paths, and
-each path's own under ``by_path``; K1's backward and the 8-bit update as
-entries of their own);
+each path's own under ``by_path``; K1's backward, the 8-bit update and the
+global norm as entries of their own);
 (10) print the result line. Each path is driven with every kernel's
 launch count set to 0 just before it and read just after.
 
@@ -169,6 +172,15 @@ OPT8_SHAPES = ((4096, 32, 128), (4096, 11008), (11008, 4096), (64000, 4096))
 OPT8_UPDATES = 3
 OPT8_RTOL = {"float32": 1e-5, "bfloat16": 2 ** -8}
 OPT8_V_SHARE = 1e-3
+# the clip at these checks: max_norm 1 against gradients of standard
+# deviation 1e-3, so the scale is below 1 on every shape (the slices' norms
+# are 4-16) and over the tree (about 78), and the update applies it
+OPT8_MAX_NORM = 1.0
+# the global norm against its plain version: both sum f32 squares, in
+# another order (threads, blocks and partials against torch.sum a layer
+# slice at a time), so relative to the norm within 1e-5 (at most a few
+# thousand terms a running sum here: errors of order 1e-7)
+NORM_RTOL = 1e-5
 # its operations an element: dequantize m (1) and v (6: two adds, a
 # product, exp2, a subtraction, a max), the m and v updates (3 + 4), u (7),
 # p (2), requantize m (6) and v (10), each counted once
@@ -477,7 +489,9 @@ def phase_train(card, kernels: dict, layers: int = TRAIN_LAYERS, opt_name: str =
     steps of TRAIN_BATCH and runs its streaming eval. Checks finite,
     falling losses, the first near ln(vocab), K1's launches forward and
     backward, the 8-bit update's (one a leaf a step with adamw8bit, none
-    with AdamW), and the registry's result. Returns the phase's numbers and
+    with AdamW) and the norm's (one a leaf and one to finish, a step,
+    with adamw8bit; none with AdamW, whose clip is eager), and the
+    registry's result. Returns the phase's numbers and
     the trained first layer's attention weights."""
     import dataclasses
 
@@ -542,6 +556,8 @@ def phase_train(card, kernels: dict, layers: int = TRAIN_LAYERS, opt_name: str =
         "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS,
         "ssd_scan": 0, "rglru_scan": 0,
         "adamw8bit": n_leaves * TRAIN_STEPS if opt_name == "adamw8bit" else 0,
+        # the clip's norm: a launch a leaf and one to finish, a step
+        "grad_norm": (n_leaves + 1) * TRAIN_STEPS if opt_name == "adamw8bit" else 0,
     }
     out = {
         "layers": cfg.n_layers, "optimizer": opt_name, "leaves": n_leaves, "params": n_params, "steps": res.steps,
@@ -571,8 +587,8 @@ def phase_train(card, kernels: dict, layers: int = TRAIN_LAYERS, opt_name: str =
 
 def phase_train_full(card, kernels: dict):
     """phase_train's workload on yi-6b at all FULL_LAYERS layers, trained
-    with adamw8bit: its gates, and the 8-bit update's kernel launched once
-    a leaf a step."""
+    with adamw8bit: its gates, the 8-bit update's kernel launched once a
+    leaf a step and the norm kernel once a leaf and once more a step."""
     out, _ = phase_train(card, kernels, layers=FULL_LAYERS, opt_name="adamw8bit")
     return out
 
@@ -622,34 +638,65 @@ def opt8_compare(got: list, want: list, dtype: str, **where) -> dict:
             "v_scales_max_abs_err": float((got[4] - want[4]).abs().max()), "ok": p_ok and m_ok and v_ok}
 
 
-def check_opt8_tree(label: str, k8, ref, gen) -> dict:
-    """The 8-bit update over the whole FULL_LAYERS-layer yi-6b tree (random
-    bf16 params and grads, the zero 8-bit state), one call of ``k8``'s
-    wrapper a leaf at the shapes the training path gives it: times the
-    kernel (20 calls after a warm-up), then holds one more update of each
-    leaf (step 2's scalars, from the state the timing left) against
-    ``ref.adamw8bit_update`` on clones of that leaf, then times the plain
-    version, and computes the bound."""
+def norm_bound(grads: list) -> tuple[float, str]:
+    """Least time for the global norm of ``grads``: max(each element read
+    once / HBM rate, a product and a sum an element / the f32 rate)."""
+    t_bytes = sum(g.numel() * g.element_size() for g in grads) / HBM_BYTES_PER_S
+    t_ops = 2 * sum(g.numel() for g in grads) / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_norm_tree(gn, ref, grads: list, flat) -> dict:
+    """The norm kernel over the tree's grads against ``ref.global_norm``
+    (within NORM_RTOL), the same bits on a repeated call, and its times:
+    the kernel's (20 calls), the plain version's (2), and one library call
+    that computes the norm of the same bytes, ``torch.linalg.vector_norm``
+    of the flat buffer the grads are views of (20; a yardstick, never
+    called by the port)."""
     import torch
 
-    from repro_torch import configs
-    from repro_torch.models.model import StreamModel
-    from repro_torch.models.policy import Policy
-    from repro_torch.train import adamw8bit
-    from repro_torch.train.optimizer import tree_leaves
+    norm, scale = gn.global_norm(grads, OPT8_MAX_NORM)
+    norm2, scale2 = gn.global_norm(grads, OPT8_MAX_NORM)
+    want_norm, want_scale = ref.global_norm(grads, OPT8_MAX_NORM)
+    torch.cuda.synchronize()
+    rel = float((norm - want_norm).abs() / want_norm)
+    rel_scale = float((scale - want_scale).abs() / want_scale)
+    bound_ms, bound_by = norm_bound(grads)
+    out = {
+        "norm": float(norm), "plain_norm": float(want_norm), "scale": float(scale), "plain_scale": float(want_scale),
+        "max_abs_err": float((norm - want_norm).abs()), "rel_err": rel, "scale_rel_err": rel_scale, "rtol": NORM_RTOL,
+        "bit_identical": bool(torch.equal(norm, norm2) and torch.equal(scale, scale2)),
+        "bytes": sum(g.numel() * g.element_size() for g in grads),
+        "ms": time_ms(lambda: gn.global_norm(grads, OPT8_MAX_NORM), 20),
+        "plain_ms": time_ms(lambda: ref.global_norm(grads, OPT8_MAX_NORM), 2),
+        "library_ms": time_ms(lambda: torch.linalg.vector_norm(flat), 20),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+    out["ok"] = rel <= NORM_RTOL and rel_scale <= NORM_RTOL and out["bit_identical"]
+    return out
+
+
+def check_opt8_tree(label: str, k8, ref, gen, gn=None) -> dict:
+    """The 8-bit update over the whole FULL_LAYERS-layer yi-6b tree
+    (``opt8_tree``), one call of ``k8``'s wrapper a leaf at the shapes the
+    training path gives it: times the kernel (20 calls after a warm-up),
+    then holds one more update of each leaf (step 2's scalars, from the
+    state the timing left) against ``ref.adamw8bit_update`` on clones of
+    that leaf, then times the plain version, and computes the bound. With
+    ``gn`` (the norm's wrapper) every update takes the clip scale that
+    ``gn`` computes from the grads (below 1), the norm is checked and timed
+    (``check_norm_tree``), and so is the optimizer phase, the norm and the
+    12 updates (10 calls); without it the updates take g as given (the
+    call an older checkout's wrapper takes too)."""
+    import torch
 
     torch.cuda.empty_cache()
-    cfg = configs.get("yi-6b")
-    model = StreamModel(cfg, Policy(), device="cuda", generator=SEED)
-    names = [".".join(path) for path in tree_paths(model.param_tree())]
-    params = tree_leaves(model.param_tree())
-    grads = [(torch.randn(p.shape, generator=gen, device="cuda", dtype=torch.float32) * 1e-3).to(p.dtype)
-             for p in params]
-    states = []
-    for p in params:
-        st = adamw8bit(1e-3).init({"p": p})
-        states.append([st["m"]["p"]["codes"], st["m"]["p"]["scales"], st["v"]["p"]["codes"], st["v"]["p"]["scales"]])
-    kw = opt8_scalars(1)
+    names, params, grads, states, flat = opt8_tree(gen)
+    norm, clip = None, {}
+    if gn is not None:
+        norm = check_norm_tree(gn, ref, grads, flat)
+        clip = {"clip_scale": gn.global_norm(grads, OPT8_MAX_NORM)[1]}
+    kw = {**opt8_scalars(1), **clip}
 
     def kernel_tree():
         for p, g, st in zip(params, grads, states):
@@ -659,28 +706,67 @@ def check_opt8_tree(label: str, k8, ref, gen) -> dict:
         for p, g, st in zip(params, grads, states):
             ref.adamw8bit_update(p, g, *st, **kw)
 
+    def optimizer_phase():
+        scale = gn.global_norm(grads, OPT8_MAX_NORM)[1]
+        for p, g, st in zip(params, grads, states):
+            k8.adamw8bit_update(p, g, *st, **{**kw, "clip_scale": scale})
+
     with torch.no_grad():
         ms = time_ms(kernel_tree, 20)
         rows = []
         for name, p, g, st in zip(names, params, grads, states):
             want = [p.clone(), *(t.clone() for t in st)]
-            k8.adamw8bit_update(p, g, *st, **opt8_scalars(2))
-            ref.adamw8bit_update(want[0], g, *want[1:], **opt8_scalars(2))
+            k8.adamw8bit_update(p, g, *st, **opt8_scalars(2), **clip)
+            ref.adamw8bit_update(want[0], g, *want[1:], **opt8_scalars(2), **clip)
             torch.cuda.synchronize()
             rows.append(opt8_compare([p, *st], want, str(p.dtype).removeprefix("torch."), leaf=name,
                                      shape=list(p.shape), step=2))
             del want
         plain_ms = time_ms(plain_tree, 2)
+        optimizer_ms = time_ms(optimizer_phase, 10) if gn is not None else None
     bound_ms, bound_by = opt8_bound(params)
     out = {
         "label": label, "checks": rows, "max_abs_err": max(r["p_max_abs_err"] for r in rows),
         "v_codes_apart_share": max(r["v_codes_apart_share"] for r in rows), "leaves": len(params),
         "params": sum(p.numel() for p in params), "bytes": sum(opt8_bytes(p) for p in params), "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "ok": all(r["ok"] for r in rows),
+        "clipped": gn is not None, "optimizer_ms": optimizer_ms, "norm": norm,
+        "ok": all(r["ok"] for r in rows) and (norm is None or norm["ok"]),
     }
-    del model, params, grads, states
+    del params, grads, states, flat
     return out
+
+
+def opt8_tree(gen) -> tuple[list, list, list, list, object]:
+    """The FULL_LAYERS-layer yi-6b tree at full width (random bf16 params
+    from SEED): its leaves' names and params, bf16 grads of standard
+    deviation 1e-3 from ``gen`` (their global norm is about 78, so a clip
+    at OPT8_MAX_NORM scales them), each leaf's zero 8-bit state as (m
+    codes, m scales, v codes, v scales), and the flat buffer the grads are
+    views of."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.model import StreamModel
+    from repro_torch.models.policy import Policy
+    from repro_torch.train import adamw8bit
+    from repro_torch.train.optimizer import tree_leaves
+
+    model = StreamModel(configs.get("yi-6b"), Policy(), device="cuda", generator=SEED)
+    names = [".".join(path) for path in tree_paths(model.param_tree())]
+    params = tree_leaves(model.param_tree())
+    flat = torch.empty(sum(p.numel() for p in params), dtype=torch.bfloat16, device="cuda")
+    grads, at = [], 0
+    for p in params:
+        g = flat[at:at + p.numel()].view(p.shape)
+        g.copy_(torch.randn(p.shape, generator=gen, device="cuda", dtype=torch.float32) * 1e-3)
+        grads.append(g)
+        at += p.numel()
+    states = []
+    for p in params:
+        st = adamw8bit(1e-3).init({"p": p})
+        states.append([st["m"]["p"]["codes"], st["m"]["p"]["scales"], st["v"]["p"]["codes"], st["v"]["p"]["scales"]])
+    return names, params, grads, states, flat
 
 
 def tree_paths(tree, prefix=()) -> list:
@@ -691,22 +777,26 @@ def tree_paths(tree, prefix=()) -> list:
 
 
 def phase_optimizer_kernel(card):
-    """The 8-bit update's kernel against its plain version on the card, at
-    OPT8_SHAPES in bf16 and f32, OPT8_UPDATES updates each from the zero
-    state at step 1 (both trajectories run apart and are held after each
-    update), with the first 256-block's gradient zero; then over the whole
-    FULL_LAYERS-layer yi-6b tree (its 12 leaves, one launch each, at the
-    training path's shapes: ``check_opt8_tree``), timed and held leaf by
-    leaf against the plain version."""
+    """The 8-bit update's kernel and the norm kernel against their plain
+    versions on the card, at OPT8_SHAPES in bf16 and f32, OPT8_UPDATES
+    updates each from the zero state at step 1 (both trajectories run
+    apart and are held after each update), with the first 256-block's
+    gradient zero and every update clipped: the norm kernel's scale of that
+    gradient (its norm held to the plain version's within NORM_RTOL), fed
+    to both; then over the whole FULL_LAYERS-layer yi-6b tree (its 12
+    leaves, one launch each, at the training path's shapes:
+    ``check_opt8_tree``), timed and held leaf by leaf against the plain
+    version, with the norm and the optimizer phase."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import adamw8bit as k8
+    from repro_torch.kernels import grad_norm as gn
     from repro_torch.kernels import ref
     from repro_torch.train import adamw8bit
 
-    rows = []
-    launches0 = k8.LAUNCHES
+    rows, norm_errs = [], []
+    launches0, norm_launches0 = k8.LAUNCHES, gn.LAUNCHES
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
 
     def quantized(st):
@@ -722,33 +812,47 @@ def phase_optimizer_kernel(card):
             for step in range(1, OPT8_UPDATES + 1):
                 g = (torch.randn(shape, generator=gen, device="cuda") * 1e-3).to(dt)
                 g.view(-1, shape[-1])[0, :256] = 0
-                k8.adamw8bit_update(got[0], g, *got[1:], **opt8_scalars(step))
-                ref.adamw8bit_update(want[0], g, *want[1:], **opt8_scalars(step))
+                norm, scale = gn.global_norm([g], OPT8_MAX_NORM)
+                want_norm = ref.global_norm([g], OPT8_MAX_NORM)[0]
+                norm_errs.append(float((norm - want_norm).abs() / want_norm))
+                assert norm_errs[-1] <= NORM_RTOL and float(scale) < 1, (shape, dtype, norm_errs[-1], float(scale))
+                k8.adamw8bit_update(got[0], g, *got[1:], **opt8_scalars(step), clip_scale=scale)
+                ref.adamw8bit_update(want[0], g, *want[1:], **opt8_scalars(step), clip_scale=scale)
                 torch.cuda.synchronize()
-                row = opt8_compare(got, want, dtype, shape=list(shape), step=step)
+                row = opt8_compare(got, want, dtype, shape=list(shape), step=step, clip_scale=float(scale))
                 rows.append(row)
                 assert row["ok"], f"adamw8bit kernel vs plain: {row}"
             del p, st, got, want, g
-    checks = k8.LAUNCHES - launches0
-    print(f"[{card}] adamw8bit kernel vs plain: {len(rows)} updates agree, "
+    checks, norm_checks = k8.LAUNCHES - launches0, gn.LAUNCHES - norm_launches0
+    print(f"[{card}] adamw8bit kernel vs plain: {len(rows)} clipped updates agree, "
           f"p max abs err {max(r['p_max_abs_err'] for r in rows):.3g}, "
           f"p bit-equal in {sum(r['p_bit_equal'] for r in rows)}, v codes apart on at most "
-          f"{max(r['v_codes_apart_share'] for r in rows):.3g} of entries", flush=True)
+          f"{max(r['v_codes_apart_share'] for r in rows):.3g} of entries; their norms within "
+          f"{max(norm_errs):.3g} of the plain version's", flush=True)
 
-    tree = check_opt8_tree(card, k8, ref, gen)
+    tree = check_opt8_tree(card, k8, ref, gen, gn)
     for row in tree["checks"]:
         assert row["ok"], f"adamw8bit kernel vs plain on the {FULL_LAYERS}-layer tree: {row}"
+    norm = tree["norm"]
+    assert norm["ok"], f"the norm kernel vs plain on the {FULL_LAYERS}-layer tree: {norm}"
     print(f"[{card}] adamw8bit over the {FULL_LAYERS}-layer tree ({tree['leaves']} leaves, {tree['params']} params, "
-          f"{tree['bytes']} bytes): kernel {tree['ms']:.4f} ms, plain {tree['plain_ms']:.4f} ms, "
+          f"{tree['bytes']} bytes), clipped: kernel {tree['ms']:.4f} ms, plain {tree['plain_ms']:.4f} ms, "
           f"bound {tree['bound_ms']:.4f} ms ({tree['bound_by']}), {tree['bound_ms'] / tree['ms']:.1%} of it; "
           f"each leaf held to the plain version: p max abs err {tree['max_abs_err']:.3g}, p bit-equal in "
           f"{sum(r['p_bit_equal'] for r in tree['checks'])} of {len(tree['checks'])}", flush=True)
+    print(f"[{card}] global norm over the tree ({norm['bytes']} bytes): kernel {norm['ms']:.4f} ms, plain "
+          f"{norm['plain_ms']:.4f} ms, torch.linalg.vector_norm {norm['library_ms']:.4f} ms, bound "
+          f"{norm['bound_ms']:.4f} ms ({norm['bound_by']}), {norm['bound_ms'] / norm['ms']:.1%} of it; norm "
+          f"{norm['norm']:.6g} (plain {norm['plain_norm']:.6g}, rel err {norm['rel_err']:.3g}), scale "
+          f"{norm['scale']:.6g}, bit-identical on a repeated call {norm['bit_identical']}; the optimizer phase "
+          f"(norm + {tree['leaves']} updates) {tree['optimizer_ms']:.4f} ms", flush=True)
     assert np.isfinite(tree["ms"]) and tree["ms"] > 0
     out = {
-        "checks": rows, "check_launches": checks, "tree_checks": tree["checks"],
+        "checks": rows, "check_launches": checks, "norm_check_launches": norm_checks, "norm_rel_errs": norm_errs,
+        "tree_checks": tree["checks"], "norm": norm, "optimizer_ms": tree["optimizer_ms"],
         "max_abs_err": max(r["p_max_abs_err"] for r in rows + tree["checks"]),
         "v_codes_apart_share": max(r["v_codes_apart_share"] for r in rows + tree["checks"]),
-        "ok": all(r["ok"] for r in rows + tree["checks"]),
+        "ok": all(r["ok"] for r in rows + tree["checks"]) and norm["ok"],
     }
     for key in ("leaves", "params", "bytes", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
         out[key] = tree[key]
@@ -1688,6 +1792,7 @@ def phase_serve_wave(card, kernels: dict, arch: str, compute_dtype: str, prompt_
         "ssd_scan": kinds.count("ssm"),
         "rglru_scan": kinds.count("rec"),
         "adamw8bit": 0,
+        "grad_norm": 0,
     }
     assert launches == want, f"{arch}: launches {launches}, want {want}"
 
@@ -1750,10 +1855,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build, ref
-    from repro_torch.kernels import adamw8bit, flash_attention, rglru_scan, ssd_scan
+    from repro_torch.kernels import adamw8bit, flash_attention, grad_norm, rglru_scan, ssd_scan
 
     kernels = {"flash_attention": flash_attention, "ssd_scan": ssd_scan, "rglru_scan": rglru_scan,
-               "adamw8bit": adamw8bit}
+               "adamw8bit": adamw8bit, "grad_norm": grad_norm}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -1900,7 +2005,26 @@ def main() -> int:
     }
     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
         opt8_entry[key] = opt8[key]
-    kernels_line = {"kernels": [entry, bwd_entry, ssd_entry, rglru_entry, opt8_entry]}
+    norm = opt8["norm"]
+    norm_launches = training_full["launches"]["grad_norm"]
+    norm_entry = {
+        "name": "grad_norm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/grad_norm.cu",
+        "replaces": "none (JAX's clip_by_global_norm is XLA ops: src/repro/train/optimizer.py:48)",
+        "launches": norm_launches,
+        "max_abs_err": norm["max_abs_err"],
+        "matched": norm["ok"] and all(e <= NORM_RTOL for e in opt8["norm_rel_errs"]),
+        "shapes": "a launch a leaf and one to finish, a step, over yi-6b's %d-layer tree of bf16 grads (%d bytes); "
+        "library_ms: torch.linalg.vector_norm of the same bytes" % (FULL_LAYERS, norm["bytes"]),
+        "by_path": {"yi-6b-train-full": {
+            "launches": norm_launches, "ms": norm["ms"], "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
+            "bound_by": norm["bound_by"], "library_ms": norm["library_ms"], "bound_ms_over_ms": norm["bound_ms"] / norm["ms"],
+        }},
+    }
+    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
+        norm_entry[key] = norm[key]
+    kernels_line = {"kernels": [entry, bwd_entry, ssd_entry, rglru_entry, opt8_entry, norm_entry]}
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

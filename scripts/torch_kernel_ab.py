@@ -58,15 +58,26 @@ calls are the kernel's on the serving paths, bf16:
 - the 8-bit AdamW update (``--kernel adamw8bit``): the training path's
   calls, one a leaf over yi-6b's 32-layer tree (bf16, 12 leaves), timed
   as the whole tree and held leaf by leaf against
-  ``ref.adamw8bit_update`` (``chip_smoke.check_opt8_tree``); the row's
+  ``ref.adamw8bit_update`` (``chip_smoke.check_opt8_tree``), with g as
+  given (the call both checkouts' wrappers take); the row's
   ``max_abs_err`` is the largest over the leaves and ``matched`` says
-  whether every leaf met chip_smoke's gate. No library call, no CUDA
-  graph time.
+  whether every leaf met chip_smoke's gate. The parent and the change
+  also time their optimizer phase (``optimizer_ms``): one
+  ``adamw8bit(...).update`` over the tree with the global-norm clip at 1
+  (their grads' norm is about 78), whatever form each checkout gives the
+  clip. Each process also counts its kernels' SASS (``sass``: static
+  instructions of each kernel from ``cuobjdump -sass``, with the opcodes
+  of its body). No library call, no CUDA graph time.
 
 ``--ablate`` adds, in the same turns, this checkout's kernel built with
 each of its refinements switched off (the named constants in the
 kernel's source set to false in a copy of ``src/`` under
-``build/ab_variants/``): for K1 ``OVERLAP`` and ``PINGPONG``, and one
+``build/ab_variants/``): for the 8-bit update ``ABLATE_ARITH`` (the
+same loads and stores, the arithmetic cut to a copy) and ``ABLATE_LOADS``
+(the arithmetic and the stores, the loads of p, g and the codes cut),
+switched on, a warp a unit instead of the persistent grid
+(``PERSISTENT``), and 2 or 3 thread blocks an SM in the register budget
+instead of 4 (``MIN_BLOCKS``); for K1 ``OVERLAP`` and ``PINGPONG``, and one
 consumer warpgroup (64-row query tiles) instead of two; for K1's
 backward ``FUSED_DI`` (Di in a pass of its own) and ``STAGGER``,
 ``GQA_SPLIT`` 1, 4 and 8 instead of 2, ``KV_CONSUMERS`` 1 (64-key dK/dV
@@ -83,7 +94,8 @@ its processes, and the change over the parent, over SDPA and the bound
 over the change) beside the card's name and power limit; writes both to
 ``kernel_ab.json`` in the output directory (``kernel_ab_attention_bwd.json``
 for K1's backward, ``kernel_ab_ssd.json`` for K2, ``kernel_ab_rglru.json``
-for K3). Needs a CUDA card.
+for K3, ``kernel_ab_adamw8bit.json`` for the 8-bit update). Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -140,9 +152,15 @@ VARIANTS = {
         "warps_32_steps_8": [("constexpr int WARPS = 16;", "constexpr int WARPS = 32;"),
                              ("constexpr int STEPS = 16;", "constexpr int STEPS = 8;")],
     },
-    "adamw8bit": {},
+    "adamw8bit": {
+        "copy_only": [("constexpr bool ABLATE_ARITH = false;", "constexpr bool ABLATE_ARITH = true;")],
+        "loads_once": [("constexpr bool ABLATE_LOADS = false;", "constexpr bool ABLATE_LOADS = true;")],
+        "one_shot": [("constexpr bool PERSISTENT = true;", "constexpr bool PERSISTENT = false;")],
+        "min_blocks_2": [("constexpr int MIN_BLOCKS = 4;", "constexpr int MIN_BLOCKS = 2;")],
+        "min_blocks_3": [("constexpr int MIN_BLOCKS = 4;", "constexpr int MIN_BLOCKS = 3;")],
+    },
 }
-TIMES = ("ms", "graph_ms", "flushed_ms", "library_ms", "library_graph_ms")
+TIMES = ("ms", "graph_ms", "flushed_ms", "library_ms", "library_graph_ms", "optimizer_ms")
 FLAGS = ("bit_identical", "max_abs_err", "rel_err_dq_dk_dv", "matched")
 ERRORS = ("el_err_state", "kernel_vs_f64_el_err")
 
@@ -347,8 +365,66 @@ def measure_rglru(root: Path, label: str) -> dict:
     return out
 
 
+def sass_counts(lib: Path) -> dict:
+    """Static SASS instructions of each CUDA kernel in a built library
+    (``cuobjdump -sass``): ``all``, and ``main``, those up to the last EXIT
+    before the first RET (IEEE division and square root branch to slow-path
+    subroutines placed past the kernel's body), with ``main``'s opcodes."""
+    import re
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([cuobjdump, "-sass", str(lib)], check=True, capture_output=True, text=True).stdout
+    out, name, body = {}, None, []
+
+    def close():
+        if name is None:
+            return
+        ops = [ln.split()[0] if not ln.startswith("@") else ln.split()[1] for ln in body]
+        first_ret = next((i for i, op in enumerate(ops) if op.startswith("RET")), len(ops))
+        last_exit = max((i for i, op in enumerate(ops[:first_ret]) if op.startswith("EXIT")), default=len(ops) - 1)
+        main = ops[:last_exit + 1]
+        hist: dict = {}
+        for op in main:
+            base = op.split(".")[0]
+            hist[base] = hist.get(base, 0) + 1
+        out[name] = {"all": len(ops), "main": len(main),
+                     "opcodes": dict(sorted(hist.items(), key=lambda kv: -kv[1]))}
+
+    for ln in text.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            close()
+            name, body = m.group(1), []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;", ln)
+        if m and name is not None:
+            body.append(m.group(1))
+    close()
+    return out
+
+
+def time_optimizer_phase(gen, iters: int = 5) -> dict:
+    """Device time of one ``adamw8bit(...).update`` over the 32-layer tree
+    (this process's checkout: its clip, and its kernel a leaf), grads with
+    a global norm above 1, so the clip scales them."""
+    import torch
+
+    from repro_torch.train import adamw8bit
+
+    names, params, grads, _, _ = cs.opt8_tree(gen)
+    opt = adamw8bit(1e-3)
+    state = opt.init(dict(zip(names, params)))
+    pt, gt = dict(zip(names, params)), dict(zip(names, grads))
+    ms = cs.time_ms(lambda: opt.update(gt, state, pt), iters)
+    del names, params, grads, state, pt, gt
+    torch.cuda.empty_cache()
+    return {"optimizer_ms": ms}
+
+
 def measure_adamw8bit(root: Path, label: str) -> dict:
-    """Check and time one checkout's 8-bit update over the 32-layer tree (this process imports its ``src``)."""
+    """Check and time one checkout's 8-bit update over the 32-layer tree,
+    count its SASS, and time its optimizer phase (this process imports its
+    ``src``)."""
     sys.path.insert(0, str(root / "src"))
     import torch
 
@@ -359,13 +435,16 @@ def measure_adamw8bit(root: Path, label: str) -> dict:
     _build.build_all()
     ptxas = [ln.strip() for ln in _build.BUILD_LOG.get("adamw8bit", "").splitlines()
              if any(w in ln.lower() for w in ("registers", "spill", "warning", "function properties"))]
+    sass = sass_counts(_build.load("adamw8bit")._name)
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 7)
     tree = cs.check_opt8_tree(label, k8, ref, gen)
     row = {key: tree[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
                                        "v_codes_apart_share", "leaves", "params", "bytes")}
     row["matched"] = tree["ok"]
+    if label in ("parent", "change"):
+        row.update(time_optimizer_phase(gen))
     key = f"yi-6b {cs.FULL_LAYERS}-layer tree, {tree['leaves']} leaves, bf16"
-    return {"label": label, "root": str(root), "ptxas": ptxas, "calls": {key: row}}
+    return {"label": label, "root": str(root), "ptxas": ptxas, "sass": sass, "calls": {key: row}}
 
 
 def measure(root: Path, label: str, kernel: str) -> dict:
@@ -515,6 +594,8 @@ def main() -> int:
         if args.kernel == "adamw8bit":
             cols = "  ".join(f"{label} {e[f'{label}_ms_median']:.4f} (matched {all(e[f'{label}_matched'])}, "
                              f"max abs err {max(e[f'{label}_max_abs_err']):.3g})" for label in present)
+            cols += "  optimizer phase " + " ".join(f"{label} {e[f'{label}_optimizer_ms_median']:.4f}"
+                                                   for label in present if e[f"{label}_optimizer_ms_median"])
             print(f"[{card}] {key}: ms {cols}  bound {e['bound_ms']:.4f}", flush=True)
             continue
         cols = "  ".join(f"{label} {e[f'{label}_ms_median']:.4f} ({e[f'{label}_graph_ms_median']:.4f})"

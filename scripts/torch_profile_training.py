@@ -42,6 +42,8 @@ def _kernel_class(name: str) -> str:
     n = name.lower()
     if "adamw8bit" in n:
         return "adamw8bit (this repo's kernel)"
+    if "sumsq_kernel" in n or "finish_kernel" in n:
+        return "grad_norm (this repo's kernel)"
     if any(t in n for t in ("dkdv_", "dq_bf16", "dq_f32", "delta_kernel")):
         return "flash_attention_bwd (this repo's kernel)"
     if "flash_attention" in n:

@@ -6,16 +6,19 @@ into a few loops. Written as eager torch ops the same update makes some
 twenty passes over each parameter (dequantize, log2, exp2, the block
 reductions, requantize), so the port does it in one kernel
 (``csrc/adamw8bit.cu``): read p, g, the m codes and scale and the v codes
-and ``(lo, step)``; dequantize; update m, v and p in f32 in ``upd``'s
-order; requantize m (absmax) and v (log2 grid); write p, the codes and
-the scales in place. Its plain version is ``ref.adamw8bit_update``.
+and ``(lo, step)``; scale g by the global-norm clip (a device scalar from
+``kernels.grad_norm``) as it is read; dequantize; update m, v and p in f32
+in ``upd``'s order; requantize m (absmax) and v (log2 grid); write p, the
+codes and the scales in place. Its plain version is
+``ref.adamw8bit_update``.
 
-What bounds it on the H100: a few dozen operations an element against
-about 10 bytes (bf16 p read and written, g read, each code read and
-written, the scales), so bytes; the design gives a warp one 256-element
-block (8 elements a lane in registers, warp shuffles for the absmax and
-the log range), so every byte of state is read once and written once and
-nothing is staged in shared memory.
+What bounds it on the H100: its arithmetic, against about 10 bytes an
+element (bf16 p read and written, g read, each code read and written, the
+scales). The design cuts the arithmetic without changing a bit:
+reciprocals with an exact correction in place of IEEE divisions, no
+branch among an element's operations, no conversion instructions,
+redux.sync for the block reductions, a persistent grid of 4 thread blocks
+an SM (the source's note holds the measurements).
 
 On a CPU tensor the wrapper computes the plain version instead; on a CUDA
 tensor it launches the kernel or raises.
@@ -40,7 +43,7 @@ _fn = None
 def _bind(lib: ctypes.CDLL):
     fn = lib.repro_adamw8bit_update
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2 + [ctypes.c_float] * 9 + [
-        ctypes.c_void_p]
+        ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -79,7 +82,7 @@ def check(p, g, m_codes, m_scales, v_codes, v_scales) -> None:
 
 def adamw8bit_update(
     p: torch.Tensor,  # (..., n) f32 or bf16, updated in place
-    g: torch.Tensor,  # (..., n) p's dtype, already clipped
+    g: torch.Tensor,  # (..., n) p's dtype, read only
     m_codes: torch.Tensor,  # (..., n) int8, in place
     m_scales: torch.Tensor,  # (..., nblk) f32, in place
     v_codes: torch.Tensor,  # (..., n) int8, in place
@@ -92,13 +95,18 @@ def adamw8bit_update(
     b2: float,
     eps: float,
     weight_decay: float,
+    clip_scale: torch.Tensor | None = None,  # 0-d f32 on p's device: g's clip scale; None: g as given
 ) -> None:
     """One leaf of ``adamw8bit``'s update, in place (nblk = ceil(n / 256))."""
     global LAUNCHES
     check(p, g, m_codes, m_scales, v_codes, v_scales)
+    if clip_scale is not None and (clip_scale.dtype != torch.float32 or clip_scale.numel() != 1
+                                   or clip_scale.device != p.device):
+        raise ValueError(f"clip_scale must be one f32 on {p.device}, got {clip_scale.dtype} {tuple(clip_scale.shape)} "
+                         f"on {clip_scale.device}")
     if p.device.type == "cpu":
         ref.adamw8bit_update(p, g, m_codes, m_scales, v_codes, v_scales, lr=lr, bc1=bc1, bc2=bc2, b1=b1, b2=b2, eps=eps,
-                      weight_decay=weight_decay)
+                             weight_decay=weight_decay, clip_scale=clip_scale)
         return
     if p.device.type != "cuda":
         raise ValueError(f"adamw8bit_update runs on cuda or cpu tensors, not {p.device}")
@@ -119,7 +127,8 @@ def adamw8bit_update(
             p.data_ptr(), g.data_ptr(), m_codes.data_ptr(), m_scales.data_ptr(), v_codes.data_ptr(),
             v_scales.data_ptr(), p.numel() // n, n, int(p.dtype == torch.bfloat16), int(vec),
             # the host's f32 scalars: no sync on the card
-            float(lr), b1, 1 - b1, b2, 1 - b2, eps, weight_decay, float(bc1), float(bc2), stream,
+            float(lr), b1, 1 - b1, b2, 1 - b2, eps, weight_decay, float(bc1), float(bc2),
+            None if clip_scale is None else clip_scale.data_ptr(), stream,
         )
     if rc != 0:
         raise RuntimeError(f"adamw8bit launch failed: {err_str(rc).decode()} ({rc})")

@@ -1,8 +1,10 @@
 """Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``).
 
 Each is the definitional oracle its kernel is held against, and the path a
-kernel wrapper takes for a tensor that lies on the CPU. The 8-bit AdamW
-update's (``adamw8bit_update``) comes with the quantizers of
+kernel wrapper takes for a tensor that lies on the CPU. The global
+gradient norm's (``global_norm``) is ``repro.train.optimizer``'s
+``clip_by_global_norm:48`` up to its scale. The 8-bit AdamW update's
+(``adamw8bit_update``) comes with the quantizers of
 ``repro.train.optimizer`` (``_quantize:68``, ``_dequantize:88``,
 ``_quantize_log:102``, ``_dequantize_log:125``), which the port's
 ``adamw8bit`` also uses for its state.
@@ -15,8 +17,8 @@ import math
 import torch
 
 __all__ = [
-    "QBLOCK", "V_FLOOR", "adamw8bit_update", "dequantize", "dequantize_log", "layer_slices", "mha", "pad_to_block",
-    "quantize", "quantize_log", "rglru", "scores", "ssd",
+    "QBLOCK", "V_FLOOR", "adamw8bit_update", "dequantize", "dequantize_log", "global_norm", "layer_slices", "mha",
+    "pad_to_block", "quantize", "quantize_log", "rglru", "scores", "ssd",
 ]
 
 
@@ -201,15 +203,36 @@ def dequantize_log(codes: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw8bit_update(p, g, m_codes, m_scales, v_codes, v_scales, *, lr, bc1, bc2, b1, b2, eps, weight_decay):
+def global_norm(leaves: list[torch.Tensor], max_norm: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(norm, scale) of gradient ``leaves``, 0-d f32 tensors on their
+    device: the norm of every element in f32, summed a layer slice at a
+    time, and the clip scale min(1, max_norm / (norm + 1e-9)) in
+    PyTorch's form of that quotient, ``(norm + 1e-9).reciprocal() *
+    max_norm`` (``Tensor.__rtruediv__``), which rounds twice; the kernel
+    (``csrc/grad_norm.cu``) takes the same form."""
+    g2 = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for g in leaves:
+        for gs in layer_slices(g):
+            g2 = g2 + torch.sum(torch.square(gs.float()))
+    norm = torch.sqrt(g2)
+    return norm, torch.clamp((norm + 1e-9).reciprocal() * max_norm, max=1.0)
+
+
+@torch.no_grad()
+def adamw8bit_update(p, g, m_codes, m_scales, v_codes, v_scales, *, lr, bc1, bc2, b1, b2, eps, weight_decay,
+                     clip_scale=None):
     """One leaf of ``adamw8bit``'s update in torch ops, in place: the
     reference's ``upd`` (``optimizer.py:237-247``), op for op, a layer
-    slice at a time. ``lr``, ``bc1`` and ``bc2`` are 0-d f32 tensors; ``g``
-    is already clipped."""
+    slice at a time. ``lr``, ``bc1`` and ``bc2`` are 0-d f32 tensors.
+    ``clip_scale`` (a 0-d f32 tensor, or None for g as given) scales g as
+    ``clip_by_global_norm`` does, ``(g.float() * scale).to(g.dtype)``,
+    without writing it back."""
     lr, bc1, bc2 = (t.to(p.device) for t in (lr, bc1, bc2))
     parts = zip(*(layer_slices(t, p) for t in (p, g, m_codes, m_scales, v_codes, v_scales)))
     for ps, gs, mc, ms, vc, vs in parts:
         gf = gs.float()
+        if clip_scale is not None:
+            gf = (gf * clip_scale.to(p.device)).to(gs.dtype).float()
         m = b1 * dequantize(mc, ms) + (1 - b1) * gf
         v = b2 * dequantize_log(vc, vs) + (1 - b2) * gf * gf
         pf = ps.float()

@@ -16,15 +16,20 @@ reference's ``_quantize``, ``_quantize_log``; the port's are in
 ``kernels/ref.py``). A partial block is padded with zeros, which count
 in its absmax and in its log2 range. Its state is ``{"step", "m":
 {codes, scales}, "v": {codes, scales}}`` under the params' tree, as
-JAX's is. The update of one leaf is one call of
-``kernels.adamw8bit.adamw8bit_update``: a CUDA kernel on the card, its
-plain version ``kernels.ref.adamw8bit_update`` on the CPU.
+JAX's is. Its global-norm clip is ``kernels.grad_norm.global_norm``,
+whose scale stays on the device, and the update of one leaf is one call of
+``kernels.adamw8bit.adamw8bit_update`` with that scale: CUDA kernels on
+the card, which apply the scale as the update reads g, and their plain
+versions (``kernels.ref.global_norm``, ``kernels.ref.adamw8bit_update``)
+on the CPU, which compute what ``clip_by_global_norm`` and the update did
+in turn, to the bit.
 
-Differences that belong to PyTorch: ``update`` writes the parameters, the
-moments and the (clipped) gradients in place and returns the same
-objects, and the torch-ops forms walk a stacked leaf (``(L, ...)``) one
-layer slice at a time (``kernels.ref.layer_slices``), so their f32
-temporaries are one layer's, not the stack's.
+Differences that belong to PyTorch: ``update`` writes the parameters and
+the moments in place and returns the same objects; AdamW also writes the
+clipped gradients in place, ``adamw8bit`` leaves them as they were; and
+the torch-ops forms walk a stacked leaf (``(L, ...)``) one layer slice at
+a time (``kernels.ref.layer_slices``), so their f32 temporaries are one
+layer's, not the stack's.
 
 Trees are nested dicts of tensors in the JAX layout; their leaves are
 visited in the order JAX flattens a dict (sorted keys).
@@ -39,7 +44,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.kernels import adamw8bit as kernel
-from repro_torch.kernels.ref import QBLOCK, layer_slices, pad_to_block, quantize_log
+from repro_torch.kernels import grad_norm
+from repro_torch.kernels.ref import QBLOCK, global_norm, layer_slices, pad_to_block, quantize_log
 
 __all__ = [
     "Optimizer", "adamw", "adamw8bit", "clip_by_global_norm", "cosine_schedule", "is_quantized",
@@ -91,12 +97,7 @@ def clip_by_global_norm(grads, max_norm: float):
     """Scale every gradient by min(1, max_norm / (norm + 1e-9)) in f32 and
     round it back to its dtype, in place. Returns (grads, norm)."""
     leaves = tree_leaves(grads)
-    g2 = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for g in leaves:
-        for gs in layer_slices(g):
-            g2 = g2 + torch.sum(torch.square(gs.float()))
-    norm = torch.sqrt(g2)
-    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    norm, scale = global_norm(leaves, max_norm)
     for g in leaves:
         for gs in layer_slices(g):
             gs.copy_((gs.float() * scale).to(gs.dtype))
@@ -188,8 +189,8 @@ def adamw8bit(
 
     @torch.no_grad()
     def update(grads, state, params):
-        if max_grad_norm is not None:
-            grads, _ = clip_by_global_norm(grads, max_grad_norm)
+        # the clip's scale, applied as the update reads each g
+        clip = None if max_grad_norm is None else grad_norm.global_norm(tree_leaves(grads), max_grad_norm)[1]
         step = state["step"] + 1
         lr_t = lr_fn(step).to(torch.float32)
         stepf = step.to(torch.float32)
@@ -200,7 +201,8 @@ def adamw8bit(
                      tree_leaves(state["v"], is_quantized))
         for p, g, mq, vq in leaves:
             kernel.adamw8bit_update(p, g, mq["codes"], mq["scales"], vq["codes"], vq["scales"], lr=lr_t,
-                                    bc1=bc1, bc2=bc2, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+                                    bc1=bc1, bc2=bc2, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay,
+                                    clip_scale=clip)
         state["step"] = step
         return params, state
 

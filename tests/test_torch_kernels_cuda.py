@@ -17,6 +17,7 @@ import torch
 from repro_torch import configs
 from repro_torch.kernels import adamw8bit as K8
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import grad_norm as GN
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as K3
 from repro_torch.kernels import ssd_scan as K2
@@ -925,10 +926,11 @@ def test_adamw8bit_kernel_refuses_mixed_devices(card):
 
 
 def test_adamw8bit_optimizer_on_card_launches_a_kernel_a_leaf(card):
-    """``adamw8bit.update`` on a tree on the card: one launch a leaf, and
-    the same result as the same update through the plain version."""
+    """``adamw8bit.update`` on a tree on the card: one launch of the update
+    a leaf and of the norm a leaf plus one, and the same result as the
+    same update through the plain version with the norm kernel's clip
+    scale (the same bits as the optimizer's: the norm is deterministic)."""
     from repro_torch.train import adamw8bit
-    from repro_torch.train import optimizer as T
 
     gen = torch.Generator(device=card).manual_seed(0)
     params = {"a": torch.randn((2, 3, 128), device=card, generator=gen).to(torch.bfloat16),
@@ -939,15 +941,111 @@ def test_adamw8bit_optimizer_on_card_launches_a_kernel_a_leaf(card):
     ref_p = {k: v.clone() for k, v in params.items()}
     ref_s = {"m": {k: {f: t.clone() for f, t in q.items()} for k, q in state["m"].items()},
              "v": {k: {f: t.clone() for f, t in q.items()} for k, q in state["v"].items()}}
-    n = K8.LAUNCHES
+    n, n_norm = K8.LAUNCHES, GN.LAUNCHES
     opt.update({k: v.clone() for k, v in grads.items()}, state, params)
     torch.cuda.synchronize()
-    assert K8.LAUNCHES == n + 2 and int(state["step"]) == 1
-    clipped, _ = T.clip_by_global_norm({k: v.clone() for k, v in grads.items()}, 1.0)
+    assert K8.LAUNCHES == n + 2 and GN.LAUNCHES == n_norm + 3 and int(state["step"]) == 1
+    _, scale = GN.global_norm([grads[k] for k in sorted(grads)], 1.0)
+    assert float(scale) < 1
     for k in params:
-        ref.adamw8bit_update(ref_p[k], clipped[k], ref_s["m"][k]["codes"], ref_s["m"][k]["scales"],
-                             ref_s["v"][k]["codes"], ref_s["v"][k]["scales"], **{**_scalars8(1), "lr": torch.tensor(1e-3)})
+        ref.adamw8bit_update(ref_p[k], grads[k], ref_s["m"][k]["codes"], ref_s["m"][k]["scales"],
+                             ref_s["v"][k]["codes"], ref_s["v"][k]["scales"], **{**_scalars8(1), "lr": torch.tensor(1e-3)},
+                             clip_scale=scale)
         _assert_update8_close(
             (params[k], state["m"][k]["codes"], state["m"][k]["scales"], state["v"][k]["codes"], state["v"][k]["scales"]),
             (ref_p[k], ref_s["m"][k]["codes"], ref_s["m"][k]["scales"], ref_s["v"][k]["codes"], ref_s["v"][k]["scales"]),
             params[k].dtype)
+
+
+# the norm kernel against its plain version: both sum f32 squares, in
+# another order (the kernel's threads, blocks and partials against
+# torch.sum a layer slice at a time), so relative to the norm within 1e-5
+# (a few thousand terms a running sum at these sizes: errors of order 1e-7)
+NORM_RTOL = 1e-5
+
+
+def _grad_leaves(seed, shapes, dtype, device, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32) * scale).to(device, dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shapes", [
+    [(2, 3, 128), (300,), (1,)],  # small leaves, odd sizes, one element
+    [(3, 4096, 11), (4097,), (64, 1000)],  # a leaf of several partials; odd tails past the 16-byte loads
+    [(600, 4096)],  # 1024 partials of one leaf (the cap)
+])
+def test_grad_norm_kernel_matches_plain(card, dtype, shapes):
+    """The norm and clip scale against ``ref.global_norm`` on the card,
+    within NORM_RTOL; two calls give the same bits; one launch a leaf and
+    one to finish."""
+    leaves = _grad_leaves(11, shapes, dtype, card)
+    n = GN.LAUNCHES
+    norm, scale = GN.global_norm(leaves, 1.0)
+    torch.cuda.synchronize()
+    assert GN.LAUNCHES == n + len(leaves) + 1
+    want_norm, want_scale = ref.global_norm(leaves, 1.0)
+    torch.testing.assert_close(norm, want_norm, rtol=NORM_RTOL, atol=0)
+    torch.testing.assert_close(scale, want_scale, rtol=NORM_RTOL, atol=0)
+    norm2, scale2 = GN.global_norm(leaves, 1.0)
+    assert torch.equal(norm, norm2) and torch.equal(scale, scale2)
+    # with a clip that does not bite, the scale is 1 exactly, as the plain version's
+    assert float(GN.global_norm(leaves, 1e9)[1]) == 1.0 == float(ref.global_norm(leaves, 1e9)[1])
+
+
+def test_grad_norm_kernel_takes_misaligned_views(card):
+    """A contiguous leaf whose base is not 16-byte aligned is read element
+    by element: the same norm as the plain version's."""
+    flat = torch.randn(1 + 3 * 4096, device=card)
+    leaf = flat[1:].view(3, 4096)
+    assert leaf.data_ptr() % 16 != 0
+    torch.testing.assert_close(GN.global_norm([leaf], 1.0)[0], ref.global_norm([leaf], 1.0)[0], rtol=NORM_RTOL, atol=0)
+
+
+def test_grad_norm_kernel_refuses_what_it_does_not_take(card):
+    n = GN.LAUNCHES
+    with pytest.raises(ValueError):
+        GN.global_norm([torch.zeros(4, device=card), torch.zeros(4)], 1.0)
+    with pytest.raises(TypeError):
+        GN.global_norm([torch.zeros(4, device=card, dtype=torch.float16)], 1.0)
+    with pytest.raises(ValueError):
+        GN.global_norm([torch.zeros((4, 4), device=card).t()], 1.0)
+    assert GN.LAUNCHES == n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("step", [1, 100])
+@pytest.mark.parametrize("shape", [
+    (2, 3, 128), (3, 128), (5, 64), (7, 100),  # n <= 128: two rows a warp, an odd last row; 100: by element
+    (4, 136), (5, 300), (3, 4096), (2, 11008), (77,),
+])
+def test_adamw8bit_kernel_with_clip_matches_plain(card, dtype, step, shape):
+    """The update with a device clip scale (from the norm kernel, below 1)
+    against the plain version fed the same scale tensor: p, the m codes
+    and scales equal to the bit, the v codes within chip_smoke's gate."""
+    rng = np.random.default_rng(step + shape[-1] + len(shape))
+    p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.02).to(card, dtype)
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 1e-1).to(card, dtype)
+    if g.numel() > 256:  # a zero block (a zero row where n <= 256), and a nonzero norm
+        g.view(-1, shape[-1])[0, :256] = 0
+    _, scale = GN.global_norm([g], 0.5)
+    assert float(scale) < 1
+    state = _state8(shape, step == 1, step, card)
+    kw = {**_scalars8(step), "clip_scale": scale}
+    want = [t.clone() for t in (p, *state)]
+    ref.adamw8bit_update(want[0], g, *want[1:], **kw)
+    got = [t.clone() for t in (p, *state)]
+    g0 = g.clone()
+    K8.adamw8bit_update(got[0], g, *got[1:], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(g, g0)  # g is read, not clipped in place
+    assert torch.equal(got[0], want[0])
+    _assert_update8_close(got, want, dtype)
+
+
+def test_adamw8bit_kernel_refuses_a_bad_clip_scale(card):
+    p = torch.zeros((2, 256), device=card)
+    state = _state8(p.shape, True, 0, card)
+    for bad in (torch.ones(2, device=card), torch.ones((), device=card, dtype=torch.float64), torch.ones(())):
+        with pytest.raises(ValueError):
+            K8.adamw8bit_update(p, torch.zeros_like(p), *state, **_scalars8(1), clip_scale=bad)

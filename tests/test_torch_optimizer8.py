@@ -253,6 +253,84 @@ def test_adamw8bit_matches_jax_over_three_updates():
     _assert_state_close(ts, js)
 
 
+def test_adamw8bit_with_an_active_clip_matches_jax_over_three_updates():
+    """Gradients whose global norm is far above ``max_grad_norm`` (the clip
+    scale below 1 at every update), against JAX's adamw8bit with the same
+    clip over three updates, with the tolerances of the test above; the
+    port leaves the gradients as they were."""
+    rng = np.random.default_rng(15)
+    jp, tp = _tree(rng)
+    jo = J.adamw8bit(J.cosine_schedule(1e-2, 1, 5), max_grad_norm=0.5)
+    to = adamw8bit(cosine_schedule(1e-2, 1, 5), max_grad_norm=0.5)
+    js, ts = jo.init(jp), to.init(tp)
+    for _ in range(3):
+        jg, tg = _grads(rng, jp)
+        jg = {k: (v * 10).astype(v.dtype) for k, v in jg.items()}
+        tg = {k: (v * 10).to(v.dtype) for k, v in tg.items()}
+        _, scale = R.global_norm(T.tree_leaves(tg), 0.5)
+        assert float(scale) < 1e-2
+        before = {k: v.clone() for k, v in tg.items()}
+        jp, js = jo.update(jg, js, jp)
+        to.update(tg, ts, tp)
+        assert all(torch.equal(tg[k], before[k]) for k in tg)
+    for leaf in ("w", "c"):
+        np.testing.assert_allclose(tp[leaf].numpy(), np.asarray(jp[leaf]), rtol=P_RTOL, atol=1e-7)
+    np.testing.assert_allclose(tp["b"].float().numpy(), np.asarray(jp["b"]).astype(np.float32), rtol=2**-8)
+    _assert_state_close(ts, js)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("max_norm", [1e9, 1.0], ids=["scale-1", "scale-below-1"])
+@pytest.mark.parametrize("n", [128, 300, 4096])
+def test_plain_update_with_clip_scale_matches_clip_then_update(dtype, max_norm, n):
+    """``ref.adamw8bit_update`` with ``clip_scale`` (the plain norm's scale)
+    against ``clip_by_global_norm`` followed by the plain update without
+    it: equal to the bit, over 3 updates; g is not written back."""
+    rng = np.random.default_rng(n + (max_norm == 1.0))
+    shape = (3, n)
+    p0 = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.02).to(dtype)
+    st0 = adamw8bit(1e-3).init({"p": p0})
+    state = [st0["m"]["p"]["codes"], st0["m"]["p"]["scales"], st0["v"]["p"]["codes"], st0["v"]["p"]["scales"]]
+    a = [p0.clone(), *(t.clone() for t in state)]
+    b = [p0.clone(), *(t.clone() for t in state)]
+    for step in range(1, 4):
+        g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dtype)
+        stepf = torch.tensor(step, dtype=torch.float32)
+        kw = dict(lr=torch.tensor(1e-2), bc1=1 - torch.tensor(0.9) ** stepf, bc2=1 - torch.tensor(0.95) ** stepf,
+                  b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.01)
+        norm, scale = R.global_norm([g], max_norm)
+        assert (float(scale) < 1) == (max_norm == 1.0)
+        g_before = g.clone()
+        R.adamw8bit_update(a[0], g, *a[1:], **kw, clip_scale=scale)
+        assert torch.equal(g, g_before)
+        clipped, norm_c = T.clip_by_global_norm({"g": g.clone()}, max_norm)
+        assert torch.equal(norm, norm_c)
+        R.adamw8bit_update(b[0], clipped["g"], *b[1:], **kw)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtypes", [("f32", "f32", "f32"), ("bf16", "f32", "bf16")])
+def test_plain_norm_matches_jax(dtypes):
+    """``ref.global_norm`` (the norm kernel's plain version) against the
+    norm and scale of JAX's clip_by_global_norm, on a stacked leaf, a
+    partial block and a 1-d leaf: rtol 1e-6 (f32 sums in another order:
+    a layer slice at a time here, a leaf at a time there)."""
+    rng = np.random.default_rng(16)
+    shapes = {"w": (3, 4, 300), "b": (5, 128), "c": (77,)}
+    leaves = {k: rng.standard_normal(s).astype(np.float32) * 2 for k, s in shapes.items()}
+    npdt = {"f32": np.float32, "bf16": ml_dtypes.bfloat16}
+    jg = {k: jnp.asarray(v.astype(npdt[d])) for (k, v), d in zip(sorted(leaves.items()), dtypes)}
+    tg = [torch.from_numpy(np.asarray(jg[k]).astype(np.float32)).to(
+        torch.bfloat16 if d == "bf16" else torch.float32) for k, d in zip(sorted(leaves), dtypes)]
+    for max_norm in (1.0, 1e6):
+        clipped, jnorm = J.clip_by_global_norm(jg, max_norm)
+        norm, scale = R.global_norm(tg, max_norm)
+        np.testing.assert_allclose(float(norm), float(jnorm), rtol=1e-6)
+        jscale = float(np.minimum(1.0, np.float32(max_norm) / (np.float32(jnorm) + np.float32(1e-9))))
+        np.testing.assert_allclose(float(scale), jscale, rtol=1e-6)
+
+
 def test_update_plain_slices_like_whole_leaves():
     """The plain version walks a stacked leaf by layer slice: the same bits
     as one whole-leaf pass, since blocks cut only the trailing dim."""

@@ -198,6 +198,38 @@ def test_clip_by_global_norm():
     np.testing.assert_allclose(g2["a"].numpy(), 0.1, rtol=1e-6)  # under: untouched
 
 
+@pytest.mark.parametrize("max_norm", [1.0, 1e9], ids=["clip", "no-clip"])
+def test_adamw8bit_folds_the_clip_to_the_bit(max_norm):
+    """``adamw8bit``'s update with its clip folded in (the norm's scale
+    handed to the update, g left as it was) gives the bits of
+    ``clip_by_global_norm`` followed by an unclipped update, over three
+    updates of a stacked f32 leaf with a partial block and a bf16 leaf."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(12)
+    w = rng.standard_normal((3, 4, 300)).astype(np.float32)
+    b = rng.standard_normal((5, 128)).astype(ml_dtypes.bfloat16)
+    params = [{"w": torch.from_numpy(w.copy()), "b": torch.from_numpy(b.astype(np.float32)).to(torch.bfloat16)}
+              for _ in range(2)]
+    folded, plain = adamw8bit(cosine_schedule(1e-2, 1, 5), max_grad_norm=max_norm), adamw8bit(
+        cosine_schedule(1e-2, 1, 5), max_grad_norm=None)
+    states = [folded.init(params[0]), plain.init(params[1])]
+    for _ in range(3):
+        g = {"w": torch.from_numpy(rng.standard_normal(w.shape).astype(np.float32) * 3),
+             "b": torch.from_numpy(rng.standard_normal(b.shape).astype(np.float32) * 3).to(torch.bfloat16)}
+        g_before = {k: v.clone() for k, v in g.items()}
+        folded.update(g, states[0], params[0])
+        assert all(torch.equal(g[k], g_before[k]) for k in g)  # not clipped in place
+        clipped, norm = clip_by_global_norm({k: v.clone() for k, v in g.items()}, max_norm)
+        assert (float(norm) > max_norm) == (max_norm == 1.0)
+        plain.update(clipped, states[1], params[1])
+    for k in ("w", "b"):
+        assert torch.equal(params[0][k], params[1][k])
+        for mom in ("m", "v"):
+            for f in ("codes", "scales"):
+                assert torch.equal(states[0][mom][k][f], states[1][mom][k][f])
+
+
 def test_microbatch_equals_full_batch():
     """Mirror of tests/test_optimizer.py:115 (dp 2 and the port's dp 1)."""
     y = _to_microbatches(torch.arange(32), k=4, dp=2)
