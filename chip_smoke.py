@@ -10,7 +10,10 @@ shapes and a sweep of modes, and time kernel, plain version and (where
 one exists) one library call: K1 (flash attention, head dims 64, 128 and
 256), K1's backward (dq, dk, dv against autograd through the plain
 version; head dims 64 and 128) and its forward's row log-sum-exp, then
-K2 (SSD scan), then K3 (RG-LRU scan); (3b) the paper's loop
+K2 (SSD scan), then K2's backward (dx, ddt, dA, dB, dC and d(initial
+state) against autograd through the plain version, the same bits on a
+repeated call, and its training call timed beside K2's forward at that
+call), then K3 (RG-LRU scan); (3b) the paper's loop
 (examples/torch_quickstart.py): copd-mlp trained from a stream on a
 three-broker cluster and served by a two-replica ``InferenceDeployment``,
 then by a transactional one across a kill of the predictions topic's
@@ -30,7 +33,11 @@ updates from the zero state) and timed over the whole 32-layer tree,
 with the optimizer phase (norm and updates) and the norm's library
 yardstick; (4c) the same training workload on yi-6b at all 32 layers
 with ``adamw8bit``, a norm launch a leaf and one to finish and an update
-launch a leaf a step, freed before serving; (5) serve four
+launch a leaf a step, freed before serving; (4d) the same workload on
+full-width mamba2-2.7b at all 64 layers with ``adamw8bit`` (K2 forward
+and backward on every layer, K1 never), then the gradients of its
+trained first mixer layer at the training shape, through K2 forward +
+backward against the plain version, freed before serving; (5) serve four
 requests of mixed prompt lengths from a stream topic
 through full-width yi-6b (32 layers, random bf16 weights from a
 seed) with ``ContinuousLMEngine`` and check what comes back; (6) serve
@@ -53,9 +60,9 @@ a topic of four 3000-token prompts through full-width recurrentgemma-9b
 window 2048 on K1 at head dim 256; random bf16 weights from a seed) with
 ``LMEngine`` and check what comes back (its bf16 drift stays within the
 tight slack, so every token is held there and no f32 twin is needed);
-(9) print the ``kernels`` line (K1's times summed over its paths, and
-each path's own under ``by_path``; K1's backward, the 8-bit update and the
-global norm as entries of their own);
+(9) print the ``kernels`` line (K1's and K2's times summed over their
+paths, and each path's own under ``by_path``; K1's backward, K2's
+backward, the 8-bit update and the global norm as entries of their own);
 (10) print the result line. Each path is driven with every kernel's
 launch count set to 0 just before it and read just after.
 
@@ -185,9 +192,21 @@ NORM_RTOL = 1e-5
 # product, exp2, a subtraction, a max), the m and v updates (3 + 4), u (7),
 # p (2), requantize m (6) and v (10), each counted once
 OPT8_OPS = 39
-# the first loss: ln(64000) = 11.07 plus half the variance of random
-# logits (unembed 1/sqrt(d) on a unit-RMS hidden state: about 0.5)
-TRAIN_LOSS0_BAND = (10.5, 12.5)
+# the first loss: ln(vocab) plus half the variance of random logits
+# (unembed, or mamba2's tied embed, 1/sqrt(d) on a unit-RMS hidden state:
+# about 0.5): ln(64000) = 11.07, ln(50280) = 10.83
+TRAIN_LOSS0_BAND = {"yi-6b": (10.5, 12.5), "mamba2-2.7b": (10.3, 12.3)}
+# mamba2's training path: full-width mamba2-2.7b at all its 64 layers (d
+# 2560, 80 heads x 64, N 128, chunk 256, 2,702,296,576 params), trained
+# with adamw8bit on phase_train's stream at batch TRAIN_BATCH x TRAIN_SEQ
+MAMBA2_LAYERS = 64
+# K2's backward against the plain version, ref.ssd_bwd (autograd through
+# ref.ssd): each gradient's error relative to its largest element within
+# SSD_TOL (tests/test_kernels.py:55-74) at SSD_SWEEP's shapes, each with a
+# random initial state and d(final state), and the same bits on a repeated
+# call; then the training path's call, (b, s, h, p, n, g, chunk) in bf16
+# with the model's decays and no state, timed with the forward beside it
+SSD_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 80, 64, 128, 1, 256)
 # the paper loop (examples/torch_quickstart.py): copd-mlp at its own
 # widths (5 -> 32 -> 4) on the synthetic HCOPD stream (220 records,
 # validation 0.2), trained as tests/test_system.py:17 trains it and held
@@ -214,15 +233,17 @@ def card_line() -> str:
 
 
 def reset_counts(kernels: dict) -> None:
-    """Every kernel's launch count to 0 (K1's backward included)."""
+    """Every kernel's launch count to 0 (K1's and K2's backwards included)."""
     for mod in kernels.values():
         mod.LAUNCHES = 0
     kernels["flash_attention"].BWD_LAUNCHES = 0
+    kernels["ssd_scan"].BWD_LAUNCHES = 0
 
 
 def read_counts(kernels: dict) -> dict:
     out = {name: mod.LAUNCHES for name, mod in kernels.items()}
     out["flash_attention_bwd"] = kernels["flash_attention"].BWD_LAUNCHES
+    out["ssd_scan_bwd"] = kernels["ssd_scan"].BWD_LAUNCHES
     return out
 
 
@@ -479,20 +500,21 @@ def load_example(name: str):
     return mod
 
 
-def phase_train(card, kernels: dict, layers: int = TRAIN_LAYERS, opt_name: str = "adamw"):
-    """Train full-width yi-6b (``layers`` of its layers, bf16) from a
+def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LAYERS, opt_name: str = "adamw"):
+    """Train full-width ``arch`` (``layers`` of its layers, bf16) from a
     stream: a seeded Markov corpus of TRAIN_SEQS x TRAIN_SEQ tokens
     ingested as RAW records into a 4-partition topic (validation_rate
     TRAIN_VAL_RATE) and announced for a registered model, configuration
     and deployment; ``TrainingJob(streaming=True)`` with ``opt_name``
     (AdamW or adamw8bit) on a warm-up + cosine schedule takes TRAIN_STEPS
     steps of TRAIN_BATCH and runs its streaming eval. Checks finite,
-    falling losses, the first near ln(vocab), K1's launches forward and
-    backward, the 8-bit update's (one a leaf a step with adamw8bit, none
-    with AdamW) and the norm's (one a leaf and one to finish, a step,
-    with adamw8bit; none with AdamW, whose clip is eager), and the
-    registry's result. Returns the phase's numbers and
-    the trained first layer's attention weights."""
+    falling losses, the first near ln(vocab) (TRAIN_LOSS0_BAND), K1's
+    launches forward and backward (one an attention layer a step, the
+    forward once more an eval batch), K2's (the same, an SSD layer), the
+    8-bit update's (one a leaf a step with adamw8bit, none with AdamW) and
+    the norm's (one a leaf and one to finish, a step, with adamw8bit; none
+    with AdamW, whose clip is eager), and the registry's result. Returns
+    the phase's numbers and the trained first layer's mixer weights."""
     import dataclasses
 
     import numpy as np
@@ -508,11 +530,11 @@ def phase_train(card, kernels: dict, layers: int = TRAIN_LAYERS, opt_name: str =
     from repro_torch.train.optimizer import tree_leaves
 
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(configs.get("yi-6b"), n_layers=layers)
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
     make_opt = {"adamw": adamw, "adamw8bit": adamw8bit}[opt_name]
     model = StreamModel(cfg, Policy(), device="cuda", generator=None)
     log, reg = StreamLog(), Registry()
-    spec = reg.register_model("yi-6b-train")
+    spec = reg.register_model(f"{arch}-train")
     dep = reg.deploy(reg.create_configuration([spec.model_id]).config_id, "train")
     corpus = load_example("torch_train_lm").synth_corpus(TRAIN_SEQS, cfg.vocab, seq=TRAIN_SEQ, seed=SEED)
     log.create_topic("corpus", LogConfig(num_partitions=4))
@@ -551,30 +573,34 @@ def phase_train(card, kernels: dict, layers: int = TRAIN_LAYERS, opt_name: str =
     tokens = TRAIN_BATCH * TRAIN_SEQ
     n_eval = int(round(TRAIN_SEQS * TRAIN_VAL_RATE)) // min(TRAIN_BATCH, int(round(TRAIN_SEQS * TRAIN_VAL_RATE)))
     n_leaves = len(tree_leaves(model.param_tree()))
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
+    n_attn, n_ssm = sum(k in ("attn", "local") for k in kinds), kinds.count("ssm")
+    assert n_attn + n_ssm == cfg.n_layers, f"no training path for {cfg.pattern}"
     want = {
-        "flash_attention": cfg.n_layers * (TRAIN_STEPS + n_eval),
-        "flash_attention_bwd": cfg.n_layers * TRAIN_STEPS,
-        "ssd_scan": 0, "rglru_scan": 0,
+        "flash_attention": n_attn * (TRAIN_STEPS + n_eval), "flash_attention_bwd": n_attn * TRAIN_STEPS,
+        "ssd_scan": n_ssm * (TRAIN_STEPS + n_eval), "ssd_scan_bwd": n_ssm * TRAIN_STEPS, "rglru_scan": 0,
         "adamw8bit": n_leaves * TRAIN_STEPS if opt_name == "adamw8bit" else 0,
         # the clip's norm: a launch a leaf and one to finish, a step
         "grad_norm": (n_leaves + 1) * TRAIN_STEPS if opt_name == "adamw8bit" else 0,
     }
+    band = TRAIN_LOSS0_BAND[arch]
     out = {
-        "layers": cfg.n_layers, "optimizer": opt_name, "leaves": n_leaves, "params": n_params, "steps": res.steps,
-        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "arch": arch, "layers": cfg.n_layers, "optimizer": opt_name, "leaves": n_leaves, "params": n_params,
+        "steps": res.steps, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "losses": losses, "eval_loss": res.eval_metrics.get("loss"), "eval_batches": eval_calls[0],
         "step_ms": step_ms, "median_step_ms": med_ms, "tokens_per_s": tokens / (med_ms / 1e3),
         "run_s": t_end - t_start, "setup_s": setup_s, "peak_bytes": peak, "launches": counts,
-        "want_launches": want, "records": msg.total_msg, "loss_band": list(TRAIN_LOSS0_BAND),
+        "want_launches": want, "records": msg.total_msg, "loss_band": list(band),
     }
-    print(f"[{card}] yi-6b training: {cfg.n_layers} of 32 layers, {n_params} params bf16, {opt_name}, batch "
-          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {res.steps} steps in {t_end - t_start:.3f} s", flush=True)
+    print(f"[{card}] {arch} training: {cfg.n_layers} of {configs.get(arch).n_layers} layers, {n_params} params "
+          f"bf16, {opt_name}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, {res.steps} steps in {t_end - t_start:.3f} s",
+          flush=True)
     print(f"[{card}] losses {['%.4f' % x for x in losses]}, eval {out['eval_loss']}", flush=True)
     print(f"[{card}] step ms {['%.1f' % x for x in step_ms]}, median {med_ms:.3f} ms, "
           f"{out['tokens_per_s']:.1f} tokens/s", flush=True)
     print(f"[{card}] peak device memory {peak} bytes; launches {json.dumps(counts)}", flush=True)
     assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
-    assert TRAIN_LOSS0_BAND[0] <= losses[0] <= TRAIN_LOSS0_BAND[1], (losses[0], TRAIN_LOSS0_BAND)
+    assert band[0] <= losses[0] <= band[1], (losses[0], band)
     assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
     assert np.isfinite(out["eval_loss"]) and eval_calls[0] == n_eval, (out["eval_loss"], eval_calls[0])
     assert counts == want, f"launches {counts}, want {want}"
@@ -591,6 +617,15 @@ def phase_train_full(card, kernels: dict):
     leaf a step and the norm kernel once a leaf and once more a step."""
     out, _ = phase_train(card, kernels, layers=FULL_LAYERS, opt_name="adamw8bit")
     return out
+
+
+def phase_train_mamba2(card, kernels: dict):
+    """phase_train's workload on full-width mamba2-2.7b, all MAMBA2_LAYERS
+    layers, trained with adamw8bit: its gates, K2 forward a layer a step
+    and an eval batch, K2's backward a layer a step, K1 never, the 8-bit
+    and norm kernels once a leaf a step (the norm once more). Returns the
+    phase's numbers and the trained first layer's mixer weights."""
+    return phase_train(card, kernels, arch="mamba2-2.7b", layers=MAMBA2_LAYERS, opt_name="adamw8bit")
 
 
 def opt8_bytes(p) -> int:
@@ -1025,6 +1060,161 @@ def phase_ssd_kernel(card, ref):
     return rows, main
 
 
+def ssd_bwd_bound(b, h, g, s, p, n, chunk, dtype: str, state: bool) -> tuple[float, str]:
+    """Least time for K2's backward: max(bytes / HBM rate, operations /
+    peak). Bytes: x and dy read and dx written (B S H P each, in the
+    working dtype), B and C read and dB and dC written (B S G N each), dt
+    read and ddt written (B S H f32), A read and dA written; with a state,
+    the initial state and d(final state) read and d(initial state) written
+    (B H N P f32 each). Operations per (batch, head): each causal pair
+    (i, j) within a chunk costs 6N + 4P (C_i . B_j, dy_i . u_j, and the
+    pair's shares of dC, dB and du), each chunk of length L 10 L N P (its
+    own state contribution and that of dy, and the state's shares of dC,
+    du and dB). The rate is the card's peak for the working dtype."""
+    elem = 2 if dtype == "bfloat16" else 4
+    nbytes = elem * b * s * (3 * h * p + 4 * g * n) + 8 * b * s * h + 8 * h
+    if state:
+        nbytes += 12 * b * h * n * p
+    q = min(chunk, s)
+    lens = [min(q, s - c0) for c0 in range(0, s, q)]
+    per_head = sum(ln * (ln + 1) // 2 * (6 * n + 4 * p) + 10 * ln * n * p for ln in lens)
+    flops = b * h * per_head
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dst0")
+
+
+def check_ssd_bwd(card, K, ref, b, s, h, p, n, g, chunk, dtype, state, gen, timed, model_decays=False):
+    """K2's backward against the plain version (``ref.ssd_bwd``, autograd
+    through ``ref.ssd``) on one input in the model's layout: every
+    gradient (dx, ddt, dA, dB, dC and, with ``state``, d(initial state),
+    for a random initial state and d(final state)) within SSD_TOL of its
+    largest element, finite, and the same bits on a second call. With
+    ``timed`` also times both. dt is drawn on the bf16 grid in bf16, as in
+    check_ssd. Raises if they disagree."""
+    import torch
+    import torch.nn.functional as F
+
+    wdt = getattr(torch, dtype)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    x, bm, cm = randn(b, s, h, p).to(wdt), randn(b, s, g, n).to(wdt), randn(b, s, g, n).to(wdt)
+    dt = F.softplus(randn(b, s, h)).to(wdt).float()
+    A = -torch.linspace(1.0, 16.0, h, device="cuda") if model_decays else -torch.exp(randn(h))
+    dy = randn(b, s, h, p).to(wdt)
+    st0, dsf = (randn(b, h, n, p), randn(b, h, n, p)) if state else (None, None)
+    args = (x.transpose(1, 2), dt.transpose(1, 2), A, bm.transpose(1, 2), cm.transpose(1, 2), st0,
+            dy.transpose(1, 2), dsf)
+
+    def kernel():
+        return K.ssd_scan_bwd(*args, chunk=chunk)
+
+    def plain():
+        return ref.ssd_bwd(*args)
+
+    got, again, want = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    tol = SSD_TOL[dtype]
+    pairs = [(name, gv.float(), wv.float()) for name, gv, wv in zip(SSD_GRADS, got, want) if wv is not None]
+    rel = {name: float((gv - wv).abs().max() / wv.abs().max()) for name, gv, wv in pairs}
+    same = all(torch.equal(u, v) for u, v in zip(got, again) if u is not None)
+    ok = all(bool(torch.isfinite(gv).all()) for _, gv, _ in pairs) and max(rel.values()) <= tol and same
+    row = {
+        "b": b, "s": s, "h": h, "p": p, "n": n, "g": g, "chunk": chunk, "dtype": dtype, "state": state,
+        "model_decays": model_decays, "rel_err": rel, "tol": tol, "bit_identical": same,
+        "max_abs_err": max(float((gv - wv).abs().max()) for _, gv, wv in pairs), "ok": ok,
+    }
+    del got, again, want, pairs
+    if timed:
+        row["ms"] = time_ms(kernel, 10)
+        row["plain_ms"] = time_ms(plain, 1)
+        row["library_ms"] = None  # no single PyTorch call computes the SSD scan's gradients
+        row["bound_ms"], row["bound_by"] = ssd_bwd_bound(b, h, g, s, p, n, chunk, dtype, state)
+    print(f"[{card}] ssd_scan_bwd {json.dumps(row)}", flush=True)
+    if not ok:
+        raise AssertionError(f"ssd_scan_bwd disagrees with its plain version: {row}")
+    return row
+
+
+def phase_ssd_kernel_bwd(card, K, ref):
+    """K2's backward at SSD_SWEEP's shapes in f32 and bf16 with a random
+    initial state and d(final state); then the training path's own call
+    (SSD_TRAIN, bf16, the model's decays, no state), timed, with K2's
+    forward at that call timed beside it. Returns (rows, the backward's
+    timed row, the forward's timed row)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rows = []
+    for b, s, h, p, n, g, chunk in SSD_SWEEP:
+        for dtype in ("float32", "bfloat16"):
+            rows.append(check_ssd_bwd(card, K, ref, b, s, h, p, n, g, chunk, dtype, True, gen, False))
+    b, s, h, p, n, g, chunk = SSD_TRAIN
+    main = check_ssd_bwd(card, K, ref, b, s, h, p, n, g, chunk, "bfloat16", False, gen, True, model_decays=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fwd = check_ssd(card, ref, b, s, h, p, n, g, chunk, "bfloat16", None, gen, True, model_decays=True)
+    return rows, main, fwd
+
+
+def phase_train_ssm_grads(card, ref, mixer: dict):
+    """The trained mamba2's first mixer layer (``mixer``: its weights) at
+    the training shape: the gradients of a fixed random projection of its
+    output with respect to a random x and every weight of the layer,
+    through K2 forward + backward (``ssd_op`` under grad), against the
+    same computation with the plain ``ref.ssd`` in the scan's place; each
+    leaf's error relative to its largest element, within K2's bf16
+    tolerance."""
+    import math
+    from unittest import mock
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import ssm as M
+
+    cfg = configs.get("mamba2-2.7b")
+    sp = cfg.ssm
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    leaves = {"x": randn(b, s, cfg.d_model), **mixer}
+    proj = randn(b, s, cfg.d_model)
+
+    def plain_ssd_op(x, dt, A, Bm, Cm, init_state=None, *, chunk):
+        rep = x.shape[2] // Bm.shape[2]
+        y, st = ref.ssd(x.transpose(1, 2), dt.float().transpose(1, 2), A.float(),
+                        Bm.transpose(1, 2).repeat_interleave(rep, 1), Cm.transpose(1, 2).repeat_interleave(rep, 1),
+                        init_state)
+        return y.transpose(1, 2), st
+
+    def grads(kernel: bool):
+        t = {k: v.detach().requires_grad_(True) for k, v in leaves.items()}
+        p = {k: v for k, v in t.items() if k != "x"}
+        with mock.patch.object(M, "ssd_op", M.ssd_op if kernel else plain_ssd_op):
+            y, _ = M.ssm_mixer(p, t["x"], sp, norm_eps=cfg.norm_eps)
+        g = torch.autograd.grad((y.float() * proj.float()).sum(), list(t.values()))
+        return dict(zip(t, g))
+
+    got = grads(True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = grads(False)
+    torch.cuda.synchronize()
+    rel = {k: float((got[k].float() - want[k].float()).abs().max() / want[k].float().abs().max()) for k in got}
+    row = {"shape": [b, s, cfg.d_model], "rel_err": rel, "tol": SSD_TOL["bfloat16"]}
+    print(f"[{card}] mamba2 mixer layer gradients, kernel vs plain {json.dumps(row)}", flush=True)
+    assert all(math.isfinite(e) and e <= SSD_TOL["bfloat16"] for e in rel.values()), row
+    return row
+
+
 def serving_setup():
     """The served workload: full-width yi-6b with random bf16 weights from
     SEED behind a ContinuousLMEngine (4 slots, blocks of BLOCK), warmed up
@@ -1273,7 +1463,8 @@ def phase_serve_group(card, kernels: dict, cfg, model):
     finally:
         cluster.stop_replication()
     launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
-    assert kernels["flash_attention"].BWD_LAUNCHES == 0, "serving launched the backward"
+    assert kernels["flash_attention"].BWD_LAUNCHES == kernels["ssd_scan"].BWD_LAUNCHES == 0, \
+        "serving launched a backward"
     peak = torch.cuda.max_memory_allocated()
 
     assert sorted(got) == [r.req_id for r in reqs], sorted(got)
@@ -1775,7 +1966,8 @@ def phase_serve_wave(card, kernels: dict, arch: str, compute_dtype: str, prompt_
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = {name: mod.LAUNCHES for name, mod in kernels.items()}
-    assert kernels["flash_attention"].BWD_LAUNCHES == 0, "serving launched the backward"
+    assert kernels["flash_attention"].BWD_LAUNCHES == kernels["ssd_scan"].BWD_LAUNCHES == 0, \
+        "serving launched a backward"
 
     peak = torch.cuda.max_memory_allocated()
     got = {}
@@ -1838,12 +2030,15 @@ def phase_serve_wave(card, kernels: dict, arch: str, compute_dtype: str, prompt_
 
 def path_summary(launches: int, timed: list) -> dict:
     """One path's share of a kernel: its launches, and the sums of its
-    timed calls' times with the ratios that say where the kernel stands."""
+    timed calls' times with the ratios that say where the kernel stands
+    (library_ms None where no PyTorch call computes the function)."""
     out = {"launches": launches}
-    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+    for key in ("ms", "plain_ms", "bound_ms"):
         out[key] = sum(r[key] for r in timed)
+    lib = [r["library_ms"] for r in timed]
+    out["library_ms"] = None if None in lib else sum(lib)
     out["bound_by"] = max(timed, key=lambda r: r["bound_ms"])["bound_by"]
-    out["ms_over_library_ms"] = out["ms"] / out["library_ms"]
+    out["ms_over_library_ms"] = None if out["library_ms"] is None else out["ms"] / out["library_ms"]
     out["bound_ms_over_ms"] = out["bound_ms"] / out["ms"]
     return out
 
@@ -1875,6 +2070,7 @@ def main() -> int:
     rows, main_rows, rg_attn_main, deploy_attn_main = phase_kernels(card, flash_attention, ref)
     bwd_rows, lse_rows, train_fwd_main, bwd_main = phase_kernels_bwd(card, flash_attention, ref)
     ssd_rows, ssd_main = phase_ssd_kernel(card, ref)
+    ssd_bwd_rows, ssd_bwd_main, ssd_train_fwd = phase_ssd_kernel_bwd(card, ssd_scan, ref)
     rglru_rows, rglru_main = phase_rglru_kernel(card, ref)
     paper_loop = phase_paper_loop(card, kernels)
     # training first: its ~60 GB are freed before the serving models load
@@ -1890,6 +2086,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     # all 32 layers with the 8-bit state: freed before the serving models load
     training_full = phase_train_full(card, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # mamba2 at all 64 layers with the 8-bit state, then its trained first
+    # mixer layer's gradients: freed before the serving models load
+    training_m2, trained_mixer = phase_train_mamba2(card, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    m2_grads = phase_train_ssm_grads(card, ref, trained_mixer)
+    del trained_mixer
     gc.collect()
     torch.cuda.empty_cache()
     serving, yi_cfg, yi_model = phase_serve(card, kernels)
@@ -1943,19 +2148,45 @@ def main() -> int:
     for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
         entry[key] = sum(r[key] for r in attn_main)
     entry["bound_by"] = max(attn_main, key=lambda r: r["bound_ms"])["bound_by"]  # the largest term
+    # K2 runs on two kinds of call, each timed once: mamba2's serving wave
+    # and its training call (the forward of each layer a step and an eval
+    # batch); the sums cover both, by_path holds each path's own
+    ssd_paths = [ssd_main, ssd_train_fwd]
     ssd_entry = {
         "name": "ssd_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:33",
-        "launches": serving_ssm["launches"]["ssd_scan"],
-        "max_abs_err": ssd_main["max_abs_err"],
-        "matched": all(r["ok"] for r in ssd_rows + [ssd_main]),
-        "shapes": "one call per layer of the wave (%d,%d,80,64) N128 G1 chunk 256 bf16"
-        % (WAVE_REQUESTS, SSM_PROMPT_LEN),
+        "launches": serving_ssm["launches"]["ssd_scan"] + training_m2["launches"]["ssd_scan"],
+        "max_abs_err": max(r["max_abs_err"] for r in ssd_paths),
+        "matched": all(r["ok"] for r in ssd_rows + ssd_paths),
+        "shapes": "one call per layer of the wave (%d,%d,80,64) N128 G1 chunk 256 bf16, and one per layer of "
+        "mamba2's training call (%d,%d,80,64) N128 G1 chunk 256 bf16, summed" % (
+            WAVE_REQUESTS, SSM_PROMPT_LEN, TRAIN_BATCH, TRAIN_SEQ),
+        "by_path": {
+            "mamba2-2.7b": path_summary(serving_ssm["launches"]["ssd_scan"], [ssd_main]),
+            "mamba2-2.7b-train": path_summary(training_m2["launches"]["ssd_scan"], [ssd_train_fwd]),
+        },
+    }
+    for key in ("ms", "plain_ms", "bound_ms"):
+        ssd_entry[key] = sum(r[key] for r in ssd_paths)
+    ssd_entry["bound_by"] = max(ssd_paths, key=lambda r: r["bound_ms"])["bound_by"]
+    ssd_entry["library_ms"] = None
+    ssd_bwd_entry = {
+        "name": "ssd_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        # no TPU kernel: JAX differentiates its plain chunked SSD
+        "replaces": "none (JAX differentiates src/repro/models/ssm.py:123 ssd_chunked)",
+        "launches": training_m2["launches"]["ssd_scan_bwd"],
+        "max_abs_err": ssd_bwd_main["max_abs_err"],
+        "matched": all(r["ok"] for r in ssd_bwd_rows + [ssd_bwd_main]) and m2_grads is not None,
+        "shapes": "mamba2's training call (%d,%d,80,64) N128 G1 chunk 256 bf16, one a layer a step" % (
+            TRAIN_BATCH, TRAIN_SEQ),
+        "by_path": {"mamba2-2.7b-train": path_summary(training_m2["launches"]["ssd_scan_bwd"], [ssd_bwd_main])},
     }
     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
-        ssd_entry[key] = ssd_main[key]
+        ssd_bwd_entry[key] = ssd_bwd_main[key]
     rglru_entry = {
         "name": "rglru_scan",
         "route": "cuda",
@@ -2024,7 +2255,7 @@ def main() -> int:
     }
     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
         norm_entry[key] = norm[key]
-    kernels_line = {"kernels": [entry, bwd_entry, ssd_entry, rglru_entry, opt8_entry, norm_entry]}
+    kernels_line = {"kernels": [entry, bwd_entry, ssd_entry, ssd_bwd_entry, rglru_entry, opt8_entry, norm_entry]}
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2034,7 +2265,9 @@ def main() -> int:
         "optimizer_kernel": opt8, "training_full": training_full,
         "main_path_kernel": attn_main, "serving": serving, "serving_group": serving_group,
         "paper_loop": paper_loop, "deployment_lm": deployment, "ssd_checks": ssd_rows,
-        "ssd_main_path_kernel": ssd_main, "rglru_checks": rglru_rows, "rglru_main_path_kernel": rglru_main,
+        "ssd_main_path_kernel": ssd_main, "ssd_bwd_checks": ssd_bwd_rows, "ssd_bwd_main_path_kernel": ssd_bwd_main,
+        "ssd_train_fwd": ssd_train_fwd, "training_mamba2": training_m2, "training_mamba2_grads": m2_grads,
+        "rglru_checks": rglru_rows, "rglru_main_path_kernel": rglru_main,
         "serving_waves": {f"{arch} {dt}": out for (arch, dt), out in paths.items()},
         "kernels": kernels_line["kernels"],
     }, indent=1))

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Time K1 (flash attention), its backward, K2 (SSD scan), K3 (RG-LRU scan) or the 8-bit AdamW update of two
-checkouts on one card, in turns.
+"""Time K1 (flash attention), its backward, K2 (SSD scan), its backward, K3 (RG-LRU scan) or the 8-bit AdamW
+update of two checkouts on one card, in turns.
 
     mkdir -p build/ab_parent && git archive <parent commit> | tar -x -C build/ab_parent
-    python3 scripts/torch_kernel_ab.py --parent build/ab_parent [--kernel attention|attention_bwd|ssd|rglru|adamw8bit] \
-        [--ablate] [--rounds N]
+    python3 scripts/torch_kernel_ab.py --parent build/ab_parent \
+        [--kernel attention|attention_bwd|ssd|ssd_bwd|rglru|adamw8bit] [--ablate] [--rounds N]
 
 ``--parent`` is another checkout of the repository, unpacked in a
 directory that .gitignore lists. Each round runs the parent, this
@@ -12,7 +12,7 @@ checkout, this checkout again and the parent, each in a fresh process
 that imports ``repro_torch`` from its own ``src/`` and builds its own
 kernels, and hands that checkout's wrapper to this checkout's
 ``chip_smoke.check_attention``, ``check_attention_bwd``, ``check_ssd``,
-``check_rglru`` or ``check_opt8_tree``, which holds
+``check_ssd_bwd``, ``check_rglru`` or ``check_opt8_tree``, which holds
 the kernel against its plain version and times it and the plain version
 (and, for K1, the library call ``F.scaled_dot_product_attention`` on
 pre-repeated K/V; with a boolean mask where there is a window) with CUDA
@@ -43,6 +43,14 @@ calls are the kernel's on the serving paths, bf16:
   largest error against the plain version relative to rms + |want|, and
   ``kernel_us``, each CUDA kernel's device time a call from
   torch.profiler;
+- K2's backward (``--kernel ssd_bwd``): mamba2-2.7b's training call,
+  ``chip_smoke.SSD_TRAIN`` = (4, 1024, 80/1, 64), N 128, chunk 256, bf16,
+  the model's decays, no state; then ``chip_smoke.SSD_SWEEP``'s shapes in
+  bf16 and f32 with a random initial state and d(final state), each held
+  to ``ref.ssd_bwd`` at ``SSD_TOL`` with ``bit_identical`` (two calls, the
+  same bits) and ``kernel_us`` (each of its five CUDA kernels' device
+  time a call). A checkout without the backward (from before it) gives
+  its rows no times;
 - K3 (``--kernel rglru``, f32): recurrentgemma-9b's wave, (4, 3000, 4096)
   with the model's decays and a random h0 (the stricter check of the
   carry) and again with the zero h0 the cache hands it, and the
@@ -93,7 +101,8 @@ Prints each process's rows, then a summary (per side, the median over
 its processes, and the change over the parent, over SDPA and the bound
 over the change) beside the card's name and power limit; writes both to
 ``kernel_ab.json`` in the output directory (``kernel_ab_attention_bwd.json``
-for K1's backward, ``kernel_ab_ssd.json`` for K2, ``kernel_ab_rglru.json``
+for K1's backward, ``kernel_ab_ssd.json`` for K2, ``kernel_ab_ssd_bwd.json``
+for its backward, ``kernel_ab_rglru.json
 for K3, ``kernel_ab_adamw8bit.json`` for the 8-bit update). Needs a CUDA
 card.
 """
@@ -116,6 +125,7 @@ SOURCES = {
     "attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
     "attention_bwd": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
     "ssd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "ssd_bwd": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
     "rglru": "src/repro_torch/kernels/csrc/rglru_scan.cu",
     "adamw8bit": "src/repro_torch/kernels/csrc/adamw8bit.cu",
 }
@@ -144,6 +154,7 @@ VARIANTS = {
         "two_warpgroups_p3": [("constexpr int OUT_WARPGROUPS = 3;", "constexpr int OUT_WARPGROUPS = 2;")],
         "one_head_p3": [("constexpr int HEADS_PER_BLOCK = 2;", "constexpr int HEADS_PER_BLOCK = 1;")],
     },
+    "ssd_bwd": {},  # no refinements yet: the first kernel
     "rglru": {
         "no_prefetch": [("constexpr bool PREFETCH = true;", "constexpr bool PREFETCH = false;")],
         "no_fast_exp": [("constexpr bool FAST_EXP = true;", "constexpr bool FAST_EXP = false;")],
@@ -325,6 +336,62 @@ def measure_ssd(root: Path, label: str) -> dict:
     return out
 
 
+def ssd_bwd_calls():
+    """K2 backward's calls that chip_smoke.py checks: the training path's,
+    then the sweep; each (b, s, h, p, n, g, chunk, dtype, state, model decays)."""
+    b, s, h, p, n, g, chunk = cs.SSD_TRAIN
+    calls = [(f"mamba2-2.7b training ({b},{s},{h}/{g},{p}) N {n} bf16", (*cs.SSD_TRAIN, "bfloat16", False, True))]
+    for shape in cs.SSD_SWEEP:
+        for dtype in ("bfloat16", "float32"):
+            bb, ss, h, p, n, g, chunk = shape
+            calls.append((f"sweep ({bb},{ss},{h}/{g},{p}) N {n} chunk {chunk} {'bf16' if dtype == 'bfloat16' else 'f32'}",
+                          (*shape, dtype, True, False)))
+    return calls
+
+
+def measure_ssd_bwd(root: Path, label: str) -> dict:
+    """Check and time one checkout's K2 backward (this process imports its ``src``)."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import ssd_scan
+
+    assert Path(ssd_scan.__file__).resolve().is_relative_to(root.resolve()), ssd_scan.__file__
+    out: dict = {"label": label, "root": str(root), "ptxas": [], "calls": {}}
+    calls = ssd_bwd_calls()
+    if not hasattr(ssd_scan, "ssd_scan_bwd"):  # a checkout from before the backward kernel
+        for key, (b, s, h, p, n, g, chunk, dtype, state, _) in calls:
+            bound, by = cs.ssd_bwd_bound(b, h, g, s, p, n, chunk, dtype, state)
+            out["calls"][key] = {"ms": None, "bound_ms": bound, "bound_by": by}
+        return out
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build_all()
+    out["ptxas"] = [ln.strip() for ln in _build.BUILD_LOG.get("ssd_scan_bwd", "").splitlines()
+                    if any(w in ln.lower() for w in ("registers", "spill", "warning"))]
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    for key, (b, s, h, p, n, g, chunk, dtype, state, model) in calls:
+        row = cs.check_ssd_bwd(label, ssd_scan, ref, b, s, h, p, n, g, chunk, dtype, state, gen, True,
+                               model_decays=model)
+        wdt = getattr(torch, dtype)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+
+        x, bm, cm, dy = randn(b, s, h, p).to(wdt), randn(b, s, g, n).to(wdt), randn(b, s, g, n).to(wdt), \
+            randn(b, s, h, p).to(wdt)
+        dt = F.softplus(randn(b, s, h))
+        A = -torch.linspace(1.0, 16.0, h, device="cuda")
+        st0, dsf = (randn(b, h, n, p), randn(b, h, n, p)) if state else (None, None)
+        args = (x.transpose(1, 2), dt.transpose(1, 2), A, bm.transpose(1, 2), cm.transpose(1, 2), st0,
+                dy.transpose(1, 2), dsf)
+        row["graph_ms"] = time_graph_ms(lambda: ssd_scan.ssd_scan_bwd(*args, chunk=chunk), 10)
+        row["kernel_us"] = kernel_us(lambda: ssd_scan.ssd_scan_bwd(*args, chunk=chunk), 5)
+        out["calls"][key] = row
+    return out
+
+
 def rglru_calls():
     """K3's calls that chip_smoke.py checks: its path's, then its sweep and
     edges; each (b, s, c, h0, model decays)."""
@@ -453,6 +520,8 @@ def measure(root: Path, label: str, kernel: str) -> dict:
         return measure_adamw8bit(root, label)
     if kernel == "ssd":
         return measure_ssd(root, label)
+    if kernel == "ssd_bwd":
+        return measure_ssd_bwd(root, label)
     if kernel == "attention_bwd":
         return measure_attention_bwd(root, label)
     if kernel == "rglru":
@@ -533,7 +602,8 @@ def summarise(runs: list, labels: list) -> dict:
                 x = entry[f"{label}_{t}_median"]
                 if x is None:
                     continue
-                entry[f"{label}_over_parent_{t}"] = x / entry[f"parent_{t}_median"]
+                par = entry[f"parent_{t}_median"]
+                entry[f"{label}_over_parent_{t}"] = x / par if par else None
                 entry[f"{label}_over_library_{t}"] = x / lib if lib else None
                 entry[f"bound_over_{label}_{t}"] = row["bound_ms"] / x
         summary[key] = entry
@@ -604,6 +674,11 @@ def main() -> int:
             cols += f"  SDPA {e['change_library_ms_median']:.4f} ({e['change_library_graph_ms_median']:.4f})"
         elif args.kernel == "attention_bwd":
             cols += f"  SDPA {e['change_library_ms_median']:.4f}"
+            cols += "  kernel us " + " ".join(
+                f"{label} " + "/".join(f"{n} {v:.1f}" for n, v in e[f"{label}_kernel_us_median"].items())
+                for label in present)
+            cols += "  bit-identical " + " ".join(f"{label} {all(e[f'{label}_bit_identical'])}" for label in present)
+        elif args.kernel == "ssd_bwd":
             cols += "  kernel us " + " ".join(
                 f"{label} " + "/".join(f"{n} {v:.1f}" for n, v in e[f"{label}_kernel_us_median"].items())
                 for label in present)

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time goes when the PyTorch port trains yi-6b.
+"""Where the time goes when the PyTorch port trains yi-6b or mamba2.
 
-    python3 scripts/torch_profile_training.py [--steps 3] [--layers 16] [--opt adamw|adamw8bit]
+    python3 scripts/torch_profile_training.py [--arch yi-6b|mamba2-2.7b] [--steps 3] [--layers 16]
+                                              [--opt adamw|adamw8bit]
 
 On a machine with one CUDA card. Builds the kernels, then takes
-chip_smoke.py's training workload (full-width yi-6b cut to ``--layers``
-of its 32 layers, 16 by default, bf16 weights from its seed, AdamW with
-f32 moments or ``adamw8bit``, batches of 4 x 1024 tokens of its seeded
-Markov corpus) through the calls a
+chip_smoke.py's training workload (full-width ``--arch``, yi-6b by
+default, cut to ``--layers`` layers, 16 by default: yi-6b has 32,
+mamba2-2.7b 64; bf16 weights from its seed, AdamW with f32 moments or
+``adamw8bit``, batches of 4 x 1024 tokens of its seeded Markov corpus)
+through the calls a
 ``TrainingJob`` step makes: ``StreamModel.loss``, ``torch.autograd.grad``
 over the parameter tree and the optimizer's ``update``, each marked as a
 phase. Two warm-up steps, then ``--steps`` steps under
@@ -15,7 +17,8 @@ phase. Two warm-up steps, then ``--steps`` steps under
 phase and by kernel class, the device's busy and idle share of the wall
 time and the top kernels; writes them and the full table to
 ``chiprun_out/profile_training.*`` (``profile_training_<layers>_<opt>.*``
-for other than the defaults). Times under the profiler slow the
+for other than the defaults, ``profile_training_<arch>_<layers>_<opt>.*``
+for an arch other than yi-6b). Times under the profiler slow the
 host. Exits non-zero with no CUDA device.
 """
 
@@ -42,6 +45,10 @@ def _kernel_class(name: str) -> str:
     n = name.lower()
     if "adamw8bit" in n:
         return "adamw8bit (this repo's kernel)"
+    if "ssd_bwd" in n:
+        return "ssd_scan_bwd (this repo's kernel)"
+    if "ssd_" in n:
+        return "ssd_scan (this repo's kernel)"
     if "sumsq_kernel" in n or "finish_kernel" in n:
         return "grad_norm (this repo's kernel)"
     if any(t in n for t in ("dkdv_", "dq_bf16", "dq_f32", "delta_kernel")):
@@ -65,6 +72,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=("yi-6b", "mamba2-2.7b"), default="yi-6b")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--layers", type=int, default=chip_smoke.TRAIN_LAYERS)
     ap.add_argument("--opt", choices=("adamw", "adamw8bit"), default="adamw")
@@ -82,7 +90,7 @@ def main() -> int:
     card = chip_smoke.card_line()
     _build.build_all()
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(configs.get("yi-6b"), n_layers=args.layers)
+    cfg = dataclasses.replace(configs.get(args.arch), n_layers=args.layers)
     model = StreamModel(cfg, Policy(), device="cuda", generator=chip_smoke.SEED)
     params = model.param_tree()
     for p in tree_leaves(params):
@@ -133,7 +141,7 @@ def main() -> int:
             phases[e.key]["device_span_ms"] += _device_us(e) / 1e3
     top = sorted(kernels, key=_device_us, reverse=True)[:20]
     summary = {
-        "card": card, "layers": cfg.n_layers, "optimizer": args.opt, "batch": b, "seq": chip_smoke.TRAIN_SEQ, "steps": args.steps,
+        "card": card, "arch": args.arch, "layers": cfg.n_layers, "optimizer": args.opt, "batch": b, "seq": chip_smoke.TRAIN_SEQ, "steps": args.steps,
         "losses": losses, "wall_ms": wall_s * 1e3, "step_ms": wall_s * 1e3 / args.steps,
         "device_busy_ms": busy_us / 1e3, "device_idle_share": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
         "peak_bytes": peak, "phases": phases,
@@ -146,6 +154,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     default = (args.layers, args.opt) == (chip_smoke.TRAIN_LAYERS, "adamw")
     stem = "profile_training" if default else f"profile_training_{args.layers}_{args.opt}"
+    if args.arch != "yi-6b":
+        stem = f"profile_training_{args.arch}_{args.layers}_{args.opt}"
     (out / f"{stem}.json").write_text(json.dumps(summary, indent=1))
     (out / f"{stem}.txt").write_text(
         events.table(

@@ -54,7 +54,11 @@ def ssd_op(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """SSD in model layout; returns (y (B, S, H, P) in x's dtype, final
     state (B, H, N, P) f32). dt and A enter in f32, so dA = dt * A is f32;
-    x * dt is rounded to x's dtype before the scan's arithmetic."""
+    x * dt is rounded to x's dtype before the scan's arithmetic.
+
+    When grad mode is on and an input requires grad, ``ssd_scan`` goes
+    through ``SSDScan``, whose backward is the backward kernel (the plain
+    version on the CPU); otherwise it is the forward alone, as it serves."""
     y, st = ssd_scan(
         x.transpose(1, 2), dt.float().transpose(1, 2), A.float(),
         Bm.transpose(1, 2), Cm.transpose(1, 2), init_state, chunk=chunk,

@@ -18,7 +18,7 @@ import torch
 
 __all__ = [
     "QBLOCK", "V_FLOOR", "adamw8bit_update", "dequantize", "dequantize_log", "global_norm", "layer_slices", "mha",
-    "pad_to_block", "quantize", "quantize_log", "rglru", "scores", "ssd",
+    "pad_to_block", "quantize", "quantize_log", "rglru", "scores", "ssd", "ssd_bwd",
 ]
 
 
@@ -92,6 +92,36 @@ def ssd(
         state = state * decay[:, :, t, None, None] + upd
         ys.append(torch.einsum("bhn,bhnp->bhp", Cm[:, :, t].float(), state))
     return torch.stack(ys, dim=2).to(x.dtype), state
+
+
+def ssd_bwd(
+    x: torch.Tensor,  # (B, H, S, P)
+    dt: torch.Tensor,  # (B, H, S) f32
+    A: torch.Tensor,  # (H,) f32
+    Bm: torch.Tensor,  # (B, G, S, N), grouped: head h reads group h // (H / G)
+    Cm: torch.Tensor,  # (B, G, S, N)
+    init_state: torch.Tensor | None,  # (B, H, N, P) f32
+    dy: torch.Tensor,  # (B, H, S, P), y's gradient
+    dfinal: torch.Tensor | None = None,  # (B, H, N, P) f32, the final state's gradient (None: zero)
+) -> tuple[torch.Tensor | None, ...]:
+    """The gradients (dx, ddt, dA, dBm, dCm, d init_state) of :func:`ssd`
+    over grouped B and C: autograd through it with the groups repeated to
+    the heads (so dBm and dCm sum over each group's heads). d init_state is
+    None without an initial state."""
+    rep = x.shape[1] // Bm.shape[1]
+    leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, Bm, Cm)]
+    st0 = init_state.detach().requires_grad_(True) if init_state is not None else None
+    with torch.enable_grad():
+        xx, dd, aa, bb, cc = leaves
+        y, st = ssd(xx, dd, aa, bb.repeat_interleave(rep, 1), cc.repeat_interleave(rep, 1), st0)
+        outs, douts = [y], [dy]
+        if dfinal is not None:
+            outs.append(st)
+            douts.append(dfinal)
+        wrt = leaves + ([st0] if st0 is not None else [])
+        grads = torch.autograd.grad(outs, wrt, douts, allow_unused=True)
+    grads = [torch.zeros_like(t) if gr is None else gr for t, gr in zip(wrt, grads)]
+    return (*grads[:5], grads[5] if st0 is not None else None)
 
 
 def rglru(

@@ -44,6 +44,18 @@ base and batch / sequence / head (group) strides in multiples of 8
 elements; :func:`check_layout` states what the kernel takes and the
 wrapper raises on anything else. On a CPU tensor the wrapper computes the
 plain version instead; on a CUDA tensor it launches the kernel or raises.
+
+The backward (:func:`ssd_scan_bwd`, ``csrc/ssd_scan_bwd.cu``) has no TPU
+kernel behind it: JAX differentiates its plain ``ssd_chunked``
+(``src/repro/models/ssm.py:123``). It takes what the forward takes, in
+f32 and bf16, reads one element at a time (x, B, C and dy need only a
+unit stride along their last axis), recomputes each chunk's incoming f32
+state rather than keeping it from the forward, and sums every reduction
+(the heads of a group, A over batch and time) in a fixed order: the same
+bits on every call. :class:`SSDScan` joins the forward and the backward
+into one differentiable op; ``ssd_scan`` goes through it whenever grad
+mode is on and an input requires grad (on the CPU its two sides are the
+plain versions).
 """
 
 from __future__ import annotations
@@ -54,17 +66,20 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["LAUNCHES", "check_layout", "ssd_scan"]
+__all__ = ["BWD_LAUNCHES", "LAUNCHES", "SSDScan", "check_layout", "ssd_scan", "ssd_scan_bwd"]
 
 # calls that launched the kernel since import (or since a caller last set
 # it to 0); a bf16 call runs three CUDA kernels and counts once
 LAUNCHES = 0
+# calls that launched the backward (five CUDA kernels a call, counted once)
+BWD_LAUNCHES = 0
 
 _MAX_CHUNK = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
 _MAX_STATE = 128
 _fn = None
+_bwd_fn = None
 
 
 def _kernel():
@@ -83,6 +98,22 @@ def _kernel():
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _fn = (fn, lib.repro_cuda_error_string)
     return _fn
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        lib = _build.load("ssd_scan_bwd")
+        fn = lib.repro_ssd_scan_bwd
+        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
+        scratch = lib.repro_ssd_scan_bwd_scratch
+        scratch.argtypes = [ctypes.c_int] * 6
+        scratch.restype = ctypes.c_int64
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _bwd_fn = (fn, scratch, lib.repro_cuda_error_string)
+    return _bwd_fn
 
 
 def _check(x, dt, A, Bm, Cm, init_state) -> None:
@@ -107,6 +138,29 @@ def _check(x, dt, A, Bm, Cm, init_state) -> None:
     tensors = [x, dt, A, Bm, Cm] + ([init_state] if init_state is not None else [])
     if any(t.device != x.device for t in tensors):
         raise ValueError("ssd_scan inputs must lie on one device")
+
+
+def _check_kernel_shape(p: int, n: int, chunk: int) -> int:
+    """Raise unless the CUDA kernels take head dim ``p``, state dim ``n``
+    and ``chunk`` (already cut to S); return ``chunk``."""
+    if p not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {p} not in {_HEAD_DIMS}")
+    if n % 16 or n > _MAX_STATE:
+        raise ValueError(f"state_dim {n} must be a multiple of 16 up to {_MAX_STATE}")
+    if chunk > _MAX_CHUNK:
+        raise ValueError(f"chunk {chunk} > {_MAX_CHUNK}")
+    return chunk
+
+
+def _rows_of_states(t: torch.Tensor | None) -> torch.Tensor | None:
+    """``t`` (B, H, N, P) f32 with (N, P) contiguous and its batch and head
+    strides in multiples of 4 from a 16-byte aligned base, copied if not."""
+    if t is None:
+        return None
+    p = t.shape[3]
+    if t.stride(3) != 1 or t.stride(2) != p or t.stride(1) % 4 or t.stride(0) % 4 or t.data_ptr() % 16:
+        return t.clone(memory_format=torch.contiguous_format)
+    return t
 
 
 def check_layout(name: str, shape, stride, data_ptr: int, dtype: torch.dtype) -> None:
@@ -158,6 +212,9 @@ def ssd_scan(
     g, n = Bm.shape[1], Bm.shape[3]
     if chunk <= 0:
         raise ValueError("chunk must be positive")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, init_state)):
+        # a kernel's output is outside autograd: SSDScan joins its backward there
+        return SSDScan.apply(x, dt, A, Bm, Cm, init_state, chunk)
     if x.device.type == "cpu":
         rep = h // g
         br = Bm.repeat_interleave(rep, dim=1) if rep > 1 else Bm
@@ -165,28 +222,11 @@ def ssd_scan(
         return ref.ssd(x, dt, A, br, cr, init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not {x.device}")
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, dt, A, Bm, Cm, init_state)):
-        # the kernel's output is outside autograd: a loss through it would
-        # give its inputs no gradient and raise nothing
-        raise NotImplementedError(
-            "ssd_scan has no backward kernel yet (it comes with mamba2 training); "
-            "call it under torch.no_grad() or on inputs that do not require grad"
-        )
-    chunk = min(chunk, s)
-    if p not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {p} not in {_HEAD_DIMS}")
-    if n % 16 or n > _MAX_STATE:
-        raise ValueError(f"state_dim {n} must be a multiple of 16 up to {_MAX_STATE}")
-    if chunk > _MAX_CHUNK:
-        raise ValueError(f"chunk {chunk} > {_MAX_CHUNK}")
+    chunk = _check_kernel_shape(p, n, min(chunk, s))
     for name, t in (("x", x), ("dt", dt), ("Bm", Bm), ("Cm", Cm)):
         check_layout(name, t.shape, t.stride(), t.data_ptr(), t.dtype)
     A = A.contiguous()
-    if init_state is not None and (
-        init_state.stride(3) != 1 or init_state.stride(2) != p or init_state.stride(1) % 4
-        or init_state.stride(0) % 4 or init_state.data_ptr() % 16
-    ):  # (N, P) rows, read four f32 at a time
-        init_state = init_state.clone(memory_format=torch.contiguous_format)
+    init_state = _rows_of_states(init_state)  # (N, P) rows, read four f32 at a time
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device).transpose(1, 2)
     st = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
     work = None
@@ -217,3 +257,100 @@ def ssd_scan(
         raise RuntimeError(f"ssd_scan launch failed: {err_str(rc).decode()} ({rc})")
     LAUNCHES += 1
     return y, st
+
+
+def ssd_scan_bwd(
+    x: torch.Tensor,  # (B, H, S, P), as given to the forward
+    dt: torch.Tensor,  # (B, H, S) f32
+    A: torch.Tensor,  # (H,) f32
+    Bm: torch.Tensor,  # (B, G, S, N)
+    Cm: torch.Tensor,  # (B, G, S, N)
+    init_state: torch.Tensor | None,  # (B, H, N, P) f32
+    dy: torch.Tensor,  # (B, H, S, P), y's gradient
+    dfinal: torch.Tensor | None = None,  # (B, H, N, P) f32, the final state's gradient (None: zero)
+    *,
+    chunk: int = 256,
+) -> tuple[torch.Tensor, ...]:
+    """(dx, ddt, dA, dBm, dCm, d init_state) of :func:`ssd_scan`, each in its
+    input's dtype and shape (dBm and dCm summed over the heads of each
+    group; d init_state None without an initial state).
+
+    On CPU tensors the plain version, ``ref.ssd_bwd`` (autograd through
+    ``ref.ssd`` with B and C repeated to the heads). On CUDA tensors it
+    launches the backward kernel or raises.
+    """
+    global BWD_LAUNCHES
+    _check(x, dt, A, Bm, Cm, init_state)
+    b, h, s, p = x.shape
+    g, n = Bm.shape[1], Bm.shape[3]
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not match x {tuple(x.shape)} {x.dtype}")
+    if dfinal is not None and (dfinal.shape != (b, h, n, p) or dfinal.dtype != torch.float32
+                               or dfinal.device != x.device):
+        raise ValueError(f"dfinal must be f32 {(b, h, n, p)} on {x.device}, got {dfinal.dtype} {tuple(dfinal.shape)}")
+    if chunk <= 0:
+        raise ValueError("chunk must be positive")
+    if x.device.type == "cpu":
+        return ref.ssd_bwd(x, dt, A, Bm, Cm, init_state, dy, dfinal)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan_bwd runs on cuda or cpu tensors, not {x.device}")
+    chunk = _check_kernel_shape(p, n, min(chunk, s))
+    if dy.stride(3) != 1:  # autograd's gradient may come in any layout
+        dy = dy.contiguous()
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm), ("dy", dy)):
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} must be contiguous along its last dim")
+    A = A.contiguous()
+    init_state, dfinal = _rows_of_states(init_state), _rows_of_states(dfinal)
+    dev = x.device
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev).transpose(1, 2)
+    ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev).transpose(1, 2)
+    dA = torch.empty((h,), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, s, g, n), dtype=x.dtype, device=dev).transpose(1, 2)
+    dC = torch.empty((b, s, g, n), dtype=x.dtype, device=dev).transpose(1, 2)
+    dst0 = torch.empty((b, h, n, p), dtype=torch.float32, device=dev) if init_state is not None else None
+    strides = (ctypes.c_int64 * 31)(
+        *(st for t in (x, dt, Bm, Cm, dy, dx, ddt, dB, dC) for st in (t.stride(0), t.stride(2), t.stride(1))),
+        *((init_state.stride(0), init_state.stride(1)) if init_state is not None else (0, 0)),
+        *((dfinal.stride(0), dfinal.stride(1)) if dfinal is not None else (0, 0)),
+    )
+    fn, scratch, err_str = _bwd_kernel()
+    work = torch.empty(scratch(b, h, s, p, n, chunk), dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    with torch.cuda.device(dev):
+        rc = fn(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), ptr(init_state),
+            dy.data_ptr(), ptr(dfinal), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+            dC.data_ptr(), ptr(dst0), _DTYPES[x.dtype], b, h, g, s, p, n, chunk,
+            ctypes.cast(strides, ctypes.c_void_p), work.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: {err_str(rc).decode()} ({rc})")
+    BWD_LAUNCHES += 1
+    return dx, ddt, dA, dB, dC, dst0
+
+
+class SSDScan(torch.autograd.Function):
+    """K2 forward and its backward kernel as one differentiable op over
+    (B, H, S, P) / (B, G, S, N) views; on CPU tensors both sides are the
+    plain version. The final state's gradient may be None: in training
+    the new state feeds no loss."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, init_state, chunk: int):
+        y, st = ssd_scan(x, dt, A, Bm, Cm, init_state, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, init_state)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)  # an unused output's gradient comes as None
+        return y, st
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, Bm, Cm, init_state = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        grads = ssd_scan_bwd(x, dt, A, Bm, Cm, init_state, dy, dfinal, chunk=ctx.chunk)
+        return (*grads, None)

@@ -7,7 +7,9 @@ layer out of the stacked ``(L, ...)`` leaves); ``A_log``, ``D`` and
 The difference that belongs to the port: for S > 1 the mixer calls
 ``kernels.ops.ssd_op`` (the Hopper SSD kernel on the card, its plain
 version ``ref.ssd`` on the CPU) where the JAX mixer runs the pure-jnp
-``ssd_chunked``, so ``ssd_chunked`` and ``_segsum`` have no port. The
+``ssd_chunked``, so ``ssd_chunked`` and ``_segsum`` have no port; under
+grad mode the scan's gradient is K2's backward kernel (``SSDScan``) and
+autograd differentiates the mixer's other ops, as ``jax.grad`` does. The
 decode step (S == 1 with a state) is the one-token recurrence in torch
 ops, as in JAX.
 """

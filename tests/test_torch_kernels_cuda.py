@@ -394,6 +394,165 @@ def test_mamba2_on_card_runs_the_kernel(card):
         torch.testing.assert_close(cache["slots"]["s0"][key].cpu(), cache_cpu["slots"]["s0"][key], atol=1e-4, rtol=1e-4)
 
 
+# K2's backward (csrc/ssd_scan_bwd.cu) against the plain version,
+# ref.ssd_bwd (autograd through ref.ssd, groups repeated): each gradient's
+# error relative to its largest element within the forward's SSD_TOL; dt
+# on the bf16 grid in bf16, where the two round x * dt alike
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dst0")
+
+
+def _ssd_bwd_case(seed, b, s, h, p, n, g, dtype, device, state=True):
+    rng = np.random.default_rng(seed)
+    wdt = getattr(torch, dtype)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+
+    x, bm, cm, dy = t(b, s, h, p).to(wdt), t(b, s, g, n).to(wdt), t(b, s, g, n).to(wdt), t(b, s, h, p).to(wdt)
+    dt = torch.nn.functional.softplus(t(b, s, h)).to(wdt).float()
+    A = -torch.exp(t(h))
+    st0, dsf = (t(b, h, n, p), t(b, h, n, p)) if state else (None, None)
+    return x, dt, A, bm, cm, st0, dy, dsf
+
+
+def _ssd_heads(x, dt, A, bm, cm, st0, dy, dsf):
+    return (x.transpose(1, 2), dt.transpose(1, 2), A, bm.transpose(1, 2), cm.transpose(1, 2), st0,
+            dy.transpose(1, 2), dsf)
+
+
+def _hold_bwd(args, chunk, dtype):
+    """One backward kernel call (one launch counted) against ref.ssd_bwd."""
+    before = K2.BWD_LAUNCHES
+    got = K2.ssd_scan_bwd(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert K2.BWD_LAUNCHES == before + 1
+    want = ref.ssd_bwd(*args)
+    for name, gv, wv in zip(SSD_GRADS, got, want):
+        if wv is None:
+            assert gv is None, name
+            continue
+        assert gv.shape == wv.shape and gv.dtype == wv.dtype, name
+        assert bool(torch.isfinite(gv).all()), name
+        err = float((gv.float() - wv.float()).abs().max() / wv.float().abs().max())
+        assert err <= SSD_TOL[dtype], (name, err)
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,g,chunk", [
+    (1, 128, 2, 32, 64, 1, 32),  # chip_smoke.SSD_SWEEP's shapes: G 1, 2 and H
+    (2, 256, 4, 64, 128, 2, 64),
+    (1, 64, 4, 16, 32, 4, 64),
+    (2, 1000, 8, 64, 128, 1, 256),  # a ragged last chunk
+    (1, 300, 4, 64, 128, 1, 100),  # a ragged chunk of a ragged tile count
+])
+def test_ssd_bwd_kernel_on_card(card, dtype, b, s, h, p, n, g, chunk):
+    """The backward kernel against its plain version, with a random
+    initial state and d(final state)."""
+    args = _ssd_heads(*_ssd_bwd_case(b + s + g, b, s, h, p, n, g, dtype, card))
+    _hold_bwd(args, chunk, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_without_states(card, dtype):
+    """No initial state and no d(final state), as the training path calls
+    it: d(initial state) is None."""
+    args = _ssd_heads(*_ssd_bwd_case(3, 2, 333, 8, 64, 128, 2, dtype, card, state=False))
+    got = _hold_bwd(args, 256, dtype)
+    assert got[5] is None
+
+
+def test_ssd_bwd_strided_views(card):
+    """The mixer's views: x the heads of a (B, S, H P) activation, B and C
+    slices of one fused (B, S, 2 G N) projection; dy in a layout autograd
+    may hand over (its last axis strided: copied before the launch)."""
+    b, s, h, p, n, g = 2, 300, 8, 64, 128, 2
+    x, dt, A, bm, cm, st0, dy, dsf = _ssd_bwd_case(17, b, s, h, p, n, g, "bfloat16", card)
+    x = x.reshape(b, s, h * p).reshape(b, s, h, p)
+    bc = torch.cat([bm.reshape(b, s, g * n), cm.reshape(b, s, g * n)], dim=-1)
+    bm, cm = bc[..., : g * n].reshape(b, s, g, n), bc[..., g * n :].reshape(b, s, g, n)
+    assert bm.stride(1) == 2 * g * n
+    dy = torch.stack([dy, dy], dim=-1)[..., 0]
+    assert dy.stride(3) == 2
+    _hold_bwd(_ssd_heads(x, dt, A, bm, cm, st0, dy, dsf), 256, "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_same_bits_on_every_call(card, dtype):
+    """Every reduction (the heads of a group, A over batch and time) adds
+    in a fixed order with no atomics: three calls give the same bits."""
+    args = _ssd_heads(*_ssd_bwd_case(5, 2, 700, 8, 64, 128, 1, dtype, card))
+    first = K2.ssd_scan_bwd(*args, chunk=256)
+    for _ in range(2):
+        again = K2.ssd_scan_bwd(*args, chunk=256)
+        assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
+def test_ssd_bwd_refuses_unsupported_shapes(card):
+    """Head dims off 16/32/64, state dims off the multiple of 16 and a last
+    axis that is not contiguous raise before any launch."""
+    before = K2.BWD_LAUNCHES
+    for p, n in ((48, 32), (32, 24)):
+        args = _ssd_heads(*_ssd_bwd_case(1, 1, 32, 2, p, n, 1, "float32", card))
+        with pytest.raises(ValueError):
+            K2.ssd_scan_bwd(*args)
+    x, dt, A, bm, cm, st0, dy, dsf = _ssd_bwd_case(2, 1, 32, 2, 32, 32, 1, "float32", card)
+    bm = torch.stack([bm, bm], dim=-1)[..., 0]
+    with pytest.raises(ValueError):
+        K2.ssd_scan_bwd(*_ssd_heads(x, dt, A, bm, cm, st0, dy, dsf))
+    assert K2.BWD_LAUNCHES == before
+
+
+def test_ssd_scan_under_grad_matches_plain(card):
+    """K2 on inputs that require grad (ssd_op, and ssd_scan itself) goes
+    through SSDScan: one forward and one backward launch, and gradients
+    equal to the plain version's within SSD_TOL."""
+    x, dt, A, bm, cm, st0, dy, dsf = _ssd_bwd_case(9, 1, 200, 4, 64, 128, 2, "float32", card)
+    leaves = [t.requires_grad_(True) for t in (x, dt, A, bm, cm, st0)]
+    fwd, bwd = K2.LAUNCHES, K2.BWD_LAUNCHES
+    y, st = ssd_op(*leaves, chunk=64)
+    got = torch.autograd.grad((y * dy).sum() + (st * dsf).sum(), leaves)
+    torch.cuda.synchronize()
+    assert (K2.LAUNCHES, K2.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    want = ref.ssd_bwd(*_ssd_heads(x, dt, A, bm, cm, st0, dy, dsf))
+    back = [lambda t: t.transpose(1, 2)] * 2 + [lambda t: t] + [lambda t: t.transpose(1, 2)] * 2 + [lambda t: t]
+    for name, gv, wv, f in zip(SSD_GRADS, got, want, back):
+        err = float((gv - f(wv)).abs().max() / wv.abs().max())
+        assert err <= SSD_TOL["float32"], (name, err)
+    y2, _ = K2.ssd_scan(*_ssd_heads(*leaves, dy, None)[:6], chunk=64)
+    assert y2.grad_fn is not None
+
+
+def test_mamba2_gradients_on_card_match_cpu(card):
+    """Reduced mamba2 (head dim 32, state 16, chunk 16) on the card: its
+    loss and every gradient leaf through K2 forward + backward against
+    the CPU twin's (the plain scan), at K2's f32 tolerance of each leaf's
+    largest element; one backward launch a layer."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(configs.get_reduced("mamba2-2.7b"), vocab=250)
+    policy = Policy("float32", "float32", "float32")
+    on_card = StreamModel(cfg, policy, device=card, generator=0)
+    on_cpu = StreamModel(cfg, policy, device="cpu", generator=None)
+    on_cpu.load_params(on_card.param_tree())
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (2, 70)))
+    out = []
+    for model, tok in ((on_card, tokens.to(card)), (on_cpu, tokens)):
+        params = model.param_tree()
+        model.requires_grad_(True)
+        before = K2.BWD_LAUNCHES
+        loss, _ = model.loss(params, {"tokens": tok})
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        model.requires_grad_(False)
+        out.append((float(loss.detach()), [g.cpu() for g in grads], K2.BWD_LAUNCHES - before))
+    (lc, gc_, nc), (lp, gp, npl) = out
+    assert (nc, npl) == (cfg.n_layers, 0)
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gc_, gp):
+        assert a.dtype == b.dtype
+        assert float((a - b).abs().max() / b.abs().max()) <= SSD_TOL["float32"]
+
+
 # K3 is held to a float64 run of its plain version: on the card the f32
 # plain version's 1 - a * a, which cancels when a is near 1, alone strays
 # past tests/test_kernels.py:86's 1e-5
@@ -725,17 +884,10 @@ def test_flash_attention_bwd_refuses_what_it_lacks(card, d, cap):
 
 
 def test_scans_refuse_inputs_that_require_grad(card):
-    """K2 and K3 have no backward yet: on the card an input that requires
-    grad raises (a kernel output outside autograd would be a silent zero
-    gradient); under no_grad they run."""
-    x = torch.randn((1, 64, 2, 64), device=card, requires_grad=True)
-    dt = torch.rand((1, 64, 2), device=card) + 0.1
-    A = -torch.ones(2, device=card)
-    bm = torch.randn((1, 64, 1, 32), device=card)
-    with pytest.raises(NotImplementedError):
-        ssd_op(x, dt, A, bm, bm)
-    with torch.no_grad():
-        ssd_op(x, dt, A, bm, bm)
+    """K3 has no backward yet: on the card an input that requires grad
+    raises (a kernel output outside autograd would be a silent zero
+    gradient); under no_grad it runs. (K2 has its backward kernel:
+    test_ssd_scan_under_grad_matches_plain.)"""
     xr = torch.randn((1, 64, 32), device=card, requires_grad=True)
     with pytest.raises(NotImplementedError):
         rglru_op(xr, -torch.rand((1, 64, 32), device=card))

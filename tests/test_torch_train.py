@@ -1,16 +1,20 @@
 """LM training in the port against the JAX package, on moved weights.
 
-Reduced yi-6b in f32 on the CPU, its vocab cut to 250 so that the padded
-unembed (256 columns) has columns past the vocab and a batch can hold
-labels >= vocab, which the loss must mask. Inputs from numpy seeds.
-Tolerances: the loss and every gradient leaf at 1e-5 relative to the
-leaf's largest element (f32 with sums in another order); AdamW against
-JAX's at 1e-6 (f32 leaf) and one bf16 step (bf16 leaf); the 5-step
-TrainingJob loss trajectories at 1e-4 (the same f32 arithmetic, five
-AdamW or adamw8bit steps apart).
+Reduced yi-6b and reduced mamba2 in f32 on the CPU, their vocab cut to 250
+so that the padded unembed (256 columns; mamba2's tied embed) has columns
+past the vocab and a batch can hold labels >= vocab, which the loss must
+mask. Inputs from numpy seeds. Tolerances: the loss and every gradient
+leaf at 1e-5 relative to the leaf's largest element for yi-6b (f32 with
+sums in another order) and 1e-4 for mamba2 (its scan: JAX's chunked form
+takes exps of cumsum differences where the port's plain version steps a
+product of decays; measured 1.1e-5 on w_C); AdamW against JAX's at 1e-6
+(f32 leaf) and one bf16 step (bf16 leaf); the 5-step TrainingJob loss
+trajectories at 1e-4 (the same f32 arithmetic, five AdamW or adamw8bit
+steps apart).
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -49,23 +53,30 @@ def _one_thread():
     torch.set_num_threads(n)
 
 GRAD_TOL = 1e-5
+SSM_GRAD_TOL = 1e-4
 TRAJ_TOL = 1e-4
+M2 = "mamba2-2.7b"
 
 
-def _cfgs():
-    return (dataclasses.replace(JC.get_reduced("yi-6b"), vocab=VOCAB),
-            dataclasses.replace(TC.get_reduced("yi-6b"), vocab=VOCAB))
+def _cfgs(arch="yi-6b"):
+    return (dataclasses.replace(JC.get_reduced(arch), vocab=VOCAB),
+            dataclasses.replace(TC.get_reduced(arch), vocab=VOCAB))
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jcfg, tcfg = _cfgs()
+@functools.lru_cache(maxsize=None)
+def _pair(arch):
+    jcfg, tcfg = _cfgs(arch)
     jm = JModel(jcfg, JPolicy(param_dtype="float32", compute_dtype="float32"))
     jp = jm.init(jax.random.PRNGKey(0))
     moved = convert.params_from_jax(jax.tree.map(np.asarray, jp))
     tm = StreamModel(tcfg, Policy("float32", "float32", "float32"), device="cpu", generator=None)
     tm.load_params(moved)
     return jm, jp, tm, moved
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair("yi-6b")
 
 
 def _tokens(seed, b=2, s=SEQ):
@@ -78,9 +89,16 @@ def _rel(got, want):
     return float(np.abs(np.asarray(got, np.float32) - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-@pytest.mark.parametrize("loss_chunk", [8, 1024])
-def test_loss_and_gradients_match_jax(pair, loss_chunk):
-    jm, jp, tm, _ = pair
+@pytest.mark.parametrize("arch,loss_chunk", [
+    pytest.param("yi-6b", 8, id="8"), pytest.param("yi-6b", 1024, id="1024"),
+    pytest.param(M2, 8, id="mamba2-8"), pytest.param(M2, 1024, id="mamba2-1024"),
+])
+def test_loss_and_gradients_match_jax(arch, loss_chunk):
+    """The loss and every gradient leaf against jax.value_and_grad of the
+    JAX loss (mamba2: its tied embed, its f32 A_log, D and dt_bias leaves
+    with f32 gradients, its scan through SSDScan's CPU sides)."""
+    jm, jp, tm, _ = _pair(arch)
+    tol = SSM_GRAD_TOL if arch == M2 else GRAD_TOL
     tok = _tokens(0)
     assert (tok[:, 1:] >= VOCAB).any()
     (jl, jmet), jg = jax.jit(jax.value_and_grad(
@@ -93,13 +111,13 @@ def test_loss_and_gradients_match_jax(pair, loss_chunk):
         tg = torch.autograd.grad(tl, tree_leaves(params))
     finally:
         tm.requires_grad_(False)
-    assert abs(float(tl.detach()) - float(jl)) <= GRAD_TOL * abs(float(jl))
-    assert float(tmet["loss"].detach()) == pytest.approx(float(jmet["loss"]), rel=GRAD_TOL)
+    assert abs(float(tl.detach()) - float(jl)) <= tol * abs(float(jl))
+    assert float(tmet["loss"].detach()) == pytest.approx(float(jmet["loss"]), rel=tol)
     jleaves = jax.tree.leaves(jg)
     assert len(jleaves) == len(tg)
     for a, b in zip(jleaves, tg):
-        assert a.shape == tuple(b.shape)
-        assert _rel(b.numpy(), a) <= GRAD_TOL
+        assert a.shape == tuple(b.shape) and b.dtype == torch.float32
+        assert _rel(b.numpy(), a) <= tol
 
 
 def test_loss_masks_labels_past_vocab(pair):
@@ -118,11 +136,11 @@ def test_loss_masks_labels_past_vocab(pair):
     assert float(a) != float(hidden_only)
 
 
-def test_smoke_forward_one_train_step(pair):
-    """Mirror of tests/test_models.py:38 on yi-6b: forward shapes, finite
-    logits, one AdamW step, a finite loss after it."""
-    _, _, _, moved = pair
-    _, tcfg = _cfgs()
+def _one_train_step(arch):
+    """Forward shapes, finite logits, one AdamW step, a finite and lower
+    loss after it."""
+    _, _, _, moved = _pair(arch)
+    _, tcfg = _cfgs(arch)
     m = StreamModel(tcfg, Policy("float32", "float32", "float32"), device="cpu", generator=None)
     m.load_params(moved)
     tok = torch.from_numpy(_tokens(2))
@@ -139,14 +157,35 @@ def test_smoke_forward_one_train_step(pair):
     assert np.isfinite(float(l2)) and float(l2) < float(metrics["loss"])
 
 
-def test_causality(pair):
-    """Mirror of tests/test_models.py:102: logits[:, :k] do not depend on
-    tokens after k."""
-    _, _, tm, _ = pair
+def test_smoke_forward_one_train_step(pair):
+    """Mirror of tests/test_models.py:38 on yi-6b."""
+    _one_train_step("yi-6b")
+
+
+def test_mamba2_one_train_step():
+    """Mirror of tests/test_models.py:38 on mamba2 (the scan's gradient
+    through SSDScan)."""
+    _one_train_step(M2)
+
+
+def _causal(arch):
+    """logits[:, :k] do not depend on tokens after k."""
+    _, _, tm, _ = _pair(arch)
     tok = torch.from_numpy(_tokens(3, s=32))
     full = tm.forward(tok)
     short = tm.forward(tok[:, :20])
     np.testing.assert_allclose(full[:, :20].numpy(), short.numpy(), atol=2e-4, rtol=2e-4)
+
+
+def test_causality(pair):
+    """Mirror of tests/test_models.py:102 on yi-6b."""
+    _causal("yi-6b")
+
+
+def test_mamba2_causality():
+    """Mirror of tests/test_models.py:102 on mamba2 (a ragged last chunk of
+    the reduced config's 16: 20 = 16 + 4)."""
+    _causal(M2)
 
 
 def test_chunked_loss_invariant_to_chunk_size(pair):
@@ -323,12 +362,12 @@ def _example():
     return mod
 
 
-def _stream(n=48, seed=8):
+def _stream(n=48, seed=8, arch="yi-6b"):
     """A Markov corpus (examples/train_lm.py's generator at SEQ) ingested
     by the port as RAW records into a 2-partition topic of the port's log."""
     corpus = _example().synth_corpus(n, 256, seq=SEQ, seed=seed)
     log, reg = core.StreamLog(), core.Registry()
-    spec = reg.register_model("yi-6b-smoke")
+    spec = reg.register_model(f"{arch}-smoke")
     dep = reg.deploy(reg.create_configuration([spec.model_id]).config_id, "train")
     log.create_topic("corpus", core.LogConfig(num_partitions=2))
     data.ingest(log, "corpus", RawCodec("int32", (SEQ,), "int32", ()),
@@ -339,19 +378,23 @@ def _stream(n=48, seed=8):
 _OPTS = {"adamw": (jadamw, adamw), "adamw8bit": (jadamw8bit, adamw8bit)}  # (JAX's, the port's)
 
 
-@pytest.mark.parametrize("streaming,opt", [
-    pytest.param(False, "adamw", id="False"), pytest.param(True, "adamw", id="True"),
-    pytest.param(False, "adamw8bit", id="False-adamw8bit"), pytest.param(True, "adamw8bit", id="True-adamw8bit"),
+@pytest.mark.parametrize("arch,streaming,opt", [
+    pytest.param("yi-6b", False, "adamw", id="False"), pytest.param("yi-6b", True, "adamw", id="True"),
+    pytest.param("yi-6b", False, "adamw8bit", id="False-adamw8bit"),
+    pytest.param("yi-6b", True, "adamw8bit", id="True-adamw8bit"),
+    pytest.param(M2, True, "adamw", id="mamba2-True"), pytest.param(M2, True, "adamw8bit", id="mamba2-True-adamw8bit"),
 ])
-def test_training_job_trajectory_matches_jax(pair, streaming, opt):
+def test_training_job_trajectory_matches_jax(arch, streaming, opt):
     """The roadmap's gate: 5 steps of TrainingJob in each package on the
     same moved params and the same ingested stream give the same losses
     (1e-4), and the same streaming or held-out eval, with AdamW and with
-    adamw8bit."""
+    adamw8bit; on reduced yi-6b and on reduced mamba2 (whose tree mixes
+    bf16-able leaves with f32 (L, H) ones narrower than a quantization
+    block)."""
     jopt, topt = _OPTS[opt]
-    jm, jp, _, moved = pair
-    _, tcfg = _cfgs()
-    log, reg, spec, dep = _stream()
+    jm, jp, _, moved = _pair(arch)
+    _, tcfg = _cfgs(arch)
+    log, reg, spec, dep = _stream(arch=arch)
     jl = []
 
     def jloss(p, b):
