@@ -49,8 +49,9 @@ calls are the kernel's on the serving paths, bf16:
   bf16 and f32 with a random initial state and d(final state), each held
   to ``ref.ssd_bwd`` at ``SSD_TOL`` with ``bit_identical`` (two calls, the
   same bits) and ``kernel_us`` (each of its five CUDA kernels' device
-  time a call). A checkout without the backward (from before it) gives
-  its rows no times;
+  time a call: in bf16 chunk terms, state passing, gradients, finish and
+  the partials' sums). A checkout without the backward (from before it)
+  gives its rows no times;
 - K3 (``--kernel rglru``, f32): recurrentgemma-9b's wave, (4, 3000, 4096)
   with the model's decays and a random h0 (the stricter check of the
   carry) and again with the zero h0 the cache hands it, and the
@@ -93,7 +94,11 @@ blocks) and ``DQ_KEYS`` 64 (the dQ kernel's key tiles); for K2
 ``SPLIT_XD`` (the state update's decayed xdt as one bf16 operand instead
 of hi + lo), ``FAST_DECAY``, ``STATE_BF16``, ``P1_ROWS`` (the whole
 chunk at once), ``P1_BLOCKS`` (no register cap), ``OUT_WARPGROUPS`` (two)
-and ``HEADS_PER_BLOCK`` (one); for K3 ``PREFETCH``, ``FAST_EXP`` and
+and ``HEADS_PER_BLOCK`` (one); for K2's backward ``SPLIT_DE`` (D's and
+E's decayed operands as one bf16 each instead of hi + lo),
+``FAST_DECAY``, ``HEADS_PER_BLOCK`` 1, 10 and 20 instead of 40, ``AHEAD``
+1 (the state passing's chunks loaded one at a time), ``TERMS_BLOCKS`` 1
+(no register cap on the chunk terms) and ``STAGGER``; for K3 ``PREFETCH``, ``FAST_EXP`` and
 ``FAST_SQRT``, 8 warps a block (``WARPS``: time blocks of 128 steps, two
 blocks an SM) and 32 warps of 8 steps (``STEPS``: 1024 threads a block).
 
@@ -154,7 +159,16 @@ VARIANTS = {
         "two_warpgroups_p3": [("constexpr int OUT_WARPGROUPS = 3;", "constexpr int OUT_WARPGROUPS = 2;")],
         "one_head_p3": [("constexpr int HEADS_PER_BLOCK = 2;", "constexpr int HEADS_PER_BLOCK = 1;")],
     },
-    "ssd_bwd": {},  # no refinements yet: the first kernel
+    "ssd_bwd": {
+        "no_split": [("constexpr bool SPLIT_DE = true;", "constexpr bool SPLIT_DE = false;")],
+        "no_fast_decay": [("constexpr bool FAST_DECAY = true;", "constexpr bool FAST_DECAY = false;")],
+        "heads_1": [("constexpr int HEADS_PER_BLOCK = 40;", "constexpr int HEADS_PER_BLOCK = 1;")],
+        "heads_10": [("constexpr int HEADS_PER_BLOCK = 40;", "constexpr int HEADS_PER_BLOCK = 10;")],
+        "heads_20": [("constexpr int HEADS_PER_BLOCK = 40;", "constexpr int HEADS_PER_BLOCK = 20;")],
+        "ahead_1": [("constexpr int AHEAD = 8;", "constexpr int AHEAD = 1;")],
+        "terms_registers_uncapped": [("constexpr int TERMS_BLOCKS = 2;", "constexpr int TERMS_BLOCKS = 1;")],
+        "no_stagger": [("constexpr bool STAGGER = true;", "constexpr bool STAGGER = false;")],
+    },
     "rglru": {
         "no_prefetch": [("constexpr bool PREFETCH = true;", "constexpr bool PREFETCH = false;")],
         "no_fast_exp": [("constexpr bool FAST_EXP = true;", "constexpr bool FAST_EXP = false;")],

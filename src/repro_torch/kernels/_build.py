@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` source has a plain C interface and becomes its own
 shared library, compiled for Hopper (``sm_90a``) into
 ``build/repro_torch_kernels/<hash>/`` at the repository root, where the
-hash covers the source and the flags. The first use builds; later uses
+hash covers the source, the headers beside it (``csrc/*.cuh``) and the
+flags. The first use builds; later uses
 in any process load what is there. :func:`build_all` starts one ``nvcc``
 per source, all at once. A failed build raises: there is no fallback.
 """
@@ -43,7 +44,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_ROOT / h / f"lib{name}.so"
 
 

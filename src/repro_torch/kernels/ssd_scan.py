@@ -47,15 +47,21 @@ plain version instead; on a CUDA tensor it launches the kernel or raises.
 
 The backward (:func:`ssd_scan_bwd`, ``csrc/ssd_scan_bwd.cu``) has no TPU
 kernel behind it: JAX differentiates its plain ``ssd_chunked``
-(``src/repro/models/ssm.py:123``). It takes what the forward takes, in
-f32 and bf16, reads one element at a time (x, B, C and dy need only a
-unit stride along their last axis), recomputes each chunk's incoming f32
-state rather than keeping it from the forward, and sums every reduction
-(the heads of a group, A over batch and time) in a fixed order: the same
-bits on every call. :class:`SSDScan` joins the forward and the backward
-into one differentiable op; ``ssd_scan`` goes through it whenever grad
-mode is on and an input requires grad (on the CPU its two sides are the
-plain versions).
+(``src/repro/models/ssm.py:123``). It takes what the forward takes. In
+bf16 (the training path) every product runs on ``wgmma``: each chunk's
+own state terms, the f32 recurrences across chunks (recomputed rather
+than kept from the forward), then the gradients on a (chunk, 64-position
+tile, block of heads, batch) grid whose blocks sum dB and dC over their
+heads in f32 before one partial a block of heads. It reads x, B, C and dy
+in 16-byte vectors as the forward reads x, B and C (:func:`check_layout`;
+dy alone, which autograd hands over in any layout, is copied where it
+does not fit). Its f32 path is the first kernel, f32 FMAs on the CUDA
+cores, reading one element at a time. Both sum every reduction (the
+heads of a group, A over batch and time) in a fixed order: the same bits
+on every call. :class:`SSDScan` joins the forward and the backward into
+one differentiable op; ``ssd_scan`` goes through it whenever grad mode
+is on and an input requires grad (on the CPU its two sides are the plain
+versions).
 """
 
 from __future__ import annotations
@@ -66,7 +72,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["BWD_LAUNCHES", "LAUNCHES", "SSDScan", "check_layout", "ssd_scan", "ssd_scan_bwd"]
+__all__ = ["BWD_LAUNCHES", "LAUNCHES", "SSDScan", "check_layout", "layout_error", "ssd_scan", "ssd_scan_bwd"]
 
 # calls that launched the kernel since import (or since a caller last set
 # it to 0); a bf16 call runs three CUDA kernels and counts once
@@ -108,7 +114,7 @@ def _bwd_kernel():
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
         scratch = lib.repro_ssd_scan_bwd_scratch
-        scratch.argtypes = [ctypes.c_int] * 6
+        scratch.argtypes = [ctypes.c_int] * 8
         scratch.restype = ctypes.c_int64
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -163,29 +169,37 @@ def _rows_of_states(t: torch.Tensor | None) -> torch.Tensor | None:
     return t
 
 
-def check_layout(name: str, shape, stride, data_ptr: int, dtype: torch.dtype) -> None:
-    """Raise ValueError unless the CUDA kernel takes this view of ``shape``
-    and element ``stride`` starting at ``data_ptr``: x (B, H, S, P), Bm or
-    Cm (B, G, S, N), or dt (B, H, S).
+def layout_error(name: str, shape, stride, data_ptr: int, dtype: torch.dtype) -> str | None:
+    """Why the CUDA kernels do not take this view of ``shape`` and element
+    ``stride`` starting at ``data_ptr`` (x or dy (B, H, S, P), Bm or Cm
+    (B, G, S, N), or dt (B, H, S)), or None if they do.
 
-    x, Bm and Cm must be contiguous along their last axis in every dtype.
-    In bf16 the kernel reads their rows in 16-byte vectors, so the base
-    must be 16-byte aligned and the batch, head (or group) and sequence
-    strides multiples of 8 elements; an axis of extent 1 is never stepped,
-    so its stride does not matter, and a stride of 0 (a broadcast view)
-    reads one row again. dt is read one f32 at a time: any strides.
+    x, Bm, Cm and dy must be contiguous along their last axis in every
+    dtype. In bf16 the kernels read their rows in 16-byte vectors, so the
+    base must be 16-byte aligned and the batch, head (or group) and
+    sequence strides multiples of 8 elements; an axis of extent 1 is never
+    stepped, so its stride does not matter, and a stride of 0 (a broadcast
+    view) reads one row again. dt is read one f32 at a time: any strides.
     """
     if len(shape) == 3:
-        return
+        return None
     if stride[3] != 1:
-        raise ValueError(f"{name} must be contiguous along its last dim")
+        return f"{name} must be contiguous along its last dim"
     if dtype != torch.bfloat16:
-        return
+        return None
     if data_ptr % 16:
-        raise ValueError(f"bf16 {name} must start at a 16-byte aligned address")
+        return f"bf16 {name} must start at a 16-byte aligned address"
     for axis, (extent, st) in enumerate(zip(shape[:3], stride[:3])):
         if extent > 1 and st % 8:
-            raise ValueError(f"bf16 {name}: stride {st} of axis {axis} must be a multiple of 8 elements")
+            return f"bf16 {name}: stride {st} of axis {axis} must be a multiple of 8 elements"
+    return None
+
+
+def check_layout(name: str, shape, stride, data_ptr: int, dtype: torch.dtype) -> None:
+    """Raise ValueError where :func:`layout_error` finds one."""
+    err = layout_error(name, shape, stride, data_ptr, dtype)
+    if err is not None:
+        raise ValueError(err)
 
 
 def ssd_scan(
@@ -295,11 +309,10 @@ def ssd_scan_bwd(
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_bwd runs on cuda or cpu tensors, not {x.device}")
     chunk = _check_kernel_shape(p, n, min(chunk, s))
-    if dy.stride(3) != 1:  # autograd's gradient may come in any layout
-        dy = dy.contiguous()
-    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm), ("dy", dy)):
-        if t.stride(3) != 1:
-            raise ValueError(f"{name} must be contiguous along its last dim")
+    if layout_error("dy", dy.shape, dy.stride(), dy.data_ptr(), dy.dtype):  # autograd's gradient may
+        dy = dy.clone(memory_format=torch.contiguous_format)  # come in any layout: dy alone is copied
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        check_layout(name, t.shape, t.stride(), t.data_ptr(), t.dtype)
     A = A.contiguous()
     init_state, dfinal = _rows_of_states(init_state), _rows_of_states(dfinal)
     dev = x.device
@@ -315,7 +328,7 @@ def ssd_scan_bwd(
         *((dfinal.stride(0), dfinal.stride(1)) if dfinal is not None else (0, 0)),
     )
     fn, scratch, err_str = _bwd_kernel()
-    work = torch.empty(scratch(b, h, s, p, n, chunk), dtype=torch.float32, device=dev)
+    work = torch.empty(scratch(b, h, g, s, p, n, chunk, _DTYPES[x.dtype]), dtype=torch.float32, device=dev)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None

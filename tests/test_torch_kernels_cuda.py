@@ -453,6 +453,58 @@ def test_ssd_bwd_kernel_on_card(card, dtype, b, s, h, p, n, g, chunk):
     _hold_bwd(args, chunk, dtype)
 
 
+# the bf16 path's edges (a block of HEADS_PER_BLOCK heads of one group a
+# (chunk, 64-position tile), P padded to 64 and N to 128 in shared memory)
+@pytest.mark.parametrize("b,s,h,p,n,g,chunk", [
+    (1, 300, 86, 64, 128, 2, 256),  # 43 heads a group: a block of 40 and one of 3
+    (1, 250, 41, 32, 64, 1, 128),  # 41 heads: a block of 40 and one of 1 (warpgroup 1 idle)
+    (2, 256, 8, 32, 64, 4, 128),  # G 4: two heads a group
+    (1, 200, 4, 16, 64, 1, 256),  # P 16 and N 64 padded
+    (1, 200, 4, 32, 32, 2, 256),  # P 32 and N 32 padded
+    (1, 333, 4, 64, 128, 1, 256),  # a short last chunk: one full tile and 13 positions
+    (1, 77, 2, 64, 128, 1, 256),  # one chunk shorter than two tiles
+])
+@pytest.mark.parametrize("state", [False, True])
+def test_ssd_bwd_bf16_edges(card, b, s, h, p, n, g, chunk, state):
+    args = _ssd_heads(*_ssd_bwd_case(b + s + h, b, s, h, p, n, g, "bfloat16", card, state=state))
+    _hold_bwd(args, chunk, "bfloat16")
+
+
+def test_ssd_bwd_bf16_copies_a_dy_it_cannot_read(card):
+    """dy at a base that is not 16-byte aligned (autograd may hand any
+    layout): the wrapper copies dy alone and the result holds."""
+    b, s, h, p, n, g = 1, 200, 4, 64, 128, 1
+    x, dt, A, bm, cm, st0, dy, dsf = _ssd_bwd_case(21, b, s, h, p, n, g, "bfloat16", card)
+    wide = torch.zeros((b, s, h, p + 8), dtype=dy.dtype, device=card)
+    wide[..., 1 : p + 1] = dy
+    dy = wide[..., 1 : p + 1]
+    assert dy.data_ptr() % 16 and K2.layout_error("dy", dy.shape, dy.stride(), dy.data_ptr(), dy.dtype)
+    _hold_bwd(_ssd_heads(x, dt, A, bm, cm, st0, dy, dsf), 256, "bfloat16")
+
+
+def test_ssd_bwd_bf16_refuses_unaligned_inputs(card):
+    """x, B and C are read in 16-byte vectors: a view the bf16 kernels do
+    not take raises before any launch (only dy is copied)."""
+    b, s, h, p, n, g = 1, 64, 2, 32, 32, 1
+    x, dt, A, bm, cm, st0, dy, dsf = _ssd_bwd_case(22, b, s, h, p, n, g, "bfloat16", card)
+    wide = torch.zeros((b, s, g, n + 8), dtype=bm.dtype, device=card)
+    wide[..., 1 : n + 1] = bm
+    before = K2.BWD_LAUNCHES
+    with pytest.raises(ValueError):
+        K2.ssd_scan_bwd(*_ssd_heads(x, dt, A, wide[..., 1 : n + 1], cm, st0, dy, dsf))
+    assert K2.BWD_LAUNCHES == before
+
+
+def test_ssd_bwd_bf16_same_bits_across_head_blocks(card):
+    """Groups of more heads than a block takes: the blocks' partials add in
+    order, no atomics, so three calls give the same bits."""
+    args = _ssd_heads(*_ssd_bwd_case(23, 2, 600, 86, 64, 128, 2, "bfloat16", card))
+    first = K2.ssd_scan_bwd(*args, chunk=256)
+    for _ in range(2):
+        again = K2.ssd_scan_bwd(*args, chunk=256)
+        assert all(torch.equal(u, v) for u, v in zip(first, again))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_bwd_without_states(card, dtype):
     """No initial state and no d(final state), as the training path calls

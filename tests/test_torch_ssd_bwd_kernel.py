@@ -1,24 +1,29 @@
 """K2's backward (``csrc/ssd_scan_bwd.cu``) on the CPU: its arithmetic, in
 its order.
 
-The CUDA kernels cannot run here, so this file mirrors them in Python:
-``kernel_model`` computes dx, ddt, dA, dB, dC and d(initial state) chunk by
-chunk as the five kernels do: each chunk's cumsum of dA, its own state
+The CUDA kernels cannot run here, so this file mirrors them in Python.
+``kernel_model`` is the f32 path (the first kernel, f32 FMAs on the CUDA
+cores): dx, ddt, dA, dB, dC and d(initial state) chunk by chunk as its
+five kernels compute them: each chunk's cumsum of dA, its own state
 contribution D and its backward one E; the state passing (the incoming
 states recomputed left to right, the outgoing states' gradients right to
 left); then per chunk a row pass over 64-position tiles at or below the
 diagonal (dC and the row terms of d ca), a column pass (du, dB and the
 column terms), d tot, the reverse cumsum of d ca, and the chunk's share of
 dA; last the heads' f32 partials of dB and dC added in head order and the
-(batch, chunk) shares of dA in order. The tile size and the longest chunk
-are read from the kernel's source.
+(batch, chunk) shares of dA in order. ``kernel_model_bf16`` is the bf16
+path (every product on wgmma): the same adjoint with its roundings (bf16
+operands, hi + lo where they feed a carried state, the states handed on
+in bf16) and dB and dC summed over each block of HEADS_PER_BLOCK heads,
+its warpgroups' heads apart, then over the blocks. The tile size, the
+longest chunk, the heads a block and the split are read from the kernel's
+source.
 
 Tolerances, each relative to the gradient leaf's largest element: in f32
 the model against autograd through ``ref.ssd`` and against ``jax.grad`` of
 the JAX package's ``ssd_chunked`` at 1e-4 (the same function summed in
 other orders, with exps of cumsum differences that lose a few bits to
-cancellation); with the kernel's bf16 roundings (inputs and dy on the bf16
-grid, x * dt rounded to bf16, dx, dB and dC stored in bf16) against
+cancellation); the bf16 model (inputs, dt and dy on the bf16 grid) against
 autograd through ``ref.ssd`` on the same bf16 inputs at 2e-2 (the card's
 bf16 tolerance, ``chip_smoke.SSD_TOL``). ``ssd_op`` under grad on the CPU
 (``SSDScan``'s plain sides) is held to ``jax.grad`` at 1e-4 too. The kernel
@@ -72,20 +77,19 @@ def _exp(t):
     return torch.exp(t.to(torch.get_default_dtype()))
 
 
-def kernel_model(x, dt, A, bm, cm, st0, dy, dsf, chunk, bf16=False, cumsum_dtype=torch.float64):
-    """(dx, ddt, dA, dB, dC, d st0) in the kernels' order. x, dy (B, H, S, P),
-    dt (B, H, S), A (H,), bm, cm (B, G, S, N), st0 and dsf (B, H, N, P) or
-    None; all f32 (with ``bf16`` the values lie on the bf16 grid).
-    ``cumsum_dtype`` f32 models a kernel that kept its cumsum in f32."""
+def kernel_model(x, dt, A, bm, cm, st0, dy, dsf, chunk, cumsum_dtype=torch.float64):
+    """(dx, ddt, dA, dB, dC, d st0) in the f32 kernels' order. x, dy
+    (B, H, S, P), dt (B, H, S), A (H,), bm, cm (B, G, S, N), st0 and dsf
+    (B, H, N, P) or None; all f32. ``cumsum_dtype`` f32 models a kernel that
+    kept its cumsum in f32."""
     b, h, s, p = x.shape
     g, n = bm.shape[1], bm.shape[3]
     rep = h // g
     q = min(chunk, s)
     assert q <= MAX_Q
     nc = -(-s // q)
-    rnd = (lambda t: t.bfloat16().float()) if bf16 else (lambda t: t)
     bh, ch = bm.repeat_interleave(rep, 1), cm.repeat_interleave(rep, 1)
-    u = rnd(x * dt[..., None])  # x * dt rounded to x's dtype
+    u = x * dt[..., None]
     spans = [slice(c * q, min((c + 1) * q, s)) for c in range(nc)]
 
     # 1. chunk terms: the cumsum, D, E, tot
@@ -155,7 +159,7 @@ def kernel_model(x, dt, A, bm, cm, st0, dy, dsf, chunk, bf16=False, cumsum_dtype
                 du = du + (sc * e) @ yc[:, :, ri]
                 db = db + (dsc * e) @ Cc[:, :, ri]
             pos = slice(sl.start + rj.start, sl.start + rj.stop)
-            dx[:, :, pos] = rnd(du * dt[:, :, pos, None])
+            dx[:, :, pos] = du * dt[:, :, pos, None]
             ddt[:, :, pos] = (du * x[:, :, pos]).sum(-1)  # the x route; da's is added below
             dbp[:, :, pos] = db
             dca[..., rj] += cold
@@ -177,7 +181,120 @@ def kernel_model(x, dt, A, bm, cm, st0, dy, dsf, chunk, bf16=False, cumsum_dtype
     for bi in range(b):
         for c in range(nc):
             dA += dap[bi, :, c]
-    return dx, ddt, dA, rnd(dB), rnd(dC), dst0 if st0 is not None else None
+    return dx, ddt, dA, dB, dC, dst0 if st0 is not None else None
+
+
+HEADS_PER_BLOCK = _source_int(r"constexpr int HEADS_PER_BLOCK = (\d+);")  # the bf16 gradients kernel's
+SPLIT_DE = re.search(r"constexpr bool SPLIT_DE = (true|false);", SRC).group(1) == "true"
+
+
+def _bf(t):
+    """t rounded to bf16, as f32."""
+    return t.bfloat16().float()
+
+
+def _split(v):
+    """v as the bf16 pair hi + lo that wgmma adds into one f32 accumulator
+    (lo: hi's rounding error, rounded); hi alone without SPLIT_DE."""
+    hi = _bf(v)
+    return hi + _bf(v - hi) if SPLIT_DE else hi
+
+
+def _heads_in_block_order(per_head, rep):
+    """(B, H, S, N) f32 of each head -> (B, G, S, N), summed as the bf16
+    gradients kernel sums: blocks of HEADS_PER_BLOCK heads of a group (the
+    last may hold fewer); in a block warpgroup 0 takes every other head from
+    the first and warpgroup 1 the rest, each in head order, then 1's sum is
+    added to 0's; the blocks' partials are added in order."""
+    b, h, s, n = per_head.shape
+    out = torch.zeros((b, h // rep, s, n))
+    for g in range(h // rep):
+        total = torch.zeros((b, s, n))
+        for h0 in range(0, rep, HEADS_PER_BLOCK):
+            nh = min(HEADS_PER_BLOCK, rep - h0)
+            sums = []
+            for wg in range(2):
+                acc = torch.zeros((b, s, n))
+                for k in range(wg, nh, 2):
+                    acc = acc + per_head[:, g * rep + h0 + k]
+                sums.append(acc)
+            total = total + (sums[0] + sums[1])
+        out[:, g] = total
+    return out
+
+
+def kernel_model_bf16(x, dt, A, bm, cm, st0, dy, dsf, chunk):
+    """(dx, ddt, dA, dB, dC, d st0) as the bf16 kernels compute them; x, bm,
+    cm and dy f32 on the bf16 grid, the rest as ``kernel_model`` takes.
+
+    The roundings it adds to the f32 adjoint: u = x * dt to bf16; D's
+    decayed u and E's decayed dy as bf16 hi + lo (SPLIT_DE); each chunk's
+    incoming state and the gradient of its outgoing state to bf16 as
+    operands (their f32 recurrences unrounded, <S_prev, dS> from them);
+    the decayed scores (C B^T) o L and G = (dy u^T) o L to bf16 as the A
+    operands of du, dC and dB; dx, dB and dC stored in bf16. Every product
+    of bf16 operands sums in f32; the row and column terms of d ca sum G o
+    scores in f32. The heads' dB and dC add in the kernel's block order."""
+    b, h, s, p = x.shape
+    g, n = bm.shape[1], bm.shape[3]
+    rep = h // g
+    q = min(chunk, s)
+    assert q <= MAX_Q
+    nc = -(-s // q)
+    bh, ch = bm.repeat_interleave(rep, 1), cm.repeat_interleave(rep, 1)
+    u = _bf(x * dt[..., None])
+    spans = [slice(c * q, min((c + 1) * q, s)) for c in range(nc)]
+
+    # 1. chunk terms on wgmma: the decayed operands split
+    cas, Ds, Es = [], [], []
+    for sl in spans:
+        ca = torch.cumsum((dt[..., sl] * A[None, :, None]).double(), -1)
+        w = torch.exp((ca[..., -1:] - ca).float())[..., None]
+        Ds.append(torch.einsum("bhjn,bhjp->bhnp", bh[:, :, sl], _split(u[:, :, sl] * w)))
+        Es.append(torch.einsum("bhin,bhip->bhnp", ch[:, :, sl], _split(dy[:, :, sl] * torch.exp(ca.float())[..., None])))
+        cas.append(ca)
+    # 2. state passing in f32; the operands handed on in bf16
+    state = st0.clone() if st0 is not None else torch.zeros((b, h, n, p))
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = torch.exp(cas[c][..., -1].float())[..., None, None] * state + Ds[c]
+    ds = dsf.clone() if dsf is not None else torch.zeros((b, h, n, p))
+    douts, sdot = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        douts[c], sdot[c] = ds, (prev[c] * ds).sum((-1, -2))
+        ds = torch.exp(cas[c][..., -1].float())[..., None, None] * ds + Es[c]
+    dst0 = ds
+
+    # 3. gradients: the row and column terms, du, the heads' dB and dC
+    dx, ddt, dA = torch.zeros_like(x), torch.zeros_like(dt), torch.zeros(h)
+    dBh, dCh = torch.zeros((b, h, s, n)), torch.zeros((b, h, s, n))
+    for c, sl in enumerate(spans):
+        ln = sl.stop - sl.start
+        ca, tot = cas[c], cas[c][..., -1]
+        Bc, Cc, uc, yc = bh[:, :, sl], ch[:, :, sl], u[:, :, sl], dy[:, :, sl]
+        sp16, ds16 = _bf(prev[c]), _bf(douts[c])
+        rows = torch.arange(ln)
+        keep = rows[None, :] <= rows[:, None]
+        e = torch.exp(torch.where(keep, (ca[..., :, None] - ca[..., None, :]).float(), -torch.inf))
+        sc, G = Cc @ Bc.transpose(-1, -2), (yc @ uc.transpose(-1, -2)) * e
+        M = torch.where(rows[None, :] < rows[:, None], G * sc, 0.0)  # a diagonal pair's terms cancel
+        Z = torch.exp(ca.float())[..., None] * (yc @ sp16.transpose(-1, -2))
+        w = torch.exp((tot[..., None] - ca).float())[..., None]
+        du_state = w * (Bc @ ds16)
+        wst = (uc * du_state).sum(-1)
+        du = du_state + _bf(sc * e).transpose(-1, -2) @ yc
+        dCh[:, :, sl] = Z + _bf(G) @ Bc
+        dBh[:, :, sl] = w * (uc @ ds16.transpose(-1, -2)) + _bf(G).transpose(-1, -2) @ Cc
+        dca = M.sum(-1) + (Cc * Z).sum(-1) - M.sum(-2) - wst
+        dx[:, :, sl] = _bf(du * dt[:, :, sl, None])
+        # 4. finish: d tot at the chunk's last position, da by a reverse cumsum
+        dca[..., -1] += wst.sum(-1) + torch.exp(tot.float()) * sdot[c]
+        da = torch.flip(torch.cumsum(torch.flip(dca, [-1]), -1), [-1])
+        ddt[:, :, sl] = (du * x[:, :, sl]).sum(-1) + da * A[None, :, None]
+        dA += (da * dt[:, :, sl]).sum((0, -1))
+    dB, dC = _bf(_heads_in_block_order(dBh, rep)), _bf(_heads_in_block_order(dCh, rep))
+    return dx, ddt, dA, dB, dC, dst0 if st0 is not None else None
 
 
 def _inputs(seed, b, s, h, p, n, g, init, final):
@@ -246,6 +363,24 @@ STATES = [(False, False), (True, False), (False, True), (True, True)]
 def test_tile_constants_read_from_the_source():
     assert TR == 64 and MAX_Q == 256
     assert f"constexpr int MAX_Q = {K._MAX_CHUNK};" in SRC and f"constexpr int MAX_N = {K._MAX_STATE};" in SRC
+    assert HEADS_PER_BLOCK >= 1
+    for name in ("SPLIT_DE", "FAST_DECAY", "HEADS_PER_BLOCK", "AHEAD", "TERMS_BLOCKS", "STAGGER"):  # --ablate's
+        assert re.search(rf"constexpr (bool|int) {name} = ", SRC), name
+
+
+@pytest.mark.parametrize("name,shape,stride,ptr,dtype,ok", [
+    ("dy", (2, 4, 100, 64), (25600, 64, 256, 1), 0, torch.bfloat16, True),  # y's layout, (B, S, H, P)
+    ("dy", (2, 4, 100, 64), (25600, 64, 256, 2), 0, torch.bfloat16, False),  # a strided last axis
+    ("dy", (2, 4, 100, 16), (6400, 16, 64, 1), 16, torch.bfloat16, True),  # P 16, an aligned offset
+    ("dy", (2, 4, 100, 36), (14400, 36, 144, 1), 0, torch.bfloat16, False),  # head stride 36: no 16 bytes
+    ("dy", (2, 4, 100, 64), (25600, 64, 256, 1), 8, torch.bfloat16, False),  # misaligned base
+    ("dy", (2, 4, 100, 36), (14400, 36, 144, 1), 8, torch.float32, True),  # f32: a unit last stride only
+])
+def test_layout_error_names_what_the_bf16_kernels_refuse(name, shape, stride, ptr, dtype, ok):
+    """layout_error is None exactly where the kernels take the view; the
+    backward copies dy (autograd's gradient, any layout) where it is not."""
+    err = K.layout_error(name, shape, stride, ptr, dtype)
+    assert (err is None) == ok, err
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -266,18 +401,71 @@ def test_kernel_model_matches_autograd_and_jax(shape, init, final):
         assert _rel(gr, wj) <= F32_TOL, (name, _rel(gr, wj))
 
 
+def _bf16_case(seed, shape, init, final):
+    """bf16 inputs (x, B, C, dy and dt on the bf16 grid, where the plain
+    version's x * dt and the kernel's round alike) as f32 tensors, for the
+    model and for autograd through ref.ssd."""
+    b, s, h, p, n, g, _ = shape
+    x, dt, A, bm, cm, st0, dy, dsf = _heads(_inputs(seed, b, s, h, p, n, g, init, final))
+    x, bm, cm, dy, dt = (_bf(t) for t in (x, bm, cm, dy, dt))
+    return x, dt, A, bm, cm, st0, dy, dsf
+
+
+def _hold_bf16_model(args, chunk):
+    """The bf16 model against autograd through ref.ssd on the same bf16
+    inputs: each leaf within BF16_TOL of its largest element."""
+    x, dt, A, bm, cm, st0, dy, dsf = args
+    got = kernel_model_bf16(*args, chunk)
+    want = _autograd(x.bfloat16(), dt, A, bm.bfloat16(), cm.bfloat16(), st0, dy.bfloat16(), dsf)
+    errs = {}
+    for name, gr, w in zip(NAMES, got, want):
+        if w is None:
+            assert gr is None, name
+            continue
+        assert gr.shape == w.shape and bool(torch.isfinite(gr).all()), name
+        errs[name] = _rel(gr, w)
+    assert max(errs.values()) <= BF16_TOL, errs
+    return errs
+
+
 @pytest.mark.parametrize("shape", [SHAPES[0], SHAPES[1], SHAPES[2]])
 def test_kernel_model_bf16_rounding_within_tolerance(shape):
-    """x, B, C and dy on the bf16 grid, x * dt rounded to bf16 and dx, dB
-    and dC stored in bf16 as the kernel rounds them: within the card's bf16
-    tolerance of autograd through ref.ssd on the same bf16 inputs."""
-    b, s, h, p, n, g, chunk = shape
-    x, dt, A, bm, cm, st0, dy, dsf = _heads(_inputs(42, b, s, h, p, n, g, True, True))
-    x, bm, cm, dy = (t.bfloat16() for t in (x, bm, cm, dy))
-    got = kernel_model(x.float(), dt, A, bm.float(), cm.float(), st0, dy.float(), dsf, chunk, bf16=True)
-    want = _autograd(x, dt, A, bm, cm, st0, dy, dsf)
-    errs = {name: _rel(gr, w) for name, gr, w in zip(NAMES, got, want)}
-    assert max(errs.values()) <= BF16_TOL, errs
+    """The bf16 path's roundings (kernel_model_bf16: bf16 operands of every
+    product, split where they feed a carried state, the states handed on in
+    bf16, dx, dB and dC stored in bf16), with a random initial state and
+    d(final state): within the card's bf16 tolerance of autograd through
+    ref.ssd on the same bf16 inputs."""
+    _hold_bf16_model(_bf16_case(42, shape, True, True), shape[-1])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("init,final", STATES, ids=["none", "init", "final", "both"])
+def test_bf16_model_matches_autograd(shape, init, final):
+    """Every SHAPES case (G 1, 2 and H, ragged S and chunks) with and without
+    each state."""
+    _hold_bf16_model(_bf16_case(48, shape, init, final), shape[-1])
+
+
+def test_bf16_model_heads_past_a_block():
+    """A group of more heads than HEADS_PER_BLOCK, not a multiple of it:
+    the last block of the group takes fewer heads, warpgroup 1 of a
+    one-head block none; dB and dC still sum every head."""
+    rep = HEADS_PER_BLOCK + 3
+    shape = (1, 70, 2 * rep, 16, 16, 2, 64)
+    _hold_bf16_model(_bf16_case(49, shape, True, False), shape[-1])
+    per_head = torch.randn((1, 2 * rep, 5, 3), generator=torch.Generator().manual_seed(0))
+    summed = _heads_in_block_order(per_head, rep)
+    torch.testing.assert_close(summed, per_head.reshape(1, 2, rep, 5, 3).sum(2), rtol=1e-6, atol=1e-6)
+
+
+def test_bf16_model_the_models_decays():
+    """mamba2's decays (A = -linspace(1, 16, H)) over a full 256 chunk and a
+    ragged one, no state, as the training path calls it: finite and within
+    the bf16 tolerance."""
+    shape = (1, 256 + 77, 4, 64, 128, 1, 256)
+    x, dt, _, bm, cm, st0, dy, dsf = _bf16_case(50, shape, False, False)
+    A = -torch.linspace(1.0, 16.0, shape[2])
+    _hold_bf16_model((x, dt, A, bm, cm, st0, dy, dsf), 256)
 
 
 @pytest.mark.parametrize("shape", [SHAPES[1], SHAPES[4]])
