@@ -9,11 +9,15 @@ each kernel against its plain PyTorch version on the card, at its paths'
 shapes and a sweep of modes, and time kernel, plain version and (where
 one exists) one library call: K1 (flash attention, head dims 64, 128 and
 256), K1's backward (dq, dk, dv against autograd through the plain
-version; head dims 64 and 128) and its forward's row log-sum-exp, then
-K2 (SSD scan), then K2's backward (dx, ddt, dA, dB, dC and d(initial
-state) against autograd through the plain version, the same bits on a
-repeated call, and its training call timed beside K2's forward at that
-call), then K3 (RG-LRU scan); (3b) the paper's loop
+version; head dims 64, 128 and 256, recurrentgemma's training call
+timed) and its forward's row log-sum-exp, then K2 (SSD scan), then K2's
+backward (dx, ddt, dA, dB, dC and d(initial state) against autograd
+through the plain version, the same bits on a repeated call, and its
+training call timed beside K2's forward at that call), then K3 (RG-LRU
+scan), then K3's backward (dx, dlog_a and dh0 against the plain adjoint
+run in float64, at the tile edges of both K3 kernels, the same bits on
+repeated calls, and its training call timed beside K3's forward at that
+call); (3b) the paper's loop
 (examples/torch_quickstart.py): copd-mlp trained from a stream on a
 three-broker cluster and served by a two-replica ``InferenceDeployment``,
 then by a transactional one across a kill of the predictions topic's
@@ -37,7 +41,13 @@ launch a leaf a step, freed before serving; (4d) the same workload on
 full-width mamba2-2.7b at all 64 layers with ``adamw8bit`` (K2 forward
 and backward on every layer, K1 never), then the gradients of its
 trained first mixer layer at the training shape, through K2 forward +
-backward against the plain version, freed before serving; (5) serve four
+backward against the plain version, freed before serving; (4e) the
+same workload on full-width recurrentgemma-9b cut to 25 of its 38
+layers with ``adamw8bit`` (K3 forward and backward on every RG-LRU
+layer, K1 forward and backward at head dim 256 with its window on every
+local layer, K2 never), then the gradients of its trained first RG-LRU
+layer at the training shape, through K3 forward + backward against the
+plain version, freed before serving; (5) serve four
 requests of mixed prompt lengths from a stream topic
 through full-width yi-6b (32 layers, random bf16 weights from a
 seed) with ``ContinuousLMEngine`` and check what comes back; (6) serve
@@ -60,9 +70,10 @@ a topic of four 3000-token prompts through full-width recurrentgemma-9b
 window 2048 on K1 at head dim 256; random bf16 weights from a seed) with
 ``LMEngine`` and check what comes back (its bf16 drift stays within the
 tight slack, so every token is held there and no f32 twin is needed);
-(9) print the ``kernels`` line (K1's and K2's times summed over their
-paths, and each path's own under ``by_path``; K1's backward, K2's
-backward, the 8-bit update and the global norm as entries of their own);
+(9) print the ``kernels`` line (K1's, K1's backward's, K2's and K3's
+times summed over their paths, and each path's own under ``by_path``;
+K2's backward, K3's backward, the 8-bit update and the global norm as
+entries of their own);
 (10) print the result line. Each path is driven with every kernel's
 launch count set to 0 just before it and read just after.
 
@@ -194,8 +205,10 @@ NORM_RTOL = 1e-5
 OPT8_OPS = 39
 # the first loss: ln(vocab) plus half the variance of random logits
 # (unembed, or mamba2's tied embed, 1/sqrt(d) on a unit-RMS hidden state:
-# about 0.5): ln(64000) = 11.07, ln(50280) = 10.83
-TRAIN_LOSS0_BAND = {"yi-6b": (10.5, 12.5), "mamba2-2.7b": (10.3, 12.3)}
+# about 0.5): ln(64000) = 11.07, ln(50280) = 10.83; recurrentgemma's final
+# norm scales by 1 + w with w initialised to ones, as in JAX, so its tied
+# embed's logits have a variance of about 4: ln(256000) + 2 = 14.45
+TRAIN_LOSS0_BAND = {"yi-6b": (10.5, 12.5), "mamba2-2.7b": (10.3, 12.3), "recurrentgemma-9b": (13.5, 15.5)}
 # mamba2's training path: full-width mamba2-2.7b at all its 64 layers (d
 # 2560, 80 heads x 64, N 128, chunk 256, 2,702,296,576 params), trained
 # with adamw8bit on phase_train's stream at batch TRAIN_BATCH x TRAIN_SEQ
@@ -207,6 +220,35 @@ MAMBA2_LAYERS = 64
 # call; then the training path's call, (b, s, h, p, n, g, chunk) in bf16
 # with the model's decays and no state, timed with the forward beside it
 SSD_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 80, 64, 128, 1, 256)
+# recurrentgemma-9b's training path: its published widths (d 4096, 16/1
+# heads x 256, window 2048, d_rnn 4096, d_ff 12288, vocab 256000, tied and
+# scaled embed), trained with adamw8bit on phase_train's stream, batch and
+# schedule, cut in depth to RG_TRAIN_LAYERS of its 38 layers with the
+# pattern kept (rec, rec, local, ...: 8 groups and one RG-LRU layer of the
+# tail): all 38 run out of the card's memory (about 1.99 GB a layer of
+# weights, 8-bit state, gradients and activations: peak 65.66 GB at 20
+# layers, 77.59 GB at 26, out of memory at 38 on an H100 80GB HBM3); 25 is
+# the most whose peak stays under about 76 GB (PERF.md, Findings)
+RG_TRAIN_LAYERS = 25
+RG_WINDOW = 2048
+RG_TRAIN_ATTN = (TRAIN_BATCH, TRAIN_SEQ, 16, 1, 256)  # (B, S, H, Kv, D) of its local attention calls
+RGLRU_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 4096)  # (B, S, C) of its RG-LRU calls
+# K3's backward against ref.rglru_bwd run in float64, element by element:
+# |got - want| <= tol + tol * scale with tol RGLRU_TOL at the tests' decays
+# and RGLRU_F64_TOL at the model's, as check_rglru holds K3. The scale is
+# the size that each gradient's f32 roundings are relative to: g, a sum of
+# dh terms, crosses 0, and dlog_a's bracket, a difference of terms up to
+# 30 |x| at a = 0.9995, does too. With G the same adjoint chain over |dh|
+# and |d(h_last)|: dx's scale is w G, dh0's a_0 G_0 (both the plain
+# adjoint of |dh|), dlog_a's G (|a h_{t-1}| + |a^2 x / w|). Scaled by
+# |want| alone the kernel's CPU model is 4.8 tolerances off where dlog_a
+# crosses 0, and 0.0016 scaled so; on the card expf decays put dh0 1.15
+# off (the f32 plain version 1.19). At K3's tile
+# edges and the backward's own (8 steps a warp, time blocks of 128), h0
+# and d(h_last) each present and absent
+RGLRU_BWD_EDGES = ((1, 1, 64, True), (2, 9, 40, False), (1, 127, 64, True), (2, 128, 32, False),
+                   (1, 129, 96, True), (3, 255, 100, False), (1, 256, 96, True), (3, 257, 40, False),
+                   (1, 845, 4096, True), (2, 1000, 96, False))
 # the paper loop (examples/torch_quickstart.py): copd-mlp at its own
 # widths (5 -> 32 -> 4) on the synthetic HCOPD stream (220 records,
 # validation 0.2), trained as tests/test_system.py:17 trains it and held
@@ -232,18 +274,21 @@ def card_line() -> str:
     return out[0].strip()
 
 
+BWD_KERNELS = ("flash_attention", "ssd_scan", "rglru_scan")  # the modules with a backward kernel
+
+
 def reset_counts(kernels: dict) -> None:
-    """Every kernel's launch count to 0 (K1's and K2's backwards included)."""
+    """Every kernel's launch count to 0 (K1's, K2's and K3's backwards included)."""
     for mod in kernels.values():
         mod.LAUNCHES = 0
-    kernels["flash_attention"].BWD_LAUNCHES = 0
-    kernels["ssd_scan"].BWD_LAUNCHES = 0
+    for name in BWD_KERNELS:
+        kernels[name].BWD_LAUNCHES = 0
 
 
 def read_counts(kernels: dict) -> dict:
     out = {name: mod.LAUNCHES for name, mod in kernels.items()}
-    out["flash_attention_bwd"] = kernels["flash_attention"].BWD_LAUNCHES
-    out["ssd_scan_bwd"] = kernels["ssd_scan"].BWD_LAUNCHES
+    for name in BWD_KERNELS:
+        out[f"{name}_bwd"] = kernels[name].BWD_LAUNCHES
     return out
 
 
@@ -314,7 +359,7 @@ def check_attention(card, fa, ref, b, s, h, kv, d, dtype, causal, window, cap, g
         row["ms"] = time_ms(kernel, 20)
         row["plain_ms"] = time_ms(plain, 5)
         row["library_ms"] = None
-        if window is None and cap is None:
+        if cap is None and (window is None or (causal and window >= s)):  # a window of S or more drops nothing
             row["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kr, vr, is_causal=causal), 20
             )
@@ -383,7 +428,9 @@ def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, ge
     one input: dq, dk, dv (dk, dv summed over each kv group), each held to
     its largest element (BWD_TOL). With ``timed`` also times the kernel,
     the plain backward (autograd of ``ref.mha``, its graph built once) and
-    SDPA's backward on pre-repeated K/V as a yardstick. Raises if they
+    SDPA's backward on pre-repeated K/V as a yardstick where the mask is
+    causal alone (a window of S or more drops nothing); where the backend
+    refuses the call, ``library_refused`` says why. Raises if they
     disagree."""
     import torch
     import torch.nn.functional as F
@@ -423,11 +470,15 @@ def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, ge
         row["ms"] = time_ms(kernel, 20)
         row["plain_ms"] = time_ms(plain, 3)
         row["library_ms"] = None
-        if window is None:
+        if window is None or (causal and window >= s):
             sq, sk, sv = (t.detach().requires_grad_(True)
                           for t in (qt, kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)))
-            s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
-            row["library_ms"] = time_ms(lambda: torch.autograd.grad(s_out, (sq, sk, sv), dot, retain_graph=True), 20)
+            try:
+                s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
+                row["library_ms"] = time_ms(
+                    lambda: torch.autograd.grad(s_out, (sq, sk, sv), dot, retain_graph=True), 20)
+            except RuntimeError as e:  # no SDPA backend takes the call
+                row["library_refused"] = str(e).splitlines()[0][:300]
         row["bound_ms"], row["bound_by"] = attention_bwd_bound(b, h, kv, s, d, dtype, causal, window)
     print(f"[{card}] flash_attention_bwd {json.dumps(row)}", flush=True)
     if not ok:
@@ -435,7 +486,7 @@ def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, ge
     return row
 
 
-def check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen, calls: int = 3):
+def check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen, calls: int = 3, window: int | None = None):
     """K1's backward called ``calls`` times on one bf16 causal input: dq,
     dk and dv the same to the bit every time (its GQA split adds partial
     sums in a fixed order, with no atomics). Raises if not."""
@@ -443,12 +494,15 @@ def check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen, calls: int = 
 
     q, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "qo")
     k, v = (torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "kv")
-    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
-    first = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
-    same = all(all(torch.equal(x, y) for x, y in zip(first, fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)))
-               for _ in range(calls - 1))
-    row = {"b": b, "s": s, "h": h, "kv": kv, "d": d, "dtype": "bfloat16", "causal": True, "calls": calls,
-           "bit_identical": same, "ok": same}
+    out, lse = fa.flash_attention(q, k, v, causal=True, window=window, return_lse=True)
+
+    def call():
+        return fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True, window=window)
+
+    first = call()
+    same = all(all(torch.equal(x, y) for x, y in zip(first, call())) for _ in range(calls - 1))
+    row = {"b": b, "s": s, "h": h, "kv": kv, "d": d, "dtype": "bfloat16", "causal": True, "window": window,
+           "calls": calls, "bit_identical": same, "ok": same}
     print(f"[{card}] flash_attention_bwd determinism {json.dumps(row)}", flush=True)
     if not same:
         raise AssertionError(f"flash_attention_bwd gave other bits on the same input: {row}")
@@ -461,7 +515,12 @@ def phase_kernels_bwd(card, fa, ref):
     windows with and without the causal mask, GQA 1 / 2 / 8; the lse
     against torch.logsumexp of the plain scores; the forward's output with
     and without lse, to the bit. Then the training path's own forward and
-    backward calls, timed, and the backward's determinism at that shape."""
+    backward calls, timed, and the backward's determinism at that shape.
+    Then head dim 256 (recurrentgemma's local attention, GQA 16/1): a
+    ragged S and a window that binds, in f32 and bf16, its training call
+    (RG_TRAIN_ATTN, window RG_WINDOW, which S 1024 does not reach) in f32
+    and, forward and backward, timed in bf16, and the backward's bits on
+    three calls with and without a window that binds."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -487,7 +546,19 @@ def phase_kernels_bwd(card, fa, ref):
     fwd_main = check_attention(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, None, gen, True)
     bwd_main = check_attention_bwd(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, gen, True)
     rows.append(check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen))
-    return rows, lse_rows, fwd_main, bwd_main
+    # head dim 256: 300 = 4 x 64 + 44 is ragged for every tile; window 100
+    # binds inside a 64-key tile; non-causal with a window over 2 kv heads
+    for bb, ss, hh, kk, causal, window in ((1, 300, 16, 1, True, None), (2, 777, 16, 1, True, 100),
+                                           (1, 300, 8, 2, False, 50)):
+        for dtype in ("float32", "bfloat16"):
+            rows.append(check_attention_bwd(card, fa, ref, bb, ss, hh, kk, 256, dtype, causal, window, gen, False))
+    b, s, h, kv, d = RG_TRAIN_ATTN
+    rows.append(check_attention_bwd(card, fa, ref, b, s, h, kv, d, "float32", True, RG_WINDOW, gen, False))
+    rg_fwd_main = check_attention(card, fa, ref, b, s, h, kv, d, "bfloat16", True, RG_WINDOW, None, gen, True)
+    rg_bwd_main = check_attention_bwd(card, fa, ref, b, s, h, kv, d, "bfloat16", True, RG_WINDOW, gen, True)
+    rows.append(check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen, window=RG_WINDOW))
+    rows.append(check_attention_bwd_determinism(card, fa, 2, 777, h, kv, d, gen, window=100))
+    return rows, lse_rows, fwd_main, bwd_main, rg_fwd_main, rg_bwd_main
 
 
 def load_example(name: str):
@@ -509,9 +580,9 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     (AdamW or adamw8bit) on a warm-up + cosine schedule takes TRAIN_STEPS
     steps of TRAIN_BATCH and runs its streaming eval. Checks finite,
     falling losses, the first near ln(vocab) (TRAIN_LOSS0_BAND), K1's
-    launches forward and backward (one an attention layer a step, the
-    forward once more an eval batch), K2's (the same, an SSD layer), the
-    8-bit update's (one a leaf a step with adamw8bit, none with AdamW) and
+    launches forward and backward (one an attention or local-attention
+    layer a step, the forward once more an eval batch), K2's (the same,
+    an SSD layer), K3's (the same, an RG-LRU layer), the 8-bit update's (one a leaf a step with adamw8bit, none with AdamW) and
     the norm's (one a leaf and one to finish, a step, with adamw8bit; none
     with AdamW, whose clip is eager), and the registry's result. Returns
     the phase's numbers and the trained first layer's mixer weights."""
@@ -574,18 +645,20 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     n_eval = int(round(TRAIN_SEQS * TRAIN_VAL_RATE)) // min(TRAIN_BATCH, int(round(TRAIN_SEQS * TRAIN_VAL_RATE)))
     n_leaves = len(tree_leaves(model.param_tree()))
     kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
-    n_attn, n_ssm = sum(k in ("attn", "local") for k in kinds), kinds.count("ssm")
-    assert n_attn + n_ssm == cfg.n_layers, f"no training path for {cfg.pattern}"
+    n_attn, n_ssm, n_rec = sum(k in ("attn", "local") for k in kinds), kinds.count("ssm"), kinds.count("rec")
+    assert n_attn + n_ssm + n_rec == cfg.n_layers, f"no training path for {cfg.pattern}"
     want = {
         "flash_attention": n_attn * (TRAIN_STEPS + n_eval), "flash_attention_bwd": n_attn * TRAIN_STEPS,
-        "ssd_scan": n_ssm * (TRAIN_STEPS + n_eval), "ssd_scan_bwd": n_ssm * TRAIN_STEPS, "rglru_scan": 0,
+        "ssd_scan": n_ssm * (TRAIN_STEPS + n_eval), "ssd_scan_bwd": n_ssm * TRAIN_STEPS,
+        "rglru_scan": n_rec * (TRAIN_STEPS + n_eval), "rglru_scan_bwd": n_rec * TRAIN_STEPS,
         "adamw8bit": n_leaves * TRAIN_STEPS if opt_name == "adamw8bit" else 0,
         # the clip's norm: a launch a leaf and one to finish, a step
         "grad_norm": (n_leaves + 1) * TRAIN_STEPS if opt_name == "adamw8bit" else 0,
     }
     band = TRAIN_LOSS0_BAND[arch]
     out = {
-        "arch": arch, "layers": cfg.n_layers, "optimizer": opt_name, "leaves": n_leaves, "params": n_params,
+        "arch": arch, "layers": cfg.n_layers, "kinds": {"attention": n_attn, "ssm": n_ssm, "rec": n_rec},
+        "optimizer": opt_name, "leaves": n_leaves, "params": n_params,
         "steps": res.steps, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "losses": losses, "eval_loss": res.eval_metrics.get("loss"), "eval_batches": eval_calls[0],
         "step_ms": step_ms, "median_step_ms": med_ms, "tokens_per_s": tokens / (med_ms / 1e3),
@@ -626,6 +699,18 @@ def phase_train_mamba2(card, kernels: dict):
     and norm kernels once a leaf a step (the norm once more). Returns the
     phase's numbers and the trained first layer's mixer weights."""
     return phase_train(card, kernels, arch="mamba2-2.7b", layers=MAMBA2_LAYERS, opt_name="adamw8bit")
+
+
+def phase_train_recurrentgemma(card, kernels: dict):
+    """phase_train's workload on full-width recurrentgemma-9b, cut in depth
+    to RG_TRAIN_LAYERS, trained with adamw8bit: its gates, K3 forward an
+    RG-LRU layer a step and an eval batch and K3's backward an RG-LRU
+    layer a step, K1 forward (window 2048, head dim 256) a local layer a
+    step and an eval batch and its backward a local layer a step, K2
+    never, the 8-bit and norm kernels once a leaf a step (the norm once
+    more). Returns the phase's numbers and the trained first layer's
+    RG-LRU weights."""
+    return phase_train(card, kernels, arch="recurrentgemma-9b", layers=RG_TRAIN_LAYERS, opt_name="adamw8bit")
 
 
 def opt8_bytes(p) -> int:
@@ -1892,6 +1977,191 @@ def check_rglru(card, ref, b, s, c, gen, h0: str | None, model_decays: bool, tim
     return row
 
 
+def rglru_bwd_bound(b, s, c, h0: bool, dh_last: bool) -> tuple[float, str]:
+    """Least time for K3's backward: max(bytes / HBM rate, ops / peak).
+
+    Bytes: dh, x and log_a read, dx and dlog_a written (B S C f32 each),
+    and h read as h_{t-1}: its first S - 1 rows, then h0 when given; dh_last
+    read and dh0 written when given (B C f32 each). Operations: 20 an
+    element (two exps, the weight's expm1, clamp and sqrt, the chain's
+    add and multiply twice, dx's product, dlog_a's five and its division)
+    at the CUDA cores' f32 rate."""
+    nbytes = 4 * b * c * (6 * s - 1 + (2 if h0 else 0) + (1 if dh_last else 0))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 20 * b * s * c / PEAK_FLOPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_rglru_bwd(card, K, ref, b, s, c, gen, h0: str | None, dh_last: bool, model_decays: bool, timed: bool):
+    """K3's backward (``K.rglru_scan_bwd``) against its plain version
+    ``ref.rglru_bwd`` run in float64 on one input (``rglru_inputs``, h from
+    K3, a random dh and, with ``dh_last``, a random d(h_last)), element by
+    element within tol + tol * scale (RGLRU_BWD_EDGES' comment: tol
+    RGLRU_TOL with the tests' decays, RGLRU_F64_TOL with the model's); the
+    f32 plain version's own distance from the float64 run is printed
+    beside, and each gradient's error scaled by |want| alone. Where log
+    a is 0 (a = 1: the card's ``torch.randn`` can return an exact 0, and
+    the tests' decays are -|N| * 0.3) the weight's derivative is infinite
+    and JAX's dlog_a is too: there dx must be 0 on both sides and dlog_a
+    the float64 run's infinity, or NaN where it has NaN (``edge``
+    counts those elements); everywhere else each gradient is finite and
+    held as above. With ``timed`` also times the kernel and both plain
+    runs. Raises if the kernel disagrees."""
+    import torch
+
+    from repro_torch.kernels.ops import rglru_op
+
+    x, log_a, h_init = rglru_inputs(b, s, c, gen, h0, model_decays)
+    with torch.no_grad():
+        h, _ = rglru_op(x, log_a, h_init)
+    dh = torch.randn((b, s, c), generator=gen, device="cuda")
+    dl = torch.randn((b, c), generator=gen, device="cuda") if dh_last else None
+    d64 = [None if t is None else t.double() for t in (x, log_a, h_init)]
+    h64, _ = ref.rglru(*d64)
+
+    def kernel():
+        return K.rglru_scan_bwd(x, log_a, h_init, h, dh, dl)
+
+    def plain():
+        return ref.rglru_bwd(x, log_a, h_init, h, dh, dl)
+
+    def plain64():
+        return ref.rglru_bwd(*d64, h64, dh.double(), None if dl is None else dl.double())
+
+    got, mine, want = kernel(), plain(), plain64()
+    torch.cuda.synchronize()
+    # each gradient's scale (RGLRU_BWD_EDGES' comment): the plain adjoint
+    # of |dh|, and for dlog_a G, its chain, times the bracket's two terms
+    x64, la64 = d64[0], d64[1]
+    a64 = torch.exp(la64)
+    v64 = -torch.expm1(2 * la64)
+    w64 = torch.sqrt(torch.where(v64 > 0, v64, torch.zeros_like(v64)))
+    hprev = torch.cat([(torch.zeros_like(h64[:, 0]) if h_init is None else d64[2])[:, None], h64[:, :-1]], 1)
+    size = ref.rglru_bwd(*d64, h64, dh.double().abs(), None if dl is None else dl.double().abs())
+    scales = [size[0], size[0] / w64 * ((a64 * hprev).abs() + (a64 * a64 * x64 / w64).abs()), size[2]]
+    tol = RGLRU_F64_TOL if model_decays else RGLRU_TOL
+    edge = la64 == 0  # a = 1: dlog_a's derivative is infinite
+    row = {"b": b, "s": s, "c": c, "h0": h0, "dh_last": dh_last, "model_decays": model_decays, "tol": tol,
+           "edge": int(edge.sum())}
+    ok = True
+    for name, gk, gp, w, sc in zip(("dx", "dlog_a", "dh0"), got, mine, want, scales):
+        if w is None:
+            ok = ok and gk is None
+            continue
+        keep = ~edge if name == "dlog_a" else torch.ones_like(w, dtype=torch.bool)
+        ok = ok and bool(torch.isfinite(gk[keep]).all())
+        for side, gg in (("kernel", gk), ("plain_f32", gp)):
+            err = (gg.double() - w).abs()[keep]
+            row[f"{side}_{name}_el_err"] = float((err / (tol + tol * sc[keep])).max())  # <= 1 passes
+            row[f"{side}_{name}_el_err_want"] = float((err / (tol + tol * w.abs()[keep])).max())
+        row[f"{name}_max_abs_err"] = float((gk.double() - w).abs()[keep].max())
+        ok = ok and row[f"kernel_{name}_el_err"] <= 1.0
+        if name == "dlog_a" and row["edge"]:  # the float64 run's infinities and NaNs, element for element
+            ge, we = gk.double()[edge], w[edge]
+            ok = ok and bool(((ge == we) | (ge.isnan() & we.isnan())).all()) and not bool(torch.isfinite(we).any())
+    row["max_abs_err"] = max(v for k, v in row.items() if k.endswith("_max_abs_err"))
+    row["ok"] = ok
+    if timed:
+        row["ms"] = time_ms(kernel, 20)
+        row["plain_ms"] = time_ms(plain, 2)
+        row["plain_f64_ms"] = time_ms(plain64, 1)
+        row["library_ms"] = None  # no single PyTorch call computes the recurrence's adjoint
+        row["bound_ms"], row["bound_by"] = rglru_bwd_bound(b, s, c, h0 is not None, dh_last)
+    print(f"[{card}] rglru_scan_bwd {json.dumps(row)}", flush=True)
+    if not ok:
+        raise AssertionError(f"rglru_scan_bwd disagrees with its plain version: {row}")
+    return row
+
+
+def check_rglru_bwd_determinism(card, K, b, s, c, gen, calls: int = 3):
+    """K3's backward called ``calls`` times on one input: the same bits every time."""
+    import torch
+
+    x, log_a, h_init = rglru_inputs(b, s, c, gen, "random", True)
+    h, _ = K.rglru_scan(x, log_a, h_init)
+    dh, dl = torch.randn((b, s, c), generator=gen, device="cuda"), torch.randn((b, c), generator=gen, device="cuda")
+    first = K.rglru_scan_bwd(x, log_a, h_init, h, dh, dl)
+    same = all(all(torch.equal(p.view(torch.int32), q.view(torch.int32))  # bits, NaNs included
+                   for p, q in zip(first, K.rglru_scan_bwd(x, log_a, h_init, h, dh, dl)))
+               for _ in range(calls - 1))
+    row = {"b": b, "s": s, "c": c, "calls": calls, "bit_identical": same, "ok": same}
+    print(f"[{card}] rglru_scan_bwd determinism {json.dumps(row)}", flush=True)
+    if not same:
+        raise AssertionError(f"rglru_scan_bwd gave other bits on the same input: {row}")
+    return row
+
+
+def phase_rglru_kernel_bwd(card, K, ref):
+    """K3's backward against ref.rglru_bwd in float64: RGLRU_SWEEP's shapes
+    and RGLRU_BWD_EDGES (the tests' decays), then the training path's call
+    (RGLRU_TRAIN, the model's decays, no h0 and no d(h_last), as the
+    mixer hands it) timed with the forward's call beside it, then the same
+    bits on three calls. Returns (rows, the backward's and the forward's
+    training rows)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    rows = [check_rglru_bwd(card, K, ref, b, s, c, gen, "random", True, False, False) for b, s, c in RGLRU_SWEEP]
+    rows += [check_rglru_bwd(card, K, ref, b, s, c, gen, "random" if h0 else None, h0, False, False)
+             for b, s, c, h0 in RGLRU_BWD_EDGES]
+    b, s, c = RGLRU_TRAIN
+    rows.append(check_rglru_bwd(card, K, ref, b, s, c, gen, "random", True, True, False))
+    main = check_rglru_bwd(card, K, ref, b, s, c, gen, None, False, True, True)
+    fwd = check_rglru(card, ref, b, s, c, gen, None, True, True)
+    rows.append(check_rglru_bwd_determinism(card, K, b, s, c, gen))
+    return rows, main, fwd
+
+
+def phase_train_rglru_grads(card, ref, mixer: dict):
+    """The trained recurrentgemma's first RG-LRU layer (``mixer``: its
+    weights) at the training shape: the gradients of a fixed random
+    projection of its output with respect to a random x and every weight
+    of the layer, through K3 forward + backward (``rglru_op`` under grad),
+    against the same computation with the plain ``ref.rglru`` (autograd)
+    in the scan's place; each leaf's error relative to its largest
+    element, within the bf16 tolerance of the layer's products (the scans
+    differ in their f32 roundings, which the bf16 products around them
+    round on)."""
+    import math
+    from unittest import mock
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import rglru as M
+
+    cfg = configs.get("recurrentgemma-9b")
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    leaves = {"x": randn(b, s, cfg.d_model), **mixer}
+    proj = randn(b, s, cfg.d_model)
+
+    def plain_rglru_op(x, log_a, h0=None):
+        return ref.rglru(x.float(), log_a.float(), None if h0 is None else h0.float())
+
+    def grads(kernel: bool):
+        t = {k: v.detach().requires_grad_(True) for k, v in leaves.items()}
+        p = {k: v for k, v in t.items() if k != "x"}
+        with mock.patch.object(M, "rglru_op", M.rglru_op if kernel else plain_rglru_op):
+            y, _ = M.rglru_mixer(p, t["x"], cfg.rglru)
+        g = torch.autograd.grad((y.float() * proj.float()).sum(), list(t.values()))
+        return dict(zip(t, g))
+
+    got = grads(True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = grads(False)
+    torch.cuda.synchronize()
+    rel = {k: float((got[k].float() - want[k].float()).abs().max() / want[k].float().abs().max()) for k in got}
+    row = {"shape": [b, s, cfg.d_model], "rel_err": rel, "tol": TOL["bfloat16"]}
+    print(f"[{card}] recurrentgemma RG-LRU layer gradients, kernel vs plain {json.dumps(row)}", flush=True)
+    assert all(math.isfinite(e) and e <= TOL["bfloat16"] for e in rel.values()), row
+    return row
+
+
 def phase_rglru_kernel(card, ref):
     import torch
 
@@ -2068,10 +2338,12 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     rows, main_rows, rg_attn_main, deploy_attn_main = phase_kernels(card, flash_attention, ref)
-    bwd_rows, lse_rows, train_fwd_main, bwd_main = phase_kernels_bwd(card, flash_attention, ref)
+    bwd_rows, lse_rows, train_fwd_main, bwd_main, rg_train_fwd_main, rg_bwd_main = phase_kernels_bwd(
+        card, flash_attention, ref)
     ssd_rows, ssd_main = phase_ssd_kernel(card, ref)
     ssd_bwd_rows, ssd_bwd_main, ssd_train_fwd = phase_ssd_kernel_bwd(card, ssd_scan, ref)
     rglru_rows, rglru_main = phase_rglru_kernel(card, ref)
+    rglru_bwd_rows, rglru_bwd_main, rglru_train_fwd = phase_rglru_kernel_bwd(card, rglru_scan, ref)
     paper_loop = phase_paper_loop(card, kernels)
     # training first: its ~60 GB are freed before the serving models load
     training, trained_layer = phase_train(card, kernels)
@@ -2097,6 +2369,15 @@ def main() -> int:
     del trained_mixer
     gc.collect()
     torch.cuda.empty_cache()
+    # recurrentgemma cut to RG_TRAIN_LAYERS with the 8-bit state, then its
+    # trained first RG-LRU layer's gradients: freed before the serving models load
+    training_rg, trained_rec = phase_train_recurrentgemma(card, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rg_grads = phase_train_rglru_grads(card, ref, trained_rec)
+    del trained_rec
+    gc.collect()
+    torch.cuda.empty_cache()
     serving, yi_cfg, yi_model = phase_serve(card, kernels)
     serving_group = phase_serve_group(card, kernels, yi_cfg, yi_model)
     deployment = phase_deploy_lm(card, kernels, yi_cfg, yi_model)
@@ -2114,28 +2395,31 @@ def main() -> int:
         paths[arch, compute_dtype] = phase_serve_wave(card, kernels, arch, compute_dtype, prompt_len, slack)
     serving_ssm, serving_rg = paths["mamba2-2.7b", "bfloat16"], paths["recurrentgemma-9b", "bfloat16"]
 
-    # K1 runs on four kinds of call: yi-6b's serving calls (one per served
+    # K1 runs on five kinds of call: yi-6b's serving calls (one per served
     # prompt length), yi-6b's training call (its forward, with lse), the
-    # yi-6b deployment's prefill (one partition's prompts) and
-    # recurrentgemma's one (its wave), each timed once; the sums cover
-    # all, by_path holds each path's own
-    attn_main = main_rows + [train_fwd_main, deploy_attn_main, rg_attn_main]
+    # yi-6b deployment's prefill (one partition's prompts), recurrentgemma's
+    # wave and recurrentgemma's training call (with lse, head dim 256,
+    # window 2048), each timed once; the sums cover all, by_path holds each
+    # path's own
+    attn_main = main_rows + [train_fwd_main, deploy_attn_main, rg_attn_main, rg_train_fwd_main]
     train_fwd_launches = training["launches"]["flash_attention"]
     full_fwd_launches = training_full["launches"]["flash_attention"]
+    rg_train_fwd_launches = training_rg["launches"]["flash_attention"]
     entry = {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
         "launches": serving["launches"] + serving_group["launches"] + train_fwd_launches + full_fwd_launches
-        + deployment["launches"] + serving_rg["launches"]["flash_attention"],
+        + deployment["launches"] + serving_rg["launches"]["flash_attention"] + rg_train_fwd_launches,
         "max_abs_err": max(r["max_abs_err"] for r in attn_main),
         "matched": all(r["ok"] for r in rows + attn_main),
         "shapes": "one call at each of yi-6b's prompt lengths (1,S,32,128) S=%s bf16 causal, yi-6b's "
         "training call (%d,%d,32,128) kv 4 bf16 causal (16 and 32 layers), the yi-6b deployment's prefill (%d,%d,32,128) kv 4 "
-        "bf16 causal, and recurrentgemma's (%d,%d,16,256) kv 1 bf16 causal window 2048, summed"
+        "bf16 causal, recurrentgemma's wave (%d,%d,16,256) kv 1 bf16 causal window 2048, and recurrentgemma's "
+        "training call (%d,%d,16,256) kv 1 bf16 causal window 2048 (%d layers), summed"
         % ("/".join(map(str, PROMPT_LENS)), TRAIN_BATCH, TRAIN_SEQ, DEPLOY_PER_PARTITION, DEPLOY_PROMPT,
-           WAVE_REQUESTS, RG_PROMPT_LEN),
+           WAVE_REQUESTS, RG_PROMPT_LEN, TRAIN_BATCH, TRAIN_SEQ, RG_TRAIN_LAYERS),
         "by_path": {
             "yi-6b": path_summary(serving["launches"], main_rows),
             "yi-6b-group": path_summary(serving_group["launches"], main_rows),
@@ -2143,6 +2427,7 @@ def main() -> int:
             "yi-6b-train-full": path_summary(full_fwd_launches, [train_fwd_main]),
             "yi-6b-deployment": path_summary(deployment["launches"], [deploy_attn_main]),
             "recurrentgemma-9b": path_summary(serving_rg["launches"]["flash_attention"], [rg_attn_main]),
+            "recurrentgemma-9b-train": path_summary(rg_train_fwd_launches, [rg_train_fwd_main]),
         },
     }
     for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
@@ -2187,37 +2472,73 @@ def main() -> int:
     }
     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
         ssd_bwd_entry[key] = ssd_bwd_main[key]
+    # K3 runs on two kinds of call, each timed once: recurrentgemma's
+    # serving wave and its training call (the forward of each RG-LRU layer
+    # a step and an eval batch); the sums cover both, by_path holds each
+    # path's own
+    rglru_paths = [rglru_main, rglru_train_fwd]
+    rg_train_rec = training_rg["launches"]["rglru_scan"]
     rglru_entry = {
         "name": "rglru_scan",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:30",
-        "launches": serving_rg["launches"]["rglru_scan"],
-        "max_abs_err": rglru_main["max_abs_err"],
-        "matched": all(r["ok"] for r in rglru_rows + [rglru_main]),
-        "shapes": "one call per RG-LRU layer of the wave (%d,%d,4096) f32, the model's decays, "
-        "against a float64 run" % (WAVE_REQUESTS, RG_PROMPT_LEN),
+        "launches": serving_rg["launches"]["rglru_scan"] + rg_train_rec,
+        "max_abs_err": max(r["max_abs_err"] for r in rglru_paths),
+        "matched": all(r["ok"] for r in rglru_rows + rglru_paths),
+        "shapes": "one call per RG-LRU layer of the wave (%d,%d,4096) f32 and one per RG-LRU layer of "
+        "recurrentgemma's training call (%d,%d,4096) f32, the model's decays, against a float64 run, summed"
+        % (WAVE_REQUESTS, RG_PROMPT_LEN, TRAIN_BATCH, TRAIN_SEQ),
+        "by_path": {
+            "recurrentgemma-9b": path_summary(serving_rg["launches"]["rglru_scan"], [rglru_main]),
+            "recurrentgemma-9b-train": path_summary(rg_train_rec, [rglru_train_fwd]),
+        },
+    }
+    for key in ("ms", "plain_ms", "plain_f64_ms", "bound_ms"):
+        rglru_entry[key] = sum(r[key] for r in rglru_paths)
+    rglru_entry["bound_by"] = max(rglru_paths, key=lambda r: r["bound_ms"])["bound_by"]
+    rglru_entry["library_ms"] = None
+    rg_train_rec_bwd = training_rg["launches"]["rglru_scan_bwd"]
+    rglru_bwd_entry = {
+        "name": "rglru_scan_bwd",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+        # no TPU kernel: JAX differentiates its plain associative scan
+        "replaces": "none (JAX differentiates src/repro/models/rglru.py:93 rglru_scan)",
+        "launches": rg_train_rec_bwd,
+        "max_abs_err": rglru_bwd_main["max_abs_err"],
+        "matched": all(r["ok"] for r in rglru_bwd_rows + [rglru_bwd_main]) and rg_grads is not None,
+        "shapes": "recurrentgemma's training call (%d,%d,%d) f32, the model's decays, no h0, one an RG-LRU layer "
+        "a step, against a float64 run" % RGLRU_TRAIN,
+        "by_path": {"recurrentgemma-9b-train": path_summary(rg_train_rec_bwd, [rglru_bwd_main])},
     }
     for key in ("ms", "plain_ms", "plain_f64_ms", "bound_ms", "bound_by", "library_ms"):
-        rglru_entry[key] = rglru_main[key]
+        rglru_bwd_entry[key] = rglru_bwd_main[key]
     bwd_entry = {
         "name": "flash_attention_bwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         # no TPU kernel: JAX differentiates its plain chunked attention
         "replaces": "none (JAX differentiates src/repro/models/layers.py:314)",
-        "launches": training["launches"]["flash_attention_bwd"] + training_full["launches"]["flash_attention_bwd"],
-        "max_abs_err": bwd_main["max_abs_err"],
-        "matched": all(r["ok"] for r in bwd_rows + [bwd_main]) and train_grads is not None,
-        "shapes": "yi-6b's training call (%d,%d,32,128) kv 4 bf16 causal, one a layer a step (16 and 32 layers)"
-        % (TRAIN_BATCH, TRAIN_SEQ),
+        "launches": training["launches"]["flash_attention_bwd"] + training_full["launches"]["flash_attention_bwd"]
+        + training_rg["launches"]["flash_attention_bwd"],
+        "max_abs_err": max(bwd_main["max_abs_err"], rg_bwd_main["max_abs_err"]),
+        "matched": all(r["ok"] for r in bwd_rows + [bwd_main, rg_bwd_main]) and train_grads is not None,
+        "shapes": "yi-6b's training call (%d,%d,32,128) kv 4 bf16 causal, one a layer a step (16 and 32 layers), "
+        "and recurrentgemma's (%d,%d,16,256) kv 1 bf16 causal window 2048, one a local layer a step, summed"
+        % (TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ),
         "by_path": {
             "yi-6b-train": path_summary(training["launches"]["flash_attention_bwd"], [bwd_main]),
             "yi-6b-train-full": path_summary(training_full["launches"]["flash_attention_bwd"], [bwd_main]),
+            "recurrentgemma-9b-train": path_summary(training_rg["launches"]["flash_attention_bwd"], [rg_bwd_main]),
         },
     }
-    for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
-        bwd_entry[key] = bwd_main[key]
+    bwd_paths = [bwd_main, rg_bwd_main]
+    for key in ("ms", "plain_ms", "bound_ms"):
+        bwd_entry[key] = sum(r[key] for r in bwd_paths)
+    bwd_entry["bound_by"] = max(bwd_paths, key=lambda r: r["bound_ms"])["bound_by"]
+    lib = [r["library_ms"] for r in bwd_paths]
+    bwd_entry["library_ms"] = None if None in lib else sum(lib)
     opt8_launches = training_full["launches"]["adamw8bit"]
     opt8_entry = {
         "name": "adamw8bit",
@@ -2255,7 +2576,8 @@ def main() -> int:
     }
     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
         norm_entry[key] = norm[key]
-    kernels_line = {"kernels": [entry, bwd_entry, ssd_entry, ssd_bwd_entry, rglru_entry, opt8_entry, norm_entry]}
+    kernels_line = {"kernels": [entry, bwd_entry, ssd_entry, ssd_bwd_entry, rglru_entry, rglru_bwd_entry, opt8_entry,
+                                norm_entry]}
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2267,7 +2589,10 @@ def main() -> int:
         "paper_loop": paper_loop, "deployment_lm": deployment, "ssd_checks": ssd_rows,
         "ssd_main_path_kernel": ssd_main, "ssd_bwd_checks": ssd_bwd_rows, "ssd_bwd_main_path_kernel": ssd_bwd_main,
         "ssd_train_fwd": ssd_train_fwd, "training_mamba2": training_m2, "training_mamba2_grads": m2_grads,
-        "rglru_checks": rglru_rows, "rglru_main_path_kernel": rglru_main,
+        "rglru_checks": rglru_rows, "rglru_main_path_kernel": rglru_main, "rglru_bwd_checks": rglru_bwd_rows,
+        "rglru_bwd_main_path_kernel": rglru_bwd_main, "rglru_train_fwd": rglru_train_fwd,
+        "rg_attention_train_fwd": rg_train_fwd_main, "rg_attention_bwd_main_path_kernel": rg_bwd_main,
+        "training_recurrentgemma": training_rg, "training_recurrentgemma_grads": rg_grads,
         "serving_waves": {f"{arch} {dt}": out for (arch, dt), out in paths.items()},
         "kernels": kernels_line["kernels"],
     }, indent=1))

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time K1 (flash attention), its backward, K2 (SSD scan), its backward, K3 (RG-LRU scan) or the 8-bit AdamW
-update of two checkouts on one card, in turns.
+"""Time K1 (flash attention), its backward, K2 (SSD scan), its backward, K3 (RG-LRU scan), its backward or the
+8-bit AdamW update of two checkouts on one card, in turns.
 
     mkdir -p build/ab_parent && git archive <parent commit> | tar -x -C build/ab_parent
     python3 scripts/torch_kernel_ab.py --parent build/ab_parent \
-        [--kernel attention|attention_bwd|ssd|ssd_bwd|rglru|adamw8bit] [--ablate] [--rounds N]
+        [--kernel attention|attention_bwd|ssd|ssd_bwd|rglru|rglru_bwd|adamw8bit] [--ablate | --variants A,B]
+        [--rounds N]
 
 ``--parent`` is another checkout of the repository, unpacked in a
 directory that .gitignore lists. Each round runs the parent, this
@@ -26,8 +27,11 @@ calls are the kernel's on the serving paths, bf16:
   (1, S, 32/4, 128) causal at ``chip_smoke.PROMPT_LENS``, and
   recurrentgemma-9b's wave, (4, 3000, 16/1, 256) causal, window 2048;
 - K1's backward (``--kernel attention_bwd``): the training path's call,
-  (4, 1024, 32/4, 128) bf16 causal, and ``phase_kernels_bwd``'s head-dim
-  64 row, (2, 777, 8/2, 64) causal, each held to autograd through
+  (4, 1024, 32/4, 128) bf16 causal, ``phase_kernels_bwd``'s head-dim
+  64 row, (2, 777, 8/2, 64) causal, and recurrentgemma-9b's training
+  call, (4, 1024, 16/1, 256) causal with its window of 2048 (a checkout
+  whose backward lacks head dim 256 gives that row no times), each held to
+  autograd through
   ``ref.mha`` at ``BWD_TOL`` beside SDPA's backward on pre-repeated K/V
   (``library_ms``). Each row also carries ``bit_identical`` (two calls on
   one input give the same dq, dk and dv to the bit) and ``kernel_us``,
@@ -55,7 +59,8 @@ calls are the kernel's on the serving paths, bf16:
 - K3 (``--kernel rglru``, f32): recurrentgemma-9b's wave, (4, 3000, 4096)
   with the model's decays and a random h0 (the stricter check of the
   carry) and again with the zero h0 the cache hands it, and the
-  teacher-forced forward's (1, 3015, 4096) with no h0; then
+  teacher-forced forward's (1, 3015, 4096) with no h0, and the training
+  call (4, 1024, 4096) with no h0; then
   ``chip_smoke.RGLRU_SWEEP``'s and ``RGLRU_EDGES``'s shapes with the
   tests' decays and a random h0: every K3 call that ``chip_smoke.py``
   checks (a variant of ``--ablate``: the path's random-h0 and forward
@@ -64,6 +69,16 @@ calls are the kernel's on the serving paths, bf16:
   L2 (at B 1 the inputs are 99 MB and a back-to-back call finds part of
   them in L2), and ``kernel_vs_f64_el_err``, the largest error against
   the float64 run relative to the check's tolerance.
+- K3's backward (``--kernel rglru_bwd``, f32): recurrentgemma-9b's
+  training call, ``chip_smoke.RGLRU_TRAIN`` = (4, 1024, 4096) with the
+  model's decays, no h0 and no d(h_last) (as the mixer hands it), and
+  again with both; then ``chip_smoke.RGLRU_SWEEP``'s and
+  ``RGLRU_BWD_EDGES``' shapes with the tests' decays, each held to
+  ``ref.rglru_bwd`` in float64 (``chip_smoke.check_rglru_bwd``), with
+  ``flushed_ms``, ``bit_identical`` and ``kernel_el_err`` (the largest of
+  dx's, dlog_a's and dh0's error relative to the check's tolerance); a
+  variant of ``--ablate`` takes the two training calls. A checkout from
+  before the backward gives its rows no times.
 - the 8-bit AdamW update (``--kernel adamw8bit``): the training path's
   calls, one a leaf over yi-6b's 32-layer tree (bf16, 12 leaves), timed
   as the whole tree and held leaf by leaf against
@@ -100,16 +115,20 @@ E's decayed operands as one bf16 each instead of hi + lo),
 1 (the state passing's chunks loaded one at a time), ``TERMS_BLOCKS`` 1
 (no register cap on the chunk terms) and ``STAGGER``; for K3 ``PREFETCH``, ``FAST_EXP`` and
 ``FAST_SQRT``, 8 warps a block (``WARPS``: time blocks of 128 steps, two
-blocks an SM) and 32 warps of 8 steps (``STEPS``: 1024 threads a block).
+blocks an SM) and 32 warps of 8 steps (``STEPS``: 1024 threads a block);
+for K3's backward ``PREFETCH``, ``FAST_EXP``, ``FAST_SQRT``, 8 warps a
+block (``WARPS``) and 16 steps a warp (``STEPS``: the forward's tile); for
+K1's backward at head dim 256 also ``GQA_SPLIT_D256`` 2 and 8 instead of
+4. ``--variants`` takes a comma-separated subset of them.
 
 Prints each process's rows, then a summary (per side, the median over
 its processes, and the change over the parent, over SDPA and the bound
 over the change) beside the card's name and power limit; writes both to
 ``kernel_ab.json`` in the output directory (``kernel_ab_attention_bwd.json``
 for K1's backward, ``kernel_ab_ssd.json`` for K2, ``kernel_ab_ssd_bwd.json``
-for its backward, ``kernel_ab_rglru.json
-for K3, ``kernel_ab_adamw8bit.json`` for the 8-bit update). Needs a CUDA
-card.
+for its backward, ``kernel_ab_rglru.json`` for K3, ``kernel_ab_rglru_bwd.json``
+for its backward, ``kernel_ab_adamw8bit.json`` for the 8-bit update).
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -132,6 +151,7 @@ SOURCES = {
     "ssd": "src/repro_torch/kernels/csrc/ssd_scan.cu",
     "ssd_bwd": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
     "rglru": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+    "rglru_bwd": "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
     "adamw8bit": "src/repro_torch/kernels/csrc/adamw8bit.cu",
 }
 # each variant: the lines of the kernel's source it changes, old -> new (each old line must occur once)
@@ -149,6 +169,8 @@ VARIANTS = {
         "split_8": [("constexpr int GQA_SPLIT = 2;", "constexpr int GQA_SPLIT = 8;")],
         "kv_keys_64": [("constexpr int KV_CONSUMERS = 2;", "constexpr int KV_CONSUMERS = 1;")],
         "dq_keys_64": [("constexpr int DQ_KEYS = 128;", "constexpr int DQ_KEYS = 64;")],
+        "split_d256_2": [("constexpr int GQA_SPLIT_D256 = 4;", "constexpr int GQA_SPLIT_D256 = 2;")],
+        "split_d256_8": [("constexpr int GQA_SPLIT_D256 = 4;", "constexpr int GQA_SPLIT_D256 = 8;")],
     },
     "ssd": {
         "no_split": [("constexpr bool SPLIT_XD = true;", "constexpr bool SPLIT_XD = false;")],
@@ -177,6 +199,13 @@ VARIANTS = {
         "warps_32_steps_8": [("constexpr int WARPS = 16;", "constexpr int WARPS = 32;"),
                              ("constexpr int STEPS = 16;", "constexpr int STEPS = 8;")],
     },
+    "rglru_bwd": {
+        "no_prefetch": [("constexpr bool PREFETCH = true;", "constexpr bool PREFETCH = false;")],
+        "no_fast_exp": [("constexpr bool FAST_EXP = true;", "constexpr bool FAST_EXP = false;")],
+        "no_fast_sqrt": [("constexpr bool FAST_SQRT = true;", "constexpr bool FAST_SQRT = false;")],
+        "warps_8": [("constexpr int WARPS = 16;", "constexpr int WARPS = 8;")],
+        "steps_16": [("constexpr int STEPS = 8;", "constexpr int STEPS = 16;")],
+    },
     "adamw8bit": {
         "copy_only": [("constexpr bool ABLATE_ARITH = false;", "constexpr bool ABLATE_ARITH = true;")],
         "loads_once": [("constexpr bool ABLATE_LOADS = false;", "constexpr bool ABLATE_LOADS = true;")],
@@ -187,7 +216,7 @@ VARIANTS = {
 }
 TIMES = ("ms", "graph_ms", "flushed_ms", "library_ms", "library_graph_ms", "optimizer_ms")
 FLAGS = ("bit_identical", "max_abs_err", "rel_err_dq_dk_dv", "matched")
-ERRORS = ("el_err_state", "kernel_vs_f64_el_err")
+ERRORS = ("el_err_state", "kernel_vs_f64_el_err", "kernel_el_err")
 
 
 def k1_calls():
@@ -258,11 +287,14 @@ def kernel_us(fn, iters: int) -> dict:
 
 
 def bwd_calls():
-    """K1 backward's calls: the training path's, then phase_kernels_bwd's head-dim 64 row;
-    each (b, s, h, kv, d), bf16, causal."""
+    """K1 backward's calls: yi-6b's training path's, phase_kernels_bwd's head-dim 64 row, then
+    recurrentgemma-9b's training path's; each (b, s, h, kv, d, window), bf16, causal."""
     b, s, h, kv, d = cs.TRAIN_ATTN
-    return [(f"yi-6b training ({b},{s},{h}/{kv},{d}) bf16 causal", (b, s, h, kv, d)),
-            ("(2,777,8/2,64) bf16 causal", (2, 777, 8, 2, 64))]
+    rb, rs, rh, rkv, rd = cs.RG_TRAIN_ATTN
+    return [(f"yi-6b training ({b},{s},{h}/{kv},{d}) bf16 causal", (b, s, h, kv, d, None)),
+            ("(2,777,8/2,64) bf16 causal", (2, 777, 8, 2, 64, None)),
+            (f"recurrentgemma-9b training ({rb},{rs},{rh}/{rkv},{rd}) bf16 causal window {cs.RG_WINDOW}",
+             (rb, rs, rh, rkv, rd, cs.RG_WINDOW))]
 
 
 def measure_attention_bwd(root: Path, label: str) -> dict:
@@ -280,14 +312,18 @@ def measure_attention_bwd(root: Path, label: str) -> dict:
              if any(w in ln.lower() for w in ("registers", "spill", "warning", "function properties"))]
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 4)
     out: dict = {"label": label, "root": str(root), "ptxas": ptxas, "calls": {}}
-    for key, (b, s, h, kv, d) in bwd_calls():
-        row = cs.check_attention_bwd(label, fa, ref, b, s, h, kv, d, "bfloat16", True, None, gen, True)
+    for key, (b, s, h, kv, d, window) in bwd_calls():
+        if d not in getattr(fa, "_BWD_HEAD_DIMS", ()):  # a checkout whose backward lacks this head dim
+            bound, by = cs.attention_bwd_bound(b, h, kv, s, d, "bfloat16", True, window)
+            out["calls"][key] = {"ms": None, "bound_ms": bound, "bound_by": by}
+            continue
+        row = cs.check_attention_bwd(label, fa, ref, b, s, h, kv, d, "bfloat16", True, window, gen, True)
         q, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "qo")
         k, v = (torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "kv")
-        o, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        o, lse = fa.flash_attention(q, k, v, causal=True, window=window, return_lse=True)
 
         def call():
-            return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True)
+            return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=window)
 
         first, second = call(), call()
         row["bit_identical"] = all(torch.equal(x, y) for x, y in zip(first, second))
@@ -410,10 +446,12 @@ def rglru_calls():
     """K3's calls that chip_smoke.py checks: its path's, then its sweep and
     edges; each (b, s, c, h0, model decays)."""
     b, s = cs.WAVE_REQUESTS, cs.RG_PROMPT_LEN
+    tb, ts, tc = cs.RGLRU_TRAIN
     calls = [
         (f"recurrentgemma-9b serving ({b},{s},4096) h0 random", (b, s, 4096, "random", True)),
         (f"recurrentgemma-9b forward (1,{s + cs.MAX_NEW - 1},4096) no h0", (1, s + cs.MAX_NEW - 1, 4096, None, True)),
         (f"recurrentgemma-9b serving ({b},{s},4096) h0 zero", (b, s, 4096, "zero", True)),
+        (f"recurrentgemma-9b training ({tb},{ts},{tc}) no h0", (tb, ts, tc, None, True)),
     ]
     calls += [(f"sweep ({bb},{ss},{c})", (bb, ss, c, "random", False)) for bb, ss, c in cs.RGLRU_SWEEP + cs.RGLRU_EDGES]
     return calls
@@ -442,6 +480,63 @@ def measure_rglru(root: Path, label: str) -> dict:
         x, log_a, h_init = cs.rglru_inputs(b, s, c, gen, h0, model)
         row["graph_ms"] = time_graph_ms(lambda: rglru_op(x, log_a, h_init), 20)
         row["flushed_ms"] = time_flushed_ms(lambda: rglru_op(x, log_a, h_init), 20)
+        out["calls"][key] = row
+    return out
+
+
+def rglru_bwd_calls():
+    """K3 backward's calls that chip_smoke.py checks: the training path's
+    (with no h0 and d(h_last), then with both), then the sweep and the
+    edges; each (b, s, c, h0, d(h_last), model decays)."""
+    b, s, c = cs.RGLRU_TRAIN
+    calls = [(f"recurrentgemma-9b training ({b},{s},{c}) no h0", (b, s, c, None, False, True)),
+             (f"recurrentgemma-9b training ({b},{s},{c}) h0 and d(h_last)", (b, s, c, "random", True, True))]
+    calls += [(f"sweep ({bb},{ss},{cc})", (bb, ss, cc, "random", True, False)) for bb, ss, cc in cs.RGLRU_SWEEP]
+    calls += [(f"edge ({bb},{ss},{cc}) h0 {h}", (bb, ss, cc, "random" if h else None, h, False))
+              for bb, ss, cc, h in cs.RGLRU_BWD_EDGES]
+    return calls
+
+
+def measure_rglru_bwd(root: Path, label: str) -> dict:
+    """Check and time one checkout's K3 backward (this process imports its ``src``)."""
+    sys.path.insert(0, str(root / "src"))
+    import torch
+
+    from repro_torch.kernels import _build, ref
+    from repro_torch.kernels import rglru_scan
+
+    assert Path(rglru_scan.__file__).resolve().is_relative_to(root.resolve()), rglru_scan.__file__
+    out: dict = {"label": label, "root": str(root), "ptxas": [], "calls": {}}
+    calls = rglru_bwd_calls()
+    if not hasattr(rglru_scan, "rglru_scan_bwd"):  # a checkout from before the backward kernel
+        for key, (b, s, c, h0, dl, _) in calls:
+            bound, by = cs.rglru_bwd_bound(b, s, c, h0 is not None, dl)
+            out["calls"][key] = {"ms": None, "bound_ms": bound, "bound_by": by}
+        return out
+    _build.load("rglru_scan")
+    _build.load("rglru_scan_bwd")
+    out["ptxas"] = [ln.strip() for ln in _build.BUILD_LOG.get("rglru_scan_bwd", "").splitlines()
+                    if any(w in ln.lower() for w in ("registers", "spill", "warning"))]
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    if label not in ("parent", "change"):  # a variant: the two training calls
+        calls = calls[:2]
+    for key, (b, s, c, h0, dl, model) in calls:
+        row = cs.check_rglru_bwd(label, rglru_scan, ref, b, s, c, gen, h0, dl, model, True)
+        row["kernel_el_err"] = max(v for k, v in row.items() if k.startswith("kernel_") and k.endswith("_el_err"))
+        x, log_a, h_init = cs.rglru_inputs(b, s, c, gen, h0, model)
+        with torch.no_grad():
+            h, _ = rglru_scan.rglru_scan(x, log_a, h_init)
+        dh = torch.randn((b, s, c), generator=gen, device="cuda")
+        dlast = torch.randn((b, c), generator=gen, device="cuda") if dl else None
+
+        def call():
+            return rglru_scan.rglru_scan_bwd(x, log_a, h_init, h, dh, dlast)
+
+        first, second = call(), call()
+        row["bit_identical"] = all(p is q or torch.equal(p.view(torch.int32), q.view(torch.int32))
+                                   for p, q in zip(first, second))
+        row["graph_ms"] = time_graph_ms(call, 20)
+        row["flushed_ms"] = time_flushed_ms(call, 20)
         out["calls"][key] = row
     return out
 
@@ -540,6 +635,8 @@ def measure(root: Path, label: str, kernel: str) -> dict:
         return measure_attention_bwd(root, label)
     if kernel == "rglru":
         return measure_rglru(root, label)
+    if kernel == "rglru_bwd":
+        return measure_rglru_bwd(root, label)
     sys.path.insert(0, str(root / "src"))
     import torch
     import torch.nn.functional as F
@@ -629,6 +726,7 @@ def main() -> int:
     ap.add_argument("--parent", type=Path, help="another checkout, timed against this one")
     ap.add_argument("--kernel", choices=sorted(SOURCES), default="attention")
     ap.add_argument("--ablate", action="store_true", help="also time the kernel without each refinement")
+    ap.add_argument("--variants", default="", help="a comma-separated subset of --ablate's variants")
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--measure", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--label", default="", help=argparse.SUPPRESS)
@@ -648,8 +746,12 @@ def main() -> int:
     card = cs.card_line()
     print(f"card: {card}", flush=True)
     sides = [("change", ROOT)]
-    if args.ablate:
-        sides += [(name, make_variant(args.kernel, name)) for name in VARIANTS[args.kernel]]
+    chosen = [v for v in args.variants.split(",") if v] or (list(VARIANTS[args.kernel]) if args.ablate else [])
+    unknown = set(chosen) - set(VARIANTS[args.kernel])
+    if unknown:
+        print(f"torch_kernel_ab: no variants {sorted(unknown)} for {args.kernel}", file=sys.stderr)
+        return 2
+    sides += [(name, make_variant(args.kernel, name)) for name in chosen]
     order = [("parent", args.parent), *sides, *reversed(sides), ("parent", args.parent)]
     runs = []
     for rnd in range(args.rounds):
@@ -687,7 +789,8 @@ def main() -> int:
         if args.kernel == "attention":
             cols += f"  SDPA {e['change_library_ms_median']:.4f} ({e['change_library_graph_ms_median']:.4f})"
         elif args.kernel == "attention_bwd":
-            cols += f"  SDPA {e['change_library_ms_median']:.4f}"
+            lib = e["change_library_ms_median"]
+            cols += f"  SDPA {lib:.4f}" if lib is not None else "  SDPA refused"
             cols += "  kernel us " + " ".join(
                 f"{label} " + "/".join(f"{n} {v:.1f}" for n, v in e[f"{label}_kernel_us_median"].items())
                 for label in present)
@@ -697,9 +800,13 @@ def main() -> int:
                 f"{label} " + "/".join(f"{n} {v:.1f}" for n, v in e[f"{label}_kernel_us_median"].items())
                 for label in present)
             cols += "  bit-identical " + " ".join(f"{label} {all(e[f'{label}_bit_identical'])}" for label in present)
-        elif args.kernel == "rglru":
+        elif args.kernel in ("rglru", "rglru_bwd"):
+            err = "kernel_vs_f64_el_err" if args.kernel == "rglru" else "kernel_el_err"
             cols += "  flushed " + " ".join(f"{label} {e[f'{label}_flushed_ms_median']:.4f}" for label in present)
-            cols += "  el_err " + " ".join(f"{label} {e[f'{label}_kernel_vs_f64_el_err_median']:.3g}" for label in present)
+            cols += "  el_err " + " ".join(f"{label} {e[f'{label}_{err}_median']:.3g}" for label in present)
+            if args.kernel == "rglru_bwd":
+                cols += "  bit-identical " + " ".join(f"{label} {all(e[f'{label}_bit_identical'])}"
+                                                      for label in present)
         else:
             cols += "  el_err_state " + " ".join(f"{label} {e[f'{label}_el_err_state_median']:.3g}" for label in present)
             cols += "  kernel us " + " ".join(

@@ -16,7 +16,8 @@
 //
 // Layout. q, o, do, dq are (B, S, H, D) and k, v, dk, dv (B, S, Kv, D) in
 // memory, or any batch / sequence / head strides with a unit head_dim
-// stride; query head h reads kv head h / (H / Kv). Head dims 64 and 128.
+// stride; query head h reads kv head h / (H / Kv). Head dims 64, 128 and
+// 256 (recurrentgemma-9b's local attention, 16 / 1 heads, window 2048).
 //
 // Bound. Five products of 2 D operations a (query, key) pair and head
 // (S and dP recomputed, dV, dQ, dK) against the forward's two: 10 D H
@@ -81,15 +82,37 @@
 //  taking turns to issue (the forward's PINGPONG); dQ issuing a tile's S
 //  and dP with the previous tile's dQ; the G blocks as a cluster summing
 //  through distributed shared memory in place of the pass.
+// Head dim 256. At the tiles above neither kernel fits: a dK/dV
+// warpgroup's dK and dV of 64 keys at 64 x 256 f32 are 256 registers a
+// thread, and dQ's Q and dO of 128 rows (64 KB each) beside a two-slot
+// ring of 128-key K / V tiles are 384 KB of shared memory. So at D 256:
+//  - dK/dV: both consumer warpgroups take the block's same 64 keys and
+//    each holds one D half of dK and dV (128 registers); each computes S^T
+//    and dP^T over all of D itself (a third more products in this kernel)
+//    and takes its half of the Q and dO tiles as the MN-major B operands.
+//    K, V and a two-slot Q / dO ring are 198,696 bytes. With one kv head
+//    (rep 16) the GQA split is GQA_SPLIT_D256: at the training call
+//    (4, 1024, 16/1, 256) 4 x 16 key tiles x G blocks, 256 at G 4, where
+//    G 2's 128 would leave the longest block 128 of the card's 8,704 steps.
+//  - dQ: 64-key K / V tiles and a one-slot ring (197,672 bytes; V is
+//    freed as soon as dP is done, so the next V loads under dQ's
+//    product), the 64 x 256 dQ accumulator as two n128 wgmmas a k-step.
+//  At the training call (4, 1024, 16/1, 256), causal, window 2048: 0.3988
+//  ms (dK/dV 190.2 us, dQ 186.1, the pass 10.9), 22% of the 0.0869 ms
+//  bound; GQA_SPLIT_D256 2 gives 0.5308 ms (dK/dV 328.0 us), 8 gives
+//  0.4288 (the pass 26.3 us) (scripts/torch_kernel_ab.py --kernel
+//  attention_bwd --variants split_d256_2,split_d256_8; H100 80GB HBM3,
+//  700 W). f32 at D 256 takes tiles of 32 rows (f32_rows).
 // Scratch beyond Di (the wrapper sizes it by
 // repro_flash_attention_bwd_scratch): with G > 1 the partials, G x 2 x B x
 // S x Kv x D f32, 33.5 MB at the training shape, written once and read
 // once (at least 0.020 ms at 3.35 TB/s; the pass measures 12.8 us, the
 // partials partly in L2).
-// ptxas (sm_90a, CUDA 12.8): dQ and dK/dV at D 64 and 128 launch at 168
-// registers (setmaxnreg then 24 / 240), no spills; dynamic shared memory
-// dK/dV 133,160 / 67,624 bytes and dQ 197,704 / 99,400 at D 128 / 64, one
-// block an SM; the pass 32 registers.
+// ptxas (sm_90a, CUDA 12.8): dQ and dK/dV at D 64, 128 and 256 launch at
+// 168 registers (setmaxnreg then 24 / 240), no spills; dynamic shared
+// memory dK/dV 198,696 / 133,160 / 67,624 bytes and dQ 197,672 / 197,704 /
+// 99,400 at D 256 / 128 / 64, one block an SM; the pass 32 registers; the
+// f32 kernels at D 256 80 (dQ) and 126 (dK/dV) registers, no spills.
 //
 // f32 (the checks at f32 precision): the products run as f32 FMAs on the
 // CUDA cores, 256 threads each holding a 4 x 4 block of scores and 4 x
@@ -260,6 +283,11 @@ __device__ __forceinline__ void pin(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int M, int N>
+__device__ __forceinline__ void pin(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) pin(r[i]);
+}
 template <int N>
 __device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
 #pragma unroll
@@ -410,14 +438,20 @@ __device__ __forceinline__ void warp_arrive(uint64_t* bar) {
 // them (PERF.md).
 constexpr bool FUSED_DI = true;  // dQ's kernel computes Di from O and dO: no pass of its own
 constexpr bool STAGGER = true;   // P is computed under dP's product, dS (dK/dV) under dV's
-constexpr int GQA_SPLIT = 2;     // blocks a kv head's query heads are split over (at most)
+constexpr int GQA_SPLIT = 2;     // blocks a kv head's query heads are split over (at most), D 64 / 128
+constexpr int GQA_SPLIT_D256 = 4;  // ... at D 256, whose dK/dV blocks hold 64 keys (GQA 16/1: 64 G blocks)
 constexpr int KV_CONSUMERS = 2;  // dK/dV: warpgroups of 64 keys a block
 constexpr int DQ_KEYS = 128;     // dQ: keys a tile of the K / V ring
 
 template <int D>
-struct KvTiles {  // dK/dV: a block per (64 x CONSUMERS keys, kv head, head group, batch)
-  static constexpr int CONSUMERS = KV_CONSUMERS;
-  static constexpr int BN = 64 * CONSUMERS;  // keys a block
+struct KvTiles {  // dK/dV: a block per (BN keys, kv head, head group, batch)
+  // D 256: dK and dV of 64 keys are 64 x 256 f32, 128 registers a thread
+  // each, so the two warpgroups share the block's 64 keys and each holds
+  // one D half of both, computing S^T and dP^T (over all of D) itself
+  static constexpr int HALVES = D == 256 ? 2 : 1;
+  static constexpr int CONSUMERS = D == 256 ? 2 : KV_CONSUMERS;
+  static constexpr int DH = D / HALVES;               // dK / dV columns a warpgroup holds
+  static constexpr int BN = 64 * CONSUMERS / HALVES;  // keys a block
   static constexpr int BQ = 64;              // queries a step
   static constexpr int STAGES = 2;           // Q / dO / lse2 / Di ring slots
   static constexpr int THREADS = 128 * (1 + CONSUMERS);
@@ -437,8 +471,12 @@ template <int D>
 struct QTiles {  // dQ: a block per (128 queries, head, batch), the forward's shape
   static constexpr int CONSUMERS = 2;
   static constexpr int BM = 64 * CONSUMERS;    // queries a block
-  static constexpr int BN = DQ_KEYS;           // keys a tile: S and dP beside dQ's accumulator
-  static constexpr int STAGES = 2;             // K / V ring slots
+  // D 256: Q and dO of 128 rows are 64 KB each, so the K / V tiles take 64
+  // keys and the ring one slot (two would need 256 KB of shared memory)
+  static constexpr int BN = D == 256 ? 64 : DQ_KEYS;  // keys a tile: S and dP beside dQ's accumulator
+  static constexpr int STAGES = D == 256 ? 1 : 2;     // K / V ring slots
+  static constexpr int ON = D == 256 ? 128 : D;       // dQ columns a wgmma (n128 at most)
+  static constexpr int OH = D / ON;                   // dQ wgmmas a k-step
   static constexpr int THREADS = 128 * (1 + CONSUMERS);
   static constexpr uint32_t Q_BYTES = BM * D * 2;
   static constexpr uint32_t KV_BYTES = BN * D * 2;
@@ -448,10 +486,11 @@ struct QTiles {  // dQ: a block per (128 queries, head, batch), the forward's sh
   static_assert(128 * PRODUCER_REGS + 256 * CONSUMER_REGS <= 384 * 168);
 };
 
-// the blocks a kv head's `rep` query heads are split over: the largest
-// divisor of rep up to GQA_SPLIT
-__host__ __device__ inline int gqa_split(int rep) {
-  int g = GQA_SPLIT < rep ? GQA_SPLIT : rep;
+// the blocks a kv head's `rep` query heads are split over at head dim D: the
+// largest divisor of rep up to GQA_SPLIT (GQA_SPLIT_D256 at D 256)
+__host__ __device__ inline int gqa_split(int rep, int D) {
+  const int cap = D == 256 ? GQA_SPLIT_D256 : GQA_SPLIT;
+  int g = cap < rep ? cap : rep;
   while (rep % g) --g;
   return g;
 }
@@ -509,12 +548,14 @@ __global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
         const int s = i % ST;
         const uint32_t free_parity = ((i / ST) & 1) ^ 1;
         const int k0 = (kt.x + i) * BN;
-        mbar_wait(&free_k[s], free_parity);
-        mbar_expect_tx(&full_k[s], T::KV_BYTES);
-        load_rows<BN, D>(ks + s * T::KV_BYTES, &tk, &full_k[s], k0, hk, b);
+        // V first: it is freed as soon as dP is done, K only after dQ's
+        // product, so with one slot (D 256) V's load runs under that product
         mbar_wait(&free_v[s], free_parity);
         mbar_expect_tx(&full_v[s], T::KV_BYTES);
         load_rows<BN, D>(vs + s * T::KV_BYTES, &tv, &full_v[s], k0, hk, b);
+        mbar_wait(&free_k[s], free_parity);
+        mbar_expect_tx(&full_k[s], T::KV_BYTES);
+        load_rows<BN, D>(ks + s * T::KV_BYTES, &tk, &full_k[s], k0, hk, b);
       }
     }
   } else {
@@ -565,9 +606,12 @@ __global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
       }
     };
 
-    float acc[D / 2];  // dQ / scale
+    constexpr int ON = T::ON, OH = T::OH;
+    float acc[OH][ON / 2];  // dQ / scale: column x ON + 8j + 2t + c of row r in acc[x][4j + 2r + c]
 #pragma unroll
-    for (int x = 0; x < D / 2; ++x) acc[x] = 0.f;
+    for (int x = 0; x < OH; ++x)
+#pragma unroll
+      for (int y = 0; y < ON / 2; ++y) acc[x][y] = 0.f;
     const uint64_t dq_a = sw128_desc(qs + cw * 64 * 128, 16, 1024);
     const uint64_t ddo_a = sw128_desc(dos + cw * 64 * 128, 16, 1024);
     mbar_wait(full_q, 0);
@@ -611,7 +655,9 @@ __global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
       {
         const uint64_t dk_n = sw128_desc(kslot, BN * 128, 1024);
 #pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) wgmma_rs<D>(acc, da[kk], dk_n + kk * 128);
+        for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+          for (int x = 0; x < OH; ++x) wgmma_rs<ON>(acc[x], da[kk], dk_n + x * (ON / 64) * (BN * 8) + kk * 128);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -626,9 +672,11 @@ __global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
       if (qi >= S) continue;
       bf16* dst = dq + b * sdq.b + h * sdq.h + qi * sdq.s + 2 * t;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-            pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+      for (int x = 0; x < OH; ++x)
+#pragma unroll
+        for (int j = 0; j < ON / 8; ++j)
+          *reinterpret_cast<uint32_t*>(dst + x * ON + 8 * j) =
+              pack_bf16(acc[x][4 * j + 2 * r] * scale, acc[x][4 * j + 2 * r + 1] * scale);
     }
   }
 }
@@ -647,7 +695,7 @@ __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
                      bf16* __restrict__ dv, float* __restrict__ part, Strides sdk, Strides sdv, int H,
                      int rep, int G, Mask mask, float scale, float scale_log2) {
   using T = KvTiles<D>;
-  constexpr int BN = T::BN, BQ = T::BQ, ST = T::STAGES;
+  constexpr int BN = T::BN, BQ = T::BQ, ST = T::STAGES, DH = T::DH;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* ks = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
   uint8_t* vs = ks + T::KV_BYTES;
@@ -710,20 +758,22 @@ __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
       }
     }
   } else {
-    // ---- consumers: warpgroup cw owns the keys kw .. kw + 63
+    // ---- consumers: warpgroup cw owns the keys kw .. kw + 63 (and, at D
+    // 256, the columns hf DH .. hf DH + DH - 1 of their dK and dV)
     if constexpr (T::CONSUMERS == 2)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(T::CONSUMER_REGS));
     const int cw = wg - 1;
     const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
-    const int kw = k0 + 64 * cw;
+    const int hf = T::HALVES == 2 ? cw : 0;
+    const int kw = k0 + (T::HALVES == 2 ? 0 : 64 * cw);
     const int kj0 = kw + 16 * warp + g;  // this thread's keys: kj0 and kj0 + 8
 
-    float dka[D / 2], dva[D / 2];  // dK / scale and dV
+    float dka[DH / 2], dva[DH / 2];  // dK / scale and dV
 #pragma unroll
-    for (int x = 0; x < D / 2; ++x) dka[x] = dva[x] = 0.f;
-    const uint64_t dk_a = sw128_desc(ks + cw * 64 * 128, 16, 1024);
-    const uint64_t dv_a = sw128_desc(vs + cw * 64 * 128, 16, 1024);
+    for (int x = 0; x < DH / 2; ++x) dka[x] = dva[x] = 0.f;
+    const uint64_t dk_a = sw128_desc(ks + (kw - k0) * 128, 16, 1024);
+    const uint64_t dv_a = sw128_desc(vs + (kw - k0) * 128, 16, 1024);
     mbar_wait(full_kv, 0);
     for (int i = 0; i < n_steps; ++i) {
       const int s = i % ST, q0 = (qt0 + i % n_q) * BQ;
@@ -753,14 +803,16 @@ __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
                        [&](int, int c) { return ls[c]; });
       uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
       pack_a<BQ>(pa, st);
-      // dV += P^T dO, then dK += dS^T Q: the dO and Q tiles as MN-major B operands
-      const uint64_t dq_n = sw128_desc(qslot, BQ * 128, 1024), ddo_n = sw128_desc(dslot, BQ * 128, 1024);
+      // dV += P^T dO, then dK += dS^T Q: the dO and Q tiles (their D half) as MN-major B operands
+      const int col0 = hf * (DH / 64) * BQ * 128;  // bytes to the half's first atom column
+      const uint64_t dq_n = sw128_desc(qslot + col0, BQ * 128, 1024);
+      const uint64_t ddo_n = sw128_desc(dslot + col0, BQ * 128, 1024);
       pin(dva);
       pin(pa);
       if constexpr (STAGGER) {  // dV under dS^T's elementwise work
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dva, pa[kk], ddo_n + kk * 128);
+        for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<DH>(dva, pa[kk], ddo_n + kk * 128);
         wgmma_commit();
         wgmma_wait<1>();  // dP^T is done; dV may still run
       } else {
@@ -774,10 +826,10 @@ __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
       wgmma_fence();
       if constexpr (!STAGGER) {
 #pragma unroll
-        for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dva, pa[kk], ddo_n + kk * 128);
+        for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<DH>(dva, pa[kk], ddo_n + kk * 128);
       }
 #pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<D>(dka, sa[kk], dq_n + kk * 128);
+      for (int kk = 0; kk < BQ / 16; ++kk) wgmma_rs<DH>(dka, sa[kk], dq_n + kk * 128);
       wgmma_commit();
       wgmma_wait<0>();
       pin(dka);
@@ -793,20 +845,20 @@ __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
       const int kj = kj0 + 8 * r;
       if (kj >= S) continue;
       if (part == nullptr) {  // one block a kv head: store
-        bf16* dkr = dk + b * sdk.b + hk * sdk.h + kj * sdk.s + 2 * t;
-        bf16* dvr = dv + b * sdv.b + hk * sdv.h + kj * sdv.s + 2 * t;
+        bf16* dkr = dk + b * sdk.b + hk * sdk.h + kj * sdk.s + hf * DH + 2 * t;
+        bf16* dvr = dv + b * sdv.b + hk * sdv.h + kj * sdv.s + hf * DH + 2 * t;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DH / 8; ++j) {
           *reinterpret_cast<uint32_t*>(dkr + 8 * j) =
               pack_bf16(dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
           *reinterpret_cast<uint32_t*>(dvr + 8 * j) = pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
         }
       } else {  // a partial sum of the group's share
         const int64_t plane = int64_t(B) * KV * S * D;
-        float* pk = part + int64_t(2 * grp) * plane + ((int64_t(b) * KV + hk) * S + kj) * D + 2 * t;
+        float* pk = part + int64_t(2 * grp) * plane + ((int64_t(b) * KV + hk) * S + kj) * D + hf * DH + 2 * t;
         float* pv = pk + plane;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DH / 8; ++j) {
           *reinterpret_cast<float2*>(pk + 8 * j) = make_float2(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
           *reinterpret_cast<float2*>(pv + 8 * j) = make_float2(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
         }
@@ -843,11 +895,19 @@ __global__ void reduce_dkdv_kernel(const float* __restrict__ part, bf16* __restr
 // --------------------------------------------------------- f32, CUDA cores
 constexpr int F32_THREADS = 256;  // 16 row groups x 16 column groups
 
+// rows of an f32 tile: TILE, and 32 at D 256, where four 64-row tiles of K,
+// V, Q and dO (263 KB) would not fit in shared memory; each thread holds
+// (R / 16) x (R / 16) scores
+template <int D>
+__host__ __device__ constexpr int f32_rows() {
+  return D == 256 ? 32 : TILE;
+}
+
 template <int D>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int64_t st, int row0,
                                               int S) {
-  constexpr int KP = D + 1;
-  for (int idx = threadIdx.x; idx < TILE * D; idx += F32_THREADS) {
+  constexpr int KP = D + 1, R = f32_rows<D>();
+  for (int idx = threadIdx.x; idx < R * D; idx += F32_THREADS) {
     const int r = idx / D, c = idx % D;
     dst[r * KP + c] = row0 + r < S ? src[(row0 + r) * st + c] : 0.f;
   }
@@ -855,11 +915,13 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src, int6
 
 template <int D>
 constexpr size_t f32_smem_kv() {  // K, V, Q, dO tiles, P^T and dS^T, lse and Di
-  return sizeof(float) * (4 * size_t(TILE) * (D + 1) + 2 * size_t(TILE) * (TILE + 1) + 2 * TILE);
+  constexpr size_t R = f32_rows<D>();
+  return sizeof(float) * (4 * R * (D + 1) + 2 * R * (R + 1) + 2 * R);
 }
 template <int D>
 constexpr size_t f32_smem_q() {  // Q, dO, K, V tiles, dS, lse and Di
-  return sizeof(float) * (4 * size_t(TILE) * (D + 1) + size_t(TILE) * (TILE + 1) + 2 * TILE);
+  constexpr size_t R = f32_rows<D>();
+  return sizeof(float) * (4 * R * (D + 1) + R * (R + 1) + 2 * R);
 }
 
 template <int D>
@@ -870,72 +932,72 @@ __global__ void __launch_bounds__(F32_THREADS)
                     float* __restrict__ dk, float* __restrict__ dv, Strides sq, Strides sk,
                     Strides sv, Strides sdo, Strides sdk, Strides sdv, int H, int rep, Mask mask,
                     float scale, float scale_log2) {
-  constexpr int KP = D + 1, PP = TILE + 1, DC = D / 16;
+  constexpr int R = f32_rows<D>(), RI = R / 16, KP = D + 1, PP = R + 1, DC = D / 16;
   extern __shared__ float smem[];
   float* ks = smem;
-  float* vs = ks + TILE * KP;
-  float* qs = vs + TILE * KP;
-  float* dos = qs + TILE * KP;
-  float* ps = dos + TILE * KP;  // P^T: key x query
-  float* dss = ps + TILE * PP;  // dS^T
-  float* lse_s = dss + TILE * PP;
-  float* dl_s = lse_s + TILE;
+  float* vs = ks + R * KP;
+  float* qs = vs + R * KP;
+  float* dos = qs + R * KP;
+  float* ps = dos + R * KP;  // P^T: key x query
+  float* dss = ps + R * PP;  // dS^T
+  float* lse_s = dss + R * PP;
+  float* dl_s = lse_s + R;
 
   const int S = mask.S;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;  // keys ty + 16 i; queries / columns tx + 16 j
-  const int k0 = blockIdx.x * TILE, hk = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * R, hk = blockIdx.y, b = blockIdx.z;
   load_tile_f32<D>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, S);
   load_tile_f32<D>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, S);
 
-  float dka[4][DC], dva[4][DC];
+  float dka[RI][DC], dva[RI][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dka[i][c] = dva[i][c] = 0.f;
 
-  const int2 qr = mask.queries(k0);
+  const int2 qr = mask.queries<R>(k0);
   for (int r = 0; r < rep; ++r) {
     const int h = hk * rep + r;
     const float* lse_h = lse + (int64_t(b) * H + h) * S;
     const float* dl_h = delta + (int64_t(b) * H + h) * S;
-    for (int q0 = (qr.x / TILE) * TILE; q0 <= qr.y; q0 += TILE) {
+    for (int q0 = (qr.x / R) * R; q0 <= qr.y; q0 += R) {
       __syncthreads();
       load_tile_f32<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
       load_tile_f32<D>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
-      if (tid < TILE) {
+      if (tid < R) {
         const int qi = q0 + tid;
         lse_s[tid] = qi < S ? lse_h[qi] : INFINITY;
         dl_s[tid] = qi < S ? dl_h[qi] : 0.f;
       }
       __syncthreads();
 
-      float s[4][4], dp[4][4];
+      float s[RI][RI], dp[RI][RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+        for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
       for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], ov[4];
+        float kv[RI], vv[RI], qv[RI], ov[RI];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           kv[i] = ks[(ty + 16 * i) * KP + d];
           vv[i] = vs[(ty + 16 * i) * KP + d];
           qv[i] = qs[(tx + 16 * i) * KP + d];
           ov[i] = dos[(tx + 16 * i) * KP + d];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RI; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
+          for (int j = 0; j < RI; ++j) {
             s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
             dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
           }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           const int kr = ty + 16 * i, qc = tx + 16 * j;
           const float p = mask.ok(q0 + qc, k0 + kr) ? exp2f(s[i][j] * scale_log2 - lse_s[qc]) : 0.f;
           ps[kr * PP + qc] = p;
@@ -944,10 +1006,10 @@ __global__ void __launch_bounds__(F32_THREADS)
       __syncthreads();
 
 #pragma unroll 4
-      for (int qq = 0; qq < TILE; ++qq) {
-        float pv[4], sv_[4], ov[DC], qv[DC];
+      for (int qq = 0; qq < R; ++qq) {
+        float pv[RI], sv_[RI], ov[DC], qv[DC];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < RI; ++i) {
           pv[i] = ps[(ty + 16 * i) * PP + qq];
           sv_[i] = dss[(ty + 16 * i) * PP + qq];
         }
@@ -957,7 +1019,7 @@ __global__ void __launch_bounds__(F32_THREADS)
           qv[c] = qs[qq * KP + tx + 16 * c];
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RI; ++i)
 #pragma unroll
           for (int c = 0; c < DC; ++c) {
             dva[i][c] = fmaf(pv[i], ov[c], dva[i][c]);
@@ -968,7 +1030,7 @@ __global__ void __launch_bounds__(F32_THREADS)
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int kj = k0 + ty + 16 * i;
     if (kj >= S) continue;
 #pragma unroll
@@ -986,68 +1048,68 @@ __global__ void __launch_bounds__(F32_THREADS)
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   float* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
                   Strides sdq, int H, int rep, Mask mask, float scale, float scale_log2) {
-  constexpr int KP = D + 1, PP = TILE + 1, DC = D / 16;
+  constexpr int R = f32_rows<D>(), RI = R / 16, KP = D + 1, PP = R + 1, DC = D / 16;
   extern __shared__ float smem[];
   float* qs = smem;
-  float* dos = qs + TILE * KP;
-  float* ks = dos + TILE * KP;
-  float* vs = ks + TILE * KP;
-  float* dss = vs + TILE * KP;  // dS: query x key
-  float* lse_s = dss + TILE * PP;
-  float* dl_s = lse_s + TILE;
+  float* dos = qs + R * KP;
+  float* ks = dos + R * KP;
+  float* vs = ks + R * KP;
+  float* dss = vs + R * KP;  // dS: query x key
+  float* lse_s = dss + R * PP;
+  float* dl_s = lse_s + R;
 
   const int S = mask.S;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;  // queries ty + 16 i; keys / columns tx + 16 j
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * R;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / rep;
   load_tile_f32<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
   load_tile_f32<D>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
-  if (tid < TILE) {
+  if (tid < R) {
     const int qi = q0 + tid;
     lse_s[tid] = qi < S ? lse[(int64_t(b) * H + h) * S + qi] : INFINITY;
     dl_s[tid] = qi < S ? delta[(int64_t(b) * H + h) * S + qi] : 0.f;
   }
-  float dqa[4][DC];
+  float dqa[RI][DC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int c = 0; c < DC; ++c) dqa[i][c] = 0.f;
 
-  const int2 kt = mask.key_tiles(q0);
+  const int2 kt = mask.key_tiles<R, R>(q0);
   for (int it = kt.x; it <= kt.y; ++it) {
-    const int k0 = it * TILE;
+    const int k0 = it * R;
     __syncthreads();
     load_tile_f32<D>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, S);
     load_tile_f32<D>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, S);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[RI][RI], dp[RI][RI];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+      for (int j = 0; j < RI; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < D; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
+      float qv[RI], ov[RI], kv[RI], vv[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < RI; ++i) {
         qv[i] = qs[(ty + 16 * i) * KP + d];
         ov[i] = dos[(ty + 16 * i) * KP + d];
         kv[i] = ks[(tx + 16 * i) * KP + d];
         vv[i] = vs[(tx + 16 * i) * KP + d];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < RI; ++j) {
           s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
           dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
         }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RI; ++j) {
         const int qr = ty + 16 * i, kc = tx + 16 * j;
         const float p = mask.ok(q0 + qr, k0 + kc) ? exp2f(s[i][j] * scale_log2 - lse_s[qr]) : 0.f;
         dss[qr * PP + kc] = p * (dp[i][j] - dl_s[qr]);
@@ -1055,21 +1117,21 @@ __global__ void __launch_bounds__(F32_THREADS)
     __syncthreads();
 
 #pragma unroll 4
-    for (int kk = 0; kk < TILE; ++kk) {
-      float dsv[4], kv[DC];
+    for (int kk = 0; kk < R; ++kk) {
+      float dsv[RI], kv[DC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = dss[(ty + 16 * i) * PP + kk];
+      for (int i = 0; i < RI; ++i) dsv[i] = dss[(ty + 16 * i) * PP + kk];
 #pragma unroll
       for (int c = 0; c < DC; ++c) kv[c] = ks[kk * KP + tx + 16 * c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int c = 0; c < DC; ++c) dqa[i][c] = fmaf(dsv[i], kv[c], dqa[i][c]);
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= S) continue;
 #pragma unroll
@@ -1162,7 +1224,7 @@ cudaError_t launch_delta(const Args& a, int D, cudaStream_t stream) {
 // the partial sums of dK and dV
 int64_t bf16_scratch_floats(int B, int H, int KV, int S, int D) {
   const int64_t di = (int64_t(B) * H * S + 63) / 64 * 64;
-  const int G = gqa_split(H / KV);
+  const int G = gqa_split(H / KV, D);
   return G > 1 ? di + int64_t(G) * 2 * B * KV * S * D : di;
 }
 
@@ -1170,7 +1232,7 @@ template <int D>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   using TQ = QTiles<D>;
   using TK = KvTiles<D>;
-  const int S = a.mask.S, rep = a.H / a.KV, G = gqa_split(rep);
+  const int S = a.mask.S, rep = a.H / a.KV, G = gqa_split(rep, D);
   const float scale_log2 = a.scale * LOG2E;
   CUtensorMap mq, mk, mv, mdo;
   if (!make_map(&mq, a.q, D, S, a.H, a.B, a.sq) || !make_map(&mk, a.k, D, S, a.KV, a.B, a.sk) ||
@@ -1210,7 +1272,8 @@ template <int D>
 cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   cudaError_t err = launch_delta<float>(a, D, stream);
   if (err != cudaSuccess) return err;
-  const int S = a.mask.S, tiles = (S + TILE - 1) / TILE, rep = a.H / a.KV;
+  constexpr int R = f32_rows<D>();
+  const int S = a.mask.S, tiles = (S + R - 1) / R, rep = a.H / a.KV;
   const float scale_log2 = a.scale * LOG2E;
   static std::atomic<uint64_t> sized_kv{0}, sized_q{0};
   auto kv = dkdv_f32_kernel<D>;
@@ -1272,6 +1335,8 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v, const
       return int(dispatch<64>(dtype, a, st));
     case 128:
       return int(dispatch<128>(dtype, a, st));
+    case 256:
+      return int(dispatch<256>(dtype, a, st));
     default:
       return int(cudaErrorInvalidValue);
   }

@@ -43,7 +43,9 @@ bf16 a dQ kernel (which also computes Di) and a dK/dV kernel, both on
 the f32 partial dK / dV sums, whose scratch the wrapper allocates.
 :class:`FlashAttention` joins the two as a ``torch.autograd.Function``;
 its plain version on the CPU is autograd through ``ref.mha``. The
-backward takes head dims 64 and 128 and no softcap.
+backward takes head dims 64, 128 and 256 (at 256 the dK/dV kernel's two
+warpgroups share a block's 64 keys, each holding one half of dK and dV,
+and dQ takes 64-key tiles through a one-slot ring) and no softcap.
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ BWD_LAUNCHES = 0  # of the backward's C entry point (two to three CUDA kernels e
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
-_BWD_HEAD_DIMS = (64, 128)
+_BWD_HEAD_DIMS = (64, 128, 256)
 _fn = None
 _bwd_fn = None
 
@@ -229,11 +231,10 @@ def check_bwd_layout(name: str, shape, stride, data_ptr: int, dtype: torch.dtype
     D) view: a unit head_dim stride and, in bf16 (read 16 bytes at a
     time), a 16-byte aligned base and batch / sequence / head strides in
     multiples of 8 elements where the extent is above 1. Head dims other
-    than 64 and 128 raise NotImplementedError."""
+    than 64, 128 and 256 raise NotImplementedError."""
     if shape[3] not in _BWD_HEAD_DIMS:
         raise NotImplementedError(
-            f"{name}: the flash-attention backward takes head_dim 64 or 128, not {shape[3]} "
-            "(no trained model needs another yet)"
+            f"{name}: the flash-attention backward takes head_dim {_BWD_HEAD_DIMS}, not {shape[3]}"
         )
     if stride[3] != 1:
         raise ValueError(f"{name} must be contiguous along head_dim")
@@ -271,7 +272,7 @@ def flash_attention_bwd(
 
     On CPU tensors the plain version: autograd through ``ref.mha``. On
     CUDA tensors it launches the backward kernel or raises: softcap and
-    head dims other than 64 and 128 raise NotImplementedError.
+    head dims other than 64, 128 and 256 raise NotImplementedError.
     """
     global BWD_LAUNCHES
     _check(q, k, v)
@@ -332,7 +333,7 @@ class FlashAttention(torch.autograd.Function):
             raise NotImplementedError(
                 f"no flash-attention backward for head_dim {q.shape[3]}"
                 + (" with softcap" if softcap is not None else "")
-                + ": it takes head_dim 64 or 128 and no softcap"
+                + f": it takes head_dim {_BWD_HEAD_DIMS} and no softcap"
             )
         out, lse = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)

@@ -77,5 +77,9 @@ def rglru_op(
     wrapper (whose kernel walks blocks of ``t_block`` steps and asserts
     they divide S) any S is taken: the kernel masks its ragged last time
     block, whose size is its own constant, so the caller chooses none.
-    """
+
+    When grad mode is on and an input requires grad, ``rglru_scan`` goes
+    through ``RGLRUScan``, whose backward is the backward kernel (the
+    plain version on the CPU); otherwise it is the forward alone, as it
+    serves."""
     return rglru_scan(x.float(), log_a.float(), None if h0 is None else h0.float())

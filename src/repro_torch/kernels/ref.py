@@ -18,7 +18,7 @@ import torch
 
 __all__ = [
     "QBLOCK", "V_FLOOR", "adamw8bit_update", "dequantize", "dequantize_log", "global_norm", "layer_slices", "mha",
-    "pad_to_block", "quantize", "quantize_log", "rglru", "scores", "ssd", "ssd_bwd",
+    "pad_to_block", "quantize", "quantize_log", "rglru", "rglru_bwd", "scores", "ssd", "ssd_bwd",
 ]
 
 
@@ -149,6 +149,47 @@ def rglru(
         h = a * h + torch.sqrt(torch.clamp(1.0 - a * a, min=0.0)) * x[:, t]
         hs.append(h)
     return torch.stack(hs, dim=1), h
+
+
+def rglru_bwd(
+    x: torch.Tensor,  # (B, S, C) gated input
+    log_a: torch.Tensor,  # (B, S, C) log decay, <= 0
+    h0: torch.Tensor | None,  # (B, C)
+    h: torch.Tensor,  # (B, S, C), the forward's every h_t
+    dh: torch.Tensor,  # (B, S, C), h's gradient
+    dh_last: torch.Tensor | None = None,  # (B, C), h_last's gradient (None: zero)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+    """The adjoint of :func:`rglru`: (dx, dlog_a, dh0), in x's dtype (so
+    float64 in, float64 out), dh0 None without h0. Per channel, from the
+    last step to the first, with ``w_t = sqrt(max(1 - exp(2 log_a_t), 0))``
+    (as ``-expm1``, which does not cancel near a = 1) and ``h_{-1} = h0``
+    (or 0)::
+
+        g_t = dh_t + a_{t+1} g_{t+1}   (g_{S-1} = dh_{S-1} + dh_last)
+        dx_t = w_t g_t,  dlog_a_t = g_t (a_t h_{t-1} - a_t^2 x_t / w_t),  dh0 = a_0 g_0
+
+    The carry from step t to step t - 1 is ``a_t g_t``. At a = 1 (log_a
+    0) w is 0: dx is 0 there and dlog_a is an infinity of the sign of
+    ``-g x`` (NaN where g x is 0), as JAX's derivative of the square
+    root at 0 gives."""
+    dt = x.dtype
+    b, s, c = x.shape
+    la = log_a.to(dt)
+    a = torch.exp(la)
+    v = -torch.expm1(2 * la)
+    w = torch.sqrt(torch.where(v > 0, v, torch.zeros_like(v)))  # +0 at a = 1, never -0
+    zero = torch.zeros((b, c), dtype=dt, device=x.device)
+    hprev = torch.cat([(zero if h0 is None else h0.to(dt))[:, None], h[:, :-1].to(dt)], dim=1)
+    dh = dh.to(dt)
+    carry = zero if dh_last is None else dh_last.to(dt)
+    g = torch.empty_like(dh)
+    for t in range(s - 1, -1, -1):
+        gt = dh[:, t] + carry
+        g[:, t] = gt
+        carry = a[:, t] * gt
+    dx = w * g
+    dlog_a = g * (a * hprev - a * a * x.to(dt) / w)
+    return dx, dlog_a, (carry if h0 is not None else None)
 
 
 # ------------------------------------------- the 8-bit AdamW update and its grids

@@ -13,9 +13,12 @@ layer out of the stacked ``(L, ...)`` leaves); ``b_a``, ``b_i`` and
 The difference that belongs to the port: for S > 1 the mixer calls
 ``kernels.ops.rglru_op`` (the Hopper RG-LRU kernel on the card, its plain
 version ``ref.rglru`` on the CPU) where the JAX mixer runs its
-``rglru_scan``, an ``associative_scan``, which so has no port. The decode
-step (S == 1 with a state) is the one-step update in torch ops, in the
-``a * a`` form, as in JAX.
+``rglru_scan``, an ``associative_scan``, which so has no port. Under grad
+mode that call goes through ``RGLRUScan``, whose backward is K3's
+backward kernel (``ref.rglru_bwd`` on the CPU); JAX differentiates its
+associative scan. The decode step (S == 1 with a state) is the one-step
+update in torch ops, in the ``a * a`` form, as in JAX, and never reaches
+the kernels.
 """
 
 from __future__ import annotations

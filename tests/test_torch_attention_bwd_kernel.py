@@ -21,7 +21,9 @@ The CUDA kernels cannot run here, so this file mirrors them in Python:
   autograd at 2e-2 (``chip_smoke.BWD_TOL``'s bf16 tolerance).
 
 The tile sizes and the GQA split are read from the kernel's source, so
-the mirror follows it. The kernels themselves are held on the card by
+the mirror follows it, at head dim 256 too: there a dK/dV block holds 64
+keys (its two warpgroups each one D half of them, which changes no sum's
+order), dQ takes 64-key tiles, and the split's cap is GQA_SPLIT_D256. The kernels themselves are held on the card by
 tests/test_torch_kernels_cuda.py and chip_smoke.py.
 """
 
@@ -56,11 +58,16 @@ BN_KV = 64 * KV_CONSUMERS  # KvTiles::BN: keys a dK/dV block
 BQ = _source_int(r"static constexpr int BQ = (\d+);")  # KvTiles::BQ: queries a dK/dV step
 BM = 64 * _source_int(r"struct QTiles \{[^}]*?static constexpr int CONSUMERS = (\d+);")  # queries a dQ block
 DQ_KEYS = _source_int(r"constexpr int DQ_KEYS = (\d+);")  # QTiles::BN: keys a dQ tile
+# head dim 256: the split's cap, keys a dK/dV block (64 x CONSUMERS / HALVES), keys a dQ tile
+GQA_SPLIT_D256 = _source_int(r"constexpr int GQA_SPLIT_D256 = (\d+);")
+BN_KV_D256 = (64 * _source_int(r"static constexpr int CONSUMERS = D == 256 \? (\d+) : KV_CONSUMERS;")
+              // _source_int(r"static constexpr int HALVES = D == 256 \? (\d+) : 1;"))
+DQ_KEYS_D256 = _source_int(r"static constexpr int BN = D == 256 \? (\d+) : DQ_KEYS;")
 
 
-def gqa_split(rep: int) -> int:
-    """``gqa_split``: the largest divisor of rep up to GQA_SPLIT."""
-    g = min(GQA_SPLIT, rep)
+def gqa_split(rep: int, d: int = 128) -> int:
+    """``gqa_split``: the largest divisor of rep up to GQA_SPLIT (GQA_SPLIT_D256 at head dim 256)."""
+    g = min(GQA_SPLIT_D256 if d == 256 else GQA_SPLIT, rep)
     while rep % g:
         g -= 1
     return g
@@ -131,6 +138,23 @@ def test_dkdv_walk_covers_every_kept_pair(causal, window):
                         assert ok[q0 : min(q0 + BQ, s), kw : kw + 64].all(), (s, kw, q0)
 
 
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_dkdv_walk_at_head_dim_256_covers_every_kept_pair(causal, window):
+    """The same at head dim 256, whose dK/dV blocks hold BN_KV_D256 keys
+    (both warpgroups on the same 64)."""
+    assert BN_KV_D256 == 64
+    for s in SEQS:
+        ok = kept(s, causal, window)
+        for k0 in range(0, s, BN_KV_D256):
+            steps = list(kv_steps(s, causal, window, k0, bn=BN_KV_D256))
+            assert steps and all(0 <= q0 < s for q0 in steps)
+            need = {q // BQ * BQ for q in np.nonzero(ok[:, k0 : k0 + BN_KV_D256].any(1))[0]}
+            assert need <= set(steps), (s, k0, sorted(need - set(steps)))
+            for q0 in steps:
+                if interior_keys(s, causal, window, k0, q0):
+                    assert ok[q0 : min(q0 + BQ, s), k0 : k0 + 64].all(), (s, k0, q0)
+
+
 @pytest.mark.parametrize("bn", [64, 128])
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_dq_walk_covers_every_kept_pair(bn, causal, window):
@@ -160,6 +184,18 @@ def test_gqa_split_gives_each_head_one_block(rep):
     assert sorted(heads) == list(range(3 * rep))
 
 
+@pytest.mark.parametrize("rep", [1, 2, 4, 8, 16])
+def test_gqa_split_at_head_dim_256(rep):
+    """At head dim 256 the cap is GQA_SPLIT_D256: recurrentgemma's 16 query
+    heads over one kv head go to GQA_SPLIT_D256 blocks a key tile, each
+    head once."""
+    g = gqa_split(rep, 256)
+    assert 1 <= g <= GQA_SPLIT_D256 and rep % g == 0
+    assert gqa_split(16, 256) == GQA_SPLIT_D256
+    heads = [grp * (rep // g) + r for grp in range(g) for r in range(rep // g)]
+    assert sorted(heads) == list(range(rep))
+
+
 def _mask_t(s, causal, window):
     return torch.from_numpy(kept(s, causal, window))
 
@@ -168,7 +204,8 @@ def kernel_model(q, k, v, do, causal, window, bf16=False):
     """dq, dk, dv (q, do (B, H, S, D); k, v (B, Kv, S, D)) in the kernels' order."""
     b, h, s, d = q.shape
     kv = k.shape[1]
-    rep, g = h // kv, gqa_split(h // kv)
+    rep, g = h // kv, gqa_split(h // kv, d)
+    bn_kv = BN_KV_D256 if d == 256 else BN_KV
     scale = 1.0 / math.sqrt(d)
     sl2 = scale * LOG2E
     rnd = (lambda x: x.bfloat16().float()) if bf16 else (lambda x: x)
@@ -180,7 +217,7 @@ def kernel_model(q, k, v, do, causal, window, bf16=False):
     ok = _mask_t(s, causal, window)
 
     # dQ: a block per BM queries, its key tiles in order; all heads at once
-    bn = DQ_KEYS
+    bn = DQ_KEYS_D256 if d == 256 else DQ_KEYS
     dq = torch.zeros_like(q)
     for q0 in range(0, s, BM):
         rows = slice(q0, min(q0 + BM, s))
@@ -193,16 +230,16 @@ def kernel_model(q, k, v, do, causal, window, bf16=False):
             dq[:, :, rows] += rnd(ds) @ kr[:, :, cols]
     dq = dq * scale
 
-    # dK, dV: a block per (BN_KV keys, kv head, group); each group's f32 partial sums
+    # dK, dV: a block per (bn_kv keys, kv head, group); each group's f32 partial sums
     part_k = torch.zeros((g, b, kv, s, d))
     part_v = torch.zeros((g, b, kv, s, d))
-    for k0 in range(0, s, BN_KV):
-        cols = slice(k0, min(k0 + BN_KV, s))
+    for k0 in range(0, s, bn_kv):
+        cols = slice(k0, min(k0 + bn_kv, s))
         for hk in range(kv):
             for grp in range(g):
                 for i in range(rep // g):
                     hh = hk * rep + grp * (rep // g) + i
-                    for q0 in kv_steps(s, causal, window, k0):
+                    for q0 in kv_steps(s, causal, window, k0, bn=bn_kv):
                         rows = slice(q0, min(q0 + BQ, s))
                         keep = ok[rows, cols].T
                         st = k[:, hk, cols] @ q[:, hh, rows].transpose(-1, -2)
@@ -253,6 +290,8 @@ def _rel(got, want):
     (2, 130, 6, 2, 128, False, 50),    # rep 3: G 1; window alone
     (1, 257, 16, 2, 64, True, 129),    # rep 8; S a tile multiple + 1, window past a tile
     (1, 192, 4, 2, 128, False, None),  # no mask
+    (1, 130, 16, 1, 256, True, None),  # head dim 256, rep 16: G GQA_SPLIT_D256; S two 64-key tiles + 2
+    (2, 100, 4, 2, 256, True, 37),     # head dim 256, a window that binds inside a tile
 ])
 def test_kernel_model_matches_autograd_and_jax(b, s, h, kv, d, causal, window):
     arrays = _inputs(31, b, s, h, kv, d)
@@ -270,6 +309,7 @@ def test_kernel_model_matches_autograd_and_jax(b, s, h, kv, d, causal, window):
     (300, 8, 1, 128, True, None),
     (257, 8, 2, 64, True, 100),
     (129, 4, 2, 128, False, 64),
+    (200, 16, 1, 256, True, 50),
 ])
 def test_kernel_model_bf16_rounding_within_tolerance(s, h, kv, d, causal, window):
     """With bf16 inputs and P and dS rounded to bf16 where the kernels round

@@ -250,7 +250,8 @@ def test_flash_attention_returns_base2_lse_on_cpu():
     assert torch.equal(out, fa.flash_attention(q, k, v, causal=True, window=9))
 
 
-@pytest.mark.parametrize("case", ["contiguous", "fused_qkv", "batch_1_odd_batch_stride", "f32_any_stride"])
+@pytest.mark.parametrize("case", ["contiguous", "fused_qkv", "batch_1_odd_batch_stride", "f32_any_stride",
+                                  "head_dim_256"])
 def test_check_bwd_layout_accepts(case):
     """The backward kernel reads bf16 16 bytes at a time: a 16-byte aligned
     base, strides in multiples of 8 elements (an axis of extent 1 is never
@@ -260,13 +261,14 @@ def test_check_bwd_layout_accepts(case):
         "fused_qkv": lambda: list(_fused_qkv(2, 50, 8, 2, 64)),
         "batch_1_odd_batch_stride": lambda: [_view((1, 4, 40, 64), (3, 64, 256, 1))],
         "f32_any_stride": lambda: [_view((2, 3, 40, 64), (3 * 40 * 68, 68, 3 * 68, 1), dtype=torch.float32)],
+        "head_dim_256": lambda: [torch.zeros((2, 64, 16, 256), dtype=torch.bfloat16).transpose(1, 2)],
     }[case]()
     for t in views:
         fa.check_bwd_layout("t", t.shape, t.stride(), t.data_ptr(), t.dtype)
 
 
 @pytest.mark.parametrize("case,err", [
-    ("head_dim_256", NotImplementedError),
+    ("head_dim_512", NotImplementedError),
     ("head_dim_96", NotImplementedError),
     ("head_dim_strided", ValueError),
     ("misaligned_base", ValueError),
@@ -275,7 +277,7 @@ def test_check_bwd_layout_accepts(case):
 ])
 def test_check_bwd_layout_refuses(case, err):
     t = {
-        "head_dim_256": lambda: torch.zeros((1, 4, 40, 256), dtype=torch.bfloat16),
+        "head_dim_512": lambda: torch.zeros((1, 4, 40, 512), dtype=torch.bfloat16),
         "head_dim_96": lambda: torch.zeros((1, 4, 40, 96), dtype=torch.float32),
         "head_dim_strided": lambda: torch.zeros((1, 4, 64, 40), dtype=torch.float32).transpose(2, 3),
         "misaligned_base": lambda: _view((1, 4, 40, 64), (4 * 40 * 64, 40 * 64, 64, 1), offset=1),

@@ -174,9 +174,89 @@ def test_flash_attention_bf16_rejects_layouts_tma_does_not_take(card, case):
     assert fa.LAUNCHES == before
 
 
+def _machine() -> str:
+    """The card, its power limit and clocks, the host's CPU and the CPU
+    kernels torch picks there, the build, and the matmul settings a
+    comparison in f32 depends on."""
+    import platform
+    import subprocess
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,temperature.gpu",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    try:
+        cpu = next(ln.split(":", 1)[1].strip() for ln in open("/proc/cpuinfo") if ln.startswith("model name"))
+    except (OSError, StopIteration):
+        cpu = platform.processor()
+    mkldnn = getattr(getattr(torch.backends.mkldnn, "matmul", None), "fp32_precision", "n/a")
+    return (f"host {platform.node()}, {smi}, cpu {cpu}, {torch.get_num_threads()} threads, "
+            f"cpu capability {torch.backends.cpu.get_cpu_capability()}, mkldnn matmul fp32 {mkldnn}, "
+            f"torch {torch.__version__}, cuda {torch.version.cuda}, "
+            f"matmul allow_tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+            f"float32 matmul precision {torch.get_float32_matmul_precision()}, "
+            f"cudnn allow_tf32 {torch.backends.cudnn.allow_tf32}")
+
+
+def _forward_diagnosis(card, cfg, on_card, on_cpu, tokens, got, want) -> str:
+    """What a mismatch of the card's logits with the CPU twin's needs to
+    tell its causes apart: the card's forward run again (the same bits, or
+    not), each layer's K1 output on the card against ``ref.mha`` on the
+    card on the same q, k, v, both sides against a float64 forward on the
+    CPU (attention by ``ref.mha`` in float64), the CPU twin run again and
+    on one thread, and the machine."""
+    from unittest import mock
+
+    from repro_torch.models import layers as L
+
+    lines = []
+    again = on_card(tokens.to(card))
+    torch.cuda.synchronize()
+    lines.append(f"card forward again: bit-identical {torch.equal(again, got)}, "
+                 f"max abs diff {float((again - got).abs().max()):.3g}")
+    seen = []
+    real = L.attention_op
+
+    def spy(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        seen.append((q, k, v, kw, out))
+        return out
+
+    with mock.patch.object(L, "attention_op", spy):
+        on_card(tokens.to(card))
+    for i, (q, k, v, kw, out) in enumerate(seen):
+        rep = q.shape[2] // k.shape[2]
+        plain = ref.mha(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(rep, 1),
+                        v.transpose(1, 2).repeat_interleave(rep, 1), **kw).transpose(1, 2)
+        lines.append(f"layer {i}: K1 vs ref.mha on the card, max abs {float((out - plain).abs().max()):.3g}")
+
+    def mha64(q, k, v, **kw):
+        rep = q.shape[2] // k.shape[2]
+        return ref.mha(q.transpose(1, 2), k.transpose(1, 2).repeat_interleave(rep, 1),
+                       v.transpose(1, 2).repeat_interleave(rep, 1), **kw).transpose(1, 2)
+
+    on64 = StreamModel(cfg, Policy("float64", "float64", "float64"), device="cpu", generator=None)
+    on64.load_params(on_card.param_tree())
+    with mock.patch.object(L, "attention_op", mha64):
+        ref64 = on64(tokens).double()
+    for side, x in (("card", got.cpu()), ("cpu", want)):
+        lines.append(f"{side} vs float64 forward: max abs {float((x.double() - ref64).abs().max()):.3g}")
+    lines.append(f"cpu forward again: bit-identical {torch.equal(on_cpu(tokens), want)}")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = on_cpu(tokens)
+    finally:
+        torch.set_num_threads(n)
+    lines.append(f"cpu forward on 1 thread (of {n}) vs float64 forward: max abs "
+                 f"{float((one.double() - ref64).abs().max()):.3g}")
+    lines.append(f"card vs cpu: max abs {float((got.cpu() - want).abs().max()):.3g}")
+    lines.append(_machine())
+    return "\n".join(lines)
+
+
 def test_model_forward_on_card_runs_the_kernel(card):
     """A small dense model on the card launches the kernel once a layer
-    and gives the logits its CPU twin (plain attention) gives."""
+    and gives the logits its CPU twin (plain attention) gives. On a
+    mismatch it reports what tells the causes apart (``_forward_diagnosis``)."""
     cfg = dataclasses.replace(configs.get_reduced("yi-6b"), d_model=128, n_heads=2, n_kv_heads=1, head_dim=64)
     policy = Policy("float32", "float32", "float32")
     on_card = StreamModel(cfg, policy, device=card, generator=0)
@@ -187,7 +267,13 @@ def test_model_forward_on_card_runs_the_kernel(card):
     got = on_card(tokens.to(card))
     torch.cuda.synchronize()
     assert fa.LAUNCHES == before + cfg.n_layers
-    torch.testing.assert_close(got.cpu(), on_cpu(tokens), atol=1e-4, rtol=1e-4)
+    want = on_cpu(tokens)
+    try:
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    except AssertionError as e:
+        report = _forward_diagnosis(card, cfg, on_card, on_cpu, tokens, got, want)
+        print(report)
+        raise AssertionError(f"{e}\n{report}") from None
 
 
 def _ssd_inputs(seed, b, s, h, p, n, g, dtype, device, state):
@@ -774,6 +860,183 @@ def test_recurrentgemma_on_card_runs_the_kernels(card):
                 torch.testing.assert_close(t.cpu(), cache_cpu[sec][name][key], atol=1e-4, rtol=1e-4)
 
 
+# ------------------------------------------------------------- K3 backward
+# dx, dlog_a and dh0 against ref.rglru_bwd run in float64, element by
+# element, |got - want| <= tol + tol * scale (chip_smoke.check_rglru_bwd):
+# the scale is the adjoint of |dh| for dx and dh0, and for dlog_a its
+# chain G times (|a h_{t-1}| + |a^2 x / w|) (g and dlog_a's bracket each
+# cross 0); tol RGLRU_TOL at the tests' decays, 1e-4 at the model's
+
+
+def _rglru_bwd_case(seed, b, s, c, device, model_decays=False, h0=True, dh_last=True):
+    x, log_a, hh0 = _rglru_inputs(seed, b, s, c, device, model_decays=model_decays)
+    rng = np.random.default_rng(seed + 1)
+    dh = torch.from_numpy(rng.standard_normal((b, s, c)).astype(np.float32)).to(device)
+    dl = torch.from_numpy(rng.standard_normal((b, c)).astype(np.float32)).to(device) if dh_last else None
+    return x, log_a, hh0 if h0 else None, dh, dl
+
+
+def _rglru_bwd_scales(x, la, h0, h, dh, dl):
+    a = torch.exp(la)
+    v = -torch.expm1(2 * la)
+    w = torch.sqrt(torch.where(v > 0, v, torch.zeros_like(v)))
+    hprev = torch.cat([(torch.zeros_like(h[:, 0]) if h0 is None else h0)[:, None], h[:, :-1]], 1)
+    size = ref.rglru_bwd(x, la, h0, h, dh.abs(), None if dl is None else dl.abs())
+    return size[0], size[0] / w * ((a * hprev).abs() + (a * a * x / w).abs()), size[2]
+
+
+def _hold_rglru_bwd(x, log_a, h0, dh, dl, tol):
+    """K3's backward (h from K3) against the float64 plain version; one launch."""
+    with torch.no_grad():
+        h, _ = rglru_op(x, log_a, h0)
+    n = K3.BWD_LAUNCHES
+    got = K3.rglru_scan_bwd(x, log_a, h0, h, dh, dl)
+    torch.cuda.synchronize()
+    assert K3.BWD_LAUNCHES == n + 1
+    d64 = [None if t is None else t.double() for t in (x, log_a, h0, dh, dl)]
+    h64, _ = ref.rglru(*d64[:3])
+    want = ref.rglru_bwd(*d64[:3], h64, d64[3], d64[4])
+    for name, g, wv, sc in zip(("dx", "dlog_a", "dh0"), got, want, _rglru_bwd_scales(*d64[:3], h64, *d64[3:])):
+        if wv is None:
+            assert g is None
+            continue
+        assert g.dtype == torch.float32 and g.shape == wv.shape and bool(torch.isfinite(g).all())
+        err = float(((g.double() - wv).abs() / (tol + tol * sc)).max())
+        assert err <= 1.0, (name, err)
+    return got
+
+
+@pytest.mark.parametrize("b,s,c", [(1, 128, 64), (2, 256, 128), (3, 64, 256), (2, 1000, 96), (1, 1000, 512)])
+def test_rglru_bwd_kernel_on_card(card, b, s, c):
+    """K3's backward against its plain version in float64, with h0 and
+    d(h_last), at the forward's sweep and tests/test_kernels.py:86's 1e-5."""
+    _hold_rglru_bwd(*_rglru_bwd_case(s + c, b, s, c, card), RGLRU_TOL)
+
+
+# the backward's tiles (csrc/rglru_scan_bwd.cu): 32 channels a block, 8
+# steps a warp, time blocks of 128 steps; and K3's (16 steps, 256)
+@pytest.mark.parametrize("s", [1, 7, 8, 9, 127, 128, 129, 255, 256, 257, 845])
+@pytest.mark.parametrize("h0", [True, False])
+def test_rglru_bwd_kernel_sequence_edges(card, s, h0):
+    """S at a warp's steps and both kernels' time blocks, and past several,
+    at B 3 and a C off the channel tile, with h0 and d(h_last) present or
+    absent."""
+    _hold_rglru_bwd(*_rglru_bwd_case(s, 3, s, 100, card, h0=h0, dh_last=h0), RGLRU_TOL)
+
+
+@pytest.mark.parametrize("c", [1, 31, 32, 33, 4096])
+def test_rglru_bwd_kernel_channel_edges(card, c):
+    """C below, at and above the channel tile, and the model's, at B 1."""
+    _hold_rglru_bwd(*_rglru_bwd_case(c, 1, 300, c, card), RGLRU_TOL)
+
+
+@pytest.mark.parametrize("b,s,c,h0", [(4, 1024, 4096, False), (2, 3000, 256, True)])
+def test_rglru_bwd_kernel_model_decays(card, b, s, c, h0):
+    """The model's decays (a up to about 0.9995): the training call (no h0,
+    no d(h_last), as the mixer hands it) and S 3000 with both, against
+    float64 at the path's 1e-4."""
+    _hold_rglru_bwd(*_rglru_bwd_case(40 + s, b, s, c, card, model_decays=True, h0=h0, dh_last=h0), 1e-4)
+
+
+@pytest.mark.parametrize("case", ["fused_x_log_a", "sequence_major", "strided_dh", "strided_h0_dh_last"])
+def test_rglru_bwd_kernel_strided_views(card, case):
+    """Views the wrapper takes with their strides (x and log_a halves of one
+    (B, S, 2C) tensor; (S, B, C) storage seen as (B, S, C)) and views it
+    copies (dh, h0 and d(h_last) with a channel stride of 2): the bits of
+    the contiguous inputs."""
+    b, s, c = 2, 600, 96
+    x, log_a, h0, dh, dl = _rglru_bwd_case(32, b, s, c, card)
+    with torch.no_grad():
+        h, _ = rglru_op(x, log_a, h0)
+    want = K3.rglru_scan_bwd(x, log_a, h0, h, dh, dl)
+    if case == "fused_x_log_a":
+        both = torch.cat([x, log_a], dim=2)
+        x, log_a = both[..., :c], both[..., c:]
+    elif case == "sequence_major":
+        x, log_a, h, dh = (t.transpose(0, 1).contiguous().transpose(0, 1) for t in (x, log_a, h, dh))
+        assert not x.is_contiguous()
+    elif case == "strided_dh":
+        dh = torch.stack([dh, dh], dim=3).flatten(2)[..., ::2]
+        assert dh.stride(2) == 2
+    else:
+        h0, dl = (torch.stack([v, v], dim=2).flatten(1)[:, ::2] for v in (h0, dl))
+    got = K3.rglru_scan_bwd(x, log_a, h0, h, dh, dl)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_rglru_bwd_kernel_same_bits_on_every_call(card):
+    """Three calls on one input at the training shape give the same bits."""
+    x, log_a, h0, dh, dl = _rglru_bwd_case(33, 4, 1024, 4096, card, model_decays=True)
+    with torch.no_grad():
+        h, _ = rglru_op(x, log_a, h0)
+    first = K3.rglru_scan_bwd(x, log_a, h0, h, dh, dl)
+    for _ in range(2):
+        assert all(torch.equal(p, q) for p, q in zip(first, K3.rglru_scan_bwd(x, log_a, h0, h, dh, dl)))
+
+
+def test_rglru_bwd_kernel_time_tile_invariance(card, tmp_path, monkeypatch):
+    """The same input through the backward and through a build of its
+    source with 4 warps of 3 steps (time blocks of 12 instead of 128):
+    within 1e-5 of each gradient's largest element, with the model's
+    decays, and not the same bits (the tiles took effect)."""
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels import _build
+
+    src = (_build.CSRC / "rglru_scan_bwd.cu").read_text()
+    for old, new in (("constexpr int WARPS = 16;", "constexpr int WARPS = 4;"),
+                     ("constexpr int STEPS = 8;", "constexpr int STEPS = 3;")):
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    (tmp_path / "rglru_scan_bwd.cu").write_text(src)
+    lib = tmp_path / "librglru_scan_bwd.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(tmp_path / "rglru_scan_bwd.cu")],
+                   check=True, capture_output=True)
+    x, log_a, h0, dh, dl = _rglru_bwd_case(34, 2, 1000, 100, card, model_decays=True)
+    with torch.no_grad():
+        h, _ = rglru_op(x, log_a, h0)
+    want = K3.rglru_scan_bwd(x, log_a, h0, h, dh, dl)
+    monkeypatch.setattr(K3, "_bwd_fn", K3._bind_bwd(ctypes.CDLL(str(lib))))
+    got = K3.rglru_scan_bwd(x, log_a, h0, h, dh, dl)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    assert not all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_recurrentgemma_gradients_on_card_match_cpu(card):
+    """Reduced recurrentgemma (K1's head dim 64) on the card: its loss and
+    every gradient leaf through K3 and K1 forward + backward against the
+    CPU twin's (the plain versions), at 1e-4 of each leaf's largest element
+    (the two sides sum in other orders through five layers); one K3
+    backward launch an RG-LRU layer and one K1 backward launch a local
+    layer."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(configs.get_reduced("recurrentgemma-9b"), head_dim=64, vocab=250)
+    policy = Policy("float32", "float32", "float32")
+    on_card = StreamModel(cfg, policy, device=card, generator=0)
+    on_cpu = StreamModel(cfg, policy, device="cpu", generator=None)
+    on_cpu.load_params(on_card.param_tree())
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(0, 256, (2, 70)))
+    out = []
+    for model, tok in ((on_card, tokens.to(card)), (on_cpu, tokens)):
+        params = model.param_tree()
+        model.requires_grad_(True)
+        k3, k1 = K3.BWD_LAUNCHES, fa.BWD_LAUNCHES
+        loss, _ = model.loss(params, {"tokens": tok})
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        model.requires_grad_(False)
+        out.append((float(loss.detach()), [g.cpu() for g in grads], (K3.BWD_LAUNCHES - k3, fa.BWD_LAUNCHES - k1)))
+    (lc, gc_, nc), (lp, gp, npl) = out
+    assert nc == (4, 1) and npl == (0, 0)
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gc_, gp):
+        assert a.dtype == b.dtype
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+
+
 # ------------------------------------------------------------- K1 backward
 # dq, dk, dv against autograd through the plain version, each relative to
 # its largest element: f32 at the forward's 2e-5 (FMAs in another order),
@@ -804,6 +1067,9 @@ def _plain_grads(q, k, v, do, causal, window):
     (1, 777, 16, 2, 64, True, 100),     # rep 8, causal window, ragged
     (1, 300, 4, 2, 128, False, 50),     # window alone
     (1, 200, 4, 1, 64, False, None),    # no mask
+    (1, 300, 16, 1, 256, True, None),   # recurrentgemma's heads, rep 16, ragged S
+    (2, 777, 16, 1, 256, True, 100),    # its heads with a window that binds
+    (1, 300, 8, 2, 256, False, 50),     # head dim 256, window alone
 ])
 def test_flash_attention_bwd_on_card(card, dtype, b, s, h, kv, d, causal, window):
     q, k, v, do = _bwd_case(21, b, s, h, kv, d, dtype, card)
@@ -821,8 +1087,9 @@ def test_flash_attention_bwd_on_card(card, dtype, b, s, h, kv, d, causal, window
 
 # the bf16 kernels' tiles (csrc/flash_attention_bwd.cu): dK/dV blocks of
 # 128 keys walking 64-query steps, dQ blocks of 128 queries walking key
-# tiles of 128; S at, below and above each
-@pytest.mark.parametrize("d", [64, 128])
+# tiles of 128 (at head dim 256 64-key dK/dV blocks and dQ tiles); S at,
+# below and above each
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 255, 257])
 def test_flash_attention_bwd_ragged_tiles(card, d, s):
     q, k, v, do = _bwd_case(27, 2, s, 8, 2, d, "bfloat16", card)
@@ -844,7 +1111,35 @@ def test_flash_attention_bwd_gqa_and_masks(card, rep, causal, window):
         assert float((g.float() - w.float()).abs().max() / w.float().abs().max()) <= BWD_TOL["bfloat16"]
 
 
-@pytest.mark.parametrize("b,s,h,kv,d", [(4, 1024, 32, 4, 128), (2, 777, 8, 2, 64), (1, 300, 4, 4, 128)])
+# head dim 256 (recurrentgemma's local attention): GQA 1 to 16 over one or
+# two kv heads, the causal mask, windows that bind inside a 64-key tile,
+# one that S does not reach (the model's 2048) and a window alone
+@pytest.mark.parametrize("rep", [1, 4, 16])
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 100), (True, 2048), (False, 64)])
+def test_flash_attention_bwd_head_dim_256_gqa_and_masks(card, rep, causal, window):
+    q, k, v, do = _bwd_case(35, 2, 333, rep, 1, 256, "bfloat16", card)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    for g, w in zip(got, _plain_grads(q, k, v, do, causal, window)):
+        assert float((g.float() - w.float()).abs().max() / w.float().abs().max()) <= BWD_TOL["bfloat16"]
+
+
+def test_attention_op_gradient_at_head_dim_256(card):
+    """Under grad mode recurrentgemma's local attention (16/1 heads, head
+    dim 256, a window that binds) runs the forward with lse and the
+    backward kernel once each and gives autograd's gradients."""
+    q, k, v = (t.requires_grad_(True) for t in _inputs(36, 2, 300, 16, 1, 256, "bfloat16", card))
+    do = torch.randn((2, 300, 16, 256), device=card, dtype=torch.bfloat16)
+    n_f, n_b = fa.LAUNCHES, fa.BWD_LAUNCHES
+    got = torch.autograd.grad(attention_op(q, k, v, causal=True, window=100), (q, k, v), do)
+    assert (fa.LAUNCHES - n_f, fa.BWD_LAUNCHES - n_b) == (1, 1)
+    want = _plain_grads(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), do.transpose(1, 2), True, 100)
+    for g, w in zip(got, want):
+        assert float((g.float() - w.transpose(1, 2).float()).abs().max() / w.float().abs().max()) <= 2e-2
+
+
+@pytest.mark.parametrize("b,s,h,kv,d", [(4, 1024, 32, 4, 128), (2, 777, 8, 2, 64), (1, 300, 4, 4, 128),
+                                        (4, 1024, 16, 1, 256)])
 def test_flash_attention_bwd_is_deterministic(card, b, s, h, kv, d):
     """Two calls on one input give the same dq, dk and dv to the bit: the
     GQA split's partial sums are added in a fixed order, with no atomics."""
@@ -856,7 +1151,7 @@ def test_flash_attention_bwd_is_deterministic(card, b, s, h, kv, d):
         assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_attention_bwd_strided_views(card, d):
     """q, k, v as views of one fused (B, S, H + 2 Kv, D) projection, o and
     do in (B, H, S, D) storage, do also sliced from a head dim 4 wider (a
@@ -890,7 +1185,7 @@ def test_flash_attention_bwd_builds_without_spills(card, tmp_path):
                           str(_build.CSRC / "flash_attention_bwd.cu")], check=True, capture_output=True, text=True)
     log = res.stdout + res.stderr
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
-    assert len(spills) >= 8, log  # dQ, dK/dV, f32 dQ, f32 dK/dV at two head dims, Di, the reduction
+    assert len(spills) >= 14, log  # dQ, dK/dV, f32 dQ, f32 dK/dV at three head dims, Di, the reduction
     assert all(a == "0" and b == "0" for a, b in spills), log
     assert "C7508" not in log and "setmaxnreg ignored" not in log, log
 
@@ -928,23 +1223,39 @@ def test_attention_op_gradient_through_the_kernels(card):
         assert float((g.float() - w.transpose(1, 2).float()).abs().max() / w.float().abs().max()) <= 2e-2
 
 
-@pytest.mark.parametrize("d,cap", [(256, None), (128, 50.0)])
+@pytest.mark.parametrize("d,cap", [(256, 50.0), (128, 50.0)])
 def test_flash_attention_bwd_refuses_what_it_lacks(card, d, cap):
+    """The backward takes no softcap: under grad an input that requires
+    it raises at the forward (head dim 256 is taken since it gained its
+    tiles, with a softcap still refused)."""
     q, k, v = (t.requires_grad_(True) for t in _inputs(25, 1, 64, 4, 2, d, "bfloat16", card))
     with pytest.raises(NotImplementedError):
         attention_op(q, k, v, causal=True, softcap=cap)
 
 
 def test_scans_refuse_inputs_that_require_grad(card):
-    """K3 has no backward yet: on the card an input that requires grad
-    raises (a kernel output outside autograd would be a silent zero
-    gradient); under no_grad it runs. (K2 has its backward kernel:
-    test_ssd_scan_under_grad_matches_plain.)"""
-    xr = torch.randn((1, 64, 32), device=card, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        rglru_op(xr, -torch.rand((1, 64, 32), device=card))
+    """K3 has its backward kernel now: on the card an input that requires
+    grad goes through RGLRUScan (one forward and one backward launch, the
+    gradients of autograd through the plain version within 1e-5 of each
+    one's largest element), and under no_grad the forward alone runs, with
+    no graph. (K2's: test_ssd_scan_under_grad_matches_plain.)"""
+    x, log_a, h0 = _rglru_inputs(31, 1, 64, 32, card)
+    leaves = [t.requires_grad_(True) for t in (x, log_a, h0)]
+    fwd, bwd = K3.LAUNCHES, K3.BWD_LAUNCHES
+    h, hl = rglru_op(*leaves)
+    assert type(h.grad_fn).__name__ == "RGLRUScanBackward"
+    w = torch.randn_like(h)
+    got = torch.autograd.grad((h * w).sum() + hl.sum(), leaves)
+    torch.cuda.synchronize()
+    assert (K3.LAUNCHES, K3.BWD_LAUNCHES) == (fwd + 1, bwd + 1)
+    ll = [t.detach().double().requires_grad_(True) for t in leaves]
+    hh, hhl = ref.rglru(*ll)
+    want = torch.autograd.grad((hh * w.double()).sum() + hhl.sum(), ll)
+    for g, wv in zip(got, want):
+        assert float((g.double() - wv).abs().max() / wv.abs().max()) <= RGLRU_TOL
     with torch.no_grad():
-        rglru_op(xr, -torch.rand((1, 64, 32), device=card))
+        h, _ = rglru_op(*leaves)
+    assert h.grad_fn is None and K3.BWD_LAUNCHES == bwd + 1
 
 
 def test_device_feed_on_card(card):

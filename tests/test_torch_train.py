@@ -1,13 +1,18 @@
 """LM training in the port against the JAX package, on moved weights.
 
-Reduced yi-6b and reduced mamba2 in f32 on the CPU, their vocab cut to 250
+Reduced yi-6b, reduced mamba2 and reduced recurrentgemma (5 layers: a
+group of rec, rec, local and a tail of two rec, window 16) in f32 on the
+CPU, their vocab cut to 250
 so that the padded unembed (256 columns; mamba2's tied embed) has columns
 past the vocab and a batch can hold labels >= vocab, which the loss must
 mask. Inputs from numpy seeds. Tolerances: the loss and every gradient
 leaf at 1e-5 relative to the leaf's largest element for yi-6b (f32 with
 sums in another order) and 1e-4 for mamba2 (its scan: JAX's chunked form
 takes exps of cumsum differences where the port's plain version steps a
-product of decays; measured 1.1e-5 on w_C); AdamW against JAX's at 1e-6
+product of decays; measured 1.1e-5 on w_C); recurrentgemma at yi-6b's
+1e-5 (its RG-LRU scan through RGLRUScan's plain sides, the sequential
+recurrence and its adjoint, against JAX's associative scan: measured
+7.5e-6 on a conv leaf); AdamW against JAX's at 1e-6
 (f32 leaf) and one bf16 step (bf16 leaf); the 5-step TrainingJob loss
 trajectories at 1e-4 (the same f32 arithmetic, five AdamW or adamw8bit
 steps apart).
@@ -56,6 +61,7 @@ GRAD_TOL = 1e-5
 SSM_GRAD_TOL = 1e-4
 TRAJ_TOL = 1e-4
 M2 = "mamba2-2.7b"
+RG = "recurrentgemma-9b"
 
 
 def _cfgs(arch="yi-6b"):
@@ -92,11 +98,15 @@ def _rel(got, want):
 @pytest.mark.parametrize("arch,loss_chunk", [
     pytest.param("yi-6b", 8, id="8"), pytest.param("yi-6b", 1024, id="1024"),
     pytest.param(M2, 8, id="mamba2-8"), pytest.param(M2, 1024, id="mamba2-1024"),
+    pytest.param(RG, 8, id="recurrentgemma-8"), pytest.param(RG, 1024, id="recurrentgemma-1024"),
 ])
 def test_loss_and_gradients_match_jax(arch, loss_chunk):
     """The loss and every gradient leaf against jax.value_and_grad of the
     JAX loss (mamba2: its tied embed, its f32 A_log, D and dt_bias leaves
-    with f32 gradients, its scan through SSDScan's CPU sides)."""
+    with f32 gradients, its scan through SSDScan's CPU sides;
+    recurrentgemma: its tied and scaled embed, its f32 b_a, b_i and Lambda
+    leaves, its scan through RGLRUScan's CPU sides, its windowed local
+    attention through FlashAttention's)."""
     jm, jp, tm, _ = _pair(arch)
     tol = SSM_GRAD_TOL if arch == M2 else GRAD_TOL
     tok = _tokens(0)
@@ -168,6 +178,13 @@ def test_mamba2_one_train_step():
     _one_train_step(M2)
 
 
+def test_recurrentgemma_one_train_step():
+    """Mirror of tests/test_models.py:38 on recurrentgemma (the RG-LRU
+    scan's gradient through RGLRUScan, the local attention's through
+    FlashAttention)."""
+    _one_train_step(RG)
+
+
 def _causal(arch):
     """logits[:, :k] do not depend on tokens after k."""
     _, _, tm, _ = _pair(arch)
@@ -186,6 +203,12 @@ def test_mamba2_causality():
     """Mirror of tests/test_models.py:102 on mamba2 (a ragged last chunk of
     the reduced config's 16: 20 = 16 + 4)."""
     _causal(M2)
+
+
+def test_recurrentgemma_causality():
+    """Mirror of tests/test_models.py:102 on recurrentgemma (32 tokens past
+    the reduced config's window of 16)."""
+    _causal(RG)
 
 
 def test_chunked_loss_invariant_to_chunk_size(pair):
@@ -383,14 +406,17 @@ _OPTS = {"adamw": (jadamw, adamw), "adamw8bit": (jadamw8bit, adamw8bit)}  # (JAX
     pytest.param("yi-6b", False, "adamw8bit", id="False-adamw8bit"),
     pytest.param("yi-6b", True, "adamw8bit", id="True-adamw8bit"),
     pytest.param(M2, True, "adamw", id="mamba2-True"), pytest.param(M2, True, "adamw8bit", id="mamba2-True-adamw8bit"),
+    pytest.param(RG, True, "adamw", id="recurrentgemma-True"),
+    pytest.param(RG, True, "adamw8bit", id="recurrentgemma-True-adamw8bit"),
 ])
 def test_training_job_trajectory_matches_jax(arch, streaming, opt):
     """The roadmap's gate: 5 steps of TrainingJob in each package on the
     same moved params and the same ingested stream give the same losses
     (1e-4), and the same streaming or held-out eval, with AdamW and with
-    adamw8bit; on reduced yi-6b and on reduced mamba2 (whose tree mixes
+    adamw8bit; on reduced yi-6b, on reduced mamba2 (whose tree mixes
     bf16-able leaves with f32 (L, H) ones narrower than a quantization
-    block)."""
+    block) and on reduced recurrentgemma (a tail of layers beside the
+    stacked group, tied embeddings)."""
     jopt, topt = _OPTS[opt]
     jm, jp, _, moved = _pair(arch)
     _, tcfg = _cfgs(arch)
