@@ -8,9 +8,13 @@ of the port from ``src/repro_torch/kernels/csrc`` with nvcc; (3) hold
 each kernel against its plain PyTorch version on the card, at its paths'
 shapes and a sweep of modes, and time kernel, plain version and (where
 one exists) one library call: K1 (flash attention, head dims 64, 128 and
-256), K1's backward (dq, dk, dv against autograd through the plain
-version; head dims 64, 128 and 256, recurrentgemma's training call
-timed) and its forward's row log-sum-exp, then K2 (SSD scan), then K2's
+256; gemma2-2b's softcap of 50 at 256, its wave's calls timed beside
+qwen2-7b's and mistral-large-123b's prefills), K1's backward (dq, dk, dv
+against autograd through the plain version; head dims 64, 128 and 256,
+recurrentgemma's training call timed; gemma2's softcap at 256, its
+training call timed with and without the cap and its 8192-token context
+with the window, flex_attention's backward the library; qwen2-7b's GQA 7
+call timed) and its forward's row log-sum-exp, then K2 (SSD scan), then K2's
 backward (dx, ddt, dA, dB, dC and d(initial state) against autograd
 through the plain version, the same bits on a repeated call, and its
 training call timed beside K2's forward at that call), then K3 (RG-LRU
@@ -47,10 +51,17 @@ layers with ``adamw8bit`` (K3 forward and backward on every RG-LRU
 layer, K1 forward and backward at head dim 256 with its window on every
 local layer, K2 never), then the gradients of its trained first RG-LRU
 layer at the training shape, through K3 forward + backward against the
-plain version, freed before serving; (5) serve four
+plain version, freed before serving; (4f) the same workload on
+full-width gemma2-2b at all 26 layers (K1 forward and backward with the
+softcap at head dim 256 on every layer, the window on the local ones)
+and on qwen2-7b at all 28 (its QKV bias), each with ``adamw8bit``, then
+each one's trained first attention layer's gradients through K1 forward
++ backward against the plain version; (5) serve four
 requests of mixed prompt lengths from a stream topic
 through full-width yi-6b (32 layers, random bf16 weights from a
-seed) with ``ContinuousLMEngine`` and check what comes back; (6) serve
+seed) with ``ContinuousLMEngine`` and check what comes back (and, after
+(6b), the same through full-width qwen2-7b at all 28 layers and
+mistral-large-123b cut to MISTRAL_LAYERS of its 88); (6) serve
 eight requests through the same model behind ``LMServingGroup`` (two
 transactional workers on a three-broker cluster, request and response
 topics of two partitions at replication factor 3, the response leader
@@ -70,6 +81,9 @@ a topic of four 3000-token prompts through full-width recurrentgemma-9b
 window 2048 on K1 at head dim 256; random bf16 weights from a seed) with
 ``LMEngine`` and check what comes back (its bf16 drift stays within the
 tight slack, so every token is held there and no f32 twin is needed);
+(8b) serve a topic of four 4500-token prompts through full-width
+gemma2-2b (26 layers, softcapped K1 at head dim 256, the local layers'
+window of 4096 bound in prefill and their ring wrapped) the same way;
 (9) print the ``kernels`` line (K1's, K1's backward's, K2's and K3's
 times summed over their paths, and each path's own under ``by_path``;
 K2's backward, K3's backward, the 8-bit update and the global norm as
@@ -208,7 +222,14 @@ OPT8_OPS = 39
 # about 0.5): ln(64000) = 11.07, ln(50280) = 10.83; recurrentgemma's final
 # norm scales by 1 + w with w initialised to ones, as in JAX, so its tied
 # embed's logits have a variance of about 4: ln(256000) + 2 = 14.45
-TRAIN_LOSS0_BAND = {"yi-6b": (10.5, 12.5), "mamba2-2.7b": (10.3, 12.3), "recurrentgemma-9b": (13.5, 15.5)}
+# gemma2-2b is recurrentgemma's case again (tied embed, final norm 1 + w
+# with w ones, so logits of variance 4; its final softcap of 30 bends logits
+# of standard deviation 2 by under 0.3%): ln(256000) + 2 = 14.45, whatever
+# its sandwich norms do to the residual stream, which the final norm
+# rescales; qwen2-7b is yi-6b's (an untied unembed): ln(152064) + 0.5 =
+# 12.43
+TRAIN_LOSS0_BAND = {"yi-6b": (10.5, 12.5), "mamba2-2.7b": (10.3, 12.3), "recurrentgemma-9b": (13.5, 15.5),
+                    "gemma2-2b": (13.5, 15.5), "qwen2-7b": (11.4, 13.4)}
 # mamba2's training path: full-width mamba2-2.7b at all its 64 layers (d
 # 2560, 80 heads x 64, N 128, chunk 256, 2,702,296,576 params), trained
 # with adamw8bit on phase_train's stream at batch TRAIN_BATCH x TRAIN_SEQ
@@ -249,6 +270,46 @@ RGLRU_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 4096)  # (B, S, C) of its RG-LRU calls
 RGLRU_BWD_EDGES = ((1, 1, 64, True), (2, 9, 40, False), (1, 127, 64, True), (2, 128, 32, False),
                    (1, 129, 96, True), (3, 255, 100, False), (1, 256, 96, True), (3, 257, 40, False),
                    (1, 845, 4096, True), (2, 1000, 96, False))
+# gemma2-2b's paths, at its published widths (d 2304, 26 layers of local /
+# global pairs, 8/4 heads x 256, softcap 50 on the attention and 30 on the
+# logits, window 4096 on the local layers, d_ff 9216 gelu, vocab 256000,
+# tied and scaled embed, sandwich norms), all 26 layers,
+# 2,614,341,888 parameters: served from a stream in waves of 4 prompts
+# past the window (4500 = 70 x 64 + 20, ragged for every K1 tile), so the
+# local layers' prefill binds K1's window and their ring wraps; trained on
+# phase_train's stream with adamw8bit
+GEMMA2 = "gemma2-2b"
+GEMMA2_LAYERS = 26
+GEMMA2_PROMPT_LEN = 4500
+GEMMA2_WINDOW, GEMMA2_CAP = 4096, 50.0
+GEMMA2_TRAIN_ATTN = (TRAIN_BATCH, TRAIN_SEQ, 8, 4, 256)  # (B, S, H, Kv, D) of its training calls
+GEMMA2_CONTEXT = (1, 8192, 8, 4, 256)  # its pretraining context, where the window binds
+# gemma2-2b with bf16 activations drifts as mamba2 does: its random 26-layer
+# stack, whose sandwich norms scale each block's output by 1 + w = 2, grows
+# a 1e-3 embedding perturbation to 0.32 of the residual stream in bf16
+# (0.087 in f32), and its served tokens trail the teacher-forced forward by
+# up to 1.94 and 2.78 (two runs; 0 with f32 activations). Faults planted in
+# the decode cache give 1.56 (the last prompt position's K and V zeroed) to
+# 12.9 (the sandwich norms dropped), so in bf16 some hide under any slack
+# the drift allows: the bf16 wave holds its decoded tokens at twice the
+# worst drift seen, and an f32-activation twin holds every token at
+# GREEDY_SLACK (scripts/torch_ssm_drift.py --model gemma2 on an H100 80GB
+# HBM3 at 700 W; PERF.md, Findings)
+GEMMA2_BF16_DRIFT_SLACK = 6.0
+# qwen2-7b (d 3584, 28/4 heads x 128 with QKV bias, d_ff 18944, vocab
+# 152064, untied), all 28 layers, 7,615,616,512 parameters: served from a
+# stream through ContinuousLMEngine as yi-6b is, and trained with adamw8bit
+QWEN2 = "qwen2-7b"
+QWEN2_LAYERS = 28
+QWEN2_TRAIN_ATTN = (TRAIN_BATCH, TRAIN_SEQ, 28, 4, 128)  # GQA 7: the backward's split takes G 1
+# mistral-large-123b at its published widths (d 12288, 96/8 heads x 128,
+# d_ff 28672, vocab 32768), cut in depth to MISTRAL_LAYERS of its 88
+# layers: all 88 are about 246 GB in bf16, three cards' memory; 8 layers
+# are 22.1 GB of weights and 1.6 GB of embed and unembed, and init draws
+# each stacked leaf in f32 at once (w_in 11.3 GB while drawn). Served from
+# a stream through ContinuousLMEngine as yi-6b is.
+MISTRAL = "mistral-large-123b"
+MISTRAL_LAYERS = 8
 # the paper loop (examples/torch_quickstart.py): copd-mlp at its own
 # widths (5 -> 32 -> 4) on the synthetic HCOPD stream (220 records,
 # validation 0.2), trained as tests/test_system.py:17 trains it and held
@@ -326,6 +387,50 @@ def attention_bound(b, h, kv, s, d, dtype: str, causal, window) -> tuple[float, 
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+_FLEX: dict = {}
+
+
+def flex_library(qt, kt, vt, causal, window, cap, dot=None) -> dict:
+    """The library yardstick of a softcapped call: PyTorch's flex_attention,
+    compiled, with ``cap tanh(score / cap)`` as its score_mod and the mask
+    as its block mask over the unrepeated K/V (``enable_gqa``): the
+    kernel's function. Its forward, or with ``dot`` its backward (autograd
+    of one forward, kept). Returns ``{"library_ms", "library"}``, or where
+    it does not compile or run, ``{"library_ms": None, "library_refused"}``."""
+    import torch
+
+    try:
+        import torch._inductor.config as inductor_config
+        from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+        if "fn" not in _FLEX:
+            inductor_config.compile_threads = 1  # no pool of compile workers outliving the call
+            _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+        fn, s = _FLEX["fn"], qt.shape[2]
+
+        def mask_mod(b, h, q_idx, kv_idx):
+            ok = kv_idx <= q_idx if causal else kv_idx >= 0
+            return ok & (kv_idx > q_idx - window) if window else ok
+
+        def score_mod(score, b, h, q_idx, kv_idx):
+            return cap * torch.tanh(score / cap)
+
+        block_mask = create_block_mask(mask_mod, None, None, s, s, device="cuda")
+        if dot is None:
+            def call():
+                return fn(qt, kt, vt, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+        else:
+            leaves = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
+            out = fn(*leaves, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
+
+            def call():
+                return torch.autograd.grad(out, leaves, dot, retain_graph=True)
+        return {"library_ms": time_ms(call, 20), "library": "flex_attention, torch.compile, tanh score_mod"}
+    except Exception as e:  # noqa: BLE001  (any failure to compile or run is recorded, not fatal)
+        why = str(e).strip().splitlines()[0][:300] if str(e).strip() else ""
+        return {"library_ms": None, "library_refused": f"flex_attention: {type(e).__name__}: {why}"}
+
+
 def check_attention(card, fa, ref, b, s, h, kv, d, dtype, causal, window, cap, gen, timed):
     """Kernel vs plain version on one input; with ``timed`` also times both
     and the library call. Raises if they disagree."""
@@ -359,11 +464,13 @@ def check_attention(card, fa, ref, b, s, h, kv, d, dtype, causal, window, cap, g
         row["ms"] = time_ms(kernel, 20)
         row["plain_ms"] = time_ms(plain, 5)
         row["library_ms"] = None
-        if cap is None and (window is None or (causal and window >= s)):  # a window of S or more drops nothing
+        if cap is not None:  # flex_attention with the cap as its score_mod, where it compiles
+            row.update(flex_library(qt, kt, vt, causal, window, cap))
+        elif window is None or (causal and window >= s):  # a window of S or more drops nothing
             row["library_ms"] = time_ms(
                 lambda: F.scaled_dot_product_attention(qt, kr, vr, is_causal=causal), 20
             )
-        elif cap is None:  # a boolean mask: not the flash backend, which takes no mask
+        else:  # a boolean mask: not the flash backend, which takes no mask
             pos = torch.arange(s, device="cuda")
             keep = (pos[None, :] > pos[:, None] - window) & (pos[None, :] <= pos[:, None] if causal else True)
             row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=keep), 20)
@@ -408,7 +515,27 @@ def phase_kernels(card, fa, ref):
     # the yi-6b deployment's prefill: one partition's prompts a call, bf16, causal
     deploy_main = check_attention(card, fa, ref, DEPLOY_PER_PARTITION, DEPLOY_PROMPT, 32, 4, 128, "bfloat16", True,
                                   None, None, gen, True)
-    return rows, main, rg_main, deploy_main
+    # gemma2-2b's attention (8 heads over 4 kv heads, hd 256, softcap 50): a
+    # ragged S with and without a window that binds, f32 and bf16; then its
+    # wave's own calls, timed: its local layers' (window 4096, which S 4500
+    # passes) and its global layers'
+    for window in (None, 128):
+        for dtype in ("float32", "bfloat16"):
+            rows.append(check_attention(card, fa, ref, 1, 1000, 8, 4, 256, dtype, True, window, GEMMA2_CAP, gen, False))
+    # ... the f32-activation twin's call at the wave's shape (its local layers')
+    rows.append(check_attention(card, fa, ref, WAVE_REQUESTS, GEMMA2_PROMPT_LEN, 8, 4, 256, "float32", True,
+                                GEMMA2_WINDOW, GEMMA2_CAP, gen, False))
+    family = {GEMMA2: [
+        check_attention(card, fa, ref, WAVE_REQUESTS, GEMMA2_PROMPT_LEN, 8, 4, 256, "bfloat16", True, window,
+                        GEMMA2_CAP, gen, True)
+        for window in (GEMMA2_WINDOW, None)
+    ]}
+    # qwen2-7b's (28 heads over 4, hd 128) and mistral's (96 over 8, hd 128)
+    # serving calls: one a layer a request, at each prompt length, bf16, causal
+    for arch, h, kv in ((QWEN2, 28, 4), (MISTRAL, 96, 8)):
+        family[arch] = [check_attention(card, fa, ref, 1, s, h, kv, 128, "bfloat16", True, None, None, gen, True)
+                        for s in PROMPT_LENS]
+    return rows, main, rg_main, deploy_main, family
 
 
 def attention_bwd_bound(b, h, kv, s, d, dtype: str, causal, window) -> tuple[float, str]:
@@ -423,14 +550,17 @@ def attention_bwd_bound(b, h, kv, s, d, dtype: str, causal, window) -> tuple[flo
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, gen, timed):
+def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, gen, timed, cap=None):
     """K1's backward kernel against autograd through the plain version on
     one input: dq, dk, dv (dk, dv summed over each kv group), each held to
     its largest element (BWD_TOL). With ``timed`` also times the kernel,
     the plain backward (autograd of ``ref.mha``, its graph built once) and
     SDPA's backward on pre-repeated K/V as a yardstick where the mask is
     causal alone (a window of S or more drops nothing); where the backend
-    refuses the call, ``library_refused`` says why. Raises if they
+    refuses the call, ``library_refused`` says why. With a softcap ``cap``
+    the yardstick is flex_attention's backward (``flex_library``); where
+    that refuses, SDPA's backward without the cap, which is not the same
+    function, goes to ``library_sdpa_without_cap_ms``. Raises if they
     disagree."""
     import torch
     import torch.nn.functional as F
@@ -443,14 +573,14 @@ def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, ge
     q, k, v, do = randn(b, s, h, d), randn(b, s, kv, d), randn(b, s, kv, d), randn(b, s, h, d)
     qt, kt, vt, dot = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), do.transpose(1, 2)
     rep = h // kv
-    out, lse = fa.flash_attention(qt, kt, vt, causal=causal, window=window, return_lse=True)
+    out, lse = fa.flash_attention(qt, kt, vt, causal=causal, window=window, softcap=cap, return_lse=True)
 
     def kernel():
-        return fa.flash_attention_bwd(qt, kt, vt, out, dot, lse, causal=causal, window=window)
+        return fa.flash_attention_bwd(qt, kt, vt, out, dot, lse, causal=causal, window=window, softcap=cap)
 
     leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
     plain_out = ref.mha(leaves[0], leaves[1].repeat_interleave(rep, 1), leaves[2].repeat_interleave(rep, 1),
-                        causal=causal, window=window)
+                        causal=causal, window=window, softcap=cap)
 
     def plain():
         return torch.autograd.grad(plain_out, leaves, dot, retain_graph=True)
@@ -462,7 +592,7 @@ def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, ge
     ok = all(bool(torch.isfinite(g).all()) for g in got) and max(rel) <= tol
     row = {
         "b": b, "s": s, "h": h, "kv": kv, "d": d, "dtype": dtype, "causal": causal, "window": window,
-        "rel_err_dq_dk_dv": rel, "max_abs_err": max(float((g.float() - w.float()).abs().max())
+        "softcap": cap, "rel_err_dq_dk_dv": rel, "max_abs_err": max(float((g.float() - w.float()).abs().max())
                                                     for g, w in zip(got, want)),
         "tol": tol, "ok": ok,
     }
@@ -470,13 +600,15 @@ def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, ge
         row["ms"] = time_ms(kernel, 20)
         row["plain_ms"] = time_ms(plain, 3)
         row["library_ms"] = None
-        if window is None or (causal and window >= s):
+        if cap is not None:
+            row.update(flex_library(qt, kt, vt, causal, window, cap, dot))
+        if row["library_ms"] is None and (window is None or (causal and window >= s)):
             sq, sk, sv = (t.detach().requires_grad_(True)
                           for t in (qt, kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)))
             try:
                 s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
-                row["library_ms"] = time_ms(
-                    lambda: torch.autograd.grad(s_out, (sq, sk, sv), dot, retain_graph=True), 20)
+                sdpa_ms = time_ms(lambda: torch.autograd.grad(s_out, (sq, sk, sv), dot, retain_graph=True), 20)
+                row["library_sdpa_without_cap_ms" if cap is not None else "library_ms"] = sdpa_ms
             except RuntimeError as e:  # no SDPA backend takes the call
                 row["library_refused"] = str(e).splitlines()[0][:300]
         row["bound_ms"], row["bound_by"] = attention_bwd_bound(b, h, kv, s, d, dtype, causal, window)
@@ -486,7 +618,8 @@ def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, ge
     return row
 
 
-def check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen, calls: int = 3, window: int | None = None):
+def check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen, calls: int = 3, window: int | None = None,
+                                    cap: float | None = None):
     """K1's backward called ``calls`` times on one bf16 causal input: dq,
     dk and dv the same to the bit every time (its GQA split adds partial
     sums in a fixed order, with no atomics). Raises if not."""
@@ -494,15 +627,15 @@ def check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen, calls: int = 
 
     q, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "qo")
     k, v = (torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "kv")
-    out, lse = fa.flash_attention(q, k, v, causal=True, window=window, return_lse=True)
+    out, lse = fa.flash_attention(q, k, v, causal=True, window=window, softcap=cap, return_lse=True)
 
     def call():
-        return fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True, window=window)
+        return fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True, window=window, softcap=cap)
 
     first = call()
     same = all(all(torch.equal(x, y) for x, y in zip(first, call())) for _ in range(calls - 1))
     row = {"b": b, "s": s, "h": h, "kv": kv, "d": d, "dtype": "bfloat16", "causal": True, "window": window,
-           "calls": calls, "bit_identical": same, "ok": same}
+           "softcap": cap, "calls": calls, "bit_identical": same, "ok": same}
     print(f"[{card}] flash_attention_bwd determinism {json.dumps(row)}", flush=True)
     if not same:
         raise AssertionError(f"flash_attention_bwd gave other bits on the same input: {row}")
@@ -520,7 +653,8 @@ def phase_kernels_bwd(card, fa, ref):
     ragged S and a window that binds, in f32 and bf16, its training call
     (RG_TRAIN_ATTN, window RG_WINDOW, which S 1024 does not reach) in f32
     and, forward and backward, timed in bf16, and the backward's bits on
-    three calls with and without a window that binds."""
+    three calls with and without a window that binds. Then gemma2-2b's
+    softcap at head dim 256 and qwen2-7b's GQA 7 (``family``, timed)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -558,7 +692,36 @@ def phase_kernels_bwd(card, fa, ref):
     rg_bwd_main = check_attention_bwd(card, fa, ref, b, s, h, kv, d, "bfloat16", True, RG_WINDOW, gen, True)
     rows.append(check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen, window=RG_WINDOW))
     rows.append(check_attention_bwd_determinism(card, fa, 2, 777, h, kv, d, gen, window=100))
-    return rows, lse_rows, fwd_main, bwd_main, rg_fwd_main, rg_bwd_main
+    # gemma2-2b's softcap (50) at head dim 256: the rows above with it, f32
+    # and bf16; its training call (GEMMA2_TRAIN_ATTN, causal; its local
+    # layers' window of 4096 is past S 1024) in f32 and, forward and
+    # backward, timed in bf16, and timed without the cap beside it (what the
+    # cap costs); its pretraining context (GEMMA2_CONTEXT), where the window
+    # binds, timed; the backward's bits on three calls
+    for bb, ss, hh, kk, causal, window in ((1, 300, 16, 1, True, None), (2, 777, 16, 1, True, 100),
+                                           (1, 300, 8, 2, False, 50)):
+        for dtype in ("float32", "bfloat16"):
+            rows.append(check_attention_bwd(card, fa, ref, bb, ss, hh, kk, 256, dtype, causal, window, gen, False,
+                                            cap=GEMMA2_CAP))
+    b, s, h, kv, d = GEMMA2_TRAIN_ATTN
+    rows.append(check_attention_bwd(card, fa, ref, b, s, h, kv, d, "float32", True, None, gen, False, cap=GEMMA2_CAP))
+    family = {
+        "gemma2_fwd": check_attention(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, GEMMA2_CAP, gen, True),
+        "gemma2_bwd": check_attention_bwd(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, gen, True,
+                                          cap=GEMMA2_CAP),
+        "gemma2_bwd_without_cap": check_attention_bwd(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, gen, True),
+    }
+    rows.append(check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen, cap=GEMMA2_CAP))
+    b, s, h, kv, d = GEMMA2_CONTEXT
+    family["gemma2_context_bwd"] = check_attention_bwd(card, fa, ref, b, s, h, kv, d, "bfloat16", True, GEMMA2_WINDOW,
+                                                       gen, True, cap=GEMMA2_CAP)
+    # qwen2-7b's training call: GQA 7, whose split is 1 (7 is prime and
+    # above GQA_SPLIT), forward and backward timed, and its bits
+    b, s, h, kv, d = QWEN2_TRAIN_ATTN
+    family["qwen2_fwd"] = check_attention(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, None, gen, True)
+    family["qwen2_bwd"] = check_attention_bwd(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, gen, True)
+    rows.append(check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen))
+    return rows, lse_rows, fwd_main, bwd_main, rg_fwd_main, rg_bwd_main, family
 
 
 def load_example(name: str):
@@ -979,10 +1142,11 @@ def phase_optimizer_kernel(card):
     return out
 
 
-def phase_train_grads(card, ref, mixer: dict):
+def phase_train_grads(card, ref, mixer: dict, arch: str = "yi-6b", kind: str = "attn", attn=TRAIN_ATTN):
     """The trained model's first attention layer (``mixer``: its wq, wk,
-    wv, wo) at the training shape: the gradients of a fixed random
-    projection of its output with respect to a random x and the four
+    wv, wo, and qwen2's bq, bk, bv; a layer of ``kind``, with its window
+    and softcap) at the training shape ``attn``: the gradients of a fixed
+    random projection of its output with respect to a random x and the
     weights, through K1 forward + backward, against the same computation
     through the plain version on the card; each leaf's error relative to
     its largest element, within K1's bf16 tolerance."""
@@ -994,16 +1158,16 @@ def phase_train_grads(card, ref, mixer: dict):
     from repro_torch.kernels.ops import attention_op
     from repro_torch.models import layers as L
 
-    cfg = configs.get("yi-6b")
-    ap = cfg.attn_params("attn")
-    b, s, h, kv, hd = TRAIN_ATTN
+    cfg = configs.get(arch)
+    ap = cfg.attn_params(kind)
+    b, s, h, kv, hd = attn
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
     d = cfg.d_model
-    leaves = {"x": randn(b, s, d), **{k: mixer[k] for k in ("wq", "wk", "wv", "wo")}}
+    leaves = {"x": randn(b, s, d), **{k: mixer[k] for k in ("wq", "wk", "wv", "wo", "bq", "bk", "bv") if k in mixer}}
     proj = randn(b, s, d)
     positions = torch.arange(s, device="cuda")
 
@@ -1011,10 +1175,11 @@ def phase_train_grads(card, ref, mixer: dict):
         t = {k: v.detach().requires_grad_(True) for k, v in leaves.items()}
         q, k, v = L._project_qkv(t, t["x"], ap, positions)
         if kernel:
-            out = attention_op(q, k, v, causal=True)
+            out = attention_op(q, k, v, causal=True, window=ap.window, softcap=ap.softcap)
         else:
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            out = ref.mha(qt, kt.repeat_interleave(h // kv, 1), vt.repeat_interleave(h // kv, 1)).transpose(1, 2)
+            out = ref.mha(qt, kt.repeat_interleave(h // kv, 1), vt.repeat_interleave(h // kv, 1),
+                          window=ap.window, softcap=ap.softcap).transpose(1, 2)
         y = L._out_proj(out, t["wo"])
         g = torch.autograd.grad((y.float() * proj.float()).sum(), list(t.values()))
         return dict(zip(t, g))
@@ -1022,8 +1187,9 @@ def phase_train_grads(card, ref, mixer: dict):
     got, want = grads(True), grads(False)
     torch.cuda.synchronize()
     rel = {k: float((got[k].float() - want[k].float()).abs().max() / want[k].float().abs().max()) for k in got}
-    row = {"shape": list(TRAIN_ATTN), "rel_err": rel, "tol": BWD_TOL["bfloat16"]}
-    print(f"[{card}] yi-6b attention layer gradients, kernel vs plain {json.dumps(row)}", flush=True)
+    row = {"arch": arch, "kind": kind, "shape": list(attn), "window": ap.window, "softcap": ap.softcap, "rel_err": rel,
+           "tol": BWD_TOL["bfloat16"]}
+    print(f"[{card}] {arch} {kind} attention layer gradients, kernel vs plain {json.dumps(row)}", flush=True)
     assert all(math.isfinite(e) and e <= BWD_TOL["bfloat16"] for e in rel.values()), row
     return row
 
@@ -1300,11 +1466,15 @@ def phase_train_ssm_grads(card, ref, mixer: dict):
     return row
 
 
-def serving_setup():
-    """The served workload: full-width yi-6b with random bf16 weights from
-    SEED behind a ContinuousLMEngine (4 slots, blocks of BLOCK), warmed up
-    by one short request, and a request topic holding one request per
-    PROMPT_LENS entry. Returns (cfg, model, engine, log, requests)."""
+def serving_setup(arch: str = "yi-6b", layers: int | None = None):
+    """The served workload: full-width ``arch`` (yi-6b, qwen2-7b or
+    mistral-large-123b; ``layers`` of its layers where given) with random
+    bf16 weights from SEED behind a ContinuousLMEngine (4 slots, blocks of
+    BLOCK), warmed up by one short request, and a request topic holding one
+    request per PROMPT_LENS entry. Returns (cfg, model, engine, log,
+    requests)."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch import configs
@@ -1313,7 +1483,9 @@ def serving_setup():
     from repro_torch.models.policy import Policy
     from repro_torch.serve.lm_engine import ContinuousLMEngine, Request, encode_request, tenant_key
 
-    cfg = configs.get("yi-6b")
+    cfg = configs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     model = StreamModel(cfg, Policy(), device="cuda", generator=SEED)
     max_blocks = -(-(max(PROMPT_LENS) + MAX_NEW - 1) // BLOCK)
     engine = ContinuousLMEngine(
@@ -1337,17 +1509,23 @@ def serving_setup():
     return cfg, model, engine, log, reqs
 
 
-def phase_serve(card, kernels: dict):
+def phase_serve(card, kernels: dict, arch: str = "yi-6b", layers: int | None = None):
+    """Serve ``serving_setup(arch, layers)``'s topic through the
+    ContinuousLMEngine and check what comes back: every request once, its
+    tenant, MAX_NEW tokens each, K1 launched once a layer a request (the
+    prefills) and nothing else, each served token within GREEDY_SLACK of
+    the teacher-forced forward's greedy choice. Returns (numbers, cfg,
+    model)."""
     import torch
 
     from repro_torch.serve.lm_engine import decode_completion, serve_stream
 
     t0 = time.perf_counter()
-    cfg, model, engine, log, reqs = serving_setup()
+    cfg, model, engine, log, reqs = serving_setup(arch, layers)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[{card}] yi-6b full width: {cfg.n_layers} layers, d {cfg.d_model}, "
+    print(f"[{card}] {arch} full width: {cfg.n_layers} layers, d {cfg.d_model}, "
           f"{n_params} params bf16, set-up and warm-up {setup_s:.3f} s", flush=True)
     torch.cuda.reset_peak_memory_stats()
 
@@ -1385,6 +1563,7 @@ def phase_serve(card, kernels: dict):
     decode_tokens = len(reqs) * (MAX_NEW - 1)
     decode_s = t_end - max(firsts)
     out = {
+        "arch": arch, "layers": cfg.n_layers, "params": n_params,
         "requests": len(reqs), "prompt_lens": list(PROMPT_LENS), "max_new": MAX_NEW,
         "prefill_ms": prefill, "ttft_ms": ttft, "decode_tokens": decode_tokens,
         "decode_s": decode_s, "decode_tokens_per_s": decode_tokens / decode_s,
@@ -1392,11 +1571,12 @@ def phase_serve(card, kernels: dict):
         "greedy_worst_gap": worst,
     }
     for i, r in enumerate(reqs):
-        print(f"[{card}] request {r.req_id}: prompt {len(r.prompt)}, prefill {prefill[i]:.3f} ms, "
+        print(f"[{card}] {arch} request {r.req_id}: prompt {len(r.prompt)}, prefill {prefill[i]:.3f} ms, "
               f"TTFT {ttft[i]:.3f} ms", flush=True)
-    print(f"[{card}] decode {decode_tokens} tokens in {decode_s:.4f} s: "
+    print(f"[{card}] {arch} decode {decode_tokens} tokens in {decode_s:.4f} s: "
           f"{decode_tokens / decode_s:.3f} tokens/s", flush=True)
-    print(f"[{card}] peak device memory {peak} bytes; flash_attention launches {launches}", flush=True)
+    print(f"[{card}] {arch} peak device memory {peak} bytes; flash_attention launches {launches}; "
+          f"greedy gap worst {worst:.4f}", flush=True)
     del engine  # the model stays for the serving group's phase
     return out, cfg, model
 
@@ -2337,8 +2517,8 @@ def main() -> int:
             if any(w in line.lower() for w in ("registers", "spill", "compiling entry function", "wgmma", "warning")):
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    rows, main_rows, rg_attn_main, deploy_attn_main = phase_kernels(card, flash_attention, ref)
-    bwd_rows, lse_rows, train_fwd_main, bwd_main, rg_train_fwd_main, rg_bwd_main = phase_kernels_bwd(
+    rows, main_rows, rg_attn_main, deploy_attn_main, family_attn = phase_kernels(card, flash_attention, ref)
+    bwd_rows, lse_rows, train_fwd_main, bwd_main, rg_train_fwd_main, rg_bwd_main, family_bwd = phase_kernels_bwd(
         card, flash_attention, ref)
     ssd_rows, ssd_main = phase_ssd_kernel(card, ref)
     ssd_bwd_rows, ssd_bwd_main, ssd_train_fwd = phase_ssd_kernel_bwd(card, ssd_scan, ref)
@@ -2378,48 +2558,93 @@ def main() -> int:
     del trained_rec
     gc.collect()
     torch.cuda.empty_cache()
+    # gemma2-2b at all 26 layers and qwen2-7b at all 28 with the 8-bit
+    # state, each then its trained first attention layer's gradients
+    # (gemma2's local one, with its window and softcap): freed before the
+    # serving models load
+    training_g2, trained_g2 = phase_train(card, kernels, arch=GEMMA2, layers=GEMMA2_LAYERS, opt_name="adamw8bit")
+    gc.collect()
+    torch.cuda.empty_cache()
+    g2_grads = phase_train_grads(card, ref, trained_g2, arch=GEMMA2, kind="local", attn=GEMMA2_TRAIN_ATTN)
+    del trained_g2
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_q2, trained_q2 = phase_train(card, kernels, arch=QWEN2, layers=QWEN2_LAYERS, opt_name="adamw8bit")
+    gc.collect()
+    torch.cuda.empty_cache()
+    q2_grads = phase_train_grads(card, ref, trained_q2, arch=QWEN2, attn=QWEN2_TRAIN_ATTN)
+    del trained_q2
+    gc.collect()
+    torch.cuda.empty_cache()
     serving, yi_cfg, yi_model = phase_serve(card, kernels)
     serving_group = phase_serve_group(card, kernels, yi_cfg, yi_model)
     deployment = phase_deploy_lm(card, kernels, yi_cfg, yi_model)
     del yi_model
-    # mamba2's bf16 drift needs a slack above GREEDY_SLACK, so an f32 twin
-    # holds every token at it; recurrentgemma's does not
+    # qwen2-7b at all 28 layers and mistral-large-123b cut to MISTRAL_LAYERS,
+    # each through the ContinuousLMEngine as yi-6b
+    served = {}
+    for arch, layers in ((QWEN2, None), (MISTRAL, MISTRAL_LAYERS)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        served[arch], _, model = phase_serve(card, kernels, arch, layers)
+        del model
+    # mamba2's and gemma2's bf16 drift needs a slack above GREEDY_SLACK, so
+    # an f32 twin holds every token at it; recurrentgemma's does not
     paths = {}
     for arch, compute_dtype, prompt_len, slack in (
         ("mamba2-2.7b", "bfloat16", SSM_PROMPT_LEN, SSM_BF16_DRIFT_SLACK),
         ("mamba2-2.7b", "float32", SSM_PROMPT_LEN, GREEDY_SLACK),
         ("recurrentgemma-9b", "bfloat16", RG_PROMPT_LEN, GREEDY_SLACK),
+        (GEMMA2, "bfloat16", GEMMA2_PROMPT_LEN, GEMMA2_BF16_DRIFT_SLACK),
+        (GEMMA2, "float32", GEMMA2_PROMPT_LEN, GREEDY_SLACK),
     ):
         gc.collect()
         torch.cuda.empty_cache()  # each serving phase's peak memory is its own
         paths[arch, compute_dtype] = phase_serve_wave(card, kernels, arch, compute_dtype, prompt_len, slack)
     serving_ssm, serving_rg = paths["mamba2-2.7b", "bfloat16"], paths["recurrentgemma-9b", "bfloat16"]
+    serving_g2 = paths[GEMMA2, "bfloat16"]
 
-    # K1 runs on five kinds of call: yi-6b's serving calls (one per served
+    # K1 runs on these kinds of call: yi-6b's serving calls (one per served
     # prompt length), yi-6b's training call (its forward, with lse), the
     # yi-6b deployment's prefill (one partition's prompts), recurrentgemma's
     # wave and recurrentgemma's training call (with lse, head dim 256,
-    # window 2048), each timed once; the sums cover all, by_path holds each
-    # path's own
-    attn_main = main_rows + [train_fwd_main, deploy_attn_main, rg_attn_main, rg_train_fwd_main]
+    # window 2048), gemma2's wave (its local and its global layers' calls,
+    # softcap 50, head dim 256) and training call, qwen2's and mistral's
+    # serving calls (one per prompt length) and qwen2's training call, each
+    # timed once; the sums cover all, by_path holds each path's own
+    g2_wave, q2_serve, m_serve = family_attn[GEMMA2], family_attn[QWEN2], family_attn[MISTRAL]
+    attn_main = main_rows + [train_fwd_main, deploy_attn_main, rg_attn_main, rg_train_fwd_main] + g2_wave + [
+        family_bwd["gemma2_fwd"]] + q2_serve + m_serve + [family_bwd["qwen2_fwd"]]
     train_fwd_launches = training["launches"]["flash_attention"]
     full_fwd_launches = training_full["launches"]["flash_attention"]
     rg_train_fwd_launches = training_rg["launches"]["flash_attention"]
+    family_launches = {
+        "gemma2-2b-serve": serving_g2["launches"]["flash_attention"],
+        "gemma2-2b-train": training_g2["launches"]["flash_attention"],
+        "qwen2-7b-serve": served[QWEN2]["launches"],
+        "qwen2-7b-train": training_q2["launches"]["flash_attention"],
+        "mistral-large-123b-serve": served[MISTRAL]["launches"],
+    }
     entry = {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:34",
         "launches": serving["launches"] + serving_group["launches"] + train_fwd_launches + full_fwd_launches
-        + deployment["launches"] + serving_rg["launches"]["flash_attention"] + rg_train_fwd_launches,
+        + deployment["launches"] + serving_rg["launches"]["flash_attention"] + rg_train_fwd_launches
+        + sum(family_launches.values()),
         "max_abs_err": max(r["max_abs_err"] for r in attn_main),
         "matched": all(r["ok"] for r in rows + attn_main),
         "shapes": "one call at each of yi-6b's prompt lengths (1,S,32,128) S=%s bf16 causal, yi-6b's "
         "training call (%d,%d,32,128) kv 4 bf16 causal (16 and 32 layers), the yi-6b deployment's prefill (%d,%d,32,128) kv 4 "
-        "bf16 causal, recurrentgemma's wave (%d,%d,16,256) kv 1 bf16 causal window 2048, and recurrentgemma's "
-        "training call (%d,%d,16,256) kv 1 bf16 causal window 2048 (%d layers), summed"
+        "bf16 causal, recurrentgemma's wave (%d,%d,16,256) kv 1 bf16 causal window 2048, recurrentgemma's "
+        "training call (%d,%d,16,256) kv 1 bf16 causal window 2048 (%d layers), gemma2's wave (%d,%d,8,256) kv 4 "
+        "bf16 causal softcap 50 with window 4096 and without, gemma2's training call (%d,%d,8,256) kv 4 bf16 "
+        "causal softcap 50, qwen2's prefills (1,S,28,128) kv 4 and mistral's (1,S,96,128) kv 8 bf16 causal, and "
+        "qwen2's training call (%d,%d,28,128) kv 4 bf16 causal, summed"
         % ("/".join(map(str, PROMPT_LENS)), TRAIN_BATCH, TRAIN_SEQ, DEPLOY_PER_PARTITION, DEPLOY_PROMPT,
-           WAVE_REQUESTS, RG_PROMPT_LEN, TRAIN_BATCH, TRAIN_SEQ, RG_TRAIN_LAYERS),
+           WAVE_REQUESTS, RG_PROMPT_LEN, TRAIN_BATCH, TRAIN_SEQ, RG_TRAIN_LAYERS, WAVE_REQUESTS, GEMMA2_PROMPT_LEN,
+           TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ),
         "by_path": {
             "yi-6b": path_summary(serving["launches"], main_rows),
             "yi-6b-group": path_summary(serving_group["launches"], main_rows),
@@ -2428,10 +2653,17 @@ def main() -> int:
             "yi-6b-deployment": path_summary(deployment["launches"], [deploy_attn_main]),
             "recurrentgemma-9b": path_summary(serving_rg["launches"]["flash_attention"], [rg_attn_main]),
             "recurrentgemma-9b-train": path_summary(rg_train_fwd_launches, [rg_train_fwd_main]),
+            "gemma2-2b-serve": path_summary(family_launches["gemma2-2b-serve"], g2_wave),
+            "gemma2-2b-train": path_summary(family_launches["gemma2-2b-train"], [family_bwd["gemma2_fwd"]]),
+            "qwen2-7b-serve": path_summary(family_launches["qwen2-7b-serve"], q2_serve),
+            "qwen2-7b-train": path_summary(family_launches["qwen2-7b-train"], [family_bwd["qwen2_fwd"]]),
+            "mistral-large-123b-serve": path_summary(family_launches["mistral-large-123b-serve"], m_serve),
         },
     }
-    for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+    for key in ("ms", "plain_ms", "bound_ms"):
         entry[key] = sum(r[key] for r in attn_main)
+    lib = [r["library_ms"] for r in attn_main]
+    entry["library_ms"] = None if None in lib else sum(lib)
     entry["bound_by"] = max(attn_main, key=lambda r: r["bound_ms"])["bound_by"]  # the largest term
     # K2 runs on two kinds of call, each timed once: mamba2's serving wave
     # and its training call (the forward of each layer a step and an eval
@@ -2521,19 +2753,29 @@ def main() -> int:
         # no TPU kernel: JAX differentiates its plain chunked attention
         "replaces": "none (JAX differentiates src/repro/models/layers.py:314)",
         "launches": training["launches"]["flash_attention_bwd"] + training_full["launches"]["flash_attention_bwd"]
-        + training_rg["launches"]["flash_attention_bwd"],
-        "max_abs_err": max(bwd_main["max_abs_err"], rg_bwd_main["max_abs_err"]),
-        "matched": all(r["ok"] for r in bwd_rows + [bwd_main, rg_bwd_main]) and train_grads is not None,
+        + training_rg["launches"]["flash_attention_bwd"] + training_g2["launches"]["flash_attention_bwd"]
+        + training_q2["launches"]["flash_attention_bwd"],
+        # gemma2's launches are all the softcap's (every one of its layers caps its scores)
+        "softcap_launches": training_g2["launches"]["flash_attention_bwd"],
+        "max_abs_err": max(r["max_abs_err"] for r in (bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"],
+                                                      family_bwd["qwen2_bwd"])),
+        "matched": all(r["ok"] for r in bwd_rows + [bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"],
+                                                    family_bwd["gemma2_context_bwd"], family_bwd["qwen2_bwd"]])
+        and all(g is not None for g in (train_grads, g2_grads, q2_grads)),
         "shapes": "yi-6b's training call (%d,%d,32,128) kv 4 bf16 causal, one a layer a step (16 and 32 layers), "
-        "and recurrentgemma's (%d,%d,16,256) kv 1 bf16 causal window 2048, one a local layer a step, summed"
-        % (TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ),
+        "recurrentgemma's (%d,%d,16,256) kv 1 bf16 causal window 2048, one a local layer a step, gemma2's "
+        "(%d,%d,8,256) kv 4 bf16 causal softcap 50, one a layer a step, and qwen2's (%d,%d,28,128) kv 4 bf16 "
+        "causal, one a layer a step, summed" % (TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH,
+                                                TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ),
         "by_path": {
             "yi-6b-train": path_summary(training["launches"]["flash_attention_bwd"], [bwd_main]),
             "yi-6b-train-full": path_summary(training_full["launches"]["flash_attention_bwd"], [bwd_main]),
             "recurrentgemma-9b-train": path_summary(training_rg["launches"]["flash_attention_bwd"], [rg_bwd_main]),
+            "gemma2-2b-train": path_summary(training_g2["launches"]["flash_attention_bwd"], [family_bwd["gemma2_bwd"]]),
+            "qwen2-7b-train": path_summary(training_q2["launches"]["flash_attention_bwd"], [family_bwd["qwen2_bwd"]]),
         },
     }
-    bwd_paths = [bwd_main, rg_bwd_main]
+    bwd_paths = [bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"], family_bwd["qwen2_bwd"]]
     for key in ("ms", "plain_ms", "bound_ms"):
         bwd_entry[key] = sum(r[key] for r in bwd_paths)
     bwd_entry["bound_by"] = max(bwd_paths, key=lambda r: r["bound_ms"])["bound_by"]
@@ -2593,6 +2835,9 @@ def main() -> int:
         "rglru_bwd_main_path_kernel": rglru_bwd_main, "rglru_train_fwd": rglru_train_fwd,
         "rg_attention_train_fwd": rg_train_fwd_main, "rg_attention_bwd_main_path_kernel": rg_bwd_main,
         "training_recurrentgemma": training_rg, "training_recurrentgemma_grads": rg_grads,
+        "family_attention": family_attn, "family_attention_bwd": family_bwd,
+        "training_gemma2": training_g2, "training_gemma2_grads": g2_grads,
+        "training_qwen2": training_q2, "training_qwen2_grads": q2_grads, "serving_continuous": served,
         "serving_waves": {f"{arch} {dt}": out for (arch, dt), out in paths.items()},
         "kernels": kernels_line["kernels"],
     }, indent=1))

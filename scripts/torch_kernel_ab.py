@@ -28,15 +28,19 @@ calls are the kernel's on the serving paths, bf16:
   recurrentgemma-9b's wave, (4, 3000, 16/1, 256) causal, window 2048;
 - K1's backward (``--kernel attention_bwd``): the training path's call,
   (4, 1024, 32/4, 128) bf16 causal, ``phase_kernels_bwd``'s head-dim
-  64 row, (2, 777, 8/2, 64) causal, and recurrentgemma-9b's training
-  call, (4, 1024, 16/1, 256) causal with its window of 2048 (a checkout
-  whose backward lacks head dim 256 gives that row no times), each held to
-  autograd through
-  ``ref.mha`` at ``BWD_TOL`` beside SDPA's backward on pre-repeated K/V
-  (``library_ms``). Each row also carries ``bit_identical`` (two calls on
-  one input give the same dq, dk and dv to the bit) and ``kernel_us``,
-  each CUDA kernel's device time a call (Di, dQ, dK/dV, the reduction)
-  from torch.profiler;
+  64 row, (2, 777, 8/2, 64) causal, recurrentgemma-9b's training
+  call, (4, 1024, 16/1, 256) causal with its window of 2048, without and
+  with a softcap of 50, and gemma2-2b's, (4, 1024, 8/4, 256) causal,
+  with its softcap of 50 and without (a checkout whose backward lacks head
+  dim 256 or the softcap gives that row no times), each held to autograd
+  through ``ref.mha`` at ``BWD_TOL`` beside SDPA's backward on
+  pre-repeated K/V (``library_ms``; with the softcap flex_attention's,
+  ``chip_smoke.flex_library``). Each row also carries ``bit_identical``
+  (two calls on one input give the same dq, dk and dv to the bit),
+  ``digest`` (a hash of dq, dk and dv on an input drawn from the row's own
+  seed, the same in every process: the summary's ``same_bits_as_parent``
+  compares the sides) and ``kernel_us``, each CUDA kernel's device time a
+  call (Di, dQ, dK/dV, the reduction) from torch.profiler;
 - K2 (``--kernel ssd``): mamba2-2.7b's wave, (4, 2000, 80/1, 64), N 128,
   chunk 256, the model's decays, a zero initial state, in bf16 and in
   f32, and the teacher-forced forward's (1, 2015, 80/1, 64) with no
@@ -119,7 +123,9 @@ blocks an SM) and 32 warps of 8 steps (``STEPS``: 1024 threads a block);
 for K3's backward ``PREFETCH``, ``FAST_EXP``, ``FAST_SQRT``, 8 warps a
 block (``WARPS``) and 16 steps a warp (``STEPS``: the forward's tile); for
 K1's backward at head dim 256 also ``GQA_SPLIT_D256`` 2 and 8 instead of
-4. ``--variants`` takes a comma-separated subset of them.
+4, and ``fast_tanh`` (the softcap's tanhf as ``tanh.approx.f32``, which
+no longer meets the forward's lse2 exactly: a time, not a candidate
+default). ``--variants`` takes a comma-separated subset of them.
 
 Prints each process's rows, then a summary (per side, the median over
 its processes, and the change over the parent, over SDPA and the bound
@@ -171,6 +177,9 @@ VARIANTS = {
         "dq_keys_64": [("constexpr int DQ_KEYS = 128;", "constexpr int DQ_KEYS = 64;")],
         "split_d256_2": [("constexpr int GQA_SPLIT_D256 = 4;", "constexpr int GQA_SPLIT_D256 = 2;")],
         "split_d256_8": [("constexpr int GQA_SPLIT_D256 = 4;", "constexpr int GQA_SPLIT_D256 = 8;")],
+        "fast_tanh": [("      const float th = tanhf(sc[x] * cap.inv);",
+                       "      const float th = [](float u) { float y; asm(\"tanh.approx.f32 %0, %1;\" : \"=f\"(y) : "
+                       "\"f\"(u)); return y; }(sc[x] * cap.inv);")],
     },
     "ssd": {
         "no_split": [("constexpr bool SPLIT_XD = true;", "constexpr bool SPLIT_XD = false;")],
@@ -215,7 +224,7 @@ VARIANTS = {
     },
 }
 TIMES = ("ms", "graph_ms", "flushed_ms", "library_ms", "library_graph_ms", "optimizer_ms")
-FLAGS = ("bit_identical", "max_abs_err", "rel_err_dq_dk_dv", "matched")
+FLAGS = ("bit_identical", "max_abs_err", "rel_err_dq_dk_dv", "matched", "digest")
 ERRORS = ("el_err_state", "kernel_vs_f64_el_err", "kernel_el_err")
 
 
@@ -288,13 +297,39 @@ def kernel_us(fn, iters: int) -> dict:
 
 def bwd_calls():
     """K1 backward's calls: yi-6b's training path's, phase_kernels_bwd's head-dim 64 row, then
-    recurrentgemma-9b's training path's; each (b, s, h, kv, d, window), bf16, causal."""
+    recurrentgemma-9b's training path's without and with a softcap, then gemma2-2b's with its softcap
+    and without; each (b, s, h, kv, d, window, softcap), bf16, causal."""
     b, s, h, kv, d = cs.TRAIN_ATTN
     rb, rs, rh, rkv, rd = cs.RG_TRAIN_ATTN
-    return [(f"yi-6b training ({b},{s},{h}/{kv},{d}) bf16 causal", (b, s, h, kv, d, None)),
-            ("(2,777,8/2,64) bf16 causal", (2, 777, 8, 2, 64, None)),
-            (f"recurrentgemma-9b training ({rb},{rs},{rh}/{rkv},{rd}) bf16 causal window {cs.RG_WINDOW}",
-             (rb, rs, rh, rkv, rd, cs.RG_WINDOW))]
+    gb, gs, gh, gkv, gd = cs.GEMMA2_TRAIN_ATTN
+    rg = f"recurrentgemma-9b training ({rb},{rs},{rh}/{rkv},{rd}) bf16 causal window {cs.RG_WINDOW}"
+    g2 = f"gemma2-2b training ({gb},{gs},{gh}/{gkv},{gd}) bf16 causal"
+    cap = cs.GEMMA2_CAP
+    return [(f"yi-6b training ({b},{s},{h}/{kv},{d}) bf16 causal", (b, s, h, kv, d, None, None)),
+            ("(2,777,8/2,64) bf16 causal", (2, 777, 8, 2, 64, None, None)),
+            (rg, (rb, rs, rh, rkv, rd, cs.RG_WINDOW, None)),
+            (f"{rg} softcap {cap:g}", (rb, rs, rh, rkv, rd, cs.RG_WINDOW, cap)),
+            (f"{g2} softcap {cap:g}", (gb, gs, gh, gkv, gd, None, cap)),
+            (g2, (gb, gs, gh, gkv, gd, None, None))]
+
+
+def bwd_digest(fa, b, s, h, kv, d, window, cap) -> str:
+    """A hash of dq, dk and dv of one call on an input drawn from a seed of
+    the call's own (the same in every process and checkout)."""
+    import hashlib
+
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 31)
+    q, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "qo")
+    k, v = (torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "kv")
+    kw = {"softcap": cap} if cap is not None else {}
+    o, lse = fa.flash_attention(q, k, v, causal=True, window=window, return_lse=True, **kw)
+    grads = fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=window, **kw)
+    h_ = hashlib.sha256()
+    for g in grads:
+        h_.update(g.contiguous().view(torch.int16).cpu().numpy().tobytes())
+    return h_.hexdigest()[:16]
 
 
 def measure_attention_bwd(root: Path, label: str) -> dict:
@@ -312,18 +347,22 @@ def measure_attention_bwd(root: Path, label: str) -> dict:
              if any(w in ln.lower() for w in ("registers", "spill", "warning", "function properties"))]
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 4)
     out: dict = {"label": label, "root": str(root), "ptxas": ptxas, "calls": {}}
-    for key, (b, s, h, kv, d, window) in bwd_calls():
-        if d not in getattr(fa, "_BWD_HEAD_DIMS", ()):  # a checkout whose backward lacks this head dim
+    for key, (b, s, h, kv, d, window, cap) in bwd_calls():
+        # a checkout whose backward lacks this head dim, or the softcap at it
+        if d not in getattr(fa, "_BWD_HEAD_DIMS", ()) or (
+                cap is not None and d not in getattr(fa, "_BWD_SOFTCAP_HEAD_DIMS", ())):
             bound, by = cs.attention_bwd_bound(b, h, kv, s, d, "bfloat16", True, window)
             out["calls"][key] = {"ms": None, "bound_ms": bound, "bound_by": by}
             continue
-        row = cs.check_attention_bwd(label, fa, ref, b, s, h, kv, d, "bfloat16", True, window, gen, True)
+        row = cs.check_attention_bwd(label, fa, ref, b, s, h, kv, d, "bfloat16", True, window, gen, True, cap=cap)
+        row["digest"] = bwd_digest(fa, b, s, h, kv, d, window, cap)
         q, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "qo")
         k, v = (torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "kv")
-        o, lse = fa.flash_attention(q, k, v, causal=True, window=window, return_lse=True)
+        kw = {"softcap": cap} if cap is not None else {}
+        o, lse = fa.flash_attention(q, k, v, causal=True, window=window, return_lse=True, **kw)
 
         def call():
-            return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=window)
+            return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=True, window=window, **kw)
 
         first, second = call(), call()
         row["bit_identical"] = all(torch.equal(x, y) for x, y in zip(first, second))
@@ -707,6 +746,9 @@ def summarise(runs: list, labels: list) -> dict:
             entry[f"{label}_kernel_us_median"] = {
                 name: med([d.get(name) for d in per_kernel]) for name in sorted({n for d in per_kernel for n in d})
             }
+        digests = {label: set(entry[f"{label}_digest"]) for label in labels}
+        if digests.get("parent") and digests.get("change"):
+            entry["same_bits_as_parent"] = digests["parent"] == digests["change"] and len(digests["change"]) == 1
         for t in ("ms", "graph_ms"):
             lib = entry[f"change_library_{t}_median"]
             for label in labels:
@@ -790,11 +832,13 @@ def main() -> int:
             cols += f"  SDPA {e['change_library_ms_median']:.4f} ({e['change_library_graph_ms_median']:.4f})"
         elif args.kernel == "attention_bwd":
             lib = e["change_library_ms_median"]
-            cols += f"  SDPA {lib:.4f}" if lib is not None else "  SDPA refused"
+            cols += f"  library {lib:.4f}" if lib is not None else "  library refused"
             cols += "  kernel us " + " ".join(
                 f"{label} " + "/".join(f"{n} {v:.1f}" for n, v in e[f"{label}_kernel_us_median"].items())
                 for label in present)
             cols += "  bit-identical " + " ".join(f"{label} {all(e[f'{label}_bit_identical'])}" for label in present)
+            if "same_bits_as_parent" in e:
+                cols += f"  parent's bits {e['same_bits_as_parent']}"
         elif args.kernel == "ssd_bwd":
             cols += "  kernel us " + " ".join(
                 f"{label} " + "/".join(f"{n} {v:.1f}" for n, v in e[f"{label}_kernel_us_median"].items())

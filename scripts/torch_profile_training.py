@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time goes when the PyTorch port trains yi-6b, mamba2 or recurrentgemma.
+"""Where the time goes when the PyTorch port trains yi-6b, mamba2, recurrentgemma, gemma2 or qwen2.
 
-    python3 scripts/torch_profile_training.py [--arch yi-6b|mamba2-2.7b|recurrentgemma-9b] [--steps 3]
-                                              [--layers 16] [--opt adamw|adamw8bit]
+    python3 scripts/torch_profile_training.py
+        [--arch yi-6b|mamba2-2.7b|recurrentgemma-9b|gemma2-2b|qwen2-7b] [--steps 3]
+        [--layers 16] [--opt adamw|adamw8bit]
 
 On a machine with one CUDA card. Builds the kernels, then takes
 chip_smoke.py's training workload (full-width ``--arch``, yi-6b by
 default, cut to ``--layers`` layers, 16 by default: yi-6b has 32,
 mamba2-2.7b 64, recurrentgemma-9b 38, of which chip_smoke.py trains
-``RG_TRAIN_LAYERS``; bf16 weights from its seed, AdamW with f32 moments or
+``RG_TRAIN_LAYERS``, gemma2-2b 26 and qwen2-7b 28; bf16 weights from its seed, AdamW with f32 moments or
 ``adamw8bit``, batches of 4 x 1024 tokens of its seeded Markov corpus)
 through the calls a
 ``TrainingJob`` step makes: ``StreamModel.loss``, ``torch.autograd.grad``
@@ -77,7 +78,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=("yi-6b", "mamba2-2.7b", "recurrentgemma-9b"), default="yi-6b")
+    ap.add_argument("--arch", choices=("yi-6b", "mamba2-2.7b", "recurrentgemma-9b", "gemma2-2b", "qwen2-7b"),
+                    default="yi-6b")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--layers", type=int, default=chip_smoke.TRAIN_LAYERS)
     ap.add_argument("--opt", choices=("adamw", "adamw8bit"), default="adamw")

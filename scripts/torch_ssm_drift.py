@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""How far a recurrent model's served tokens drift from its teacher-forced
-forward, and how far a wrong decode state sends them.
+"""How far a model's served tokens drift from its teacher-forced forward,
+and how far a wrong decode state sends them.
 
     python3 scripts/torch_ssm_drift.py                          # mamba2-2.7b
     python3 scripts/torch_ssm_drift.py --model recurrentgemma   # recurrentgemma-9b
+    python3 scripts/torch_ssm_drift.py --model gemma2           # gemma2-2b
 
 On a machine with one CUDA card. The full-width model with chip_smoke.py's
 random bf16 weights (seed ``chip_smoke.SEED``) serves four prompts greedily
@@ -12,20 +13,23 @@ decode step), and each row's sequence goes through the teacher-forced
 full-sequence forward. mamba2-2.7b takes 2000-token prompts (prefill on
 the SSD kernel); recurrentgemma-9b takes 3000-token prompts, past its local
 layers' 2048 window (prefill on the RG-LRU kernel and on flash attention
-with its window; decode through the RG-LRU state and the ring cache). For
+with its window; decode through the RG-LRU state and the ring cache);
+gemma2-2b takes 4500-token prompts, past its local layers' 4096 window
+(prefill on flash attention with its softcap and window; decode through
+the ring and the dense caches). For
 each token it prints the gap (how far the served token's logit trails the
 forward's max) and the largest logit difference between the two, with
 
 - bf16 activations, the sound path (what chip_smoke.py serves);
 - f32 activations, the same bf16 weights;
-- bf16 activations with one fault planted in the decode cache after the
-  prefill (``FAULTS``): the gaps a broken state gives, which the greedy
-  slack in chip_smoke.py has to catch.
+- bf16 activations, then f32 ones, with one fault planted in the decode
+  cache after the prefill (``MODELS``' faults): the gaps a broken state
+  gives, which the greedy slacks in chip_smoke.py have to catch.
 
 Then it measures how the stack amplifies noise: a perturbation of 1e-3
 of the embeddings' mean magnitude on a 256-token prefix, and its size
 relative to the residual stream after every eighth layer and the last,
-in bf16 and in f32. Writes ``chiprun_out/ssm_drift[_recurrentgemma].json``.
+in bf16 and in f32. Writes ``chiprun_out/ssm_drift[_recurrentgemma|_gemma2].json``.
 Exits non-zero with no CUDA device.
 """
 
@@ -113,6 +117,35 @@ def _window_on_ring_slots(model, tokens, cache):
     )
 
 
+# ---- gemma2: faults in the attention caches and the decode step
+def _last_prompt_position_zeroed(model, tokens, cache):
+    """Every layer's K and V of the last prompt position zeroed (slot pos % size:
+    the ring's or the dense cache's)."""
+    last = tokens.shape[1] - 1
+    for key in ("k", "v"):
+        for t in _leaves(cache, key):
+            t[..., last % t.shape[-3], :, :].zero_()
+
+
+def _attention_softcap_dropped(model, tokens, cache):
+    """Decode attends without the attention softcap of 50."""
+    import dataclasses
+
+    from repro_torch.models import layers
+
+    attend = layers._attend
+    return mock.patch.object(
+        layers, "_attend", lambda q, kf, vf, valid, ap: attend(q, kf, vf, valid, dataclasses.replace(ap, softcap=None))
+    )
+
+
+def _post_norms_dropped(model, tokens, cache):
+    """Decode runs each block without its sandwich norms."""
+    import dataclasses
+
+    return mock.patch.object(model, "cfg", dataclasses.replace(model.cfg, post_norms=False))
+
+
 MODELS = {
     "mamba2": ("mamba2-2.7b", chip_smoke.SSM_PROMPT_LEN, {
         "SSD state zeroed in every layer": _zero_ssd,
@@ -128,6 +161,13 @@ MODELS = {
         "RG-LRU h of the next row (a slot mix-up)": _h_of_next_row,
         "ring written one slot off": _ring_one_slot_off,
         "window mask applied to ring slots": _window_on_ring_slots,
+    }),
+    "gemma2": ("gemma2-2b", chip_smoke.GEMMA2_PROMPT_LEN, {
+        "ring written one slot off": _ring_one_slot_off,
+        "window mask applied to ring slots": _window_on_ring_slots,
+        "last prompt position's K and V zeroed in every layer": _last_prompt_position_zeroed,
+        "attention softcap dropped in decode": _attention_softcap_dropped,
+        "sandwich norms dropped in decode": _post_norms_dropped,
     }),
 }
 
@@ -203,7 +243,7 @@ def main() -> int:
     results = {"card": card, "model": arch, "prompt_len": prompt_len}
     for compute, runs in (
         ("bfloat16", [("bf16 activations", None)] + [(f"bf16, fault: {k}", f) for k, f in faults.items()]),
-        ("float32", [("f32 activations", None)]),
+        ("float32", [("f32 activations", None)] + [(f"f32, fault: {k}", f) for k, f in faults.items()]),
     ):
         model = StreamModel(cfg, Policy(compute_dtype=compute), device="cuda", generator=chip_smoke.SEED)
         for label, fault in runs:

@@ -1,17 +1,17 @@
 """Architecture registry: ``<arch id>`` -> ArchConfig (+ reduced smoke twin).
 
-The port registers the architectures it can run: yi-6b, mamba2-2.7b and
-recurrentgemma-9b.
+The port registers the architectures it can run: yi-6b, mamba2-2.7b,
+recurrentgemma-9b, gemma2-2b, qwen2-7b and mistral-large-123b.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
-from repro_torch.configs import mamba2_2_7b, recurrentgemma_9b, yi_6b
+from repro_torch.configs import gemma2_2b, mamba2_2_7b, mistral_large_123b, qwen2_7b, recurrentgemma_9b, yi_6b
 from repro_torch.models.model import ArchConfig
 
-_MODULES = [yi_6b, mamba2_2_7b, recurrentgemma_9b]
+_MODULES = [yi_6b, mamba2_2_7b, recurrentgemma_9b, gemma2_2b, qwen2_7b, mistral_large_123b]
 
 ARCHS: dict[str, Any] = {m.ID: m for m in _MODULES}
 

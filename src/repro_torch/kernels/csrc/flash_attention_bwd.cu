@@ -6,13 +6,23 @@
 // layers._chunked_attention (src/repro/models/layers.py:314). The port's
 // forward runs K1 (flash_attention.cu), so its gradient needs a kernel of
 // its own: this one. It computes dQ, dK and dV of repro_torch.kernels.
-// ref.mha for a causal and/or sliding-window mask (no softcap), from the
-// forward's saved output O and row log-sum-exp:
+// ref.mha for a causal and/or sliding-window mask, from the forward's
+// saved output O and row log-sum-exp:
 //   P  = 2^(scale log2(e) Q K^T - lse2)  (masked entries 0; lse2 is the
 //        forward's base-2 log-sum-exp, see flash_attention.cu),
 //   Di = rowsum(dO o O) in f32,  dV = P^T dO,  dS = P o (dO V^T - Di),
 //   dQ = scale dS K,  dK = scale dS^T Q.
 // One base, 2, runs through the forward and the backward.
+// With a softcap (gemma2-2b: 50, head dim 256 only) the score is capped
+// before the mask, as in the forward and in JAX (layers.py:356-357): with
+// t = tanh(scale Q K^T / cap) and the capped score c = cap t,
+//   P  = 2^(cap log2(e) t - lse2),  dS = P o (dO V^T - Di) o (1 - t^2),
+// and dQ, dK as above (dc/ds = scale (1 - t^2)). t is computed as the
+// forward computes it (tanhf of the same product), so P meets the lse2 the
+// forward wrote; the kernels keep no t: where P is made they fold 1 - t^2
+// into the value dS takes in its place (P o (1 - t^2)), and in dK/dV round
+// P itself to bf16 for dV's product on the way. The cap is a template
+// parameter (CAP), so the instances without it run no code of it.
 //
 // Layout. q, o, do, dq are (B, S, H, D) and k, v, dk, dv (B, S, Kv, D) in
 // memory, or any batch / sequence / head strides with a unit head_dim
@@ -97,6 +107,14 @@
 //  - dQ: 64-key K / V tiles and a one-slot ring (197,672 bytes; V is
 //    freed as soon as dP is done, so the next V loads under dQ's
 //    product), the 64 x 256 dQ accumulator as two n128 wgmmas a k-step.
+//  The softcap (CAP) runs in these D 256 tiles only: one tanhf, a
+//  multiply-add and a multiply more an element where P is made. At
+//  gemma2's call (4, 1024, 8/4, 256), causal: 0.3156 ms with a cap of 50
+//  against 0.2558 without (dK/dV 165.9 us against 119.8: both of its
+//  warpgroups make P of the same tile, so each tanhf runs twice there;
+//  dQ 111.0 against 100.4); with tanh.approx.f32 0.2617 ms, but P would
+//  no longer meet the forward's lse2 (scripts/torch_kernel_ab.py --kernel
+//  attention_bwd --variants fast_tanh; H100 80GB HBM3, 700 W).
 //  At the training call (4, 1024, 16/1, 256), causal, window 2048: 0.3988
 //  ms (dK/dV 190.2 us, dQ 186.1, the pass 10.9), 22% of the 0.0869 ms
 //  bound; GQA_SPLIT_D256 2 gives 0.5308 ms (dK/dV 328.0 us), 8 gives
@@ -177,6 +195,14 @@ struct Mask {
     if (causal && kw + 63 > q0) return false;
     return !(window > 0 && kw <= min(q0 + TQ, S) - 1 - window);
   }
+};
+
+// The softcap's constants, computed on the host as the forward computes
+// them on the device (flash_attention.cu's softmax and Mask::apply): inv =
+// scale / cap and log2 = cap log2(e) (bf16), cap itself (f32, whose
+// forward caps the scaled score). Unused by the instances without a cap.
+struct Cap {
+  float inv, log2, cap;
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -409,6 +435,32 @@ __device__ __forceinline__ void probs(float (&sc)[N / 2], const Mask& mask, bool
     sc[x] = ok ? p : 0.f;
   }
 }
+// The same with the softcap: p = 2^(cap log2(e) t - lse2) with t =
+// tanh(s scale / cap); sc keeps p (1 - t^2) (0 where the mask drops the
+// pair: t is finite, so nothing turns 0 into NaN), the value dscores takes
+// for p, and with PACK p itself goes to `pa` rounded to bf16 as wgmma's A
+// fragments (pack_a's layout).
+template <int N, bool ROW_Q, bool PACK, typename Lse>
+__device__ __forceinline__ void capped_probs(float (&sc)[N / 2], uint32_t (*pa)[4], const Mask& mask,
+                                             bool interior, int row0, int col0, int t, const Cap& cap,
+                                             Lse lse_of) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    float p[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = 4 * j + e, r = e / 2, c = 8 * j + 2 * t + (e % 2);
+      const float th = tanhf(sc[x] * cap.inv);
+      const bool ok = interior || (ROW_Q ? mask.ok(row0 + 8 * r, col0 + c) : mask.ok(col0 + c, row0 + 8 * r));
+      p[e] = ok ? ex2(cap.log2 * th - lse_of(r, c)) : 0.f;
+      sc[x] = p[e] * fmaf(-th, th, 1.f);
+    }
+    if constexpr (PACK) {
+      pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+  }
+}
 // ds = p (dp - Di) in place of dp (0 where p is: the tiles hold finite values)
 template <int N, typename Di>
 __device__ __forceinline__ void dscores(const float (&p)[N / 2], float (&dp)[N / 2], int t, Di di_of) {
@@ -497,13 +549,13 @@ __host__ __device__ inline int gqa_split(int rep, int D) {
 
 // ---- dQ (and, with FUSED_DI, Di). Shared memory: Q, dO, STAGES K tiles,
 // STAGES V tiles, then the barriers.
-template <int D>
+template <int D, bool CAP>
 __global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
     dq_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ lse,
                    float* __restrict__ delta, bf16* __restrict__ dq, Strides so, Strides sdo, Strides sdq,
-                   int rep, Mask mask, float scale, float scale_log2) {
+                   int rep, Mask mask, float scale, float scale_log2, Cap cap) {
   using T = QTiles<D>;
   constexpr int BM = T::BM, BN = T::BN, ST = T::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -614,6 +666,10 @@ __global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
       for (int y = 0; y < ON / 2; ++y) acc[x][y] = 0.f;
     const uint64_t dq_a = sw128_desc(qs + cw * 64 * 128, 16, 1024);
     const uint64_t ddo_a = sw128_desc(dos + cw * 64 * 128, 16, 1024);
+    // With the cap, before the loop: under the first tile's products the
+    // cap's tanhf leaves too few registers, and ptxas spills three values
+    // of the set-up at D 256
+    if constexpr (CAP) row_stats();
     mbar_wait(full_q, 0);
     for (int i = 0; i < n_tiles; ++i) {
       const int s = i % ST;
@@ -634,14 +690,18 @@ __global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
         for (int kk = 0; kk < D / 16; ++kk) wgmma_ss<BN>(dp, k_step<BM>(ddo_a, kk), k_step<BN>(dv_b, kk), kk > 0);
         wgmma_commit();
       }
-      if (i == 0) row_stats();
+      if (!CAP && i == 0) row_stats();
       if constexpr (STAGGER)
         wgmma_wait<1>();  // S is done; dP may still run
       else
         wgmma_wait<0>();
       pin(sc);
-      probs<BN, true>(sc, mask, mask.interior<BN>(qw, k0), qi0, k0, t, scale_log2,
-                      [&](int r, int) { return lse_r[r]; });
+      if constexpr (CAP)  // sc: p (1 - t^2), what dscores takes for p
+        capped_probs<BN, true, false>(sc, nullptr, mask, mask.interior<BN>(qw, k0), qi0, k0, t, cap,
+                                      [&](int r, int) { return lse_r[r]; });
+      else
+        probs<BN, true>(sc, mask, mask.interior<BN>(qw, k0), qi0, k0, t, scale_log2,
+                        [&](int r, int) { return lse_r[r]; });
       wgmma_wait<0>();
       pin(dp);
       warp_arrive(&free_v[s]);
@@ -687,13 +747,13 @@ __global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
 // laid out (G, 2, B, KV, S, D), that reduce_dkdv_kernel adds in order.
 // Shared memory: K, V, STAGES Q tiles, STAGES dO tiles, STAGES x BQ lse2,
 // the same of Di, then the barriers.
-template <int D>
+template <int D, bool CAP>
 __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
     dkdv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
                      const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, float* __restrict__ part, Strides sdk, Strides sdv, int H,
-                     int rep, int G, Mask mask, float scale, float scale_log2) {
+                     int rep, int G, Mask mask, float scale, float scale_log2, Cap cap) {
   using T = KvTiles<D>;
   constexpr int BN = T::BN, BQ = T::BQ, ST = T::STAGES, DH = T::DH;
   extern __shared__ uint8_t smem_raw[];
@@ -799,10 +859,15 @@ __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
       pin(st);
       const float* ls = lse_s + s * BQ;
       const float* dl = dl_s + s * BQ;
-      probs<BQ, false>(st, mask, mask.interior_keys<BQ>(kw, q0), kj0, q0, t, scale_log2,
-                       [&](int, int c) { return ls[c]; });
       uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
-      pack_a<BQ>(pa, st);
+      if constexpr (CAP) {  // st: p (1 - t^2), what dscores takes for p; pa: p in bf16
+        capped_probs<BQ, false, true>(st, pa, mask, mask.interior_keys<BQ>(kw, q0), kj0, q0, t, cap,
+                                      [&](int, int c) { return ls[c]; });
+      } else {
+        probs<BQ, false>(st, mask, mask.interior_keys<BQ>(kw, q0), kj0, q0, t, scale_log2,
+                         [&](int, int c) { return ls[c]; });
+        pack_a<BQ>(pa, st);
+      }
       // dV += P^T dO, then dK += dS^T Q: the dO and Q tiles (their D half) as MN-major B operands
       const int col0 = hf * (DH / 64) * BQ * 128;  // bytes to the half's first atom column
       const uint64_t dq_n = sw128_desc(qslot + col0, BQ * 128, 1024);
@@ -924,14 +989,31 @@ constexpr size_t f32_smem_q() {  // Q, dO, K, V tiles, dS, lse and Di
   return sizeof(float) * (4 * R * (D + 1) + R * (R + 1) + 2 * R);
 }
 
-template <int D>
+// p of an f32 pair (0 where the mask drops it) and dS's factor: with the
+// cap 1 - t^2, the capped score made as the forward's f32 kernel makes it
+// (Mask::apply: cap tanhf(s scale / cap)), in base 2; without it 1, a
+// constant the compiler folds away
+template <bool CAP>
+__device__ __forceinline__ float f32_prob(float s, bool ok, float lse2, float scale_log2, float scale,
+                                          const Cap& cap, float& dfac) {
+  if constexpr (CAP) {
+    const float th = tanhf(s * scale / cap.cap);
+    dfac = fmaf(-th, th, 1.f);
+    return ok ? exp2f(cap.cap * th * LOG2E - lse2) : 0.f;
+  } else {
+    dfac = 1.f;
+    return ok ? exp2f(s * scale_log2 - lse2) : 0.f;
+  }
+}
+
+template <int D, bool CAP>
 __global__ void __launch_bounds__(F32_THREADS)
     dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     float* __restrict__ dk, float* __restrict__ dv, Strides sq, Strides sk,
                     Strides sv, Strides sdo, Strides sdk, Strides sdv, int H, int rep, Mask mask,
-                    float scale, float scale_log2) {
+                    float scale, float scale_log2, Cap cap) {
   constexpr int R = f32_rows<D>(), RI = R / 16, KP = D + 1, PP = R + 1, DC = D / 16;
   extern __shared__ float smem[];
   float* ks = smem;
@@ -999,9 +1081,10 @@ __global__ void __launch_bounds__(F32_THREADS)
 #pragma unroll
         for (int j = 0; j < RI; ++j) {
           const int kr = ty + 16 * i, qc = tx + 16 * j;
-          const float p = mask.ok(q0 + qc, k0 + kr) ? exp2f(s[i][j] * scale_log2 - lse_s[qc]) : 0.f;
+          float dfac;
+          const float p = f32_prob<CAP>(s[i][j], mask.ok(q0 + qc, k0 + kr), lse_s[qc], scale_log2, scale, cap, dfac);
           ps[kr * PP + qc] = p;
-          dss[kr * PP + qc] = p * (dp[i][j] - dl_s[qc]);
+          dss[kr * PP + qc] = p * (dp[i][j] - dl_s[qc]) * dfac;
         }
       __syncthreads();
 
@@ -1041,13 +1124,13 @@ __global__ void __launch_bounds__(F32_THREADS)
   }
 }
 
-template <int D>
+template <int D, bool CAP>
 __global__ void __launch_bounds__(F32_THREADS)
     dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse, const float* __restrict__ delta,
                   float* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
-                  Strides sdq, int H, int rep, Mask mask, float scale, float scale_log2) {
+                  Strides sdq, int H, int rep, Mask mask, float scale, float scale_log2, Cap cap) {
   constexpr int R = f32_rows<D>(), RI = R / 16, KP = D + 1, PP = R + 1, DC = D / 16;
   extern __shared__ float smem[];
   float* qs = smem;
@@ -1111,8 +1194,9 @@ __global__ void __launch_bounds__(F32_THREADS)
 #pragma unroll
       for (int j = 0; j < RI; ++j) {
         const int qr = ty + 16 * i, kc = tx + 16 * j;
-        const float p = mask.ok(q0 + qr, k0 + kc) ? exp2f(s[i][j] * scale_log2 - lse_s[qr]) : 0.f;
-        dss[qr * PP + kc] = p * (dp[i][j] - dl_s[qr]);
+        float dfac;
+        const float p = f32_prob<CAP>(s[i][j], mask.ok(q0 + qr, k0 + kc), lse_s[qr], scale_log2, scale, cap, dfac);
+        dss[qr * PP + kc] = p * (dp[i][j] - dl_s[qr]) * dfac;
       }
     __syncthreads();
 
@@ -1207,6 +1291,7 @@ struct Args {
   int B, H, KV;
   Mask mask;
   float scale;
+  Cap cap;  // cap 0: none
 };
 
 template <typename T>
@@ -1228,7 +1313,7 @@ int64_t bf16_scratch_floats(int B, int H, int KV, int S, int D) {
   return G > 1 ? di + int64_t(G) * 2 * B * KV * S * D : di;
 }
 
-template <int D>
+template <int D, bool CAP>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   using TQ = QTiles<D>;
   using TK = KvTiles<D>;
@@ -1244,21 +1329,21 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   static std::atomic<uint64_t> sized_q{0}, sized_kv{0};
-  auto qk = dq_bf16_kernel<D>;
+  auto qk = dq_bf16_kernel<D, CAP>;
   err = size_smem_once(reinterpret_cast<const void*>(qk), int(TQ::SMEM), sized_q);
   if (err != cudaSuccess) return err;
   qk<<<dim3(a.H, a.B, (S + TQ::BM - 1) / TQ::BM), TQ::THREADS, TQ::SMEM, stream>>>(
       mq, mk, mv, mdo, static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout), a.lse, a.delta,
-      static_cast<bf16*>(a.dq), a.so, a.sdo, a.sdq, rep, a.mask, a.scale, scale_log2);
+      static_cast<bf16*>(a.dq), a.so, a.sdo, a.sdq, rep, a.mask, a.scale, scale_log2, a.cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   float* part = G > 1 ? a.delta + (int64_t(a.B) * a.H * S + 63) / 64 * 64 : nullptr;
-  auto kv = dkdv_bf16_kernel<D>;
+  auto kv = dkdv_bf16_kernel<D, CAP>;
   err = size_smem_once(reinterpret_cast<const void*>(kv), int(TK::SMEM), sized_kv);
   if (err != cudaSuccess) return err;
   kv<<<dim3(G * a.KV, a.B, (S + TK::BN - 1) / TK::BN), TK::THREADS, TK::SMEM, stream>>>(
       mq, mk, mv, mdo, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), part, a.sdk,
-      a.sdv, a.H, rep, G, a.mask, a.scale, scale_log2);
+      a.sdv, a.H, rep, G, a.mask, a.scale, scale_log2, a.cap);
   err = cudaGetLastError();
   if (err != cudaSuccess || G == 1) return err;
   const int64_t plane = int64_t(a.B) * a.KV * S * D;
@@ -1268,7 +1353,7 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool CAP>
 cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   cudaError_t err = launch_delta<float>(a, D, stream);
   if (err != cudaSuccess) return err;
@@ -1276,31 +1361,39 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   const int S = a.mask.S, tiles = (S + R - 1) / R, rep = a.H / a.KV;
   const float scale_log2 = a.scale * LOG2E;
   static std::atomic<uint64_t> sized_kv{0}, sized_q{0};
-  auto kv = dkdv_f32_kernel<D>;
+  auto kv = dkdv_f32_kernel<D, CAP>;
   err = size_smem_once(reinterpret_cast<const void*>(kv), int(f32_smem_kv<D>()), sized_kv);
   if (err != cudaSuccess) return err;
   kv<<<dim3(tiles, a.KV, a.B), F32_THREADS, f32_smem_kv<D>(), stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
       static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv,
-      a.H, rep, a.mask, a.scale, scale_log2);
+      a.H, rep, a.mask, a.scale, scale_log2, a.cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  auto qk = dq_f32_kernel<D>;
+  auto qk = dq_f32_kernel<D, CAP>;
   err = size_smem_once(reinterpret_cast<const void*>(qk), int(f32_smem_q<D>()), sized_q);
   if (err != cudaSuccess) return err;
   qk<<<dim3(tiles, a.H, a.B), F32_THREADS, f32_smem_q<D>(), stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
       static_cast<float*>(a.dq), a.sq, a.sk, a.sv, a.sdo, a.sdq, a.H, rep, a.mask, a.scale,
-      scale_log2);
+      scale_log2, a.cap);
   return cudaGetLastError();
 }
 
+// the softcap at head dim 256 only (gemma2-2b's): no config has one at 64 or 128
 template <int D>
 cudaError_t dispatch(int dtype, const Args& a, cudaStream_t stream) {
-  if (dtype == 0) return launch_f32<D>(a, stream);
-  if (dtype == 1) return launch_bf16<D>(a, stream);
+  if (a.cap.cap > 0.f) {
+    if constexpr (D == 256) {
+      if (dtype == 0) return launch_f32<D, true>(a, stream);
+      if (dtype == 1) return launch_bf16<D, true>(a, stream);
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (dtype == 0) return launch_f32<D, false>(a, stream);
+  if (dtype == 1) return launch_bf16<D, false>(a, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1314,21 +1407,23 @@ extern "C" {
 // scratch of repro_flash_attention_bwd_scratch(...) floats that the call
 // fills (its first B x H x S are Di). window <= 0 means none. bf16 reads
 // through TMA and 16 bytes at a time: 16-byte aligned data, strides
-// multiples of 8 elements (the wrapper checks). Launches its kernels on
+// multiples of 8 elements (the wrapper checks). softcap <= 0 means none;
+// a softcap is taken at D 256 only. Launches its kernels on
 // `stream`; returns cudaGetLastError() after the last launch that ran (0
 // on success).
 int repro_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const float* lse, float* delta, void* dq, void* dk,
                               void* dv, int dtype, int B, int H, int KV, int S, int D,
                               const int64_t* strides, float scale, int causal, int window,
-                              void* stream) {
+                              float softcap, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || H % KV != 0) return int(cudaErrorInvalidValue);
   const int64_t* s = strides;
   Args a{q, k, v, o, dout, lse, delta, dq, dk, dv,
          Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]}, Strides{s[6], s[7], s[8]},
          Strides{s[9], s[10], s[11]}, Strides{s[12], s[13], s[14]}, Strides{s[15], s[16], s[17]},
          Strides{s[18], s[19], s[20]}, Strides{s[21], s[22], s[23]},
-         B, H, KV, Mask{S, causal, window}, scale};
+         B, H, KV, Mask{S, causal, window}, scale,
+         softcap > 0.f ? Cap{scale / softcap, softcap * LOG2E, softcap} : Cap{0.f, 0.f, 0.f}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:

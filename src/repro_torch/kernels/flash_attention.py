@@ -45,7 +45,9 @@ the f32 partial dK / dV sums, whose scratch the wrapper allocates.
 its plain version on the CPU is autograd through ``ref.mha``. The
 backward takes head dims 64, 128 and 256 (at 256 the dK/dV kernel's two
 warpgroups share a block's 64 keys, each holding one half of dK and dV,
-and dQ takes 64-key tiles through a one-slot ring) and no softcap.
+and dQ takes 64-key tiles through a one-slot ring), and a softcap at head
+dim 256 only (gemma2-2b's 50: P from the capped score, dS times 1 - t^2
+with t = tanh(score / cap)); no config has a softcap at 64 or 128.
 """
 
 from __future__ import annotations
@@ -74,6 +76,7 @@ BWD_LAUNCHES = 0  # of the backward's C entry point (two to three CUDA kernels e
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
 _BWD_HEAD_DIMS = (64, 128, 256)
+_BWD_SOFTCAP_HEAD_DIMS = (256,)  # the head dims whose backward takes a softcap
 _fn = None
 _bwd_fn = None
 
@@ -214,7 +217,7 @@ def _bwd_kernel():
         fn.argtypes = (
             [ctypes.c_void_p] * 10
             + [ctypes.c_int] * 6
-            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         scratch = lib.repro_flash_attention_bwd_scratch
@@ -271,8 +274,9 @@ def flash_attention_bwd(
     shape; dk and dv summed over the query heads of each kv group).
 
     On CPU tensors the plain version: autograd through ``ref.mha``. On
-    CUDA tensors it launches the backward kernel or raises: softcap and
-    head dims other than 64, 128 and 256 raise NotImplementedError.
+    CUDA tensors it launches the backward kernel or raises: head dims
+    other than 64, 128 and 256, and a softcap at a head dim other than
+    256, raise NotImplementedError.
     """
     global BWD_LAUNCHES
     _check(q, k, v)
@@ -285,10 +289,15 @@ def flash_attention_bwd(
             return torch.autograd.grad(out, (qq, kk, vv), do)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, not {q.device}")
-    if softcap is not None:
-        raise NotImplementedError("the flash-attention backward takes no softcap yet (no trained model needs it)")
+    if softcap is not None and q.shape[3] not in _BWD_SOFTCAP_HEAD_DIMS:
+        raise NotImplementedError(
+            f"the flash-attention backward takes a softcap at head_dim {_BWD_SOFTCAP_HEAD_DIMS} only, not "
+            f"{q.shape[3]} (no config has one there)"
+        )
     if window is not None and window <= 0:
         raise ValueError("window must be positive")
+    if softcap is not None and softcap <= 0:
+        raise ValueError("softcap must be positive")
     if do.dtype != q.dtype or o.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError(f"o and do must be {q.dtype} and lse float32, got {o.dtype}, {do.dtype}, {lse.dtype}")
     if not _fits_bwd(do):  # autograd's gradient may come in any layout
@@ -313,7 +322,7 @@ def flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _DTYPES[q.dtype], b, h, kv, s, d, ctypes.cast(strides, ctypes.c_void_p),
-            1.0 / math.sqrt(d), int(causal), window or 0,
+            1.0 / math.sqrt(d), int(causal), window or 0, float(softcap or 0.0),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
@@ -329,11 +338,14 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int | None, softcap: float | None):
-        if q.device.type == "cuda" and (softcap is not None or q.shape[3] not in _BWD_HEAD_DIMS):
+        d = q.shape[3]
+        if q.device.type == "cuda" and (
+            d not in _BWD_HEAD_DIMS or (softcap is not None and d not in _BWD_SOFTCAP_HEAD_DIMS)
+        ):
             raise NotImplementedError(
-                f"no flash-attention backward for head_dim {q.shape[3]}"
+                f"no flash-attention backward for head_dim {d}"
                 + (" with softcap" if softcap is not None else "")
-                + f": it takes head_dim {_BWD_HEAD_DIMS} and no softcap"
+                + f": it takes head_dim {_BWD_HEAD_DIMS}, and a softcap at {_BWD_SOFTCAP_HEAD_DIMS} only"
             )
         out, lse = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)

@@ -9,11 +9,13 @@ the leftover layers as ``tail/s{i}`` with a leading dim of 1, so that
 run group by group, each group's slots in pattern order, then the tail,
 as a Python loop.
 
-Block kinds ``attn`` (dense, yi-6b), ``local`` (sliding window with a
-ring decode cache), ``ssm`` (Mamba-2, mamba2) and ``rec`` (RG-LRU,
-recurrentgemma) are ported, with or without an MLP, tied or untied
-embeddings and gemma's embedding scale; the other kinds and fields (MoE,
-encoder-decoder, frontends, layer norm, sandwich norms, learned
+Block kinds ``attn`` (dense: yi-6b, qwen2, mistral), ``local`` (sliding
+window with a ring decode cache: gemma2, recurrentgemma), ``ssm``
+(Mamba-2, mamba2) and ``rec`` (RG-LRU, recurrentgemma) are ported, with
+or without an MLP, tied or untied embeddings, gemma's embedding scale,
+gemma2's sandwich norms (``post1`` / ``post2``) and attention and final
+logit softcaps, and qwen2's QKV bias (``bq`` / ``bk`` / ``bv``); the other
+kinds and fields (MoE, encoder-decoder, frontends, layer norm, learned
 positions) raise ``NotImplementedError``. Caches keep the JAX layout,
 stacked on the group dim for slots and not for the tail, and are updated
 in place. The paged cache serves the dense pattern only, as in JAX.
@@ -120,8 +122,6 @@ def _unsupported(cfg: ArchConfig) -> list[str]:
         f"frontend {cfg.frontend!r}": cfg.frontend != "none",
         "learned_pos": cfg.learned_pos,
         f"norm {cfg.norm!r}": cfg.norm != "rms",
-        "post_norms": cfg.post_norms,
-        "attn_bias": cfg.attn_bias,
         f"mlp_kind {cfg.mlp_kind!r}": cfg.mlp_kind not in ("gated", "plain", "none"),
     }
     return [k for k, bad in checks.items() if bad]
@@ -189,18 +189,25 @@ class StreamModel(nn.Module):
             block["mixer"] = _params(R.rglru_shapes(n, d, cfg.rglru), dtype, self.device, f32=R.F32_LEAVES)
         else:
             hd = cfg.hd
-            block["mixer"] = _params({
+            shapes = {
                 "wq": (n, d, cfg.n_heads, hd),
                 "wk": (n, d, cfg.n_kv_heads, hd),
                 "wv": (n, d, cfg.n_kv_heads, hd),
                 "wo": (n, cfg.n_heads, hd, d),
-            }, dtype, self.device)
+            }
+            if cfg.attn_bias:  # qwen2: JAX's layers.attention_init
+                shapes.update(bq=(n, cfg.n_heads, hd), bk=(n, cfg.n_kv_heads, hd), bv=(n, cfg.n_kv_heads, hd))
+            block["mixer"] = _params(shapes, dtype, self.device)
+        if cfg.post_norms:  # gemma2's sandwich norm of the mixer's output
+            block["post1"] = _params({"w": (n, d)}, dtype, self.device)
         if cfg.mlp_kind != "none":
             mlp_shapes = {"w_in": (n, d, f), "w_out": (n, f, d)}
             if cfg.mlp_kind == "gated":
                 mlp_shapes["w_gate"] = (n, d, f)
             block["norm2"] = _params({"w": (n, d)}, dtype, self.device)
             block["mlp"] = _params(mlp_shapes, dtype, self.device)
+            if cfg.post_norms:  # ... and of the MLP's
+                block["post2"] = _params({"w": (n, d)}, dtype, self.device)
         return block
 
     def _blocks(self):
@@ -246,7 +253,8 @@ class StreamModel(nn.Module):
     def init(self, generator: torch.Generator | int) -> dict:
         """Random weights with the JAX init's scales (``layers._normal``,
         ``ssm.ssm_init``, ``rglru.rglru_init``): normal / sqrt(fan_in),
-        drawn in f32 and cast; norms are ones; the SSM's decays, skips and
+        drawn in f32 and cast; norms (the sandwich norms too) are ones and
+        QKV biases zeros; the SSM's decays, skips and
         dt biases are its fixed values, the RG-LRU's Lambda is drawn from
         its uniform law. An int seeds a new generator on the model's device.
         Returns the parameter tree (``param_tree()``), as the JAX ``init``
@@ -269,7 +277,9 @@ class StreamModel(nn.Module):
         tree["final_norm"]["w"].fill_(1.0)
         for sec, name, kind, _ in self._blocks():
             blk = tree[sec][name]
-            blk["norm1"]["w"].fill_(1.0)
+            for norm in ("norm1", "post1", "post2"):
+                if norm in blk:
+                    blk[norm]["w"].fill_(1.0)
             if kind == "ssm":
                 M.ssm_init(blk["mixer"], d, cfg.ssm, normal)
             elif kind == "rec":
@@ -278,6 +288,9 @@ class StreamModel(nn.Module):
                 for k in ("wq", "wk", "wv"):
                     normal(blk["mixer"][k], 1.0 / math.sqrt(d))
                 normal(blk["mixer"]["wo"], 1.0 / math.sqrt(cfg.n_heads * cfg.hd))
+                for k in ("bq", "bk", "bv"):
+                    if k in blk["mixer"]:
+                        blk["mixer"][k].zero_()
             if "mlp" in blk:
                 blk["norm2"]["w"].fill_(1.0)
                 normal(blk["mlp"]["w_in"], 1.0 / math.sqrt(d))
@@ -326,10 +339,11 @@ class StreamModel(nn.Module):
         return L.rms_norm(x, w, self.cfg.norm_eps, plus_one=self.cfg.norm_plus_one)
 
     def _layer(self, kind: str, blk: dict, x, positions, st: dict | None = None):
-        """One block: x plus its mixer, then plus its MLP. With ``st`` (the
-        layer's view of the cache) a full-sequence pass (prefill) writes the
-        layer's K/V or recurrent state into it and a one-token pass decodes
-        from it; either way in place."""
+        """One block: x plus its mixer, then plus its MLP (each output
+        through its sandwich norm first where the config has them). With
+        ``st`` (the layer's view of the cache) a full-sequence pass
+        (prefill) writes the layer's K/V or recurrent state into it and a
+        one-token pass decodes from it; either way in place."""
         cfg = self.cfg
         h = self._norm(blk["norm1"]["w"], x)
         if kind in ("ssm", "rec"):
@@ -354,10 +368,11 @@ class StreamModel(nn.Module):
             _fill_kv_cache(st, k, v)
         else:
             out = L.attention(blk["mixer"], h, cfg.attn_params(kind), positions)
-        x = x + out
+        x = x + (self._norm(blk["post1"]["w"], out) if cfg.post_norms else out)
         if cfg.mlp_kind == "none":
             return x
-        return x + L.mlp(blk["mlp"], self._norm(blk["norm2"]["w"], x), cfg.mlp_kind, cfg.mlp_act)
+        y = L.mlp(blk["mlp"], self._norm(blk["norm2"]["w"], x), cfg.mlp_kind, cfg.mlp_act)
+        return x + (self._norm(blk["post2"]["w"], y) if cfg.post_norms else y)
 
     def _run_stack(self, x, positions, caches=None, tree=None):
         """Every layer in order; with ``caches`` each layer reads and writes

@@ -14,6 +14,11 @@ The CUDA kernels cannot run here, so this file mirrors them in Python:
   its key tiles, dK and dV by key tile over the query steps of each GQA
   group's heads, the groups' f32 partial sums added in group order, and
   (``bf16=True``) P and dS rounded to bf16 where the kernels round them.
+  With a softcap (head dim 256, gemma2-2b's 50) it mirrors the capped
+  path: t = tanh(s scale / cap) from the raw score, P from the forward's
+  lse2 of the capped scores cap t (the mask applied after the cap), and
+  the factor 1 - t^2 folded into the value dS takes for P, P (1 - t^2),
+  as the kernels fold it (they keep no t), while dV's product takes P.
   In f32 it is held to autograd through ``ref.mha`` and to ``jax.grad`` of
   the JAX package's ``layers._chunked_attention`` on the same numpy inputs
   at 2e-5 of each gradient's largest element (the f32 tolerance the card
@@ -200,7 +205,7 @@ def _mask_t(s, causal, window):
     return torch.from_numpy(kept(s, causal, window))
 
 
-def kernel_model(q, k, v, do, causal, window, bf16=False):
+def kernel_model(q, k, v, do, causal, window, bf16=False, softcap=None):
     """dq, dk, dv (q, do (B, H, S, D); k, v (B, Kv, S, D)) in the kernels' order."""
     b, h, s, d = q.shape
     kv = k.shape[1]
@@ -210,11 +215,21 @@ def kernel_model(q, k, v, do, causal, window, bf16=False):
     sl2 = scale * LOG2E
     rnd = (lambda x: x.bfloat16().float()) if bf16 else (lambda x: x)
     kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
-    # the forward's outputs: O and the base-2 row log-sum-exp of the scaled scores
-    out = ref.mha(q, kr, vr, causal=causal, window=window)
-    lse2 = torch.logsumexp(ref.scores(q, kr, causal=causal, window=window), -1) * LOG2E
+    # the forward's outputs: O and the base-2 row log-sum-exp of the scaled (capped) scores
+    out = ref.mha(q, kr, vr, causal=causal, window=window, softcap=softcap)
+    lse2 = torch.logsumexp(ref.scores(q, kr, causal=causal, window=window, softcap=softcap), -1) * LOG2E
     di = (do * out).sum(-1)  # Di, (B, H, S)
     ok = _mask_t(s, causal, window)
+
+    def probs(raw, lse):
+        """(P, the value dS takes for P) of raw dot products: the kernels'
+        ``probs`` and ``capped_probs`` (masked pairs are zeroed by the caller)."""
+        if softcap is None:
+            p = torch.exp2(raw * sl2 - lse)
+            return p, p
+        th = torch.tanh(raw * (scale / softcap))  # Cap::inv, from the raw score: the mask comes after the cap
+        p = torch.exp2(softcap * LOG2E * th - lse)  # Cap::log2
+        return p, p * (1 - th * th)
 
     # dQ: a block per BM queries, its key tiles in order; all heads at once
     bn = DQ_KEYS_D256 if d == 256 else DQ_KEYS
@@ -224,9 +239,9 @@ def kernel_model(q, k, v, do, causal, window, bf16=False):
         for kt in q_tiles(s, causal, window, q0, bn):
             cols = slice(kt * bn, min((kt + 1) * bn, s))
             keep = ok[rows, cols]
-            p = torch.exp2(q[:, :, rows] @ kr[:, :, cols].transpose(-1, -2) * sl2 - lse2[:, :, rows, None])
+            _, pf = probs(q[:, :, rows] @ kr[:, :, cols].transpose(-1, -2), lse2[:, :, rows, None])
             dp = do[:, :, rows] @ vr[:, :, cols].transpose(-1, -2)
-            ds = torch.where(keep, p * (dp - di[:, :, rows, None]), 0.0)
+            ds = torch.where(keep, pf * (dp - di[:, :, rows, None]), 0.0)
             dq[:, :, rows] += rnd(ds) @ kr[:, :, cols]
     dq = dq * scale
 
@@ -243,9 +258,10 @@ def kernel_model(q, k, v, do, causal, window, bf16=False):
                         rows = slice(q0, min(q0 + BQ, s))
                         keep = ok[rows, cols].T
                         st = k[:, hk, cols] @ q[:, hh, rows].transpose(-1, -2)
-                        pt = torch.where(keep, torch.exp2(st * sl2 - lse2[:, hh, None, rows]), 0.0)
+                        pt, pft = probs(st, lse2[:, hh, None, rows])
+                        pt = torch.where(keep, pt, 0.0)
                         dpt = v[:, hk, cols] @ do[:, hh, rows].transpose(-1, -2)
-                        dst = torch.where(keep, pt * (dpt - di[:, hh, None, rows]), 0.0)
+                        dst = torch.where(keep, pft * (dpt - di[:, hh, None, rows]), 0.0)
                         part_v[grp, :, hk, cols] += rnd(pt) @ do[:, hh, rows]
                         part_k[grp, :, hk, cols] += rnd(dst) @ q[:, hh, rows]
     dk, dv = part_k[0].clone(), part_v[0].clone()
@@ -261,19 +277,20 @@ def _inputs(seed, b, s, h, kv, d):
                                                                         (b, s, h, d))]
 
 
-def _autograd(q, k, v, do, causal, window):
+def _autograd(q, k, v, do, causal, window, softcap=None):
     rep = q.shape[1] // k.shape[1]
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     out = ref.mha(leaves[0], leaves[1].repeat_interleave(rep, 1), leaves[2].repeat_interleave(rep, 1),
-                  causal=causal, window=window)
+                  causal=causal, window=window, softcap=softcap)
     return torch.autograd.grad(out, leaves, do)
 
 
-def _jax_grads(arrays, causal, window):
+def _jax_grads(arrays, causal, window, softcap=None):
     """jax.grad of layers._chunked_attention on (B, S, heads, D) arrays, as (B, heads, S, D) torch tensors."""
     q, k, v, do = (jnp.asarray(a) for a in arrays)
     s, h, d = q.shape[1], q.shape[2], q.shape[3]
-    ap = AttnParams(n_heads=h, n_kv=k.shape[2], head_dim=d, causal=causal, window=window, q_block=64)
+    ap = AttnParams(n_heads=h, n_kv=k.shape[2], head_dim=d, causal=causal, window=window, softcap=softcap,
+                    q_block=64)
     pos = jnp.arange(s)
     _, vjp = jax.vjp(lambda q_, k_, v_: _chunked_attention(q_, k_, v_, pos, pos, ap, grouped=False), q, k, v)
     return [torch.from_numpy(np.array(g)).transpose(1, 2) for g in vjp(do)]
@@ -318,5 +335,47 @@ def test_kernel_model_bf16_rounding_within_tolerance(s, h, kv, d, causal, window
     q, k, v, do = (torch.from_numpy(a).bfloat16().float().transpose(1, 2) for a in arrays)
     got = kernel_model(q, k, v, do, causal, window, bf16=True)
     want = _autograd(q, k, v, do, causal, window)
+    errs = [_rel(g, w) for g, w in zip(got, want)]
+    assert max(errs) <= BF16_TOL, errs
+
+
+# The softcap at head dim 256 (gemma2-2b's 50, and 2, where tanh bends the
+# scores enough that 1 - t^2 is far from 1 and a missing factor fails):
+# gemma2's GQA 2 and recurrentgemma's 16, with and without a window; window
+# 2 leaves each row two keys, so every row is masked whole on every tile but
+# one or two (its P 0 there and its 1 - t^2 finite: no NaN); non-causal with
+# a window. The inputs are scaled by 3 so that scale QK^T reaches well past
+# cap 2.
+@pytest.mark.parametrize("cap", [50.0, 2.0])
+@pytest.mark.parametrize("b,s,h,kv,causal,window", [
+    (1, 130, 8, 4, True, None),   # gemma2's heads; S two 64-key tiles + 2
+    (2, 100, 4, 2, True, 37),     # a window that binds inside a tile
+    (1, 130, 4, 2, True, 2),      # every row masked whole on all tiles but one or two
+    (1, 129, 16, 1, False, 50),   # rep 16: G GQA_SPLIT_D256; a window alone
+])
+def test_kernel_model_softcap_matches_autograd_and_jax(cap, b, s, h, kv, causal, window):
+    arrays = [3 * a for a in _inputs(33, b, s, h, kv, 256)]
+    q, k, v, do = (torch.from_numpy(a).transpose(1, 2) for a in arrays)
+    got = kernel_model(q, k, v, do, causal, window, softcap=cap)
+    want = _autograd(q, k, v, do, causal, window, softcap=cap)
+    want_jax = _jax_grads(arrays, causal, window, softcap=cap)
+    for name, g, w, wj in zip(("dq", "dk", "dv"), got, want, want_jax):
+        assert bool(torch.isfinite(g).all()), name
+        assert _rel(g, w) <= F32_TOL, (name, _rel(g, w))
+        assert _rel(g, wj) <= F32_TOL, (name, _rel(g, wj))
+    if cap == 2.0:  # the factor matters: without it dq and dk are far off
+        plain = kernel_model(q, k, v, do, causal, window, softcap=None)
+        assert _rel(plain[0], want[0]) > 100 * F32_TOL
+
+
+@pytest.mark.parametrize("cap", [50.0, 2.0])
+def test_kernel_model_softcap_bf16_rounding_within_tolerance(cap):
+    """The capped path with bf16 inputs and P and dS rounded where the
+    kernels round them (dV's product takes P, dK's and dQ's P (1 - t^2)
+    (dP - Di)), within the card's bf16 tolerance of autograd."""
+    arrays = _inputs(34, 1, 200, 8, 4, 256)
+    q, k, v, do = (torch.from_numpy(a).bfloat16().float().transpose(1, 2) for a in arrays)
+    got = kernel_model(q, k, v, do, True, 50, bf16=True, softcap=cap)
+    want = _autograd(q, k, v, do, True, 50, softcap=cap)
     errs = [_rel(g, w) for g, w in zip(got, want)]
     assert max(errs) <= BF16_TOL, errs

@@ -235,3 +235,46 @@ def test_resume_matches_uninterrupted(tmp_path, streaming, opt):
     _, offsets, meta = ck.restore(str(tmp_path / "c"), template)
     assert meta["deployment_id"] == dep.deployment_id
     assert all(v > 0 for v in offsets.values())
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen2-7b"])
+def test_model_params_round_trip_between_packages(tmp_path, arch):
+    """Reduced gemma2 (its sandwich norms post1 / post2) and qwen2 (its QKV
+    biases bq / bk / bv), bf16, the biases and norms drawn away from 0 and
+    1: JAX's checkpoint of the params restores into the port's tree and
+    loads into its model, and the port's checkpoint restores in JAX, leaf
+    for leaf to the bit."""
+    import repro.configs as JC
+    from repro.models.model import StreamModel as JModel
+    from repro.models.policy import Policy as JPolicy
+
+    jm = JModel(JC.get_reduced(arch), JPolicy(param_dtype="bfloat16", compute_dtype="bfloat16"))
+    rng = np.random.default_rng(3)
+
+    def move(path, leaf):
+        names = {getattr(k, "key", None) for k in path}
+        if names & {"bq", "bk", "bv", "post1", "post2"}:
+            return leaf + jnp.asarray(rng.standard_normal(leaf.shape), leaf.dtype)
+        return leaf
+
+    jp = jax.tree_util.tree_map_with_path(move, jm.init(jax.random.PRNGKey(2)))
+    jck.save(str(tmp_path / "jax"), 1, {"params": jp})
+    tm = StreamModel(TC.get_reduced(arch), Policy(), device="cpu", generator=None)
+    template = {"params": {k: v for k, v in tm.param_tree().items()}}
+    state, _, _ = ck.restore(str(tmp_path / "jax"), template)
+    tm.load_params(state["params"])
+    flat_j = dict(jax.tree_util.tree_flatten_with_path(jax.tree.map(lambda a: np.asarray(a, np.float32), jp))[0])
+    flat_t = dict(jax.tree_util.tree_flatten_with_path(convert.params_to_numpy(tm.param_tree()))[0])
+    names = {getattr(k, "key", None) for path in flat_t for k in path}
+    assert names & ({"post1", "post2"} if arch == "gemma2-2b" else {"bq", "bk", "bv"})
+    assert set(flat_j) == set(flat_t)
+    for path, leaf in flat_j.items():
+        np.testing.assert_array_equal(flat_t[path], leaf, err_msg=str(path))
+    mgr = ck.CheckpointManager(str(tmp_path / "port"))
+    mgr.save_async(1, {"params": tm.param_tree()})
+    mgr.wait()
+    back, _, _ = jck.restore(str(tmp_path / "port"), {"params": jax.eval_shape(lambda: jp)})
+    for (path, a), (_, b) in zip(jax.tree_util.tree_flatten_with_path(back["params"])[0],
+                                 jax.tree_util.tree_flatten_with_path(jp)[0]):
+        assert a.dtype == b.dtype == jnp.bfloat16, path
+        np.testing.assert_array_equal(np.asarray(a, np.float32), np.asarray(b, np.float32), err_msg=str(path))

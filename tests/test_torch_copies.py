@@ -121,3 +121,31 @@ def test_copd_synth_dataset_is_verbatim():
     original = _definitions(REPO / "src" / "repro" / "configs" / "copd_mlp.py")
     copy = _definitions(REPO / "src" / "repro_torch" / "configs" / "copd_mlp.py")
     assert copy["synth_dataset"] == original["synth_dataset"]
+
+
+# configs/: every architecture the port registers is its original's
+# definitions (config, reduced_config) and ID, its imports aside
+CONFIG_COPIES = ["yi_6b", "mamba2_2_7b", "recurrentgemma_9b", "gemma2_2b", "qwen2_7b", "mistral_large_123b"]
+
+
+def _config_id(path: Path) -> str:
+    tree = ast.parse(path.read_text())
+    ids = [node.value.value for node in tree.body if isinstance(node, ast.Assign)
+           and [getattr(t, "id", None) for t in node.targets] == ["ID"]]
+    assert len(ids) == 1, path
+    return ids[0]
+
+
+@pytest.mark.parametrize("name", CONFIG_COPIES)
+def test_config_copy_matches_its_original(name):
+    original = REPO / "src" / "repro" / "configs" / f"{name}.py"
+    copy = REPO / "src" / "repro_torch" / "configs" / f"{name}.py"
+    assert set(_definitions(copy)) == {"config", "reduced_config"}
+    assert _definitions(copy) == _definitions(original)
+    assert _config_id(copy) == _config_id(original)
+
+
+def test_config_copies_are_the_registered_architectures():
+    import repro_torch.configs as TC
+
+    assert sorted(m.__name__.rsplit(".", 1)[1] for m in TC._MODULES) == sorted(CONFIG_COPIES)

@@ -1051,11 +1051,11 @@ def _bwd_case(seed, b, s, h, kv, d, dtype, device):
     return q, k, v, do.transpose(1, 2)
 
 
-def _plain_grads(q, k, v, do, causal, window):
+def _plain_grads(q, k, v, do, causal, window, softcap=None):
     rep = q.shape[1] // k.shape[1]
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     out = ref.mha(leaves[0], leaves[1].repeat_interleave(rep, 1), leaves[2].repeat_interleave(rep, 1),
-                  causal=causal, window=window)
+                  causal=causal, window=window, softcap=softcap)
     return torch.autograd.grad(out, leaves, do)
 
 
@@ -1185,7 +1185,9 @@ def test_flash_attention_bwd_builds_without_spills(card, tmp_path):
                           str(_build.CSRC / "flash_attention_bwd.cu")], check=True, capture_output=True, text=True)
     log = res.stdout + res.stderr
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
-    assert len(spills) >= 14, log  # dQ, dK/dV, f32 dQ, f32 dK/dV at three head dims, Di, the reduction
+    # dQ, dK/dV, f32 dQ, f32 dK/dV at three head dims and again with the
+    # softcap at head dim 256, Di, the reduction
+    assert len(spills) >= 18, log
     assert all(a == "0" and b == "0" for a, b in spills), log
     assert "C7508" not in log and "setmaxnreg ignored" not in log, log
 
@@ -1223,14 +1225,105 @@ def test_attention_op_gradient_through_the_kernels(card):
         assert float((g.float() - w.transpose(1, 2).float()).abs().max() / w.float().abs().max()) <= 2e-2
 
 
-@pytest.mark.parametrize("d,cap", [(256, 50.0), (128, 50.0)])
+@pytest.mark.parametrize("d,cap", [(128, 50.0), (64, 50.0)])
 def test_flash_attention_bwd_refuses_what_it_lacks(card, d, cap):
-    """The backward takes no softcap: under grad an input that requires
-    it raises at the forward (head dim 256 is taken since it gained its
-    tiles, with a softcap still refused)."""
+    """The backward takes a softcap at head dim 256 only (gemma2-2b's;
+    no config has one at 64 or 128): under grad an input that requires
+    it raises at the forward, and the backward itself refuses it; head
+    dim 256 with a softcap is taken (test_attention_op_gradient_with_softcap)."""
     q, k, v = (t.requires_grad_(True) for t in _inputs(25, 1, 64, 4, 2, d, "bfloat16", card))
     with pytest.raises(NotImplementedError):
         attention_op(q, k, v, causal=True, softcap=cap)
+    qt, kt, vt = (t.detach().transpose(1, 2) for t in (q, k, v))
+    out, lse = fa.flash_attention(qt, kt, vt, causal=True, softcap=cap, return_lse=True)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention_bwd(qt, kt, vt, out, torch.ones_like(out), lse, causal=True, softcap=cap)
+
+
+# K1's backward with a softcap at head dim 256 (gemma2-2b's 50, and 2,
+# where tanh bends every score and 1 - t^2 moves dS far from 1): the
+# heads and masks of the rows above at D 256, and gemma2's 8/4 heads
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cap", [50.0, 2.0])
+@pytest.mark.parametrize("b,s,h,kv,causal,window", [
+    (1, 300, 16, 1, True, None),   # rep 16, ragged S
+    (2, 777, 16, 1, True, 100),    # a window that binds inside a tile
+    (1, 300, 8, 2, False, 50),     # window alone
+    (2, 333, 8, 4, True, None),    # gemma2's heads, rep 2
+    (1, 129, 8, 4, True, 64),      # gemma2's heads, a tile + 1, a window of a tile
+])
+def test_flash_attention_bwd_softcap_on_card(card, dtype, cap, b, s, h, kv, causal, window):
+    q, k, v, do = _bwd_case(37, b, s, h, kv, 256, dtype, card)
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, softcap=cap, return_lse=True)
+    n = fa.BWD_LAUNCHES
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window, softcap=cap)
+    want = _plain_grads(q, k, v, do, causal, window, cap)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == n + 1
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        err = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+        assert err <= BWD_TOL[dtype], err
+
+
+@pytest.mark.parametrize("b,s,h,kv,window", [(4, 1024, 8, 4, None), (1, 777, 16, 1, 100)])
+def test_flash_attention_bwd_softcap_is_deterministic(card, b, s, h, kv, window):
+    """With the softcap too (gemma2's training call and a window that
+    binds): the same dq, dk and dv to the bit on every call."""
+    q, k, v, do = _bwd_case(38, b, s, h, kv, 256, "bfloat16", card)
+    out, lse = fa.flash_attention(q, k, v, causal=True, window=window, softcap=50.0, return_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True, window=window, softcap=50.0)
+    for _ in range(3):
+        again = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True, window=window, softcap=50.0)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_attention_op_gradient_with_softcap(card):
+    """Under grad mode gemma2's local attention (8/4 heads, head dim 256,
+    softcap 50, a window that binds) runs the forward with lse and the
+    backward kernel once each and gives autograd's gradients."""
+    q, k, v = (t.requires_grad_(True) for t in _inputs(39, 2, 300, 8, 4, 256, "bfloat16", card))
+    do = torch.randn((2, 300, 8, 256), device=card, dtype=torch.bfloat16)
+    n_f, n_b = fa.LAUNCHES, fa.BWD_LAUNCHES
+    got = torch.autograd.grad(attention_op(q, k, v, causal=True, window=100, softcap=50.0), (q, k, v), do)
+    assert (fa.LAUNCHES - n_f, fa.BWD_LAUNCHES - n_b) == (1, 1)
+    want = _plain_grads(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), do.transpose(1, 2), True, 100, 50.0)
+    for g, w in zip(got, want):
+        assert float((g.float() - w.transpose(1, 2).float()).abs().max() / w.float().abs().max()) <= 2e-2
+
+
+def test_gemma2_on_card_matches_cpu(card):
+    """Reduced gemma2 at head dim 256 (local and global layers, window 16
+    against 70 tokens, attention softcap 50, final softcap 30, sandwich
+    norms, tied and scaled embed) on the card: its logits, and its loss
+    and every gradient leaf through K1 forward + backward with the
+    softcap, against the CPU twin's (the plain versions), at 1e-4 of the
+    largest element; one K1 backward launch a layer."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(configs.get_reduced("gemma2-2b"), head_dim=256, vocab=250)
+    policy = Policy("float32", "float32", "float32")
+    on_card = StreamModel(cfg, policy, device=card, generator=0)
+    on_cpu = StreamModel(cfg, policy, device="cpu", generator=None)
+    on_cpu.load_params(on_card.param_tree())
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (2, 70)))
+    logits = [on_card(tokens.to(card)).cpu(), on_cpu(tokens)]
+    assert float((logits[0] - logits[1]).abs().max() / logits[1].abs().max()) <= 1e-4
+    out = []
+    for model, tok in ((on_card, tokens.to(card)), (on_cpu, tokens)):
+        params = model.param_tree()
+        model.requires_grad_(True)
+        k1 = fa.BWD_LAUNCHES
+        loss, _ = model.loss(params, {"tokens": tok})
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        model.requires_grad_(False)
+        out.append((float(loss.detach()), [g.cpu() for g in grads], fa.BWD_LAUNCHES - k1))
+    (lc, gc_, nc), (lp, gp, npl) = out
+    assert nc == cfg.n_layers and npl == 0
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gc_, gp):
+        assert a.dtype == b.dtype
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
 
 
 def test_scans_refuse_inputs_that_require_grad(card):

@@ -12,7 +12,13 @@ takes exps of cumsum differences where the port's plain version steps a
 product of decays; measured 1.1e-5 on w_C); recurrentgemma at yi-6b's
 1e-5 (its RG-LRU scan through RGLRUScan's plain sides, the sequential
 recurrence and its adjoint, against JAX's associative scan: measured
-7.5e-6 on a conv leaf); AdamW against JAX's at 1e-6
+7.5e-6 on a conv leaf); reduced qwen2-7b (QKV bias) at 1e-5 and
+gemma2-2b (attention and final softcaps, sandwich norms) at 5e-5, their
+biases and norm weights drawn away from JAX's zeros and ones (gemma2's
+four (1 + w) norms a layer, about 2 each, carry the f32 rounding of sums
+in another order further: measured 2.2e-5 on a wq leaf, median 5.9e-6,
+and 1.7e-6 with ``norm_plus_one`` off); AdamW against
+JAX's at 1e-6
 (f32 leaf) and one bf16 step (bf16 leaf); the 5-step TrainingJob loss
 trajectories at 1e-4 (the same f32 arithmetic, five AdamW or adamw8bit
 steps apart).
@@ -59,9 +65,12 @@ def _one_thread():
 
 GRAD_TOL = 1e-5
 SSM_GRAD_TOL = 1e-4
+G2_GRAD_TOL = 5e-5
 TRAJ_TOL = 1e-4
 M2 = "mamba2-2.7b"
 RG = "recurrentgemma-9b"
+G2 = "gemma2-2b"
+Q2 = "qwen2-7b"
 
 
 def _cfgs(arch="yi-6b"):
@@ -69,11 +78,30 @@ def _cfgs(arch="yi-6b"):
             dataclasses.replace(TC.get_reduced(arch), vocab=VOCAB))
 
 
+def _perturbed(jp, seed=11):
+    """JAX's params with the QKV biases drawn from N(0, 0.5^2) and every
+    norm weight moved by N(0, 0.1^2), so that the loss and its gradients
+    pin them (JAX's init leaves them 0 and 1)."""
+    rng = np.random.default_rng(seed)
+
+    def move(path, leaf):
+        names = {getattr(k, "key", None) for k in path}
+        if names & {"bq", "bk", "bv"}:
+            return leaf + 0.5 * rng.standard_normal(leaf.shape).astype(np.float32)
+        if names & {"norm1", "norm2", "post1", "post2", "final_norm"}:
+            return leaf + 0.1 * rng.standard_normal(leaf.shape).astype(np.float32)
+        return leaf
+
+    return jax.tree.map(jnp.asarray, jax.tree_util.tree_map_with_path(move, jax.tree.map(np.asarray, jp)))
+
+
 @functools.lru_cache(maxsize=None)
 def _pair(arch):
     jcfg, tcfg = _cfgs(arch)
     jm = JModel(jcfg, JPolicy(param_dtype="float32", compute_dtype="float32"))
     jp = jm.init(jax.random.PRNGKey(0))
+    if arch in (G2, Q2):
+        jp = _perturbed(jp)
     moved = convert.params_from_jax(jax.tree.map(np.asarray, jp))
     tm = StreamModel(tcfg, Policy("float32", "float32", "float32"), device="cpu", generator=None)
     tm.load_params(moved)
@@ -99,6 +127,7 @@ def _rel(got, want):
     pytest.param("yi-6b", 8, id="8"), pytest.param("yi-6b", 1024, id="1024"),
     pytest.param(M2, 8, id="mamba2-8"), pytest.param(M2, 1024, id="mamba2-1024"),
     pytest.param(RG, 8, id="recurrentgemma-8"), pytest.param(RG, 1024, id="recurrentgemma-1024"),
+    pytest.param(G2, 8, id="gemma2-8"), pytest.param(Q2, 8, id="qwen2-8"),
 ])
 def test_loss_and_gradients_match_jax(arch, loss_chunk):
     """The loss and every gradient leaf against jax.value_and_grad of the
@@ -106,9 +135,11 @@ def test_loss_and_gradients_match_jax(arch, loss_chunk):
     with f32 gradients, its scan through SSDScan's CPU sides;
     recurrentgemma: its tied and scaled embed, its f32 b_a, b_i and Lambda
     leaves, its scan through RGLRUScan's CPU sides, its windowed local
-    attention through FlashAttention's)."""
+    attention through FlashAttention's; gemma2: its softcapped local and
+    global attention through FlashAttention's CPU sides, its final
+    softcap, its sandwich norms; qwen2: its QKV biases)."""
     jm, jp, tm, _ = _pair(arch)
-    tol = SSM_GRAD_TOL if arch == M2 else GRAD_TOL
+    tol = {M2: SSM_GRAD_TOL, G2: G2_GRAD_TOL}.get(arch, GRAD_TOL)
     tok = _tokens(0)
     assert (tok[:, 1:] >= VOCAB).any()
     (jl, jmet), jg = jax.jit(jax.value_and_grad(
@@ -408,6 +439,9 @@ _OPTS = {"adamw": (jadamw, adamw), "adamw8bit": (jadamw8bit, adamw8bit)}  # (JAX
     pytest.param(M2, True, "adamw", id="mamba2-True"), pytest.param(M2, True, "adamw8bit", id="mamba2-True-adamw8bit"),
     pytest.param(RG, True, "adamw", id="recurrentgemma-True"),
     pytest.param(RG, True, "adamw8bit", id="recurrentgemma-True-adamw8bit"),
+    pytest.param(G2, True, "adamw8bit", id="gemma2-True-adamw8bit"),
+    pytest.param(Q2, True, "adamw", id="qwen2-True"),
+    pytest.param(Q2, True, "adamw8bit", id="qwen2-True-adamw8bit"),
 ])
 def test_training_job_trajectory_matches_jax(arch, streaming, opt):
     """The roadmap's gate: 5 steps of TrainingJob in each package on the
@@ -416,7 +450,9 @@ def test_training_job_trajectory_matches_jax(arch, streaming, opt):
     adamw8bit; on reduced yi-6b, on reduced mamba2 (whose tree mixes
     bf16-able leaves with f32 (L, H) ones narrower than a quantization
     block) and on reduced recurrentgemma (a tail of layers beside the
-    stacked group, tied embeddings)."""
+    stacked group, tied embeddings); on reduced gemma2 (softcaps and
+    sandwich norms: their leaves narrower than a quantization block) and
+    qwen2 (the bias leaves (n, heads, hd))."""
     jopt, topt = _OPTS[opt]
     jm, jp, _, moved = _pair(arch)
     _, tcfg = _cfgs(arch)
