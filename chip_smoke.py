@@ -84,6 +84,14 @@ tight slack, so every token is held there and no f32 twin is needed);
 (8b) serve a topic of four 4500-token prompts through full-width
 gemma2-2b (26 layers, softcapped K1 at head dim 256, the local layers'
 window of 4096 bound in prefill and their ring wrapped) the same way;
+(8c) serve the requests of (5) through full-width qwen3-moe-30b-a3b (48
+layers, 128 experts top-8) with int8 weights drawn layer by layer from
+the seed, behind ``ContinuousLMEngine`` at the published capacity factor
+(K1 48 times a request, the routes it drops counted), then at a factor
+where no route can drop, each token held to the teacher-forced int8
+forward; its fp8 KV cache (contiguous, then paged) against an f32 cache
+over 16 decode steps; and int8 against bf16 with its width cut to 12
+layers (total variation and argmax agreement);
 (9) print the ``kernels`` line (K1's, K1's backward's, K2's and K3's
 times summed over their paths, and each path's own under ``by_path``;
 K2's backward, K3's backward, the 8-bit update and the global norm as
@@ -310,6 +318,41 @@ QWEN2_TRAIN_ATTN = (TRAIN_BATCH, TRAIN_SEQ, 28, 4, 128)  # GQA 7: the backward's
 # a stream through ContinuousLMEngine as yi-6b is.
 MISTRAL = "mistral-large-123b"
 MISTRAL_LAYERS = 8
+# qwen3-moe-30b-a3b at its published widths and all 48 layers (d 2048,
+# 32/4 heads x 128, 128 experts top-8 of d_ff 768, vocab 151936, untied;
+# 30.53 B parameters, 61.1 GB in bf16) with int8 weights
+# (Policy(weights_int8=True): 29.9 GB of codes, the embeddings bf16),
+# drawn from SEED one layer at a time, served through ContinuousLMEngine
+# as yi-6b is at the published capacity factor of 1.25 (routes drop, and
+# a call's capacity counts its own tokens: a prefill's, a decode step's
+# 4 slots), then at MOE_PARITY_FACTOR, where no route drops (the phase
+# counts them: moe.DROPS), held to the teacher-forced int8 forward
+MOE = "qwen3-moe-30b-a3b"
+# A token routes to an expert at most once, so a capacity of the call's
+# token count drops nothing: a factor of n_experts / top_k (16 here; the
+# JAX package's parity tests take 8.0 for reduced configs of 8 experts
+# top-2, where 4 already suffices, tests/test_models.py:81-83). At 8.0 the
+# random full-width model's router sends most tokens to a few experts: a
+# 2 x 512 batch dropped 1539 routes, and the teacher-forced forwards'
+# drops put the served tokens 0.5 from their greedy choice.
+MOE_PARITY_FACTOR = 16.0
+# int8 against bf16 on one batch at MOE_PARITY_FACTOR: the full width cut
+# to MOE_BF16_LAYERS of 48 layers (16.2 GB in bf16, 8.8 GB in int8), held
+# to tests/test_quantized_serving.py:36-40's total variation (0.05). Its
+# argmax agreement (0.9 there, where reduced configs quantize no leaf)
+# came to 0.847656 on the H100 (total variation 0.029017): random
+# full-width logits over 151936 entries sit close together, and the codes'
+# rounding flips near-ties among the router's top-8 too. The bound is set
+# below that measurement (PERF.md, Findings).
+MOE_BF16_LAYERS = 12
+MOE_BF16_BATCH = (2, 512)
+INT8_TV_MAX, INT8_AGREE_MIN = 0.05, 0.8
+# the fp8 KV cache on the full-width int8 model: FP8_BATCH prompts of
+# FP8_PROMPT tokens, prefill and FP8_STEPS teacher-forced decode steps on a
+# float8_e4m3fn cache (contiguous, then paged) against the same on an f32
+# cache; tests/test_quantized_serving.py:83's first-step agreement
+FP8_BATCH, FP8_PROMPT, FP8_STEPS = 4, 512, 16
+FP8_FIRST_AGREE_MIN = 0.5
 # the paper loop (examples/torch_quickstart.py): copd-mlp at its own
 # widths (5 -> 32 -> 4) on the synthetic HCOPD stream (220 records,
 # validation 0.2), trained as tests/test_system.py:17 trains it and held
@@ -530,9 +573,10 @@ def phase_kernels(card, fa, ref):
                         GEMMA2_CAP, gen, True)
         for window in (GEMMA2_WINDOW, None)
     ]}
-    # qwen2-7b's (28 heads over 4, hd 128) and mistral's (96 over 8, hd 128)
-    # serving calls: one a layer a request, at each prompt length, bf16, causal
-    for arch, h, kv in ((QWEN2, 28, 4), (MISTRAL, 96, 8)):
+    # qwen2-7b's (28 heads over 4, hd 128), mistral's (96 over 8, hd 128) and
+    # qwen3-moe's (32 over 4, hd 128) serving calls: one a layer a request,
+    # at each prompt length, bf16, causal
+    for arch, h, kv in ((QWEN2, 28, 4), (MISTRAL, 96, 8), (MOE, 32, 4)):
         family[arch] = [check_attention(card, fa, ref, 1, s, h, kv, 128, "bfloat16", True, None, None, gen, True)
                         for s in PROMPT_LENS]
     return rows, main, rg_main, deploy_main, family
@@ -1466,27 +1510,34 @@ def phase_train_ssm_grads(card, ref, mixer: dict):
     return row
 
 
-def serving_setup(arch: str = "yi-6b", layers: int | None = None):
-    """The served workload: full-width ``arch`` (yi-6b, qwen2-7b or
-    mistral-large-123b; ``layers`` of its layers where given) with random
-    bf16 weights from SEED behind a ContinuousLMEngine (4 slots, blocks of
-    BLOCK), warmed up by one short request, and a request topic holding one
-    request per PROMPT_LENS entry. Returns (cfg, model, engine, log,
-    requests)."""
+def serving_setup(arch: str = "yi-6b", layers: int | None = None, policy=None):
+    """The served workload: full-width ``arch`` (yi-6b, qwen2-7b,
+    mistral-large-123b or qwen3-moe-30b-a3b; ``layers`` of its layers where
+    given) with random weights from SEED (bf16, or int8 under ``policy``)
+    behind ``serving_engine``'s engine and topic. Returns (cfg, model,
+    engine, log, requests)."""
     import dataclasses
 
-    import numpy as np
-
     from repro_torch import configs
-    from repro_torch.core.log import StreamLog
     from repro_torch.models.model import StreamModel
     from repro_torch.models.policy import Policy
-    from repro_torch.serve.lm_engine import ContinuousLMEngine, Request, encode_request, tenant_key
 
     cfg = configs.get(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    model = StreamModel(cfg, Policy(), device="cuda", generator=SEED)
+    model = StreamModel(cfg, Policy() if policy is None else policy, device="cuda", generator=SEED)
+    return (cfg, model) + serving_engine(cfg, model)
+
+
+def serving_engine(cfg, model):
+    """A ContinuousLMEngine over ``model`` (4 slots, blocks of BLOCK),
+    warmed up by one short request, and a request topic holding one
+    request per PROMPT_LENS entry. Returns (engine, log, requests)."""
+    import numpy as np
+
+    from repro_torch.core.log import StreamLog
+    from repro_torch.serve.lm_engine import ContinuousLMEngine, Request, encode_request, tenant_key
+
     max_blocks = -(-(max(PROMPT_LENS) + MAX_NEW - 1) // BLOCK)
     engine = ContinuousLMEngine(
         model, n_slots=4, n_blocks=4 * max_blocks + 1, block_size=BLOCK,
@@ -1506,19 +1557,14 @@ def serving_setup(arch: str = "yi-6b", layers: int | None = None):
     ]
     for r in reqs:
         log.produce("lm-requests", encode_request(r), key=tenant_key(r.tenant))
-    return cfg, model, engine, log, reqs
+    return engine, log, reqs
 
 
 def phase_serve(card, kernels: dict, arch: str = "yi-6b", layers: int | None = None):
     """Serve ``serving_setup(arch, layers)``'s topic through the
-    ContinuousLMEngine and check what comes back: every request once, its
-    tenant, MAX_NEW tokens each, K1 launched once a layer a request (the
-    prefills) and nothing else, each served token within GREEDY_SLACK of
-    the teacher-forced forward's greedy choice. Returns (numbers, cfg,
-    model)."""
+    ContinuousLMEngine and check what comes back (``serve_requests``).
+    Returns (numbers, cfg, model)."""
     import torch
-
-    from repro_torch.serve.lm_engine import decode_completion, serve_stream
 
     t0 = time.perf_counter()
     cfg, model, engine, log, reqs = serving_setup(arch, layers)
@@ -1527,6 +1573,22 @@ def phase_serve(card, kernels: dict, arch: str = "yi-6b", layers: int | None = N
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[{card}] {arch} full width: {cfg.n_layers} layers, d {cfg.d_model}, "
           f"{n_params} params bf16, set-up and warm-up {setup_s:.3f} s", flush=True)
+    out = serve_requests(card, kernels, arch, cfg, model, engine, log, reqs)
+    out["params"] = n_params
+    del engine  # the model stays for the serving group's phase
+    return out, cfg, model
+
+
+def serve_requests(card, kernels: dict, tag: str, cfg, model, engine, log, reqs, greedy: bool = True) -> dict:
+    """Serve the request topic through ``engine`` and check what comes
+    back: every request once, its tenant, MAX_NEW tokens each, K1 launched
+    once a layer a request (the prefills) and nothing else, and with
+    ``greedy`` each served token within GREEDY_SLACK of the teacher-forced
+    forward's greedy choice. Returns the numbers."""
+    import torch
+
+    from repro_torch.serve.lm_engine import decode_completion, serve_stream
+
     torch.cuda.reset_peak_memory_stats()
 
     reset_counts(kernels)
@@ -1554,8 +1616,10 @@ def phase_serve(card, kernels: dict, arch: str = "yi-6b", layers: int | None = N
 
     # each served token must be a greedy choice of the teacher-forced
     # forward, up to bf16 near-ties
-    worst = greedy_worst_gap(model, reqs, got)
-    assert worst <= GREEDY_SLACK, f"served tokens trail the forward's greedy choice by {worst}"
+    worst = None
+    if greedy:
+        worst = greedy_worst_gap(model, reqs, got)
+        assert worst <= GREEDY_SLACK, f"served tokens trail the forward's greedy choice by {worst}"
 
     firsts = [engine.first_token_s[r.req_id] for r in reqs]
     ttft = [(t - t_start) * 1e3 for t in firsts]
@@ -1563,7 +1627,7 @@ def phase_serve(card, kernels: dict, arch: str = "yi-6b", layers: int | None = N
     decode_tokens = len(reqs) * (MAX_NEW - 1)
     decode_s = t_end - max(firsts)
     out = {
-        "arch": arch, "layers": cfg.n_layers, "params": n_params,
+        "arch": cfg.name, "layers": cfg.n_layers,
         "requests": len(reqs), "prompt_lens": list(PROMPT_LENS), "max_new": MAX_NEW,
         "prefill_ms": prefill, "ttft_ms": ttft, "decode_tokens": decode_tokens,
         "decode_s": decode_s, "decode_tokens_per_s": decode_tokens / decode_s,
@@ -1571,14 +1635,13 @@ def phase_serve(card, kernels: dict, arch: str = "yi-6b", layers: int | None = N
         "greedy_worst_gap": worst,
     }
     for i, r in enumerate(reqs):
-        print(f"[{card}] {arch} request {r.req_id}: prompt {len(r.prompt)}, prefill {prefill[i]:.3f} ms, "
+        print(f"[{card}] {tag} request {r.req_id}: prompt {len(r.prompt)}, prefill {prefill[i]:.3f} ms, "
               f"TTFT {ttft[i]:.3f} ms", flush=True)
-    print(f"[{card}] {arch} decode {decode_tokens} tokens in {decode_s:.4f} s: "
+    print(f"[{card}] {tag} decode {decode_tokens} tokens in {decode_s:.4f} s: "
           f"{decode_tokens / decode_s:.3f} tokens/s", flush=True)
-    print(f"[{card}] {arch} peak device memory {peak} bytes; flash_attention launches {launches}; "
-          f"greedy gap worst {worst:.4f}", flush=True)
-    del engine  # the model stays for the serving group's phase
-    return out, cfg, model
+    print(f"[{card}] {tag} peak device memory {peak} bytes; flash_attention launches {launches}"
+          + (f"; greedy gap worst {worst:.4f}" if greedy else ""), flush=True)
+    return out
 
 
 def greedy_worst_gap(model, reqs, got: dict) -> float:
@@ -1599,6 +1662,193 @@ def greedy_worst_gap(model, reqs, got: dict) -> float:
         worst = max(worst, float(gap.max()))
         del logits
     return worst
+
+
+def model_bytes(model) -> dict:
+    """A model's bytes on the card: int8 codes, their f32 scales, and the
+    float leaves (embed, unembed and what ``quantize_params`` leaves)."""
+    bufs = dict(model.named_buffers())
+    codes = sum(b.numel() for n, b in bufs.items() if n.endswith(".q8"))
+    scales = sum(b.numel() * b.element_size() for n, b in bufs.items() if n.endswith(".scale"))
+    floats = sum(p.numel() * p.element_size() for p in model.parameters())
+    return {"codes": codes, "scales": scales, "float_leaves": floats, "total": codes + scales + floats}
+
+
+def set_capacity_factor(model, factor: float):
+    """The model's MoE capacity factor (no weight depends on it); returns
+    the config it runs under."""
+    import dataclasses
+
+    model.cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(model.cfg.moe, capacity_factor=factor))
+    return model.cfg
+
+
+def phase_serve_moe(card, kernels: dict):
+    """qwen3-moe-30b-a3b at all 48 layers with int8 weights (the fp8 KV
+    cache in its policy) behind the ContinuousLMEngine: first at the
+    published capacity factor (``serve_requests`` without the greedy check:
+    a call's capacity counts its own tokens, so a prefill, a decode step of
+    the slots and a teacher-forced forward drop different routes), then
+    with the same weights at MOE_PARITY_FACTOR, where no route can drop
+    (the phase counts them in the serve and the teacher-forced forwards),
+    every served token within GREEDY_SLACK of the teacher-forced int8
+    forward's greedy choice. Returns (numbers, cfg, model at
+    MOE_PARITY_FACTOR: kept for ``phase_fp8_cache``)."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.policy import Policy
+
+    t0 = time.perf_counter()
+    cfg, model, engine, log, reqs = serving_setup(
+        MOE, policy=Policy(weights_int8=True, kv_cache_dtype="float8_e4m3fn"))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    nbytes = model_bytes(model)
+    print(f"[{card}] {MOE} full width, int8: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.moe.n_experts} experts "
+          f"top-{cfg.moe.top_k}; bytes {nbytes}; set-up (layer by layer) and warm-up {setup_s:.3f} s, "
+          f"allocated {torch.cuda.memory_allocated()} bytes", flush=True)
+    moe.DROPS = torch.zeros((), dtype=torch.int64, device="cuda")
+    try:
+        out = serve_requests(card, kernels, f"{MOE} int8 factor {cfg.moe.capacity_factor}", cfg, model, engine,
+                             log, reqs, greedy=False)
+        out["dropped_routes"] = int(moe.DROPS)
+        del engine
+        parity_cfg = set_capacity_factor(model, MOE_PARITY_FACTOR)
+        engine, log, reqs = serving_engine(parity_cfg, model)
+        moe.DROPS.zero_()
+        out["parity"] = serve_requests(card, kernels, f"{MOE} int8 factor {MOE_PARITY_FACTOR}", parity_cfg, model,
+                                       engine, log, reqs, greedy=True)
+        out["parity"]["dropped_routes"] = dropped = int(moe.DROPS)
+        assert dropped == 0, f"{dropped} routes dropped at capacity factor {MOE_PARITY_FACTOR}"
+        del engine
+    finally:
+        moe.DROPS = None
+    print(f"[{card}] {MOE} int8: {out['dropped_routes']} routes dropped at factor {cfg.moe.capacity_factor}, "
+          f"0 at {MOE_PARITY_FACTOR} (serve and teacher-forced forwards)", flush=True)
+    out.update(bytes=nbytes, setup_s=setup_s)
+    return out, parity_cfg, model
+
+
+def phase_fp8_cache(card, cfg, model) -> dict:
+    """The fp8 KV cache on the full-width int8 model (at the capacity
+    factor it was left at): FP8_BATCH prompts of FP8_PROMPT tokens,
+    prefill and FP8_STEPS decode steps on an f32 cache, greedy, then the
+    same tokens teacher-forced through an fp8 contiguous cache
+    (``prefill(cache_dtype=float8_e4m3fn)``) and an fp8 paged one
+    (``init_paged_cache`` under the policy's fp8 dtype, each row prefilled
+    alone and admitted by ``paged_insert``). Every logit finite, the first
+    step's argmax agreement with the f32 run at least
+    FP8_FIRST_AGREE_MIN."""
+    import numpy as np
+    import torch
+
+    fp8 = torch.float8_e4m3fn
+    rng = np.random.default_rng(SEED + 2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (FP8_BATCH, FP8_PROMPT))).cuda()
+    s_cache = FP8_PROMPT + FP8_STEPS
+    t0 = time.perf_counter()
+    lg, cache = model.prefill(toks, s_cache, cache_dtype=torch.float32)
+    want, feed = [], []
+    tok = lg.argmax(-1)[:, None]
+    for _ in range(FP8_STEPS):
+        feed.append(tok)
+        lg, cache = model.decode_step(cache, tok)
+        want.append(lg[:, 0])
+        tok = lg[:, 0].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    del cache
+
+    def compare(got: list) -> dict:
+        got, ref = torch.stack(got), torch.stack(want)
+        assert bool(torch.isfinite(got).all()), "an fp8-cache logit is not finite"
+        agree = (got.argmax(-1) == ref.argmax(-1)).float()
+        return {"first_step_agree": float(agree[0].mean()), "agree": float(agree.mean()),
+                "max_logit_gap": float((got - ref).abs().max())}
+
+    t0 = time.perf_counter()
+    _, cache = model.prefill(toks, s_cache, cache_dtype=fp8)
+    assert cache["slots"]["s0"]["k"].dtype == fp8
+    got = []
+    for t in feed:
+        lg, cache = model.decode_step(cache, t)
+        got.append(lg[:, 0])
+    torch.cuda.synchronize()
+    contiguous = compare(got) | {"s": time.perf_counter() - t0}
+    del cache
+
+    t0 = time.perf_counter()
+    nb = -(-s_cache // BLOCK)
+    pool = model.init_paged_cache(FP8_BATCH, FP8_BATCH * nb + 1, BLOCK, nb)
+    assert pool["slots"]["s0"]["k"].dtype == fp8, pool["slots"]["s0"]["k"].dtype
+    for row in range(FP8_BATCH):
+        _, small = model.prefill(toks[row : row + 1], nb * BLOCK, cache_dtype=fp8)
+        ids = list(range(1 + row * nb, 1 + (row + 1) * nb))
+        model.paged_insert(pool, small, row, ids, ids, FP8_PROMPT)
+    got = []
+    for t in feed:
+        lg, pool = model.decode_step(pool, t)
+        got.append(lg[:, 0])
+    torch.cuda.synchronize()
+    paged = compare(got) | {"s": time.perf_counter() - t0}
+    del pool
+
+    per_token = {dt: 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * size for dt, size in (("fp8", 1), ("f32", 4))}
+    out = {"batch": FP8_BATCH, "prompt": FP8_PROMPT, "steps": FP8_STEPS, "f32_s": f32_s,
+           "contiguous": contiguous, "paged": paged, "cache_bytes_per_token": per_token}
+    for name, r in (("contiguous", contiguous), ("paged", paged)):
+        print(f"[{card}] {MOE} int8, fp8 {name} cache ({FP8_BATCH} x {FP8_PROMPT}, {FP8_STEPS} steps) against f32: "
+              f"first-step argmax agreement {r['first_step_agree']:.4f}, all steps {r['agree']:.4f}, "
+              f"largest logit gap {r['max_logit_gap']:.4f}, {r['s']:.3f} s", flush=True)
+        assert r["first_step_agree"] >= FP8_FIRST_AGREE_MIN, (name, r)
+    print(f"[{card}] {MOE} KV cache bytes a token: fp8 {per_token['fp8']}, f32 {per_token['f32']}", flush=True)
+    return out
+
+
+def phase_int8_vs_bf16(card) -> dict:
+    """qwen3-moe-30b-a3b's full width cut to MOE_BF16_LAYERS layers at
+    MOE_PARITY_FACTOR: a bf16 model from SEED and an int8 one holding
+    ``quantize_params`` of its tree, on one batch of MOE_BF16_BATCH tokens;
+    the softmaxes' total variation and the argmax agreement held to
+    INT8_TV_MAX and INT8_AGREE_MIN, no route dropped."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+    from repro_torch.models.model import StreamModel, quantize_params
+    from repro_torch.models.policy import Policy
+
+    cfg = configs.get(MOE)
+    cfg = dataclasses.replace(cfg, n_layers=MOE_BF16_LAYERS,
+                              moe=dataclasses.replace(cfg.moe, capacity_factor=MOE_PARITY_FACTOR))
+    t0 = time.perf_counter()
+    bf = StreamModel(cfg, Policy(), device="cuda", generator=SEED)
+    q8 = StreamModel(cfg, Policy(weights_int8=True), device="cuda", generator=None)
+    q8.load_params(quantize_params(bf.param_tree()))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    toks = torch.from_numpy(np.random.default_rng(SEED + 3).integers(0, cfg.vocab, MOE_BF16_BATCH)).cuda()
+    moe.DROPS = torch.zeros((), dtype=torch.int64, device="cuda")
+    try:
+        pf = torch.softmax(bf(toks), -1)
+        pq = torch.softmax(q8(toks), -1)
+        dropped = int(moe.DROPS)
+    finally:
+        moe.DROPS = None
+    assert dropped == 0, f"{dropped} routes dropped at capacity factor {MOE_PARITY_FACTOR}"
+    tv = float(0.5 * (pf - pq).abs().sum(-1).mean())
+    agree = float((pf.argmax(-1) == pq.argmax(-1)).float().mean())
+    out = {"layers": cfg.n_layers, "batch": list(MOE_BF16_BATCH), "tv": tv, "argmax_agree": agree,
+           "bf16_bytes": model_bytes(bf), "int8_bytes": model_bytes(q8), "setup_s": setup_s}
+    print(f"[{card}] {MOE} cut to {cfg.n_layers} layers, int8 against bf16 on {MOE_BF16_BATCH}: total variation "
+          f"{tv:.6f} (bound {INT8_TV_MAX}), argmax agreement {agree:.6f} (bound {INT8_AGREE_MIN}); bytes bf16 "
+          f"{out['bf16_bytes']['total']}, int8 {out['int8_bytes']['total']}", flush=True)
+    assert tv < INT8_TV_MAX and agree > INT8_AGREE_MIN, out
+    return out
 
 
 def group_setup(cfg, model):
@@ -2603,6 +2853,17 @@ def main() -> int:
         paths[arch, compute_dtype] = phase_serve_wave(card, kernels, arch, compute_dtype, prompt_len, slack)
     serving_ssm, serving_rg = paths["mamba2-2.7b", "bfloat16"], paths["recurrentgemma-9b", "bfloat16"]
     serving_g2 = paths[GEMMA2, "bfloat16"]
+    # qwen3-moe-30b-a3b at all 48 layers with int8 weights: served at the
+    # published capacity factor and at the parity factor, then the fp8 KV
+    # cache on it; then int8 against bf16 at MOE_BF16_LAYERS layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_moe, moe_cfg, moe_model = phase_serve_moe(card, kernels)
+    fp8_cache = phase_fp8_cache(card, moe_cfg, moe_model)
+    del moe_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    int8_vs_bf16 = phase_int8_vs_bf16(card)
 
     # K1 runs on these kinds of call: yi-6b's serving calls (one per served
     # prompt length), yi-6b's training call (its forward, with lse), the
@@ -2613,8 +2874,9 @@ def main() -> int:
     # serving calls (one per prompt length) and qwen2's training call, each
     # timed once; the sums cover all, by_path holds each path's own
     g2_wave, q2_serve, m_serve = family_attn[GEMMA2], family_attn[QWEN2], family_attn[MISTRAL]
+    moe_serve = family_attn[MOE]
     attn_main = main_rows + [train_fwd_main, deploy_attn_main, rg_attn_main, rg_train_fwd_main] + g2_wave + [
-        family_bwd["gemma2_fwd"]] + q2_serve + m_serve + [family_bwd["qwen2_fwd"]]
+        family_bwd["gemma2_fwd"]] + q2_serve + m_serve + [family_bwd["qwen2_fwd"]] + moe_serve
     train_fwd_launches = training["launches"]["flash_attention"]
     full_fwd_launches = training_full["launches"]["flash_attention"]
     rg_train_fwd_launches = training_rg["launches"]["flash_attention"]
@@ -2624,6 +2886,8 @@ def main() -> int:
         "qwen2-7b-serve": served[QWEN2]["launches"],
         "qwen2-7b-train": training_q2["launches"]["flash_attention"],
         "mistral-large-123b-serve": served[MISTRAL]["launches"],
+        "qwen3-moe-30b-a3b-int8": serving_moe["launches"],
+        "qwen3-moe-30b-a3b-int8-parity": serving_moe["parity"]["launches"],
     }
     entry = {
         "name": "flash_attention",
@@ -2640,8 +2904,8 @@ def main() -> int:
         "bf16 causal, recurrentgemma's wave (%d,%d,16,256) kv 1 bf16 causal window 2048, recurrentgemma's "
         "training call (%d,%d,16,256) kv 1 bf16 causal window 2048 (%d layers), gemma2's wave (%d,%d,8,256) kv 4 "
         "bf16 causal softcap 50 with window 4096 and without, gemma2's training call (%d,%d,8,256) kv 4 bf16 "
-        "causal softcap 50, qwen2's prefills (1,S,28,128) kv 4 and mistral's (1,S,96,128) kv 8 bf16 causal, and "
-        "qwen2's training call (%d,%d,28,128) kv 4 bf16 causal, summed"
+        "causal softcap 50, qwen2's prefills (1,S,28,128) kv 4, mistral's (1,S,96,128) kv 8 and qwen3-moe's "
+        "(1,S,32,128) kv 4 bf16 causal, and qwen2's training call (%d,%d,28,128) kv 4 bf16 causal, summed"
         % ("/".join(map(str, PROMPT_LENS)), TRAIN_BATCH, TRAIN_SEQ, DEPLOY_PER_PARTITION, DEPLOY_PROMPT,
            WAVE_REQUESTS, RG_PROMPT_LEN, TRAIN_BATCH, TRAIN_SEQ, RG_TRAIN_LAYERS, WAVE_REQUESTS, GEMMA2_PROMPT_LEN,
            TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ),
@@ -2658,6 +2922,9 @@ def main() -> int:
             "qwen2-7b-serve": path_summary(family_launches["qwen2-7b-serve"], q2_serve),
             "qwen2-7b-train": path_summary(family_launches["qwen2-7b-train"], [family_bwd["qwen2_fwd"]]),
             "mistral-large-123b-serve": path_summary(family_launches["mistral-large-123b-serve"], m_serve),
+            "qwen3-moe-30b-a3b-int8": path_summary(family_launches["qwen3-moe-30b-a3b-int8"], moe_serve),
+            "qwen3-moe-30b-a3b-int8-parity": path_summary(family_launches["qwen3-moe-30b-a3b-int8-parity"],
+                                                          moe_serve),
         },
     }
     for key in ("ms", "plain_ms", "bound_ms"):
@@ -2838,6 +3105,7 @@ def main() -> int:
         "family_attention": family_attn, "family_attention_bwd": family_bwd,
         "training_gemma2": training_g2, "training_gemma2_grads": g2_grads,
         "training_qwen2": training_q2, "training_qwen2_grads": q2_grads, "serving_continuous": served,
+        "serving_moe_int8": serving_moe, "fp8_cache": fp8_cache, "int8_vs_bf16": int8_vs_bf16,
         "serving_waves": {f"{arch} {dt}": out for (arch, dt), out in paths.items()},
         "kernels": kernels_line["kernels"],
     }, indent=1))

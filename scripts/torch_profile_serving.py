@@ -4,6 +4,7 @@
     python3 scripts/torch_profile_serving.py                        # yi-6b
     python3 scripts/torch_profile_serving.py --model mamba2          # mamba2-2.7b
     python3 scripts/torch_profile_serving.py --model recurrentgemma  # recurrentgemma-9b
+    python3 scripts/torch_profile_serving.py --model qwen3-moe-30b-a3b --int8
 
 On a machine with one CUDA card. Builds the kernels, then runs one of
 chip_smoke.py's served workloads under ``torch.profiler``, with the
@@ -13,7 +14,16 @@ full width, random bf16 weights from its seed, four requests of
 ``serve_stream`` and ``ContinuousLMEngine``), or a wave path
 (``chip_smoke.wave_setup``: full width, random bf16 weights, one wave of
 four prompts and 16 new tokens each through ``LMEngine``): mamba2-2.7b
-with 2000-token prompts, recurrentgemma-9b with 3000-token ones.
+with 2000-token prompts, recurrentgemma-9b with 3000-token ones; or
+qwen3-moe-30b-a3b at all 48 layers with int8 weights
+(``chip_smoke.serving_setup`` with ``Policy(weights_int8=True)``, the
+published capacity factor; its bf16 weights, 61 GB, are not built here),
+where the device time is also split by where it was launched from: the
+int8 dequantization (``model._dq_tree``), the MoE FFN (``moe_ffn``: the
+router and aux loss) and inside it the experts (``moe._local_moe``:
+batched matmuls are the expert products, the rest the dispatch and
+combine), decode attention (``layers.decode_attention`` /
+``paged_decode_attention``, their projections included) and K1.
 Prints the device time by phase and by kernel class, the device's busy
 and idle share of the wall time, and the top kernels; writes them and
 the full table to ``chiprun_out/profile_serving[_<model>].*``. Times are
@@ -58,13 +68,60 @@ def _kernel_class(name: str) -> str:
     return "elementwise and other"
 
 
+# the functions that mark where a kernel was launched from (innermost first)
+REGIONS = ("moe:experts", "int8:dequantize", "moe:ffn", "attention:decode")
+
+
+def _mark_regions() -> None:
+    """Wrap the functions of REGIONS in profiler ranges of their names."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import layers, model, moe
+
+    def marked(fn, name):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+
+    moe._local_moe = marked(moe._local_moe, "moe:experts")
+    model._dq_tree = marked(model._dq_tree, "int8:dequantize")
+    model.moe_ffn = marked(model.moe_ffn, "moe:ffn")
+    layers.decode_attention = marked(layers.decode_attention, "attention:decode")
+    layers.paged_decode_attention = marked(layers.paged_decode_attention, "attention:decode")
+
+
+def _by_region(prof) -> dict:
+    """Device ms of every kernel, by the innermost REGIONS range its host
+    op ran in ("other" outside them) and the kernel's class."""
+    out: dict[str, dict[str, float]] = {}
+    for evt in prof.events():
+        kernels = getattr(evt, "kernels", None)
+        if not kernels:
+            continue
+        region, parent = "other", evt
+        while parent is not None:
+            if parent.name in REGIONS:
+                region = parent.name
+                break
+            parent = parent.cpu_parent
+        cls = out.setdefault(region, {})
+        for k in kernels:
+            key = _kernel_class(k.name)
+            cls[key] = cls.get(key, 0.0) + k.duration / 1e3
+    return out
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("yi-6b", "mamba2", "recurrentgemma"), default="yi-6b")
+    ap.add_argument("--model", choices=("yi-6b", "mamba2", "recurrentgemma", chip_smoke.MOE), default="yi-6b")
+    ap.add_argument("--int8", action="store_true", help="int8 weights (qwen3-moe-30b-a3b needs them)")
     args = ap.parse_args()
+    if (args.model == chip_smoke.MOE) != args.int8:
+        ap.error(f"--int8 goes with --model {chip_smoke.MOE} (its bf16 weights do not fit one card)")
     if not torch.cuda.is_available():
         print("torch_profile_serving: no CUDA device", file=sys.stderr)
         return 2
@@ -73,7 +130,16 @@ def main() -> int:
 
     card = chip_smoke.card_line()
     _build.build_all()
-    if args.model != "yi-6b":
+    if args.model == chip_smoke.MOE:
+        from repro_torch.models.policy import Policy
+
+        _mark_regions()
+        _, model, engine, log, reqs = chip_smoke.serving_setup(args.model, policy=Policy(weights_int8=True))
+        n_reqs, suffix = len(reqs), f"_{args.model}_int8"
+
+        def serve():
+            return serve_stream(engine, log, "lm-requests", "lm-completions")
+    elif args.model != "yi-6b":
         arch, prompt_len = {
             "mamba2": ("mamba2-2.7b", chip_smoke.SSM_PROMPT_LEN),
             "recurrentgemma": ("recurrentgemma-9b", chip_smoke.RG_PROMPT_LEN),
@@ -117,6 +183,7 @@ def main() -> int:
     kernels = [
         e for e in events
         if str(e.device_type).endswith("CUDA") and _device_us(e) > 0 and not e.key.startswith("phase:")
+        and e.key not in REGIONS
     ]
     busy_us = sum(_device_us(e) for e in kernels)
     by_class: dict[str, float] = {}
@@ -135,6 +202,7 @@ def main() -> int:
         "device_idle_share": 1.0 - busy_us / 1e3 / (wall_s * 1e3),
         "phases": phases,
         "by_class_ms": {k: v / 1e3 for k, v in sorted(by_class.items(), key=lambda kv: -kv[1])},
+        "by_region_ms": _by_region(prof),
         "top_kernels": [
             {"name": e.key[:120], "calls": e.count, "device_ms": _device_us(e) / 1e3} for e in top
         ],

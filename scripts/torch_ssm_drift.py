@@ -210,8 +210,8 @@ def _amplification(model, tokens, gen):
     layers = model._layer_params()
     out = []
     for i, (kind, _, _, _, blk) in enumerate(layers):
-        x = model._layer(kind, blk, x, positions)
-        xp = model._layer(kind, blk, xp, positions)
+        x, _ = model._layer(kind, blk, x, positions)
+        xp, _ = model._layer(kind, blk, xp, positions)
         if i % 8 == 7 or i == len(layers) - 1:
             out.append({"layer": i, "rel": float((x.float() - xp.float()).norm() / x.float().norm())})
     return out

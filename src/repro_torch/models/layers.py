@@ -11,6 +11,13 @@ Differences that belong to PyTorch: prefill attention goes through
 runs ``_chunked_attention``; and the decode paths write the new token's
 K/V into the cache tensors in place (no functional copy of a multi-GB
 cache per step) and return those same tensors.
+
+A cache may be ``float8_e4m3fn``. Values enter it through
+:func:`to_cache`, JAX's cast (torch saturates where JAX gives NaN), and
+every index write and gather on it goes through its ``uint8`` view
+(:func:`cache_bits`): a bit copy, which runs on every device
+(``index_copy_`` and ``roll`` have no fp8 kernel on the CPU or in CUDA).
+Reads are cast to the query's dtype after the head repeat, as in JAX.
 """
 
 from __future__ import annotations
@@ -26,15 +33,42 @@ from repro_torch.kernels.ops import attention_op
 __all__ = [
     "AttnParams",
     "attention",
+    "cache_bits",
     "decode_attention",
     "mlp",
     "paged_decode_attention",
     "rms_norm",
     "rope",
     "softcap",
+    "to_cache",
 ]
 
 MASKED = -1e30
+# float8_e4m3fn's largest value is 448; a value past 464 rounds beyond it,
+# which JAX's cast (ml_dtypes, XLA) makes NaN and torch's saturates to 448
+FP8_E4M3_OVERFLOW = 464.0
+
+
+# ---------------------------------------------------------------- KV caches
+def to_cache(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to a cache of ``dtype`` as JAX casts it: into
+    ``float8_e4m3fn`` a value of magnitude above 464 (infinities included)
+    becomes NaN of its sign; any other cast is ``.to``."""
+    if dtype == torch.float8_e4m3fn and x.dtype != dtype:
+        nan = torch.copysign(torch.full_like(x, float("nan")), x)
+        x = torch.where(x.abs() > FP8_E4M3_OVERFLOW, nan, x)
+    return x.to(dtype)
+
+
+def cache_bits(t: torch.Tensor) -> torch.Tensor:
+    """An 8-bit float tensor's ``uint8`` view (index writes and gathers on
+    it copy bits exactly, on every device); any other tensor itself."""
+    return t.view(torch.uint8) if t.is_floating_point() and t.element_size() == 1 else t
+
+
+def _gather(cache: torch.Tensor, idx) -> torch.Tensor:
+    """``cache[idx]`` through its bits."""
+    return cache_bits(cache)[idx].view(cache.dtype)
 
 
 # ---------------------------------------------------------------------- norms
@@ -126,7 +160,7 @@ def _project_qkv(p: dict, x: torch.Tensor, ap: AttnParams, positions: torch.Tens
 def _repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
     """(B,S,Kv,D) -> (B,S,H,D), kv head h serves q heads [h*rep, (h+1)*rep)."""
     rep = n_heads // k.shape[2]
-    return k if rep == 1 else k.repeat_interleave(rep, dim=2)
+    return k if rep == 1 else cache_bits(k).repeat_interleave(rep, dim=2).view(k.dtype)
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -195,11 +229,11 @@ def decode_attention(
     slot = pos % s_cache if ring else pos
     if per_row:
         rows = torch.arange(b, device=x.device)
-        cache_k[rows, slot] = kn[:, 0].to(cache_k.dtype)
-        cache_v[rows, slot] = vn[:, 0].to(cache_v.dtype)
+        cache_bits(cache_k)[rows, slot] = cache_bits(to_cache(kn[:, 0], cache_k.dtype))
+        cache_bits(cache_v)[rows, slot] = cache_bits(to_cache(vn[:, 0], cache_v.dtype))
     else:
-        cache_k.index_copy_(1, slot.reshape(1), kn.to(cache_k.dtype))
-        cache_v.index_copy_(1, slot.reshape(1), vn.to(cache_v.dtype))
+        cache_bits(cache_k).index_copy_(1, slot.reshape(1), cache_bits(to_cache(kn, cache_k.dtype)))
+        cache_bits(cache_v).index_copy_(1, slot.reshape(1), cache_bits(to_cache(vn, cache_v.dtype)))
     valid = _decode_valid(pos, s_cache, ring=ring, window=ap.window)
     out = _attend(q, cache_k, cache_v, valid, ap)
     return _out_proj(out, p["wo"]), cache_k, cache_v
@@ -249,12 +283,12 @@ def paged_decode_attention(
     tbl_idx = torch.clamp(pos // blk_sz, max=max_blocks - 1)
     blk = block_table[rows, tbl_idx].long()
     off = pos % blk_sz
-    cache_k[blk, off] = kn[:, 0].to(cache_k.dtype)
-    cache_v[blk, off] = vn[:, 0].to(cache_v.dtype)
+    cache_bits(cache_k)[blk, off] = cache_bits(to_cache(kn[:, 0], cache_k.dtype))
+    cache_bits(cache_v)[blk, off] = cache_bits(to_cache(vn[:, 0], cache_v.dtype))
 
     s_virt = max_blocks * blk_sz
     bt = block_table.long()
-    kf = cache_k[bt].reshape(b, s_virt, n_kv, hd)
-    vf = cache_v[bt].reshape(b, s_virt, n_kv, hd)
+    kf = _gather(cache_k, bt).reshape(b, s_virt, n_kv, hd)
+    vf = _gather(cache_v, bt).reshape(b, s_virt, n_kv, hd)
     out = _attend(q, kf, vf, _decode_valid(pos, s_virt, ring=False, window=ap.window), ap)
     return _out_proj(out, p["wo"]), cache_k, cache_v

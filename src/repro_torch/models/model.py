@@ -12,13 +12,25 @@ as a Python loop.
 Block kinds ``attn`` (dense: yi-6b, qwen2, mistral), ``local`` (sliding
 window with a ring decode cache: gemma2, recurrentgemma), ``ssm``
 (Mamba-2, mamba2) and ``rec`` (RG-LRU, recurrentgemma) are ported, with
-or without an MLP, tied or untied embeddings, gemma's embedding scale,
-gemma2's sandwich norms (``post1`` / ``post2``) and attention and final
-logit softcaps, and qwen2's QKV bias (``bq`` / ``bk`` / ``bv``); the other
-kinds and fields (MoE, encoder-decoder, frontends, layer norm, learned
+or without an MLP or an MoE FFN in its place (qwen3-moe; with arctic's
+dense residual beside it), tied or untied embeddings, gemma's embedding
+scale, gemma2's sandwich norms (``post1`` / ``post2``) and attention and
+final logit softcaps, and qwen2's QKV bias (``bq`` / ``bk`` / ``bv``); the
+other kinds and fields (encoder-decoder, frontends, layer norm, learned
 positions) raise ``NotImplementedError``. Caches keep the JAX layout,
 stacked on the group dim for slots and not for the tail, and are updated
-in place. The paged cache serves the dense pattern only, as in JAX.
+in place; a KV cache may be ``float8_e4m3fn`` (``Policy.kv_cache_dtype``
+or ``cache_dtype``). The paged cache serves the dense pattern only, as in
+JAX.
+
+int8 weights (``Policy(weights_int8=True)``, serving): the leaves that
+JAX's ``quantize_params`` quantizes (``_should_quantize``: a float leaf
+of the layer stacks with ``ndim >= 2`` and at least 64Ki elements,
+decided on the stacked leaf) are ``{"q8": int8, "scale": f32}`` buffers,
+so ``param_tree()`` has the structure of ``quantize_params(params)`` and
+``load_params`` takes it. A layer is dequantized to the compute dtype
+where it runs and freed with it, as JAX dequantizes inside the block;
+``init`` draws one layer at a time and keeps only its codes.
 
 Training: :meth:`StreamModel.hidden` and the chunked
 :meth:`StreamModel.loss` take a parameter tree in the JAX layout (the
@@ -42,12 +54,14 @@ from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as M
-from repro_torch.models.layers import AttnParams
+from repro_torch.models.layers import AttnParams, cache_bits, to_cache
+from repro_torch.models.moe import F32_LEAVES as MOE_F32
+from repro_torch.models.moe import MoEParams, moe_ffn, moe_init, moe_shapes
 from repro_torch.models.policy import Policy, torch_dtype
 from repro_torch.models.rglru import RGLRUParams
 from repro_torch.models.ssm import SSMParams
 
-__all__ = ["ArchConfig", "StreamModel"]
+__all__ = ["ArchConfig", "StreamModel", "quantize_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +87,7 @@ class ArchConfig:
     post_norms: bool = False  # gemma2 sandwich norms
     embed_scale: bool = False
     tie_embeddings: bool = False
-    moe: Any = None  # MoEParams in the JAX package; not ported yet
+    moe: MoEParams | None = None
     ssm: SSMParams | None = None
     rglru: RGLRUParams | None = None
     enc_dec: bool = False
@@ -117,7 +131,7 @@ def _unsupported(cfg: ArchConfig) -> list[str]:
         f"pattern {cfg.pattern!r}": not cfg.pattern or any(k not in _KINDS for k in cfg.pattern),
         "ssm pattern without SSMParams": "ssm" in cfg.pattern and cfg.ssm is None,
         "rec pattern without RGLRUParams": "rec" in cfg.pattern and cfg.rglru is None,
-        "moe": cfg.moe is not None,
+        "moe not a MoEParams": cfg.moe is not None and not isinstance(cfg.moe, MoEParams),
         "enc_dec": cfg.enc_dec,
         f"frontend {cfg.frontend!r}": cfg.frontend != "none",
         "learned_pos": cfg.learned_pos,
@@ -127,15 +141,126 @@ def _unsupported(cfg: ArchConfig) -> list[str]:
     return [k for k, bad in checks.items() if bad]
 
 
-def _params(shapes: dict, dtype, device, f32: tuple[str, ...] = ()) -> nn.ParameterDict:
-    """Empty parameters of ``dtype``; the leaves named in ``f32`` are float32."""
-    return nn.ParameterDict({
+# ------------------------------------------------------------- int8 weights
+_Q8_MIN_SIZE = 1 << 16
+_Q8_SUBTREES = ("slots", "tail", "encoder")
+
+
+def _is_q8(x) -> bool:
+    return isinstance(x, dict) and "q8" in x
+
+
+def _q8_shape(shape) -> bool:
+    return len(shape) >= 2 and math.prod(shape) >= _Q8_MIN_SIZE
+
+
+def _should_quantize(leaf) -> bool:
+    return isinstance(leaf, torch.Tensor) and leaf.is_floating_point() and _q8_shape(tuple(leaf.shape))
+
+
+def _quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's arithmetic on one slice: in f32, ``scale = max|x| / 127`` over
+    the trailing dim, codes ``clip(round(x / scale), -127, 127)`` (a zero
+    scale divides by 1; round half to even in both). Returns (int8, f32)."""
+    x = x.float()
+    scale = x.abs().amax(dim=-1, keepdim=True) / 127.0
+    safe = torch.where(scale == 0, torch.ones_like(scale), scale)
+    codes = torch.round(x / safe).clamp_(-127, 127).to(torch.int8)
+    return codes, scale
+
+
+def _quantize_leaf(leaf: torch.Tensor) -> dict:
+    """``{"q8", "scale"}`` of a leaf, worked through in slices of its
+    leading dim (the scale is per trailing row: the same bits as at once)."""
+    q8 = torch.empty(leaf.shape, dtype=torch.int8, device=leaf.device)
+    scale = torch.empty(leaf.shape[:-1] + (1,), dtype=torch.float32, device=leaf.device)
+    for i in range(leaf.shape[0]):
+        q8[i], scale[i] = _quantize(leaf[i])
+    return {"q8": q8, "scale": scale}
+
+
+def quantize_params(params: dict) -> dict:
+    """Post-training int8 weight quantization for serving (port of JAX's
+    ``quantize_params``): every leaf of the layer stacks that
+    ``_should_quantize`` picks becomes ``{"q8": int8 codes, "scale": f32
+    per-row (trailing-dim absmax) scales}``; the embeddings and the rest
+    are the same tensors."""
+
+    def one(tree):
+        if isinstance(tree, dict):
+            return {k: one(v) for k, v in tree.items()}
+        return _quantize_leaf(tree) if _should_quantize(tree) else tree
+
+    return {k: one(v) if k in _Q8_SUBTREES else v for k, v in params.items()}
+
+
+def _dq_leaf(leaf, dtype):
+    if _is_q8(leaf):
+        return leaf["q8"].to(torch.float32).mul_(leaf["scale"]).to(dtype)
+    return leaf
+
+
+def _dq_tree(tree, dtype):
+    def one(t):
+        if _is_q8(t) or not isinstance(t, dict):
+            return _dq_leaf(t, dtype)
+        return {k: one(v) for k, v in t.items()}
+
+    return one(tree)
+
+
+class _Q8(nn.Module):
+    """An int8 leaf as ``quantize_params`` leaves it: codes and their f32
+    trailing-dim scales, buffers (served, not trained)."""
+
+    def __init__(self, shape: tuple, device):
+        super().__init__()
+        self.register_buffer("q8", torch.empty(shape, dtype=torch.int8, device=device))
+        self.register_buffer("scale", torch.empty(shape[:-1] + (1,), dtype=torch.float32, device=device))
+
+    def leaf(self) -> dict:
+        return {"q8": self.q8, "scale": self.scale}
+
+
+class _Part(nn.Module):
+    """A block part holding int8 leaves (``_Q8``) beside float parameters,
+    read as a dict of leaves as an ``nn.ParameterDict`` is."""
+
+    def __init__(self, params: nn.ParameterDict, q8: dict, order: list[str]):
+        super().__init__()
+        self.p = params
+        self.q = nn.ModuleDict(q8)
+        self.order = order
+
+    def __getitem__(self, k: str):
+        return self.q[k].leaf() if k in self.q else self.p[k]
+
+    def items(self) -> list[tuple[str, Any]]:
+        return [(k, self[k]) for k in self.order]
+
+
+def _params(shapes: dict, dtype, device, f32: tuple[str, ...] = (), q8: bool = False) -> nn.Module:
+    """Empty parameters of ``dtype``; the leaves named in ``f32`` are
+    float32. With ``q8`` the leaves that ``_should_quantize`` would pick
+    are int8 ``_Q8`` pairs instead (then a ``_Part``)."""
+    big = [k for k, s in shapes.items() if q8 and _q8_shape(s)]
+    params = nn.ParameterDict({
         k: nn.Parameter(
             torch.empty(s, dtype=torch.float32 if k in f32 else dtype, device=device),
             requires_grad=False,
         )
-        for k, s in shapes.items()
+        for k, s in shapes.items() if k not in big
     })
+    if not big:
+        return params
+    return _Part(params, {k: _Q8(shapes[k], device) for k in big}, list(shapes))
+
+
+def _unbind(leaf) -> list:
+    """A stacked leaf's per-layer views (an int8 pair's, pair by pair)."""
+    if _is_q8(leaf):
+        return [{"q8": q, "scale": sc} for q, sc in zip(leaf["q8"].unbind(0), leaf["scale"].unbind(0))]
+    return leaf.unbind(0)
 
 
 class StreamModel(nn.Module):
@@ -161,16 +286,17 @@ class StreamModel(nn.Module):
         self.tail = cfg.n_layers - self.n_groups * len(pat)  # leftover layers
         dtype = torch_dtype(policy.param_dtype)
         d = cfg.d_model
+        q8 = policy.weights_int8
         self.tree = nn.ModuleDict({
             "embed": _params({"w": (cfg.vocab_padded, d)}, dtype, self.device),
             "final_norm": _params({"w": (1, d)}, dtype, self.device),
             "slots": nn.ModuleDict({
-                f"s{i}": self._block(k, self.n_groups, dtype) for i, k in enumerate(pat)
+                f"s{i}": self._block(k, self.n_groups, dtype, q8) for i, k in enumerate(pat)
             }),
         })
         if self.tail:
             self.tree["tail"] = nn.ModuleDict({
-                f"s{i}": self._block(pat[i], 1, dtype) for i in range(self.tail)
+                f"s{i}": self._block(pat[i], 1, dtype, q8) for i in range(self.tail)
             })
         if not cfg.tie_embeddings:
             self.tree["unembed"] = _params({"w": (d, cfg.vocab_padded)}, dtype, self.device)
@@ -178,15 +304,17 @@ class StreamModel(nn.Module):
         if generator is not None:
             self.init(generator)
 
-    def _block(self, kind: str, n: int, dtype) -> nn.ModuleDict:
-        """One slot's parameters, stacked over ``n`` layers."""
+    def _block(self, kind: str, n: int, dtype, q8: bool = False) -> nn.ModuleDict:
+        """One slot's parameters, stacked over ``n`` layers (with ``q8``,
+        the leaves JAX's ``quantize_params`` picks as int8 pairs)."""
         cfg = self.cfg
         d, f = cfg.d_model, cfg.d_ff
-        block = nn.ModuleDict({"norm1": _params({"w": (n, d)}, dtype, self.device)})
+        dev = self.device
+        block = nn.ModuleDict({"norm1": _params({"w": (n, d)}, dtype, dev, q8=q8)})
         if kind == "ssm":
-            block["mixer"] = _params(M.ssm_shapes(n, d, cfg.ssm), dtype, self.device, f32=M.F32_LEAVES)
+            block["mixer"] = _params(M.ssm_shapes(n, d, cfg.ssm), dtype, dev, f32=M.F32_LEAVES, q8=q8)
         elif kind == "rec":
-            block["mixer"] = _params(R.rglru_shapes(n, d, cfg.rglru), dtype, self.device, f32=R.F32_LEAVES)
+            block["mixer"] = _params(R.rglru_shapes(n, d, cfg.rglru), dtype, dev, f32=R.F32_LEAVES, q8=q8)
         else:
             hd = cfg.hd
             shapes = {
@@ -197,17 +325,22 @@ class StreamModel(nn.Module):
             }
             if cfg.attn_bias:  # qwen2: JAX's layers.attention_init
                 shapes.update(bq=(n, cfg.n_heads, hd), bk=(n, cfg.n_kv_heads, hd), bv=(n, cfg.n_kv_heads, hd))
-            block["mixer"] = _params(shapes, dtype, self.device)
+            block["mixer"] = _params(shapes, dtype, dev, q8=q8)
         if cfg.post_norms:  # gemma2's sandwich norm of the mixer's output
-            block["post1"] = _params({"w": (n, d)}, dtype, self.device)
-        if cfg.mlp_kind != "none":
+            block["post1"] = _params({"w": (n, d)}, dtype, dev, q8=q8)
+        if cfg.mlp_kind != "none" or cfg.moe is not None:
+            block["norm2"] = _params({"w": (n, d)}, dtype, dev, q8=q8)
             mlp_shapes = {"w_in": (n, d, f), "w_out": (n, f, d)}
-            if cfg.mlp_kind == "gated":
+            if cfg.mlp_kind == "gated" or cfg.moe is not None:  # arctic's dense MLP is always gated
                 mlp_shapes["w_gate"] = (n, d, f)
-            block["norm2"] = _params({"w": (n, d)}, dtype, self.device)
-            block["mlp"] = _params(mlp_shapes, dtype, self.device)
+            if cfg.moe is not None:  # the MoE FFN, with arctic's dense MLP beside it
+                block["moe"] = _params(moe_shapes(n, d, cfg.moe), dtype, dev, f32=MOE_F32, q8=q8)
+                if cfg.moe.dense_residual:
+                    block["mlp"] = _params(mlp_shapes, dtype, dev, q8=q8)
+            else:
+                block["mlp"] = _params(mlp_shapes, dtype, dev, q8=q8)
             if cfg.post_norms:  # ... and of the MLP's
-                block["post2"] = _params({"w": (n, d)}, dtype, self.device)
+                block["post2"] = _params({"w": (n, d)}, dtype, dev, q8=q8)
         return block
 
     def _blocks(self):
@@ -252,17 +385,19 @@ class StreamModel(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator | int) -> dict:
         """Random weights with the JAX init's scales (``layers._normal``,
-        ``ssm.ssm_init``, ``rglru.rglru_init``): normal / sqrt(fan_in),
-        drawn in f32 and cast; norms (the sandwich norms too) are ones and
-        QKV biases zeros; the SSM's decays, skips and
-        dt biases are its fixed values, the RG-LRU's Lambda is drawn from
-        its uniform law. An int seeds a new generator on the model's device.
-        Returns the parameter tree (``param_tree()``), as the JAX ``init``
-        returns its params."""
+        ``ssm.ssm_init``, ``rglru.rglru_init``, ``moe.moe_init``): normal /
+        sqrt(fan_in), drawn in f32 and cast; norms (the sandwich norms too)
+        are ones and QKV biases zeros; the SSM's decays, skips and dt
+        biases are its fixed values, the RG-LRU's Lambda is drawn from its
+        uniform law. An int seeds a new generator on the model's device.
+        An int8 model draws each block stack one layer at a time in the
+        parameter dtype and keeps that layer's codes, so the float model
+        is never whole (the codes equal ``quantize_params`` of the layers
+        drawn). Returns the parameter tree (``param_tree()``), as the JAX
+        ``init`` returns its params."""
         if isinstance(generator, int):
             generator = torch.Generator(device=self.device).manual_seed(generator)
-        cfg = self.cfg
-        d = cfg.d_model
+        d = self.cfg.d_model
 
         def normal(p, scale):
             x = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=self.device)
@@ -277,30 +412,50 @@ class StreamModel(nn.Module):
         tree["final_norm"]["w"].fill_(1.0)
         for sec, name, kind, _ in self._blocks():
             blk = tree[sec][name]
-            for norm in ("norm1", "post1", "post2"):
-                if norm in blk:
-                    blk[norm]["w"].fill_(1.0)
-            if kind == "ssm":
-                M.ssm_init(blk["mixer"], d, cfg.ssm, normal)
-            elif kind == "rec":
-                R.rglru_init(blk["mixer"], d, cfg.rglru, normal, uniform)
-            else:
-                for k in ("wq", "wk", "wv"):
-                    normal(blk["mixer"][k], 1.0 / math.sqrt(d))
-                normal(blk["mixer"]["wo"], 1.0 / math.sqrt(cfg.n_heads * cfg.hd))
-                for k in ("bq", "bk", "bv"):
-                    if k in blk["mixer"]:
-                        blk["mixer"][k].zero_()
-            if "mlp" in blk:
-                blk["norm2"]["w"].fill_(1.0)
-                normal(blk["mlp"]["w_in"], 1.0 / math.sqrt(d))
-                if "w_gate" in blk["mlp"]:
-                    normal(blk["mlp"]["w_gate"], 1.0 / math.sqrt(d))
-                normal(blk["mlp"]["w_out"], 1.0 / math.sqrt(cfg.d_ff))
+            if not self.policy.weights_int8:
+                self._init_block(kind, blk, normal, uniform)
+                continue
+            one = self._block(kind, 1, torch_dtype(self.policy.param_dtype))
+            one = {part: dict(sub.items()) for part, sub in one.items()}
+            for i in range(self.n_groups if sec == "slots" else 1):
+                self._init_block(kind, one, normal, uniform)
+                for part, sub in blk.items():
+                    for k, dst in sub.items():
+                        if _is_q8(dst):
+                            dst["q8"][i], dst["scale"][i] = _quantize(one[part][k][0])
+                        else:
+                            dst[i].copy_(one[part][k][0])
+            del one
         if "unembed" in tree:
             normal(tree["unembed"], 1.0 / math.sqrt(d))
         self._layers = None
         return tree
+
+    def _init_block(self, kind: str, blk: dict, normal, uniform) -> None:
+        """Fill one block stack's float leaves (a dict of parts) in place."""
+        cfg = self.cfg
+        d = cfg.d_model
+        for norm in ("norm1", "post1", "post2", "norm2"):
+            if norm in blk:
+                blk[norm]["w"].fill_(1.0)
+        if kind == "ssm":
+            M.ssm_init(blk["mixer"], d, cfg.ssm, normal)
+        elif kind == "rec":
+            R.rglru_init(blk["mixer"], d, cfg.rglru, normal, uniform)
+        else:
+            for k in ("wq", "wk", "wv"):
+                normal(blk["mixer"][k], 1.0 / math.sqrt(d))
+            normal(blk["mixer"]["wo"], 1.0 / math.sqrt(cfg.n_heads * cfg.hd))
+            for k in ("bq", "bk", "bv"):
+                if k in blk["mixer"]:
+                    blk["mixer"][k].zero_()
+        if "moe" in blk:
+            moe_init(blk["moe"], d, cfg.moe, normal)
+        if "mlp" in blk:
+            normal(blk["mlp"]["w_in"], 1.0 / math.sqrt(d))
+            if "w_gate" in blk["mlp"]:
+                normal(blk["mlp"]["w_gate"], 1.0 / math.sqrt(d))
+            normal(blk["mlp"]["w_out"], 1.0 / math.sqrt(cfg.d_ff))
 
     def _layer_params(self, tree: dict | None = None) -> list[tuple]:
         """``(kind, section, slot name, index, params)`` of every layer in
@@ -319,7 +474,7 @@ class StreamModel(nn.Module):
         tree = self.param_tree() if tree is None else tree
         pat = self.cfg.pattern
         split = {
-            (sec, name): {part: {k: v.unbind(0) for k, v in sub.items()} for part, sub in blk.items()}
+            (sec, name): {part: {k: _unbind(v) for k, v in sub.items()} for part, sub in blk.items()}
             for sec in ("slots", "tail") if sec in tree for name, blk in tree[sec].items()
         }
 
@@ -339,12 +494,16 @@ class StreamModel(nn.Module):
         return L.rms_norm(x, w, self.cfg.norm_eps, plus_one=self.cfg.norm_plus_one)
 
     def _layer(self, kind: str, blk: dict, x, positions, st: dict | None = None):
-        """One block: x plus its mixer, then plus its MLP (each output
-        through its sandwich norm first where the config has them). With
-        ``st`` (the layer's view of the cache) a full-sequence pass
+        """One block: x plus its mixer, then plus its MLP or MoE FFN (each
+        output through its sandwich norm first where the config has them).
+        With ``st`` (the layer's view of the cache) a full-sequence pass
         (prefill) writes the layer's K/V or recurrent state into it and a
-        one-token pass decodes from it; either way in place."""
+        one-token pass decodes from it; either way in place. An int8 layer
+        is dequantized to the compute dtype here. Returns (x, the MoE's aux
+        loss or None)."""
         cfg = self.cfg
+        if self.policy.weights_int8:
+            blk = _dq_tree(blk, torch_dtype(self.policy.compute_dtype))
         h = self._norm(blk["norm1"]["w"], x)
         if kind in ("ssm", "rec"):
             if kind == "ssm":
@@ -369,27 +528,38 @@ class StreamModel(nn.Module):
         else:
             out = L.attention(blk["mixer"], h, cfg.attn_params(kind), positions)
         x = x + (self._norm(blk["post1"]["w"], out) if cfg.post_norms else out)
-        if cfg.mlp_kind == "none":
-            return x
-        y = L.mlp(blk["mlp"], self._norm(blk["norm2"]["w"], x), cfg.mlp_kind, cfg.mlp_act)
-        return x + (self._norm(blk["post2"]["w"], y) if cfg.post_norms else y)
+        if cfg.mlp_kind == "none" and cfg.moe is None:
+            return x, None
+        h2 = self._norm(blk["norm2"]["w"], x)
+        aux = None
+        if cfg.moe is not None:
+            dense = (lambda t: L.mlp(blk["mlp"], t, "gated", cfg.mlp_act)) if cfg.moe.dense_residual else None
+            y, aux = moe_ffn(blk["moe"], h2, cfg.moe, dense_mlp=dense)
+        else:
+            y = L.mlp(blk["mlp"], h2, cfg.mlp_kind, cfg.mlp_act)
+        return x + (self._norm(blk["post2"]["w"], y) if cfg.post_norms else y), aux
 
     def _run_stack(self, x, positions, caches=None, tree=None):
         """Every layer in order; with ``caches`` each layer reads and writes
-        its own view of them (prefill or decode)."""
+        its own view of them (prefill or decode). Returns (x, the MoE aux
+        losses summed over the layers in order, f32; 0 without an MoE)."""
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for kind, sec, name, i, blk in self._layer_params(tree):
             st = None
             if caches is not None:
                 st = caches[sec][name]
                 if sec == "slots":
                     st = {k: v[i] for k, v in st.items()}
-            x = self._layer(kind, blk, x, positions, st)
-        return x
+            x, a = self._layer(kind, blk, x, positions, st)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     def _embed_tokens(self, tokens, tree=None):
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        embed = self.tree["embed"]["w"] if tree is None else tree["embed"]
-        x = embed[tokens].to(torch_dtype(self.policy.compute_dtype))
+        dt = torch_dtype(self.policy.compute_dtype)
+        embed = _dq_leaf(self.tree["embed"]["w"] if tree is None else tree["embed"], dt)  # never int8
+        x = embed[tokens].to(dt)
         if self.cfg.embed_scale:  # the scale rounded to the compute dtype, as in JAX
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
         return x
@@ -408,16 +578,16 @@ class StreamModel(nn.Module):
         """Full forward to f32 logits (B, S, vocab_padded)."""
         x = self._embed_tokens(tokens)
         positions = torch.arange(x.shape[1], device=self.device)
-        return self._logits(self._run_stack(x, positions))
+        return self._logits(self._run_stack(x, positions)[0])
 
     def hidden(self, params: dict, batch: dict):
         """Forward to the final hidden states (before the final norm) with
         the parameters of ``params`` (a tree in the JAX layout). Returns
-        (h (B, S, d), aux); aux is 0 (no MoE is ported)."""
+        (h (B, S, d), aux): the MoE layers' load-balancing losses summed
+        (f32; 0 without an MoE)."""
         x = self._embed_tokens(batch["tokens"], params)
         positions = torch.arange(x.shape[1], device=self.device)
-        x = self._run_stack(x, positions, tree=params)
-        return x, torch.zeros((), dtype=torch.float32, device=self.device)
+        return self._run_stack(x, positions, tree=params)
 
     def loss(self, params: dict, batch: dict, *, loss_chunk: int = 1024):
         """Next-token cross entropy with a **chunked** unembed and softmax
@@ -479,8 +649,11 @@ class StreamModel(nn.Module):
         dtype = torch_dtype(self.policy.kv_cache_dtype) if dtype is None else dtype
         pat = self.cfg.pattern
 
-        def stack(st):
-            return {k: v.unsqueeze(0).repeat((self.n_groups,) + (1,) * v.dim()) for k, v in st.items()}
+        def stack(st):  # an fp8 K/V through its bits
+            return {
+                k: cache_bits(v).unsqueeze(0).repeat((self.n_groups,) + (1,) * v.dim()).view(v.dtype)
+                for k, v in st.items()
+            }
 
         caches = {"slots": {
             f"s{i}": stack(self._slot_cache(k, batch_size, s_cache, dtype)) for i, k in enumerate(pat)
@@ -522,8 +695,9 @@ class StreamModel(nn.Module):
         ids = torch.as_tensor(block_ids, device=self.device).long()
         ng, _, blk, kv, hd = dst["k"].shape
         nb = ids.shape[0]
-        dst["k"][:, ids] = src["k"][:, 0].reshape(ng, nb, blk, kv, hd).to(dst["k"].dtype)
-        dst["v"][:, ids] = src["v"][:, 0].reshape(ng, nb, blk, kv, hd).to(dst["v"].dtype)
+        for key in ("k", "v"):  # an fp8 pool through its bits, in JAX's cast
+            cache_bits(dst[key])[:, ids] = cache_bits(to_cache(src[key][:, 0], dst[key].dtype)).reshape(
+                ng, nb, blk, kv, hd)
         dst["pos"][:, row] = plen
         dst["bt"][:, row] = torch.as_tensor(bt_row, dtype=torch.int32, device=self.device)
         return caches
@@ -544,7 +718,7 @@ class StreamModel(nn.Module):
         x = self._embed_tokens(tokens)
         caches = self.init_cache(x.shape[0], s_cache, cache_dtype)
         positions = torch.arange(x.shape[1], device=self.device)
-        x = self._run_stack(x, positions, caches)
+        x, _ = self._run_stack(x, positions, caches)
         return self._logits(x[:, -1:, :])[:, 0], caches
 
     @torch.no_grad()
@@ -554,21 +728,22 @@ class StreamModel(nn.Module):
         cache (the JAX signature's ``pos`` feeds only learned position
         embeddings, which are not ported); recurrent layers need none.
         Returns (logits (B, 1, vocab_padded), caches)."""
-        x = self._run_stack(self._embed_tokens(tokens), None, caches)
+        x, _ = self._run_stack(self._embed_tokens(tokens), None, caches)
         return self._logits(x), caches
 
 
 def _fill_kv_cache(st: dict, k, v) -> None:
     """Write one layer's prefill K/V (B, S, Kv, D) into its cache view of
     ``sz`` slots; with S >= sz keep the last sz positions rotated so that
-    slot == position % sz (the ring layout of the JAX function)."""
+    slot == position % sz (the ring layout of the JAX function). Values
+    enter in JAX's cast, an fp8 cache through its bits."""
     sz = st["k"].shape[1]
     s = k.shape[1]
-    if s >= sz:
-        shift = s % sz
-        st["k"].copy_(torch.roll(k[:, s - sz:], shift, dims=1))
-        st["v"].copy_(torch.roll(v[:, s - sz:], shift, dims=1))
-    else:
-        st["k"][:, :s] = k.to(st["k"].dtype)
-        st["v"][:, :s] = v.to(st["v"].dtype)
+    for key, new in (("k", k), ("v", v)):
+        dst = cache_bits(st[key])
+        new = cache_bits(to_cache(new[:, max(s - sz, 0):], st[key].dtype))
+        if s >= sz:
+            dst.copy_(torch.roll(new, s % sz, dims=1))
+        else:
+            dst[:, :s] = new
     st["pos"].fill_(s)

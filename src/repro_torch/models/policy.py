@@ -1,4 +1,9 @@
-"""Single-device dtype policy (the mesh-free fields of ``repro.models.policy.Policy``)."""
+"""Single-device dtype policy (the mesh-free fields of ``repro.models.policy.Policy``).
+
+``weights_int8`` serves int8 post-training-quantized weights
+(``model.quantize_params``); ``kv_cache_dtype`` may be
+``"float8_e4m3fn"``, which halves a bf16 decode cache.
+"""
 
 from __future__ import annotations
 
@@ -22,3 +27,4 @@ class Policy:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     kv_cache_dtype: str = "bfloat16"
+    weights_int8: bool = False

@@ -125,7 +125,8 @@ def test_copd_synth_dataset_is_verbatim():
 
 # configs/: every architecture the port registers is its original's
 # definitions (config, reduced_config) and ID, its imports aside
-CONFIG_COPIES = ["yi_6b", "mamba2_2_7b", "recurrentgemma_9b", "gemma2_2b", "qwen2_7b", "mistral_large_123b"]
+CONFIG_COPIES = ["yi_6b", "mamba2_2_7b", "recurrentgemma_9b", "gemma2_2b", "qwen2_7b", "mistral_large_123b",
+                 "qwen3_moe_30b_a3b", "arctic_480b"]
 
 
 def _config_id(path: Path) -> str:
@@ -149,3 +150,15 @@ def test_config_copies_are_the_registered_architectures():
     import repro_torch.configs as TC
 
     assert sorted(m.__name__.rsplit(".", 1)[1] for m in TC._MODULES) == sorted(CONFIG_COPIES)
+
+
+# models/moe.py: the MoE's dataclass and its capacity rule are verbatim
+# (the dispatch and the FFN are the port's own; the mesh's are not ported)
+MOE_COPIES = ["MoEParams", "_capacity"]
+
+
+@pytest.mark.parametrize("name", MOE_COPIES)
+def test_moe_definition_is_verbatim(name):
+    original = _definitions(REPO / "src" / "repro" / "models" / "moe.py")
+    copy = _definitions(REPO / "src" / "repro_torch" / "models" / "moe.py")
+    assert copy[name] == original[name]

@@ -404,18 +404,22 @@ def test_family_one_train_step(arch):
 
 @pytest.mark.parametrize("arch,refused", [
     ("gemma2-2b", []), ("qwen2-7b", []), ("mistral-large-123b", []),
-    ("qwen3-moe-30b-a3b", ["moe"]), ("arctic-480b", ["moe"]), ("pixtral-12b", ["frontend 'patches'"]),
+    ("qwen3-moe-30b-a3b", []), ("arctic-480b", []), ("pixtral-12b", ["frontend 'patches'"]),
     ("whisper-tiny", ["pattern", "enc_dec", "frontend 'frames'", "learned_pos", "norm 'ln'"]),
 ])
 def test_unsupported_refuses_what_the_port_lacks(arch, refused):
-    """The JAX package's configs, field for field in the port's ArchConfig:
-    the attention-only family is taken, and the rest is refused for the
-    fields ROADMAP lists (MoE; pixtral's patches; whisper's encoder-decoder
-    pattern, frames, learned positions and layer norm)."""
+    """The JAX package's configs, field for field in the port's ArchConfig
+    (an MoE's fields in the port's MoEParams): the attention-only family
+    and the MoE configs are taken, and the rest is refused for the fields
+    ROADMAP lists (pixtral's patches; whisper's encoder-decoder pattern,
+    frames, learned positions and layer norm)."""
     from repro_torch.models.model import ArchConfig, _unsupported
+    from repro_torch.models.moe import MoEParams
 
     jcfg = JC.get(arch)
     cfg = ArchConfig(**{f.name: getattr(jcfg, f.name) for f in dataclasses.fields(ArchConfig)})
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=MoEParams(**dataclasses.asdict(cfg.moe)))
     got = ["pattern" if g.startswith("pattern ") else g for g in _unsupported(cfg)]
     assert got == refused, got
     if not refused:
