@@ -56,7 +56,17 @@ full-width gemma2-2b at all 26 layers (K1 forward and backward with the
 softcap at head dim 256 on every layer, the window on the local ones)
 and on qwen2-7b at all 28 (its QKV bias), each with ``adamw8bit``, then
 each one's trained first attention layer's gradients through K1 forward
-+ backward against the plain version; (5) serve four
++ backward against the plain version; (4g) the same workload on
+full-width qwen3-moe-30b-a3b cut to MOE_TRAIN_LAYERS of its 48 layers at
+the published capacity factor (its dropped routes counted), then its
+trained first MoE layer's gradients in bf16 twice (the same bits) and in
+f32 against a float64 run routed alike, then the 8-bit update and the
+norm on its whole trained w_in leaf, past 2^31 elements (the last rows
+bit for bit against the plain version run on them alone, the norm
+against a float64 sum); (4h) the same workload on full-width pixtral-12b
+cut to PIXTRAL_TRAIN_LAYERS of its 40 layers, each batch behind 1024
+seeded patch embeddings a sequence (K1 forward and backward at 2048
+positions); (5) serve four
 requests of mixed prompt lengths from a stream topic
 through full-width yi-6b (32 layers, random bf16 weights from a
 seed) with ``ContinuousLMEngine`` and check what comes back (and, after
@@ -91,7 +101,10 @@ the seed, behind ``ContinuousLMEngine`` at the published capacity factor
 where no route can drop, each token held to the teacher-forced int8
 forward; its fp8 KV cache (contiguous, then paged) against an f32 cache
 over 16 decode steps; and int8 against bf16 with its width cut to 12
-layers (total variation and argmax agreement);
+layers (total variation and argmax agreement); (8d) full-width
+pixtral-12b at all 40 layers: each of (5)'s prompt lengths behind 1024
+seeded patch embeddings, prefilled and decoded 16 greedy steps, every
+token held to the teacher-forced forward;
 (9) print the ``kernels`` line (K1's, K1's backward's, K2's and K3's
 times summed over their paths, and each path's own under ``by_path``;
 K2's backward, K3's backward, the 8-bit update and the global norm as
@@ -236,8 +249,11 @@ OPT8_OPS = 39
 # its sandwich norms do to the residual stream, which the final norm
 # rescales; qwen2-7b is yi-6b's (an untied unembed): ln(152064) + 0.5 =
 # 12.43
+# qwen3-moe-30b-a3b and pixtral-12b are yi-6b's case too: ln(151936) +
+# 0.5 = 12.43 and ln(131072) + 0.5 = 12.28
 TRAIN_LOSS0_BAND = {"yi-6b": (10.5, 12.5), "mamba2-2.7b": (10.3, 12.3), "recurrentgemma-9b": (13.5, 15.5),
-                    "gemma2-2b": (13.5, 15.5), "qwen2-7b": (11.4, 13.4)}
+                    "gemma2-2b": (13.5, 15.5), "qwen2-7b": (11.4, 13.4), "qwen3-moe-30b-a3b": (11.4, 13.4),
+                    "pixtral-12b": (11.3, 13.3)}
 # mamba2's training path: full-width mamba2-2.7b at all its 64 layers (d
 # 2560, 80 heads x 64, N 128, chunk 256, 2,702,296,576 params), trained
 # with adamw8bit on phase_train's stream at batch TRAIN_BATCH x TRAIN_SEQ
@@ -368,6 +384,61 @@ SUP_MAX_STEPS, SUP_CRASH_AFTER = 40, 15  # the supervisor's configuration (tests
 # RAW int32 records of 1024 prompt tokens, 8 new tokens each, 2 prompts on
 # each of 4 partitions a round, 2 replicas on a controlled clock
 DEPLOY_PROMPT, DEPLOY_GEN, DEPLOY_PARTITIONS, DEPLOY_PER_PARTITION = 1024, 8, 4, 2
+# qwen3-moe-30b-a3b's training path: its published widths (above), bf16,
+# cut in depth to MOE_TRAIN_LAYERS of its 48 layers (a layer holds 623 M
+# parameters, 604 M of them in its experts: 6 bytes a parameter of bf16
+# weights, bf16 gradients and the 8-bit state make 3.7 GB a layer, and
+# the backward keeps about 0.7 GB of MoE activations a layer at batch 4 x
+# 1024), trained with adamw8bit on phase_train's stream at the published
+# capacity factor of 1.25 (capacity 320 a call: a random router drops
+# most routes, and the phase counts them). Its attention calls are
+# TRAIN_ATTN's shape, (4, 1024, 32/4, 128). 12 layers peak at 56.7 GB
+# allocated and 72.8 GB reserved on an H100 80GB HBM3 (79.18 GiB): 12.2
+# GB free, where a layer more takes about 4.5 GB allocated and more
+# reserved, so the depth stays 12. 15 ran out of memory in the backward
+# (with autograd's adjoint of the combine, before moe._PadGather), fresh
+# or after the earlier phases, at 55.7 GB allocated and 18.9-22.0 GB
+# reserved but unallocated: the layers' expert gradients, 403 MB each,
+# held until the stacked leaf's 5.62 GiB gradient is assembled, pin the
+# freed activations' segments (PERF.md, Findings). Each stacked expert
+# leaf, (12, 128, 2048, 768), holds
+# 2,415,919,104 elements, past 2^31 (from 11 layers on): the 8-bit update
+# and the norm are held on it (phase_opt8_past_2_31)
+MOE_TRAIN_LAYERS = 12
+# the trained first MoE layer's gradients: bf16 twice, the same bits; f32
+# against a float64 run routed by the f32 run's top-k ids, each leaf's
+# error relative to its largest element (sums of up to 4096 f32 products
+# in another order: measured 2.1e-6 at most). The hidden states are
+# standard normal plus one shared row of standard deviation
+# MOE_GRAD_SHARED: independent rows alone spread over the experts and
+# dropped no route at 1.25, where the shared part sends the tokens to
+# the same few experts, as the trained model's hidden states do, so that
+# routes drop and their adjoint reads the pad row
+MOE_GRAD_TOL = 1e-4
+MOE_GRAD_BATCH = (TRAIN_BATCH, TRAIN_SEQ)
+MOE_GRAD_SHARED = 4.0
+# the 8-bit update past element 2^31 of one expert leaf: the last
+# OPT8_TAIL_ROWS rows of 768 (3 whole quantization blocks each) against
+# the plain version run on them alone, bit for bit, after each of
+# OPT8_TAIL_UPDATES clipped updates from the zero state
+OPT8_TAIL_ROWS, OPT8_TAIL_UPDATES = 256, 2
+# pixtral-12b at its published widths (d 5120, 32/8 heads x 128, d_ff
+# 14336, vocab 131072, untied, rope theta 1e9; 12.2 B parameters, 24.5 GB
+# in bf16) behind its patch frontend of 1024 positions, whose embeddings
+# are drawn as JAX's make_batch draws them (standard normal): served at
+# all 40 layers (prefill of the patches and each of PROMPT_LENS's prompts,
+# batch 1, then PIXTRAL_DECODE greedy decode steps, each token held to
+# the teacher-forced forward); trained with adamw8bit on phase_train's
+# stream (each batch of 4 x 1024 tokens behind 4 x 1024 seeded patch
+# embeddings: K1 at (4, 2048, 32/8, 128)), cut in depth to
+# PIXTRAL_TRAIN_LAYERS of its 40 (6 bytes a parameter is 73 GB whole; 20
+# layers peaked at 79.03 GB on an H100 80GB HBM3, about 2.9 GB a layer
+# with the activations of 8192 positions; 18 peaked at 71.9 GB;
+# PERF.md, Findings)
+PIXTRAL = "pixtral-12b"
+PIXTRAL_DECODE = 16
+PIXTRAL_TRAIN_LAYERS = 18
+PIXTRAL_TRAIN_ATTN = (TRAIN_BATCH, TRAIN_SEQ + 1024, 32, 8, 128)
 
 
 def card_line() -> str:
@@ -579,6 +650,10 @@ def phase_kernels(card, fa, ref):
     for arch, h, kv in ((QWEN2, 28, 4), (MISTRAL, 96, 8), (MOE, 32, 4)):
         family[arch] = [check_attention(card, fa, ref, 1, s, h, kv, 128, "bfloat16", True, None, None, gen, True)
                         for s in PROMPT_LENS]
+    # pixtral-12b's prefills (32 heads over 8, hd 128): its 1024 patch
+    # positions before each prompt, one a layer a request, bf16, causal
+    family[PIXTRAL] = [check_attention(card, fa, ref, 1, 1024 + s, 32, 8, 128, "bfloat16", True, None, None, gen,
+                                       True) for s in PROMPT_LENS]
     return rows, main, rg_main, deploy_main, family
 
 
@@ -765,6 +840,13 @@ def phase_kernels_bwd(card, fa, ref):
     family["qwen2_fwd"] = check_attention(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, None, gen, True)
     family["qwen2_bwd"] = check_attention_bwd(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, gen, True)
     rows.append(check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen))
+    # pixtral-12b's training call: 1024 patch positions and 1024 tokens,
+    # GQA 4, forward and backward timed, and its bits (qwen3-moe's training
+    # call is TRAIN_ATTN's shape: the rows above time it)
+    b, s, h, kv, d = PIXTRAL_TRAIN_ATTN
+    family["pixtral_fwd"] = check_attention(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, None, gen, True)
+    family["pixtral_bwd"] = check_attention_bwd(card, fa, ref, b, s, h, kv, d, "bfloat16", True, None, gen, True)
+    rows.append(check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen))
     return rows, lse_rows, fwd_main, bwd_main, rg_fwd_main, rg_bwd_main, family
 
 
@@ -778,7 +860,8 @@ def load_example(name: str):
     return mod
 
 
-def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LAYERS, opt_name: str = "adamw"):
+def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LAYERS, opt_name: str = "adamw",
+                whole: tuple[str, str] | None = None):
     """Train full-width ``arch`` (``layers`` of its layers, bf16) from a
     stream: a seeded Markov corpus of TRAIN_SEQS x TRAIN_SEQ tokens
     ingested as RAW records into a 4-partition topic (validation_rate
@@ -791,8 +874,12 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     layer a step, the forward once more an eval batch), K2's (the same,
     an SSD layer), K3's (the same, an RG-LRU layer), the 8-bit update's (one a leaf a step with adamw8bit, none with AdamW) and
     the norm's (one a leaf and one to finish, a step, with adamw8bit; none
-    with AdamW, whose clip is eager), and the registry's result. Returns
-    the phase's numbers and the trained first layer's mixer weights."""
+    with AdamW, whose clip is eager), and the registry's result. A patch
+    frontend's batches each take TRAIN_BATCH x frontend_len seeded patch
+    embeddings (standard normal, bf16) from ``loss_fn``; an MoE's dropped
+    routes are counted (``moe.DROPS``). Returns the phase's numbers and the
+    trained first layer's weights, part by part (``{"mixer": {...}, ...}``;
+    with ``whole``, (part, leaf), that stacked leaf whole under "whole")."""
     import dataclasses
 
     import numpy as np
@@ -802,6 +889,7 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     from repro_torch.core import LogConfig, Registry, StreamLog
     from repro_torch.data import ingest
     from repro_torch.data.formats import RawCodec
+    from repro_torch.models import moe
     from repro_torch.models.model import StreamModel
     from repro_torch.models.policy import Policy
     from repro_torch.train import TrainingJob, adamw, adamw8bit, cosine_schedule
@@ -820,9 +908,14 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
                  {"data": corpus, "label": np.zeros(TRAIN_SEQS, np.int32)}, dep.deployment_id,
                  validation_rate=TRAIN_VAL_RATE)
     losses, stamps, eval_calls = [], [], [0]
+    patch_gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
 
     def loss_fn(p, batch):
-        loss, metrics = model.loss(p, {"tokens": batch["data"]})
+        inputs = {"tokens": batch["data"]}
+        if cfg.frontend == "patches":  # JAX's make_batch: standard normal patch embeddings
+            shape = (batch["data"].shape[0], cfg.frontend_len, cfg.d_model)
+            inputs["patch_embeds"] = torch.randn(shape, generator=patch_gen, device="cuda").to(torch.bfloat16)
+        loss, metrics = model.loss(p, inputs)
         if torch.is_grad_enabled():
             losses.append(metrics["loss"].detach())
             stamps.append(time.perf_counter())  # the step's start: the job syncs on each step's loss
@@ -835,20 +928,26 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     setup_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    if cfg.moe is not None:
+        moe.DROPS = torch.zeros((), dtype=torch.int64, device="cuda")
     reset_counts(kernels)
     t_start = time.perf_counter()
-    res = job.run(batch_size=TRAIN_BATCH, max_steps=TRAIN_STEPS, streaming=True)
-    torch.cuda.synchronize()
-    t_end = time.perf_counter()
-    counts = read_counts(kernels)
-    peak = torch.cuda.max_memory_allocated()
+    try:
+        res = job.run(batch_size=TRAIN_BATCH, max_steps=TRAIN_STEPS, streaming=True)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        counts = read_counts(kernels)
+        drops = None if moe.DROPS is None else int(moe.DROPS)
+    finally:
+        moe.DROPS = None
+    peak, peak_reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
 
     losses = [float(x) for x in losses]
     n_params = sum(p.numel() for p in model.parameters())
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]  # steps 1 .. n-1; step 0 builds
     steady = sorted(step_ms[1:]) if len(step_ms) > 1 else step_ms
     med_ms = steady[len(steady) // 2]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = TRAIN_BATCH * TRAIN_SEQ  # the trained tokens (a patch frontend's positions aside)
     n_eval = int(round(TRAIN_SEQS * TRAIN_VAL_RATE)) // min(TRAIN_BATCH, int(round(TRAIN_SEQS * TRAIN_VAL_RATE)))
     n_leaves = len(tree_leaves(model.param_tree()))
     kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
@@ -869,16 +968,24 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
         "steps": res.steps, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "losses": losses, "eval_loss": res.eval_metrics.get("loss"), "eval_batches": eval_calls[0],
         "step_ms": step_ms, "median_step_ms": med_ms, "tokens_per_s": tokens / (med_ms / 1e3),
-        "run_s": t_end - t_start, "setup_s": setup_s, "peak_bytes": peak, "launches": counts,
+        "run_s": t_end - t_start, "setup_s": setup_s, "peak_bytes": peak, "peak_reserved_bytes": peak_reserved,
+        "launches": counts,
         "want_launches": want, "records": msg.total_msg, "loss_band": list(band),
+        "frontend_len": cfg.frontend_len if cfg.frontend == "patches" else 0, "dropped_routes": drops,
     }
+    if cfg.moe is not None:  # of TRAIN_STEPS + eval forwards' routes, top_k a token a layer
+        routes = cfg.n_layers * cfg.moe.top_k * TRAIN_BATCH * TRAIN_SEQ * (TRAIN_STEPS + n_eval)
+        out["routes"] = routes
+        print(f"[{card}] {arch} moe.DROPS: {drops} of {routes} routes dropped at capacity factor "
+              f"{cfg.moe.capacity_factor}", flush=True)
     print(f"[{card}] {arch} training: {cfg.n_layers} of {configs.get(arch).n_layers} layers, {n_params} params "
           f"bf16, {opt_name}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, {res.steps} steps in {t_end - t_start:.3f} s",
           flush=True)
     print(f"[{card}] losses {['%.4f' % x for x in losses]}, eval {out['eval_loss']}", flush=True)
     print(f"[{card}] step ms {['%.1f' % x for x in step_ms]}, median {med_ms:.3f} ms, "
           f"{out['tokens_per_s']:.1f} tokens/s", flush=True)
-    print(f"[{card}] peak device memory {peak} bytes; launches {json.dumps(counts)}", flush=True)
+    print(f"[{card}] peak device memory {peak} bytes ({peak_reserved} reserved); launches {json.dumps(counts)}",
+          flush=True)
     assert len(losses) == TRAIN_STEPS and all(np.isfinite(losses)), losses
     assert band[0] <= losses[0] <= band[1], (losses[0], band)
     assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
@@ -886,9 +993,12 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     assert counts == want, f"launches {counts}, want {want}"
     results = reg.results_for(dep.deployment_id)
     assert len(results) == 1 and results[0].metrics["loss"] == res.metrics["loss"], results
-    layer0 = {k: v[0].detach().clone() for k, v in model.tree["slots"]["s0"]["mixer"].items()}
+    trained = {part: {k: v[0].detach().clone() for k, v in sub.items()}
+               for part, sub in model.tree["slots"]["s0"].items()}
+    if whole is not None:
+        trained["whole"] = model.tree["slots"]["s0"][whole[0]][whole[1]].detach()
     del job, res, model
-    return out, layer0
+    return out, trained
 
 
 def phase_train_full(card, kernels: dict):
@@ -904,7 +1014,7 @@ def phase_train_mamba2(card, kernels: dict):
     layers, trained with adamw8bit: its gates, K2 forward a layer a step
     and an eval batch, K2's backward a layer a step, K1 never, the 8-bit
     and norm kernels once a leaf a step (the norm once more). Returns the
-    phase's numbers and the trained first layer's mixer weights."""
+    phase's numbers and the trained first layer's weights, part by part."""
     return phase_train(card, kernels, arch="mamba2-2.7b", layers=MAMBA2_LAYERS, opt_name="adamw8bit")
 
 
@@ -916,8 +1026,222 @@ def phase_train_recurrentgemma(card, kernels: dict):
     step and an eval batch and its backward a local layer a step, K2
     never, the 8-bit and norm kernels once a leaf a step (the norm once
     more). Returns the phase's numbers and the trained first layer's
-    RG-LRU weights."""
+    weights, part by part (its RG-LRU mixer among them)."""
     return phase_train(card, kernels, arch="recurrentgemma-9b", layers=RG_TRAIN_LAYERS, opt_name="adamw8bit")
+
+
+def phase_train_moe_grads(card, trained: dict) -> dict:
+    """The trained qwen3-moe model's first MoE layer (``trained["moe"]``:
+    its f32 router and bf16 experts) on a batch of MOE_GRAD_BATCH random
+    hidden states (a shared row among them: routes drop) at the published
+    capacity factor: the gradients of a fixed random projection of
+    ``moe_ffn``'s output plus its aux loss with respect to x, the router
+    and the three expert leaves. In bf16 (the
+    training path's dtypes) computed twice: the same bits. In f32 against
+    the same function run in float64 and routed by the f32 run's top-k ids
+    (``moe_routes``): each leaf's error relative to its largest element
+    within MOE_GRAD_TOL. Times one bf16 forward + backward of the layer."""
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    mp = configs.get(MOE).moe
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    b, s = MOE_GRAD_BATCH
+    d = trained["moe"]["w_in"].shape[1]
+    shared = torch.randn((d,), generator=gen, device="cuda") * MOE_GRAD_SHARED
+    x = (torch.randn((b, s, d), generator=gen, device="cuda") + shared).to(torch.bfloat16)
+    proj = torch.randn((b, s, d), generator=gen, device="cuda")
+
+    def grads(dtype, routes=None):
+        leaves = {"x": x, **trained["moe"]}
+        t = {k: (v if dtype is None else v.to(dtype)).detach().requires_grad_(True) for k, v in leaves.items()}
+        out, aux = moe.moe_ffn({k: t[k] for k in trained["moe"]}, t["x"], mp, routes=routes)
+        g = torch.autograd.grad((out * proj.to(out.dtype)).sum() + aux, list(t.values()))
+        return dict(zip(t, g))
+
+    moe.DROPS = torch.zeros((), dtype=torch.int64, device="cuda")
+    try:
+        first = grads(None)
+        drops = int(moe.DROPS)
+    finally:
+        moe.DROPS = None
+    again = grads(None)
+    torch.cuda.synchronize()
+    same = all(torch.equal(first[k], again[k]) for k in first)
+    ms = time_ms(lambda: grads(None), 3)
+    del first, again
+    routes = moe.moe_routes({k: v.float() for k, v in trained["moe"].items()}, x.float(), mp)
+    got = grads(torch.float32)
+    want = grads(torch.float64, routes)
+    torch.cuda.synchronize()
+    rel = {k: float((got[k].double() - want[k]).abs().max() / want[k].abs().max()) for k in got}
+    row = {"shape": [b, s, d], "experts": mp.n_experts, "top_k": mp.top_k, "capacity_factor": mp.capacity_factor,
+           "capacity": moe._capacity(mp, b * s), "bf16_bit_identical": same, "f32_vs_f64_rel_err": rel,
+           "tol": MOE_GRAD_TOL, "dropped_routes": drops, "routes": b * s * mp.top_k, "bf16_fwd_bwd_ms": ms}
+    print(f"[{card}] {MOE} first MoE layer gradients {json.dumps(row)}", flush=True)
+    assert same, f"the MoE's bf16 gradients changed on a repeated call: {row}"
+    assert drops > 0, f"no route dropped: the pad row's adjoint went unchecked {row}"
+    assert all(math.isfinite(e) and e <= MOE_GRAD_TOL for e in rel.values()), row
+    return row
+
+
+def phase_opt8_past_2_31(card, leaf) -> dict:
+    """The 8-bit update and the norm on one whole stacked expert leaf of the
+    trained tree (``leaf``, bf16, past 2^31 elements): OPT8_TAIL_UPDATES
+    clipped updates from the zero state with seeded bf16 gradients of
+    standard deviation 1e-3, each followed by the last OPT8_TAIL_ROWS
+    trailing rows held bit for bit against ``ref.adamw8bit_update`` run on
+    those rows alone (p, m codes and scales, v codes and scales); the
+    norm kernel's norm of each gradient held to a float64 sum taken in
+    chunks (NORM_RTOL). Then times the update (kernel, plain version, the
+    bound) and the norm (kernel, ``torch.linalg.vector_norm``, the bound)
+    on the leaf."""
+    import torch
+
+    from repro_torch.kernels import adamw8bit as k8
+    from repro_torch.kernels import grad_norm as gn
+    from repro_torch.kernels import ref
+    from repro_torch.train import adamw8bit
+
+    p = leaf
+    n = p.shape[-1]
+    rows = p.numel() // n
+    first_row = rows - OPT8_TAIL_ROWS
+    assert p.numel() > 2 ** 31 and first_row * n >= 2 ** 31, (tuple(p.shape), first_row)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    st = adamw8bit(1e-3).init({"p": p})
+    state = [st["m"]["p"]["codes"], st["m"]["p"]["scales"], st["v"]["p"]["codes"], st["v"]["p"]["scales"]]
+
+    def tail(t):
+        return t.reshape((rows,) + tuple(t.shape[p.dim() - 1:]))[first_row:]
+
+    want = [tail(t).clone() for t in (p, *state)]
+    checks, launches0, norm_launches0 = [], k8.LAUNCHES, gn.LAUNCHES
+    with torch.no_grad():
+        for step in range(1, OPT8_TAIL_UPDATES + 1):
+            g = torch.randn(p.shape, generator=gen, device="cuda", dtype=torch.bfloat16).mul_(1e-3)
+            norm, scale = gn.global_norm([g], OPT8_MAX_NORM)
+            f64 = torch.zeros((), dtype=torch.float64, device="cuda")
+            for chunk in g.view(-1).split(1 << 28):
+                f64 += chunk.double().square().sum()
+            f64 = f64.sqrt()
+            g_tail = tail(g).clone()
+            k8.adamw8bit_update(p, g, *state, **opt8_scalars(step), clip_scale=scale)
+            ref.adamw8bit_update(want[0], g_tail, *want[1:], **opt8_scalars(step), clip_scale=scale)
+            torch.cuda.synchronize()
+            equal = {name: bool(torch.equal(tail(got), w)) for name, got, w in zip(
+                ("p", "m_codes", "m_scales", "v_codes", "v_scales"), (p, *state), want)}
+            checks.append({"step": step, "bit_equal": equal, "norm": float(norm), "norm_f64": float(f64),
+                           "norm_rel_err": float((norm.double() - f64).abs() / f64), "scale": float(scale)})
+            del g_tail
+        bound_ms, bound_by = opt8_bound([p])
+        norm_bound_ms, norm_bound_by = norm_bound([g])
+        kw = {**opt8_scalars(OPT8_TAIL_UPDATES + 1), "clip_scale": scale}
+        out = {
+            "shape": list(p.shape), "elements": p.numel(), "tail_rows": OPT8_TAIL_ROWS, "first_tail_element": first_row * n,
+            "checks": checks, "check_launches": k8.LAUNCHES - launches0, "norm_check_launches": gn.LAUNCHES - norm_launches0,
+            "ms": time_ms(lambda: k8.adamw8bit_update(p, g, *state, **kw), 3),
+            "plain_ms": time_ms(lambda: ref.adamw8bit_update(p, g, *state, **kw), 1),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "norm_ms": time_ms(lambda: gn.global_norm([g], OPT8_MAX_NORM), 5),
+            "norm_plain_ms": time_ms(lambda: ref.global_norm([g], OPT8_MAX_NORM), 1),
+            "norm_library_ms": time_ms(lambda: torch.linalg.vector_norm(g), 5),
+            "norm_bound_ms": norm_bound_ms, "norm_bound_by": norm_bound_by,
+        }
+    out["ok"] = all(all(c["bit_equal"].values()) and c["norm_rel_err"] <= NORM_RTOL for c in checks)
+    print(f"[{card}] adamw8bit and grad_norm past 2^31 on a {tuple(p.shape)} expert leaf ({p.numel()} elements, "
+          f"rows from element {first_row * n}): {json.dumps(checks)}; update {out['ms']:.3f} ms (plain "
+          f"{out['plain_ms']:.3f}, bound {bound_ms:.3f}), norm {out['norm_ms']:.3f} ms (vector_norm "
+          f"{out['norm_library_ms']:.3f}, bound {norm_bound_ms:.3f})", flush=True)
+    assert out["ok"], f"the 8-bit update or the norm past 2^31 disagrees: {checks}"
+    del g, state, want
+    return out
+
+
+def phase_serve_pixtral(card, kernels: dict) -> dict:
+    """pixtral-12b at its published widths and all 40 layers, bf16 weights
+    from SEED: for each of PROMPT_LENS's prompts (seeded tokens, batch 1)
+    behind frontend_len seeded patch embeddings (standard normal, as JAX's
+    make_batch draws them), ``prefill`` of the patches and the prompt,
+    then PIXTRAL_DECODE greedy ``decode_step``s. Checks K1 launched once a
+    layer a prefill and never in decode, every token finite and in the
+    vocab, and each within GREEDY_SLACK of the greedy choice of the
+    teacher-forced ``forward`` over the patches, the prompt and the tokens
+    before it. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.model import StreamModel
+    from repro_torch.models.policy import Policy
+
+    t0 = time.perf_counter()
+    cfg = configs.get(PIXTRAL)
+    model = StreamModel(cfg, Policy(), device="cuda", generator=SEED)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    reqs = [(torch.from_numpy(rng.integers(0, cfg.vocab, n).astype(np.int64)).cuda(),
+             torch.randn((1, cfg.frontend_len, cfg.d_model), generator=gen, device="cuda")) for n in PROMPT_LENS]
+    model.prefill(reqs[0][0][None, :64], 64 + cfg.frontend_len, patch_embeds=reqs[0][1])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    prefill_ms, decode_s, served = [], 0.0, []
+    for prompt, patches in reqs:
+        t_a = time.perf_counter()
+        logits, cache = model.prefill(prompt[None], cfg.frontend_len + len(prompt) + PIXTRAL_DECODE,
+                                      patch_embeds=patches)
+        tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        toks = [tok]
+        for _ in range(PIXTRAL_DECODE):
+            step_logits, cache = model.decode_step(cache, tok)
+            tok = step_logits[:, 0].argmax(-1)[:, None]
+            toks.append(tok)
+        gen_toks = torch.cat(toks, dim=1)[0]
+        torch.cuda.synchronize()
+        decode_s += time.perf_counter() - t_b
+        prefill_ms.append((t_b - t_a) * 1e3)
+        served.append(gen_toks)
+        del cache
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    worst = 0.0
+    for (prompt, patches), gen_toks in zip(reqs, served):
+        assert ((gen_toks >= 0) & (gen_toks < cfg.vocab_padded)).all(), gen_toks
+        seq = torch.cat([prompt, gen_toks[:-1]])
+        logits = model(seq[None], patches)[0, cfg.frontend_len + len(prompt) - 1:]
+        assert bool(torch.isfinite(logits).all())
+        gap = logits.max(-1).values - logits.gather(-1, gen_toks[:, None])[:, 0]
+        worst = max(worst, float(gap.max()))
+        del logits
+    want = {name: 0 for name in counts}
+    want["flash_attention"] = cfg.n_layers * len(reqs)
+    decode_tokens = len(reqs) * PIXTRAL_DECODE
+    out = {
+        "arch": PIXTRAL, "layers": cfg.n_layers, "params": n_params, "frontend_len": cfg.frontend_len,
+        "prompt_lens": list(PROMPT_LENS), "decode_steps": PIXTRAL_DECODE, "prefill_ms": prefill_ms,
+        "decode_tokens": decode_tokens, "decode_s": decode_s, "decode_tokens_per_s": decode_tokens / decode_s,
+        "peak_bytes": peak, "setup_s": setup_s, "launches": counts["flash_attention"], "all_launches": counts,
+        "greedy_worst_gap": worst, "slack": GREEDY_SLACK,
+    }
+    print(f"[{card}] {PIXTRAL} full width: {cfg.n_layers} layers, {n_params} params bf16, {cfg.frontend_len} patch "
+          f"positions, set-up {setup_s:.3f} s; prefill ms {['%.3f' % x for x in prefill_ms]} at "
+          f"{[cfg.frontend_len + n for n in PROMPT_LENS]} positions; decode {decode_tokens} tokens in {decode_s:.4f} s "
+          f"({out['decode_tokens_per_s']:.3f} tokens/s); peak {peak} bytes; launches {json.dumps(counts)}; greedy gap "
+          f"worst {worst:.4f}", flush=True)
+    assert counts == want, f"launches {counts}, want {want}"
+    assert worst <= GREEDY_SLACK, f"served tokens trail the forward's greedy choice by {worst}"
+    del model
+    return out
 
 
 def opt8_bytes(p) -> int:
@@ -2779,7 +3103,7 @@ def main() -> int:
     training, trained_layer = phase_train(card, kernels)
     gc.collect()
     torch.cuda.empty_cache()
-    train_grads = phase_train_grads(card, ref, trained_layer)
+    train_grads = phase_train_grads(card, ref, trained_layer["mixer"])
     del trained_layer
     gc.collect()
     torch.cuda.empty_cache()
@@ -2795,7 +3119,7 @@ def main() -> int:
     training_m2, trained_mixer = phase_train_mamba2(card, kernels)
     gc.collect()
     torch.cuda.empty_cache()
-    m2_grads = phase_train_ssm_grads(card, ref, trained_mixer)
+    m2_grads = phase_train_ssm_grads(card, ref, trained_mixer["mixer"])
     del trained_mixer
     gc.collect()
     torch.cuda.empty_cache()
@@ -2804,7 +3128,7 @@ def main() -> int:
     training_rg, trained_rec = phase_train_recurrentgemma(card, kernels)
     gc.collect()
     torch.cuda.empty_cache()
-    rg_grads = phase_train_rglru_grads(card, ref, trained_rec)
+    rg_grads = phase_train_rglru_grads(card, ref, trained_rec["mixer"])
     del trained_rec
     gc.collect()
     torch.cuda.empty_cache()
@@ -2815,15 +3139,33 @@ def main() -> int:
     training_g2, trained_g2 = phase_train(card, kernels, arch=GEMMA2, layers=GEMMA2_LAYERS, opt_name="adamw8bit")
     gc.collect()
     torch.cuda.empty_cache()
-    g2_grads = phase_train_grads(card, ref, trained_g2, arch=GEMMA2, kind="local", attn=GEMMA2_TRAIN_ATTN)
+    g2_grads = phase_train_grads(card, ref, trained_g2["mixer"], arch=GEMMA2, kind="local", attn=GEMMA2_TRAIN_ATTN)
     del trained_g2
     gc.collect()
     torch.cuda.empty_cache()
     training_q2, trained_q2 = phase_train(card, kernels, arch=QWEN2, layers=QWEN2_LAYERS, opt_name="adamw8bit")
     gc.collect()
     torch.cuda.empty_cache()
-    q2_grads = phase_train_grads(card, ref, trained_q2, arch=QWEN2, attn=QWEN2_TRAIN_ATTN)
+    q2_grads = phase_train_grads(card, ref, trained_q2["mixer"], arch=QWEN2, attn=QWEN2_TRAIN_ATTN)
     del trained_q2
+    gc.collect()
+    torch.cuda.empty_cache()
+    # qwen3-moe-30b-a3b cut to MOE_TRAIN_LAYERS with the 8-bit state, then
+    # its trained first MoE layer's gradients, then the 8-bit update and the
+    # norm on its whole w_in leaf, past 2^31 elements; pixtral-12b cut to
+    # PIXTRAL_TRAIN_LAYERS the same way: freed before the serving models load
+    training_moe, trained_moe = phase_train(card, kernels, arch=MOE, layers=MOE_TRAIN_LAYERS, opt_name="adamw8bit",
+                                            whole=("moe", "w_in"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_grads = phase_train_moe_grads(card, trained_moe)
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt8_tail = phase_opt8_past_2_31(card, trained_moe.pop("whole"))
+    del trained_moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_px, _ = phase_train(card, kernels, arch=PIXTRAL, layers=PIXTRAL_TRAIN_LAYERS, opt_name="adamw8bit")
     gc.collect()
     torch.cuda.empty_cache()
     serving, yi_cfg, yi_model = phase_serve(card, kernels)
@@ -2864,6 +3206,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     int8_vs_bf16 = phase_int8_vs_bf16(card)
+    # pixtral-12b at all 40 layers behind its patch frontend
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_px = phase_serve_pixtral(card, kernels)
 
     # K1 runs on these kinds of call: yi-6b's serving calls (one per served
     # prompt length), yi-6b's training call (its forward, with lse), the
@@ -2874,9 +3220,10 @@ def main() -> int:
     # serving calls (one per prompt length) and qwen2's training call, each
     # timed once; the sums cover all, by_path holds each path's own
     g2_wave, q2_serve, m_serve = family_attn[GEMMA2], family_attn[QWEN2], family_attn[MISTRAL]
-    moe_serve = family_attn[MOE]
+    moe_serve, px_serve = family_attn[MOE], family_attn[PIXTRAL]
     attn_main = main_rows + [train_fwd_main, deploy_attn_main, rg_attn_main, rg_train_fwd_main] + g2_wave + [
-        family_bwd["gemma2_fwd"]] + q2_serve + m_serve + [family_bwd["qwen2_fwd"]] + moe_serve
+        family_bwd["gemma2_fwd"]] + q2_serve + m_serve + [family_bwd["qwen2_fwd"]] + moe_serve + px_serve + [
+        family_bwd["pixtral_fwd"]]
     train_fwd_launches = training["launches"]["flash_attention"]
     full_fwd_launches = training_full["launches"]["flash_attention"]
     rg_train_fwd_launches = training_rg["launches"]["flash_attention"]
@@ -2888,6 +3235,9 @@ def main() -> int:
         "mistral-large-123b-serve": served[MISTRAL]["launches"],
         "qwen3-moe-30b-a3b-int8": serving_moe["launches"],
         "qwen3-moe-30b-a3b-int8-parity": serving_moe["parity"]["launches"],
+        "qwen3-moe-30b-a3b-train": training_moe["launches"]["flash_attention"],
+        "pixtral-12b-serve": serving_px["launches"],
+        "pixtral-12b-train": training_px["launches"]["flash_attention"],
     }
     entry = {
         "name": "flash_attention",
@@ -2905,10 +3255,13 @@ def main() -> int:
         "training call (%d,%d,16,256) kv 1 bf16 causal window 2048 (%d layers), gemma2's wave (%d,%d,8,256) kv 4 "
         "bf16 causal softcap 50 with window 4096 and without, gemma2's training call (%d,%d,8,256) kv 4 bf16 "
         "causal softcap 50, qwen2's prefills (1,S,28,128) kv 4, mistral's (1,S,96,128) kv 8 and qwen3-moe's "
-        "(1,S,32,128) kv 4 bf16 causal, and qwen2's training call (%d,%d,28,128) kv 4 bf16 causal, summed"
+        "(1,S,32,128) kv 4 bf16 causal, qwen2's training call (%d,%d,28,128) kv 4 bf16 causal, qwen3-moe's "
+        "training call (yi-6b's shape, %d layers), pixtral's prefills (1,1024+S,32,128) kv 8 bf16 causal and its "
+        "training call (%d,%d,32,128) kv 8 bf16 causal (%d layers), summed"
         % ("/".join(map(str, PROMPT_LENS)), TRAIN_BATCH, TRAIN_SEQ, DEPLOY_PER_PARTITION, DEPLOY_PROMPT,
            WAVE_REQUESTS, RG_PROMPT_LEN, TRAIN_BATCH, TRAIN_SEQ, RG_TRAIN_LAYERS, WAVE_REQUESTS, GEMMA2_PROMPT_LEN,
-           TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ),
+           TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ, MOE_TRAIN_LAYERS, PIXTRAL_TRAIN_ATTN[0],
+           PIXTRAL_TRAIN_ATTN[1], PIXTRAL_TRAIN_LAYERS),
         "by_path": {
             "yi-6b": path_summary(serving["launches"], main_rows),
             "yi-6b-group": path_summary(serving_group["launches"], main_rows),
@@ -2925,6 +3278,9 @@ def main() -> int:
             "qwen3-moe-30b-a3b-int8": path_summary(family_launches["qwen3-moe-30b-a3b-int8"], moe_serve),
             "qwen3-moe-30b-a3b-int8-parity": path_summary(family_launches["qwen3-moe-30b-a3b-int8-parity"],
                                                           moe_serve),
+            "qwen3-moe-30b-a3b-train": path_summary(family_launches["qwen3-moe-30b-a3b-train"], [train_fwd_main]),
+            "pixtral-12b-serve": path_summary(family_launches["pixtral-12b-serve"], px_serve),
+            "pixtral-12b-train": path_summary(family_launches["pixtral-12b-train"], [family_bwd["pixtral_fwd"]]),
         },
     }
     for key in ("ms", "plain_ms", "bound_ms"):
@@ -3021,28 +3377,35 @@ def main() -> int:
         "replaces": "none (JAX differentiates src/repro/models/layers.py:314)",
         "launches": training["launches"]["flash_attention_bwd"] + training_full["launches"]["flash_attention_bwd"]
         + training_rg["launches"]["flash_attention_bwd"] + training_g2["launches"]["flash_attention_bwd"]
-        + training_q2["launches"]["flash_attention_bwd"],
+        + training_q2["launches"]["flash_attention_bwd"] + training_moe["launches"]["flash_attention_bwd"]
+        + training_px["launches"]["flash_attention_bwd"],
         # gemma2's launches are all the softcap's (every one of its layers caps its scores)
         "softcap_launches": training_g2["launches"]["flash_attention_bwd"],
         "max_abs_err": max(r["max_abs_err"] for r in (bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"],
-                                                      family_bwd["qwen2_bwd"])),
+                                                      family_bwd["qwen2_bwd"], family_bwd["pixtral_bwd"])),
         "matched": all(r["ok"] for r in bwd_rows + [bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"],
-                                                    family_bwd["gemma2_context_bwd"], family_bwd["qwen2_bwd"]])
-        and all(g is not None for g in (train_grads, g2_grads, q2_grads)),
+                                                    family_bwd["gemma2_context_bwd"], family_bwd["qwen2_bwd"],
+                                                    family_bwd["pixtral_bwd"]])
+        and all(g is not None for g in (train_grads, g2_grads, q2_grads, moe_grads)),
         "shapes": "yi-6b's training call (%d,%d,32,128) kv 4 bf16 causal, one a layer a step (16 and 32 layers), "
         "recurrentgemma's (%d,%d,16,256) kv 1 bf16 causal window 2048, one a local layer a step, gemma2's "
-        "(%d,%d,8,256) kv 4 bf16 causal softcap 50, one a layer a step, and qwen2's (%d,%d,28,128) kv 4 bf16 "
-        "causal, one a layer a step, summed" % (TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH,
-                                                TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ),
+        "(%d,%d,8,256) kv 4 bf16 causal softcap 50, one a layer a step, qwen2's (%d,%d,28,128) kv 4 bf16 "
+        "causal, one a layer a step, qwen3-moe's (yi-6b's shape, %d layers) and pixtral's (%d,%d,32,128) kv 8 "
+        "bf16 causal (%d layers), one a layer a step, summed" % (
+            TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ,
+            MOE_TRAIN_LAYERS, PIXTRAL_TRAIN_ATTN[0], PIXTRAL_TRAIN_ATTN[1], PIXTRAL_TRAIN_LAYERS),
         "by_path": {
             "yi-6b-train": path_summary(training["launches"]["flash_attention_bwd"], [bwd_main]),
             "yi-6b-train-full": path_summary(training_full["launches"]["flash_attention_bwd"], [bwd_main]),
             "recurrentgemma-9b-train": path_summary(training_rg["launches"]["flash_attention_bwd"], [rg_bwd_main]),
             "gemma2-2b-train": path_summary(training_g2["launches"]["flash_attention_bwd"], [family_bwd["gemma2_bwd"]]),
             "qwen2-7b-train": path_summary(training_q2["launches"]["flash_attention_bwd"], [family_bwd["qwen2_bwd"]]),
+            "qwen3-moe-30b-a3b-train": path_summary(training_moe["launches"]["flash_attention_bwd"], [bwd_main]),
+            "pixtral-12b-train": path_summary(training_px["launches"]["flash_attention_bwd"],
+                                              [family_bwd["pixtral_bwd"]]),
         },
     }
-    bwd_paths = [bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"], family_bwd["qwen2_bwd"]]
+    bwd_paths = [bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"], family_bwd["qwen2_bwd"], family_bwd["pixtral_bwd"]]
     for key in ("ms", "plain_ms", "bound_ms"):
         bwd_entry[key] = sum(r[key] for r in bwd_paths)
     bwd_entry["bound_by"] = max(bwd_paths, key=lambda r: r["bound_ms"])["bound_by"]
@@ -3056,12 +3419,17 @@ def main() -> int:
         "replaces": "none (JAX's adamw8bit is XLA ops: src/repro/train/optimizer.py:237)",
         "launches": opt8_launches,
         "max_abs_err": opt8["max_abs_err"],
-        "matched": opt8["ok"],
+        "matched": opt8["ok"] and opt8_tail["ok"],
         "shapes": "one call a leaf a step over yi-6b's %d-layer tree (%d leaves, %d params, bf16), timed as the "
-        "whole tree" % (FULL_LAYERS, opt8["leaves"], opt8["params"]),
+        "whole tree; by_path: qwen3-moe's training, timed on its %s w_in leaf (%d elements, held bit for bit past "
+        "2^31)" % (FULL_LAYERS, opt8["leaves"], opt8["params"], tuple(opt8_tail["shape"]), opt8_tail["elements"]),
         "by_path": {"yi-6b-train-full": {
             "launches": opt8_launches, "ms": opt8["ms"], "plain_ms": opt8["plain_ms"], "bound_ms": opt8["bound_ms"],
             "bound_by": opt8["bound_by"], "library_ms": None, "bound_ms_over_ms": opt8["bound_ms"] / opt8["ms"],
+        }, "qwen3-moe-30b-a3b-train": {
+            "launches": training_moe["launches"]["adamw8bit"], "ms": opt8_tail["ms"], "plain_ms": opt8_tail["plain_ms"],
+            "bound_ms": opt8_tail["bound_ms"], "bound_by": opt8_tail["bound_by"], "library_ms": None,
+            "bound_ms_over_ms": opt8_tail["bound_ms"] / opt8_tail["ms"],
         }},
     }
     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
@@ -3075,12 +3443,18 @@ def main() -> int:
         "replaces": "none (JAX's clip_by_global_norm is XLA ops: src/repro/train/optimizer.py:48)",
         "launches": norm_launches,
         "max_abs_err": norm["max_abs_err"],
-        "matched": norm["ok"] and all(e <= NORM_RTOL for e in opt8["norm_rel_errs"]),
+        "matched": norm["ok"] and all(e <= NORM_RTOL for e in opt8["norm_rel_errs"]) and opt8_tail["ok"],
         "shapes": "a launch a leaf and one to finish, a step, over yi-6b's %d-layer tree of bf16 grads (%d bytes); "
-        "library_ms: torch.linalg.vector_norm of the same bytes" % (FULL_LAYERS, norm["bytes"]),
+        "library_ms: torch.linalg.vector_norm of the same bytes; by_path: qwen3-moe's training, timed on one "
+        "gradient of its w_in leaf's shape" % (FULL_LAYERS, norm["bytes"]),
         "by_path": {"yi-6b-train-full": {
             "launches": norm_launches, "ms": norm["ms"], "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
             "bound_by": norm["bound_by"], "library_ms": norm["library_ms"], "bound_ms_over_ms": norm["bound_ms"] / norm["ms"],
+        }, "qwen3-moe-30b-a3b-train": {
+            "launches": training_moe["launches"]["grad_norm"], "ms": opt8_tail["norm_ms"],
+            "plain_ms": opt8_tail["norm_plain_ms"], "bound_ms": opt8_tail["norm_bound_ms"],
+            "bound_by": opt8_tail["norm_bound_by"], "library_ms": opt8_tail["norm_library_ms"],
+            "bound_ms_over_ms": opt8_tail["norm_bound_ms"] / opt8_tail["norm_ms"],
         }},
     }
     for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms"):
@@ -3107,6 +3481,8 @@ def main() -> int:
         "training_qwen2": training_q2, "training_qwen2_grads": q2_grads, "serving_continuous": served,
         "serving_moe_int8": serving_moe, "fp8_cache": fp8_cache, "int8_vs_bf16": int8_vs_bf16,
         "serving_waves": {f"{arch} {dt}": out for (arch, dt), out in paths.items()},
+        "training_moe": training_moe, "training_moe_grads": moe_grads, "opt8_past_2_31": opt8_tail,
+        "training_pixtral": training_px, "serving_pixtral": serving_px,
         "kernels": kernels_line["kernels"],
     }, indent=1))
 

@@ -1,23 +1,35 @@
 #!/usr/bin/env python3
-"""Where the time goes when the PyTorch port trains yi-6b, mamba2, recurrentgemma, gemma2 or qwen2.
+"""Where the time goes when the PyTorch port trains an LM of the zoo.
 
     python3 scripts/torch_profile_training.py
-        [--arch yi-6b|mamba2-2.7b|recurrentgemma-9b|gemma2-2b|qwen2-7b] [--steps 3]
-        [--layers 16] [--opt adamw|adamw8bit]
+        [--arch yi-6b|mamba2-2.7b|recurrentgemma-9b|gemma2-2b|qwen2-7b|qwen3-moe-30b-a3b|pixtral-12b]
+        [--steps 3] [--layers 16] [--opt adamw|adamw8bit]
 
 On a machine with one CUDA card. Builds the kernels, then takes
 chip_smoke.py's training workload (full-width ``--arch``, yi-6b by
-default, cut to ``--layers`` layers, 16 by default: yi-6b has 32,
+default, cut to ``--layers`` layers, 16 by default (qwen3-moe-30b-a3b's
+and pixtral-12b's: chip_smoke.py's depths below): yi-6b has 32,
 mamba2-2.7b 64, recurrentgemma-9b 38, of which chip_smoke.py trains
-``RG_TRAIN_LAYERS``, gemma2-2b 26 and qwen2-7b 28; bf16 weights from its seed, AdamW with f32 moments or
-``adamw8bit``, batches of 4 x 1024 tokens of its seeded Markov corpus)
+``RG_TRAIN_LAYERS``, gemma2-2b 26, qwen2-7b 28, qwen3-moe-30b-a3b 48, of
+which it trains ``MOE_TRAIN_LAYERS``, and pixtral-12b 40, of which it
+trains ``PIXTRAL_TRAIN_LAYERS``; bf16 weights from its seed, AdamW with
+f32 moments or ``adamw8bit``, batches of 4 x 1024 tokens of its seeded
+Markov corpus, pixtral's each behind 4 x 1024 seeded patch embeddings)
 through the calls a
 ``TrainingJob`` step makes: ``StreamModel.loss``, ``torch.autograd.grad``
 over the parameter tree and the optimizer's ``update``, each marked as a
 phase. Two warm-up steps, then ``--steps`` steps under
 ``torch.profiler``. Prints the host-clock step time, the device time by
 phase and by kernel class, the device's busy and idle share of the wall
-time and the top kernels; writes them and the full table to
+time and the top kernels, and for an MoE ``by_region_ms``: the device
+time by where a kernel was launched from, the MoE's router
+(``moe._router``: the router product, softmax and aux loss), dispatch
+(``moe._dispatch``: the gather of each slot's token), experts
+(``moe._experts``: the three batched products) and combine
+(``moe._combine``), each in the forward and, by the autograd node of
+the forward op behind it, in the backward (``<region>:backward``); the
+top-k, ranks and slots that ``moe._local_moe`` computes between them
+fall under "other". Writes them and the full table to
 ``chiprun_out/profile_training.*`` (``profile_training_<layers>_<opt>.*``
 for other than the defaults, ``profile_training_<arch>_<layers>_<opt>.*``
 for an arch other than yi-6b). Times under the profiler slow the
@@ -72,18 +84,83 @@ def _kernel_class(name: str) -> str:
     return "elementwise and other"
 
 
+# the MoE's functions whose kernels are attributed to a region
+REGIONS = {"_router": "moe:router", "_dispatch": "moe:dispatch", "_experts": "moe:experts", "_combine": "moe:combine"}
+
+
+def _mark_regions() -> None:
+    """Wrap the MoE functions of REGIONS in profiler ranges of their names."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import moe
+
+    def marked(fn, name):
+        def run(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return run
+
+    for fn_name, region in REGIONS.items():
+        setattr(moe, fn_name, marked(getattr(moe, fn_name), region))
+
+
+def _by_region(prof) -> dict:
+    """Device ms of every kernel by the innermost REGIONS range its host op
+    ran in, or, for a backward op, by the range of the forward op whose
+    autograd node (the same sequence number) it runs ("<region>:backward";
+    "other" outside them), and by the kernel's class."""
+    names = set(REGIONS.values())
+    events = prof.events()
+
+    def region_of(evt):
+        while evt is not None:
+            if evt.name in names:
+                return evt.name
+            evt = evt.cpu_parent
+        return None
+
+    seq_region = {}
+    for evt in events:
+        seq = getattr(evt, "sequence_nr", -1)
+        if seq is not None and seq >= 0 and "Backward" not in evt.name:
+            region = region_of(evt)
+            if region is not None:
+                seq_region.setdefault(seq, region)
+    out: dict[str, dict[str, float]] = {}
+    for evt in events:
+        kernels = getattr(evt, "kernels", None)
+        if not kernels:
+            continue
+        region, parent = region_of(evt), evt
+        while region is None and parent is not None:
+            seq = getattr(parent, "sequence_nr", -1)
+            if "Backward" in parent.name and seq is not None and seq in seq_region:
+                region = seq_region[seq] + ":backward"
+            parent = parent.cpu_parent
+        cls = out.setdefault(region or "other", {})
+        for k in kernels:
+            key = _kernel_class(k.name)
+            cls[key] = cls.get(key, 0.0) + k.duration / 1e3
+    return out
+
+
+ARCHS = ("yi-6b", "mamba2-2.7b", "recurrentgemma-9b", "gemma2-2b", "qwen2-7b", "qwen3-moe-30b-a3b", "pixtral-12b")
+
+
 def main() -> int:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=("yi-6b", "mamba2-2.7b", "recurrentgemma-9b", "gemma2-2b", "qwen2-7b"),
-                    default="yi-6b")
+    ap.add_argument("--arch", choices=ARCHS, default="yi-6b")
     ap.add_argument("--steps", type=int, default=3)
-    ap.add_argument("--layers", type=int, default=chip_smoke.TRAIN_LAYERS)
+    ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--opt", choices=("adamw", "adamw8bit"), default="adamw")
     args = ap.parse_args()
+    if args.layers is None:
+        args.layers = {chip_smoke.MOE: chip_smoke.MOE_TRAIN_LAYERS,
+                       chip_smoke.PIXTRAL: chip_smoke.PIXTRAL_TRAIN_LAYERS}.get(args.arch, chip_smoke.TRAIN_LAYERS)
     if not torch.cuda.is_available():
         print("torch_profile_training: no CUDA device", file=sys.stderr)
         return 2
@@ -108,25 +185,33 @@ def main() -> int:
     corpus = chip_smoke.load_example("torch_train_lm").synth_corpus(
         chip_smoke.TRAIN_SEQS, cfg.vocab, seq=chip_smoke.TRAIN_SEQ, seed=chip_smoke.SEED)
     b = chip_smoke.TRAIN_BATCH
-    batches = [torch.from_numpy(np.ascontiguousarray(corpus[i * b:(i + 1) * b])).cuda()
-               for i in range(2 + args.steps)]
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + 9)
+    batches = []
+    for i in range(2 + args.steps):
+        batch = {"tokens": torch.from_numpy(np.ascontiguousarray(corpus[i * b:(i + 1) * b])).cuda()}
+        if cfg.frontend == "patches":  # chip_smoke.phase_train's seeded patch embeddings
+            batch["patch_embeds"] = torch.randn((b, cfg.frontend_len, cfg.d_model), generator=gen,
+                                                device="cuda").to(torch.bfloat16)
+        batches.append(batch)
+    if cfg.moe is not None:
+        _mark_regions()
 
-    def step(tokens):
+    def step(batch):
         with record_function("phase:forward"):
-            loss, _ = model.loss(params, {"tokens": tokens})
+            loss, _ = model.loss(params, batch)
         with record_function("phase:backward"):
             grads = tree_unflatten(params, torch.autograd.grad(loss, tree_leaves(params)))
         with record_function("phase:optimizer"):
             opt.update(grads, state, params)
         return float(loss.detach())
 
-    for tokens in batches[:2]:
-        step(tokens)
+    for batch in batches[:2]:
+        step(batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        losses = [step(tokens) for tokens in batches[2:]]
+        losses = [step(batch) for batch in batches[2:]]
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -135,6 +220,7 @@ def main() -> int:
     kernels = [
         e for e in events
         if str(e.device_type).endswith("CUDA") and _device_us(e) > 0 and not e.key.startswith("phase:")
+        and e.key not in REGIONS.values()
     ]
     busy_us = sum(_device_us(e) for e in kernels)
     by_class: dict[str, float] = {}
@@ -157,6 +243,8 @@ def main() -> int:
             {"name": e.key[:120], "calls": e.count, "device_ms": _device_us(e) / 1e3} for e in top
         ],
     }
+    if cfg.moe is not None:
+        summary["by_region_ms"] = _by_region(prof)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     default = (args.layers, args.opt) == (chip_smoke.TRAIN_LAYERS, "adamw")

@@ -15,8 +15,11 @@ window with a ring decode cache: gemma2, recurrentgemma), ``ssm``
 or without an MLP or an MoE FFN in its place (qwen3-moe; with arctic's
 dense residual beside it), tied or untied embeddings, gemma's embedding
 scale, gemma2's sandwich norms (``post1`` / ``post2``) and attention and
-final logit softcaps, and qwen2's QKV bias (``bq`` / ``bk`` / ``bv``); the
-other kinds and fields (encoder-decoder, frontends, layer norm, learned
+final logit softcaps, qwen2's QKV bias (``bq`` / ``bk`` / ``bv``) and
+pixtral's patch frontend (``frontend == "patches"``: precomputed patch
+embeddings, cast to the compute dtype and put in front of the token
+embeddings, positions running over both, as JAX's stub does); the other
+kinds and fields (encoder-decoder, audio frames, layer norm, learned
 positions) raise ``NotImplementedError``. Caches keep the JAX layout,
 stacked on the group dim for slots and not for the tail, and are updated
 in place; a KV cache may be ``float8_e4m3fn`` (``Policy.kv_cache_dtype``
@@ -133,7 +136,7 @@ def _unsupported(cfg: ArchConfig) -> list[str]:
         "rec pattern without RGLRUParams": "rec" in cfg.pattern and cfg.rglru is None,
         "moe not a MoEParams": cfg.moe is not None and not isinstance(cfg.moe, MoEParams),
         "enc_dec": cfg.enc_dec,
-        f"frontend {cfg.frontend!r}": cfg.frontend != "none",
+        f"frontend {cfg.frontend!r}": cfg.frontend not in ("none", "patches"),
         "learned_pos": cfg.learned_pos,
         f"norm {cfg.norm!r}": cfg.norm != "rms",
         f"mlp_kind {cfg.mlp_kind!r}": cfg.mlp_kind not in ("gated", "plain", "none"),
@@ -564,6 +567,21 @@ class StreamModel(nn.Module):
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
         return x
 
+    def _embed_inputs(self, tokens, patch_embeds=None, tree=None):
+        """The token embeddings with, for a ``patches`` frontend, the patch
+        embeddings (B, P, d) cast to their dtype and put in front (JAX's
+        ``forward``, ``hidden`` and ``prefill``); positions then run over
+        P + S. Raises where the frontend and the inputs disagree."""
+        x = self._embed_tokens(tokens, tree)
+        if self.cfg.frontend != "patches":
+            if patch_embeds is not None:
+                raise ValueError(f"{self.cfg.name} has no patch frontend: patch_embeds given")
+            return x
+        if patch_embeds is None:
+            raise ValueError(f"{self.cfg.name} takes patch_embeds (B, P, d) before its tokens")
+        front = torch.as_tensor(patch_embeds, device=self.device).to(x.dtype)
+        return torch.cat([front, x], dim=1)
+
     def _logits(self, x):
         x = self._norm(self.tree["final_norm"]["w"][0], x)
         if self.cfg.tie_embeddings:
@@ -574,9 +592,11 @@ class StreamModel(nn.Module):
 
     # ------------------------------------------------------------ public API
     @torch.no_grad()
-    def forward(self, tokens) -> torch.Tensor:
-        """Full forward to f32 logits (B, S, vocab_padded)."""
-        x = self._embed_tokens(tokens)
+    def forward(self, tokens, patch_embeds=None) -> torch.Tensor:
+        """Full forward to f32 logits (B, S, vocab_padded); with a patch
+        frontend, (B, P + S, vocab_padded) over ``patch_embeds`` (B, P, d)
+        and the tokens."""
+        x = self._embed_inputs(tokens, patch_embeds)
         positions = torch.arange(x.shape[1], device=self.device)
         return self._logits(self._run_stack(x, positions)[0])
 
@@ -584,8 +604,9 @@ class StreamModel(nn.Module):
         """Forward to the final hidden states (before the final norm) with
         the parameters of ``params`` (a tree in the JAX layout). Returns
         (h (B, S, d), aux): the MoE layers' load-balancing losses summed
-        (f32; 0 without an MoE)."""
-        x = self._embed_tokens(batch["tokens"], params)
+        (f32; 0 without an MoE). A patch frontend reads
+        ``batch["patch_embeds"]``."""
+        x = self._embed_inputs(batch["tokens"], batch.get("patch_embeds"), params)
         positions = torch.arange(x.shape[1], device=self.device)
         return self._run_stack(x, positions, tree=params)
 
@@ -595,12 +616,16 @@ class StreamModel(nn.Module):
         the label pick run per sequence chunk under activation
         checkpointing, so one (B, chunk, vocab) block of logits is live at
         a time, in the backward too. Labels >= vocab add nothing and are
-        not counted. Returns (loss + aux, {"loss": loss, "aux": aux})."""
+        not counted. With a patch frontend of ``frontend_len`` positions
+        the last patch position predicts the first token, as in JAX:
+        ``h[:, front - 1:-1]`` against every token. Returns (loss + aux,
+        {"loss": loss, "aux": aux})."""
         cfg = self.cfg
         h, aux = self.hidden(params, batch)
         h = self._norm(params["final_norm"]["w"][0], h)
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
-        pred_h, labels = h[:, :-1], tokens[:, 1:]
+        front = cfg.frontend_len if cfg.frontend == "patches" else 0
+        pred_h, labels = (h[:, :-1], tokens[:, 1:]) if front == 0 else (h[:, front - 1:-1], tokens)
         n = pred_h.shape[1]
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
         dt = torch.promote_types(h.dtype, w.dtype)  # the einsum's promotion in JAX
@@ -712,10 +737,12 @@ class StreamModel(nn.Module):
         return caches
 
     @torch.no_grad()
-    def prefill(self, tokens, s_cache: int, cache_dtype=torch.bfloat16):
-        """Run the full prompt, fill a cache of ``s_cache`` slots, return the
-        last position's logits (B, vocab_padded) and the cache."""
-        x = self._embed_tokens(tokens)
+    def prefill(self, tokens, s_cache: int, cache_dtype=torch.bfloat16, patch_embeds=None):
+        """Run the full prompt (a patch frontend's ``patch_embeds`` (B, P,
+        d) before its tokens: P + S positions), fill a cache of ``s_cache``
+        slots, return the last position's logits (B, vocab_padded) and the
+        cache."""
+        x = self._embed_inputs(tokens, patch_embeds)
         caches = self.init_cache(x.shape[0], s_cache, cache_dtype)
         positions = torch.arange(x.shape[1], device=self.device)
         x, _ = self._run_stack(x, positions, caches)

@@ -12,6 +12,35 @@ arithmetic of JAX's scatter-add over ``repeat(arange(T), k)`` with no
 atomics, so a call gives the same bits every time. arctic's dense
 residual (a gated MLP) is added to the output.
 
+Training. The gradient takes the same care, so that repeated backward
+passes give the same bits on the card. The dispatch and the combine are
+two gathers, each the other's transpose, and under grad mode each is a
+:class:`_PadGather`, whose adjoint is a gather too:
+
+* The dispatch gathers each slot's token row (``x2p[slot_tok]``); a token
+  sits in up to ``top_k`` slots, so autograd's adjoint of that gather
+  would be a scatter-add with repeated indices, which the card adds in no
+  fixed order. The hand-written adjoint forms each token's gradient as
+  its ``top_k`` slot rows (``slot``) added in route order from zero (a
+  dropped route reads the zero pad row): the combine's arithmetic again,
+  with no atomics.
+* The combine gathers each route's slot row (``ye_flat[slot]``). The kept
+  slots are distinct, but every dropped route reads the pad row, so
+  autograd's adjoint would scatter-add all of them onto that one row,
+  which the card's sorted-index kernel walks one after another (at the
+  published capacity a random router drops about 80% of the routes, and
+  that adjoint took 61% of a training step's device time on the H100:
+  PERF.md). The hand-written adjoint gathers each slot's one route row
+  (``slot_route``; the zero row for a slot no route kept) and drops the
+  pad row's gradient, which nothing needs.
+* The router's gradient flows through the sorted top-k weights (the
+  sort's adjoint writes each selected probability once) and the softmax;
+  the aux loss's token fractions come from an argmax and carry none, as
+  in JAX.
+
+Serving (grad mode off) runs the plain gathers: the same code and bits as
+before the adjoints existed.
+
 The expert-parallel path (``_ep_moe``) and ``moe_pspecs`` belong to the
 mesh and are not ported.
 """
@@ -24,7 +53,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["F32_LEAVES", "MoEParams", "moe_ffn", "moe_init", "moe_shapes"]
+__all__ = ["F32_LEAVES", "MoEParams", "moe_ffn", "moe_init", "moe_routes", "moe_shapes"]
 
 # leaves kept in f32 under any parameter dtype (moe.py:49 in JAX)
 F32_LEAVES = ("router",)
@@ -68,6 +97,72 @@ def _capacity(mp: MoEParams, n_tokens: int) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8 for TPU-friendly shapes
 
 
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """jax.lax.top_k: the k largest, equal values in expert order."""
+    topw, tope = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return topw[..., :k], tope[..., :k]
+
+
+def _pad(x):
+    """x (N, d) with a zero row appended: index N picks zeros."""
+    return torch.cat([x, x.new_zeros((1, x.shape[1]))])
+
+
+class _PadGather(torch.autograd.Function):
+    """``_pad(src)[idx]`` with an adjoint that gathers as well: ``adj``
+    lists, for each row of src, the ``k`` rows of the output that picked
+    it (len(idx), the zero row, where fewer did), and that row's gradient
+    is theirs added in that order from zero. No atomics: the same bits on
+    every call."""
+
+    @staticmethod
+    def forward(ctx, src, idx, adj, k: int):
+        ctx.save_for_backward(adj)
+        ctx.k = k
+        return _pad(src)[idx]
+
+    @staticmethod
+    def backward(ctx, dout):
+        (adj,) = ctx.saved_tensors
+        rows = _pad(dout)[adj].reshape(-1, ctx.k, dout.shape[1])
+        dsrc = torch.zeros(rows.shape[0::2], dtype=dout.dtype, device=dout.device)
+        for j in range(ctx.k):
+            dsrc = dsrc + rows[:, j]
+        return dsrc, None, None, None
+
+
+def _gather(src, idx, adj, k: int):
+    """``_pad(src)[idx]``; under grad mode through :class:`_PadGather`."""
+    if torch.is_grad_enabled() and src.requires_grad:
+        return _PadGather.apply(src, idx, adj, k)
+    return _pad(src)[idx]
+
+
+def _dispatch(x2, slot_tok, slot, k: int):
+    """(E * C, d): each slot's token row (the zero pad row for a slot no
+    route kept); the adjoint adds each token's k route slots (``slot``)."""
+    return _gather(x2, slot_tok, slot, k)
+
+
+def _experts(xe, w_in, w_gate, w_out):
+    """The gated expert MLPs over the slots (E, C, d): batched matmuls."""
+    h = torch.bmm(xe, w_in.to(xe.dtype))
+    g = torch.bmm(xe, w_gate.to(xe.dtype))
+    return torch.bmm(F.silu(g) * h, w_out.to(xe.dtype))
+
+
+def _combine(ye, slot, slot_route, weight, t: int, k: int):
+    """Gather each route's slot row of ye (E * C, d) back (the dropped ones
+    the pad row; the adjoint takes each slot's one route, ``slot_route``),
+    weight it, and add each token's k in order from zero: (T, d)."""
+    d = ye.shape[1]
+    contrib = (_gather(ye, slot, slot_route, 1) * weight.to(ye.dtype)[:, None]).reshape(t, k, d)
+    out = torch.zeros((t, d), dtype=ye.dtype, device=ye.device)
+    for j in range(k):
+        out = out + contrib[:, j]
+    return out
+
+
 def _local_moe(
     x2: torch.Tensor,  # (T, d) tokens (flattened batch * seq)
     probs: torch.Tensor,  # (T, E) f32 router probabilities
@@ -77,15 +172,17 @@ def _local_moe(
     *,
     mp: MoEParams,
     capacity: int,
+    tope: torch.Tensor | None = None,  # (T, k) expert ids to route by, else probs' top-k
 ) -> torch.Tensor:
     """Capacity dispatch, the expert products and the combine; returns (T, d)."""
     t, d = x2.shape
     e = w_in.shape[0]
     k = mp.top_k
     dev = x2.device
-    # jax.lax.top_k: the k largest, equal values in expert order
-    topw, tope = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topw, tope = topw[:, :k], tope[:, :k]
+    if tope is None:
+        topw, tope = _top_k(probs, k)
+    else:
+        topw = probs.gather(-1, tope)
     topw = topw / topw.sum(dim=-1, keepdim=True)  # renormalize
     flat_e = tope.reshape(-1)  # (T*k,) expert ids
     flat_w = topw.reshape(-1)
@@ -107,40 +204,54 @@ def _local_moe(
     # dispatch: each slot's token id (T: an all-zero pad row), then gather
     slot_tok = torch.full((e * capacity + 1,), t, dtype=torch.long, device=dev)
     slot_tok[slot] = torch.where(keep, flat_tok, t)
-    x2p = torch.cat([x2, x2.new_zeros((1, d))])
-    xe = x2p[slot_tok[:-1]].reshape(e, capacity, d)
+    xe = _dispatch(x2, slot_tok[:-1], slot, k).reshape(e, capacity, d)
+    ye = _experts(xe, w_in, w_gate, w_out)
 
-    h = torch.bmm(xe, w_in.to(xe.dtype))
-    g = torch.bmm(xe, w_gate.to(xe.dtype))
-    ye = torch.bmm(F.silu(g) * h, w_out.to(xe.dtype))
-
-    # combine: gather the slots back, weight, add each token's k in order
-    ye_flat = torch.cat([ye.reshape(e * capacity, d), ye.new_zeros((1, d))])
-    contrib = (ye_flat[slot] * (flat_w * keep).to(ye.dtype)[:, None]).reshape(t, k, d)
-    out = torch.zeros((t, d), dtype=ye.dtype, device=dev)
-    for j in range(k):
-        out = out + contrib[:, j]
-    return out
+    # combine: gather the slots back, weight, add each token's k in order;
+    # its adjoint reads each slot's route (T * k: a zero row)
+    slot_route = None
+    if torch.is_grad_enabled():
+        slot_route = torch.full((e * capacity + 1,), t * k, dtype=torch.long, device=dev)
+        slot_route[slot] = torch.where(keep, torch.arange(t * k, device=dev), t * k)
+        slot_route = slot_route[:-1]
+    return _combine(ye.reshape(e * capacity, d), slot, slot_route, flat_w * keep, t, k)
 
 
-def moe_ffn(p: dict, x: torch.Tensor, mp: MoEParams, dense_mlp=None):
-    """MoE FFN over x (B, S, d); ``dense_mlp(x)`` (arctic's dense
-    residual) is added where the config has one. Returns (out, aux_loss)."""
-    b, s, d = x.shape
-    logits = (x @ p["router"].to(x.dtype)).float()
+def _router(p: dict, x: torch.Tensor, mp: MoEParams):
+    """Router probabilities (B, S, E) in f32 (f64 for an f64 x) and the
+    load-balancing aux loss (Switch): E * sum(frac_tokens * frac_probs)."""
+    b, s, _ = x.shape
+    logits = (x @ p["router"].to(x.dtype)).to(torch.promote_types(x.dtype, torch.float32))
     probs = torch.softmax(logits, dim=-1)
-    # load-balancing aux loss (Switch): E * sum(frac_tokens * frac_probs)
     top1 = probs.argmax(dim=-1).reshape(-1)
     ones = torch.ones(top1.shape, dtype=torch.float32, device=x.device)
     counts = torch.zeros(mp.n_experts, dtype=torch.float32, device=x.device).scatter_add_(0, top1, ones)
     frac_tok = counts / (b * s)
     frac_prob = probs.mean(dim=(0, 1))
     aux = mp.n_experts * torch.sum(frac_tok * frac_prob) * mp.router_aux_weight
+    return probs, aux
 
+
+@torch.no_grad()
+def moe_routes(p: dict, x: torch.Tensor, mp: MoEParams) -> torch.Tensor:
+    """The (B * S, k) expert ids that :func:`moe_ffn` routes x by."""
+    probs, _ = _router(p, x, mp)
+    return _top_k(probs.reshape(-1, mp.n_experts), mp.top_k)[1]
+
+
+def moe_ffn(p: dict, x: torch.Tensor, mp: MoEParams, dense_mlp=None, routes: torch.Tensor | None = None):
+    """MoE FFN over x (B, S, d); ``dense_mlp(x)`` (arctic's dense
+    residual) is added where the config has one. ``routes`` ((B * S, k)
+    expert ids, as :func:`moe_routes` gives them) routes by those experts,
+    their weights taken from this call's probabilities, in place of this
+    call's top-k: a run in another precision routed alike. Returns (out,
+    aux_loss)."""
+    b, s, d = x.shape
+    probs, aux = _router(p, x, mp)
     capacity = _capacity(mp, max(b * s, 1))
     out = _local_moe(
         x.reshape(-1, d), probs.reshape(-1, mp.n_experts), p["w_in"], p["w_gate"], p["w_out"],
-        mp=mp, capacity=capacity,
+        mp=mp, capacity=capacity, tope=routes,
     ).reshape(b, s, d)
     if mp.dense_residual and dense_mlp is not None:
         out = out + dense_mlp(x)

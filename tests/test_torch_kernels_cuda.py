@@ -1657,3 +1657,79 @@ def test_adamw8bit_kernel_refuses_a_bad_clip_scale(card):
     for bad in (torch.ones(2, device=card), torch.ones((), device=card, dtype=torch.float64), torch.ones(())):
         with pytest.raises(ValueError):
             K8.adamw8bit_update(p, torch.zeros_like(p), *state, **_scalars8(1), clip_scale=bad)
+
+
+# ------------------------------------------------------------ MoE training
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("factor", [1.0, 8.0])
+def test_moe_gradients_on_card_repeat_to_the_bit(card, dtype, factor):
+    """Reduced qwen3-moe (head dim 64, so its attention runs K1 forward and
+    backward) on the card: the loss and every gradient leaf, the router's
+    and the stacked experts' among them, give the same bits on a repeated
+    call, with routes dropped (factor 1.0) and without (8.0): the
+    dispatch's adjoint adds each token's slot rows in route order and the
+    combine's writes each kept row once, so no atomics order a sum."""
+    from repro_torch.models import moe
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = configs.get_reduced("qwen3-moe-30b-a3b")
+    cfg = dataclasses.replace(cfg, head_dim=64, vocab=250, moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
+    model = StreamModel(cfg, Policy(dtype, dtype, dtype), device=card, generator=0)
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(0, 256, (2, 96))).to(card)
+    params = model.param_tree()
+    model.requires_grad_(True)
+    moe.DROPS = torch.zeros((), dtype=torch.int64, device=card)
+    runs = []
+    try:
+        for _ in range(3):
+            before = fa.BWD_LAUNCHES
+            loss, _ = model.loss(params, {"tokens": tokens})
+            runs.append((loss.detach(), torch.autograd.grad(loss, tree_leaves(params))))
+            assert fa.BWD_LAUNCHES - before == cfg.n_layers
+        drops = int(moe.DROPS)
+    finally:
+        model.requires_grad_(False)
+        moe.DROPS = None
+    assert (drops > 0) == (factor == 1.0)
+    (l0, g0), *rest = runs
+    assert torch.isfinite(l0) and all(bool(torch.isfinite(g).all()) for g in g0)
+    for loss, grads in rest:
+        assert torch.equal(loss, l0)
+        assert all(torch.equal(a, b) for a, b in zip(grads, g0))
+
+
+def test_adamw8bit_and_norm_past_2_31_elements(card):
+    """A bf16 leaf of 2,147,681,792 elements (rows of 768, an expert
+    leaf's trailing dim; its last 257 rows lie past element 2^31): two
+    clipped updates of the 8-bit kernel over the whole leaf, the last 256
+    rows after each held to the bit against ``ref.adamw8bit_update`` run
+    on those rows alone (every block of a row is its own), and the norm
+    kernel's norm of the leaf held to a float64 sum taken in chunks
+    (relative 1e-5)."""
+    from repro_torch.train import adamw8bit
+
+    n = 768
+    rows = 2 ** 31 // n + 257
+    assert (rows - 256) * n > 2 ** 31
+    gen = torch.Generator(device=card).manual_seed(0)
+    p = torch.randn((rows, n), generator=gen, device=card, dtype=torch.bfloat16).mul_(0.02)
+    st = adamw8bit(1e-3).init({"p": p})
+    state = [st["m"]["p"]["codes"], st["m"]["p"]["scales"], st["v"]["p"]["codes"], st["v"]["p"]["scales"]]
+    tail = [t[-256:].clone() for t in (p, *state)]
+    for step in (1, 2):
+        g = torch.randn((rows, n), generator=gen, device=card, dtype=torch.bfloat16).mul_(1e-3)
+        norm, scale = GN.global_norm([g], 1.0)
+        want = torch.zeros((), dtype=torch.float64, device=card)
+        for chunk in g.view(-1).split(1 << 28):
+            want += chunk.double().square().sum()
+        want = want.sqrt()
+        assert float((norm.double() - want).abs() / want) <= 1e-5
+        assert float(scale) < 1
+        kw = {**_scalars8(step), "clip_scale": scale}
+        g_tail = g[-256:].clone()
+        K8.adamw8bit_update(p, g, *state, **kw)
+        del g
+        ref.adamw8bit_update(tail[0], g_tail, *tail[1:], **kw)
+        torch.cuda.synchronize()
+        for name, got, t in zip(("p", "m codes", "m scales", "v codes", "v scales"), (p, *state), tail):
+            assert torch.equal(got[-256:], t), (step, name)

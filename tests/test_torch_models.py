@@ -3,7 +3,7 @@
 Reduced yi-6b in f32 on the CPU (``Policy`` as in tests/test_lm_engine.py);
 inputs from numpy seeds. Layers are held at 1e-5, logits at 1e-4. Then
 the rest of the attention-only family: reduced gemma2-2b, qwen2-7b and
-mistral-large-123b.
+mistral-large-123b; then reduced pixtral-12b's patch frontend.
 """
 
 import dataclasses
@@ -404,15 +404,15 @@ def test_family_one_train_step(arch):
 
 @pytest.mark.parametrize("arch,refused", [
     ("gemma2-2b", []), ("qwen2-7b", []), ("mistral-large-123b", []),
-    ("qwen3-moe-30b-a3b", []), ("arctic-480b", []), ("pixtral-12b", ["frontend 'patches'"]),
+    ("qwen3-moe-30b-a3b", []), ("arctic-480b", []), ("pixtral-12b", []),
     ("whisper-tiny", ["pattern", "enc_dec", "frontend 'frames'", "learned_pos", "norm 'ln'"]),
 ])
 def test_unsupported_refuses_what_the_port_lacks(arch, refused):
     """The JAX package's configs, field for field in the port's ArchConfig
     (an MoE's fields in the port's MoEParams): the attention-only family
-    and the MoE configs are taken, and the rest is refused for the fields
-    ROADMAP lists (pixtral's patches; whisper's encoder-decoder pattern,
-    frames, learned positions and layer norm)."""
+    the MoE configs and pixtral's patch frontend are taken, and the rest is
+    refused for the fields ROADMAP lists (whisper's encoder-decoder
+    pattern, frames, learned positions and layer norm)."""
     from repro_torch.models.model import ArchConfig, _unsupported
     from repro_torch.models.moe import MoEParams
 
@@ -424,3 +424,111 @@ def test_unsupported_refuses_what_the_port_lacks(arch, refused):
     assert got == refused, got
     if not refused:
         assert TC.get(arch) == cfg
+
+
+# ------------------------------------------------ pixtral's patch frontend
+# Reduced pixtral-12b (d 64, 3 layers, GQA 4/2, 8 patch positions) on
+# JAX's weights, moved; patch embeddings drawn as JAX's make_batch draws
+# them (standard normal, tests/test_models.py:30's _batch). Tolerances:
+# logits 1e-4; prefill and decode at PREFILL_TOL and DECODE_TOL.
+PX = "pixtral-12b"
+
+
+@functools.lru_cache(maxsize=None)
+def _pixtral():
+    cfg = JC.get_reduced(PX)
+    jm = JModel(cfg, JPolicy(param_dtype="float32", compute_dtype="float32"))
+    jp = jm.init(jax.random.PRNGKey(0))
+    tm = StreamModel(TC.get_reduced(PX), Policy("float32", "float32", "float32"), device="cpu", generator=None)
+    tm.load_params(convert.params_from_jax(jax.tree.map(np.asarray, jp)))
+    return cfg, jm, jp, tm
+
+
+def _pixtral_batch(cfg, seed, b=2, s=24):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+            rng.standard_normal((b, cfg.frontend_len, cfg.d_model)).astype(np.float32))
+
+
+def test_pixtral_logits_match_jax():
+    """Logits over the patch positions and the tokens, (B, P + S, vocab)."""
+    cfg, jm, jp, tm = _pixtral()
+    toks, patches = _pixtral_batch(cfg, 41)
+    lj, _ = jm.forward(jp, {"tokens": jnp.asarray(toks), "patch_embeds": jnp.asarray(patches)})
+    lt = tm(torch.from_numpy(toks), torch.from_numpy(patches))
+    assert lt.shape == (2, cfg.frontend_len + 24, cfg.vocab_padded)
+    _close(lt, lj, atol=1e-4)
+
+
+def test_pixtral_prefill_and_decode_match_jax():
+    """Mirror of tests/test_models.py:77 with the patch offset: prefill of
+    the patches and all but the last token against JAX's prefill (logits
+    and cache) and the port's forward at position P + S - 2; then one
+    decode step, JAX's at position S - 1 + front, against JAX's and the
+    forward's last position; the cache's position runs over P + S."""
+    cfg, jm, jp, tm = _pixtral()
+    s = 24
+    toks, patches = _pixtral_batch(cfg, 42, s=s)
+    front = cfg.frontend_len
+    jb = {"tokens": jnp.asarray(toks[:, :-1]), "patch_embeds": jnp.asarray(patches)}
+    lj, cj = jm.prefill(jp, jb, s + front + 8, cache_dtype=jnp.float32)
+    lt, ct = tm.prefill(torch.from_numpy(toks[:, :-1]), s + front + 8, cache_dtype=torch.float32,
+                        patch_embeds=torch.from_numpy(patches))
+    _close(lt, lj, atol=PREFILL_TOL)
+    for key in ("k", "v"):
+        _close(ct["slots"]["s0"][key], np.asarray(cj["slots"]["s0"][key]), atol=PREFILL_TOL)
+    assert int(ct["slots"]["s0"]["pos"][0]) == front + s - 1
+    full = tm(torch.from_numpy(toks), torch.from_numpy(patches))
+    _close(lt, full[:, -2].numpy(), atol=PREFILL_TOL)
+    sj, _ = jm.decode_step(jp, cj, jnp.asarray(toks[:, -1:]), jnp.int32(s - 1 + front))
+    st, _ = tm.decode_step(ct, torch.from_numpy(toks[:, -1:]))
+    _close(st, sj, atol=DECODE_TOL)
+    _close(st[:, 0], full[:, -1].numpy(), atol=DECODE_TOL)
+
+
+def test_pixtral_causality():
+    """Mirror of tests/test_models.py:101 over the token part: logits at the
+    patches and the first 20 tokens do not depend on the later tokens."""
+    cfg, _, _, tm = _pixtral()
+    toks, patches = _pixtral_batch(cfg, 43, s=32)
+    full = tm(torch.from_numpy(toks), torch.from_numpy(patches))
+    short = tm(torch.from_numpy(toks[:, :20]), torch.from_numpy(patches))
+    _close(full[:, :20 + cfg.frontend_len], short.numpy(), atol=2e-4)
+
+
+def test_pixtral_refuses_without_patches():
+    """A patch frontend needs its patches in every entry point; a model
+    without one takes none."""
+    cfg, _, _, tm = _pixtral()
+    toks, patches = _pixtral_batch(cfg, 44)
+    t = torch.from_numpy(toks)
+    for call in (lambda: tm(t), lambda: tm.prefill(t, 64), lambda: tm.loss(tm.param_tree(), {"tokens": t}),
+                 lambda: tm.hidden(tm.param_tree(), {"tokens": t})):
+        with pytest.raises(ValueError, match="patch_embeds"):
+            call()
+    _, _, _, yi = _family("qwen2-7b")
+    with pytest.raises(ValueError, match="no patch frontend"):
+        yi(t, torch.from_numpy(patches))
+
+
+def test_pixtral_one_train_step():
+    """Mirror of tests/test_models.py:37 on pixtral: forward shapes over
+    P + S, finite logits, one AdamW step on a batch with its patches, a
+    finite and lower loss after it."""
+    from repro_torch.train import adamw, build_train_step
+
+    cfg, _, jp, _ = _pixtral()
+    m = StreamModel(TC.get_reduced(PX), Policy("float32", "float32", "float32"), device="cpu", generator=None)
+    m.load_params(convert.params_from_jax(jax.tree.map(np.asarray, jp)))
+    toks, patches = _pixtral_batch(cfg, 45, s=32)
+    batch = {"tokens": torch.from_numpy(toks), "patch_embeds": torch.from_numpy(patches)}
+    logits = m(batch["tokens"], batch["patch_embeds"])
+    assert logits.shape == (2, 32 + cfg.frontend_len, cfg.vocab_padded) and torch.isfinite(logits).all()
+    step, _ = build_train_step(m, adamw(1e-3))
+    state = {"params": m.param_tree(), "opt": adamw(1e-3).init(m.param_tree())}
+    m.requires_grad_(True)
+    state, metrics = step(state, batch)
+    assert np.isfinite(float(metrics["loss"]))
+    with torch.no_grad():
+        l2, _ = m.loss(state["params"], batch)
+    assert np.isfinite(float(l2)) and float(l2) < float(metrics["loss"])

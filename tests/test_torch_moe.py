@@ -5,7 +5,13 @@ router probabilities; reduced qwen3-moe-30b-a3b and arctic-480b (its
 dense residual) in f32 on the CPU, with drops (factor 1.0) and without
 (8.0): logits, prefill and decode, and the loss with its aux, each at
 1e-5; the mirror of tests/test_models.py:168; greedy tokens through the
-continuous engine; the params through both packages' checkpoints.
+continuous engine; the params through both packages' checkpoints. Then
+training: the dispatch's and the combine's hand-written adjoints against
+autograd through the plain gathers (to the bit on dyadic inputs, within
+1e-6 of the largest element otherwise) and their bits on a repeated call; serving's output
+against a frozen copy of the forward as it stood before the adjoint, to
+the bit; ``routes`` and ``moe_routes`` (a float64 run routed alike within
+1e-5). The models' gradients against JAX's are in test_torch_train.py.
 """
 
 import dataclasses
@@ -249,3 +255,145 @@ def test_moe_params_round_trip_between_packages(tmp_path, arch):
                                  jax.tree_util.tree_flatten_with_path(jp)[0]):
         assert a.dtype == b.dtype, path
         np.testing.assert_array_equal(np.asarray(a, np.float32), np.asarray(b, np.float32), err_msg=str(path))
+
+
+# ------------------------------------------------------------------ training
+def _frozen_local_moe(x2, probs, w_in, w_gate, w_out, *, mp, capacity):
+    """``_local_moe`` as it stood before the training adjoint existed (the
+    plain gather and combine, kept here as the serving path's yardstick)."""
+    t, d = x2.shape
+    e, k = w_in.shape[0], mp.top_k
+    topw, tope = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, tope = topw[:, :k], tope[:, :k]
+    topw = topw / topw.sum(dim=-1, keepdim=True)
+    flat_e, flat_w = tope.reshape(-1), topw.reshape(-1)
+    flat_tok = torch.arange(t).repeat_interleave(k)
+    order = torch.argsort(flat_e, stable=True)
+    e_sorted = flat_e[order]
+    first = torch.searchsorted(e_sorted, e_sorted, side="left")
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(t * k) - first
+    keep = rank < capacity
+    slot = torch.where(keep, flat_e * capacity + rank, e * capacity)
+    slot_tok = torch.full((e * capacity + 1,), t, dtype=torch.long)
+    slot_tok[slot] = torch.where(keep, flat_tok, t)
+    x2p = torch.cat([x2, x2.new_zeros((1, d))])
+    xe = x2p[slot_tok[:-1]].reshape(e, capacity, d)
+    h = torch.bmm(xe, w_in.to(xe.dtype))
+    g = torch.bmm(xe, w_gate.to(xe.dtype))
+    ye = torch.bmm(torch.nn.functional.silu(g) * h, w_out.to(xe.dtype))
+    ye_flat = torch.cat([ye.reshape(e * capacity, d), ye.new_zeros((1, d))])
+    contrib = (ye_flat[slot] * (flat_w * keep).to(ye.dtype)[:, None]).reshape(t, k, d)
+    out = torch.zeros((t, d), dtype=ye.dtype)
+    for j in range(k):
+        out = out + contrib[:, j]
+    return out
+
+
+def _ffn_inputs(dtype, seed=4, d=32, e=8, f=24, tokens=(2, 24), dyadic=False):
+    """A layer's MoE leaves and tokens; with ``dyadic`` every value a
+    multiple of 1/64 in [-2, 2], so that sums of a few are exact in f32."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape, scale=1.0):
+        a = rng.standard_normal(shape) * scale
+        return torch.from_numpy(np.round(a * 64) / 64 if dyadic else a).to(dtype)
+
+    p = {"router": draw(d, e, scale=d ** -0.5).float(), "w_in": draw(e, d, f, scale=d ** -0.5),
+         "w_gate": draw(e, d, f, scale=d ** -0.5), "w_out": draw(e, f, d, scale=f ** -0.5)}
+    return p, draw(*tokens, d)
+
+
+@pytest.mark.parametrize("factor", [1.0, 8.0])
+def test_gather_adjoints_match_autograd_and_repeat(factor, drops, monkeypatch):
+    """The dispatch's and the combine's hand-written adjoints
+    (``_PadGather``: each token's k slot rows added in route order; each
+    slot's one route row) against autograd through the plain gathers
+    (scatter-adds): with every value dyadic the sums are exact, so the
+    two agree to the bit; on random inputs, within f32 rounding (1e-6 of
+    the largest element). Repeated calls give the same bits. At factor
+    1.0 routes drop and read the pad row."""
+    mp = TM.MoEParams(n_experts=8, top_k=2, d_ff=24, capacity_factor=factor)
+
+    def grads(p, x, plain: bool):
+        if plain:
+            monkeypatch.setattr(TM, "_gather", lambda src, idx, adj, k: TM._pad(src)[idx])
+        leaves = {"x": x, **p}
+        t = {n: v.clone().requires_grad_(True) for n, v in leaves.items()}
+        out, aux = TM.moe_ffn({n: t[n] for n in p}, t["x"], mp)
+        dot = torch.from_numpy(np.random.default_rng(9).standard_normal(out.shape)).to(out.dtype)
+        g = torch.autograd.grad((out * dot).sum() + aux, list(t.values()))
+        monkeypatch.undo()
+        return dict(zip(t, g))
+
+    for dyadic in (True, False):
+        p, x = _ffn_inputs(torch.float32, dyadic=dyadic)
+        got, again, want = grads(p, x, False), grads(p, x, False), grads(p, x, True)
+        for n in got:
+            assert torch.equal(got[n], again[n]), n
+            if dyadic and n in ("x", "w_out"):  # the dispatch's and the combine's adjoints alone
+                assert torch.equal(got[n], want[n])
+            else:
+                _close(got[n], want[n].numpy(), tol=1e-6 * float(want[n].abs().max()))
+    assert (int(drops) > 0) == (factor == 1.0)
+
+
+def test_gather_adjoints_route_through_the_function():
+    """Under grad mode the dispatch and the combine are ``_PadGather``s;
+    without it the plain gathers (serving's code)."""
+    p, x = _ffn_inputs(torch.float32)
+    mp = TM.MoEParams(n_experts=8, top_k=2, d_ff=24)
+    out, _ = TM.moe_ffn(p, x.clone().requires_grad_(True), mp)
+    seen, stack = {}, [out.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is not None and id(fn) not in seen:
+            seen[id(fn)] = fn
+            stack.extend(nxt for nxt, _ in fn.next_functions)
+    names = [type(fn).__name__ for fn in seen.values()]
+    assert names.count("_PadGatherBackward") == 2
+    with torch.no_grad():
+        assert TM.moe_ffn(p, x.clone().requires_grad_(True), mp)[0].grad_fn is None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("factor", [1.0, 8.0])
+def test_serving_moe_bits_unchanged(factor, dtype):
+    """Serving's MoE output (grad mode off) equals, bit for bit, the
+    forward as it stood before the training adjoint (``_frozen_local_moe``),
+    in f32 and bf16, with drops and without; the forward under grad mode
+    gives those bits too."""
+    mp = TM.MoEParams(n_experts=8, top_k=2, d_ff=24, capacity_factor=factor)
+    p, x = _ffn_inputs(dtype, seed=5)
+    with torch.no_grad():
+        probs = torch.softmax((x @ p["router"].to(dtype)).float(), -1).reshape(-1, 8)
+        want = _frozen_local_moe(x.reshape(-1, 32), probs, p["w_in"], p["w_gate"], p["w_out"], mp=mp,
+                                 capacity=TM._capacity(mp, 48)).reshape(x.shape)
+        got, _ = TM.moe_ffn(p, x, mp)
+    assert torch.equal(got, want)
+    trained, _ = TM.moe_ffn(p, x.clone().requires_grad_(True), mp)
+    assert torch.equal(trained.detach(), want)
+
+
+def test_routes_given_reproduce_the_call():
+    """``moe_routes`` gives the ids a call routes by; handed back through
+    ``routes`` they give the call's output and gradients to the bit, and a
+    float64 run routed alike stays within f32 rounding of the f32 one."""
+    mp = TM.MoEParams(n_experts=8, top_k=2, d_ff=24, capacity_factor=1.0)
+    p, x = _ffn_inputs(torch.float32, seed=6)
+    routes = TM.moe_routes(p, x, mp)
+    assert routes.shape == (48, 2) and routes.dtype == torch.long
+
+    def run(p, x, routes=None):
+        t = {n: v.clone().requires_grad_(True) for n, v in {"x": x, **p}.items()}
+        out, aux = TM.moe_ffn({n: t[n] for n in p}, t["x"], mp, routes=routes)
+        return out.detach(), torch.autograd.grad(out.sum() * 0.5 + aux, list(t.values()))
+
+    out, g = run(p, x)
+    out_r, g_r = run(p, x, routes)
+    assert torch.equal(out, out_r) and all(torch.equal(a, b) for a, b in zip(g, g_r))
+    out64, g64 = run({n: v.double() for n, v in p.items()}, x.double(), routes)
+    assert out64.dtype == torch.float64
+    _close(out, out64.float().numpy(), tol=1e-5)
+    for a, b in zip(g, g64):
+        assert float((a.double() - b).abs().max() / b.abs().max()) < 1e-5

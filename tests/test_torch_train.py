@@ -21,7 +21,14 @@ and 1.7e-6 with ``norm_plus_one`` off); AdamW against
 JAX's at 1e-6
 (f32 leaf) and one bf16 step (bf16 leaf); the 5-step TrainingJob loss
 trajectories at 1e-4 (the same f32 arithmetic, five AdamW or adamw8bit
-steps apart).
+steps apart). Reduced qwen3-moe-30b-a3b and arctic-480b (its dense
+residual) at capacity factor 1.0, where routes drop, and 8.0, where none
+do: the loss with its aux and every gradient leaf (the router's among
+them) at yi-6b's 1e-5 (measured 1.9e-6 at most), and their 5-step
+trajectories at their own factor of 4.0. Reduced pixtral-12b (8 patch
+positions before the tokens, the loss shifted by them as in JAX) at
+1e-5 (measured 2.3e-6), its trajectory with patches drawn from each
+batch's tokens.
 """
 
 import dataclasses
@@ -71,11 +78,21 @@ M2 = "mamba2-2.7b"
 RG = "recurrentgemma-9b"
 G2 = "gemma2-2b"
 Q2 = "qwen2-7b"
+QM = "qwen3-moe-30b-a3b"
+AR = "arctic-480b"
+PX = "pixtral-12b"
 
 
-def _cfgs(arch="yi-6b"):
-    return (dataclasses.replace(JC.get_reduced(arch), vocab=VOCAB),
-            dataclasses.replace(TC.get_reduced(arch), vocab=VOCAB))
+def _cfgs(arch="yi-6b", factor=None):
+    """JAX's and the port's reduced config of ``arch`` at VOCAB; an MoE's
+    at capacity ``factor`` where one is given."""
+    out = []
+    for cfg in (JC.get_reduced(arch), TC.get_reduced(arch)):
+        cfg = dataclasses.replace(cfg, vocab=VOCAB)
+        if factor is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=factor))
+        out.append(cfg)
+    return tuple(out)
 
 
 def _perturbed(jp, seed=11):
@@ -96,8 +113,8 @@ def _perturbed(jp, seed=11):
 
 
 @functools.lru_cache(maxsize=None)
-def _pair(arch):
-    jcfg, tcfg = _cfgs(arch)
+def _pair(arch, factor=None):
+    jcfg, tcfg = _cfgs(arch, factor)
     jm = JModel(jcfg, JPolicy(param_dtype="float32", compute_dtype="float32"))
     jp = jm.init(jax.random.PRNGKey(0))
     if arch in (G2, Q2):
@@ -118,18 +135,37 @@ def _tokens(seed, b=2, s=SEQ):
     return np.random.default_rng(seed).integers(0, 256, (b, s)).astype(np.int32)
 
 
+def _patches(tok, cfg):
+    """pixtral's patch embeddings for a batch of ``tok``: a seeded table's
+    rows picked by the batch's first tokens, so every row has its own (the
+    same in JAX's jitted loss and in the port's)."""
+    table = np.random.default_rng(13).standard_normal((256, cfg.d_model)).astype(np.float32)
+    return table[np.asarray(tok)[:, :cfg.frontend_len]]
+
+
+def _batch(tok, cfg):
+    """``{"tokens"}``, with ``patch_embeds`` for a patch frontend (numpy)."""
+    out = {"tokens": tok}
+    if cfg.frontend == "patches":
+        out["patch_embeds"] = _patches(tok, cfg)
+    return out
+
+
 def _rel(got, want):
     want = np.asarray(want, np.float32)
     return float(np.abs(np.asarray(got, np.float32) - want).max() / max(np.abs(want).max(), 1e-30))
 
 
-@pytest.mark.parametrize("arch,loss_chunk", [
-    pytest.param("yi-6b", 8, id="8"), pytest.param("yi-6b", 1024, id="1024"),
-    pytest.param(M2, 8, id="mamba2-8"), pytest.param(M2, 1024, id="mamba2-1024"),
-    pytest.param(RG, 8, id="recurrentgemma-8"), pytest.param(RG, 1024, id="recurrentgemma-1024"),
-    pytest.param(G2, 8, id="gemma2-8"), pytest.param(Q2, 8, id="qwen2-8"),
+@pytest.mark.parametrize("arch,loss_chunk,factor", [
+    pytest.param("yi-6b", 8, None, id="8"), pytest.param("yi-6b", 1024, None, id="1024"),
+    pytest.param(M2, 8, None, id="mamba2-8"), pytest.param(M2, 1024, None, id="mamba2-1024"),
+    pytest.param(RG, 8, None, id="recurrentgemma-8"), pytest.param(RG, 1024, None, id="recurrentgemma-1024"),
+    pytest.param(G2, 8, None, id="gemma2-8"), pytest.param(Q2, 8, None, id="qwen2-8"),
+    pytest.param(QM, 8, 1.0, id="qwen3-moe-8-drops"), pytest.param(QM, 8, 8.0, id="qwen3-moe-8-no-drops"),
+    pytest.param(AR, 8, 1.0, id="arctic-8-drops"), pytest.param(AR, 1024, 8.0, id="arctic-1024-no-drops"),
+    pytest.param(PX, 8, None, id="pixtral-8"), pytest.param(PX, 1024, None, id="pixtral-1024"),
 ])
-def test_loss_and_gradients_match_jax(arch, loss_chunk):
+def test_loss_and_gradients_match_jax(arch, loss_chunk, factor):
     """The loss and every gradient leaf against jax.value_and_grad of the
     JAX loss (mamba2: its tied embed, its f32 A_log, D and dt_bias leaves
     with f32 gradients, its scan through SSDScan's CPU sides;
@@ -137,21 +173,34 @@ def test_loss_and_gradients_match_jax(arch, loss_chunk):
     leaves, its scan through RGLRUScan's CPU sides, its windowed local
     attention through FlashAttention's; gemma2: its softcapped local and
     global attention through FlashAttention's CPU sides, its final
-    softcap, its sandwich norms; qwen2: its QKV biases)."""
-    jm, jp, tm, _ = _pair(arch)
+    softcap, its sandwich norms; qwen2: its QKV biases; qwen3-moe and
+    arctic: the router's f32 leaf, the stacked experts and the aux loss,
+    with routes dropped at factor 1.0 and none at 8.0, the dispatch's
+    adjoint through ``moe._Dispatch``; pixtral: patch embeddings before the
+    tokens, the loss shifted by their count)."""
+    from repro_torch.models import moe
+
+    jm, jp, tm, _ = _pair(arch, factor)
     tol = {M2: SSM_GRAD_TOL, G2: G2_GRAD_TOL}.get(arch, GRAD_TOL)
     tok = _tokens(0)
     assert (tok[:, 1:] >= VOCAB).any()
+    batch = _batch(tok, tm.cfg)
     (jl, jmet), jg = jax.jit(jax.value_and_grad(
-        lambda p: jm.loss(p, {"tokens": jnp.asarray(tok)}, loss_chunk=loss_chunk), has_aux=True
+        lambda p: jm.loss(p, jax.tree.map(jnp.asarray, batch), loss_chunk=loss_chunk), has_aux=True
     ))(jp)
     params = tm.param_tree()
     tm.requires_grad_(True)
+    moe.DROPS = torch.zeros((), dtype=torch.int64)
     try:
-        tl, tmet = tm.loss(params, {"tokens": torch.from_numpy(tok)}, loss_chunk=loss_chunk)
+        tl, tmet = tm.loss(params, {k: torch.from_numpy(v) for k, v in batch.items()}, loss_chunk=loss_chunk)
         tg = torch.autograd.grad(tl, tree_leaves(params))
+        drops = int(moe.DROPS)
     finally:
         tm.requires_grad_(False)
+        moe.DROPS = None
+    if factor is not None:
+        assert (drops > 0) == (factor == 1.0), drops
+        assert float(tmet["aux"].detach()) == pytest.approx(float(jmet["aux"]), rel=tol) and float(jmet["aux"]) > 0
     assert abs(float(tl.detach()) - float(jl)) <= tol * abs(float(jl))
     assert float(tmet["loss"].detach()) == pytest.approx(float(jmet["loss"]), rel=tol)
     jleaves = jax.tree.leaves(jg)
@@ -442,6 +491,10 @@ _OPTS = {"adamw": (jadamw, adamw), "adamw8bit": (jadamw8bit, adamw8bit)}  # (JAX
     pytest.param(G2, True, "adamw8bit", id="gemma2-True-adamw8bit"),
     pytest.param(Q2, True, "adamw", id="qwen2-True"),
     pytest.param(Q2, True, "adamw8bit", id="qwen2-True-adamw8bit"),
+    pytest.param(QM, True, "adamw", id="qwen3-moe-True"),
+    pytest.param(QM, True, "adamw8bit", id="qwen3-moe-True-adamw8bit"),
+    pytest.param(AR, True, "adamw", id="arctic-True"), pytest.param(AR, True, "adamw8bit", id="arctic-True-adamw8bit"),
+    pytest.param(PX, True, "adamw", id="pixtral-True"), pytest.param(PX, True, "adamw8bit", id="pixtral-True-adamw8bit"),
 ])
 def test_training_job_trajectory_matches_jax(arch, streaming, opt):
     """The roadmap's gate: 5 steps of TrainingJob in each package on the
@@ -452,15 +505,24 @@ def test_training_job_trajectory_matches_jax(arch, streaming, opt):
     block) and on reduced recurrentgemma (a tail of layers beside the
     stacked group, tied embeddings); on reduced gemma2 (softcaps and
     sandwich norms: their leaves narrower than a quantization block) and
-    qwen2 (the bias leaves (n, heads, hd))."""
+    qwen2 (the bias leaves (n, heads, hd)); on reduced qwen3-moe and arctic
+    (the f32 router (L, d, E), narrower than a block, and the stacked
+    (L, E, d, f) / (L, E, f, d) experts) and reduced pixtral (patch
+    embeddings from each batch's tokens, ``_patches``)."""
     jopt, topt = _OPTS[opt]
     jm, jp, _, moved = _pair(arch)
     _, tcfg = _cfgs(arch)
     log, reg, spec, dep = _stream(arch=arch)
     jl = []
 
+    front = tcfg.frontend == "patches"
+    table = jnp.asarray(np.random.default_rng(13).standard_normal((256, tcfg.d_model)).astype(np.float32))
+
     def jloss(p, b):
-        loss, met = jm.loss(p, {"tokens": b["data"]}, loss_chunk=16)
+        batch = {"tokens": b["data"]}
+        if front:  # _patches, in jnp
+            batch["patch_embeds"] = table[b["data"][:, :tcfg.frontend_len]]
+        loss, met = jm.loss(p, batch, loss_chunk=16)
         jax.debug.callback(lambda v: jl.append(float(v)), met["loss"])
         return loss, met
 
@@ -476,7 +538,10 @@ def test_training_job_trajectory_matches_jax(arch, streaming, opt):
         return tm.param_tree()
 
     def tloss(p, b):
-        loss, met = tm.loss(p, {"tokens": b["data"]}, loss_chunk=16)
+        batch = {"tokens": b["data"]}
+        if front:
+            batch["patch_embeds"] = torch.from_numpy(_patches(b["data"].numpy(), tcfg))
+        loss, met = tm.loss(p, batch, loss_chunk=16)
         tl.append(float(met["loss"].detach()))
         return loss, met
 
