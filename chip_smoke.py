@@ -21,7 +21,10 @@ training call timed beside K2's forward at that call), then K3 (RG-LRU
 scan), then K3's backward (dx, dlog_a and dh0 against the plain adjoint
 run in float64, at the tile edges of both K3 kernels, the same bits on
 repeated calls, and its training call timed beside K3's forward at that
-call); (3b) the paper's loop
+call), then K1 and its backward at whisper-tiny's calls (queries and keys
+of different lengths for its cross attention, no mask; the encoder's
+bidirectional calls; more queries than keys once; the backward's bits);
+(3b) the paper's loop
 (examples/torch_quickstart.py): copd-mlp trained from a stream on a
 three-broker cluster and served by a two-replica ``InferenceDeployment``,
 then by a transactional one across a kill of the predictions topic's
@@ -66,7 +69,11 @@ bit for bit against the plain version run on them alone, the norm
 against a float64 sum); (4h) the same workload on full-width pixtral-12b
 cut to PIXTRAL_TRAIN_LAYERS of its 40 layers, each batch behind 1024
 seeded patch embeddings a sequence (K1 forward and backward at 2048
-positions); (5) serve four
+positions); (4i) the same workload on full-width whisper-tiny at its
+full depth (4 encoder and 4 decoder layers), 448-token transcripts each
+behind 1500 seeded frame embeddings, then the gradients of its trained
+first encoder and decoder layers' attention (bidirectional, causal,
+cross) through K1 forward + backward against the plain version; (5) serve four
 requests of mixed prompt lengths from a stream topic
 through full-width yi-6b (32 layers, random bf16 weights from a
 seed) with ``ContinuousLMEngine`` and check what comes back (and, after
@@ -104,7 +111,11 @@ over 16 decode steps; and int8 against bf16 with its width cut to 12
 layers (total variation and argmax agreement); (8d) full-width
 pixtral-12b at all 40 layers: each of (5)'s prompt lengths behind 1024
 seeded patch embeddings, prefilled and decoded 16 greedy steps, every
-token held to the teacher-forced forward;
+token held to the teacher-forced forward; (8e) full-width whisper-tiny:
+prompts of 4, 64, 224 and 432 tokens each behind its own 1500 seeded
+frame embeddings, prefilled and decoded 16 greedy steps, then 4 requests
+of 224 tokens prefilled together and decoded in lockstep, K1 12 times a
+prefill, every token held to the teacher-forced forward;
 (9) print the ``kernels`` line (K1's, K1's backward's, K2's and K3's
 times summed over their paths, and each path's own under ``by_path``;
 K2's backward, K3's backward, the 8-bit update and the global norm as
@@ -251,9 +262,12 @@ OPT8_OPS = 39
 # 12.43
 # qwen3-moe-30b-a3b and pixtral-12b are yi-6b's case too: ln(151936) +
 # 0.5 = 12.43 and ln(131072) + 0.5 = 12.28
+# whisper-tiny's tied embed (1/sqrt(d)) on a final layer norm's output
+# (unit variance, weights ones, biases zeros): logits of variance about 1,
+# ln(51865) + 0.5 = 11.36
 TRAIN_LOSS0_BAND = {"yi-6b": (10.5, 12.5), "mamba2-2.7b": (10.3, 12.3), "recurrentgemma-9b": (13.5, 15.5),
                     "gemma2-2b": (13.5, 15.5), "qwen2-7b": (11.4, 13.4), "qwen3-moe-30b-a3b": (11.4, 13.4),
-                    "pixtral-12b": (11.3, 13.3)}
+                    "pixtral-12b": (11.3, 13.3), "whisper-tiny": (10.4, 12.4)}
 # mamba2's training path: full-width mamba2-2.7b at all its 64 layers (d
 # 2560, 80 heads x 64, N 128, chunk 256, 2,702,296,576 params), trained
 # with adamw8bit on phase_train's stream at batch TRAIN_BATCH x TRAIN_SEQ
@@ -439,6 +453,28 @@ PIXTRAL = "pixtral-12b"
 PIXTRAL_DECODE = 16
 PIXTRAL_TRAIN_LAYERS = 18
 PIXTRAL_TRAIN_ATTN = (TRAIN_BATCH, TRAIN_SEQ + 1024, 32, 8, 128)
+# whisper-tiny at its published widths and full depth (d 384, 6/6 heads x
+# 64, 4 encoder and 4 decoder layers, d_ff 1536 gelu, vocab 51865, tied,
+# layer norms, learned positions; 37.8 M parameters without its table of
+# 32768 learned positions) with openai/whisper's context for it
+# (ModelDimensions: n_audio_ctx 1500, n_text_ctx 448). Served: each request
+# behind its own 1500 x 384 frame embeddings, drawn standard normal as
+# JAX's make_batch draws them; prompts of WHISPER_PROMPTS tokens at batch
+# 1, each prefilled and decoded WHISPER_DECODE greedy steps (432 + 16 =
+# 448), then WHISPER_BATCH requests of WHISPER_BATCH_PROMPT tokens
+# prefilled together and decoded in lockstep; every token held to the
+# teacher-forced forward. Trained with adamw8bit from a stream of
+# 448-token transcripts at TRAIN_BATCH, each batch behind seeded frames.
+# K1's calls: the encoder's bidirectional (B, 1500, 6/6, 64), the
+# decoder's causal (B, Sq) and its cross (B, Sq over 1500), no mask
+WHISPER = "whisper-tiny"
+WHISPER_ENC = 1500
+WHISPER_CTX = 448
+WHISPER_PROMPTS = (4, 64, 224, 432)
+WHISPER_DECODE = 16
+WHISPER_BATCH, WHISPER_BATCH_PROMPT = 4, 224
+WHISPER_HEADS = (6, 6, 64)  # (H, Kv, D)
+WHISPER_LAYERS = 4  # its full depth: 4 decoder layers (and its 4 encoder layers)
 
 
 def card_line() -> str:
@@ -482,21 +518,26 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def mask_pairs(s: int, causal: bool, window: int | None) -> int:
-    """(query, key) pairs the mask lets through: the work this input needs."""
+def mask_pairs(s: int, causal: bool, window: int | None, sk: int | None = None) -> int:
+    """(query, key) pairs the mask lets through, s queries over ``sk`` keys
+    (s where None; without a mask every query sees all sk): the work this
+    input needs."""
     import numpy as np
 
+    sk = s if sk is None else sk
     q = np.arange(s)
-    hi = q if causal else np.full(s, s - 1)
+    hi = np.minimum(q, sk - 1) if causal else np.full(s, sk - 1)
     lo = np.maximum(q - window + 1, 0) if window else np.zeros(s, np.int64)
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def attention_bound(b, h, kv, s, d, dtype: str, causal, window) -> tuple[float, str]:
-    """Least time for the function: max(bytes / HBM rate, flops / peak)."""
+def attention_bound(b, h, kv, s, d, dtype: str, causal, window, sk: int | None = None) -> tuple[float, str]:
+    """Least time for the function: max(bytes / HBM rate, flops / peak);
+    s queries over ``sk`` keys (s where None)."""
+    sk = s if sk is None else sk
     elem = 2 if dtype == "bfloat16" else 4
-    nbytes = elem * b * s * d * (2 * h + 2 * kv)  # q, k, v read once; o written once
-    flops = 4 * d * h * b * mask_pairs(s, causal, window)  # QK^T and PV
+    nbytes = elem * b * d * (2 * h * s + 2 * kv * sk)  # q, k, v read once; o written once
+    flops = 4 * d * h * b * mask_pairs(s, causal, window, sk)  # QK^T and PV
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -545,16 +586,18 @@ def flex_library(qt, kt, vt, causal, window, cap, dot=None) -> dict:
         return {"library_ms": None, "library_refused": f"flex_attention: {type(e).__name__}: {why}"}
 
 
-def check_attention(card, fa, ref, b, s, h, kv, d, dtype, causal, window, cap, gen, timed):
-    """Kernel vs plain version on one input; with ``timed`` also times both
-    and the library call. Raises if they disagree."""
+def check_attention(card, fa, ref, b, s, h, kv, d, dtype, causal, window, cap, gen, timed, sk=None):
+    """Kernel vs plain version on one input (s queries over ``sk`` keys, s
+    where None); with ``timed`` also times both and the library call.
+    Raises if they disagree."""
     import torch
     import torch.nn.functional as F
 
     dt = getattr(torch, dtype)
+    sk = s if sk is None else sk
     q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dt)
-    k = torch.randn((b, s, kv, d), generator=gen, device="cuda").to(dt)
-    v = torch.randn((b, s, kv, d), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, sk, kv, d), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, sk, kv, d), generator=gen, device="cuda").to(dt)
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     rep = h // kv
     kr, vr = kt.repeat_interleave(rep, dim=1), vt.repeat_interleave(rep, dim=1)
@@ -571,7 +614,7 @@ def check_attention(card, fa, ref, b, s, h, kv, d, dtype, causal, window, cap, g
     tol = TOL[dtype]
     ok = bool(torch.isfinite(got).all()) and bool((err <= tol + tol * want.abs()).all())
     row = {
-        "b": b, "s": s, "h": h, "kv": kv, "d": d, "dtype": dtype, "causal": causal,
+        "b": b, "s": s, "sk": sk, "h": h, "kv": kv, "d": d, "dtype": dtype, "causal": causal,
         "window": window, "softcap": cap, "max_abs_err": float(err.max()), "tol": tol, "ok": ok,
     }
     if timed:
@@ -588,7 +631,7 @@ def check_attention(card, fa, ref, b, s, h, kv, d, dtype, causal, window, cap, g
             pos = torch.arange(s, device="cuda")
             keep = (pos[None, :] > pos[:, None] - window) & (pos[None, :] <= pos[:, None] if causal else True)
             row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=keep), 20)
-        row["bound_ms"], row["bound_by"] = attention_bound(b, h, kv, s, d, dtype, causal, window)
+        row["bound_ms"], row["bound_by"] = attention_bound(b, h, kv, s, d, dtype, causal, window, sk)
     print(f"[{card}] flash_attention {json.dumps(row)}", flush=True)
     if not ok:
         raise AssertionError(f"flash_attention disagrees with its plain version: {row}")
@@ -657,21 +700,24 @@ def phase_kernels(card, fa, ref):
     return rows, main, rg_main, deploy_main, family
 
 
-def attention_bwd_bound(b, h, kv, s, d, dtype: str, causal, window) -> tuple[float, str]:
+def attention_bwd_bound(b, h, kv, s, d, dtype: str, causal, window, sk: int | None = None) -> tuple[float, str]:
     """Least time for K1's backward: max(bytes / HBM rate, operations /
     peak). Operations: five products of 2 D a (query, key) pair and head
     (S and dP again, dV, dQ, dK), 10 D H an unmasked pair. Bytes: q, k, v,
-    o, do and lse read once, dq, dk and dv written once."""
+    o, do and lse read once, dq, dk and dv written once; s queries over
+    ``sk`` keys (s where None)."""
+    sk = s if sk is None else sk
     elem = 2 if dtype == "bfloat16" else 4
-    nbytes = elem * b * s * d * (3 * h + 2 * kv) + elem * b * s * d * (h + 2 * kv) + 4 * b * h * s
-    flops = 10 * d * h * b * mask_pairs(s, causal, window)
+    nbytes = elem * b * d * (3 * h * s + 2 * kv * sk) + elem * b * d * (h * s + 2 * kv * sk) + 4 * b * h * s
+    flops = 10 * d * h * b * mask_pairs(s, causal, window, sk)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, gen, timed, cap=None):
+def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, gen, timed, cap=None, sk=None):
     """K1's backward kernel against autograd through the plain version on
-    one input: dq, dk, dv (dk, dv summed over each kv group), each held to
+    one input (s queries over ``sk`` keys, s where None): dq, dk, dv (dk,
+    dv summed over each kv group), each held to
     its largest element (BWD_TOL). With ``timed`` also times the kernel,
     the plain backward (autograd of ``ref.mha``, its graph built once) and
     SDPA's backward on pre-repeated K/V as a yardstick where the mask is
@@ -689,7 +735,8 @@ def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, ge
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dt)
 
-    q, k, v, do = randn(b, s, h, d), randn(b, s, kv, d), randn(b, s, kv, d), randn(b, s, h, d)
+    sk = s if sk is None else sk
+    q, k, v, do = randn(b, s, h, d), randn(b, sk, kv, d), randn(b, sk, kv, d), randn(b, s, h, d)
     qt, kt, vt, dot = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), do.transpose(1, 2)
     rep = h // kv
     out, lse = fa.flash_attention(qt, kt, vt, causal=causal, window=window, softcap=cap, return_lse=True)
@@ -710,7 +757,7 @@ def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, ge
     rel = [float((g.float() - w.float()).abs().max() / w.float().abs().max()) for g, w in zip(got, want)]
     ok = all(bool(torch.isfinite(g).all()) for g in got) and max(rel) <= tol
     row = {
-        "b": b, "s": s, "h": h, "kv": kv, "d": d, "dtype": dtype, "causal": causal, "window": window,
+        "b": b, "s": s, "sk": sk, "h": h, "kv": kv, "d": d, "dtype": dtype, "causal": causal, "window": window,
         "softcap": cap, "rel_err_dq_dk_dv": rel, "max_abs_err": max(float((g.float() - w.float()).abs().max())
                                                     for g, w in zip(got, want)),
         "tol": tol, "ok": ok,
@@ -722,15 +769,15 @@ def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, ge
         if cap is not None:
             row.update(flex_library(qt, kt, vt, causal, window, cap, dot))
         if row["library_ms"] is None and (window is None or (causal and window >= s)):
-            sq, sk, sv = (t.detach().requires_grad_(True)
+            lq, lk, lv = (t.detach().requires_grad_(True)
                           for t in (qt, kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)))
             try:
-                s_out = F.scaled_dot_product_attention(sq, sk, sv, is_causal=causal)
-                sdpa_ms = time_ms(lambda: torch.autograd.grad(s_out, (sq, sk, sv), dot, retain_graph=True), 20)
+                s_out = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal)
+                sdpa_ms = time_ms(lambda: torch.autograd.grad(s_out, (lq, lk, lv), dot, retain_graph=True), 20)
                 row["library_sdpa_without_cap_ms" if cap is not None else "library_ms"] = sdpa_ms
             except RuntimeError as e:  # no SDPA backend takes the call
                 row["library_refused"] = str(e).splitlines()[0][:300]
-        row["bound_ms"], row["bound_by"] = attention_bwd_bound(b, h, kv, s, d, dtype, causal, window)
+        row["bound_ms"], row["bound_by"] = attention_bwd_bound(b, h, kv, s, d, dtype, causal, window, sk)
     print(f"[{card}] flash_attention_bwd {json.dumps(row)}", flush=True)
     if not ok:
         raise AssertionError(f"flash_attention_bwd disagrees with its plain version: {row}")
@@ -738,23 +785,25 @@ def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, ge
 
 
 def check_attention_bwd_determinism(card, fa, b, s, h, kv, d, gen, calls: int = 3, window: int | None = None,
-                                    cap: float | None = None):
-    """K1's backward called ``calls`` times on one bf16 causal input: dq,
-    dk and dv the same to the bit every time (its GQA split adds partial
-    sums in a fixed order, with no atomics). Raises if not."""
+                                    cap: float | None = None, causal: bool = True, sk: int | None = None):
+    """K1's backward called ``calls`` times on one bf16 input (causal unless
+    said, s queries over ``sk`` keys): dq, dk and dv the same to the bit
+    every time (its GQA split adds partial sums in a fixed order, with no
+    atomics). Raises if not."""
     import torch
 
+    sk = s if sk is None else sk
     q, do = (torch.randn((b, s, h, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "qo")
-    k, v = (torch.randn((b, s, kv, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "kv")
-    out, lse = fa.flash_attention(q, k, v, causal=True, window=window, softcap=cap, return_lse=True)
+    k, v = (torch.randn((b, sk, kv, d), generator=gen, device="cuda").bfloat16().transpose(1, 2) for _ in "kv")
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window, softcap=cap, return_lse=True)
 
     def call():
-        return fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True, window=window, softcap=cap)
+        return fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window, softcap=cap)
 
     first = call()
     same = all(all(torch.equal(x, y) for x, y in zip(first, call())) for _ in range(calls - 1))
-    row = {"b": b, "s": s, "h": h, "kv": kv, "d": d, "dtype": "bfloat16", "causal": True, "window": window,
-           "softcap": cap, "calls": calls, "bit_identical": same, "ok": same}
+    row = {"b": b, "s": s, "sk": sk, "h": h, "kv": kv, "d": d, "dtype": "bfloat16", "causal": causal,
+           "window": window, "softcap": cap, "calls": calls, "bit_identical": same, "ok": same}
     print(f"[{card}] flash_attention_bwd determinism {json.dumps(row)}", flush=True)
     if not same:
         raise AssertionError(f"flash_attention_bwd gave other bits on the same input: {row}")
@@ -850,6 +899,47 @@ def phase_kernels_bwd(card, fa, ref):
     return rows, lse_rows, fwd_main, bwd_main, rg_fwd_main, rg_bwd_main, family
 
 
+def phase_whisper_kernels(card, fa, ref):
+    """K1 and K1's backward at whisper-tiny's calls (6/6 heads of 64),
+    each held to its plain version at TOL / BWD_TOL and the timed ones
+    beside their bounds and SDPA (which takes Sq != Sk and no mask, forward
+    and backward). Serving: the encoder's bidirectional call at batch 1 and
+    at WHISPER_BATCH, and for each prompt its decoder's causal call and its
+    cross call over the 1500 frames, batch 1 and the batched requests'.
+    Training: the encoder's (TRAIN_BATCH, 1500) call, the decoder's causal
+    (TRAIN_BATCH, 448) and its cross (448 over 1500), forward and
+    backward, f32 untimed and bf16 timed. Then Sq > Sk (2000 queries over
+    1500 keys) forward and backward, and the backward's bits on three calls
+    at the three training calls. Returns (untimed rows, {"serve": forward
+    rows, "train_fwd": forward rows, "train_bwd": backward rows})."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    h, kv, d = WHISPER_HEADS
+    enc, ctx, tb = WHISPER_ENC, WHISPER_CTX, TRAIN_BATCH
+    rows = []
+    serve = [check_attention(card, fa, ref, b, enc, h, kv, d, "bfloat16", False, None, None, gen, True)
+             for b in (1, WHISPER_BATCH)]
+    for b, sq in [(1, n) for n in WHISPER_PROMPTS] + [(WHISPER_BATCH, WHISPER_BATCH_PROMPT)]:
+        serve.append(check_attention(card, fa, ref, b, sq, h, kv, d, "bfloat16", True, None, None, gen, True))
+        serve.append(check_attention(card, fa, ref, b, sq, h, kv, d, "bfloat16", False, None, None, gen, True,
+                                     sk=enc))
+    calls = ((enc, False, None), (ctx, True, None), (ctx, False, enc))  # (Sq, causal, Sk): encoder, self, cross
+    for sq, causal, sk in calls:
+        rows.append(check_attention(card, fa, ref, tb, sq, h, kv, d, "float32", causal, None, None, gen, False, sk=sk))
+        rows.append(check_attention_bwd(card, fa, ref, tb, sq, h, kv, d, "float32", causal, None, gen, False, sk=sk))
+    train_fwd = [check_attention(card, fa, ref, tb, sq, h, kv, d, "bfloat16", causal, None, None, gen, True, sk=sk)
+                 for sq, causal, sk in calls]
+    train_bwd = [check_attention_bwd(card, fa, ref, tb, sq, h, kv, d, "bfloat16", causal, None, gen, True, sk=sk)
+                 for sq, causal, sk in calls]
+    for dtype in ("float32", "bfloat16"):  # more queries than keys
+        rows.append(check_attention(card, fa, ref, 2, 2000, h, kv, d, dtype, False, None, None, gen, False, sk=enc))
+        rows.append(check_attention_bwd(card, fa, ref, 2, 2000, h, kv, d, dtype, False, None, gen, False, sk=enc))
+    for sq, causal, sk in calls:
+        rows.append(check_attention_bwd_determinism(card, fa, tb, sq, h, kv, d, gen, causal=causal, sk=sk))
+    return rows, {"serve": serve, "train_fwd": train_fwd, "train_bwd": train_bwd}
+
+
 def load_example(name: str):
     """A module of examples/ (no package) by its path."""
     import importlib.util
@@ -861,9 +951,9 @@ def load_example(name: str):
 
 
 def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LAYERS, opt_name: str = "adamw",
-                whole: tuple[str, str] | None = None):
+                whole: tuple[str, str] | None = None, seq: int = TRAIN_SEQ):
     """Train full-width ``arch`` (``layers`` of its layers, bf16) from a
-    stream: a seeded Markov corpus of TRAIN_SEQS x TRAIN_SEQ tokens
+    stream: a seeded Markov corpus of TRAIN_SEQS x ``seq`` tokens
     ingested as RAW records into a 4-partition topic (validation_rate
     TRAIN_VAL_RATE) and announced for a registered model, configuration
     and deployment; ``TrainingJob(streaming=True)`` with ``opt_name``
@@ -871,15 +961,18 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     steps of TRAIN_BATCH and runs its streaming eval. Checks finite,
     falling losses, the first near ln(vocab) (TRAIN_LOSS0_BAND), K1's
     launches forward and backward (one an attention or local-attention
-    layer a step, the forward once more an eval batch), K2's (the same,
+    layer a step, two an ``encdec`` layer, one an encoder layer; the
+    forward once more an eval batch), K2's (the same,
     an SSD layer), K3's (the same, an RG-LRU layer), the 8-bit update's (one a leaf a step with adamw8bit, none with AdamW) and
     the norm's (one a leaf and one to finish, a step, with adamw8bit; none
     with AdamW, whose clip is eager), and the registry's result. A patch
     frontend's batches each take TRAIN_BATCH x frontend_len seeded patch
-    embeddings (standard normal, bf16) from ``loss_fn``; an MoE's dropped
+    embeddings (standard normal, bf16) from ``loss_fn``, an encoder's
+    TRAIN_BATCH x enc_seq seeded frames; an MoE's dropped
     routes are counted (``moe.DROPS``). Returns the phase's numbers and the
     trained first layer's weights, part by part (``{"mixer": {...}, ...}``;
-    with ``whole``, (part, leaf), that stacked leaf whole under "whole")."""
+    an encoder's first layer's under "encoder"; with ``whole``, (part,
+    leaf), that stacked leaf whole under "whole")."""
     import dataclasses
 
     import numpy as np
@@ -902,9 +995,9 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     log, reg = StreamLog(), Registry()
     spec = reg.register_model(f"{arch}-train")
     dep = reg.deploy(reg.create_configuration([spec.model_id]).config_id, "train")
-    corpus = load_example("torch_train_lm").synth_corpus(TRAIN_SEQS, cfg.vocab, seq=TRAIN_SEQ, seed=SEED)
+    corpus = load_example("torch_train_lm").synth_corpus(TRAIN_SEQS, cfg.vocab, seq=seq, seed=SEED)
     log.create_topic("corpus", LogConfig(num_partitions=4))
-    msg = ingest(log, "corpus", RawCodec("int32", (TRAIN_SEQ,), "int32", ()),
+    msg = ingest(log, "corpus", RawCodec("int32", (seq,), "int32", ()),
                  {"data": corpus, "label": np.zeros(TRAIN_SEQS, np.int32)}, dep.deployment_id,
                  validation_rate=TRAIN_VAL_RATE)
     losses, stamps, eval_calls = [], [], [0]
@@ -915,6 +1008,9 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
         if cfg.frontend == "patches":  # JAX's make_batch: standard normal patch embeddings
             shape = (batch["data"].shape[0], cfg.frontend_len, cfg.d_model)
             inputs["patch_embeds"] = torch.randn(shape, generator=patch_gen, device="cuda").to(torch.bfloat16)
+        if cfg.enc_dec:  # the same law for an encoder's frame embeddings
+            shape = (batch["data"].shape[0], cfg.enc_seq, cfg.d_model)
+            inputs["frames"] = torch.randn(shape, generator=patch_gen, device="cuda").to(torch.bfloat16)
         loss, metrics = model.loss(p, inputs)
         if torch.is_grad_enabled():
             losses.append(metrics["loss"].detach())
@@ -947,14 +1043,16 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]  # steps 1 .. n-1; step 0 builds
     steady = sorted(step_ms[1:]) if len(step_ms) > 1 else step_ms
     med_ms = steady[len(steady) // 2]
-    tokens = TRAIN_BATCH * TRAIN_SEQ  # the trained tokens (a patch frontend's positions aside)
+    tokens = TRAIN_BATCH * seq  # the trained tokens (a patch frontend's positions aside)
     n_eval = int(round(TRAIN_SEQS * TRAIN_VAL_RATE)) // min(TRAIN_BATCH, int(round(TRAIN_SEQS * TRAIN_VAL_RATE)))
     n_leaves = len(tree_leaves(model.param_tree()))
     kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.n_layers)]
     n_attn, n_ssm, n_rec = sum(k in ("attn", "local") for k in kinds), kinds.count("ssm"), kinds.count("rec")
-    assert n_attn + n_ssm + n_rec == cfg.n_layers, f"no training path for {cfg.pattern}"
+    n_encdec, n_enc = kinds.count("encdec"), cfg.enc_layers if cfg.enc_dec else 0
+    assert n_attn + n_encdec + n_ssm + n_rec == cfg.n_layers, f"no training path for {cfg.pattern}"
+    k1 = n_attn + 2 * n_encdec + n_enc  # K1's calls a forward: an encdec layer's self and cross attention
     want = {
-        "flash_attention": n_attn * (TRAIN_STEPS + n_eval), "flash_attention_bwd": n_attn * TRAIN_STEPS,
+        "flash_attention": k1 * (TRAIN_STEPS + n_eval), "flash_attention_bwd": k1 * TRAIN_STEPS,
         "ssd_scan": n_ssm * (TRAIN_STEPS + n_eval), "ssd_scan_bwd": n_ssm * TRAIN_STEPS,
         "rglru_scan": n_rec * (TRAIN_STEPS + n_eval), "rglru_scan_bwd": n_rec * TRAIN_STEPS,
         "adamw8bit": n_leaves * TRAIN_STEPS if opt_name == "adamw8bit" else 0,
@@ -963,9 +1061,10 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     }
     band = TRAIN_LOSS0_BAND[arch]
     out = {
-        "arch": arch, "layers": cfg.n_layers, "kinds": {"attention": n_attn, "ssm": n_ssm, "rec": n_rec},
+        "arch": arch, "layers": cfg.n_layers,
+        "kinds": {"attention": n_attn, "ssm": n_ssm, "rec": n_rec, "encdec": n_encdec, "encoder": n_enc},
         "optimizer": opt_name, "leaves": n_leaves, "params": n_params,
-        "steps": res.steps, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "steps": res.steps, "batch": TRAIN_BATCH, "seq": seq,
         "losses": losses, "eval_loss": res.eval_metrics.get("loss"), "eval_batches": eval_calls[0],
         "step_ms": step_ms, "median_step_ms": med_ms, "tokens_per_s": tokens / (med_ms / 1e3),
         "run_s": t_end - t_start, "setup_s": setup_s, "peak_bytes": peak, "peak_reserved_bytes": peak_reserved,
@@ -974,12 +1073,12 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
         "frontend_len": cfg.frontend_len if cfg.frontend == "patches" else 0, "dropped_routes": drops,
     }
     if cfg.moe is not None:  # of TRAIN_STEPS + eval forwards' routes, top_k a token a layer
-        routes = cfg.n_layers * cfg.moe.top_k * TRAIN_BATCH * TRAIN_SEQ * (TRAIN_STEPS + n_eval)
+        routes = cfg.n_layers * cfg.moe.top_k * TRAIN_BATCH * seq * (TRAIN_STEPS + n_eval)
         out["routes"] = routes
         print(f"[{card}] {arch} moe.DROPS: {drops} of {routes} routes dropped at capacity factor "
               f"{cfg.moe.capacity_factor}", flush=True)
     print(f"[{card}] {arch} training: {cfg.n_layers} of {configs.get(arch).n_layers} layers, {n_params} params "
-          f"bf16, {opt_name}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, {res.steps} steps in {t_end - t_start:.3f} s",
+          f"bf16, {opt_name}, batch {TRAIN_BATCH} x {seq}, {res.steps} steps in {t_end - t_start:.3f} s",
           flush=True)
     print(f"[{card}] losses {['%.4f' % x for x in losses]}, eval {out['eval_loss']}", flush=True)
     print(f"[{card}] step ms {['%.1f' % x for x in step_ms]}, median {med_ms:.3f} ms, "
@@ -995,6 +1094,9 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     assert len(results) == 1 and results[0].metrics["loss"] == res.metrics["loss"], results
     trained = {part: {k: v[0].detach().clone() for k, v in sub.items()}
                for part, sub in model.tree["slots"]["s0"].items()}
+    if cfg.enc_dec:
+        trained["encoder"] = {part: {k: v[0].detach().clone() for k, v in sub.items()}
+                              for part, sub in model.tree["encoder"]["slots"]["s0"].items()}
     if whole is not None:
         trained["whole"] = model.tree["slots"]["s0"][whole[0]][whole[1]].detach()
     del job, res, model
@@ -1242,6 +1344,163 @@ def phase_serve_pixtral(card, kernels: dict) -> dict:
     assert worst <= GREEDY_SLACK, f"served tokens trail the forward's greedy choice by {worst}"
     del model
     return out
+
+
+def phase_serve_whisper(card, kernels: dict) -> dict:
+    """whisper-tiny at its published widths and full depth, bf16 weights
+    from SEED, each request behind its own WHISPER_ENC x d seeded frame
+    embeddings (standard normal, as JAX's make_batch draws them): for each
+    of WHISPER_PROMPTS's prompts (seeded tokens, batch 1) ``prefill`` of
+    the frames and the prompt, then WHISPER_DECODE greedy ``decode_step``s
+    (the learned position from the cache); then WHISPER_BATCH requests of
+    WHISPER_BATCH_PROMPT tokens prefilled together and decoded in lockstep.
+    Checks K1 launched 12 times a prefill (the encoder's 4 bidirectional
+    calls, the decoder's 4 causal and 4 cross calls) and never in decode,
+    every token finite and in the vocab and within GREEDY_SLACK of the
+    greedy choice of the teacher-forced ``forward`` over the frames, the
+    prompt and the tokens before it. Returns the numbers."""
+    import numpy as np
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models.model import StreamModel
+    from repro_torch.models.policy import Policy
+
+    t0 = time.perf_counter()
+    cfg = configs.get(WHISPER)
+    model = StreamModel(cfg, Policy(), device="cuda", generator=SEED)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+
+    def frames(b):
+        return torch.randn((b, cfg.enc_seq, cfg.d_model), generator=gen, device="cuda")
+
+    reqs = [(torch.from_numpy(rng.integers(0, cfg.vocab, (1, n)).astype(np.int64)).cuda(), frames(1))
+            for n in WHISPER_PROMPTS]
+    reqs.append((torch.from_numpy(rng.integers(0, cfg.vocab, (WHISPER_BATCH, WHISPER_BATCH_PROMPT))
+                                  .astype(np.int64)).cuda(), frames(WHISPER_BATCH)))
+    model.prefill(reqs[1][0], WHISPER_CTX, frames=reqs[1][1])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    prefill_ms, decode_s, served, per_prefill = [], [], [], []
+    for prompt, fr in reqs:
+        before = kernels["flash_attention"].LAUNCHES
+        t_a = time.perf_counter()
+        logits, cache = model.prefill(prompt, prompt.shape[1] + WHISPER_DECODE, frames=fr)
+        tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        t_b = time.perf_counter()
+        per_prefill.append(kernels["flash_attention"].LAUNCHES - before)
+        toks = [tok]
+        for _ in range(WHISPER_DECODE):
+            step_logits, cache = model.decode_step(cache, tok)
+            tok = step_logits[:, 0].argmax(-1)[:, None]
+            toks.append(tok)
+        gen_toks = torch.cat(toks, dim=1)
+        torch.cuda.synchronize()
+        decode_s.append(time.perf_counter() - t_b)
+        prefill_ms.append((t_b - t_a) * 1e3)
+        served.append(gen_toks)
+        del cache
+    counts = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    worst = 0.0
+    for (prompt, fr), gen_toks in zip(reqs, served):
+        assert ((gen_toks >= 0) & (gen_toks < cfg.vocab_padded)).all(), gen_toks
+        seq = torch.cat([prompt, gen_toks[:, :-1]], dim=1)
+        logits = model(seq, frames=fr)[:, prompt.shape[1] - 1:]
+        assert bool(torch.isfinite(logits).all())
+        gap = logits.max(-1).values - logits.gather(-1, gen_toks[..., None])[..., 0]
+        worst = max(worst, float(gap.max()))
+        del logits
+    calls = cfg.enc_layers + 2 * cfg.n_layers  # K1 a prefill: the encoder's, the decoder's self and cross
+    want = {name: 0 for name in counts}
+    want["flash_attention"] = calls * len(reqs)
+    decode_tokens = [prompt.shape[0] * WHISPER_DECODE for prompt, _ in reqs]
+    out = {
+        "arch": WHISPER, "layers": [cfg.enc_layers, cfg.n_layers], "params": n_params, "frames": cfg.enc_seq,
+        "prompt_lens": list(WHISPER_PROMPTS) + [WHISPER_BATCH_PROMPT], "batch": [1] * len(WHISPER_PROMPTS)
+        + [WHISPER_BATCH], "decode_steps": WHISPER_DECODE, "prefill_ms": prefill_ms, "decode_s": decode_s,
+        "decode_tokens": decode_tokens, "decode_tokens_per_s": [n / t for n, t in zip(decode_tokens, decode_s)],
+        "peak_bytes": peak, "setup_s": setup_s, "launches": counts["flash_attention"], "launches_per_prefill":
+        per_prefill, "all_launches": counts, "greedy_worst_gap": worst, "slack": GREEDY_SLACK,
+    }
+    print(f"[{card}] {WHISPER} full width: {cfg.enc_layers} + {cfg.n_layers} layers, {n_params} params bf16, "
+          f"{cfg.enc_seq} frames, set-up {setup_s:.3f} s; prefill ms (the encoder included) "
+          f"{['%.3f' % x for x in prefill_ms]} at batch x prompt {list(zip(out['batch'], out['prompt_lens']))}; "
+          f"decode tokens/s {['%.1f' % x for x in out['decode_tokens_per_s']]}; peak {peak} bytes; K1 a prefill "
+          f"{per_prefill}; launches {json.dumps(counts)}; greedy gap worst {worst:.4f}", flush=True)
+    assert counts == want and per_prefill == [calls] * len(reqs), f"launches {counts} {per_prefill}, want {want}"
+    assert worst <= GREEDY_SLACK, f"served tokens trail the forward's greedy choice by {worst}"
+    del model
+    return out
+
+
+def phase_whisper_grads(card, ref, trained: dict) -> dict:
+    """The trained whisper-tiny's first encoder layer and first decoder
+    layer: the gradients of a fixed random projection of each attention's
+    output with respect to random inputs and the weights, through K1
+    forward + backward, against the same computation through the plain
+    version on the card: the encoder's bidirectional self attention at
+    (TRAIN_BATCH, 1500), the decoder's causal self attention at
+    (TRAIN_BATCH, 448) and its cross attention of 448 queries over 1500
+    encoder states. Each leaf's error relative to its largest element,
+    within K1's bf16 tolerance."""
+    import math
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels.ops import attention_op
+    from repro_torch.models import layers as L
+
+    cfg = configs.get(WHISPER)
+    h, kv, _ = WHISPER_HEADS
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    def one(tag, mixer, kind, sq, sk):
+        ap = cfg.attn_params(kind)
+        leaves = {"x": randn(TRAIN_BATCH, sq, cfg.d_model), **{k: mixer[k] for k in ("wq", "wk", "wv", "wo")}}
+        if ap.cross:
+            leaves["src"] = randn(TRAIN_BATCH, sk, cfg.d_model)
+        proj = randn(TRAIN_BATCH, sq, cfg.d_model)
+        causal = ap.causal and not ap.cross
+
+        def grads(kernel: bool):
+            t = {k: v.detach().requires_grad_(True) for k, v in leaves.items()}
+            src = t["src"] if ap.cross else t["x"]
+            q, k, v = L._proj(t["x"], t["wq"]), L._proj(src, t["wk"]), L._proj(src, t["wv"])
+            if kernel:
+                out = attention_op(q, k, v, causal=causal)
+            else:
+                qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+                out = ref.mha(qt, kt.repeat_interleave(h // kv, 1), vt.repeat_interleave(h // kv, 1),
+                              causal=causal).transpose(1, 2)
+            y = L._out_proj(out, t["wo"])
+            g = torch.autograd.grad((y.float() * proj.float()).sum(), list(t.values()))
+            return dict(zip(t, g))
+
+        got, want = grads(True), grads(False)
+        torch.cuda.synchronize()
+        rel = {k: float((got[k].float() - want[k].float()).abs().max() / want[k].float().abs().max()) for k in got}
+        row = {"layer": tag, "kind": kind, "shape": [TRAIN_BATCH, sq, sk, h, kv], "causal": causal, "rel_err": rel,
+               "tol": BWD_TOL["bfloat16"]}
+        print(f"[{card}] {WHISPER} {tag} gradients, kernel vs plain {json.dumps(row)}", flush=True)
+        assert all(math.isfinite(e) and e <= BWD_TOL["bfloat16"] for e in rel.values()), row
+        return row
+
+    return {"rows": [
+        one("encoder layer 0 self", trained["encoder"]["mixer"], "bidir", WHISPER_ENC, WHISPER_ENC),
+        one("decoder layer 0 self", trained["mixer"], "attn", WHISPER_CTX, WHISPER_CTX),
+        one("decoder layer 0 cross", trained["cross"], "cross", WHISPER_CTX, WHISPER_ENC),
+    ]}
 
 
 def opt8_bytes(p) -> int:
@@ -3094,6 +3353,7 @@ def main() -> int:
     rows, main_rows, rg_attn_main, deploy_attn_main, family_attn = phase_kernels(card, flash_attention, ref)
     bwd_rows, lse_rows, train_fwd_main, bwd_main, rg_train_fwd_main, rg_bwd_main, family_bwd = phase_kernels_bwd(
         card, flash_attention, ref)
+    wh_rows, wh_paths = phase_whisper_kernels(card, flash_attention, ref)
     ssd_rows, ssd_main = phase_ssd_kernel(card, ref)
     ssd_bwd_rows, ssd_bwd_main, ssd_train_fwd = phase_ssd_kernel_bwd(card, ssd_scan, ref)
     rglru_rows, rglru_main = phase_rglru_kernel(card, ref)
@@ -3168,6 +3428,14 @@ def main() -> int:
     training_px, _ = phase_train(card, kernels, arch=PIXTRAL, layers=PIXTRAL_TRAIN_LAYERS, opt_name="adamw8bit")
     gc.collect()
     torch.cuda.empty_cache()
+    # whisper-tiny at full depth, 448-token transcripts behind 1500 frames,
+    # then its trained first encoder and decoder layers' gradients
+    training_wh, trained_wh = phase_train(card, kernels, arch=WHISPER, layers=WHISPER_LAYERS, opt_name="adamw8bit",
+                                          seq=WHISPER_CTX)
+    wh_grads = phase_whisper_grads(card, ref, trained_wh)
+    del trained_wh
+    gc.collect()
+    torch.cuda.empty_cache()
     serving, yi_cfg, yi_model = phase_serve(card, kernels)
     serving_group = phase_serve_group(card, kernels, yi_cfg, yi_model)
     deployment = phase_deploy_lm(card, kernels, yi_cfg, yi_model)
@@ -3210,6 +3478,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     serving_px = phase_serve_pixtral(card, kernels)
+    # whisper-tiny at full depth: its prompts behind their frames, then a batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    serving_wh = phase_serve_whisper(card, kernels)
 
     # K1 runs on these kinds of call: yi-6b's serving calls (one per served
     # prompt length), yi-6b's training call (its forward, with lse), the
@@ -3223,7 +3495,7 @@ def main() -> int:
     moe_serve, px_serve = family_attn[MOE], family_attn[PIXTRAL]
     attn_main = main_rows + [train_fwd_main, deploy_attn_main, rg_attn_main, rg_train_fwd_main] + g2_wave + [
         family_bwd["gemma2_fwd"]] + q2_serve + m_serve + [family_bwd["qwen2_fwd"]] + moe_serve + px_serve + [
-        family_bwd["pixtral_fwd"]]
+        family_bwd["pixtral_fwd"]] + wh_paths["serve"] + wh_paths["train_fwd"]
     train_fwd_launches = training["launches"]["flash_attention"]
     full_fwd_launches = training_full["launches"]["flash_attention"]
     rg_train_fwd_launches = training_rg["launches"]["flash_attention"]
@@ -3238,6 +3510,8 @@ def main() -> int:
         "qwen3-moe-30b-a3b-train": training_moe["launches"]["flash_attention"],
         "pixtral-12b-serve": serving_px["launches"],
         "pixtral-12b-train": training_px["launches"]["flash_attention"],
+        "whisper-tiny-serve": serving_wh["launches"],
+        "whisper-tiny-train": training_wh["launches"]["flash_attention"],
     }
     entry = {
         "name": "flash_attention",
@@ -3248,7 +3522,7 @@ def main() -> int:
         + deployment["launches"] + serving_rg["launches"]["flash_attention"] + rg_train_fwd_launches
         + sum(family_launches.values()),
         "max_abs_err": max(r["max_abs_err"] for r in attn_main),
-        "matched": all(r["ok"] for r in rows + attn_main),
+        "matched": all(r["ok"] for r in rows + wh_rows + attn_main),
         "shapes": "one call at each of yi-6b's prompt lengths (1,S,32,128) S=%s bf16 causal, yi-6b's "
         "training call (%d,%d,32,128) kv 4 bf16 causal (16 and 32 layers), the yi-6b deployment's prefill (%d,%d,32,128) kv 4 "
         "bf16 causal, recurrentgemma's wave (%d,%d,16,256) kv 1 bf16 causal window 2048, recurrentgemma's "
@@ -3257,11 +3531,15 @@ def main() -> int:
         "causal softcap 50, qwen2's prefills (1,S,28,128) kv 4, mistral's (1,S,96,128) kv 8 and qwen3-moe's "
         "(1,S,32,128) kv 4 bf16 causal, qwen2's training call (%d,%d,28,128) kv 4 bf16 causal, qwen3-moe's "
         "training call (yi-6b's shape, %d layers), pixtral's prefills (1,1024+S,32,128) kv 8 bf16 causal and its "
-        "training call (%d,%d,32,128) kv 8 bf16 causal (%d layers), summed"
+        "training call (%d,%d,32,128) kv 8 bf16 causal (%d layers), whisper-tiny's serving calls (batch 1 at "
+        "Sq %s, batch %d at %d: the encoder's (B,1500,6,64) bidirectional, the decoder's (B,Sq,6,64) causal and "
+        "its cross (B,Sq over 1500,6,64), bf16) and its training calls (%d,1500), (%d,%d) causal and (%d,%d over "
+        "1500), summed"
         % ("/".join(map(str, PROMPT_LENS)), TRAIN_BATCH, TRAIN_SEQ, DEPLOY_PER_PARTITION, DEPLOY_PROMPT,
            WAVE_REQUESTS, RG_PROMPT_LEN, TRAIN_BATCH, TRAIN_SEQ, RG_TRAIN_LAYERS, WAVE_REQUESTS, GEMMA2_PROMPT_LEN,
            TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ, MOE_TRAIN_LAYERS, PIXTRAL_TRAIN_ATTN[0],
-           PIXTRAL_TRAIN_ATTN[1], PIXTRAL_TRAIN_LAYERS),
+           PIXTRAL_TRAIN_ATTN[1], PIXTRAL_TRAIN_LAYERS, "/".join(map(str, WHISPER_PROMPTS)), WHISPER_BATCH,
+           WHISPER_BATCH_PROMPT, TRAIN_BATCH, TRAIN_BATCH, WHISPER_CTX, TRAIN_BATCH, WHISPER_CTX),
         "by_path": {
             "yi-6b": path_summary(serving["launches"], main_rows),
             "yi-6b-group": path_summary(serving_group["launches"], main_rows),
@@ -3281,6 +3559,8 @@ def main() -> int:
             "qwen3-moe-30b-a3b-train": path_summary(family_launches["qwen3-moe-30b-a3b-train"], [train_fwd_main]),
             "pixtral-12b-serve": path_summary(family_launches["pixtral-12b-serve"], px_serve),
             "pixtral-12b-train": path_summary(family_launches["pixtral-12b-train"], [family_bwd["pixtral_fwd"]]),
+            "whisper-tiny-serve": path_summary(family_launches["whisper-tiny-serve"], wh_paths["serve"]),
+            "whisper-tiny-train": path_summary(family_launches["whisper-tiny-train"], wh_paths["train_fwd"]),
         },
     }
     for key in ("ms", "plain_ms", "bound_ms"):
@@ -3378,22 +3658,25 @@ def main() -> int:
         "launches": training["launches"]["flash_attention_bwd"] + training_full["launches"]["flash_attention_bwd"]
         + training_rg["launches"]["flash_attention_bwd"] + training_g2["launches"]["flash_attention_bwd"]
         + training_q2["launches"]["flash_attention_bwd"] + training_moe["launches"]["flash_attention_bwd"]
-        + training_px["launches"]["flash_attention_bwd"],
+        + training_px["launches"]["flash_attention_bwd"] + training_wh["launches"]["flash_attention_bwd"],
         # gemma2's launches are all the softcap's (every one of its layers caps its scores)
         "softcap_launches": training_g2["launches"]["flash_attention_bwd"],
-        "max_abs_err": max(r["max_abs_err"] for r in (bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"],
-                                                      family_bwd["qwen2_bwd"], family_bwd["pixtral_bwd"])),
+        "max_abs_err": max(r["max_abs_err"] for r in [bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"],
+                                                      family_bwd["qwen2_bwd"], family_bwd["pixtral_bwd"]]
+                           + wh_paths["train_bwd"]),
         "matched": all(r["ok"] for r in bwd_rows + [bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"],
                                                     family_bwd["gemma2_context_bwd"], family_bwd["qwen2_bwd"],
-                                                    family_bwd["pixtral_bwd"]])
-        and all(g is not None for g in (train_grads, g2_grads, q2_grads, moe_grads)),
+                                                    family_bwd["pixtral_bwd"]] + wh_paths["train_bwd"])
+        and all(g is not None for g in (train_grads, g2_grads, q2_grads, moe_grads, wh_grads)),
         "shapes": "yi-6b's training call (%d,%d,32,128) kv 4 bf16 causal, one a layer a step (16 and 32 layers), "
         "recurrentgemma's (%d,%d,16,256) kv 1 bf16 causal window 2048, one a local layer a step, gemma2's "
         "(%d,%d,8,256) kv 4 bf16 causal softcap 50, one a layer a step, qwen2's (%d,%d,28,128) kv 4 bf16 "
         "causal, one a layer a step, qwen3-moe's (yi-6b's shape, %d layers) and pixtral's (%d,%d,32,128) kv 8 "
-        "bf16 causal (%d layers), one a layer a step, summed" % (
+        "bf16 causal (%d layers), one a layer a step, whisper-tiny's (%d,1500,6,64) bidirectional, (%d,%d,6,64) "
+        "causal and (%d,%d over 1500,6,64) cross, no mask, bf16, three a layer pair a step, summed" % (
             TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ,
-            MOE_TRAIN_LAYERS, PIXTRAL_TRAIN_ATTN[0], PIXTRAL_TRAIN_ATTN[1], PIXTRAL_TRAIN_LAYERS),
+            MOE_TRAIN_LAYERS, PIXTRAL_TRAIN_ATTN[0], PIXTRAL_TRAIN_ATTN[1], PIXTRAL_TRAIN_LAYERS, TRAIN_BATCH,
+            TRAIN_BATCH, WHISPER_CTX, TRAIN_BATCH, WHISPER_CTX),
         "by_path": {
             "yi-6b-train": path_summary(training["launches"]["flash_attention_bwd"], [bwd_main]),
             "yi-6b-train-full": path_summary(training_full["launches"]["flash_attention_bwd"], [bwd_main]),
@@ -3403,9 +3686,11 @@ def main() -> int:
             "qwen3-moe-30b-a3b-train": path_summary(training_moe["launches"]["flash_attention_bwd"], [bwd_main]),
             "pixtral-12b-train": path_summary(training_px["launches"]["flash_attention_bwd"],
                                               [family_bwd["pixtral_bwd"]]),
+            "whisper-tiny-train": path_summary(training_wh["launches"]["flash_attention_bwd"], wh_paths["train_bwd"]),
         },
     }
-    bwd_paths = [bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"], family_bwd["qwen2_bwd"], family_bwd["pixtral_bwd"]]
+    bwd_paths = [bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"], family_bwd["qwen2_bwd"],
+                 family_bwd["pixtral_bwd"]] + wh_paths["train_bwd"]
     for key in ("ms", "plain_ms", "bound_ms"):
         bwd_entry[key] = sum(r[key] for r in bwd_paths)
     bwd_entry["bound_by"] = max(bwd_paths, key=lambda r: r["bound_ms"])["bound_by"]
@@ -3483,6 +3768,8 @@ def main() -> int:
         "serving_waves": {f"{arch} {dt}": out for (arch, dt), out in paths.items()},
         "training_moe": training_moe, "training_moe_grads": moe_grads, "opt8_past_2_31": opt8_tail,
         "training_pixtral": training_px, "serving_pixtral": serving_px,
+        "whisper_kernel_checks": wh_rows, "whisper_kernel_paths": wh_paths, "training_whisper": training_wh,
+        "training_whisper_grads": wh_grads, "serving_whisper": serving_wh,
         "kernels": kernels_line["kernels"],
     }, indent=1))
 

@@ -23,6 +23,14 @@
 // add exactly 0 even while a row's running max is still the -1e30 mask
 // value) and rows past S are not stored.
 //
+// Queries and keys of different lengths (whisper-tiny's cross attention:
+// the decoder's Sq tokens over the encoder's Sk = 1500 frames) are taken
+// without a mask, the function JAX's _chunked_attention computes for a
+// cross AttnParams (src/repro/models/layers.py:330): query tiles, stores
+// and lse run over Sq; key tiles, the ragged key edge and the K/V tensor
+// maps over Sk. The TPU kernel asserts one S; this is the same design
+// with the two extents kept apart, nothing more.
+//
 // Bound. At the serving shapes (S 512 to 3000, D 128 or 256) the work is
 // 4*D flops per unmasked (query, key) pair and head against 2*D*(2H +
 // 2Kv) bytes a position: yi-6b at S 2000 does 32.8 GFLOP on 21 MB
@@ -119,8 +127,11 @@ struct Strides {
   int64_t b, s, h;  // element strides; head_dim stride is 1
 };
 
+// Sq queries and Sk keys. They differ only without a causal mask or a
+// window (cross attention: the decoder's queries over the encoder's keys),
+// which the wrapper checks; query i and key j sit at positions i and j.
 struct Mask {
-  int S, causal, window;
+  int Sq, Sk, causal, window;
   float scale, softcap;
 
   // the score of (query qi, key kj) after scale, softcap and masks
@@ -131,14 +142,14 @@ struct Mask {
     if (causal) ok = kj <= qi;
     if (window > 0) ok = ok && kj > qi - window;
     x = ok ? x : MASKED;
-    return kj < S ? x : -INFINITY;  // past the ragged edge: no key at all
+    return kj < Sk ? x : -INFINITY;  // past the ragged edge: no key at all
   }
 
   // the TK-key tiles some query in [q0, q0 + TQ) may attend to
   template <int TQ = BQ, int TK = BK>
   __device__ __forceinline__ int2 key_tiles(int q0) const {
-    const int q_last = min(q0 + TQ, S) - 1;
-    const int hi = causal ? q_last / TK : (S - 1) / TK;
+    const int q_last = min(q0 + TQ, Sq) - 1;
+    const int hi = causal ? min(q_last, Sk - 1) / TK : (Sk - 1) / TK;
     const int lo = window > 0 ? max(0, q0 - window + 1) / TK : 0;
     return make_int2(lo, hi);
   }
@@ -147,8 +158,8 @@ struct Mask {
   // [k0, k0 + TK) is kept: no causal, window or ragged edge crosses them
   template <int TK>
   __device__ __forceinline__ bool interior(int qw, int k0) const {
-    const int q_last = min(qw + 63, S - 1);
-    if (k0 + TK > S) return false;
+    const int q_last = min(qw + 63, Sq - 1);
+    if (k0 + TK > Sk) return false;
     if (causal && k0 + TK - 1 > qw) return false;
     return !(window > 0 && k0 <= q_last - window);
   }
@@ -190,7 +201,7 @@ __global__ void __launch_bounds__(F32_THREADS)
   float* vs = ks + BK * KP;   // BK x D
   float* ps = vs + BK * D;    // BQ x PP
 
-  const int S = mask.S;
+  const int Sq = mask.Sq, Sk = mask.Sk;
   const int tid = threadIdx.x;
   const int ty = tid / 16;  // rows ty + 16 i
   const int tx = tid % 16;  // score columns tx + 16 j, output columns tx + 16 c
@@ -205,7 +216,7 @@ __global__ void __launch_bounds__(F32_THREADS)
   for (int idx = tid; idx < BQ * D; idx += F32_THREADS) {
     const int r = idx / D, c = idx % D;
     const int qi = q0 + r;
-    qs[r * KP + c] = qi < S ? qb[qi * sq.s + c] : 0.f;
+    qs[r * KP + c] = qi < Sq ? qb[qi * sq.s + c] : 0.f;
   }
 
   float m[4], l[4], acc[4][DC];
@@ -224,8 +235,8 @@ __global__ void __launch_bounds__(F32_THREADS)
     for (int idx = tid; idx < BK * D; idx += F32_THREADS) {
       const int r = idx / D, c = idx % D;
       const int kj = k0 + r;
-      ks[r * KP + c] = kj < S ? kb[kj * sk.s + c] : 0.f;
-      vs[r * D + c] = kj < S ? vb[kj * sv.s + c] : 0.f;
+      ks[r * KP + c] = kj < Sk ? kb[kj * sk.s + c] : 0.f;
+      vs[r * D + c] = kj < Sk ? vb[kj * sv.s + c] : 0.f;
     }
     __syncthreads();
 
@@ -289,12 +300,12 @@ __global__ void __launch_bounds__(F32_THREADS)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty + 16 * i;
-    if (qi >= S) continue;
+    if (qi >= Sq) continue;
     const float safe = l[i] == 0.f ? 1.f : l[i];
 #pragma unroll
     for (int c = 0; c < DC; ++c) ob[qi * so.s + tx + 16 * c] = acc[i][c] / safe;
     if (lse != nullptr && tx == 0)
-      lse[(int64_t(b) * gridDim.y + h) * S + qi] = l[i] == 0.f ? INFINITY : (m[i] + logf(l[i])) * LOG2E;
+      lse[(int64_t(b) * gridDim.y + h) * Sq + qi] = l[i] == 0.f ? INFINITY : (m[i] + logf(l[i])) * LOG2E;
   }
 }
 
@@ -496,7 +507,7 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
   uint64_t* free_k = full_v + ST;  // every consumer warp is done with it
   uint64_t* free_v = free_k + ST;
 
-  const int S = mask.S;
+  const int Sq = mask.Sq, Sk = mask.Sk;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;
   const int h = blockIdx.x, b = blockIdx.y;
   const int2 kt = mask.key_tiles<BM, BN>(q0);
@@ -611,7 +622,7 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
             if (mask.causal) ok = kj <= qi;
             if (mask.window > 0) ok = ok && kj > qi - mask.window;
             const float x = ok ? sc[4 * j + e] : MASKED;
-            sc[4 * j + e] = kj < S ? x : -INFINITY;
+            sc[4 * j + e] = kj < Sk ? x : -INFINITY;
           }
       }
       float mx[2] = {-INFINITY, -INFINITY};
@@ -715,7 +726,7 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
       pin(pa);
     }
 
-    // O = acc / l, rows past S not stored; a quad writes 16 bytes of a row
+    // O = acc / l, rows past Sq not stored; a quad writes 16 bytes of a row
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -724,7 +735,7 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qi = qi0 + 8 * r;
-      if (qi >= S) continue;
+      if (qi >= Sq) continue;
       const float inv = l[r] == 0.f ? 0.f : 1.f / l[r];
       bf16* dst = o + b * so.b + h * so.h + qi * so.s + 2 * t;
 #pragma unroll
@@ -733,7 +744,7 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
         *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(acc[x][y] * inv, acc[x][y + 1] * inv);
       }
       if (lse != nullptr && t == 0)  // m is in base-2 units already
-        lse[(int64_t(b) * gridDim.x + h) * S + qi] = l[r] == 0.f ? INFINITY : m[r] + log2f(l[r]);
+        lse[(int64_t(b) * gridDim.x + h) * Sq + qi] = l[r] == 0.f ? INFINITY : m[r] + log2f(l[r]);
     }
   }
 }
@@ -803,16 +814,16 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, fl
                         cudaStream_t stream) {
   using T = Tiles<D>;
   CUtensorMap mq, mk, mv;
-  if (!make_map(&mq, q, D, mask.S, H, B, sq, T::BM) ||
-      !make_map(&mk, k, D, mask.S, KV, B, sk, T::BN) ||
-      !make_map(&mv, v, D, mask.S, KV, B, sv, T::BN))
+  if (!make_map(&mq, q, D, mask.Sq, H, B, sq, T::BM) ||
+      !make_map(&mk, k, D, mask.Sk, KV, B, sk, T::BN) ||
+      !make_map(&mv, v, D, mask.Sk, KV, B, sv, T::BN))
     return cudaErrorInvalidValue;
   auto kern = flash_attention_bf16_kernel<D>;
   static std::atomic<uint64_t> sized{0};  // the cards whose shared-memory limit is raised
   const cudaError_t err = size_smem_once(reinterpret_cast<const void*>(kern), int(T::SMEM), sized);
   if (err != cudaSuccess) return err;
   // the query tile is the slowest axis: each wave of blocks mixes heads
-  const dim3 grid(H, B, (mask.S + T::BM - 1) / T::BM);
+  const dim3 grid(H, B, (mask.Sq + T::BM - 1) / T::BM);
   kern<<<grid, T::THREADS, T::SMEM, stream>>>(mq, mk, mv, static_cast<bf16*>(o), lse, so, H / KV,
                                               mask, mask.scale * LOG2E);
   return cudaGetLastError();
@@ -827,7 +838,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, flo
   cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kern),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid((mask.S + BQ - 1) / BQ, H, B);
+  const dim3 grid((mask.Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, F32_THREADS, smem, stream>>>(static_cast<const float*>(q), static_cast<const float*>(k),
                                             static_cast<const float*>(v), static_cast<float*>(o), lse,
                                             sq, sk, sv, so, rep, mask);
@@ -850,22 +861,24 @@ cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v, voi
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0 mean none.
-// lse: null, or a contiguous (B, H, S) f32 output of each row's base-2
+// q and o hold Sq rows, k and v Sk; Sq != Sk only with neither a causal mask
+// nor a window. lse: null, or a contiguous (B, H, Sq) f32 output of each row's base-2
 // log-sum-exp (see the note at the top).
 // bf16 reads through TMA: 16-byte aligned data, strides positive multiples
 // of 8 elements where the extent is above 1 (the wrapper checks). Returns
 // cudaGetLastError() after the launch (0 on success).
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
                               int dtype,
-                              int B, int H, int KV, int S, int D, int64_t q_sb, int64_t q_ss,
+                              int B, int H, int KV, int Sq, int Sk, int D, int64_t q_sb, int64_t q_ss,
                               int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                               int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
                               int64_t o_ss, int64_t o_sh, float scale, int causal, int window,
                               float softcap, void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || H % KV != 0) return int(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || KV <= 0 || Sq <= 0 || Sk <= 0 || H % KV != 0) return int(cudaErrorInvalidValue);
+  if (Sq != Sk && (causal || window > 0)) return int(cudaErrorInvalidValue);
   const Strides sq{q_sb, q_ss, q_sh}, sk{k_sb, k_ss, k_sh}, sv{v_sb, v_ss, v_sh},
       so{o_sb, o_ss, o_sh};
-  const Mask mask{S, causal, window, scale, softcap};
+  const Mask mask{Sq, Sk, causal, window, scale, softcap};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:

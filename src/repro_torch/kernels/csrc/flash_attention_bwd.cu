@@ -121,9 +121,15 @@
 //  0.4288 (the pass 26.3 us) (scripts/torch_kernel_ab.py --kernel
 //  attention_bwd --variants split_d256_2,split_d256_8; H100 80GB HBM3,
 //  700 W). f32 at D 256 takes tiles of 32 rows (f32_rows).
+// Queries and keys of different lengths (whisper-tiny's cross attention,
+// the decoder's Sq tokens over the encoder's Sk = 1500 frames) come without
+// a mask, as the forward takes them: Di, lse2, the dQ grid and its rows run
+// over Sq; the dK/dV grid, its key bound, the partials and the reduction
+// over Sk; q and dO are tensor maps over Sq, k and v over Sk. With no mask
+// every key tile sees every query and every query row keeps all Sk keys.
 // Scratch beyond Di (the wrapper sizes it by
 // repro_flash_attention_bwd_scratch): with G > 1 the partials, G x 2 x B x
-// S x Kv x D f32, 33.5 MB at the training shape, written once and read
+// Sk x Kv x D f32, 33.5 MB at the training shape, written once and read
 // once (at least 0.020 ms at 3.35 TB/s; the pass measures 12.8 us, the
 // partials partly in L2).
 // ptxas (sm_90a, CUDA 12.8): dQ and dK/dV at D 64, 128 and 256 launch at
@@ -155,45 +161,48 @@ struct Strides {
   int64_t b, s, h;  // element strides; head_dim stride is 1
 };
 
+// Sq queries and Sk keys; they differ only with neither a causal mask nor a
+// window (the wrapper checks)
 struct Mask {
-  int S, causal, window;
+  int Sq, Sk, causal, window;
 
   __device__ __forceinline__ bool ok(int qi, int kj) const {
-    if (qi >= S || kj >= S) return false;
+    if (qi >= Sq || kj >= Sk) return false;
     if (causal && kj > qi) return false;
     return !(window > 0 && kj <= qi - window);
   }
   // the first and last query that may see a key of [k0, k0 + TK)
   template <int TK = TILE>
   __device__ __forceinline__ int2 queries(int k0) const {
-    const int k_last = min(k0 + TK, S) - 1;
+    const int k_last = min(k0 + TK, Sk) - 1;
     const int lo = causal ? k0 : 0;
-    const int hi = window > 0 ? min(S - 1, k_last + window - 1) : S - 1;
+    const int hi = window > 0 ? min(Sq - 1, k_last + window - 1) : Sq - 1;
     return make_int2(lo, hi);
   }
   // the TK-key tiles some query of [q0, q0 + TQ) may see
   template <int TQ = TILE, int TK = TILE>
   __device__ __forceinline__ int2 key_tiles(int q0) const {
-    const int q_last = min(q0 + TQ, S) - 1;
-    const int hi = causal ? q_last / TK : (S - 1) / TK;
+    const int q_last = min(q0 + TQ, Sq) - 1;
+    const int hi = causal ? min(q_last, Sk - 1) / TK : (Sk - 1) / TK;
     const int lo = window > 0 ? max(0, q0 - window + 1) / TK : 0;
     return make_int2(lo, hi);
   }
   // whether every pair of the 64 query rows from qw and the keys [k0, k0 +
-  // TK) is kept (rows past S aside: their lse2 is +inf)
+  // TK) is kept (rows past Sq aside: their lse2 is +inf)
   template <int TK>
   __device__ __forceinline__ bool interior(int qw, int k0) const {
-    const int q_last = min(qw + 63, S - 1);
-    if (k0 + TK > S) return false;
+    const int q_last = min(qw + 63, Sq - 1);
+    if (k0 + TK > Sk) return false;
     if (causal && k0 + TK - 1 > qw) return false;
     return !(window > 0 && k0 <= q_last - window);
   }
-  // the same for the 64 keys from kw and the queries [q0, q0 + TQ)
+  // the same for the 64 keys from kw and the queries [q0, q0 + TQ) (queries
+  // past Sq aside: their lse2 is +inf)
   template <int TQ>
   __device__ __forceinline__ bool interior_keys(int kw, int q0) const {
-    if (kw + 64 > S) return false;
+    if (kw + 64 > Sk) return false;
     if (causal && kw + 63 > q0) return false;
-    return !(window > 0 && kw <= min(q0 + TQ, S) - 1 - window);
+    return !(window > 0 && kw <= min(q0 + TQ, Sq) - 1 - window);
   }
 };
 
@@ -569,7 +578,7 @@ __global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
   uint64_t* free_k = full_v + ST;
   uint64_t* free_v = free_k + ST;
 
-  const int S = mask.S, H = gridDim.x;
+  const int Sq = mask.Sq, H = gridDim.x;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * BM;  // the longest rows first
   const int h = blockIdx.x, b = blockIdx.y;
   const int2 kt = mask.key_tiles<BM, BN>(q0);
@@ -627,10 +636,10 @@ __global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int qi = qi0 + 8 * r;
-        const int64_t row = (int64_t(b) * H + h) * S + qi;
+        const int64_t row = (int64_t(b) * H + h) * Sq + qi;
         if constexpr (FUSED_DI) {
           float acc = 0.f;
-          if (qi < S) {
+          if (qi < Sq) {
             const bf16* orow = o + b * so.b + h * so.h + qi * so.s;
             const bf16* drow = dout + b * sdo.b + h * sdo.h + qi * sdo.s;
 #pragma unroll
@@ -650,11 +659,11 @@ __global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
           acc += __shfl_xor_sync(0xffffffffu, acc, 1);
           acc += __shfl_xor_sync(0xffffffffu, acc, 2);
           dl_r[r] = acc;
-          if (t == 0 && qi < S) delta[row] = acc;
+          if (t == 0 && qi < Sq) delta[row] = acc;
         } else {
-          dl_r[r] = qi < S ? delta[row] : 0.f;
+          dl_r[r] = qi < Sq ? delta[row] : 0.f;
         }
-        lse_r[r] = qi < S ? lse[row] : INFINITY;
+        lse_r[r] = qi < Sq ? lse[row] : INFINITY;
       }
     };
 
@@ -729,7 +738,7 @@ __global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qi = qi0 + 8 * r;
-      if (qi >= S) continue;
+      if (qi >= Sq) continue;
       bf16* dst = dq + b * sdq.b + h * sdq.h + qi * sdq.s + 2 * t;
 #pragma unroll
       for (int x = 0; x < OH; ++x)
@@ -744,7 +753,7 @@ __global__ void __launch_bounds__(QTiles<D>::THREADS, 1)
 // ---- dK, dV. A block owns BN keys of kv head hk and walks the query
 // steps of its group's share of the query heads (rep / G of them). With
 // G == 1 it stores dK and dV; otherwise f32 partial sums into `part`,
-// laid out (G, 2, B, KV, S, D), that reduce_dkdv_kernel adds in order.
+// laid out (G, 2, B, KV, Sk, D), that reduce_dkdv_kernel adds in order.
 // Shared memory: K, V, STAGES Q tiles, STAGES dO tiles, STAGES x BQ lse2,
 // the same of Di, then the barriers.
 template <int D, bool CAP>
@@ -767,7 +776,7 @@ __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
   uint64_t* full = full_kv + 1;  // a slot's Q, dO, lse2 and Di are in
   uint64_t* free_ = full + ST;   // every consumer warp is done with the slot
 
-  const int S = mask.S, KV = gridDim.x / G;
+  const int Sq = mask.Sq, Sk = mask.Sk, KV = gridDim.x / G;
   // causal: key tile 0, which the most queries see, first
   const int tile = mask.causal ? blockIdx.z : gridDim.z - 1 - blockIdx.z;
   const int k0 = tile * BN, hk = blockIdx.x / G, grp = blockIdx.x % G, b = blockIdx.y;
@@ -807,12 +816,12 @@ __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
           load_rows<BQ, D>(qs + s * T::Q_BYTES, &tq, &full[s], q0, h, b);
           load_rows<BQ, D>(dos + s * T::Q_BYTES, &tdo, &full[s], q0, h, b);
         }
-        const int64_t row = (int64_t(b) * H + h) * S;
+        const int64_t row = (int64_t(b) * H + h) * Sq;
 #pragma unroll
         for (int x = lane; x < BQ; x += 32) {
           const int qi = q0 + x;
-          lse_s[s * BQ + x] = qi < S ? lse[row + qi] : INFINITY;  // rows past S: p = 0
-          dl_s[s * BQ + x] = qi < S ? delta[row + qi] : 0.f;
+          lse_s[s * BQ + x] = qi < Sq ? lse[row + qi] : INFINITY;  // rows past Sq: p = 0
+          dl_s[s * BQ + x] = qi < Sq ? delta[row + qi] : 0.f;
         }
         mbar_arrive(&full[s]);
       }
@@ -908,7 +917,7 @@ __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int kj = kj0 + 8 * r;
-      if (kj >= S) continue;
+      if (kj >= Sk) continue;
       if (part == nullptr) {  // one block a kv head: store
         bf16* dkr = dk + b * sdk.b + hk * sdk.h + kj * sdk.s + hf * DH + 2 * t;
         bf16* dvr = dv + b * sdv.b + hk * sdv.h + kj * sdv.s + hf * DH + 2 * t;
@@ -919,8 +928,8 @@ __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
           *reinterpret_cast<uint32_t*>(dvr + 8 * j) = pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
         }
       } else {  // a partial sum of the group's share
-        const int64_t plane = int64_t(B) * KV * S * D;
-        float* pk = part + int64_t(2 * grp) * plane + ((int64_t(b) * KV + hk) * S + kj) * D + hf * DH + 2 * t;
+        const int64_t plane = int64_t(B) * KV * Sk * D;
+        float* pk = part + int64_t(2 * grp) * plane + ((int64_t(b) * KV + hk) * Sk + kj) * D + hf * DH + 2 * t;
         float* pv = pk + plane;
 #pragma unroll
         for (int j = 0; j < DH / 8; ++j) {
@@ -935,7 +944,7 @@ __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
 // ---- the G partial sums of dK and dV added in the order g = 0 .. G - 1
 // (the same bits at every call), dK scaled, stored as bf16; 4 elements a thread
 __global__ void reduce_dkdv_kernel(const float* __restrict__ part, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                                   Strides sdk, Strides sdv, int G, int KV, int S, int D, int64_t plane,
+                                   Strides sdk, Strides sdv, int G, int KV, int Sk, int D, int64_t plane,
                                    float scale) {
   const int64_t idx = (int64_t(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
   if (idx >= 2 * plane) return;
@@ -950,8 +959,8 @@ __global__ void reduce_dkdv_kernel(const float* __restrict__ part, bf16* __restr
     acc.w += x.w;
   }
   const float f = which ? 1.f : scale;
-  const int d = int(e % D), s = int((e / D) % S), hk = int((e / (int64_t(D) * S)) % KV);
-  const int b = int(e / (int64_t(D) * S * KV));
+  const int d = int(e % D), s = int((e / D) % Sk), hk = int((e / (int64_t(D) * Sk)) % KV);
+  const int b = int(e / (int64_t(D) * Sk * KV));
   const Strides st = which ? sdv : sdk;
   bf16* dst = (which ? dv : dk) + b * st.b + hk * st.h + s * st.s + d;
   *reinterpret_cast<uint2*>(dst) = make_uint2(pack_bf16(acc.x * f, acc.y * f), pack_bf16(acc.z * f, acc.w * f));
@@ -1025,11 +1034,11 @@ __global__ void __launch_bounds__(F32_THREADS)
   float* lse_s = dss + R * PP;
   float* dl_s = lse_s + R;
 
-  const int S = mask.S;
+  const int Sq = mask.Sq, Sk = mask.Sk;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;  // keys ty + 16 i; queries / columns tx + 16 j
   const int k0 = blockIdx.x * R, hk = blockIdx.y, b = blockIdx.z;
-  load_tile_f32<D>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, S);
-  load_tile_f32<D>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, S);
+  load_tile_f32<D>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, Sk);
+  load_tile_f32<D>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, Sk);
 
   float dka[RI][DC], dva[RI][DC];
 #pragma unroll
@@ -1040,16 +1049,16 @@ __global__ void __launch_bounds__(F32_THREADS)
   const int2 qr = mask.queries<R>(k0);
   for (int r = 0; r < rep; ++r) {
     const int h = hk * rep + r;
-    const float* lse_h = lse + (int64_t(b) * H + h) * S;
-    const float* dl_h = delta + (int64_t(b) * H + h) * S;
+    const float* lse_h = lse + (int64_t(b) * H + h) * Sq;
+    const float* dl_h = delta + (int64_t(b) * H + h) * Sq;
     for (int q0 = (qr.x / R) * R; q0 <= qr.y; q0 += R) {
       __syncthreads();
-      load_tile_f32<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
-      load_tile_f32<D>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
+      load_tile_f32<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+      load_tile_f32<D>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, Sq);
       if (tid < R) {
         const int qi = q0 + tid;
-        lse_s[tid] = qi < S ? lse_h[qi] : INFINITY;
-        dl_s[tid] = qi < S ? dl_h[qi] : 0.f;
+        lse_s[tid] = qi < Sq ? lse_h[qi] : INFINITY;
+        dl_s[tid] = qi < Sq ? dl_h[qi] : 0.f;
       }
       __syncthreads();
 
@@ -1115,7 +1124,7 @@ __global__ void __launch_bounds__(F32_THREADS)
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int kj = k0 + ty + 16 * i;
-    if (kj >= S) continue;
+    if (kj >= Sk) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       dk[b * sdk.b + hk * sdk.h + kj * sdk.s + tx + 16 * c] = dka[i][c] * scale;
@@ -1141,16 +1150,16 @@ __global__ void __launch_bounds__(F32_THREADS)
   float* lse_s = dss + R * PP;
   float* dl_s = lse_s + R;
 
-  const int S = mask.S;
+  const int Sq = mask.Sq, Sk = mask.Sk;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;  // queries ty + 16 i; keys / columns tx + 16 j
   const int q0 = (gridDim.x - 1 - blockIdx.x) * R;
   const int h = blockIdx.y, b = blockIdx.z, hk = h / rep;
-  load_tile_f32<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S);
-  load_tile_f32<D>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, S);
+  load_tile_f32<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+  load_tile_f32<D>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, Sq);
   if (tid < R) {
     const int qi = q0 + tid;
-    lse_s[tid] = qi < S ? lse[(int64_t(b) * H + h) * S + qi] : INFINITY;
-    dl_s[tid] = qi < S ? delta[(int64_t(b) * H + h) * S + qi] : 0.f;
+    lse_s[tid] = qi < Sq ? lse[(int64_t(b) * H + h) * Sq + qi] : INFINITY;
+    dl_s[tid] = qi < Sq ? delta[(int64_t(b) * H + h) * Sq + qi] : 0.f;
   }
   float dqa[RI][DC];
 #pragma unroll
@@ -1162,8 +1171,8 @@ __global__ void __launch_bounds__(F32_THREADS)
   for (int it = kt.x; it <= kt.y; ++it) {
     const int k0 = it * R;
     __syncthreads();
-    load_tile_f32<D>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, S);
-    load_tile_f32<D>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, S);
+    load_tile_f32<D>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, Sk);
+    load_tile_f32<D>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, Sk);
     __syncthreads();
 
     float s[RI][RI], dp[RI][RI];
@@ -1217,7 +1226,7 @@ __global__ void __launch_bounds__(F32_THREADS)
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int qi = q0 + ty + 16 * i;
-    if (qi >= S) continue;
+    if (qi >= Sq) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) dq[b * sdq.b + h * sdq.h + qi * sdq.s + tx + 16 * c] = dqa[i][c] * scale;
   }
@@ -1296,32 +1305,32 @@ struct Args {
 
 template <typename T>
 cudaError_t launch_delta(const Args& a, int D, cudaStream_t stream) {
-  const int64_t rows = int64_t(a.B) * a.H * a.mask.S;
+  const int64_t rows = int64_t(a.B) * a.H * a.mask.Sq;
   constexpr int WARPS = 8;
   delta_kernel<T><<<unsigned((rows + WARPS - 1) / WARPS), 32 * WARPS, 0, stream>>>(
       static_cast<const T*>(a.o), static_cast<const T*>(a.dout), a.delta, a.so, a.sdo, a.H,
-      a.mask.S, D, rows);
+      a.mask.Sq, D, rows);
   return cudaGetLastError();
 }
 
-// floats of `delta` a bf16 call uses: Di (B x H x S, rounded up to 64 so
+// floats of `delta` a bf16 call uses: Di (B x H x Sq, rounded up to 64 so
 // that the partials after it are 256-byte aligned), then with a GQA split
-// the partial sums of dK and dV
-int64_t bf16_scratch_floats(int B, int H, int KV, int S, int D) {
-  const int64_t di = (int64_t(B) * H * S + 63) / 64 * 64;
+// the partial sums of dK and dV (G x 2 x B x KV x Sk x D)
+int64_t bf16_scratch_floats(int B, int H, int KV, int Sq, int Sk, int D) {
+  const int64_t di = (int64_t(B) * H * Sq + 63) / 64 * 64;
   const int G = gqa_split(H / KV, D);
-  return G > 1 ? di + int64_t(G) * 2 * B * KV * S * D : di;
+  return G > 1 ? di + int64_t(G) * 2 * B * KV * Sk * D : di;
 }
 
 template <int D, bool CAP>
 cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   using TQ = QTiles<D>;
   using TK = KvTiles<D>;
-  const int S = a.mask.S, rep = a.H / a.KV, G = gqa_split(rep, D);
+  const int Sq = a.mask.Sq, Sk = a.mask.Sk, rep = a.H / a.KV, G = gqa_split(rep, D);
   const float scale_log2 = a.scale * LOG2E;
   CUtensorMap mq, mk, mv, mdo;
-  if (!make_map(&mq, a.q, D, S, a.H, a.B, a.sq) || !make_map(&mk, a.k, D, S, a.KV, a.B, a.sk) ||
-      !make_map(&mv, a.v, D, S, a.KV, a.B, a.sv) || !make_map(&mdo, a.dout, D, S, a.H, a.B, a.sdo))
+  if (!make_map(&mq, a.q, D, Sq, a.H, a.B, a.sq) || !make_map(&mk, a.k, D, Sk, a.KV, a.B, a.sk) ||
+      !make_map(&mv, a.v, D, Sk, a.KV, a.B, a.sv) || !make_map(&mdo, a.dout, D, Sq, a.H, a.B, a.sdo))
     return cudaErrorInvalidValue;
   cudaError_t err;
   if constexpr (!FUSED_DI) {
@@ -1332,24 +1341,24 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   auto qk = dq_bf16_kernel<D, CAP>;
   err = size_smem_once(reinterpret_cast<const void*>(qk), int(TQ::SMEM), sized_q);
   if (err != cudaSuccess) return err;
-  qk<<<dim3(a.H, a.B, (S + TQ::BM - 1) / TQ::BM), TQ::THREADS, TQ::SMEM, stream>>>(
+  qk<<<dim3(a.H, a.B, (Sq + TQ::BM - 1) / TQ::BM), TQ::THREADS, TQ::SMEM, stream>>>(
       mq, mk, mv, mdo, static_cast<const bf16*>(a.o), static_cast<const bf16*>(a.dout), a.lse, a.delta,
       static_cast<bf16*>(a.dq), a.so, a.sdo, a.sdq, rep, a.mask, a.scale, scale_log2, a.cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  float* part = G > 1 ? a.delta + (int64_t(a.B) * a.H * S + 63) / 64 * 64 : nullptr;
+  float* part = G > 1 ? a.delta + (int64_t(a.B) * a.H * Sq + 63) / 64 * 64 : nullptr;
   auto kv = dkdv_bf16_kernel<D, CAP>;
   err = size_smem_once(reinterpret_cast<const void*>(kv), int(TK::SMEM), sized_kv);
   if (err != cudaSuccess) return err;
-  kv<<<dim3(G * a.KV, a.B, (S + TK::BN - 1) / TK::BN), TK::THREADS, TK::SMEM, stream>>>(
+  kv<<<dim3(G * a.KV, a.B, (Sk + TK::BN - 1) / TK::BN), TK::THREADS, TK::SMEM, stream>>>(
       mq, mk, mv, mdo, a.lse, a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), part, a.sdk,
       a.sdv, a.H, rep, G, a.mask, a.scale, scale_log2, a.cap);
   err = cudaGetLastError();
   if (err != cudaSuccess || G == 1) return err;
-  const int64_t plane = int64_t(a.B) * a.KV * S * D;
+  const int64_t plane = int64_t(a.B) * a.KV * Sk * D;
   constexpr int THREADS = 256;
   reduce_dkdv_kernel<<<unsigned((2 * plane / 4 + THREADS - 1) / THREADS), THREADS, 0, stream>>>(
-      part, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sdk, a.sdv, G, a.KV, S, D, plane, a.scale);
+      part, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.sdk, a.sdv, G, a.KV, Sk, D, plane, a.scale);
   return cudaGetLastError();
 }
 
@@ -1358,13 +1367,13 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   cudaError_t err = launch_delta<float>(a, D, stream);
   if (err != cudaSuccess) return err;
   constexpr int R = f32_rows<D>();
-  const int S = a.mask.S, tiles = (S + R - 1) / R, rep = a.H / a.KV;
+  const int q_tiles = (a.mask.Sq + R - 1) / R, k_tiles = (a.mask.Sk + R - 1) / R, rep = a.H / a.KV;
   const float scale_log2 = a.scale * LOG2E;
   static std::atomic<uint64_t> sized_kv{0}, sized_q{0};
   auto kv = dkdv_f32_kernel<D, CAP>;
   err = size_smem_once(reinterpret_cast<const void*>(kv), int(f32_smem_kv<D>()), sized_kv);
   if (err != cudaSuccess) return err;
-  kv<<<dim3(tiles, a.KV, a.B), F32_THREADS, f32_smem_kv<D>(), stream>>>(
+  kv<<<dim3(k_tiles, a.KV, a.B), F32_THREADS, f32_smem_kv<D>(), stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
       static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.sq, a.sk, a.sv, a.sdo, a.sdk, a.sdv,
@@ -1374,7 +1383,7 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   auto qk = dq_f32_kernel<D, CAP>;
   err = size_smem_once(reinterpret_cast<const void*>(qk), int(f32_smem_q<D>()), sized_q);
   if (err != cudaSuccess) return err;
-  qk<<<dim3(tiles, a.H, a.B), F32_THREADS, f32_smem_q<D>(), stream>>>(
+  qk<<<dim3(q_tiles, a.H, a.B), F32_THREADS, f32_smem_q<D>(), stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout), a.lse, a.delta,
       static_cast<float*>(a.dq), a.sq, a.sk, a.sv, a.sdo, a.sdq, a.H, rep, a.mask, a.scale,
@@ -1402,10 +1411,12 @@ cudaError_t dispatch(int dtype, const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 24 element strides, (batch,
-// sequence, head) of q, k, v, o, do, dq, dk and dv in that order. lse is
-// the forward's contiguous (B, H, S) base-2 log-sum-exp; delta an f32
-// scratch of repro_flash_attention_bwd_scratch(...) floats that the call
-// fills (its first B x H x S are Di). window <= 0 means none. bf16 reads
+// sequence, head) of q, k, v, o, do, dq, dk and dv in that order. q, o, do
+// and dq hold Sq rows, k, v, dk and dv Sk; Sq != Sk only with neither a
+// causal mask nor a window. lse is the forward's contiguous (B, H, Sq)
+// base-2 log-sum-exp; delta an f32 scratch of
+// repro_flash_attention_bwd_scratch(...) floats that the call fills (its
+// first B x H x Sq are Di). window <= 0 means none. bf16 reads
 // through TMA and 16 bytes at a time: 16-byte aligned data, strides
 // multiples of 8 elements (the wrapper checks). softcap <= 0 means none;
 // a softcap is taken at D 256 only. Launches its kernels on
@@ -1413,16 +1424,17 @@ extern "C" {
 // on success).
 int repro_flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                               const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                              void* dv, int dtype, int B, int H, int KV, int S, int D,
+                              void* dv, int dtype, int B, int H, int KV, int Sq, int Sk, int D,
                               const int64_t* strides, float scale, int causal, int window,
                               float softcap, void* stream) {
-  if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || H % KV != 0) return int(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || KV <= 0 || Sq <= 0 || Sk <= 0 || H % KV != 0) return int(cudaErrorInvalidValue);
+  if (Sq != Sk && (causal || window > 0)) return int(cudaErrorInvalidValue);
   const int64_t* s = strides;
   Args a{q, k, v, o, dout, lse, delta, dq, dk, dv,
          Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]}, Strides{s[6], s[7], s[8]},
          Strides{s[9], s[10], s[11]}, Strides{s[12], s[13], s[14]}, Strides{s[15], s[16], s[17]},
          Strides{s[18], s[19], s[20]}, Strides{s[21], s[22], s[23]},
-         B, H, KV, Mask{S, causal, window}, scale,
+         B, H, KV, Mask{Sq, Sk, causal, window}, scale,
          softcap > 0.f ? Cap{scale / softcap, softcap * LOG2E, softcap} : Cap{0.f, 0.f, 0.f}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
@@ -1439,10 +1451,10 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v, const
 
 // The floats of f32 scratch `delta` that repro_flash_attention_bwd needs
 // for these shapes (-1 for arguments it refuses).
-int64_t repro_flash_attention_bwd_scratch(int dtype, int B, int H, int KV, int S, int D) {
-  if (B <= 0 || H <= 0 || KV <= 0 || S <= 0 || H % KV != 0) return -1;
-  if (dtype == 1) return bf16_scratch_floats(B, H, KV, S, D);
-  return int64_t(B) * H * S;
+int64_t repro_flash_attention_bwd_scratch(int dtype, int B, int H, int KV, int Sq, int Sk, int D) {
+  if (B <= 0 || H <= 0 || KV <= 0 || Sq <= 0 || Sk <= 0 || H % KV != 0) return -1;
+  if (dtype == 1) return bf16_scratch_floats(B, H, KV, Sq, Sk, D);
+  return int64_t(B) * H * Sq;
 }
 
 const char* repro_cuda_error_string(int code) {

@@ -48,6 +48,13 @@ warpgroups share a block's 64 keys, each holding one half of dK and dV,
 and dQ takes 64-key tiles through a one-slot ring), and a softcap at head
 dim 256 only (gemma2-2b's 50: P from the capped score, dS times 1 - t^2
 with t = tanh(score / cap)); no config has a softcap at 64 or 128.
+
+Queries and keys of different lengths (Sq over Sk; whisper-tiny's cross
+attention, the decoder's tokens over the encoder's 1500 frames) are taken
+by both kernels without a causal mask or a window, the function JAX's
+``_chunked_attention`` computes for a ``cross`` ``AttnParams``; with
+either, Sq != Sk raises (no config needs it). lse and Di run over Sq, dk
+and dv come back over Sk.
 """
 
 from __future__ import annotations
@@ -88,7 +95,7 @@ def _kernel():
         fn = lib.repro_flash_attention_fwd
         fn.argtypes = (
             [ctypes.c_void_p] * 5
-            + [ctypes.c_int] * 6
+            + [ctypes.c_int] * 7
             + [ctypes.c_int64] * 12
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         )
@@ -99,12 +106,16 @@ def _kernel():
     return _fn
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int | None) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("q, k, v must be (B, H, S, D) and (B, Kv, S, D)")
+        raise ValueError("q, k, v must be (B, H, Sq, D) and (B, Kv, Sk, D)")
     b, h, s, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2] != s or k.shape[3] != d:
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if k.shape[2] != s and (causal or window is not None):
+        raise ValueError(
+            f"queries ({s}) and keys ({k.shape[2]}) of different lengths take neither a causal mask nor a window"
+        )
     if h % k.shape[1] != 0:
         raise ValueError(f"{h} query heads do not group over {k.shape[1]} kv heads")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
@@ -138,8 +149,8 @@ def check_layout(name: str, shape, stride, data_ptr: int, dtype: torch.dtype) ->
 
 
 def flash_attention(
-    q: torch.Tensor,  # (B, H, S, D), any batch/head/seq strides
-    k: torch.Tensor,  # (B, Kv, S, D), H % Kv == 0: query head h reads kv head h // (H / Kv)
+    q: torch.Tensor,  # (B, H, Sq, D), any batch/head/seq strides
+    k: torch.Tensor,  # (B, Kv, Sk, D), H % Kv == 0: query head h reads kv head h // (H / Kv)
     v: torch.Tensor,
     *,
     causal: bool = True,
@@ -147,16 +158,18 @@ def flash_attention(
     softcap: float | None = None,
     return_lse: bool = False,
 ):
-    """Attention over (B, H, S, D) views; returns (B, H, S, D) in q's dtype,
-    and with ``return_lse`` also each row's base-2 log-sum-exp of its
-    scaled scores, ``log2(sum_k exp(s_k))``, as a contiguous (B, H, S) f32
-    tensor (what :func:`flash_attention_bwd` takes).
+    """Attention over (B, H, Sq, D) queries and (B, Kv, Sk, D) keys and
+    values (Sk != Sq only without a causal mask or a window); returns (B,
+    H, Sq, D) in q's dtype, and with ``return_lse`` also each row's base-2
+    log-sum-exp of its scaled scores, ``log2(sum_k exp(s_k))``, as a
+    contiguous (B, H, Sq) f32 tensor (what :func:`flash_attention_bwd`
+    takes).
 
-    The output is a (B, H, S, D) view of a contiguous (B, S, H, D) tensor,
-    so the model's layout comes back without a copy.
+    The output is a (B, H, Sq, D) view of a contiguous (B, Sq, H, D)
+    tensor, so the model's layout comes back without a copy.
     """
     global LAUNCHES
-    _check(q, k, v)
+    _check(q, k, v, causal, window)
     if q.device.type == "cpu":
         kr, vr = _repeat(q, k), _repeat(q, v)
         out = ref.mha(q, kr, vr, causal=causal, window=window, softcap=softcap)
@@ -180,7 +193,7 @@ def flash_attention(
     args = (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
-        _DTYPES[q.dtype], b, h, k.shape[1], s, d,
+        _DTYPES[q.dtype], b, h, k.shape[1], s, k.shape[2], d,
         q.stride(0), q.stride(2), q.stride(1),
         k.stride(0), k.stride(2), k.stride(1),
         v.stride(0), v.stride(2), v.stride(1),
@@ -216,12 +229,12 @@ def _bwd_kernel():
         fn = lib.repro_flash_attention_bwd
         fn.argtypes = (
             [ctypes.c_void_p] * 10
-            + [ctypes.c_int] * 6
+            + [ctypes.c_int] * 7
             + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         scratch = lib.repro_flash_attention_bwd_scratch
-        scratch.argtypes = [ctypes.c_int] * 6
+        scratch.argtypes = [ctypes.c_int] * 7
         scratch.restype = ctypes.c_int64
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -259,12 +272,12 @@ def _fits_bwd(t: torch.Tensor) -> bool:
 
 
 def flash_attention_bwd(
-    q: torch.Tensor,  # (B, H, S, D), as given to the forward
-    k: torch.Tensor,  # (B, Kv, S, D)
+    q: torch.Tensor,  # (B, H, Sq, D), as given to the forward
+    k: torch.Tensor,  # (B, Kv, Sk, D)
     v: torch.Tensor,
-    o: torch.Tensor,  # (B, H, S, D), the forward's output
-    do: torch.Tensor,  # (B, H, S, D), the output's gradient
-    lse: torch.Tensor,  # (B, H, S) f32, the forward's base-2 log-sum-exp
+    o: torch.Tensor,  # (B, H, Sq, D), the forward's output
+    do: torch.Tensor,  # (B, H, Sq, D), the output's gradient
+    lse: torch.Tensor,  # (B, H, Sq) f32, the forward's base-2 log-sum-exp
     *,
     causal: bool = True,
     window: int | None = None,
@@ -279,7 +292,7 @@ def flash_attention_bwd(
     256, raise NotImplementedError.
     """
     global BWD_LAUNCHES
-    _check(q, k, v)
+    _check(q, k, v, causal, window)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse {tuple(lse.shape)} do not match q {tuple(q.shape)}")
     if q.device.type == "cpu":
@@ -306,22 +319,22 @@ def flash_attention_bwd(
         check_bwd_layout(name, t.shape, t.stride(), t.data_ptr(), t.dtype)
     lse = lse.contiguous()
     b, h, s, d = q.shape
-    kv = k.shape[1]
+    kv, sk = k.shape[1], k.shape[2]
     dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    dk = torch.empty((b, s, kv, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    dv = torch.empty((b, s, kv, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dk = torch.empty((b, sk, kv, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dv = torch.empty((b, sk, kv, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     strides = (ctypes.c_int64 * 24)(*(
         st for t in (q, k, v, o, do, dq, dk, dv) for st in (t.stride(0), t.stride(2), t.stride(1))
     ))
     fn, scratch, err_str = _bwd_kernel()
     # Di, then (bf16 with a GQA split) the f32 partial sums of dK and dV
-    delta = torch.empty(scratch(_DTYPES[q.dtype], b, h, kv, s, d), dtype=torch.float32, device=q.device)
+    delta = torch.empty(scratch(_DTYPES[q.dtype], b, h, kv, s, sk, d), dtype=torch.float32, device=q.device)
     dev = q.get_device()
     with torch.cuda.device(dev):
         rc = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPES[q.dtype], b, h, kv, s, d, ctypes.cast(strides, ctypes.c_void_p),
+            _DTYPES[q.dtype], b, h, kv, s, sk, d, ctypes.cast(strides, ctypes.c_void_p),
             1.0 / math.sqrt(d), int(causal), window or 0, float(softcap or 0.0),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -333,8 +346,8 @@ def flash_attention_bwd(
 
 class FlashAttention(torch.autograd.Function):
     """K1 forward (with its row log-sum-exp) and the backward kernel as
-    one differentiable op over (B, H, S, D) views; on CPU tensors both
-    sides are the plain version."""
+    one differentiable op over (B, H, Sq, D) queries and (B, Kv, Sk, D)
+    keys and values; on CPU tensors both sides are the plain version."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int | None, softcap: float | None):

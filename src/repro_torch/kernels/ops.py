@@ -20,15 +20,15 @@ __all__ = ["attention_op", "rglru_op", "ssd_op"]
 
 
 def attention_op(
-    q: torch.Tensor,  # (B, S, H, D)
-    k: torch.Tensor,  # (B, S, Kv, D)
+    q: torch.Tensor,  # (B, Sq, H, D)
+    k: torch.Tensor,  # (B, Sk, Kv, D); Sk != Sq (cross attention) only with no mask
     v: torch.Tensor,
     *,
     causal: bool = True,
     window: int | None = None,
     softcap: float | None = None,
 ) -> torch.Tensor:
-    """Attention in model layout; returns (B, S, H, D).
+    """Attention in model layout; returns (B, Sq, H, D).
 
     When grad mode is on and an input requires grad, the call goes through
     :class:`FlashAttention`, whose backward is the backward kernel (the

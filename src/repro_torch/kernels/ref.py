@@ -23,39 +23,41 @@ __all__ = [
 
 
 def mha(
-    q: torch.Tensor,  # (B, H, S, D)
-    k: torch.Tensor,  # (B, H, S, D)
+    q: torch.Tensor,  # (B, H, Sq, D)
+    k: torch.Tensor,  # (B, H, Sk, D); Sk may differ from Sq (cross attention)
     v: torch.Tensor,
     *,
     causal: bool = True,
     window: int | None = None,
     softcap: float | None = None,
 ) -> torch.Tensor:
-    """Naive full-materialisation attention: f32 scores, -1e30 mask, f32 softmax."""
+    """Naive full-materialisation attention: f32 scores, -1e30 mask, f32
+    softmax; query i and key j sit at positions i and j, as JAX's
+    ``_chunked_attention`` places them (``q_pos``, ``k_pos``)."""
     sc = scores(q, k, causal=causal, window=window, softcap=softcap)
     w = torch.softmax(sc, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
 
 
 def scores(
-    q: torch.Tensor,  # (B, H, S, D)
-    k: torch.Tensor,  # (B, H, S, D)
+    q: torch.Tensor,  # (B, H, Sq, D)
+    k: torch.Tensor,  # (B, H, Sk, D)
     *,
     causal: bool = True,
     window: int | None = None,
     softcap: float | None = None,
 ) -> torch.Tensor:
-    """The f32 (B, H, S, S) scores ``mha`` takes its softmax of: scaled,
+    """The f32 (B, H, Sq, Sk) scores ``mha`` takes its softmax of: scaled,
     capped, and -1e30 where the mask rules a pair out."""
-    s = q.shape[2]
+    sq, sk = q.shape[2], k.shape[2]
     d = q.shape[3]
     sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     sc = sc / math.sqrt(d)
     if softcap is not None:
         sc = softcap * torch.tanh(sc / softcap)
-    qp = torch.arange(s, device=q.device)[:, None]
-    kp = torch.arange(s, device=q.device)[None, :]
-    ok = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    qp = torch.arange(sq, device=q.device)[:, None]
+    kp = torch.arange(sk, device=q.device)[None, :]
+    ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
         ok &= kp <= qp
     if window is not None:

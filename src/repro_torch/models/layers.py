@@ -8,7 +8,8 @@ dtype before the PV product.
 
 Differences that belong to PyTorch: prefill attention goes through
 ``kernels.ops.attention_op`` (the Hopper kernel on the card) where JAX
-runs ``_chunked_attention``; and the decode paths write the new token's
+runs ``_chunked_attention``, cross attention (the decoder's queries over
+the encoder's keys, whisper) included; and the decode paths write the new token's
 K/V into the cache tensors in place (no functional copy of a multi-GB
 cache per step) and return those same tensors.
 
@@ -35,6 +36,7 @@ __all__ = [
     "attention",
     "cache_bits",
     "decode_attention",
+    "layer_norm",
     "mlp",
     "paged_decode_attention",
     "rms_norm",
@@ -79,6 +81,17 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float, *, plus_one: bool = F
     y = xf * torch.rsqrt(var + eps)
     scale = (1.0 + w.float()) if plus_one else w.float()
     return (y * scale).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """LayerNorm in f32 (JAX's ``layers.layer_norm``): the mean and the
+    population variance of the centred values over the last dim, then the
+    scale and shift, cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
@@ -175,15 +188,21 @@ def attention(
     ap: AttnParams,
     positions: torch.Tensor | None = None,  # (S,)
     return_kv: bool = False,  # prefill: also return unrepeated K/V
+    kv_source: torch.Tensor | None = None,  # (B, S_src, d) encoder states for cross attention
 ):
-    """Full-sequence causal self-attention (training / prefill)."""
+    """Full-sequence attention (training / prefill): self attention, causal
+    or not as ``ap`` says; with ``ap.cross`` the queries come from x and
+    the keys and values from ``kv_source``, with no RoPE, no bias and no
+    mask (JAX's ``attention``, ``causal and not cross``)."""
     if ap.cross:
-        raise NotImplementedError("cross attention is not ported yet")
-    s = x.shape[1]
-    if positions is None:
-        positions = torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(p, x, ap, positions)
-    out = attention_op(q, k, v, causal=ap.causal, window=ap.window, softcap=ap.softcap)
+        q = _proj(x, p["wq"])
+        k = _proj(kv_source, p["wk"])
+        v = _proj(kv_source, p["wv"])
+    else:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        q, k, v = _project_qkv(p, x, ap, positions)
+    out = attention_op(q, k, v, causal=ap.causal and not ap.cross, window=ap.window, softcap=ap.softcap)
     y = _out_proj(out, p["wo"])
     if return_kv:
         return y, k, v
@@ -214,11 +233,19 @@ def decode_attention(
     *,
     ring: bool = False,  # the cache is a window-sized ring (local layers)
 ):
-    """One-token decode against a contiguous KV cache (self attention);
-    returns (out, cache_k, cache_v) with the caches updated in place. In a
-    ring the new K/V goes to slot ``pos % S_cache``."""
+    """One-token decode against a contiguous KV cache; returns (out,
+    cache_k, cache_v) with the caches updated in place. In a ring the new
+    K/V goes to slot ``pos % S_cache``. With ``ap.cross`` the caches are
+    the encoder's K/V projections: no write, no mask, and the f32 scores
+    divided by sqrt(D) as JAX divides them (the self path multiplies by
+    the scale)."""
     if ap.cross:
-        raise NotImplementedError("cross attention is not ported yet")
+        q = _proj(x, p["wq"])
+        kf = _repeat_kv(cache_k, ap.n_heads).to(q.dtype)
+        vf = _repeat_kv(cache_v, ap.n_heads).to(q.dtype)
+        sc = torch.einsum("bqhd,bkhd->bhqk", q, kf).float() / math.sqrt(ap.head_dim)
+        w = torch.softmax(sc, dim=-1).to(q.dtype)
+        return _out_proj(torch.einsum("bhqk,bkhd->bqhd", w, vf), p["wo"]), cache_k, cache_v
     b = x.shape[0]
     s_cache = cache_k.shape[1]
     pos = cache_pos.to(device=x.device, dtype=torch.long)

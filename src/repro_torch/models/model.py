@@ -11,16 +11,25 @@ as a Python loop.
 
 Block kinds ``attn`` (dense: yi-6b, qwen2, mistral), ``local`` (sliding
 window with a ring decode cache: gemma2, recurrentgemma), ``ssm``
-(Mamba-2, mamba2) and ``rec`` (RG-LRU, recurrentgemma) are ported, with
-or without an MLP or an MoE FFN in its place (qwen3-moe; with arctic's
-dense residual beside it), tied or untied embeddings, gemma's embedding
-scale, gemma2's sandwich norms (``post1`` / ``post2``) and attention and
-final logit softcaps, qwen2's QKV bias (``bq`` / ``bk`` / ``bv``) and
-pixtral's patch frontend (``frontend == "patches"``: precomputed patch
-embeddings, cast to the compute dtype and put in front of the token
-embeddings, positions running over both, as JAX's stub does); the other
-kinds and fields (encoder-decoder, audio frames, layer norm, learned
-positions) raise ``NotImplementedError``. Caches keep the JAX layout,
+(Mamba-2, mamba2), ``rec`` (RG-LRU, recurrentgemma), ``bidir`` (the
+encoder's bidirectional attention) and ``encdec`` (a decoder block:
+causal self attention, ``norm_x``, then cross attention over the
+encoder's states, whisper) are ported, with or without an MLP or an MoE
+FFN in its place (qwen3-moe; with arctic's dense residual beside it),
+tied or untied embeddings, gemma's embedding scale, gemma2's sandwich
+norms (``post1`` / ``post2``) and attention and final logit softcaps,
+qwen2's QKV bias (``bq`` / ``bk`` / ``bv``), RMS or layer norm
+(``norm == "ln"``: every norm a ``{"w", "b"}`` part), learned positions
+(``pos_embed``, added after the embedding), pixtral's patch frontend
+(``frontend == "patches"``: precomputed patch embeddings, cast to the
+compute dtype and put in front of the token embeddings, positions
+running over both, as JAX's stub does) and whisper's encoder
+(``enc_dec``, ``frontend == "frames"``: precomputed frame embeddings
+plus a sinusoid through ``enc_layers`` ``bidir`` blocks and a final
+norm, the tree's ``encoder``; every entry point takes the frames).
+``_unsupported`` names what is refused: an ``enc_dec`` config with no
+``encdec`` slot to read the encoder (or such a slot with no encoder),
+frames without an encoder, an encoder beside an MoE. Caches keep the JAX layout,
 stacked on the group dim for slots and not for the tail, and are updated
 in place; a KV cache may be ``float8_e4m3fn`` (``Policy.kv_cache_dtype``
 or ``cache_dtype``). The paged cache serves the dense pattern only, as in
@@ -49,6 +58,7 @@ import dataclasses
 import math
 from typing import Any
 
+import numpy as np
 import torch
 import torch.utils.checkpoint
 from torch import nn
@@ -126,19 +136,27 @@ class ArchConfig:
         )
 
 
-_KINDS = ("attn", "local", "ssm", "rec")
+_KINDS = ("attn", "local", "ssm", "rec", "bidir", "encdec")
+_ATTN_KINDS = ("attn", "local", "bidir", "encdec")  # the kinds whose mixer is attention
 
 
 def _unsupported(cfg: ArchConfig) -> list[str]:
+    """The fields of ``cfg`` the port refuses. An encoder is read only by
+    ``encdec`` slots, so ``enc_dec`` without one is refused, as is an
+    ``encdec`` slot with no encoder, frames with no encoder to take them,
+    and an encoder beside an MoE (JAX builds the encoder's blocks with the
+    MoE's leaves and runs them without: no config does it)."""
     checks = {
         f"pattern {cfg.pattern!r}": not cfg.pattern or any(k not in _KINDS for k in cfg.pattern),
         "ssm pattern without SSMParams": "ssm" in cfg.pattern and cfg.ssm is None,
         "rec pattern without RGLRUParams": "rec" in cfg.pattern and cfg.rglru is None,
         "moe not a MoEParams": cfg.moe is not None and not isinstance(cfg.moe, MoEParams),
-        "enc_dec": cfg.enc_dec,
-        f"frontend {cfg.frontend!r}": cfg.frontend not in ("none", "patches"),
-        "learned_pos": cfg.learned_pos,
-        f"norm {cfg.norm!r}": cfg.norm != "rms",
+        "enc_dec without an encdec slot": cfg.enc_dec and "encdec" not in cfg.pattern,
+        "encdec slot without enc_dec": "encdec" in cfg.pattern and not cfg.enc_dec,
+        "enc_dec with moe": cfg.enc_dec and cfg.moe is not None,
+        f"frontend {cfg.frontend!r}": cfg.frontend not in ("none", "patches", "frames"),
+        "frames without enc_dec": cfg.frontend == "frames" and not cfg.enc_dec,
+        f"norm {cfg.norm!r}": cfg.norm not in ("rms", "ln"),
         f"mlp_kind {cfg.mlp_kind!r}": cfg.mlp_kind not in ("gated", "plain", "none"),
     }
     return [k for k, bad in checks.items() if bad]
@@ -266,6 +284,13 @@ def _unbind(leaf) -> list:
     return leaf.unbind(0)
 
 
+def _init_norm(part: dict) -> None:
+    """A norm's JAX init: weights ones, a layer norm's biases zeros."""
+    part["w"].fill_(1.0)
+    if "b" in part:
+        part["b"].zero_()
+
+
 class StreamModel(nn.Module):
     """Decoder of a block pattern with explicit caches; parameters in the JAX tree layout."""
 
@@ -292,7 +317,7 @@ class StreamModel(nn.Module):
         q8 = policy.weights_int8
         self.tree = nn.ModuleDict({
             "embed": _params({"w": (cfg.vocab_padded, d)}, dtype, self.device),
-            "final_norm": _params({"w": (1, d)}, dtype, self.device),
+            "final_norm": self._norm_params(1, dtype),
             "slots": nn.ModuleDict({
                 f"s{i}": self._block(k, self.n_groups, dtype, q8) for i, k in enumerate(pat)
             }),
@@ -303,9 +328,22 @@ class StreamModel(nn.Module):
             })
         if not cfg.tie_embeddings:
             self.tree["unembed"] = _params({"w": (d, cfg.vocab_padded)}, dtype, self.device)
-        self._layers: list[tuple] | None = None
+        if cfg.learned_pos:
+            self.tree["pos_embed"] = _params({"w": (cfg.max_learned_pos, d)}, dtype, self.device)
+        if cfg.enc_dec:  # JAX's tree: {"slots": {"s0": the bidir stack}, "final_norm"}
+            self.tree["encoder"] = nn.ModuleDict({
+                "slots": nn.ModuleDict({"s0": self._block("bidir", cfg.enc_layers, dtype, q8)}),
+                "final_norm": self._norm_params(1, dtype),
+            })
+        self._layers: dict[str, list[tuple]] = {}  # serving's per-layer views, by stack
         if generator is not None:
             self.init(generator)
+
+    def _norm_params(self, n: int, dtype, q8: bool = False) -> nn.Module:
+        """A norm's parts stacked over ``n``: ``w``, and ``b`` for layer norm."""
+        d = self.cfg.d_model
+        shapes = {"w": (n, d), "b": (n, d)} if self.cfg.norm == "ln" else {"w": (n, d)}
+        return _params(shapes, dtype, self.device, q8=q8)
 
     def _block(self, kind: str, n: int, dtype, q8: bool = False) -> nn.ModuleDict:
         """One slot's parameters, stacked over ``n`` layers (with ``q8``,
@@ -313,7 +351,7 @@ class StreamModel(nn.Module):
         cfg = self.cfg
         d, f = cfg.d_model, cfg.d_ff
         dev = self.device
-        block = nn.ModuleDict({"norm1": _params({"w": (n, d)}, dtype, dev, q8=q8)})
+        block = nn.ModuleDict({"norm1": self._norm_params(n, dtype, q8)})
         if kind == "ssm":
             block["mixer"] = _params(M.ssm_shapes(n, d, cfg.ssm), dtype, dev, f32=M.F32_LEAVES, q8=q8)
         elif kind == "rec":
@@ -329,10 +367,13 @@ class StreamModel(nn.Module):
             if cfg.attn_bias:  # qwen2: JAX's layers.attention_init
                 shapes.update(bq=(n, cfg.n_heads, hd), bk=(n, cfg.n_kv_heads, hd), bv=(n, cfg.n_kv_heads, hd))
             block["mixer"] = _params(shapes, dtype, dev, q8=q8)
+            if kind == "encdec":  # whisper's decoder block: the cross attention's norm and weights
+                block["norm_x"] = self._norm_params(n, dtype, q8)
+                block["cross"] = _params(shapes, dtype, dev, q8=q8)
         if cfg.post_norms:  # gemma2's sandwich norm of the mixer's output
-            block["post1"] = _params({"w": (n, d)}, dtype, dev, q8=q8)
+            block["post1"] = self._norm_params(n, dtype, q8)
         if cfg.mlp_kind != "none" or cfg.moe is not None:
-            block["norm2"] = _params({"w": (n, d)}, dtype, dev, q8=q8)
+            block["norm2"] = self._norm_params(n, dtype, q8)
             mlp_shapes = {"w_in": (n, d, f), "w_out": (n, f, d)}
             if cfg.mlp_kind == "gated" or cfg.moe is not None:  # arctic's dense MLP is always gated
                 mlp_shapes["w_gate"] = (n, d, f)
@@ -343,28 +384,39 @@ class StreamModel(nn.Module):
             else:
                 block["mlp"] = _params(mlp_shapes, dtype, dev, q8=q8)
             if cfg.post_norms:  # ... and of the MLP's
-                block["post2"] = _params({"w": (n, d)}, dtype, dev, q8=q8)
+                block["post2"] = self._norm_params(n, dtype, q8)
         return block
 
     def _blocks(self):
-        """(section, slot name, kind, stacked params) of every block stack."""
+        """(section, slot name, kind, stacked params, layers in the stack)
+        of every block stack, the encoder's as section ``encoder``."""
         pat = self.cfg.pattern
         for sec in ("slots", "tail"):
             if sec in self.tree:
                 for name, blk in self.tree[sec].items():
-                    yield sec, name, pat[int(name[1:])], blk
+                    yield sec, name, pat[int(name[1:])], blk, self.n_groups if sec == "slots" else 1
+        if "encoder" in self.tree:
+            yield "encoder", "s0", "bidir", self.tree["encoder"]["slots"]["s0"], self.cfg.enc_layers
 
     # ------------------------------------------------------------ parameters
     def param_tree(self) -> dict:
-        """The parameters as the JAX package's nested dict (``embed`` and
-        ``unembed`` are leaves there, so they are here; a tied model has
-        no ``unembed``, a model whose layers fill whole groups no ``tail``)."""
+        """The parameters as the JAX package's nested dict (``embed``,
+        ``unembed`` and ``pos_embed`` are leaves there, so they are here; a
+        tied model has no ``unembed``, a model whose layers fill whole
+        groups no ``tail``; an encoder is ``{"slots": {"s0": ...},
+        "final_norm"}``)."""
         t = self.tree
-        tree: dict[str, Any] = {"embed": t["embed"]["w"], "final_norm": {"w": t["final_norm"]["w"]}}
-        for sec, name, _, blk in self._blocks():
-            tree.setdefault(sec, {})[name] = {part: dict(sub.items()) for part, sub in blk.items()}
+        tree: dict[str, Any] = {"embed": t["embed"]["w"], "final_norm": dict(t["final_norm"].items())}
+        for sec, name, _, blk, _ in self._blocks():
+            parts = {part: dict(sub.items()) for part, sub in blk.items()}
+            if sec == "encoder":
+                tree[sec] = {"slots": {name: parts}, "final_norm": dict(t[sec]["final_norm"].items())}
+            else:
+                tree.setdefault(sec, {})[name] = parts
         if "unembed" in t:
             tree["unembed"] = t["unembed"]["w"]
+        if "pos_embed" in t:
+            tree["pos_embed"] = t["pos_embed"]["w"]
         return tree
 
     @torch.no_grad()
@@ -383,7 +435,7 @@ class StreamModel(nn.Module):
             dst.copy_(src)
 
         copy(self.param_tree(), tree, "")
-        self._layers = None
+        self._layers = {}
 
     @torch.no_grad()
     def init(self, generator: torch.Generator | int) -> dict:
@@ -412,15 +464,16 @@ class StreamModel(nn.Module):
 
         tree = self.param_tree()
         normal(tree["embed"], 1.0 / math.sqrt(d))
-        tree["final_norm"]["w"].fill_(1.0)
-        for sec, name, kind, _ in self._blocks():
-            blk = tree[sec][name]
+        for norm in [tree["final_norm"]] + ([tree["encoder"]["final_norm"]] if "encoder" in tree else []):
+            _init_norm(norm)
+        for sec, name, kind, _, n in self._blocks():
+            blk = tree[sec]["slots"][name] if sec == "encoder" else tree[sec][name]
             if not self.policy.weights_int8:
                 self._init_block(kind, blk, normal, uniform)
                 continue
             one = self._block(kind, 1, torch_dtype(self.policy.param_dtype))
             one = {part: dict(sub.items()) for part, sub in one.items()}
-            for i in range(self.n_groups if sec == "slots" else 1):
+            for i in range(n):
                 self._init_block(kind, one, normal, uniform)
                 for part, sub in blk.items():
                     for k, dst in sub.items():
@@ -431,27 +484,30 @@ class StreamModel(nn.Module):
             del one
         if "unembed" in tree:
             normal(tree["unembed"], 1.0 / math.sqrt(d))
-        self._layers = None
+        if "pos_embed" in tree:  # JAX's scale for learned positions
+            normal(tree["pos_embed"], 0.02)
+        self._layers = {}
         return tree
 
     def _init_block(self, kind: str, blk: dict, normal, uniform) -> None:
         """Fill one block stack's float leaves (a dict of parts) in place."""
         cfg = self.cfg
         d = cfg.d_model
-        for norm in ("norm1", "post1", "post2", "norm2"):
+        for norm in ("norm1", "post1", "post2", "norm2", "norm_x"):
             if norm in blk:
-                blk[norm]["w"].fill_(1.0)
+                _init_norm(blk[norm])
         if kind == "ssm":
             M.ssm_init(blk["mixer"], d, cfg.ssm, normal)
         elif kind == "rec":
             R.rglru_init(blk["mixer"], d, cfg.rglru, normal, uniform)
         else:
-            for k in ("wq", "wk", "wv"):
-                normal(blk["mixer"][k], 1.0 / math.sqrt(d))
-            normal(blk["mixer"]["wo"], 1.0 / math.sqrt(cfg.n_heads * cfg.hd))
-            for k in ("bq", "bk", "bv"):
-                if k in blk["mixer"]:
-                    blk["mixer"][k].zero_()
+            for part in ("mixer", "cross") if kind == "encdec" else ("mixer",):
+                for k in ("wq", "wk", "wv"):
+                    normal(blk[part][k], 1.0 / math.sqrt(d))
+                normal(blk[part]["wo"], 1.0 / math.sqrt(cfg.n_heads * cfg.hd))
+                for k in ("bq", "bk", "bv"):
+                    if k in blk[part]:
+                        blk[part][k].zero_()
         if "moe" in blk:
             moe_init(blk["moe"], d, cfg.moe, normal)
         if "mlp" in blk:
@@ -460,10 +516,11 @@ class StreamModel(nn.Module):
                 normal(blk["mlp"]["w_gate"], 1.0 / math.sqrt(d))
             normal(blk["mlp"]["w_out"], 1.0 / math.sqrt(cfg.d_ff))
 
-    def _layer_params(self, tree: dict | None = None) -> list[tuple]:
+    def _layer_params(self, tree: dict | None = None, encoder: bool = False) -> list[tuple]:
         """``(kind, section, slot name, index, params)`` of every layer in
         execution order: group by group, each group's slots in pattern
-        order, then the tail; params are per-layer views.
+        order, then the tail; params are per-layer views. With ``encoder``
+        the encoder's ``bidir`` layers (section ``encoder``) instead.
 
         Serving (grad mode off, the model's own tree) builds the views once
         and keeps them. Under grad mode, or for a given ``tree``, they are
@@ -472,42 +529,53 @@ class StreamModel(nn.Module):
         and one ``unbind`` writes the stacked gradient in one piece where a
         select per layer would add a full-size zero tensor per layer."""
         fresh = tree is not None or torch.is_grad_enabled()
-        if not fresh and self._layers is not None:
-            return self._layers
+        key = "encoder" if encoder else "decoder"
+        if not fresh and key in self._layers:
+            return self._layers[key]
         tree = self.param_tree() if tree is None else tree
-        pat = self.cfg.pattern
-        split = {
-            (sec, name): {part: {k: _unbind(v) for k, v in sub.items()} for part, sub in blk.items()}
-            for sec in ("slots", "tail") if sec in tree for name, blk in tree[sec].items()
-        }
 
-        def view(sec, name, i):
-            return {part: {k: v[i] for k, v in sub.items()} for part, sub in split[sec, name].items()}
+        def views(blk, n):
+            split = {part: {k: _unbind(v) for k, v in sub.items()} for part, sub in blk.items()}
+            return [{part: {k: v[i] for k, v in sub.items()} for part, sub in split.items()} for i in range(n)]
 
-        layers = [
-            (kind, "slots", f"s{j}", g, view("slots", f"s{j}", g))
-            for g in range(self.n_groups) for j, kind in enumerate(pat)
-        ] + [(pat[j], "tail", f"s{j}", 0, view("tail", f"s{j}", 0)) for j in range(self.tail)]
+        if encoder:
+            enc = views(tree["encoder"]["slots"]["s0"], self.cfg.enc_layers)
+            layers = [("bidir", "encoder", "s0", i, p) for i, p in enumerate(enc)]
+        else:
+            pat = self.cfg.pattern
+            slots = [views(tree["slots"][f"s{j}"], self.n_groups) for j in range(len(pat))]
+            tail = [views(tree["tail"][f"s{j}"], 1)[0] for j in range(self.tail)]
+            layers = [
+                (kind, "slots", f"s{j}", g, slots[j][g]) for g in range(self.n_groups) for j, kind in enumerate(pat)
+            ] + [(pat[j], "tail", f"s{j}", 0, p) for j, p in enumerate(tail)]
         if not fresh:
-            self._layers = layers
+            self._layers[key] = layers
         return layers
 
     # ----------------------------------------------------------------- stack
-    def _norm(self, w, x):
-        return L.rms_norm(x, w, self.cfg.norm_eps, plus_one=self.cfg.norm_plus_one)
+    def _norm(self, p: dict, x):
+        """The config's norm with the part ``p`` (one layer's ``{"w"}``, or
+        ``{"w", "b"}`` for layer norm)."""
+        if self.cfg.norm == "ln":
+            return L.layer_norm(x, p["w"], p["b"], self.cfg.norm_eps)
+        return L.rms_norm(x, p["w"], self.cfg.norm_eps, plus_one=self.cfg.norm_plus_one)
 
-    def _layer(self, kind: str, blk: dict, x, positions, st: dict | None = None):
+    def _layer(self, kind: str, blk: dict, x, positions, st: dict | None = None, enc=None):
         """One block: x plus its mixer, then plus its MLP or MoE FFN (each
         output through its sandwich norm first where the config has them).
-        With ``st`` (the layer's view of the cache) a full-sequence pass
-        (prefill) writes the layer's K/V or recurrent state into it and a
-        one-token pass decodes from it; either way in place. An int8 layer
-        is dequantized to the compute dtype here. Returns (x, the MoE's aux
-        loss or None)."""
+        An ``encdec`` block adds, after its causal self attention, the cross
+        attention of its ``norm_x`` of x over ``enc`` (the encoder's output,
+        (B, S_enc, d)), as JAX's ``_apply_block`` does. With ``st`` (the
+        layer's view of the cache) a full-sequence pass (prefill) writes the
+        layer's K/V (and an ``encdec`` block's cross K/V, ``xk`` / ``xv``)
+        or recurrent state into it and a one-token pass decodes from it;
+        either way in place. An int8 layer is dequantized to the compute
+        dtype here. Returns (x, the MoE's aux loss or None)."""
         cfg = self.cfg
         if self.policy.weights_int8:
             blk = _dq_tree(blk, torch_dtype(self.policy.compute_dtype))
-        h = self._norm(blk["norm1"]["w"], x)
+        h = self._norm(blk["norm1"], x)
+        decode = st is not None and x.shape[1] == 1  # JAX: any one-token pass with a cache
         if kind in ("ssm", "rec"):
             if kind == "ssm":
                 out, new = M.ssm_mixer(blk["mixer"], h, cfg.ssm, st, cfg.norm_eps)
@@ -516,36 +584,49 @@ class StreamModel(nn.Module):
             if st is not None:
                 for k, v in new.items():
                     st[k].copy_(v)
-        elif st is not None and x.shape[1] == 1:  # decode
-            ap = cfg.attn_params(kind)
-            if "bt" in st:
-                out, _, _ = L.paged_decode_attention(blk["mixer"], h, st["k"], st["v"], st["pos"], st["bt"], ap)
-            else:
-                out, _, _ = L.decode_attention(
-                    blk["mixer"], h, st["k"], st["v"], st["pos"], ap, ring=kind == "local",
-                )
-            st["pos"].add_(1)
-        elif st is not None:  # prefill: fill the cache while attending
-            out, k, v = L.attention(blk["mixer"], h, cfg.attn_params(kind), positions, return_kv=True)
-            _fill_kv_cache(st, k, v)
         else:
-            out = L.attention(blk["mixer"], h, cfg.attn_params(kind), positions)
-        x = x + (self._norm(blk["post1"]["w"], out) if cfg.post_norms else out)
+            ap = cfg.attn_params("attn" if kind == "encdec" else kind)  # an encdec block's self attention
+            if decode:
+                if "bt" in st:
+                    out, _, _ = L.paged_decode_attention(blk["mixer"], h, st["k"], st["v"], st["pos"], st["bt"], ap)
+                else:
+                    out, _, _ = L.decode_attention(
+                        blk["mixer"], h, st["k"], st["v"], st["pos"], ap, ring=kind == "local",
+                    )
+                st["pos"].add_(1)
+            elif st is not None:  # prefill: fill the cache while attending
+                out, k, v = L.attention(blk["mixer"], h, ap, positions, return_kv=True)
+                _fill_kv_cache(st, k, v)
+            else:
+                out = L.attention(blk["mixer"], h, ap, positions)
+        x = x + (self._norm(blk["post1"], out) if cfg.post_norms else out)
+        if kind == "encdec":
+            hx = self._norm(blk["norm_x"], x)
+            capx = cfg.attn_params("cross")
+            if decode:
+                out, _, _ = L.decode_attention(blk["cross"], hx, st["xk"], st["xv"], st["pos"], capx)
+            else:
+                out, xk, xv = L.attention(blk["cross"], hx, capx, return_kv=True, kv_source=enc)
+                if st is not None:  # the encoder's projections, cached once (JAX computes them again)
+                    for key, new in (("xk", xk), ("xv", xv)):
+                        cache_bits(st[key]).copy_(cache_bits(to_cache(new, st[key].dtype)))
+            x = x + out
         if cfg.mlp_kind == "none" and cfg.moe is None:
             return x, None
-        h2 = self._norm(blk["norm2"]["w"], x)
+        h2 = self._norm(blk["norm2"], x)
         aux = None
         if cfg.moe is not None:
             dense = (lambda t: L.mlp(blk["mlp"], t, "gated", cfg.mlp_act)) if cfg.moe.dense_residual else None
             y, aux = moe_ffn(blk["moe"], h2, cfg.moe, dense_mlp=dense)
         else:
             y = L.mlp(blk["mlp"], h2, cfg.mlp_kind, cfg.mlp_act)
-        return x + (self._norm(blk["post2"]["w"], y) if cfg.post_norms else y), aux
+        return x + (self._norm(blk["post2"], y) if cfg.post_norms else y), aux
 
-    def _run_stack(self, x, positions, caches=None, tree=None):
+    def _run_stack(self, x, positions, caches=None, tree=None, enc=None):
         """Every layer in order; with ``caches`` each layer reads and writes
-        its own view of them (prefill or decode). Returns (x, the MoE aux
-        losses summed over the layers in order, f32; 0 without an MoE)."""
+        its own view of them (prefill or decode); ``encdec`` layers attend
+        to ``enc``. Returns (x, the MoE aux losses summed over the layers in
+        order, f32; 0 without an MoE)."""
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for kind, sec, name, i, blk in self._layer_params(tree):
             st = None
@@ -553,10 +634,23 @@ class StreamModel(nn.Module):
                 st = caches[sec][name]
                 if sec == "slots":
                     st = {k: v[i] for k, v in st.items()}
-            x, a = self._layer(kind, blk, x, positions, st)
+            x, a = self._layer(kind, blk, x, positions, st, enc)
             if a is not None:
                 aux = aux + a
         return x, aux
+
+    def _encode(self, frames, tree=None):
+        """whisper's encoder (JAX's ``_encode``): the frame embeddings (B,
+        S_enc, d) cast to the compute dtype plus the sinusoid, the
+        ``bidir`` stack, then the encoder's final norm."""
+        dt = torch_dtype(self.policy.compute_dtype)
+        x = torch.as_tensor(frames, device=self.device).to(dt)
+        x = x + _sinusoid(x.shape[1], self.cfg.d_model, dt, self.device)
+        positions = torch.arange(x.shape[1], device=self.device)
+        for kind, _, _, _, blk in self._layer_params(tree, encoder=True):
+            x, _ = self._layer(kind, blk, x, positions)
+        norm = (self.tree if tree is None else tree)["encoder"]["final_norm"]
+        return self._norm({k: v[0] for k, v in norm.items()}, x)
 
     def _embed_tokens(self, tokens, tree=None):
         tokens = torch.as_tensor(tokens, device=self.device).long()
@@ -567,23 +661,32 @@ class StreamModel(nn.Module):
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
         return x
 
-    def _embed_inputs(self, tokens, patch_embeds=None, tree=None):
+    def _embed_inputs(self, tokens, patch_embeds=None, frames=None, tree=None):
         """The token embeddings with, for a ``patches`` frontend, the patch
         embeddings (B, P, d) cast to their dtype and put in front (JAX's
-        ``forward``, ``hidden`` and ``prefill``); positions then run over
-        P + S. Raises where the frontend and the inputs disagree."""
+        ``forward``, ``hidden`` and ``prefill``; positions then run over P
+        + S), plus the learned positions where the config has them; and
+        the encoder's output of ``frames`` (B, S_enc, d) for an encoder,
+        else None. Returns (x, enc); raises where the frontend and the
+        inputs disagree."""
+        cfg = self.cfg
         x = self._embed_tokens(tokens, tree)
-        if self.cfg.frontend != "patches":
-            if patch_embeds is not None:
-                raise ValueError(f"{self.cfg.name} has no patch frontend: patch_embeds given")
-            return x
-        if patch_embeds is None:
-            raise ValueError(f"{self.cfg.name} takes patch_embeds (B, P, d) before its tokens")
-        front = torch.as_tensor(patch_embeds, device=self.device).to(x.dtype)
-        return torch.cat([front, x], dim=1)
+        if cfg.frontend != "patches" and patch_embeds is not None:
+            raise ValueError(f"{cfg.name} has no patch frontend: patch_embeds given")
+        if cfg.frontend == "patches":
+            if patch_embeds is None:
+                raise ValueError(f"{cfg.name} takes patch_embeds (B, P, d) before its tokens")
+            front = torch.as_tensor(patch_embeds, device=self.device).to(x.dtype)
+            x = torch.cat([front, x], dim=1)
+        if cfg.learned_pos:  # JAX adds the table's leaf as it is (its dtype promotes)
+            pe = self.tree["pos_embed"]["w"] if tree is None else tree["pos_embed"]
+            x = x + pe[: x.shape[1]][None]
+        if (frames is not None) != cfg.enc_dec:
+            raise ValueError(f"{cfg.name} takes frames (B, S_enc, d) exactly when it has an encoder")
+        return x, self._encode(frames, tree) if cfg.enc_dec else None
 
     def _logits(self, x):
-        x = self._norm(self.tree["final_norm"]["w"][0], x)
+        x = self._norm({k: v[0] for k, v in self.tree["final_norm"].items()}, x)
         if self.cfg.tie_embeddings:
             logits = x @ self.tree["embed"]["w"].to(x.dtype).T
         else:
@@ -592,23 +695,24 @@ class StreamModel(nn.Module):
 
     # ------------------------------------------------------------ public API
     @torch.no_grad()
-    def forward(self, tokens, patch_embeds=None) -> torch.Tensor:
+    def forward(self, tokens, patch_embeds=None, frames=None) -> torch.Tensor:
         """Full forward to f32 logits (B, S, vocab_padded); with a patch
         frontend, (B, P + S, vocab_padded) over ``patch_embeds`` (B, P, d)
-        and the tokens."""
-        x = self._embed_inputs(tokens, patch_embeds)
+        and the tokens; with an encoder, the tokens attend to the encoder's
+        output of ``frames`` (B, S_enc, d)."""
+        x, enc = self._embed_inputs(tokens, patch_embeds, frames)
         positions = torch.arange(x.shape[1], device=self.device)
-        return self._logits(self._run_stack(x, positions)[0])
+        return self._logits(self._run_stack(x, positions, enc=enc)[0])
 
     def hidden(self, params: dict, batch: dict):
         """Forward to the final hidden states (before the final norm) with
         the parameters of ``params`` (a tree in the JAX layout). Returns
         (h (B, S, d), aux): the MoE layers' load-balancing losses summed
         (f32; 0 without an MoE). A patch frontend reads
-        ``batch["patch_embeds"]``."""
-        x = self._embed_inputs(batch["tokens"], batch.get("patch_embeds"), params)
+        ``batch["patch_embeds"]``, an encoder ``batch["frames"]``."""
+        x, enc = self._embed_inputs(batch["tokens"], batch.get("patch_embeds"), batch.get("frames"), params)
         positions = torch.arange(x.shape[1], device=self.device)
-        return self._run_stack(x, positions, tree=params)
+        return self._run_stack(x, positions, tree=params, enc=enc)
 
     def loss(self, params: dict, batch: dict, *, loss_chunk: int = 1024):
         """Next-token cross entropy with a **chunked** unembed and softmax
@@ -622,7 +726,7 @@ class StreamModel(nn.Module):
         {"loss": loss, "aux": aux})."""
         cfg = self.cfg
         h, aux = self.hidden(params, batch)
-        h = self._norm(params["final_norm"]["w"][0], h)
+        h = self._norm({k: v[0] for k, v in params["final_norm"].items()}, h)
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         front = cfg.frontend_len if cfg.frontend == "patches" else 0
         pred_h, labels = (h[:, :-1], tokens[:, 1:]) if front == 0 else (h[:, front - 1:-1], tokens)
@@ -651,25 +755,35 @@ class StreamModel(nn.Module):
 
     def _slot_cache(self, kind: str, b: int, s_cache: int, dtype) -> dict:
         """One layer's zero cache: K/V of ``s_cache`` slots (``min(window,
-        s_cache)`` ring slots for a local layer) and its position count, or
-        the SSM / RG-LRU states (f32)."""
+        s_cache)`` ring slots for a local layer) and its position count,
+        with an ``encdec`` layer's cross K/V ``xk`` / ``xv`` of the
+        encoder's ``enc_seq`` positions beside them; or the SSM / RG-LRU
+        states (f32). A ``bidir`` layer decodes nothing (JAX raises too)."""
         cfg = self.cfg
         if kind == "ssm":
             return M.ssm_init_state(b, cfg.ssm, self.device)
         if kind == "rec":
             return R.rglru_init_state(b, cfg.rglru, self.device)
+        if kind == "bidir":
+            raise ValueError("a bidir layer keeps no decode cache")
         sz = min(cfg.window, s_cache) if kind == "local" and cfg.window else s_cache
         kv = (b, sz, cfg.n_kv_heads, cfg.hd)
-        return {
+        st = {
             "k": torch.zeros(kv, dtype=dtype, device=self.device),
             "v": torch.zeros(kv, dtype=dtype, device=self.device),
             "pos": torch.zeros((), dtype=torch.int32, device=self.device),
         }
+        if kind == "encdec":
+            xkv = (b, cfg.enc_seq, cfg.n_kv_heads, cfg.hd)
+            st["xk"] = torch.zeros(xkv, dtype=dtype, device=self.device)
+            st["xv"] = torch.zeros(xkv, dtype=dtype, device=self.device)
+        return st
 
     def init_cache(self, batch_size: int, s_cache: int, dtype=None):
         """Contiguous decode cache per slot, stacked on the group dim
         (``slots/s{i}``: k/v (n_groups, B, sz, Kv, hd) and pos (n_groups,)
-        for attention, conv (n_groups, B, W-1, C) and ssd or h for the
+        for attention, with xk/xv (n_groups, B, enc_seq, Kv, hd) for an
+        ``encdec`` slot, conv (n_groups, B, W-1, C) and ssd or h for the
         SSM and RG-LRU states, f32) and unstacked for the tail."""
         dtype = torch_dtype(self.policy.kv_cache_dtype) if dtype is None else dtype
         pat = self.cfg.pattern
@@ -737,25 +851,39 @@ class StreamModel(nn.Module):
         return caches
 
     @torch.no_grad()
-    def prefill(self, tokens, s_cache: int, cache_dtype=torch.bfloat16, patch_embeds=None):
+    def prefill(self, tokens, s_cache: int, cache_dtype=torch.bfloat16, patch_embeds=None, frames=None):
         """Run the full prompt (a patch frontend's ``patch_embeds`` (B, P,
-        d) before its tokens: P + S positions), fill a cache of ``s_cache``
-        slots, return the last position's logits (B, vocab_padded) and the
-        cache."""
-        x = self._embed_inputs(tokens, patch_embeds)
+        d) before its tokens: P + S positions; an encoder's ``frames`` (B,
+        enc_seq, d), encoded once and their cross K/V cached), fill a cache
+        of ``s_cache`` slots, return the last position's logits (B,
+        vocab_padded) and the cache. A one-token prompt decodes, as in JAX
+        (an ``encdec`` layer's cross K/V then stay zero)."""
+        x, enc = self._embed_inputs(tokens, patch_embeds, frames)
         caches = self.init_cache(x.shape[0], s_cache, cache_dtype)
         positions = torch.arange(x.shape[1], device=self.device)
-        x, _ = self._run_stack(x, positions, caches)
+        x, _ = self._run_stack(x, positions, caches, enc=enc)
         return self._logits(x[:, -1:, :])[:, 0], caches
 
     @torch.no_grad()
-    def decode_step(self, caches, tokens):
-        """One decode step for tokens (B, 1). Positions come from the cache:
-        scalar per attention layer for ``init_cache``, per row for the paged
-        cache (the JAX signature's ``pos`` feeds only learned position
-        embeddings, which are not ported); recurrent layers need none.
-        Returns (logits (B, 1, vocab_padded), caches)."""
-        x, _ = self._run_stack(self._embed_tokens(tokens), None, caches)
+    def decode_step(self, caches, tokens, pos=None):
+        """One decode step for tokens (B, 1). Attention layers take their
+        positions from the cache: scalar per layer for ``init_cache``, per
+        row for the paged cache; recurrent layers need none. ``pos`` (JAX's
+        argument: a scalar, or (B,) per row) feeds only the learned position
+        embeddings, ``pos_embed[pos]`` added to the token's; left None, it is
+        the first attention slot's cache position (the tokens already in
+        it, per row for the paged cache). Returns (logits (B, 1,
+        vocab_padded), caches)."""
+        x = self._embed_tokens(tokens)
+        if self.cfg.learned_pos:
+            if pos is None:
+                first = next(f"s{i}" for i, k in enumerate(self.cfg.pattern) if k in _ATTN_KINDS)
+                pos = caches["slots" if self.n_groups else "tail"][first]["pos"]
+                pos = pos[0] if self.n_groups else pos
+            pos = torch.as_tensor(pos, device=self.device).long()
+            pe = self.tree["pos_embed"]["w"][pos]
+            x = x + (pe[:, None] if pos.dim() == 1 else pe[None, None])
+        x, _ = self._run_stack(x, None, caches)
         return self._logits(x), caches
 
 
@@ -774,3 +902,13 @@ def _fill_kv_cache(st: dict, k, v) -> None:
         else:
             dst[:, :s] = new
     st["pos"].fill_(s)
+
+
+def _sinusoid(s: int, d: int, dtype, device) -> torch.Tensor:
+    """whisper's (S, d) sinusoid (JAX's ``model._sinusoid``): sines then
+    cosines of pos / 10000^(2i / d), made in numpy float64 and cast."""
+    pos = np.arange(s)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    emb = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.from_numpy(emb).to(device=device, dtype=dtype)

@@ -78,41 +78,47 @@ def gqa_split(rep: int, d: int = 128) -> int:
     return g
 
 
-def kv_steps(s, causal, window, k0, bn=BN_KV, bq=BQ):
-    """The query steps (their first rows) the dK/dV block of keys [k0, k0 + bn) walks."""
-    k_last = min(k0 + bn, s) - 1
+def kv_steps(s, causal, window, k0, bn=BN_KV, bq=BQ, sk=None):
+    """The query steps (their first rows) the dK/dV block of keys [k0, k0 +
+    bn) walks; s queries and ``sk`` keys (s where None)."""
+    sk = s if sk is None else sk
+    k_last = min(k0 + bn, sk) - 1
     lo = k0 if causal else 0
     hi = min(s - 1, k_last + window - 1) if window else s - 1
     return range(lo // bq * bq, hi + 1, bq)
 
 
-def q_tiles(s, causal, window, q0, bn, bm=BM):
+def q_tiles(s, causal, window, q0, bn, bm=BM, sk=None):
     """The bn-key tiles the dQ block of queries [q0, q0 + bm) walks."""
+    sk = s if sk is None else sk
     q_last = min(q0 + bm, s) - 1
-    hi = q_last // bn if causal else (s - 1) // bn
+    hi = min(q_last, sk - 1) // bn if causal else (sk - 1) // bn
     lo = max(0, q0 - window + 1) // bn if window else 0
     return range(lo, hi + 1)
 
 
-def interior_rows(s, causal, window, qw, k0, tk):
+def interior_rows(s, causal, window, qw, k0, tk, sk=None):
     """``Mask::interior``: 64 query rows from qw against keys [k0, k0 + tk)."""
+    sk = s if sk is None else sk
     q_last = min(qw + 63, s - 1)
-    if k0 + tk > s or (causal and k0 + tk - 1 > qw):
+    if k0 + tk > sk or (causal and k0 + tk - 1 > qw):
         return False
     return not (window and k0 <= q_last - window)
 
 
-def interior_keys(s, causal, window, kw, q0, tq=BQ):
+def interior_keys(s, causal, window, kw, q0, tq=BQ, sk=None):
     """``Mask::interior_keys``: 64 keys from kw against queries [q0, q0 + tq)."""
-    if kw + 64 > s or (causal and kw + 63 > q0):
+    sk = s if sk is None else sk
+    if kw + 64 > sk or (causal and kw + 63 > q0):
         return False
     return not (window and kw <= min(q0 + tq, s) - 1 - window)
 
 
-def kept(s, causal, window):
-    """(query, key) pairs the mask keeps, (S, S) bool: ``Mask::ok``."""
-    q, k = np.arange(s)[:, None], np.arange(s)[None, :]
-    ok = np.ones((s, s), bool)
+def kept(s, causal, window, sk=None):
+    """(query, key) pairs the mask keeps, (S, Sk) bool: ``Mask::ok``."""
+    sk = s if sk is None else sk
+    q, k = np.arange(s)[:, None], np.arange(sk)[None, :]
+    ok = np.ones((s, sk), bool)
     if causal:
         ok &= k <= q
     if window:
@@ -201,14 +207,14 @@ def test_gqa_split_at_head_dim_256(rep):
     assert sorted(heads) == list(range(rep))
 
 
-def _mask_t(s, causal, window):
-    return torch.from_numpy(kept(s, causal, window))
+def _mask_t(s, causal, window, sk=None):
+    return torch.from_numpy(kept(s, causal, window, sk))
 
 
 def kernel_model(q, k, v, do, causal, window, bf16=False, softcap=None):
-    """dq, dk, dv (q, do (B, H, S, D); k, v (B, Kv, S, D)) in the kernels' order."""
+    """dq, dk, dv (q, do (B, H, Sq, D); k, v (B, Kv, Sk, D)) in the kernels' order."""
     b, h, s, d = q.shape
-    kv = k.shape[1]
+    kv, sk = k.shape[1], k.shape[2]
     rep, g = h // kv, gqa_split(h // kv, d)
     bn_kv = BN_KV_D256 if d == 256 else BN_KV
     scale = 1.0 / math.sqrt(d)
@@ -218,8 +224,8 @@ def kernel_model(q, k, v, do, causal, window, bf16=False, softcap=None):
     # the forward's outputs: O and the base-2 row log-sum-exp of the scaled (capped) scores
     out = ref.mha(q, kr, vr, causal=causal, window=window, softcap=softcap)
     lse2 = torch.logsumexp(ref.scores(q, kr, causal=causal, window=window, softcap=softcap), -1) * LOG2E
-    di = (do * out).sum(-1)  # Di, (B, H, S)
-    ok = _mask_t(s, causal, window)
+    di = (do * out).sum(-1)  # Di, (B, H, Sq)
+    ok = _mask_t(s, causal, window, sk)
 
     def probs(raw, lse):
         """(P, the value dS takes for P) of raw dot products: the kernels'
@@ -236,8 +242,8 @@ def kernel_model(q, k, v, do, causal, window, bf16=False, softcap=None):
     dq = torch.zeros_like(q)
     for q0 in range(0, s, BM):
         rows = slice(q0, min(q0 + BM, s))
-        for kt in q_tiles(s, causal, window, q0, bn):
-            cols = slice(kt * bn, min((kt + 1) * bn, s))
+        for kt in q_tiles(s, causal, window, q0, bn, sk=sk):
+            cols = slice(kt * bn, min((kt + 1) * bn, sk))
             keep = ok[rows, cols]
             _, pf = probs(q[:, :, rows] @ kr[:, :, cols].transpose(-1, -2), lse2[:, :, rows, None])
             dp = do[:, :, rows] @ vr[:, :, cols].transpose(-1, -2)
@@ -246,15 +252,15 @@ def kernel_model(q, k, v, do, causal, window, bf16=False, softcap=None):
     dq = dq * scale
 
     # dK, dV: a block per (bn_kv keys, kv head, group); each group's f32 partial sums
-    part_k = torch.zeros((g, b, kv, s, d))
-    part_v = torch.zeros((g, b, kv, s, d))
-    for k0 in range(0, s, bn_kv):
-        cols = slice(k0, min(k0 + bn_kv, s))
+    part_k = torch.zeros((g, b, kv, sk, d))
+    part_v = torch.zeros((g, b, kv, sk, d))
+    for k0 in range(0, sk, bn_kv):
+        cols = slice(k0, min(k0 + bn_kv, sk))
         for hk in range(kv):
             for grp in range(g):
                 for i in range(rep // g):
                     hh = hk * rep + grp * (rep // g) + i
-                    for q0 in kv_steps(s, causal, window, k0, bn=bn_kv):
+                    for q0 in kv_steps(s, causal, window, k0, bn=bn_kv, sk=sk):
                         rows = slice(q0, min(q0 + BQ, s))
                         keep = ok[rows, cols].T
                         st = k[:, hk, cols] @ q[:, hh, rows].transpose(-1, -2)
@@ -271,9 +277,10 @@ def kernel_model(q, k, v, do, causal, window, bf16=False, softcap=None):
     return dq, dk * scale, dv
 
 
-def _inputs(seed, b, s, h, kv, d):
+def _inputs(seed, b, s, h, kv, d, sk=None):
+    sk = s if sk is None else sk
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal(shape).astype(np.float32) for shape in ((b, s, h, d), (b, s, kv, d), (b, s, kv, d),
+    return [rng.standard_normal(shape).astype(np.float32) for shape in ((b, s, h, d), (b, sk, kv, d), (b, sk, kv, d),
                                                                         (b, s, h, d))]
 
 
@@ -290,9 +297,9 @@ def _jax_grads(arrays, causal, window, softcap=None):
     q, k, v, do = (jnp.asarray(a) for a in arrays)
     s, h, d = q.shape[1], q.shape[2], q.shape[3]
     ap = AttnParams(n_heads=h, n_kv=k.shape[2], head_dim=d, causal=causal, window=window, softcap=softcap,
-                    q_block=64)
-    pos = jnp.arange(s)
-    _, vjp = jax.vjp(lambda q_, k_, v_: _chunked_attention(q_, k_, v_, pos, pos, ap, grouped=False), q, k, v)
+                    q_block=64, cross=k.shape[1] != s)
+    qp, kp = jnp.arange(s), jnp.arange(k.shape[1])
+    _, vjp = jax.vjp(lambda q_, k_, v_: _chunked_attention(q_, k_, v_, qp, kp, ap, grouped=False), q, k, v)
     return [torch.from_numpy(np.array(g)).transpose(1, 2) for g in vjp(do)]
 
 
@@ -377,5 +384,65 @@ def test_kernel_model_softcap_bf16_rounding_within_tolerance(cap):
     q, k, v, do = (torch.from_numpy(a).bfloat16().float().transpose(1, 2) for a in arrays)
     got = kernel_model(q, k, v, do, True, 50, bf16=True, softcap=cap)
     want = _autograd(q, k, v, do, True, 50, softcap=cap)
+    errs = [_rel(g, w) for g, w in zip(got, want)]
+    assert max(errs) <= BF16_TOL, errs
+
+
+# Queries and keys of different lengths (whisper-tiny's cross attention:
+# the decoder's tokens over the encoder's frames), no mask. The walks at
+# every pair of SEQS-like lengths, then the kernels' arithmetic against
+# autograd and jax.grad of _chunked_attention with a cross AttnParams.
+CROSS_SEQS = (1, 5, 63, 64, 65, 128, 129, 200, 300, 448)
+
+
+def test_walks_at_cross_lengths_cover_every_pair():
+    """With no mask every dK/dV block walks every query step of Sq and every
+    dQ block every key tile of Sk (at D 64 / 128 and 256); a tile called
+    interior lies inside both extents."""
+    for sq in CROSS_SEQS:
+        for sk in CROSS_SEQS:
+            for bn_kv in (BN_KV, BN_KV_D256):
+                for k0 in range(0, sk, bn_kv):
+                    steps = list(kv_steps(sq, False, None, k0, bn=bn_kv, sk=sk))
+                    assert steps == list(range(0, sq, BQ)), (sq, sk, k0)
+                    for kw in range(k0, min(k0 + bn_kv, sk), 64):
+                        for q0 in steps:
+                            assert interior_keys(sq, False, None, kw, q0, sk=sk) == (kw + 64 <= sk)
+            for bn in (DQ_KEYS, DQ_KEYS_D256):
+                for q0 in range(0, sq, BM):
+                    tiles = list(q_tiles(sq, False, None, q0, bn, sk=sk))
+                    assert tiles == list(range((sk - 1) // bn + 1)), (sq, sk, q0)
+                    for kt in tiles:
+                        assert interior_rows(sq, False, None, q0, kt * bn, bn, sk=sk) == ((kt + 1) * bn <= sk)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d", [
+    (2, 5, 200, 4, 4, 64),     # a prompt's few queries over more keys: the query tile nearly all past Sq
+    (1, 129, 200, 8, 2, 64),   # rep 4: G 2; Sq a tile + 1, Sk ragged
+    (1, 300, 129, 4, 2, 64),   # Sq > Sk
+    (1, 77, 130, 16, 1, 256),  # head dim 256, rep 16: G GQA_SPLIT_D256
+])
+def test_kernel_model_cross_lengths_match_autograd_and_jax(b, sq, sk, h, kv, d):
+    arrays = _inputs(35, b, sq, h, kv, d, sk=sk)
+    q, k, v, do = (torch.from_numpy(a).transpose(1, 2) for a in arrays)
+    got = kernel_model(q, k, v, do, False, None)
+    want = _autograd(q, k, v, do, False, None)
+    want_jax = _jax_grads(arrays, False, None)
+    for name, g, w, wj in zip(("dq", "dk", "dv"), got, want, want_jax):
+        assert g.shape == w.shape == wj.shape
+        assert _rel(g, w) <= F32_TOL, (name, _rel(g, w))
+        assert _rel(g, wj) <= F32_TOL, (name, _rel(g, wj))
+
+
+@pytest.mark.parametrize("sq,sk", [(4, 1500), (448, 1500)])
+def test_kernel_model_cross_lengths_bf16_rounding_within_tolerance(sq, sk):
+    """whisper-tiny's calls (6 heads of 64; a 4-token prompt and the
+    448-token context over 1500 frames) with bf16 inputs and P and dS
+    rounded where the kernels round them: within the card's bf16 tolerance
+    of autograd."""
+    arrays = _inputs(36, 1, sq, 6, 6, 64, sk=sk)
+    q, k, v, do = (torch.from_numpy(a).bfloat16().float().transpose(1, 2) for a in arrays)
+    got = kernel_model(q, k, v, do, False, None, bf16=True)
+    want = _autograd(q, k, v, do, False, None)
     errs = [_rel(g, w) for g, w in zip(got, want)]
     assert max(errs) <= BF16_TOL, errs

@@ -126,7 +126,7 @@ def test_copd_synth_dataset_is_verbatim():
 # configs/: every architecture the port registers is its original's
 # definitions (config, reduced_config) and ID, its imports aside
 CONFIG_COPIES = ["yi_6b", "mamba2_2_7b", "recurrentgemma_9b", "gemma2_2b", "qwen2_7b", "mistral_large_123b",
-                 "qwen3_moe_30b_a3b", "arctic_480b", "pixtral_12b"]
+                 "qwen3_moe_30b_a3b", "arctic_480b", "pixtral_12b", "whisper_tiny"]
 
 
 def _config_id(path: Path) -> str:

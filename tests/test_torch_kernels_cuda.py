@@ -1326,6 +1326,103 @@ def test_gemma2_on_card_matches_cpu(card):
         assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
 
 
+# K1 and its backward at queries and keys of different lengths, no mask
+# (whisper-tiny's cross attention: the decoder's tokens over the encoder's
+# 1500 frames), both lengths ragged for every tile: Sq below, at and past
+# a query tile, Sq > Sk too
+CROSS = [(4, 1500, 6, 6, 64), (65, 200, 8, 2, 64), (448, 1500, 6, 6, 64), (300, 129, 4, 2, 128),
+         (2000, 1500, 6, 6, 64), (77, 333, 16, 1, 256)]
+
+
+def _cross_case(seed, b, sq, sk, h, kv, d, dtype, device):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, getattr(torch, dtype))
+                   for shape in ((b, sq, h, d), (b, sk, kv, d), (b, sk, kv, d), (b, sq, h, d)))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk,h,kv,d", CROSS)
+def test_flash_attention_cross_lengths_on_card(card, dtype, sq, sk, h, kv, d):
+    """The forward (one launch, chip_smoke's criterion) and the backward
+    (dq over Sq, dk and dv over Sk) against the plain version."""
+    q, k, v, do = _cross_case(40, 2, sq, sk, h, kv, d, dtype, card)
+    _hold_attention(q, k, v, causal=False)
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    out, lse = fa.flash_attention(qt, kt, vt, causal=False, return_lse=True)
+    n = fa.BWD_LAUNCHES
+    got = fa.flash_attention_bwd(qt, kt, vt, out, dot, lse, causal=False)
+    want = _plain_grads(qt, kt, vt, dot, False, None)
+    torch.cuda.synchronize()
+    assert fa.BWD_LAUNCHES == n + 1
+    for g, w, t in zip(got, want, (qt, kt, vt)):
+        assert g.shape == t.shape and g.dtype == t.dtype
+        err = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+        assert err <= BWD_TOL[dtype], err
+
+
+@pytest.mark.parametrize("sq,sk,h,kv,d", [(448, 1500, 6, 6, 64), (65, 200, 8, 2, 64)])
+def test_flash_attention_bwd_cross_lengths_is_deterministic(card, sq, sk, h, kv, d):
+    """The same dq, dk and dv to the bit on every call at Sq != Sk (the
+    GQA split's partials over Sk added in order)."""
+    q, k, v, do = (t.transpose(1, 2) for t in _cross_case(41, 4, sq, sk, h, kv, d, "bfloat16", card))
+    out, lse = fa.flash_attention(q, k, v, causal=False, return_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=False)
+    for _ in range(3):
+        again = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=False)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.parametrize("kw", [{"causal": True}, {"causal": False, "window": 64}])
+def test_flash_attention_cross_lengths_refuse_a_mask(card, kw):
+    """A causal mask or a window with Sq != Sk raises before any launch,
+    in the forward and in the backward."""
+    q, k, v, do = (t.transpose(1, 2) for t in _cross_case(42, 1, 64, 128, 4, 4, 64, "bfloat16", card))
+    n_f, n_b = fa.LAUNCHES, fa.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="different lengths"):
+        fa.flash_attention(q, k, v, **kw)
+    with pytest.raises(ValueError, match="different lengths"):
+        fa.flash_attention_bwd(q, k, v, q, do, torch.zeros(q.shape[:3], device=card), **kw)
+    assert (fa.LAUNCHES, fa.BWD_LAUNCHES) == (n_f, n_b)
+
+
+def test_whisper_on_card_matches_cpu(card):
+    """Reduced whisper-tiny widened to head dim 64 (d 128 over 2 heads, the
+    kernels' smallest head dim): its logits over 24 frames, then its loss
+    and every gradient leaf through K1 forward + backward (the encoder's
+    bidirectional calls, the decoder's causal and its cross calls over the
+    frames) against the CPU twin's, at 1e-4 of the largest element; three
+    K1 launches a layer pair, forward and backward."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(configs.get_reduced("whisper-tiny"), d_model=128)
+    policy = Policy("float32", "float32", "float32")
+    on_card = StreamModel(cfg, policy, device=card, generator=0)
+    on_cpu = StreamModel(cfg, policy, device="cpu", generator=None)
+    on_cpu.load_params(on_card.param_tree())
+    rng = np.random.default_rng(9)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))
+    frames = torch.from_numpy(rng.standard_normal((2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+    n = fa.LAUNCHES
+    logits = [on_card(tokens.to(card), frames=frames.to(card)).cpu(), on_cpu(tokens, frames=frames)]
+    assert fa.LAUNCHES - n == cfg.enc_layers + 2 * cfg.n_layers
+    assert float((logits[0] - logits[1]).abs().max() / logits[1].abs().max()) <= 1e-4
+    out = []
+    for model, dev in ((on_card, card), (on_cpu, "cpu")):
+        params = model.param_tree()
+        model.requires_grad_(True)
+        k1 = fa.BWD_LAUNCHES
+        loss, _ = model.loss(params, {"tokens": tokens.to(dev), "frames": frames.to(dev)})
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        model.requires_grad_(False)
+        out.append((float(loss.detach()), [g.cpu() for g in grads], fa.BWD_LAUNCHES - k1))
+    (lc, gc_, nc), (lp, gp, npl) = out
+    assert nc == cfg.enc_layers + 2 * cfg.n_layers and npl == 0
+    assert abs(lc - lp) <= 1e-5 * abs(lp)
+    for a, b in zip(gc_, gp):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+
+
 def test_scans_refuse_inputs_that_require_grad(card):
     """K3 has its backward kernel now: on the card an input that requires
     grad goes through RGLRUScan (one forward and one backward launch, the

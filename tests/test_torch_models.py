@@ -180,8 +180,11 @@ def test_tied_dense_logits_match():
 
 
 def test_unported_configs_raise():
+    """What the port still refuses (layer norm and learned positions are
+    taken since whisper): an encoder with no ``encdec`` slot to read it,
+    and an ``encdec`` slot with no encoder."""
     base = TC.get_reduced("yi-6b")
-    for change in ({"learned_pos": True}, {"norm": "ln"}):
+    for change in ({"enc_dec": True}, {"pattern": ("encdec",)}):
         with pytest.raises(NotImplementedError):
             StreamModel(dataclasses.replace(base, **change), device="cpu")
 
@@ -404,15 +407,13 @@ def test_family_one_train_step(arch):
 
 @pytest.mark.parametrize("arch,refused", [
     ("gemma2-2b", []), ("qwen2-7b", []), ("mistral-large-123b", []),
-    ("qwen3-moe-30b-a3b", []), ("arctic-480b", []), ("pixtral-12b", []),
-    ("whisper-tiny", ["pattern", "enc_dec", "frontend 'frames'", "learned_pos", "norm 'ln'"]),
+    ("qwen3-moe-30b-a3b", []), ("arctic-480b", []), ("pixtral-12b", []), ("whisper-tiny", []),
 ])
 def test_unsupported_refuses_what_the_port_lacks(arch, refused):
     """The JAX package's configs, field for field in the port's ArchConfig
-    (an MoE's fields in the port's MoEParams): the attention-only family
-    the MoE configs and pixtral's patch frontend are taken, and the rest is
-    refused for the fields ROADMAP lists (whisper's encoder-decoder
-    pattern, frames, learned positions and layer norm)."""
+    (an MoE's fields in the port's MoEParams): the attention-only family,
+    the MoE configs, pixtral's patch frontend and whisper's encoder-decoder
+    (its frames, learned positions and layer norm) are all taken."""
     from repro_torch.models.model import ArchConfig, _unsupported
     from repro_torch.models.moe import MoEParams
 

@@ -28,7 +28,9 @@ them) at yi-6b's 1e-5 (measured 1.9e-6 at most), and their 5-step
 trajectories at their own factor of 4.0. Reduced pixtral-12b (8 patch
 positions before the tokens, the loss shifted by them as in JAX) at
 1e-5 (measured 2.3e-6), its trajectory with patches drawn from each
-batch's tokens.
+batch's tokens. Reduced whisper-tiny (its encoder over frames drawn from
+each batch's tokens, layer norms moved off 1 and 0) at 1e-5, and its
+trajectory the same way.
 """
 
 import dataclasses
@@ -81,6 +83,7 @@ Q2 = "qwen2-7b"
 QM = "qwen3-moe-30b-a3b"
 AR = "arctic-480b"
 PX = "pixtral-12b"
+WH = "whisper-tiny"
 
 
 def _cfgs(arch="yi-6b", factor=None):
@@ -105,7 +108,7 @@ def _perturbed(jp, seed=11):
         names = {getattr(k, "key", None) for k in path}
         if names & {"bq", "bk", "bv"}:
             return leaf + 0.5 * rng.standard_normal(leaf.shape).astype(np.float32)
-        if names & {"norm1", "norm2", "post1", "post2", "final_norm"}:
+        if names & {"norm1", "norm2", "post1", "post2", "final_norm", "norm_x"}:
             return leaf + 0.1 * rng.standard_normal(leaf.shape).astype(np.float32)
         return leaf
 
@@ -117,7 +120,7 @@ def _pair(arch, factor=None):
     jcfg, tcfg = _cfgs(arch, factor)
     jm = JModel(jcfg, JPolicy(param_dtype="float32", compute_dtype="float32"))
     jp = jm.init(jax.random.PRNGKey(0))
-    if arch in (G2, Q2):
+    if arch in (G2, Q2, WH):
         jp = _perturbed(jp)
     moved = convert.params_from_jax(jax.tree.map(np.asarray, jp))
     tm = StreamModel(tcfg, Policy("float32", "float32", "float32"), device="cpu", generator=None)
@@ -143,11 +146,21 @@ def _patches(tok, cfg):
     return table[np.asarray(tok)[:, :cfg.frontend_len]]
 
 
+def _frames(tok, cfg):
+    """whisper's frame embeddings for a batch of ``tok``: a seeded table of
+    (enc_seq, d) blocks picked by each row's first token."""
+    table = np.random.default_rng(14).standard_normal((256, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return table[np.asarray(tok)[:, 0]]
+
+
 def _batch(tok, cfg):
-    """``{"tokens"}``, with ``patch_embeds`` for a patch frontend (numpy)."""
+    """``{"tokens"}``, with ``patch_embeds`` for a patch frontend and
+    ``frames`` for an encoder (numpy)."""
     out = {"tokens": tok}
     if cfg.frontend == "patches":
         out["patch_embeds"] = _patches(tok, cfg)
+    if cfg.enc_dec:
+        out["frames"] = _frames(tok, cfg)
     return out
 
 
@@ -164,6 +177,7 @@ def _rel(got, want):
     pytest.param(QM, 8, 1.0, id="qwen3-moe-8-drops"), pytest.param(QM, 8, 8.0, id="qwen3-moe-8-no-drops"),
     pytest.param(AR, 8, 1.0, id="arctic-8-drops"), pytest.param(AR, 1024, 8.0, id="arctic-1024-no-drops"),
     pytest.param(PX, 8, None, id="pixtral-8"), pytest.param(PX, 1024, None, id="pixtral-1024"),
+    pytest.param(WH, 8, None, id="whisper-8"), pytest.param(WH, 1024, None, id="whisper-1024"),
 ])
 def test_loss_and_gradients_match_jax(arch, loss_chunk, factor):
     """The loss and every gradient leaf against jax.value_and_grad of the
@@ -177,7 +191,9 @@ def test_loss_and_gradients_match_jax(arch, loss_chunk, factor):
     arctic: the router's f32 leaf, the stacked experts and the aux loss,
     with routes dropped at factor 1.0 and none at 8.0, the dispatch's
     adjoint through ``moe._Dispatch``; pixtral: patch embeddings before the
-    tokens, the loss shifted by their count)."""
+    tokens, the loss shifted by their count; whisper: its encoder over the
+    batch's frames, cross attention, learned positions and layer norms,
+    their weights and biases drawn away from 1 and 0)."""
     from repro_torch.models import moe
 
     jm, jp, tm, _ = _pair(arch, factor)
@@ -495,6 +511,7 @@ _OPTS = {"adamw": (jadamw, adamw), "adamw8bit": (jadamw8bit, adamw8bit)}  # (JAX
     pytest.param(QM, True, "adamw8bit", id="qwen3-moe-True-adamw8bit"),
     pytest.param(AR, True, "adamw", id="arctic-True"), pytest.param(AR, True, "adamw8bit", id="arctic-True-adamw8bit"),
     pytest.param(PX, True, "adamw", id="pixtral-True"), pytest.param(PX, True, "adamw8bit", id="pixtral-True-adamw8bit"),
+    pytest.param(WH, True, "adamw", id="whisper-True"), pytest.param(WH, True, "adamw8bit", id="whisper-True-adamw8bit"),
 ])
 def test_training_job_trajectory_matches_jax(arch, streaming, opt):
     """The roadmap's gate: 5 steps of TrainingJob in each package on the
@@ -507,8 +524,9 @@ def test_training_job_trajectory_matches_jax(arch, streaming, opt):
     sandwich norms: their leaves narrower than a quantization block) and
     qwen2 (the bias leaves (n, heads, hd)); on reduced qwen3-moe and arctic
     (the f32 router (L, d, E), narrower than a block, and the stacked
-    (L, E, d, f) / (L, E, f, d) experts) and reduced pixtral (patch
-    embeddings from each batch's tokens, ``_patches``)."""
+    (L, E, d, f) / (L, E, f, d) experts), reduced pixtral (patch
+    embeddings from each batch's tokens, ``_patches``) and reduced whisper
+    (frames from each batch's tokens, ``_frames``)."""
     jopt, topt = _OPTS[opt]
     jm, jp, _, moved = _pair(arch)
     _, tcfg = _cfgs(arch)
@@ -517,11 +535,15 @@ def test_training_job_trajectory_matches_jax(arch, streaming, opt):
 
     front = tcfg.frontend == "patches"
     table = jnp.asarray(np.random.default_rng(13).standard_normal((256, tcfg.d_model)).astype(np.float32))
+    ftable = (jnp.asarray(np.random.default_rng(14).standard_normal((256, tcfg.enc_seq, tcfg.d_model))
+                          .astype(np.float32)) if tcfg.enc_dec else None)
 
     def jloss(p, b):
         batch = {"tokens": b["data"]}
         if front:  # _patches, in jnp
             batch["patch_embeds"] = table[b["data"][:, :tcfg.frontend_len]]
+        if tcfg.enc_dec:  # _frames, in jnp
+            batch["frames"] = ftable[b["data"][:, 0]]
         loss, met = jm.loss(p, batch, loss_chunk=16)
         jax.debug.callback(lambda v: jl.append(float(v)), met["loss"])
         return loss, met
@@ -541,6 +563,8 @@ def test_training_job_trajectory_matches_jax(arch, streaming, opt):
         batch = {"tokens": b["data"]}
         if front:
             batch["patch_embeds"] = torch.from_numpy(_patches(b["data"].numpy(), tcfg))
+        if tcfg.enc_dec:
+            batch["frames"] = torch.from_numpy(_frames(b["data"].numpy(), tcfg))
         loss, met = tm.loss(p, batch, loss_chunk=16)
         tl.append(float(met["loss"].detach()))
         return loss, met
