@@ -73,7 +73,17 @@ positions); (4i) the same workload on full-width whisper-tiny at its
 full depth (4 encoder and 4 decoder layers), 448-token transcripts each
 behind 1500 seeded frame embeddings, then the gradients of its trained
 first encoder and decoder layers' attention (bidirectional, causal,
-cross) through K1 forward + backward against the plain version; (5) serve four
+cross) through K1 forward + backward against the plain version; (4j)
+activation recomputation (``Policy.remat``): full-width layer groups of
+yi-6b, mamba2-2.7b, recurrentgemma-9b, qwen3-moe-30b-a3b and whisper-tiny,
+the loss and every gradient under "full" and "block" held to "none"'s
+bits, then recurrentgemma-9b at all 38 layers and pixtral-12b at
+all 40 layers trained under "full" (phase_train's workload, each
+grouped layer's kernels launched once more a step); (4k)
+``dp_train_step`` over an NCCL process group of one (full-width yi-6b cut
+to DP_LAYERS): uncompressed, the bits of ``build_train_step``; with the
+int8-compressed mean, falling losses; ``int8_encode`` on the card against
+the CPU's bits; (5) serve four
 requests of mixed prompt lengths from a stream topic
 through full-width yi-6b (32 layers, random bf16 weights from a
 seed) with ``ContinuousLMEngine`` and check what comes back (and, after
@@ -475,6 +485,34 @@ WHISPER_DECODE = 16
 WHISPER_BATCH, WHISPER_BATCH_PROMPT = 4, 224
 WHISPER_HEADS = (6, 6, 64)  # (H, Kv, D)
 WHISPER_LAYERS = 4  # its full depth: 4 decoder layers (and its 4 encoder layers)
+# Activation recomputation (Policy.remat). phase_remat_grads: full-width
+# layer groups of each kernel path that recomputes, (arch, layers, seq) at
+# batch TRAIN_BATCH: yi-6b's two attention groups (K1), mamba2's two SSD
+# groups (K2), recurrentgemma's one group of rec, rec, local (K3, and K1
+# with the window at head dim 256), qwen3-moe's one layer at
+# MOE_PARITY_FACTOR (no route drops), whisper-tiny at full depth (the
+# encoder's bidirectional K1, the decoder's causal and cross); the loss and
+# every gradient under "full" and "block" equal "none"'s to the bit
+REMAT_MODELS = (("yi-6b", 2, TRAIN_SEQ), ("mamba2-2.7b", 2, TRAIN_SEQ), ("recurrentgemma-9b", 3, TRAIN_SEQ),
+                ("qwen3-moe-30b-a3b", 1, TRAIN_SEQ), ("whisper-tiny", 4, 448))
+# recurrentgemma-9b at all 38 layers under remat "full" (12 recomputed
+# groups and a tail of two RG-LRU layers), phase_train's workload with
+# adamw8bit: 8,578,412,544 parameters at 6 bytes are 51.5 GB, plus one
+# group's activations, the tail's and the loss's logits chunk
+RG_REMAT_LAYERS = 38
+# pixtral-12b under remat "full", phase_train's pixtral workload: all 40
+# layers (12,247,782,400 parameters at 6 bytes are 73.5 GB before any
+# activation) fit with the allocator's expandable segments, peak 78.8 GB
+# on an H100 80GB HBM3; with fixed segments 34 was the most (peak 68.7
+# GB), 35-37 running out with up to 17.55 GiB reserved but unallocated
+# (PERF.md, Findings)
+PIXTRAL_REMAT_LAYERS = 40
+# data parallelism on one card: dp_train_step over an NCCL group of world 1
+# (a FileStore rendezvous), full-width yi-6b cut to DP_LAYERS, DP_STEPS
+# steps of TRAIN_BATCH x TRAIN_SEQ with adamw8bit, uncompressed (the same
+# bits as build_train_step) and int8-compressed
+DP_LAYERS = 4
+DP_STEPS = 3
 
 
 def card_line() -> str:
@@ -951,7 +989,7 @@ def load_example(name: str):
 
 
 def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LAYERS, opt_name: str = "adamw",
-                whole: tuple[str, str] | None = None, seq: int = TRAIN_SEQ):
+                whole: tuple[str, str] | None = None, seq: int = TRAIN_SEQ, remat: str = "none"):
     """Train full-width ``arch`` (``layers`` of its layers, bf16) from a
     stream: a seeded Markov corpus of TRAIN_SEQS x ``seq`` tokens
     ingested as RAW records into a 4-partition topic (validation_rate
@@ -969,7 +1007,10 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     frontend's batches each take TRAIN_BATCH x frontend_len seeded patch
     embeddings (standard normal, bf16) from ``loss_fn``, an encoder's
     TRAIN_BATCH x enc_seq seeded frames; an MoE's dropped
-    routes are counted (``moe.DROPS``). Returns the phase's numbers and the
+    routes are counted (``moe.DROPS``). Under ``remat`` "full" or "block"
+    (``Policy.remat``) each layer group's forward (and every encoder
+    layer's) runs once more in each step's backward, and K1's, K2's and
+    K3's forward launches count it. Returns the phase's numbers and the
     trained first layer's weights, part by part (``{"mixer": {...}, ...}``;
     an encoder's first layer's under "encoder"; with ``whole``, (part,
     leaf), that stacked leaf whole under "whole")."""
@@ -991,7 +1032,7 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     t0 = time.perf_counter()
     cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
     make_opt = {"adamw": adamw, "adamw8bit": adamw8bit}[opt_name]
-    model = StreamModel(cfg, Policy(), device="cuda", generator=None)
+    model = StreamModel(cfg, Policy(remat=remat), device="cuda", generator=None)
     log, reg = StreamLog(), Registry()
     spec = reg.register_model(f"{arch}-train")
     dep = reg.deploy(reg.create_configuration([spec.model_id]).config_id, "train")
@@ -1050,18 +1091,26 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     n_attn, n_ssm, n_rec = sum(k in ("attn", "local") for k in kinds), kinds.count("ssm"), kinds.count("rec")
     n_encdec, n_enc = kinds.count("encdec"), cfg.enc_layers if cfg.enc_dec else 0
     assert n_attn + n_encdec + n_ssm + n_rec == cfg.n_layers, f"no training path for {cfg.pattern}"
-    k1 = n_attn + 2 * n_encdec + n_enc  # K1's calls a forward: an encdec layer's self and cross attention
+
+    def calls(ks: list, enc: int) -> tuple[int, int, int]:
+        """K1's, K2's and K3's calls in one forward of the layers ``ks`` and
+        ``enc`` encoder layers (an encdec layer's self and cross attention)."""
+        return sum(k in ("attn", "local") for k in ks) + 2 * ks.count("encdec") + enc, ks.count("ssm"), ks.count("rec")
+
+    k1 = calls(kinds, n_enc)[0]
+    # recomputed each step: the layer groups (not the tail) and the encoder
+    again = calls(kinds[:model.n_groups * len(cfg.pattern)], n_enc) if remat in ("block", "full") else (0, 0, 0)
     want = {
-        "flash_attention": k1 * (TRAIN_STEPS + n_eval), "flash_attention_bwd": k1 * TRAIN_STEPS,
-        "ssd_scan": n_ssm * (TRAIN_STEPS + n_eval), "ssd_scan_bwd": n_ssm * TRAIN_STEPS,
-        "rglru_scan": n_rec * (TRAIN_STEPS + n_eval), "rglru_scan_bwd": n_rec * TRAIN_STEPS,
+        "flash_attention": k1 * (TRAIN_STEPS + n_eval) + again[0] * TRAIN_STEPS, "flash_attention_bwd": k1 * TRAIN_STEPS,
+        "ssd_scan": n_ssm * (TRAIN_STEPS + n_eval) + again[1] * TRAIN_STEPS, "ssd_scan_bwd": n_ssm * TRAIN_STEPS,
+        "rglru_scan": n_rec * (TRAIN_STEPS + n_eval) + again[2] * TRAIN_STEPS, "rglru_scan_bwd": n_rec * TRAIN_STEPS,
         "adamw8bit": n_leaves * TRAIN_STEPS if opt_name == "adamw8bit" else 0,
         # the clip's norm: a launch a leaf and one to finish, a step
         "grad_norm": (n_leaves + 1) * TRAIN_STEPS if opt_name == "adamw8bit" else 0,
     }
     band = TRAIN_LOSS0_BAND[arch]
     out = {
-        "arch": arch, "layers": cfg.n_layers,
+        "arch": arch, "layers": cfg.n_layers, "remat": remat,
         "kinds": {"attention": n_attn, "ssm": n_ssm, "rec": n_rec, "encdec": n_encdec, "encoder": n_enc},
         "optimizer": opt_name, "leaves": n_leaves, "params": n_params,
         "steps": res.steps, "batch": TRAIN_BATCH, "seq": seq,
@@ -1078,8 +1127,8 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
         print(f"[{card}] {arch} moe.DROPS: {drops} of {routes} routes dropped at capacity factor "
               f"{cfg.moe.capacity_factor}", flush=True)
     print(f"[{card}] {arch} training: {cfg.n_layers} of {configs.get(arch).n_layers} layers, {n_params} params "
-          f"bf16, {opt_name}, batch {TRAIN_BATCH} x {seq}, {res.steps} steps in {t_end - t_start:.3f} s",
-          flush=True)
+          f"bf16, {opt_name}, remat {remat}, batch {TRAIN_BATCH} x {seq}, {res.steps} steps in "
+          f"{t_end - t_start:.3f} s", flush=True)
     print(f"[{card}] losses {['%.4f' % x for x in losses]}, eval {out['eval_loss']}", flush=True)
     print(f"[{card}] step ms {['%.1f' % x for x in step_ms]}, median {med_ms:.3f} ms, "
           f"{out['tokens_per_s']:.1f} tokens/s", flush=True)
@@ -1501,6 +1550,221 @@ def phase_whisper_grads(card, ref, trained: dict) -> dict:
         one("decoder layer 0 self", trained["mixer"], "attn", WHISPER_CTX, WHISPER_CTX),
         one("decoder layer 0 cross", trained["cross"], "cross", WHISPER_CTX, WHISPER_ENC),
     ]}
+
+
+def phase_remat_grads(card, kernels: dict) -> dict:
+    """REMAT_MODELS' full-width layer groups in bf16 from SEED, each on one
+    seeded batch (an encoder's frames drawn standard normal): the loss and
+    every gradient leaf by ``torch.autograd.grad`` under ``Policy.remat``
+    "none", "full" and "block", held to the bit. Prints each mode's K1, K2
+    and K3 launches forward and backward, its peak memory and forward +
+    backward time, and how many tensors and bytes "block"'s selective
+    policy saved (``model.block_policy``'s MUST_SAVE outputs)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import model as model_mod
+    from repro_torch.models import moe
+    from repro_torch.models.model import StreamModel
+    from repro_torch.models.policy import Policy
+    from repro_torch.train.optimizer import tree_leaves
+
+    out = {}
+    block_policy = model_mod.block_policy
+    for arch, layers, seq in REMAT_MODELS:
+        cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=MOE_PARITY_FACTOR))
+        model = StreamModel(cfg, Policy(), device="cuda", generator=SEED)
+        model.requires_grad_(True)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (TRAIN_BATCH, seq), generator=gen, device="cuda")}
+        if cfg.enc_dec:
+            batch["frames"] = torch.randn((TRAIN_BATCH, cfg.enc_seq, cfg.d_model), generator=gen,
+                                          device="cuda").to(torch.bfloat16)
+        paths = ["/".join(p) for p in tree_paths(model.param_tree())]
+        rows, first = {}, None
+        for mode in ("none", "full", "block"):
+            model.policy = dataclasses.replace(model.policy, remat=mode)
+            saved = [0, 0]
+
+            def recording(ctx, op, *args, **kwargs):
+                policy = block_policy(ctx, op, *args, **kwargs)
+                # the forward's saves (older torch asks the policy again in
+                # the recompute); mm(a, b) / addmm(c, a, b)
+                if policy == torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE and not ctx.is_recompute:
+                    saved[0] += 1
+                    saved[1] += args[-2].shape[0] * args[-1].shape[1] * args[-2].element_size()
+                return policy
+
+            model_mod.block_policy = recording
+            moe.DROPS = torch.zeros((), dtype=torch.int64, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            try:
+                params = model.param_tree()
+                loss, _ = model.loss(params, batch)
+                grads = torch.autograd.grad(loss, tree_leaves(params))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = read_counts(kernels)
+                drops = int(moe.DROPS)
+            finally:
+                model_mod.block_policy = block_policy
+                moe.DROPS = None
+            row = {"loss": float(loss), "ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+                   "launches": {k: counts[k] for k in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                                                       "ssd_scan_bwd", "rglru_scan", "rglru_scan_bwd")},
+                   "dropped_routes": drops, "block_saved_tensors": saved[0], "block_saved_bytes": saved[1]}
+            if first is None:
+                first = (loss.detach(), grads)
+            else:
+                row["loss_bits_equal"] = bool(torch.equal(loss.detach(), first[0]))
+                row["unequal_leaves"] = [p for p, a, b in zip(paths, grads, first[1]) if not torch.equal(a, b)]
+            rows[mode] = row
+            del loss, grads
+        n_groups, tail = model.n_groups, model.tail
+        out[arch] = {"layers": layers, "seq": seq, "groups": n_groups, "tail": tail, "leaves": len(paths),
+                     "modes": rows}
+        print(f"[{card}] remat {arch} ({layers} layers: {n_groups} groups, tail {tail}; batch {TRAIN_BATCH} x "
+              f"{seq}) {json.dumps(rows)}", flush=True)
+        del model, first
+        gc.collect()
+        torch.cuda.empty_cache()
+        for mode in ("full", "block"):
+            r = rows[mode]
+            assert r["loss_bits_equal"] and not r["unequal_leaves"], f"{arch} {mode}: {r}"
+            assert all(r["launches"][k] >= rows["none"]["launches"][k] for k in r["launches"]), (arch, rows)
+        assert all(r["dropped_routes"] == 0 for r in rows.values()), (arch, rows)
+        assert rows["block"]["block_saved_tensors"] > 0 and rows["full"]["block_saved_tensors"] == 0, rows
+    return out
+
+
+def phase_train_recurrentgemma_remat(card, kernels: dict) -> dict:
+    """phase_train's workload on full-width recurrentgemma-9b at all
+    RG_REMAT_LAYERS layers under remat "full", trained with adamw8bit: its
+    gates (finite, falling losses), K3 and K1 forward once more for each
+    grouped layer a step (the two tail layers are not recomputed)."""
+    out, _ = phase_train(card, kernels, arch="recurrentgemma-9b", layers=RG_REMAT_LAYERS, opt_name="adamw8bit",
+                         remat="full")
+    return out
+
+
+def phase_train_pixtral_remat(card, kernels: dict) -> dict:
+    """phase_train's pixtral workload (each batch behind 1024 seeded patch
+    embeddings a sequence) at PIXTRAL_REMAT_LAYERS of its 40 layers under
+    remat "full", trained with adamw8bit, the caching allocator on
+    expandable segments for this phase alone (fixed segments fragment past
+    34 layers)."""
+    import torch
+
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        out, _ = phase_train(card, kernels, arch=PIXTRAL, layers=PIXTRAL_REMAT_LAYERS, opt_name="adamw8bit",
+                             remat="full")
+    finally:
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    return out
+
+
+def phase_train_dp(card, kernels: dict) -> dict:
+    """``dp_train_step`` on one card: an NCCL process group of world 1 (a
+    FileStore rendezvous in a temporary directory), full-width yi-6b cut to
+    DP_LAYERS, DP_STEPS steps of one seeded TRAIN_BATCH x TRAIN_SEQ batch
+    with adamw8bit, each run from the same seeded state. Uncompressed: the
+    same parameter bits and losses as build_train_step's (the f32 mean of
+    one rank is its gradient). Compressed (int8): finite, falling losses.
+    ``int8_encode`` of one trained gradient leaf on the card gives the CPU's
+    codes and scales to the bit. Times each mode's steps and the encode +
+    decode over the whole gradient tree. World 1 runs the NCCL calls and
+    the int8 arithmetic on the card; it reduces across no second card."""
+    import dataclasses
+    import datetime
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.models.model import StreamModel
+    from repro_torch.models.policy import Policy
+    from repro_torch.train import adamw8bit, build_train_step, dp_train_step, make_state
+    from repro_torch.train.compression import int8_decode, int8_encode
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(configs.get("yi-6b"), n_layers=DP_LAYERS)
+    model = StreamModel(cfg, Policy(), device="cuda", generator=None)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ), generator=gen, device="cuda")}
+    store = tempfile.mkdtemp(prefix="dp_store_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store, "store"), 1), rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        def run(mode: str):
+            opt = adamw8bit(3e-4)
+            state = make_state(model, opt, torch.Generator(device="cuda").manual_seed(SEED))
+            if mode == "single":
+                step = build_train_step(model, opt)[0]
+            else:
+                step = dp_train_step(lambda p, b: model.loss(p, b), opt, compress=mode == "compressed")
+            losses, step_ms = [], []
+            for _ in range(DP_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, batch)
+                losses.append(float(met["loss"]))
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            return state, losses, step_ms
+
+        reset_counts(kernels)
+        state, single_losses, single_ms = run("single")
+        single = [p.detach().clone() for p in tree_leaves(state["params"])]
+        state, plain_losses, plain_ms = run("uncompressed")
+        same_bits = all(torch.equal(a, b) for a, b in zip(single, tree_leaves(state["params"])))
+        del single
+        state, comp_losses, comp_ms = run("compressed")
+        torch.cuda.synchronize()
+        counts = read_counts(kernels)
+        params = state["params"]
+        loss, _ = model.loss(params, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        del loss
+        wq = grads[[i for i, p in enumerate(tree_paths(params)) if p == ("slots", "s0", "mixer", "wq")][0]]
+        codes, scales = int8_encode(wq)
+        cpu_codes, cpu_scales = int8_encode(wq.cpu())
+        encode_bits = bool(torch.equal(codes.cpu(), cpu_codes) and torch.equal(scales.cpu(), cpu_scales))
+        codec_ms = time_ms(lambda: [int8_decode(*int8_encode(g), g.shape, g.dtype) for g in grads], 5)
+        grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+        del grads
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    n_leaves = len(tree_leaves(model.param_tree()))
+    k1 = DP_LAYERS * DP_STEPS * 3  # three runs
+    want = {"flash_attention": k1, "flash_attention_bwd": k1, "ssd_scan": 0, "ssd_scan_bwd": 0, "rglru_scan": 0,
+            "rglru_scan_bwd": 0, "adamw8bit": n_leaves * DP_STEPS * 3, "grad_norm": (n_leaves + 1) * DP_STEPS * 3}
+    out = {"layers": DP_LAYERS, "steps": DP_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "world": 1,
+           "backend": "nccl", "params": sum(p.numel() for p in model.parameters()),
+           "single_losses": single_losses, "uncompressed_losses": plain_losses, "compressed_losses": comp_losses,
+           "single_step_ms": single_ms, "uncompressed_step_ms": plain_ms, "compressed_step_ms": comp_ms,
+           "uncompressed_same_bits_as_single": same_bits, "int8_encode_same_bits_as_cpu": encode_bits,
+           "encode_leaf": list(wq.shape), "codec_ms": codec_ms, "grad_bytes": grad_bytes,
+           "launches": counts, "want_launches": want}
+    print(f"[{card}] data parallel (world 1, nccl) yi-6b {DP_LAYERS} layers {json.dumps(out)}", flush=True)
+    del model, state, params, wq
+    assert same_bits and plain_losses == single_losses, out
+    assert all(np.isfinite(comp_losses)) and comp_losses[-1] < comp_losses[0], comp_losses
+    assert encode_bits, out
+    assert counts == want, f"launches {counts}, want {want}"
+    return out
 
 
 def opt8_bytes(p) -> int:
@@ -3436,6 +3700,22 @@ def main() -> int:
     del trained_wh
     gc.collect()
     torch.cuda.empty_cache()
+    # activation recomputation: each recomputing kernel path's layer groups
+    # to the bit under the three modes, then recurrentgemma at all 38 layers
+    # and pixtral deeper than its "none" phase, both under "full"; then data
+    # parallelism over an NCCL group of one: freed before the serving models load
+    remat_grads = phase_remat_grads(card, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_rg_remat = phase_train_recurrentgemma_remat(card, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_px_remat = phase_train_pixtral_remat(card, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    training_dp = phase_train_dp(card, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
     serving, yi_cfg, yi_model = phase_serve(card, kernels)
     serving_group = phase_serve_group(card, kernels, yi_cfg, yi_model)
     deployment = phase_deploy_lm(card, kernels, yi_cfg, yi_model)
@@ -3512,6 +3792,9 @@ def main() -> int:
         "pixtral-12b-train": training_px["launches"]["flash_attention"],
         "whisper-tiny-serve": serving_wh["launches"],
         "whisper-tiny-train": training_wh["launches"]["flash_attention"],
+        "recurrentgemma-9b-train-remat": training_rg_remat["launches"]["flash_attention"],
+        "pixtral-12b-train-remat": training_px_remat["launches"]["flash_attention"],
+        "yi-6b-dp": training_dp["launches"]["flash_attention"],
     }
     entry = {
         "name": "flash_attention",
@@ -3534,12 +3817,14 @@ def main() -> int:
         "training call (%d,%d,32,128) kv 8 bf16 causal (%d layers), whisper-tiny's serving calls (batch 1 at "
         "Sq %s, batch %d at %d: the encoder's (B,1500,6,64) bidirectional, the decoder's (B,Sq,6,64) causal and "
         "its cross (B,Sq over 1500,6,64), bf16) and its training calls (%d,1500), (%d,%d) causal and (%d,%d over "
-        "1500), summed"
+        "1500); recurrentgemma's training call at all 38 layers and pixtral's at %d, both under remat full (each "
+        "grouped layer's forward again in the backward), and yi-6b's training call in dp_train_step, summed"
         % ("/".join(map(str, PROMPT_LENS)), TRAIN_BATCH, TRAIN_SEQ, DEPLOY_PER_PARTITION, DEPLOY_PROMPT,
            WAVE_REQUESTS, RG_PROMPT_LEN, TRAIN_BATCH, TRAIN_SEQ, RG_TRAIN_LAYERS, WAVE_REQUESTS, GEMMA2_PROMPT_LEN,
            TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ, MOE_TRAIN_LAYERS, PIXTRAL_TRAIN_ATTN[0],
            PIXTRAL_TRAIN_ATTN[1], PIXTRAL_TRAIN_LAYERS, "/".join(map(str, WHISPER_PROMPTS)), WHISPER_BATCH,
-           WHISPER_BATCH_PROMPT, TRAIN_BATCH, TRAIN_BATCH, WHISPER_CTX, TRAIN_BATCH, WHISPER_CTX),
+           WHISPER_BATCH_PROMPT, TRAIN_BATCH, TRAIN_BATCH, WHISPER_CTX, TRAIN_BATCH, WHISPER_CTX,
+           PIXTRAL_REMAT_LAYERS),
         "by_path": {
             "yi-6b": path_summary(serving["launches"], main_rows),
             "yi-6b-group": path_summary(serving_group["launches"], main_rows),
@@ -3561,6 +3846,11 @@ def main() -> int:
             "pixtral-12b-train": path_summary(family_launches["pixtral-12b-train"], [family_bwd["pixtral_fwd"]]),
             "whisper-tiny-serve": path_summary(family_launches["whisper-tiny-serve"], wh_paths["serve"]),
             "whisper-tiny-train": path_summary(family_launches["whisper-tiny-train"], wh_paths["train_fwd"]),
+            "recurrentgemma-9b-train-remat": path_summary(family_launches["recurrentgemma-9b-train-remat"],
+                                                          [rg_train_fwd_main]),
+            "pixtral-12b-train-remat": path_summary(family_launches["pixtral-12b-train-remat"],
+                                                    [family_bwd["pixtral_fwd"]]),
+            "yi-6b-dp": path_summary(family_launches["yi-6b-dp"], [train_fwd_main]),
         },
     }
     for key in ("ms", "plain_ms", "bound_ms"):
@@ -3618,7 +3908,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:30",
-        "launches": serving_rg["launches"]["rglru_scan"] + rg_train_rec,
+        "launches": serving_rg["launches"]["rglru_scan"] + rg_train_rec + training_rg_remat["launches"]["rglru_scan"],
         "max_abs_err": max(r["max_abs_err"] for r in rglru_paths),
         "matched": all(r["ok"] for r in rglru_rows + rglru_paths),
         "shapes": "one call per RG-LRU layer of the wave (%d,%d,4096) f32 and one per RG-LRU layer of "
@@ -3627,6 +3917,8 @@ def main() -> int:
         "by_path": {
             "recurrentgemma-9b": path_summary(serving_rg["launches"]["rglru_scan"], [rglru_main]),
             "recurrentgemma-9b-train": path_summary(rg_train_rec, [rglru_train_fwd]),
+            "recurrentgemma-9b-train-remat": path_summary(training_rg_remat["launches"]["rglru_scan"],
+                                                          [rglru_train_fwd]),
         },
     }
     for key in ("ms", "plain_ms", "plain_f64_ms", "bound_ms"):
@@ -3634,18 +3926,20 @@ def main() -> int:
     rglru_entry["bound_by"] = max(rglru_paths, key=lambda r: r["bound_ms"])["bound_by"]
     rglru_entry["library_ms"] = None
     rg_train_rec_bwd = training_rg["launches"]["rglru_scan_bwd"]
+    rg_remat_rec_bwd = training_rg_remat["launches"]["rglru_scan_bwd"]
     rglru_bwd_entry = {
         "name": "rglru_scan_bwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
         # no TPU kernel: JAX differentiates its plain associative scan
         "replaces": "none (JAX differentiates src/repro/models/rglru.py:93 rglru_scan)",
-        "launches": rg_train_rec_bwd,
+        "launches": rg_train_rec_bwd + rg_remat_rec_bwd,
         "max_abs_err": rglru_bwd_main["max_abs_err"],
         "matched": all(r["ok"] for r in rglru_bwd_rows + [rglru_bwd_main]) and rg_grads is not None,
         "shapes": "recurrentgemma's training call (%d,%d,%d) f32, the model's decays, no h0, one an RG-LRU layer "
         "a step, against a float64 run" % RGLRU_TRAIN,
-        "by_path": {"recurrentgemma-9b-train": path_summary(rg_train_rec_bwd, [rglru_bwd_main])},
+        "by_path": {"recurrentgemma-9b-train": path_summary(rg_train_rec_bwd, [rglru_bwd_main]),
+                    "recurrentgemma-9b-train-remat": path_summary(rg_remat_rec_bwd, [rglru_bwd_main])},
     }
     for key in ("ms", "plain_ms", "plain_f64_ms", "bound_ms", "bound_by", "library_ms"):
         rglru_bwd_entry[key] = rglru_bwd_main[key]
@@ -3658,7 +3952,9 @@ def main() -> int:
         "launches": training["launches"]["flash_attention_bwd"] + training_full["launches"]["flash_attention_bwd"]
         + training_rg["launches"]["flash_attention_bwd"] + training_g2["launches"]["flash_attention_bwd"]
         + training_q2["launches"]["flash_attention_bwd"] + training_moe["launches"]["flash_attention_bwd"]
-        + training_px["launches"]["flash_attention_bwd"] + training_wh["launches"]["flash_attention_bwd"],
+        + training_px["launches"]["flash_attention_bwd"] + training_wh["launches"]["flash_attention_bwd"]
+        + training_rg_remat["launches"]["flash_attention_bwd"] + training_px_remat["launches"]["flash_attention_bwd"]
+        + training_dp["launches"]["flash_attention_bwd"],
         # gemma2's launches are all the softcap's (every one of its layers caps its scores)
         "softcap_launches": training_g2["launches"]["flash_attention_bwd"],
         "max_abs_err": max(r["max_abs_err"] for r in [bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"],
@@ -3687,6 +3983,11 @@ def main() -> int:
             "pixtral-12b-train": path_summary(training_px["launches"]["flash_attention_bwd"],
                                               [family_bwd["pixtral_bwd"]]),
             "whisper-tiny-train": path_summary(training_wh["launches"]["flash_attention_bwd"], wh_paths["train_bwd"]),
+            "recurrentgemma-9b-train-remat": path_summary(training_rg_remat["launches"]["flash_attention_bwd"],
+                                                          [rg_bwd_main]),
+            "pixtral-12b-train-remat": path_summary(training_px_remat["launches"]["flash_attention_bwd"],
+                                                    [family_bwd["pixtral_bwd"]]),
+            "yi-6b-dp": path_summary(training_dp["launches"]["flash_attention_bwd"], [bwd_main]),
         },
     }
     bwd_paths = [bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"], family_bwd["qwen2_bwd"],
@@ -3769,7 +4070,9 @@ def main() -> int:
         "training_moe": training_moe, "training_moe_grads": moe_grads, "opt8_past_2_31": opt8_tail,
         "training_pixtral": training_px, "serving_pixtral": serving_px,
         "whisper_kernel_checks": wh_rows, "whisper_kernel_paths": wh_paths, "training_whisper": training_wh,
-        "training_whisper_grads": wh_grads, "serving_whisper": serving_wh,
+        "training_whisper_grads": wh_grads, "serving_whisper": serving_wh, "remat_grads": remat_grads,
+        "training_recurrentgemma_remat": training_rg_remat, "training_pixtral_remat": training_px_remat,
+        "training_dp": training_dp,
         "kernels": kernels_line["kernels"],
     }, indent=1))
 

@@ -49,12 +49,18 @@ Training: :meth:`StreamModel.hidden` and the chunked
 model's own, ``param_tree()``, whose leaves are its parameters) as the
 JAX functions do, and are differentiable. The parameters are built with
 ``requires_grad=False`` for serving; a trainer turns it on
-(``requires_grad_(True)``).
+(``requires_grad_(True)``). Under ``Policy.remat`` "full" or "block" a
+training pass recomputes each layer group's forward in its backward (a
+group is one pass over the pattern; whisper's encoder layers one each;
+the tail layers are kept), as JAX's ``jax.checkpoint`` of its scan body
+does: the gradients are the same bits, and the backward keeps each
+group's input and rebuilds one group's activations at a time.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -65,6 +71,7 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as M
 from repro_torch.models.layers import AttnParams, cache_bits, to_cache
@@ -74,7 +81,22 @@ from repro_torch.models.policy import Policy, torch_dtype
 from repro_torch.models.rglru import RGLRUParams
 from repro_torch.models.ssm import SSMParams
 
-__all__ = ["ArchConfig", "StreamModel", "quantize_params"]
+__all__ = ["BLOCK_SAVED", "ArchConfig", "StreamModel", "block_policy", "quantize_params"]
+
+# ``Policy.remat == "block"`` keeps the outputs of these ops, JAX's
+# ``dots_with_no_batch_dims_saveable``: ``x @ w`` on a 3-D x folds its
+# leading dims into one ``aten.mm``, so the batch-free projections reach
+# them, while ``bmm`` (the experts) and every einsum with a batch dimension
+# (attention, the RG-LRU's block-diagonal gates) is recomputed, like the
+# kernels' custom Functions, whose launches no dispatch mode sees.
+BLOCK_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def block_policy(ctx, op, *args, **kwargs):
+    """The selective checkpoint's policy of ``"block"``: save
+    :data:`BLOCK_SAVED`, recompute the rest."""
+    cp = torch.utils.checkpoint.CheckpointPolicy
+    return cp.MUST_SAVE if op in BLOCK_SAVED else cp.PREFER_RECOMPUTE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -622,13 +644,10 @@ class StreamModel(nn.Module):
             y = L.mlp(blk["mlp"], h2, cfg.mlp_kind, cfg.mlp_act)
         return x + (self._norm(blk["post2"], y) if cfg.post_norms else y), aux
 
-    def _run_stack(self, x, positions, caches=None, tree=None, enc=None):
-        """Every layer in order; with ``caches`` each layer reads and writes
-        its own view of them (prefill or decode); ``encdec`` layers attend
-        to ``enc``. Returns (x, the MoE aux losses summed over the layers in
-        order, f32; 0 without an MoE)."""
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        for kind, sec, name, i, blk in self._layer_params(tree):
+    def _run_layers(self, layers, x, aux, positions, caches=None, enc=None):
+        """``layers`` (entries of :meth:`_layer_params`) in order from x;
+        each MoE layer's aux loss added to ``aux``. Returns (x, aux)."""
+        for kind, sec, name, i, blk in layers:
             st = None
             if caches is not None:
                 st = caches[sec][name]
@@ -639,16 +658,65 @@ class StreamModel(nn.Module):
                 aux = aux + a
         return x, aux
 
+    def _remat(self, caches=None) -> bool:
+        """Whether this pass recomputes its layer groups: a training pass
+        (grad mode, no cache) under ``Policy.remat`` "block" or "full"."""
+        return caches is None and torch.is_grad_enabled() and self.policy.remat in ("block", "full")
+
+    def _recomputed(self, layers, x, aux, positions, enc=None):
+        """:meth:`_run_layers` of one layer group under
+        ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint`` of the scan
+        body): ``"full"`` keeps only the group's inputs and runs its forward
+        again in the backward; ``"block"`` also keeps the outputs of
+        :data:`BLOCK_SAVED`. Non-reentrant, so that ``torch.autograd.grad``
+        reaches through it. The forward's second run counts no MoE route
+        (``moe.RECOMPUTING``); the kernels' launch counts see it."""
+        runs = [0]
+
+        def group(x, aux):
+            runs[0] += 1
+            prev, moe.RECOMPUTING = moe.RECOMPUTING, runs[0] > 1
+            try:
+                return self._run_layers(layers, x, aux, positions, enc=enc)
+            finally:
+                moe.RECOMPUTING = prev
+
+        kw = {}
+        if self.policy.remat == "block":
+            kw["context_fn"] = functools.partial(
+                torch.utils.checkpoint.create_selective_checkpoint_contexts, block_policy)
+        return torch.utils.checkpoint.checkpoint(group, x, aux, use_reentrant=False, **kw)
+
+    def _run_stack(self, x, positions, caches=None, tree=None, enc=None):
+        """Every layer in order; with ``caches`` each layer reads and writes
+        its own view of them (prefill or decode); ``encdec`` layers attend
+        to ``enc``. Under ``Policy.remat`` a training pass runs each group
+        (one pass over the pattern) through :meth:`_recomputed` and the
+        tail layers as they are, as JAX's ``_run_stack`` does. Returns (x,
+        the MoE aux losses summed over the layers in order, f32; 0 without
+        an MoE)."""
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        layers = self._layer_params(tree)
+        if self._remat(caches):
+            per = len(self.cfg.pattern)
+            for g in range(self.n_groups):
+                x, aux = self._recomputed(layers[g * per:(g + 1) * per], x, aux, positions, enc)
+            layers = layers[self.n_groups * per:]
+        return self._run_layers(layers, x, aux, positions, caches, enc)
+
     def _encode(self, frames, tree=None):
         """whisper's encoder (JAX's ``_encode``): the frame embeddings (B,
         S_enc, d) cast to the compute dtype plus the sinusoid, the
-        ``bidir`` stack, then the encoder's final norm."""
+        ``bidir`` stack (each layer a group of its own under
+        ``Policy.remat``), then the encoder's final norm."""
         dt = torch_dtype(self.policy.compute_dtype)
         x = torch.as_tensor(frames, device=self.device).to(dt)
         x = x + _sinusoid(x.shape[1], self.cfg.d_model, dt, self.device)
         positions = torch.arange(x.shape[1], device=self.device)
-        for kind, _, _, _, blk in self._layer_params(tree, encoder=True):
-            x, _ = self._layer(kind, blk, x, positions)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for layer in self._layer_params(tree, encoder=True):
+            run = self._recomputed if self._remat() else self._run_layers
+            x, aux = run([layer], x, aux, positions)
         norm = (self.tree if tree is None else tree)["encoder"]["final_norm"]
         return self._norm({k: v[0] for k, v in norm.items()}, x)
 

@@ -62,6 +62,9 @@ F32_LEAVES = ("router",)
 # to it, on the tensor's device and without a sync (a check that a run
 # dropped nothing reads it once at the end).
 DROPS: torch.Tensor | None = None
+# True while a checkpointed layer group's forward runs a second time for
+# its backward (``Policy.remat``): its routes were counted the first time.
+RECOMPUTING = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,7 +201,7 @@ def _local_moe(
 
     keep = rank < capacity
     slot = torch.where(keep, flat_e * capacity + rank, e * capacity)  # drop row
-    if DROPS is not None:
+    if DROPS is not None and not RECOMPUTING:
         DROPS.add_((~keep).sum())
 
     # dispatch: each slot's token id (T: an all-zero pad row), then gather

@@ -2,7 +2,12 @@
 
 ``weights_int8`` serves int8 post-training-quantized weights
 (``model.quantize_params``); ``kv_cache_dtype`` may be
-``"float8_e4m3fn"``, which halves a bf16 decode cache.
+``"float8_e4m3fn"``, which halves a bf16 decode cache. ``remat``
+(``"none" | "block" | "full"``, JAX's field) recomputes each layer group's
+forward in its backward while training: ``"full"`` saves nothing inside
+the group, ``"block"`` saves the products without a batch dimension;
+any other value runs as ``"none"`` (``StreamModel._run_stack``). It is
+the last field, so the positional dtype arguments keep their places.
 """
 
 from __future__ import annotations
@@ -28,3 +33,4 @@ class Policy:
     compute_dtype: str = "bfloat16"
     kv_cache_dtype: str = "bfloat16"
     weights_int8: bool = False
+    remat: str = "none"  # none | block | full

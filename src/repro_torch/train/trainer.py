@@ -3,7 +3,11 @@ on one device.
 
 * :func:`build_train_step` — the train step for the model zoo, with
   optional microbatch gradient accumulation (``_to_microbatches``, data
-  parallelism of 1 until the multi-GPU work).
+  parallelism of 1 until the mesh is ported).
+* :func:`dp_train_step` — pure data parallelism over a
+  ``torch.distributed`` process group: parameters replicated, the batch's
+  rows split among the ranks, the gradients' mean int8-compressed
+  (``repro_torch.train.compression``) or plain f32.
 * :class:`TrainingJob` — the Kafka-ML training Job (paper §IV-C): block on
   the control topic for its deployment_id, read the stream (train/eval
   split per validation_rate), train, upload the result and metrics to the
@@ -30,6 +34,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.core.control import ControlMessage, poll_control
@@ -38,9 +43,10 @@ from repro_torch.core.log import StreamBackend
 from repro_torch.core.registry import Registry
 from repro_torch.data.pipeline import BatchIterator, StreamDataset, StreamingBatchIterator, device_feed
 from repro_torch.train import checkpoint as ckpt_lib
+from repro_torch.train.compression import compressed_psum_mean, psum_mean
 from repro_torch.train.optimizer import Optimizer, adamw, tree_leaves, tree_unflatten
 
-__all__ = ["TrainResult", "TrainingJob", "build_train_step", "make_state"]
+__all__ = ["TrainResult", "TrainingJob", "build_train_step", "dp_train_step", "make_state"]
 
 
 def make_state(model, opt: Optimizer, generator: torch.Generator | int) -> dict:
@@ -99,6 +105,39 @@ def build_train_step(model, opt: Optimizer, *, microbatches: int = 1):
         return state, {**metrics, "loss": metrics["loss"]}
 
     return step, None
+
+
+# --------------------------------------------------------- manual-DP variant
+def dp_train_step(loss_fn: Callable, opt: Optimizer, group=None, compress: bool = True):
+    """Pure data parallelism with an explicit (optionally int8-compressed)
+    gradient mean over ``group`` (the default process group when None),
+    JAX's ``dp_train_step``: every rank holds the same parameters and the
+    whole batch; rank r takes its contiguous block of the rows (r * B/n
+    to (r + 1) * B/n, as ``P(axis)`` deals them), takes the gradients of
+    ``loss_fn(params, rows) -> (loss, metrics)`` by ``torch.autograd.grad``
+    in JAX's leaf order, their mean by ``compressed_psum_mean`` or in f32,
+    the loss's f32 mean, and ``opt.update`` in place. Returns
+    ``step(state, batch) -> (state, {"loss"})``; the batch's row count
+    must divide among the ranks."""
+
+    def step(state, batch):
+        n, r = dist.get_world_size(group), dist.get_rank(group)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % n:
+            raise ValueError(f"a batch of {rows} rows does not divide among {n} ranks")
+        b = rows // n
+        params = state["params"]
+        loss, _ = loss_fn(params, {k: v[r * b:(r + 1) * b] for k, v in batch.items()})
+        grads = _grads(loss, params)
+        if compress:
+            grads = compressed_psum_mean(tree_unflatten(params, grads), group)
+        else:
+            grads = tree_unflatten(params, [psum_mean(g, group) for g in grads])
+        loss = psum_mean(loss.detach().float(), group)
+        opt.update(grads, state["opt"], params)
+        return state, {"loss": loss}
+
+    return step
 
 
 # ------------------------------------------------------------- Training Job

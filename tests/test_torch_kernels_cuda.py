@@ -1830,3 +1830,62 @@ def test_adamw8bit_and_norm_past_2_31_elements(card):
         torch.cuda.synchronize()
         for name, got, t in zip(("p", "m codes", "m scales", "v codes", "v scales"), (p, *state), tail):
             assert torch.equal(got[-256:], t), (step, name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["yi-6b", "mamba2-2.7b"])
+def test_remat_gradients_on_card_equal_none_to_the_bit(card, arch, dtype):
+    """One attention stack (reduced yi-6b at head dim 64: K1 forward and
+    backward) and one SSM stack (reduced mamba2: K2 forward and backward)
+    on the card: the loss and every gradient leaf under ``Policy.remat``
+    "full" and "block" equal "none"'s to the bit, and each recomputed
+    group launches its kernel's forward once more."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    cfg = dataclasses.replace(configs.get_reduced(arch), vocab=250)
+    if arch == "yi-6b":
+        cfg = dataclasses.replace(cfg, head_dim=64)
+    model = StreamModel(cfg, Policy(dtype, dtype, dtype), device=card, generator=0)
+    tokens = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (2, 96))).to(card)
+    kernel = fa if arch == "yi-6b" else K2
+    params = model.param_tree()
+    model.requires_grad_(True)
+    runs = {}
+    try:
+        for mode in ("none", "full", "block"):
+            model.policy = dataclasses.replace(model.policy, remat=mode)
+            before, before_bwd = kernel.LAUNCHES, kernel.BWD_LAUNCHES
+            loss, _ = model.loss(params, {"tokens": tokens})
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+            torch.cuda.synchronize()
+            runs[mode] = (loss.detach(), grads, kernel.LAUNCHES - before, kernel.BWD_LAUNCHES - before_bwd)
+    finally:
+        model.requires_grad_(False)
+    loss0, grads0, fwd0, bwd0 = runs["none"]
+    assert fwd0 == bwd0 == cfg.n_layers and torch.isfinite(loss0)
+    for mode in ("full", "block"):
+        loss, grads, fwd, bwd = runs[mode]
+        assert torch.equal(loss, loss0), mode
+        assert all(torch.equal(a, b) for a, b in zip(grads, grads0)), mode
+        assert (fwd, bwd) == (2 * cfg.n_layers, cfg.n_layers), mode  # every layer is in a group
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 512), (3, 333), (2048 * 1024,)])
+def test_int8_encode_on_card_matches_cpu(card, dtype, shape):
+    """``compression.int8_encode`` and ``int8_decode`` on the card give the
+    CPU's codes, scales and decoded values to the bit: whole and ragged
+    blocks, an all-zero block, halfway values (k + 0.5 over a scale of 1)
+    that round to even."""
+    from repro_torch.train.compression import int8_decode, int8_encode
+
+    x = np.random.default_rng(10).standard_normal(shape).astype(np.float32).reshape(-1)
+    x[:256] = 0.0
+    x[256:512] = np.arange(256) % 120 - 60 + 0.5
+    x[256] = 127.0
+    cpu = torch.from_numpy(x.reshape(shape)).to(getattr(torch, dtype))
+    got, want = int8_encode(cpu.to(card)), int8_encode(cpu)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert float(want[1][0]) == 0.0 and float(want[1][1]) == 1.0
+    dec = int8_decode(*got, shape, cpu.dtype)
+    assert torch.equal(dec.cpu(), int8_decode(*want, shape, cpu.dtype))
