@@ -513,6 +513,30 @@ PIXTRAL_REMAT_LAYERS = 40
 # bits as build_train_step) and int8-compressed
 DP_LAYERS = 4
 DP_STEPS = 3
+# K1 at the calls one rank of a context-parallel mesh makes ("seq": the
+# heads do not divide the model axis), each rank's query offset in turn:
+# (arch, B, S, H, Kv, D, window, softcap, model axis); a rank holds S / tp
+# queries over all S keys, causal
+K1_OFFSET_CALLS = (
+    ("whisper-tiny", TRAIN_BATCH, WHISPER_CTX, 6, 6, 64, None, None, 4),  # its decoder at model 4
+    ("qwen2-7b", TRAIN_BATCH, 1024, 28, 4, 128, None, None, 8),  # 28 heads over 8: 128 queries a rank
+    ("gemma2-2b", 1, 8192, 8, 4, 256, 4096, 50.0, 16),  # its context at model 16: the window binds late
+)
+# training on a mesh (phase_train_mesh): one NCCL rank a card. On one card
+# the mesh is (1, 1): full-width yi-6b cut to MESH_LAYERS, MESH_STEPS steps
+# of build_train_step(mesh=) against the mesh-free step, to the bit. On
+# several cards (1, n): qwen3-moe-30b-a3b at all 48 layers (experts and
+# heads split n ways, adamw8bit, the published capacity factor) and
+# whisper-tiny ("seq": 6 heads over n), MESH_STEPS steps each
+MESH_LAYERS = 16
+MESH_STEPS = 2
+MESH_MOE_STEPS = 3
+MESH_DEADLINE_S = 900.0
+MESH_LOSS_RTOL = 1e-3  # whisper-tiny's bf16 losses on the mesh against the mesh-free step's (6e-5)
+# whisper-tiny's first f32 step on the mesh against the mesh-free step's:
+# every gathered gradient leaf, its largest gap over its largest element
+# (2.9e-6 on four H100s: only the order of the sums over ranks differs)
+MESH_GRAD_RTOL = 1e-4
 
 
 def card_line() -> str:
@@ -542,40 +566,50 @@ def read_counts(kernels: dict) -> dict:
 
 
 def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls after one warm-up call."""
+    """Mean device time of ``fn`` over ``iters`` calls after one warm-up
+    call, with Python's collector held off while it times: a pause of the
+    host inside the window leaves the card idle between launches, and the
+    events count that as the calls' time."""
     import torch
 
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+    finally:
+        if collecting:
+            gc.enable()
     return start.elapsed_time(end) / iters
 
 
-def mask_pairs(s: int, causal: bool, window: int | None, sk: int | None = None) -> int:
-    """(query, key) pairs the mask lets through, s queries over ``sk`` keys
-    (s where None; without a mask every query sees all sk): the work this
-    input needs."""
+def mask_pairs(s: int, causal: bool, window: int | None, sk: int | None = None, q_offset: int = 0) -> int:
+    """(query, key) pairs the mask lets through, s queries at positions
+    q_offset.. over ``sk`` keys (s where None; without a mask every query
+    sees all sk): the work this input needs."""
     import numpy as np
 
     sk = s if sk is None else sk
-    q = np.arange(s)
+    q = np.arange(s) + q_offset
     hi = np.minimum(q, sk - 1) if causal else np.full(s, sk - 1)
     lo = np.maximum(q - window + 1, 0) if window else np.zeros(s, np.int64)
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
-def attention_bound(b, h, kv, s, d, dtype: str, causal, window, sk: int | None = None) -> tuple[float, str]:
+def attention_bound(b, h, kv, s, d, dtype: str, causal, window, sk: int | None = None,
+                    q_offset: int = 0) -> tuple[float, str]:
     """Least time for the function: max(bytes / HBM rate, flops / peak);
-    s queries over ``sk`` keys (s where None)."""
+    s queries (from position q_offset) over ``sk`` keys (s where None)."""
     sk = s if sk is None else sk
     elem = 2 if dtype == "bfloat16" else 4
     nbytes = elem * b * d * (2 * h * s + 2 * kv * sk)  # q, k, v read once; o written once
-    flops = 4 * d * h * b * mask_pairs(s, causal, window, sk)  # QK^T and PV
+    flops = 4 * d * h * b * mask_pairs(s, causal, window, sk, q_offset)  # QK^T and PV
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -583,13 +617,16 @@ def attention_bound(b, h, kv, s, d, dtype: str, causal, window, sk: int | None =
 _FLEX: dict = {}
 
 
-def flex_library(qt, kt, vt, causal, window, cap, dot=None) -> dict:
+def flex_library(qt, kt, vt, causal, window, cap, dot=None, q_offset=None) -> dict:
     """The library yardstick of a softcapped call: PyTorch's flex_attention,
     compiled, with ``cap tanh(score / cap)`` as its score_mod and the mask
     as its block mask over the unrepeated K/V (``enable_gqa``): the
-    kernel's function. Its forward, or with ``dot`` its backward (autograd
-    of one forward, kept). Returns ``{"library_ms", "library"}``, or where
-    it does not compile or run, ``{"library_ms": None, "library_refused"}``."""
+    kernel's function. With ``q_offset`` the queries (Sq of them, over the
+    Sk keys of ``kt``) sit at positions q_offset.., the offset a captured
+    device tensor, so one compiled kernel serves every offset. Its
+    forward, or with ``dot`` its backward (autograd of one forward, kept).
+    Returns ``{"library_ms", "library"}``, or where it does not compile or
+    run, ``{"library_ms": None, "library_refused"}``."""
     import torch
 
     try:
@@ -599,16 +636,24 @@ def flex_library(qt, kt, vt, causal, window, cap, dot=None) -> dict:
         if "fn" not in _FLEX:
             inductor_config.compile_threads = 1  # no pool of compile workers outliving the call
             _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
-        fn, s = _FLEX["fn"], qt.shape[2]
+        fn, sq, sk = _FLEX["fn"], qt.shape[2], kt.shape[2]
 
-        def mask_mod(b, h, q_idx, kv_idx):
-            ok = kv_idx <= q_idx if causal else kv_idx >= 0
-            return ok & (kv_idx > q_idx - window) if window else ok
+        if q_offset is None:
+            def mask_mod(b, h, q_idx, kv_idx):
+                ok = kv_idx <= q_idx if causal else kv_idx >= 0
+                return ok & (kv_idx > q_idx - window) if window else ok
+        else:
+            off = torch.tensor(q_offset, dtype=torch.int32, device="cuda")
+
+            def mask_mod(b, h, q_idx, kv_idx):
+                pos = q_idx + off
+                ok = kv_idx <= pos if causal else kv_idx >= 0
+                return ok & (kv_idx > pos - window) if window else ok
 
         def score_mod(score, b, h, q_idx, kv_idx):
             return cap * torch.tanh(score / cap)
 
-        block_mask = create_block_mask(mask_mod, None, None, s, s, device="cuda")
+        block_mask = create_block_mask(mask_mod, None, None, sq, sk, device="cuda")
         if dot is None:
             def call():
                 return fn(qt, kt, vt, score_mod=score_mod, block_mask=block_mask, enable_gqa=True)
@@ -738,7 +783,8 @@ def phase_kernels(card, fa, ref):
     return rows, main, rg_main, deploy_main, family
 
 
-def attention_bwd_bound(b, h, kv, s, d, dtype: str, causal, window, sk: int | None = None) -> tuple[float, str]:
+def attention_bwd_bound(b, h, kv, s, d, dtype: str, causal, window, sk: int | None = None,
+                        q_offset: int = 0) -> tuple[float, str]:
     """Least time for K1's backward: max(bytes / HBM rate, operations /
     peak). Operations: five products of 2 D a (query, key) pair and head
     (S and dP again, dV, dQ, dK), 10 D H an unmasked pair. Bytes: q, k, v,
@@ -747,7 +793,7 @@ def attention_bwd_bound(b, h, kv, s, d, dtype: str, causal, window, sk: int | No
     sk = s if sk is None else sk
     elem = 2 if dtype == "bfloat16" else 4
     nbytes = elem * b * d * (3 * h * s + 2 * kv * sk) + elem * b * d * (h * s + 2 * kv * sk) + 4 * b * h * s
-    flops = 10 * d * h * b * mask_pairs(s, causal, window, sk)
+    flops = 10 * d * h * b * mask_pairs(s, causal, window, sk, q_offset)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -1765,6 +1811,425 @@ def phase_train_dp(card, kernels: dict) -> dict:
     assert encode_bits, out
     assert counts == want, f"launches {counts}, want {want}"
     return out
+
+
+def offset_mask(sq: int, sk: int, q_offset: int, window: int | None):
+    """The (Sq, Sk) boolean mask of a causal call whose queries sit at
+    positions q_offset..: what SDPA takes as ``attn_mask``."""
+    import torch
+
+    qp = torch.arange(sq, device="cuda")[:, None] + q_offset
+    kp = torch.arange(sk, device="cuda")[None, :]
+    keep = kp <= qp
+    return keep & (kp > qp - window) if window else keep
+
+
+def check_offset_call(card, fa, ref, arch, b, s, h, kv, d, window, cap, tp, dtype, gen, timed):
+    """K1 forward and backward at one rank's call of a context-parallel
+    mesh, for each of the tp offsets in turn: S / tp queries from r S / tp
+    over all S keys, causal (and the window and softcap where given).
+    Each against the plain version with the offset (TOL, BWD_TOL), each
+    the same bits on a repeated call; with ``timed`` the kernel, the plain
+    version, the library call and both bounds: SDPA with the explicit
+    boolean mask, or with a softcap flex_attention with the offset in its
+    mask (``flex_library``; SDPA without the cap, another function, only
+    beside it as ``library_sdpa_without_cap_ms``). Returns (forward rows,
+    backward rows); raises where one fails."""
+    import torch
+    import torch.nn.functional as F
+
+    dt = getattr(torch, dtype)
+    blk, rep = s // tp, h // kv
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    kt, vt = randn(b, s, kv, d).transpose(1, 2), randn(b, s, kv, d).transpose(1, 2)
+    kr, vr = kt.repeat_interleave(rep, 1), vt.repeat_interleave(rep, 1)
+    fwd_rows, bwd_rows = [], []
+    for r in range(tp):
+        off = r * blk
+        qt, dot = randn(b, blk, h, d).transpose(1, 2), randn(b, blk, h, d).transpose(1, 2)
+        kw = dict(causal=True, window=window, softcap=cap, q_offset=off)
+
+        def fwd():
+            return fa.flash_attention(qt, kt, vt, return_lse=True, **kw)
+
+        out, lse = fwd()
+        again = fwd()
+        same_fwd = bool(torch.equal(out, again[0]) and torch.equal(lse, again[1]))
+        want = ref.mha(qt, kr, vr, **kw).float()
+        err = (out.float() - want).abs()
+        tol = TOL[dtype]
+        ok_fwd = bool(torch.isfinite(out).all()) and bool((err <= tol + tol * want.abs()).all()) and same_fwd
+
+        def bwd():
+            return fa.flash_attention_bwd(qt, kt, vt, out, dot, lse, **kw)
+
+        got = bwd()
+        same_bwd = all(bool(torch.equal(x, y)) for x, y in zip(got, bwd()))
+        leaves = [t.detach().requires_grad_(True) for t in (qt, kt, vt)]
+        plain_out = ref.mha(leaves[0], leaves[1].repeat_interleave(rep, 1), leaves[2].repeat_interleave(rep, 1), **kw)
+
+        def plain_bwd():
+            return torch.autograd.grad(plain_out, leaves, dot, retain_graph=True)
+
+        wantg = plain_bwd()
+        rel = [float((g.float() - w.float()).abs().max() / w.float().abs().max()) for g, w in zip(got, wantg)]
+        unseen = off + blk < s  # keys past the last query: dk = dv = 0
+        zeros = not unseen or not (got[1][:, :, off + blk:].any() or got[2][:, :, off + blk:].any())
+        ok_bwd = all(bool(torch.isfinite(g).all()) for g in got) and max(rel) <= BWD_TOL[dtype] and same_bwd and zeros
+        base = {"arch": arch, "b": b, "sq": blk, "sk": s, "q_offset": off, "h": h, "kv": kv, "d": d, "dtype": dtype,
+                "causal": True, "window": window, "softcap": cap, "tp": tp}
+        frow = dict(base, max_abs_err=float(err.max()), tol=tol, same_bits_on_repeat=same_fwd, ok=ok_fwd)
+        brow = dict(base, rel_err_dq_dk_dv=rel, max_abs_err=max(float((g.float() - w.float()).abs().max())
+                                                                for g, w in zip(got, wantg)),
+                    tol=BWD_TOL[dtype], same_bits_on_repeat=same_bwd, unseen_keys_zero=zeros, ok=ok_bwd)
+        if timed:
+            keep = offset_mask(blk, s, off, window)
+            frow["ms"] = time_ms(fwd, 20)
+            frow["plain_ms"] = time_ms(lambda: ref.mha(qt, kr, vr, **kw), 5)
+            sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kr, vr, attn_mask=keep), 20)
+            lq, lk, lv = (t.detach().requires_grad_(True) for t in (qt, kr, vr))
+            s_out = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=keep)
+            sdpa_bwd = time_ms(lambda: torch.autograd.grad(s_out, (lq, lk, lv), dot, retain_graph=True), 20)
+            if cap is None:
+                frow["library_ms"], brow["library_ms"] = sdpa_fwd, sdpa_bwd
+            else:
+                frow.update(flex_library(qt, kt, vt, True, window, cap, q_offset=off))
+                brow.update(flex_library(qt, kt, vt, True, window, cap, dot, q_offset=off))
+                frow["library_sdpa_without_cap_ms"], brow["library_sdpa_without_cap_ms"] = sdpa_fwd, sdpa_bwd
+            brow["ms"] = time_ms(bwd, 20)
+            brow["plain_ms"] = time_ms(plain_bwd, 3)
+            frow["bound_ms"], frow["bound_by"] = attention_bound(b, h, kv, blk, d, dtype, True, window, s, off)
+            brow["bound_ms"], brow["bound_by"] = attention_bwd_bound(b, h, kv, blk, d, dtype, True, window, s, off)
+            del s_out, lq, lk, lv
+        del plain_out, leaves, wantg, got
+        print(f"[{card}] flash_attention q_offset {json.dumps(frow)}", flush=True)
+        print(f"[{card}] flash_attention_bwd q_offset {json.dumps(brow)}", flush=True)
+        if not (ok_fwd and ok_bwd):
+            raise AssertionError(f"K1 with a query offset disagrees with its plain version: {frow} {brow}")
+        fwd_rows.append(frow)
+        bwd_rows.append(brow)
+    return fwd_rows, bwd_rows
+
+
+def phase_k1_offset(card, fa, ref) -> dict:
+    """K1 and its backward at the calls a rank of a context-parallel mesh
+    makes at full width (K1_OFFSET_CALLS: whisper-tiny's decoder at model
+    4, qwen2-7b at model 8, gemma2-2b's 8192-token context at model 16,
+    whose window of 4096 binds at the later offsets), every offset, in
+    bf16 (timed) and f32 (checked); then, at each call's S with offset 0,
+    the forward's and the backward's bits with and without the argument.
+    Returns {arch: {"fwd": rows, "bwd": rows}} (bf16 rows timed, f32 rows
+    under "f32")."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    out = {}
+    for arch, b, s, h, kv, d, window, cap, tp in K1_OFFSET_CALLS:
+        fwd, bwd = check_offset_call(card, fa, ref, arch, b, s, h, kv, d, window, cap, tp, "bfloat16", gen, True)
+        f32 = check_offset_call(card, fa, ref, arch, b, s, h, kv, d, window, cap, tp, "float32", gen, False)
+        q, k, v, do = (torch.randn((b, s, n, d), generator=gen, device="cuda").bfloat16().transpose(1, 2)
+                       for n in (h, kv, kv, h))
+        kw = dict(causal=True, window=window, softcap=cap)
+        o0, l0 = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        o1, l1 = fa.flash_attention(q, k, v, return_lse=True, q_offset=0, **kw)
+        g0 = fa.flash_attention_bwd(q, k, v, o0, do, l0, **kw)
+        g1 = fa.flash_attention_bwd(q, k, v, o0, do, l0, q_offset=0, **kw)
+        same = bool(torch.equal(o0, o1) and torch.equal(l0, l1)) and all(bool(torch.equal(x, y)) for x, y in zip(g0, g1))
+        print(f"[{card}] K1 {arch} offset 0 at S {s}: the bits of the call without an offset: {same}", flush=True)
+        assert same, arch
+        out[arch] = {"fwd": fwd, "bwd": bwd, "f32": {"fwd": f32[0], "bwd": f32[1]}, "offset0_same_bits": same}
+        del q, k, v, do, o0, o1, l0, l1, g0, g1
+    return out
+
+
+def recording(opt):
+    """``opt`` that keeps a copy of its first update's gradients (leaf
+    order). Returns (optimizer, list of the copies)."""
+    from repro_torch.train import Optimizer
+    from repro_torch.train.optimizer import tree_leaves
+
+    seen = []
+
+    def update(grads, state, params, **kw):
+        if not seen:
+            seen.append([g.detach().clone() for g in tree_leaves(grads)])
+        return opt.update(grads, state, params, **kw)
+
+    return Optimizer(opt.init, update, opt.state_pspecs), seen
+
+
+def mesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of phase_train_mesh (a process of its own on card
+    ``rank``): an NCCL process group of ``world`` through a FileStore,
+    then on one card yi-6b's mesh-free and (1, 1)-mesh steps, on several
+    qwen3-moe-30b-a3b and whisper-tiny on (1, world). Writes its numbers to
+    ``out_dir/rank<rank>.json``; an exception writes its text there too
+    and exits non-zero."""
+    import dataclasses
+    import datetime
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    out = {"rank": rank, "world": world}
+    path = Path(out_dir) / f"rank{rank}.json"
+    try:
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store, "store"), world), rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=MESH_DEADLINE_S),
+                                device_id=torch.device(f"cuda:{rank}"))
+        from repro_torch import configs
+        from repro_torch.kernels import adamw8bit as k8, flash_attention as fa, grad_norm, rglru_scan, ssd_scan
+        from repro_torch.launch import make_mesh
+        from repro_torch.models import moe
+        from repro_torch.models import sharding as SH
+        from repro_torch.models.model import StreamModel
+        from repro_torch.models.policy import Policy
+        from repro_torch.train import adamw8bit, build_train_step, make_state
+        from repro_torch.train.optimizer import tree_leaves
+
+        kernels = {"flash_attention": fa, "ssd_scan": ssd_scan, "rglru_scan": rglru_scan, "adamw8bit": k8,
+                   "grad_norm": grad_norm}
+        dev = f"cuda:{rank}"
+
+        def batch_of(cfg, rows, seq, seed):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            b = {"tokens": torch.randint(0, cfg.vocab, (rows, seq), generator=gen, device=dev)}
+            if cfg.enc_dec:
+                b["frames"] = torch.randn((rows, cfg.enc_seq, cfg.d_model), generator=gen, device=dev).bfloat16()
+            return b
+
+        def train(model, opt, state, batch, steps, mesh=None):
+            step, _ = build_train_step(model, opt, mesh=mesh)
+            reset_counts(kernels)
+            fa.OFFSET_LAUNCHES = fa.BWD_OFFSET_LAUNCHES = 0
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms = [], []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, batch)
+                losses.append(float(met["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            counts = read_counts(kernels)
+            counts["flash_attention_offset"] = fa.OFFSET_LAUNCHES
+            counts["flash_attention_bwd_offset"] = fa.BWD_OFFSET_LAUNCHES
+            return state, {"losses": losses, "step_ms": ms, "launches": counts,
+                           "peak_bytes": torch.cuda.max_memory_allocated()}
+
+        if world == 1:  # yi-6b: the mesh-free step, then the (1, 1) mesh's, from the same seed
+            cfg = dataclasses.replace(configs.get("yi-6b"), n_layers=MESH_LAYERS)
+            batch = batch_of(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED + 23)
+            model = StreamModel(cfg, Policy(), device=dev, generator=None)
+            opt = adamw8bit(3e-4)
+            state, free = train(model, opt, make_state(model, opt, SEED), batch, MESH_STEPS)
+            want = [p.detach().to("cpu", copy=True) for p in tree_leaves(state["params"])]
+            del model, opt, state
+            torch.cuda.empty_cache()
+            mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+            model = StreamModel(cfg, Policy.for_mesh(mesh), generator=None, mesh=mesh)
+            opt = adamw8bit(3e-4)
+            state, meshed = train(model, opt, make_state(model, opt, SEED), batch, MESH_STEPS, mesh)
+            same = meshed["losses"] == free["losses"] and all(
+                torch.equal(p.detach().cpu(), w) for p, w in zip(tree_leaves(state["params"]), want))
+            out["yi-6b"] = {"layers": MESH_LAYERS, "mesh": [1, 1], "steps": MESH_STEPS, "mesh_free": free,
+                            "on_mesh": meshed, "same_bits": same, "params": sum(p.numel() for p in want)}
+            del model, opt, state, want
+            torch.cuda.empty_cache()
+        else:
+            mesh = make_mesh((1, world), ("data", "model"), device=dev)
+            cfg = configs.get(MOE)  # the published capacity factor
+            model = StreamModel(cfg, Policy.for_mesh(mesh), generator=None, mesh=mesh)
+            opt = adamw8bit(3e-4)
+            state = make_state(model, opt, SEED)
+            moe.DROPS = torch.zeros((), dtype=torch.int64, device=dev)
+            state, res = train(model, opt, state, batch_of(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED + 23), MESH_MOE_STEPS, mesh)
+            res["dropped_routes"] = int(moe.DROPS)
+            moe.DROPS = None
+            res["local_params"] = sum(p.numel() for p in tree_leaves(state["params"]))
+            out[MOE] = dict(res, layers=cfg.n_layers, mesh=[1, world], capacity_factor=cfg.moe.capacity_factor)
+            del model, opt, state
+            torch.cuda.empty_cache()
+            # whisper-tiny on (1, world): "seq" attention (6 heads over world); the
+            # mesh-free step on rank 0 from the gathered weights is its reference
+            cfg = configs.get(WHISPER)
+            model = StreamModel(cfg, Policy.for_mesh(mesh), generator=None, mesh=mesh)
+            opt = adamw8bit(3e-4)
+            state = make_state(model, opt, SEED)
+            dense = SH.gather_tree(state["params"], model.param_pspecs(), mesh)
+            batch = batch_of(cfg, TRAIN_BATCH, WHISPER_CTX, SEED + 29)
+            state, res = train(model, opt, state, batch, MESH_STEPS, mesh)
+            del model, opt, state
+            if rank == 0:
+                ref_model = StreamModel(cfg, Policy(), device=dev, generator=None)
+                ref_model.load_params(dense)
+                ref_opt = adamw8bit(3e-4)
+                ref_state = {"params": ref_model.param_tree(), "opt": ref_opt.init(ref_model.param_tree())}
+                for p in tree_leaves(ref_state["params"]):
+                    p.requires_grad_(True)
+                counts = res["launches"]
+                _, free = train(ref_model, ref_opt, ref_state, batch, MESH_STEPS)
+                res["launches"] = counts
+                res["mesh_free_losses"] = free["losses"]
+                del ref_model, ref_opt, ref_state
+            out[WHISPER] = dict(res, mesh=[1, world])
+            del dense
+            # one f32 step: the gathered gradients against the mesh-free step's on rank 0
+            f32 = dict(param_dtype="float32", compute_dtype="float32", kv_cache_dtype="float32")
+            model = StreamModel(cfg, Policy.for_mesh(mesh, **f32), generator=None, mesh=mesh)
+            opt, seen = recording(adamw8bit(3e-4))
+            state = make_state(model, opt, SEED)
+            specs = model.param_pspecs()
+            dense = SH.gather_tree(state["params"], specs, mesh)
+            batch = dict(batch, frames=batch["frames"].float())
+            build_train_step(model, opt, mesh=mesh)[0](state, batch)
+            grads = [SH.gather(g, sp, mesh) for g, sp in zip(seen[0], tree_leaves(specs))]
+            del model, opt, state, seen
+            if rank == 0:
+                ref_model = StreamModel(cfg, Policy(**f32), device=dev, generator=None)
+                ref_model.load_params(dense)
+                ref_opt, ref_seen = recording(adamw8bit(3e-4))
+                ref_state = {"params": ref_model.param_tree(), "opt": ref_opt.init(ref_model.param_tree())}
+                for p in tree_leaves(ref_state["params"]):
+                    p.requires_grad_(True)
+                build_train_step(ref_model, ref_opt)[0](ref_state, batch)
+                rel = [float((g - w).abs().max() / max(float(w.abs().max()), 1e-30)) for g, w in zip(grads, ref_seen[0])]
+                worst = max(range(len(rel)), key=rel.__getitem__)
+                out[WHISPER]["f32_grad_rel"] = {"max": rel[worst], "leaf": worst, "leaves": len(rel),
+                                                "median": sorted(rel)[len(rel) // 2]}
+                del ref_model, ref_opt, ref_state, ref_seen
+            del dense, grads
+            torch.cuda.empty_cache()
+        dist.barrier()
+        dist.destroy_process_group()
+        out["ok"] = True
+    except BaseException as e:  # noqa: BLE001  (the parent reads why the rank failed)
+        out["ok"] = False
+        out["error"] = f"{type(e).__name__}: {e}\n{traceback.format_exc()[-4000:]}"
+        path.write_text(json.dumps(out))
+        raise
+    path.write_text(json.dumps(out))
+
+
+def phase_train_mesh(card, kernels: dict) -> dict:
+    """Training on a device mesh: one NCCL rank a card
+    (``torch.multiprocessing``, spawned; rendezvous through a FileStore in
+    a temporary directory; every rank joined by MESH_DEADLINE_S, killed
+    past it, and a rank's failure fails the phase). On one card
+    (mesh_rank): full-width yi-6b cut to MESH_LAYERS, MESH_STEPS steps with
+    adamw8bit on the (1, 1) mesh give the mesh-free step's losses and
+    parameters to the bit. On several: qwen3-moe-30b-a3b at all 48 layers
+    and whisper-tiny on (1, n), finite, falling losses (qwen3-moe's first
+    in its band), whisper's within MESH_LOSS_RTOL of the mesh-free step
+    on rank 0 and its first f32 step's gathered gradients within
+    MESH_GRAD_RTOL of the mesh-free step's, K1's launches with an offset
+    counted. Returns the ranks' numbers."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch import configs
+
+    world = torch.cuda.device_count()
+    store, out_dir = tempfile.mkdtemp(prefix="mesh_store_"), tempfile.mkdtemp(prefix="mesh_out_")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, store, out_dir)) for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        end = time.monotonic() + MESH_DEADLINE_S
+        for p in procs:
+            p.join(max(end - time.monotonic(), 0.1))
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        ranks = []
+        for r in range(world):
+            f = Path(out_dir) / f"rank{r}.json"
+            ranks.append(json.loads(f.read_text()) if f.exists() else {"rank": r, "ok": False, "error": "no result"})
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(store, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    wall_s = time.perf_counter() - t0
+    failed = [r for r in ranks if not r.get("ok")] + [{"rank": r, "error": "past the deadline"} for r in late]
+    out = {"world": world, "ranks_ran": [r["rank"] for r in ranks if r.get("ok")], "wall_s": wall_s, "ranks": ranks}
+    for r in ranks:
+        runs = {k: v.get("on_mesh", v) for k, v in r.items() if isinstance(v, dict)}
+        summary = {k: {kk: v[kk] for kk in ("losses", "step_ms", "peak_bytes", "launches") if kk in v}
+                   for k, v in runs.items()}
+        print(f"[{card}] mesh rank {r['rank']} of {world}: ok {r.get('ok')} {json.dumps(summary)}", flush=True)
+    assert not failed, f"mesh ranks failed: {failed}"
+    if world == 1:
+        yi = ranks[0]["yi-6b"]
+        print(f"[{card}] mesh (1, 1) yi-6b {MESH_LAYERS} layers: losses {yi['on_mesh']['losses']}, mesh-free "
+              f"{yi['mesh_free']['losses']}, same bits {yi['same_bits']}, peak {yi['on_mesh']['peak_bytes']} bytes, "
+              f"step ms {yi['on_mesh']['step_ms']}", flush=True)
+        assert yi["same_bits"], yi
+        assert yi["on_mesh"]["launches"]["flash_attention"] == MESH_LAYERS * MESH_STEPS, yi["on_mesh"]["launches"]
+    else:
+        for r in ranks:
+            m, w = r[MOE], r[WHISPER]
+            band = TRAIN_LOSS0_BAND[MOE]
+            assert all(np.isfinite(m["losses"])) and band[0] <= m["losses"][0] <= band[1], m["losses"]
+            assert m["losses"][-1] < m["losses"][0] and all(np.isfinite(w["losses"])), (m["losses"], w["losses"])
+            assert m["launches"]["flash_attention"] == configs.get(MOE).n_layers * MESH_MOE_STEPS, m["launches"]
+        w0 = ranks[0][WHISPER]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(w0["losses"], w0["mesh_free_losses"])]
+        print(f"[{card}] mesh (1, {world}) whisper-tiny losses {w0['losses']} against mesh-free "
+              f"{w0['mesh_free_losses']} (relative {gaps}); f32 first-step gradients against mesh-free "
+              f"{w0['f32_grad_rel']}; qwen3-moe losses {ranks[0][MOE]['losses']}", flush=True)
+        assert max(gaps) <= MESH_LOSS_RTOL, gaps
+        assert w0["f32_grad_rel"]["max"] <= MESH_GRAD_RTOL, w0["f32_grad_rel"]
+    return out
+
+
+def mesh_paths(card, fa, ref, mesh: dict, k1_offset: dict, train_fwd_main: dict, bwd_main: dict):
+    """K1's and its backward's ``by_path`` entries of the mesh phase and of
+    the offset calls: each offset call's timed rows with the launches a
+    main path made with an offset (whisper-tiny's on a mesh of several
+    cards; none runs qwen2-7b's or gemma2-2b's yet), and the mesh's own
+    training calls (yi-6b's on one card: train_fwd_main's shape; on n
+    cards qwen3-moe's per-rank call, timed here) with their launches,
+    summed over the ranks. Returns (forward paths, backward paths)."""
+    import torch
+
+    world, ranks = mesh["world"], mesh["ranks"]
+
+    def total(arch, key):  # over the ranks
+        return sum((r[arch]["on_mesh"] if world == 1 else r[arch])["launches"][key] for r in ranks)
+
+    fwd, bwd = {}, {}
+    for arch, *_ in K1_OFFSET_CALLS:
+        n_f = total(WHISPER, "flash_attention_offset") if arch == WHISPER and world > 1 else 0
+        n_b = total(WHISPER, "flash_attention_bwd_offset") if arch == WHISPER and world > 1 else 0
+        fwd[f"{arch}-seq-offsets"] = path_summary(n_f, k1_offset[arch]["fwd"])
+        bwd[f"{arch}-seq-offsets"] = path_summary(n_b, k1_offset[arch]["bwd"])
+    if world == 1:
+        fwd["yi-6b-mesh"] = path_summary(total("yi-6b", "flash_attention"), [train_fwd_main])
+        bwd["yi-6b-mesh"] = path_summary(total("yi-6b", "flash_attention_bwd"), [bwd_main])
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
+        b, s, h, kv, d = TRAIN_ATTN
+        row = check_attention(card, fa, ref, b, s, h // world, kv // world, d, "bfloat16", True, None, None, gen, True)
+        brow = check_attention_bwd(card, fa, ref, b, s, h // world, kv // world, d, "bfloat16", True, None, gen, True)
+        fwd[f"{MOE}-mesh"] = path_summary(total(MOE, "flash_attention"), [row])
+        bwd[f"{MOE}-mesh"] = path_summary(total(MOE, "flash_attention_bwd"), [brow])
+        fwd[f"{WHISPER}-mesh"] = path_summary(total(WHISPER, "flash_attention"), k1_offset[WHISPER]["fwd"])
+        bwd[f"{WHISPER}-mesh"] = path_summary(total(WHISPER, "flash_attention_bwd"), k1_offset[WHISPER]["bwd"])
+    return fwd, bwd
 
 
 def opt8_bytes(p) -> int:
@@ -3618,6 +4083,7 @@ def main() -> int:
     bwd_rows, lse_rows, train_fwd_main, bwd_main, rg_train_fwd_main, rg_bwd_main, family_bwd = phase_kernels_bwd(
         card, flash_attention, ref)
     wh_rows, wh_paths = phase_whisper_kernels(card, flash_attention, ref)
+    k1_offset = phase_k1_offset(card, flash_attention, ref)
     ssd_rows, ssd_main = phase_ssd_kernel(card, ref)
     ssd_bwd_rows, ssd_bwd_main, ssd_train_fwd = phase_ssd_kernel_bwd(card, ssd_scan, ref)
     rglru_rows, rglru_main = phase_rglru_kernel(card, ref)
@@ -3716,6 +4182,10 @@ def main() -> int:
     training_dp = phase_train_dp(card, kernels)
     gc.collect()
     torch.cuda.empty_cache()
+    # training on a mesh of every card present (a spawned NCCL rank each),
+    # with nothing of this process's left on the card
+    training_mesh = phase_train_mesh(card, kernels)
+    mesh_fwd, mesh_bwd = mesh_paths(card, flash_attention, ref, training_mesh, k1_offset, train_fwd_main, bwd_main)
     serving, yi_cfg, yi_model = phase_serve(card, kernels)
     serving_group = phase_serve_group(card, kernels, yi_cfg, yi_model)
     deployment = phase_deploy_lm(card, kernels, yi_cfg, yi_model)
@@ -3803,7 +4273,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/flash_attention.py:34",
         "launches": serving["launches"] + serving_group["launches"] + train_fwd_launches + full_fwd_launches
         + deployment["launches"] + serving_rg["launches"]["flash_attention"] + rg_train_fwd_launches
-        + sum(family_launches.values()),
+        + sum(family_launches.values()) + sum(p["launches"] for p in mesh_fwd.values()),
         "max_abs_err": max(r["max_abs_err"] for r in attn_main),
         "matched": all(r["ok"] for r in rows + wh_rows + attn_main),
         "shapes": "one call at each of yi-6b's prompt lengths (1,S,32,128) S=%s bf16 causal, yi-6b's "
@@ -3851,6 +4321,7 @@ def main() -> int:
             "pixtral-12b-train-remat": path_summary(family_launches["pixtral-12b-train-remat"],
                                                     [family_bwd["pixtral_fwd"]]),
             "yi-6b-dp": path_summary(family_launches["yi-6b-dp"], [train_fwd_main]),
+            **mesh_fwd,
         },
     }
     for key in ("ms", "plain_ms", "bound_ms"):
@@ -3954,7 +4425,7 @@ def main() -> int:
         + training_q2["launches"]["flash_attention_bwd"] + training_moe["launches"]["flash_attention_bwd"]
         + training_px["launches"]["flash_attention_bwd"] + training_wh["launches"]["flash_attention_bwd"]
         + training_rg_remat["launches"]["flash_attention_bwd"] + training_px_remat["launches"]["flash_attention_bwd"]
-        + training_dp["launches"]["flash_attention_bwd"],
+        + training_dp["launches"]["flash_attention_bwd"] + sum(p["launches"] for p in mesh_bwd.values()),
         # gemma2's launches are all the softcap's (every one of its layers caps its scores)
         "softcap_launches": training_g2["launches"]["flash_attention_bwd"],
         "max_abs_err": max(r["max_abs_err"] for r in [bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"],
@@ -3988,6 +4459,7 @@ def main() -> int:
             "pixtral-12b-train-remat": path_summary(training_px_remat["launches"]["flash_attention_bwd"],
                                                     [family_bwd["pixtral_bwd"]]),
             "yi-6b-dp": path_summary(training_dp["launches"]["flash_attention_bwd"], [bwd_main]),
+            **mesh_bwd,
         },
     }
     bwd_paths = [bwd_main, rg_bwd_main, family_bwd["gemma2_bwd"], family_bwd["qwen2_bwd"],
@@ -4072,7 +4544,7 @@ def main() -> int:
         "whisper_kernel_checks": wh_rows, "whisper_kernel_paths": wh_paths, "training_whisper": training_wh,
         "training_whisper_grads": wh_grads, "serving_whisper": serving_wh, "remat_grads": remat_grads,
         "training_recurrentgemma_remat": training_rg_remat, "training_pixtral_remat": training_px_remat,
-        "training_dp": training_dp,
+        "training_dp": training_dp, "k1_offset": k1_offset, "training_mesh": training_mesh,
         "kernels": kernels_line["kernels"],
     }, indent=1))
 

@@ -8,8 +8,8 @@ The producer side (:func:`ingest`), the consumer side
 own definitions, copied verbatim: none of them touches a device, and
 ``tests/test_torch_copies.py`` holds each to its original.
 
-:func:`device_feed` is rewritten for the card. The mesh placement
-(``ShardedFeeder``) is not ported: it belongs to the multi-GPU work.
+:func:`device_feed` is rewritten for the card, and :class:`ShardedFeeder`
+for the port's mesh (each rank takes its rows of the global batch).
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ from repro_torch.data.formats import AvroCodec, RawCodec, codec_from_control
 __all__ = [
     "BatchIterator",
     "PrefetchIterator",
+    "ShardedFeeder",
     "ShortStreamError",
     "StreamDataset",
     "StreamingBatchIterator",
@@ -943,3 +944,45 @@ def device_feed(
         return out, ready
 
     return _CudaFeed(prefetch_iter((place(b) for b in it), depth, name="device_feed"), dev)
+
+
+# -------------------------------------------------------------- ShardedFeeder
+class ShardedFeeder:
+    """Placement on a mesh + bounded prefetch (port of the JAX
+    ``ShardedFeeder``).
+
+    The batch axis splits over the mesh's data-parallel axes, as
+    ``P(batch_axes)`` deals it: the rank at data coordinate d takes rows
+    ``d * B/n`` to ``(d + 1) * B/n`` of every global batch, on the mesh's
+    device, and nothing else. Host slicing and the copy of batches
+    ``i+1..i+prefetch`` overlap the step on batch ``i`` (through
+    :func:`prefetch_iter`, so a failing source raises at the consumer
+    instead of silently ending the stream).
+    """
+
+    def __init__(self, mesh, batch_axes: Sequence[str] = ("data",), *, prefetch: int = 1):
+        self.mesh = mesh
+        self.axes = tuple(a for a in batch_axes if a in mesh.axis_names)
+        self.prefetch = prefetch
+
+    def place(self, batch: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+        n, d = self.mesh.size(self.axes), self.mesh.coord(self.axes)
+        out = {}
+        for k, v in batch.items():
+            rows = v.shape[0]
+            if rows % n:
+                raise ValueError(f"{k}: a batch of {rows} rows does not split over {n} data shards")
+            b = rows // n
+            # a copy: the decoded arrays may be read-only views of the log's buffers
+            out[k] = torch.tensor(np.asarray(v[d * b:(d + 1) * b])).to(self.mesh.device)
+        return out
+
+    def __call__(self, it: Iterator[Mapping[str, np.ndarray]]) -> Iterator[dict[str, torch.Tensor]]:
+        placed = (self.place(b) for b in it)
+        stream = prefetch_iter(placed, self.prefetch, name="sharded-feeder")
+        try:
+            yield from stream
+        finally:
+            close = getattr(stream, "close", None)
+            if close is not None:
+                close()

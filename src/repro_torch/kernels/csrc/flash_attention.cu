@@ -31,6 +31,17 @@
 // maps over Sk. The TPU kernel asserts one S; this is the same design
 // with the two extents kept apart, nothing more.
 //
+// A query offset (context parallelism: a rank of the model axis holds the
+// Sq = S / tp queries from qoff over all S keys; JAX's
+// _context_parallel_attention, src/repro/models/layers.py:381, masks by
+// the shard's positions) puts query i at position qoff + i. The masks,
+// the key-tile range a query tile walks and the interior test take
+// positions; the tiles are walked as before, longest first, and a row's
+// leading tiles that the causal mask or the window rule out wholly still
+// score -1e30 until a kept score's correction ex2(-1e30 - m) wipes them.
+// With a mask or an offset the queries lie within the keys (qoff + Sq <=
+// Sk). qoff = 0 is the call of before, to the bit.
+//
 // Bound. At the serving shapes (S 512 to 3000, D 128 or 256) the work is
 // 4*D flops per unmasked (query, key) pair and head against 2*D*(2H +
 // 2Kv) bytes a position: yi-6b at S 2000 does 32.8 GFLOP on 21 MB
@@ -127,20 +138,25 @@ struct Strides {
   int64_t b, s, h;  // element strides; head_dim stride is 1
 };
 
-// Sq queries and Sk keys. They differ only without a causal mask or a
-// window (cross attention: the decoder's queries over the encoder's keys),
-// which the wrapper checks; query i and key j sit at positions i and j.
+// Sq queries and Sk keys; query i sits at position qoff + i and key j at
+// j. Without a mask (cross attention: the decoder's queries over the
+// encoder's keys) the lengths are free; with a causal mask or a window the
+// queries lie within the keys, qoff + Sq <= Sk (a rank of the
+// context-parallel attention holds the queries from qoff), which the
+// wrapper checks. qoff = 0 with Sq == Sk is the call of before, to the bit.
 struct Mask {
   int Sq, Sk, causal, window;
   float scale, softcap;
+  int qoff;
 
   // the score of (query qi, key kj) after scale, softcap and masks
   __device__ __forceinline__ float apply(float dot, int qi, int kj) const {
     float x = dot * scale;
     if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+    const int qp = qi + qoff;
     bool ok = true;
-    if (causal) ok = kj <= qi;
-    if (window > 0) ok = ok && kj > qi - window;
+    if (causal) ok = kj <= qp;
+    if (window > 0) ok = ok && kj > qp - window;
     x = ok ? x : MASKED;
     return kj < Sk ? x : -INFINITY;  // past the ragged edge: no key at all
   }
@@ -148,9 +164,9 @@ struct Mask {
   // the TK-key tiles some query in [q0, q0 + TQ) may attend to
   template <int TQ = BQ, int TK = BK>
   __device__ __forceinline__ int2 key_tiles(int q0) const {
-    const int q_last = min(q0 + TQ, Sq) - 1;
+    const int q_last = min(q0 + TQ, Sq) - 1 + qoff;  // positions
     const int hi = causal ? min(q_last, Sk - 1) / TK : (Sk - 1) / TK;
-    const int lo = window > 0 ? max(0, q0 - window + 1) / TK : 0;
+    const int lo = window > 0 ? max(0, q0 + qoff - window + 1) / TK : 0;
     return make_int2(lo, hi);
   }
 
@@ -158,9 +174,9 @@ struct Mask {
   // [k0, k0 + TK) is kept: no causal, window or ragged edge crosses them
   template <int TK>
   __device__ __forceinline__ bool interior(int qw, int k0) const {
-    const int q_last = min(qw + 63, Sq - 1);
+    const int q_last = min(qw + 63, Sq - 1) + qoff;
     if (k0 + TK > Sk) return false;
-    if (causal && k0 + TK - 1 > qw) return false;
+    if (causal && k0 + TK - 1 > qw + qoff) return false;
     return !(window > 0 && k0 <= q_last - window);
   }
 };
@@ -619,8 +635,8 @@ __global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
           for (int e = 0; e < 4; ++e) {
             const int qi = qi0 + 8 * (e / 2), kj = k0 + 8 * j + 2 * t + (e % 2);
             bool ok = true;
-            if (mask.causal) ok = kj <= qi;
-            if (mask.window > 0) ok = ok && kj > qi - mask.window;
+            if (mask.causal) ok = kj <= qi + mask.qoff;
+            if (mask.window > 0) ok = ok && kj > qi + mask.qoff - mask.window;
             const float x = ok ? sc[4 * j + e] : MASKED;
             sc[4 * j + e] = kj < Sk ? x : -INFINITY;
           }
@@ -861,8 +877,9 @@ cudaError_t dispatch(int dtype, const void* q, const void* k, const void* v, voi
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 and softcap <= 0 mean none.
-// q and o hold Sq rows, k and v Sk; Sq != Sk only with neither a causal mask
-// nor a window. lse: null, or a contiguous (B, H, Sq) f32 output of each row's base-2
+// q and o hold Sq rows at positions q_offset .. q_offset + Sq - 1, k and v
+// Sk; with a causal mask, a window or an offset, 0 <= q_offset and
+// q_offset + Sq <= Sk. lse: null, or a contiguous (B, H, Sq) f32 output of each row's base-2
 // log-sum-exp (see the note at the top).
 // bf16 reads through TMA: 16-byte aligned data, strides positive multiples
 // of 8 elements where the extent is above 1 (the wrapper checks). Returns
@@ -873,12 +890,13 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void*
                               int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
                               int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
                               int64_t o_ss, int64_t o_sh, float scale, int causal, int window,
-                              float softcap, void* stream) {
+                              int q_offset, float softcap, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || Sq <= 0 || Sk <= 0 || H % KV != 0) return int(cudaErrorInvalidValue);
-  if (Sq != Sk && (causal || window > 0)) return int(cudaErrorInvalidValue);
+  if (q_offset < 0 || ((causal || window > 0 || q_offset > 0) && q_offset + Sq > Sk))
+    return int(cudaErrorInvalidValue);
   const Strides sq{q_sb, q_ss, q_sh}, sk{k_sb, k_ss, k_sh}, sv{v_sb, v_ss, v_sh},
       so{o_sb, o_ss, o_sh};
-  const Mask mask{Sq, Sk, causal, window, scale, softcap};
+  const Mask mask{Sq, Sk, causal, window, scale, softcap, q_offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:

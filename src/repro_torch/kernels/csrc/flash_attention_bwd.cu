@@ -127,6 +127,15 @@
 // over Sq; the dK/dV grid, its key bound, the partials and the reduction
 // over Sk; q and dO are tensor maps over Sq, k and v over Sk. With no mask
 // every key tile sees every query and every query row keeps all Sk keys.
+// A query offset (context parallelism, as the forward takes it) moves the
+// dQ blocks' key-tile walks, the dK/dV blocks' query walks (a key block no
+// query sees walks none and writes dK = dV = 0) and the interior tests by
+// qoff. Per element, the dK/dV kernels test the query's position (their
+// callers add qoff once a query step), the dQ kernels compare a key's
+// distance past the query's index with qoff (the f32 one a tile's diagonal
+// with 0): a query position held in a dQ kernel's register made ptxas
+// spill 4-16 bytes in three of them. Queries past Sq are left to their lse2
+// of +inf (p 0), so the hot loops test no more than before.
 // Scratch beyond Di (the wrapper sizes it by
 // repro_flash_attention_bwd_scratch): with G > 1 the partials, G x 2 x B x
 // Sk x Kv x D f32, 33.5 MB at the training shape, written once and read
@@ -161,39 +170,52 @@ struct Strides {
   int64_t b, s, h;  // element strides; head_dim stride is 1
 };
 
-// Sq queries and Sk keys; they differ only with neither a causal mask nor a
-// window (the wrapper checks)
+// Sq queries and Sk keys; query i sits at position qoff + i and key j at
+// j. With a causal mask, a window or an offset the queries lie within the
+// keys (qoff + Sq <= Sk, the wrapper checks); without, the lengths are free.
 struct Mask {
-  int Sq, Sk, causal, window;
+  int Sq, Sk, causal, window, qoff;
 
+  // whether query qi (at position qoff + qi) sees key kj (the dQ kernels'
+  // test: no position held a row). A query past Sq needs no test here: its
+  // lse2 is +inf, so its p is 0 and its dS 0
   __device__ __forceinline__ bool ok(int qi, int kj) const {
-    if (qi >= Sq || kj >= Sk) return false;
-    if (causal && kj > qi) return false;
-    return !(window > 0 && kj <= qi - window);
+    if (kj >= Sk) return false;
+    const int dk = kj - qi;  // the key's distance past the query's index
+    if (causal && dk > qoff) return false;
+    return !(window > 0 && dk <= qoff - window);
   }
-  // the first and last query that may see a key of [k0, k0 + TK)
+  // the same for the query at position qp (the dK/dV kernels' test: their
+  // callers add qoff once a query step)
+  __device__ __forceinline__ bool ok_at(int qp, int kj) const {
+    if (kj >= Sk) return false;
+    if (causal && kj > qp) return false;
+    return !(window > 0 && kj <= qp - window);
+  }
+  // the first and last query that may see a key of [k0, k0 + TK); lo > hi
+  // where none does (under a causal mask, the keys past the last query)
   template <int TK = TILE>
   __device__ __forceinline__ int2 queries(int k0) const {
     const int k_last = min(k0 + TK, Sk) - 1;
-    const int lo = causal ? k0 : 0;
-    const int hi = window > 0 ? min(Sq - 1, k_last + window - 1) : Sq - 1;
+    const int lo = causal ? max(0, k0 - qoff) : 0;
+    const int hi = window > 0 ? min(Sq - 1, k_last + window - 1 - qoff) : Sq - 1;
     return make_int2(lo, hi);
   }
   // the TK-key tiles some query of [q0, q0 + TQ) may see
   template <int TQ = TILE, int TK = TILE>
   __device__ __forceinline__ int2 key_tiles(int q0) const {
-    const int q_last = min(q0 + TQ, Sq) - 1;
+    const int q_last = min(q0 + TQ, Sq) - 1 + qoff;  // positions
     const int hi = causal ? min(q_last, Sk - 1) / TK : (Sk - 1) / TK;
-    const int lo = window > 0 ? max(0, q0 - window + 1) / TK : 0;
+    const int lo = window > 0 ? max(0, q0 + qoff - window + 1) / TK : 0;
     return make_int2(lo, hi);
   }
   // whether every pair of the 64 query rows from qw and the keys [k0, k0 +
   // TK) is kept (rows past Sq aside: their lse2 is +inf)
   template <int TK>
   __device__ __forceinline__ bool interior(int qw, int k0) const {
-    const int q_last = min(qw + 63, Sq - 1);
+    const int q_last = min(qw + 63, Sq - 1) + qoff;
     if (k0 + TK > Sk) return false;
-    if (causal && k0 + TK - 1 > qw) return false;
+    if (causal && k0 + TK - 1 > qw + qoff) return false;
     return !(window > 0 && k0 <= q_last - window);
   }
   // the same for the 64 keys from kw and the queries [q0, q0 + TQ) (queries
@@ -201,8 +223,8 @@ struct Mask {
   template <int TQ>
   __device__ __forceinline__ bool interior_keys(int kw, int q0) const {
     if (kw + 64 > Sk) return false;
-    if (causal && kw + 63 > q0) return false;
-    return !(window > 0 && kw <= min(q0 + TQ, Sq) - 1 - window);
+    if (causal && kw + 63 > q0 + qoff) return false;
+    return !(window > 0 && kw <= min(q0 + TQ, Sq) - 1 + qoff - window);
   }
 };
 
@@ -431,8 +453,9 @@ __device__ __forceinline__ void load_rows(uint8_t* dst, const CUtensorMap* map, 
 // p = 2^(s scale log2(e) - lse2) of the 64 x N scores in place (0 where
 // the mask drops the pair), as wgmma accumulators whose element 4j + 2r +
 // c is at (row0 + 8r, col0 + 8j + 2t + c). ROW_Q says whether rows are
-// queries (dQ) or keys (dK/dV, the transposed products); lse2 comes from
-// the caller per element.
+// queries (dQ, row0 the query index) or keys (dK/dV, the transposed
+// products, col0 the query position); lse2 comes from the caller per
+// element.
 template <int N, bool ROW_Q, typename Lse>
 __device__ __forceinline__ void probs(float (&sc)[N / 2], const Mask& mask, bool interior, int row0, int col0,
                                       int t, float scale_log2, Lse lse_of) {
@@ -440,7 +463,7 @@ __device__ __forceinline__ void probs(float (&sc)[N / 2], const Mask& mask, bool
   for (int x = 0; x < N / 2; ++x) {
     const int r = (x / 2) % 2, c = 8 * (x / 4) + 2 * t + (x % 2);
     const float p = ex2(sc[x] * scale_log2 - lse_of(r, c));
-    const bool ok = interior || (ROW_Q ? mask.ok(row0 + 8 * r, col0 + c) : mask.ok(col0 + c, row0 + 8 * r));
+    const bool ok = interior || (ROW_Q ? mask.ok(row0 + 8 * r, col0 + c) : mask.ok_at(col0 + c, row0 + 8 * r));
     sc[x] = ok ? p : 0.f;
   }
 }
@@ -460,7 +483,7 @@ __device__ __forceinline__ void capped_probs(float (&sc)[N / 2], uint32_t (*pa)[
     for (int e = 0; e < 4; ++e) {
       const int x = 4 * j + e, r = e / 2, c = 8 * j + 2 * t + (e % 2);
       const float th = tanhf(sc[x] * cap.inv);
-      const bool ok = interior || (ROW_Q ? mask.ok(row0 + 8 * r, col0 + c) : mask.ok(col0 + c, row0 + 8 * r));
+      const bool ok = interior || (ROW_Q ? mask.ok(row0 + 8 * r, col0 + c) : mask.ok_at(col0 + c, row0 + 8 * r));
       p[e] = ok ? ex2(cap.log2 * th - lse_of(r, c)) : 0.f;
       sc[x] = p[e] * fmaf(-th, th, 1.f);
     }
@@ -782,7 +805,7 @@ __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
   const int k0 = tile * BN, hk = blockIdx.x / G, grp = blockIdx.x % G, b = blockIdx.y;
   const int heads = rep / G, h0 = hk * rep + grp * heads;  // this block's query heads
   const int2 qr = mask.queries<BN>(k0);
-  const int qt0 = qr.x / BQ, n_q = qr.y / BQ - qt0 + 1;
+  const int qt0 = qr.x / BQ, n_q = qr.y < qr.x ? 0 : qr.y / BQ - qt0 + 1;  // 0: dK = dV = 0
   const int n_steps = heads * n_q;  // step i: head h0 + i / n_q, queries (qt0 + i % n_q) BQ
   const int wg = threadIdx.x / 128;
 
@@ -870,10 +893,10 @@ __global__ void __launch_bounds__(KvTiles<D>::THREADS, 1)
       const float* dl = dl_s + s * BQ;
       uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
       if constexpr (CAP) {  // st: p (1 - t^2), what dscores takes for p; pa: p in bf16
-        capped_probs<BQ, false, true>(st, pa, mask, mask.interior_keys<BQ>(kw, q0), kj0, q0, t, cap,
+        capped_probs<BQ, false, true>(st, pa, mask, mask.interior_keys<BQ>(kw, q0), kj0, q0 + mask.qoff, t, cap,
                                       [&](int, int c) { return ls[c]; });
       } else {
-        probs<BQ, false>(st, mask, mask.interior_keys<BQ>(kw, q0), kj0, q0, t, scale_log2,
+        probs<BQ, false>(st, mask, mask.interior_keys<BQ>(kw, q0), kj0, q0 + mask.qoff, t, scale_log2,
                          [&](int, int c) { return ls[c]; });
         pack_a<BQ>(pa, st);
       }
@@ -1051,7 +1074,7 @@ __global__ void __launch_bounds__(F32_THREADS)
     const int h = hk * rep + r;
     const float* lse_h = lse + (int64_t(b) * H + h) * Sq;
     const float* dl_h = delta + (int64_t(b) * H + h) * Sq;
-    for (int q0 = (qr.x / R) * R; q0 <= qr.y; q0 += R) {
+    for (int q0 = (qr.x / R) * R; qr.x <= qr.y && q0 <= qr.y; q0 += R) {
       __syncthreads();
       load_tile_f32<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
       load_tile_f32<D>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q0, Sq);
@@ -1091,7 +1114,8 @@ __global__ void __launch_bounds__(F32_THREADS)
         for (int j = 0; j < RI; ++j) {
           const int kr = ty + 16 * i, qc = tx + 16 * j;
           float dfac;
-          const float p = f32_prob<CAP>(s[i][j], mask.ok(q0 + qc, k0 + kr), lse_s[qc], scale_log2, scale, cap, dfac);
+          const float p =
+              f32_prob<CAP>(s[i][j], mask.ok_at(q0 + mask.qoff + qc, k0 + kr), lse_s[qc], scale_log2, scale, cap, dfac);
           ps[kr * PP + qc] = p;
           dss[kr * PP + qc] = p * (dp[i][j] - dl_s[qc]) * dfac;
         }
@@ -1169,7 +1193,7 @@ __global__ void __launch_bounds__(F32_THREADS)
 
   const int2 kt = mask.key_tiles<R, R>(q0);
   for (int it = kt.x; it <= kt.y; ++it) {
-    const int k0 = it * R;
+    const int k0 = it * R, diag = k0 - q0 - mask.qoff;
     __syncthreads();
     load_tile_f32<D>(ks, k + b * sk.b + hk * sk.h, sk.s, k0, Sk);
     load_tile_f32<D>(vs, v + b * sv.b + hk * sv.h, sv.s, k0, Sk);
@@ -1204,7 +1228,9 @@ __global__ void __launch_bounds__(F32_THREADS)
       for (int j = 0; j < RI; ++j) {
         const int qr = ty + 16 * i, kc = tx + 16 * j;
         float dfac;
-        const float p = f32_prob<CAP>(s[i][j], mask.ok(q0 + qr, k0 + kc), lse_s[qr], scale_log2, scale, cap, dfac);
+        const int dk = diag + kc - qr;  // key position less query position
+        const bool keep = k0 + kc < Sk && !(mask.causal && dk > 0) && !(mask.window > 0 && dk <= -mask.window);
+        const float p = f32_prob<CAP>(s[i][j], keep, lse_s[qr], scale_log2, scale, cap, dfac);
         dss[qr * PP + kc] = p * (dp[i][j] - dl_s[qr]) * dfac;
       }
     __syncthreads();
@@ -1412,8 +1438,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 24 element strides, (batch,
 // sequence, head) of q, k, v, o, do, dq, dk and dv in that order. q, o, do
-// and dq hold Sq rows, k, v, dk and dv Sk; Sq != Sk only with neither a
-// causal mask nor a window. lse is the forward's contiguous (B, H, Sq)
+// and dq hold Sq rows at positions q_offset .. q_offset + Sq - 1, k, v, dk
+// and dv Sk; with a causal mask, a window or an offset, 0 <= q_offset and
+// q_offset + Sq <= Sk (keys no query sees get dk = dv = 0). lse is the forward's contiguous (B, H, Sq)
 // base-2 log-sum-exp; delta an f32 scratch of
 // repro_flash_attention_bwd_scratch(...) floats that the call fills (its
 // first B x H x Sq are Di). window <= 0 means none. bf16 reads
@@ -1426,15 +1453,16 @@ int repro_flash_attention_bwd(const void* q, const void* k, const void* v, const
                               const void* dout, const float* lse, float* delta, void* dq, void* dk,
                               void* dv, int dtype, int B, int H, int KV, int Sq, int Sk, int D,
                               const int64_t* strides, float scale, int causal, int window,
-                              float softcap, void* stream) {
+                              int q_offset, float softcap, void* stream) {
   if (B <= 0 || H <= 0 || KV <= 0 || Sq <= 0 || Sk <= 0 || H % KV != 0) return int(cudaErrorInvalidValue);
-  if (Sq != Sk && (causal || window > 0)) return int(cudaErrorInvalidValue);
+  if (q_offset < 0 || ((causal || window > 0 || q_offset > 0) && q_offset + Sq > Sk))
+    return int(cudaErrorInvalidValue);
   const int64_t* s = strides;
   Args a{q, k, v, o, dout, lse, delta, dq, dk, dv,
          Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]}, Strides{s[6], s[7], s[8]},
          Strides{s[9], s[10], s[11]}, Strides{s[12], s[13], s[14]}, Strides{s[15], s[16], s[17]},
          Strides{s[18], s[19], s[20]}, Strides{s[21], s[22], s[23]},
-         B, H, KV, Mask{Sq, Sk, causal, window}, scale,
+         B, H, KV, Mask{Sq, Sk, causal, window, q_offset}, scale,
          softcap > 0.f ? Cap{scale / softcap, softcap * LOG2E, softcap} : Cap{0.f, 0.f, 0.f}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {

@@ -52,9 +52,18 @@ with t = tanh(score / cap)); no config has a softcap at 64 or 128.
 Queries and keys of different lengths (Sq over Sk; whisper-tiny's cross
 attention, the decoder's tokens over the encoder's 1500 frames) are taken
 by both kernels without a causal mask or a window, the function JAX's
-``_chunked_attention`` computes for a ``cross`` ``AttnParams``; with
-either, Sq != Sk raises (no config needs it). lse and Di run over Sq, dk
-and dv come back over Sk.
+``_chunked_attention`` computes for a ``cross`` ``AttnParams``. lse and
+Di run over Sq, dk and dv come back over Sk.
+
+A query offset (``q_offset``, context parallelism: a rank of the mesh's
+model axis holds the S / tp queries from ``q_offset`` over all S keys)
+places query i at position ``q_offset + i``: a causal mask keeps key j
+where ``j <= q_offset + i``, a window where ``j > q_offset + i - window``.
+Both kernels move their tile ranges and in-tile masks by it; with an
+offset or a mask the queries must lie within the keys (``0 <= q_offset``,
+``q_offset + Sq <= Sk``) and anything else raises. Keys no query sees
+(those past the last query under a causal mask) get dk = dv = 0. Offset 0
+with Sq == Sk is the call of before, to the bit.
 """
 
 from __future__ import annotations
@@ -68,8 +77,10 @@ from repro_torch.kernels import _build, ref
 
 __all__ = [
     "BWD_LAUNCHES",
+    "BWD_OFFSET_LAUNCHES",
     "FlashAttention",
     "LAUNCHES",
+    "OFFSET_LAUNCHES",
     "check_bwd_layout",
     "check_layout",
     "flash_attention",
@@ -79,6 +90,9 @@ __all__ = [
 # kernel launches since import (or since a caller last set it to 0)
 LAUNCHES = 0
 BWD_LAUNCHES = 0  # of the backward's C entry point (two to three CUDA kernels each)
+# of those, the launches with a query offset above 0 (context parallelism)
+OFFSET_LAUNCHES = 0
+BWD_OFFSET_LAUNCHES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
@@ -97,7 +111,7 @@ def _kernel():
             [ctypes.c_void_p] * 5
             + [ctypes.c_int] * 7
             + [ctypes.c_int64] * 12
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -106,15 +120,19 @@ def _kernel():
     return _fn
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int | None) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int | None,
+           q_offset: int = 0) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, H, Sq, D) and (B, Kv, Sk, D)")
     b, h, s, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if k.shape[2] != s and (causal or window is not None):
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} must be >= 0")
+    if (causal or window is not None or q_offset) and q_offset + s > k.shape[2]:
         raise ValueError(
-            f"queries ({s}) and keys ({k.shape[2]}) of different lengths take neither a causal mask nor a window"
+            f"queries ({s}) at offset {q_offset} and keys ({k.shape[2]}) of different lengths take a causal "
+            "mask, a window or an offset only where the queries lie within the keys (q_offset + Sq <= Sk)"
         )
     if h % k.shape[1] != 0:
         raise ValueError(f"{h} query heads do not group over {k.shape[1]} kv heads")
@@ -157,10 +175,11 @@ def flash_attention(
     window: int | None = None,
     softcap: float | None = None,
     return_lse: bool = False,
+    q_offset: int = 0,
 ):
-    """Attention over (B, H, Sq, D) queries and (B, Kv, Sk, D) keys and
-    values (Sk != Sq only without a causal mask or a window); returns (B,
-    H, Sq, D) in q's dtype, and with ``return_lse`` also each row's base-2
+    """Attention over (B, H, Sq, D) queries at positions q_offset ..
+    q_offset + Sq - 1 and (B, Kv, Sk, D) keys and values (with a mask or an
+    offset, q_offset + Sq <= Sk); returns (B, H, Sq, D) in q's dtype, and with ``return_lse`` also each row's base-2
     log-sum-exp of its scaled scores, ``log2(sum_k exp(s_k))``, as a
     contiguous (B, H, Sq) f32 tensor (what :func:`flash_attention_bwd`
     takes).
@@ -168,14 +187,14 @@ def flash_attention(
     The output is a (B, H, Sq, D) view of a contiguous (B, Sq, H, D)
     tensor, so the model's layout comes back without a copy.
     """
-    global LAUNCHES
-    _check(q, k, v, causal, window)
+    global LAUNCHES, OFFSET_LAUNCHES
+    _check(q, k, v, causal, window, q_offset)
     if q.device.type == "cpu":
         kr, vr = _repeat(q, k), _repeat(q, v)
-        out = ref.mha(q, kr, vr, causal=causal, window=window, softcap=softcap)
+        out = ref.mha(q, kr, vr, causal=causal, window=window, softcap=softcap, q_offset=q_offset)
         if not return_lse:
             return out
-        sc = ref.scores(q, kr, causal=causal, window=window, softcap=softcap)
+        sc = ref.scores(q, kr, causal=causal, window=window, softcap=softcap, q_offset=q_offset)
         return out, torch.logsumexp(sc, dim=-1) * _LOG2E
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
@@ -198,7 +217,7 @@ def flash_attention(
         k.stride(0), k.stride(2), k.stride(1),
         v.stride(0), v.stride(2), v.stride(1),
         out.stride(0), out.stride(2), out.stride(1),
-        1.0 / math.sqrt(d), int(causal), window or 0, float(softcap or 0.0),
+        1.0 / math.sqrt(d), int(causal), window or 0, int(q_offset), float(softcap or 0.0),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if dev == torch.cuda.current_device():  # the launch goes to the current card
@@ -209,6 +228,7 @@ def flash_attention(
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: {err_str(rc).decode()} ({rc})")
     LAUNCHES += 1
+    OFFSET_LAUNCHES += q_offset > 0
     return (out, lse) if return_lse else out
 
 
@@ -230,7 +250,8 @@ def _bwd_kernel():
         fn.argtypes = (
             [ctypes.c_void_p] * 10
             + [ctypes.c_int] * 7
-            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+               ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
         scratch = lib.repro_flash_attention_bwd_scratch
@@ -282,23 +303,26 @@ def flash_attention_bwd(
     causal: bool = True,
     window: int | None = None,
     softcap: float | None = None,
+    q_offset: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """dq, dk, dv of :func:`flash_attention` (each in its input's dtype and
-    shape; dk and dv summed over the query heads of each kv group).
+    shape; dk and dv summed over the query heads of each kv group; the
+    queries at positions from ``q_offset``).
 
     On CPU tensors the plain version: autograd through ``ref.mha``. On
     CUDA tensors it launches the backward kernel or raises: head dims
     other than 64, 128 and 256, and a softcap at a head dim other than
     256, raise NotImplementedError.
     """
-    global BWD_LAUNCHES
-    _check(q, k, v, causal, window)
+    global BWD_LAUNCHES, BWD_OFFSET_LAUNCHES
+    _check(q, k, v, causal, window, q_offset)
     if o.shape != q.shape or do.shape != q.shape or lse.shape != q.shape[:3]:
         raise ValueError(f"o {tuple(o.shape)}, do {tuple(do.shape)}, lse {tuple(lse.shape)} do not match q {tuple(q.shape)}")
     if q.device.type == "cpu":
         with torch.enable_grad():
             qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
-            out = ref.mha(qq, _repeat(qq, kk), _repeat(qq, vv), causal=causal, window=window, softcap=softcap)
+            out = ref.mha(qq, _repeat(qq, kk), _repeat(qq, vv), causal=causal, window=window, softcap=softcap,
+                          q_offset=q_offset)
             return torch.autograd.grad(out, (qq, kk, vv), do)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, not {q.device}")
@@ -335,12 +359,13 @@ def flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             _DTYPES[q.dtype], b, h, kv, s, sk, d, ctypes.cast(strides, ctypes.c_void_p),
-            1.0 / math.sqrt(d), int(causal), window or 0, float(softcap or 0.0),
+            1.0 / math.sqrt(d), int(causal), window or 0, int(q_offset), float(softcap or 0.0),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: {err_str(rc).decode()} ({rc})")
     BWD_LAUNCHES += 1
+    BWD_OFFSET_LAUNCHES += q_offset > 0
     return dq, dk, dv
 
 
@@ -350,7 +375,7 @@ class FlashAttention(torch.autograd.Function):
     keys and values; on CPU tensors both sides are the plain version."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, window: int | None, softcap: float | None):
+    def forward(ctx, q, k, v, causal: bool, window: int | None, softcap: float | None, q_offset: int = 0):
         d = q.shape[3]
         if q.device.type == "cuda" and (
             d not in _BWD_HEAD_DIMS or (softcap is not None and d not in _BWD_SOFTCAP_HEAD_DIMS)
@@ -360,14 +385,16 @@ class FlashAttention(torch.autograd.Function):
                 + (" with softcap" if softcap is not None else "")
                 + f": it takes head_dim {_BWD_HEAD_DIMS}, and a softcap at {_BWD_SOFTCAP_HEAD_DIMS} only"
             )
-        out, lse = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap, return_lse=True)
+        out, lse = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap, return_lse=True,
+                                   q_offset=q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.opts = (causal, window, softcap)
+        ctx.opts = (causal, window, softcap, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        causal, window, softcap = ctx.opts
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window, softcap=softcap)
-        return dq, dk, dv, None, None, None
+        causal, window, softcap, q_offset = ctx.opts
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window, softcap=softcap,
+                                         q_offset=q_offset)
+        return dq, dk, dv, None, None, None, None

@@ -21,14 +21,17 @@ __all__ = ["attention_op", "rglru_op", "ssd_op"]
 
 def attention_op(
     q: torch.Tensor,  # (B, Sq, H, D)
-    k: torch.Tensor,  # (B, Sk, Kv, D); Sk != Sq (cross attention) only with no mask
+    k: torch.Tensor,  # (B, Sk, Kv, D); Sk != Sq: cross attention (no mask) or q_offset + Sq <= Sk
     v: torch.Tensor,
     *,
     causal: bool = True,
     window: int | None = None,
     softcap: float | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
-    """Attention in model layout; returns (B, Sq, H, D).
+    """Attention in model layout; returns (B, Sq, H, D). The queries sit at
+    positions ``q_offset`` .. ``q_offset + Sq - 1`` (a rank's block of the
+    context-parallel attention).
 
     When grad mode is on and an input requires grad, the call goes through
     :class:`FlashAttention`, whose backward is the backward kernel (the
@@ -36,9 +39,9 @@ def attention_op(
     serves."""
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        out = FlashAttention.apply(qt, kt, vt, causal, window, softcap)
+        out = FlashAttention.apply(qt, kt, vt, causal, window, softcap, q_offset)
     else:
-        out = flash_attention(qt, kt, vt, causal=causal, window=window, softcap=softcap)
+        out = flash_attention(qt, kt, vt, causal=causal, window=window, softcap=softcap, q_offset=q_offset)
     return out.transpose(1, 2)
 
 

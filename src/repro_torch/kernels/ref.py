@@ -30,11 +30,13 @@ def mha(
     causal: bool = True,
     window: int | None = None,
     softcap: float | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """Naive full-materialisation attention: f32 scores, -1e30 mask, f32
-    softmax; query i and key j sit at positions i and j, as JAX's
-    ``_chunked_attention`` places them (``q_pos``, ``k_pos``)."""
-    sc = scores(q, k, causal=causal, window=window, softcap=softcap)
+    softmax; query i and key j sit at positions q_offset + i and j, as
+    JAX's ``_chunked_attention`` places them (``q_pos``, ``k_pos``; a rank
+    of the context-parallel attention holds the queries from q_offset)."""
+    sc = scores(q, k, causal=causal, window=window, softcap=softcap, q_offset=q_offset)
     w = torch.softmax(sc, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", w, v.float()).to(q.dtype)
 
@@ -46,16 +48,18 @@ def scores(
     causal: bool = True,
     window: int | None = None,
     softcap: float | None = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
     """The f32 (B, H, Sq, Sk) scores ``mha`` takes its softmax of: scaled,
-    capped, and -1e30 where the mask rules a pair out."""
+    capped, and -1e30 where the mask rules a pair out (query i at position
+    q_offset + i)."""
     sq, sk = q.shape[2], k.shape[2]
     d = q.shape[3]
     sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     sc = sc / math.sqrt(d)
     if softcap is not None:
         sc = softcap * torch.tanh(sc / softcap)
-    qp = torch.arange(sq, device=q.device)[:, None]
+    qp = torch.arange(sq, device=q.device)[:, None] + q_offset
     kp = torch.arange(sk, device=q.device)[None, :]
     ok = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:

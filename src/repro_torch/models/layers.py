@@ -30,14 +30,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import attention_op
+from repro_torch.models import sharding as SH
+from repro_torch.models.policy import P, Policy
 
 __all__ = [
     "AttnParams",
     "attention",
+    "attention_pspecs",
+    "attn_strategy",
     "cache_bits",
     "decode_attention",
     "layer_norm",
     "mlp",
+    "mlp_pspecs",
     "paged_decode_attention",
     "rms_norm",
     "rope",
@@ -129,6 +134,18 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(x.shape[:-1] + w.shape[1:])
 
 
+def mlp_pspecs(policy: Policy, d: int, d_ff: int, kind: str) -> dict:
+    """JAX's ``mlp_pspecs``: ``d_ff`` over the model axis (column-parallel
+    in, row-parallel out), ``d`` ZeRO-3 where the policy says."""
+    tp = policy.tp(d_ff)
+    io = P(None, policy.fsdp(d, has_tp=tp is not None), tp)
+    oi = P(None, tp, policy.fsdp(d, has_tp=tp is not None))
+    p = {"w_in": io, "w_out": oi}
+    if kind == "gated":
+        p["w_gate"] = io
+    return p
+
+
 def mlp(p: dict, x: torch.Tensor, kind: str, act: str = "silu") -> torch.Tensor:
     h = _proj(x, p["w_in"])
     actf = {"silu": F.silu, "gelu": lambda t: F.gelu(t, approximate="tanh")}[act]
@@ -154,6 +171,40 @@ class AttnParams:
     softcap: float | None = None  # gemma2 attn-logit capping
     bias: bool = False  # qwen2 QKV bias
     cross: bool = False  # enc-dec cross attention (K/V from encoder)
+
+
+def attn_strategy(ap: AttnParams, policy: Policy, seq_len: int) -> str:
+    """JAX's ``attn_strategy``: ``"heads"`` where the heads split over the
+    model axis, else ``"seq"`` (context parallelism: the queries split by
+    position) where the sequence does, else ``"none"`` (replicated)."""
+    tp = policy.size(policy.tp_axis)
+    if tp == 1:
+        return "none"
+    if ap.n_heads % tp == 0:
+        return "heads"
+    if seq_len % tp == 0 and seq_len >= tp:
+        return "seq"
+    return "none"
+
+
+def attention_pspecs(policy: Policy, d: int, ap: AttnParams) -> dict:
+    """JAX's ``attention_pspecs``: query heads (and kv heads where they
+    divide) over the model axis, ``d`` ZeRO-3 where the policy says."""
+    h = policy.tp(ap.n_heads)
+    kv = policy.tp(ap.n_kv)
+    eq = policy.fsdp(d, has_tp=h is not None)
+    ekv = policy.fsdp(d, has_tp=kv is not None)
+    p = {
+        "wq": P(None, eq, h, None),
+        "wk": P(None, ekv, kv, None),
+        "wv": P(None, ekv, kv, None),
+        "wo": P(None, h, None, eq),
+    }
+    if ap.bias:
+        p["bq"] = P(None, h, None)
+        p["bk"] = P(None, kv, None)
+        p["bv"] = P(None, kv, None)
+    return p
 
 
 def _project_qkv(p: dict, x: torch.Tensor, ap: AttnParams, positions: torch.Tensor):
@@ -189,11 +240,23 @@ def attention(
     positions: torch.Tensor | None = None,  # (S,)
     return_kv: bool = False,  # prefill: also return unrepeated K/V
     kv_source: torch.Tensor | None = None,  # (B, S_src, d) encoder states for cross attention
+    *,
+    mesh=None,  # training on a mesh: p holds this rank's blocks
+    policy: Policy | None = None,
 ):
     """Full-sequence attention (training / prefill): self attention, causal
     or not as ``ap`` says; with ``ap.cross`` the queries come from x and
     the keys and values from ``kv_source``, with no RoPE, no bias and no
-    mask (JAX's ``attention``, ``causal and not cross``)."""
+    mask (JAX's ``attention``, ``causal and not cross``). On a ``mesh`` it
+    runs JAX's strategy (:func:`attn_strategy`): :func:`_heads_attention`
+    or :func:`_seq_attention`, or replicated as here."""
+    strat = "none" if mesh is None else attn_strategy(ap, policy, x.shape[1])
+    if strat != "none" and return_kv:
+        raise NotImplementedError("a prefill's K/V on a mesh (serving on a mesh, ROADMAP Queue 1 item 10b)")
+    if strat == "heads":
+        return _heads_attention(p, x, ap, positions, kv_source, mesh, policy.tp_axis)
+    if strat == "seq":
+        return _seq_attention(p, x, ap, positions, kv_source, mesh, policy.tp_axis)
     if ap.cross:
         q = _proj(x, p["wq"])
         k = _proj(kv_source, p["wk"])
@@ -207,6 +270,62 @@ def attention(
     if return_kv:
         return y, k, v
     return y
+
+
+def _heads_attention(p, x, ap: AttnParams, positions, kv_source, mesh, tp) -> torch.Tensor:
+    """``"heads"``: this rank's query heads (the model axis divides them)
+    over the kv heads they read. Where the kv heads split too, ``wk`` and
+    ``wv`` are this rank's; where they do not (replicated), the rank takes
+    the kv heads its query heads read, unrepeated (K1 reads each query
+    head's kv head by its index). The output projection's rows are the
+    rank's heads: summed over the axis."""
+    n, r = mesh.size(tp), mesh.coord(tp)
+    h_loc, rep = ap.n_heads // n, ap.n_heads // ap.n_kv
+    p = dict(p)
+    if ap.n_kv % n == 0:
+        kv_loc = ap.n_kv // n
+    elif h_loc % rep == 0 or rep % h_loc == 0:  # whole groups, or a share of one
+        lo, hi = r * h_loc // rep, ((r + 1) * h_loc - 1) // rep + 1
+        for key in ("wk", "wv", "bk", "bv"):
+            if key in p:
+                p[key] = p[key][..., lo:hi, :]
+        kv_loc = hi - lo
+    else:
+        raise NotImplementedError(
+            f"{n} ranks split {ap.n_heads} query heads into blocks that straddle the groups of {rep} over "
+            f"{ap.n_kv} kv heads unevenly"
+        )
+    apl = dataclasses.replace(ap, n_heads=h_loc, n_kv=kv_loc)
+    if ap.cross:
+        q, k, v = _proj(x, p["wq"]), _proj(kv_source, p["wk"]), _proj(kv_source, p["wv"])
+    else:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        q, k, v = _project_qkv(p, x, apl, positions)
+    out = attention_op(q, k, v, causal=ap.causal and not ap.cross, window=ap.window, softcap=ap.softcap)
+    return SH.all_reduce(_out_proj(out, p["wo"]), mesh, tp)
+
+
+def _seq_attention(p, x, ap: AttnParams, positions, kv_source, mesh, tp) -> torch.Tensor:
+    """``"seq"``, JAX's ``_context_parallel_attention``: Q, K and V over
+    every head and position (replicated over the model axis, as the
+    weights are), this rank's contiguous block of the queries over all
+    the keys (or, for cross attention, the encoder's whole K/V) through K1
+    with the block's query offset, the blocks gathered along the sequence
+    (``out_specs=P(batch, tp)``), then the output projection."""
+    n, r = mesh.size(tp), mesh.coord(tp)
+    if ap.cross:
+        q, k, v = _proj(x, p["wq"]), _proj(kv_source, p["wk"]), _proj(kv_source, p["wv"])
+    else:
+        if positions is None:
+            positions = torch.arange(x.shape[1], device=x.device)
+        q, k, v = _project_qkv(p, x, ap, positions)
+    blk = x.shape[1] // n
+    out = attention_op(
+        q[:, r * blk:(r + 1) * blk], k, v, causal=ap.causal and not ap.cross, window=ap.window,
+        softcap=ap.softcap, q_offset=0 if ap.cross else r * blk,
+    )
+    return _out_proj(SH.all_gather(out, 1, mesh, tp), p["wo"])
 
 
 def _attend(q, kf, vf, valid, ap: AttnParams) -> torch.Tensor:

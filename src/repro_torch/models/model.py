@@ -55,6 +55,28 @@ group is one pass over the pattern; whisper's encoder layers one each;
 the tail layers are kept), as JAX's ``jax.checkpoint`` of its scan body
 does: the gradients are the same bits, and the backward keeps each
 group's input and rebuilds one group's activations at a time.
+
+Training on a mesh (``StreamModel(cfg, policy, mesh=...)``, the port's
+``sharding.Mesh`` and a policy with its axes, ``Policy.for_mesh``). Each
+rank holds its block of every leaf, cut by :func:`param_pspecs` (JAX's
+``param_pspecs``, entry for entry), and ``param_tree()`` is that rank's
+blocks; ``loss`` takes the rank's rows of the global batch (its data
+coordinate's) and returns the global batch's loss, the same number on
+every rank. The layers run JAX's strategies with explicit collectives
+(``sharding``): the heads, ``d_ff``, the SSD heads, the RG-LRU channels
+and the experts split over the model axis, with each row-parallel
+product summed over it; attention whose heads do not divide runs
+context-parallel (``layers.attn_strategy``); a ZeRO-3 ``d_model`` dim is
+gathered where a layer uses it; the embedding and the chunked loss are
+vocab-parallel where the model axis divides the padded vocab (the loss's
+log-sum-exp and label pick are sums over the model axis, so full-vocab
+logits are never gathered). A trainer back-propagates the loss divided
+by the world size and sums each leaf's gradient over the axes its spec
+does not split (``train.trainer.build_train_step(mesh=)``). Without a
+mesh every path is the one of before; a mesh of one rank runs the same
+operations. Serving on a mesh (``forward``, ``prefill``,
+``decode_step``) is not ported (ROADMAP Queue 1 item 10b): those refuse
+a mesh of more than one rank.
 """
 
 from __future__ import annotations
@@ -73,15 +95,18 @@ from repro_torch import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe
 from repro_torch.models import rglru as R
+from repro_torch.models import sharding as SH
 from repro_torch.models import ssm as M
 from repro_torch.models.layers import AttnParams, cache_bits, to_cache
 from repro_torch.models.moe import F32_LEAVES as MOE_F32
-from repro_torch.models.moe import MoEParams, moe_ffn, moe_init, moe_shapes
-from repro_torch.models.policy import Policy, torch_dtype
+from repro_torch.models.moe import MoEParams, moe_ffn, moe_init, moe_pspecs, moe_shapes
+from repro_torch.models.policy import P, Policy, torch_dtype
 from repro_torch.models.rglru import RGLRUParams
 from repro_torch.models.ssm import SSMParams
 
-__all__ = ["BLOCK_SAVED", "ArchConfig", "StreamModel", "block_policy", "quantize_params"]
+__all__ = [
+    "BLOCK_SAVED", "ArchConfig", "StreamModel", "block_policy", "block_pspecs", "param_pspecs", "quantize_params",
+]
 
 # ``Policy.remat == "block"`` keeps the outputs of these ops, JAX's
 # ``dots_with_no_batch_dims_saveable``: ``x @ w`` on a 3-D x folds its
@@ -313,6 +338,62 @@ def _init_norm(part: dict) -> None:
         part["b"].zero_()
 
 
+# --------------------------------------------------------------- the specs
+def _norm_pspecs(norm: str) -> dict:
+    return {"w": P(None, None), "b": P(None, None)} if norm == "ln" else {"w": P(None, None)}
+
+
+def block_pspecs(cfg: ArchConfig, pol: Policy, kind: str) -> dict:
+    """JAX's ``StreamModel._block_pspecs``: one slot's specs, with the
+    leading layer dim of its stacked leaves."""
+    blk: dict[str, Any] = {"norm1": _norm_pspecs(cfg.norm)}
+    if kind in ("attn", "local", "bidir"):
+        blk["mixer"] = L.attention_pspecs(pol, cfg.d_model, cfg.attn_params(kind))
+    elif kind == "ssm":
+        blk["mixer"] = M.ssm_pspecs(pol, cfg.d_model, cfg.ssm)
+    elif kind == "rec":
+        blk["mixer"] = R.rglru_pspecs(pol, cfg.d_model, cfg.rglru)
+    elif kind == "encdec":
+        blk["mixer"] = L.attention_pspecs(pol, cfg.d_model, cfg.attn_params("attn"))
+        blk["norm_x"] = _norm_pspecs(cfg.norm)
+        blk["cross"] = L.attention_pspecs(pol, cfg.d_model, cfg.attn_params("cross"))
+    if cfg.post_norms:
+        blk["post1"] = _norm_pspecs(cfg.norm)
+    if cfg.mlp_kind != "none" or cfg.moe is not None:
+        blk["norm2"] = _norm_pspecs(cfg.norm)
+        if cfg.moe is not None:
+            blk["moe"] = moe_pspecs(pol, cfg.d_model, cfg.moe)
+            if cfg.moe.dense_residual:
+                blk["mlp"] = L.mlp_pspecs(pol, cfg.d_model, cfg.d_ff, "gated")
+        else:
+            blk["mlp"] = L.mlp_pspecs(pol, cfg.d_model, cfg.d_ff, "gated" if cfg.mlp_kind == "gated" else "plain")
+        if cfg.post_norms:
+            blk["post2"] = _norm_pspecs(cfg.norm)
+    return blk
+
+
+def param_pspecs(cfg: ArchConfig, pol: Policy) -> dict:
+    """JAX's ``StreamModel.param_pspecs``: the spec of every leaf of the
+    parameter tree under ``pol``'s mesh axes (no mesh, no allocation)."""
+    n_groups = cfg.n_layers // len(cfg.pattern)
+    tail = cfg.n_layers - n_groups * len(cfg.pattern)
+    vtp = pol.tp(cfg.vocab_padded)
+    specs: dict[str, Any] = {
+        "embed": P(vtp, pol.fsdp(cfg.d_model, has_tp=vtp is not None)),
+        "final_norm": _norm_pspecs(cfg.norm),
+        "slots": {f"s{i}": block_pspecs(cfg, pol, k) for i, k in enumerate(cfg.pattern)},
+    }
+    if tail:
+        specs["tail"] = {f"s{i}": block_pspecs(cfg, pol, cfg.pattern[i]) for i in range(tail)}
+    if not cfg.tie_embeddings:
+        specs["unembed"] = P(pol.fsdp(cfg.d_model, has_tp=vtp is not None), vtp)
+    if cfg.learned_pos:
+        specs["pos_embed"] = P(None, pol.fsdp(cfg.d_model))
+    if cfg.enc_dec:
+        specs["encoder"] = {"slots": {"s0": block_pspecs(cfg, pol, "bidir")}, "final_norm": _norm_pspecs(cfg.norm)}
+    return specs
+
+
 class StreamModel(nn.Module):
     """Decoder of a block pattern with explicit caches; parameters in the JAX tree layout."""
 
@@ -323,6 +404,7 @@ class StreamModel(nn.Module):
         *,
         device: str | torch.device | None = None,
         generator: torch.Generator | int | None = 0,
+        mesh: SH.Mesh | None = None,
     ):
         super().__init__()
         bad = _unsupported(cfg)
@@ -330,6 +412,27 @@ class StreamModel(nn.Module):
             raise NotImplementedError(f"{cfg.name}: not ported yet: {', '.join(bad)}")
         self.cfg = cfg
         self.policy = policy
+        self.mesh = mesh
+        self._specs = None  # the parameters' specs on a mesh
+        if mesh is not None:
+            if dict(policy.mesh_axes) != dict(mesh.sizes):
+                raise ValueError(
+                    f"policy.mesh_axes {dict(policy.mesh_axes)} are not the mesh's {dict(mesh.sizes)}: "
+                    "build the policy with Policy.for_mesh(mesh)"
+                )
+            if policy.weights_int8 and mesh.world > 1:
+                raise NotImplementedError(
+                    "int8 weights serve, and serving on a mesh is not ported yet (ROADMAP Queue 1 item 10b)"
+                )
+            if policy.size(policy.seq_axis) > 1:  # JAX reads it for the decode cache alone
+                raise NotImplementedError(
+                    f"seq_axis {policy.seq_axis!r} shards a decode cache's sequence, and serving on a mesh is not "
+                    "ported yet (ROADMAP Queue 1 item 10b)"
+                )
+            self._specs = param_pspecs(cfg, policy)
+            kinds = set(cfg.pattern) | ({"bidir"} if cfg.enc_dec else set())
+            self._layer_specs = {k: SH.layer_specs(block_pspecs(cfg, policy, k)) for k in kinds}
+            device = mesh.device if device is None else device
         self.device = resolve_device(device)
         pat = cfg.pattern
         self.n_groups = cfg.n_layers // len(pat)
@@ -337,24 +440,35 @@ class StreamModel(nn.Module):
         dtype = torch_dtype(policy.param_dtype)
         d = cfg.d_model
         q8 = policy.weights_int8
+        sp = self._specs or {}
+
+        def spec(*path):  # the spec (sub)tree at path on a mesh, else None
+            t = sp
+            for key in path:
+                t = t.get(key) if isinstance(t, dict) else None
+            return t
+
         self.tree = nn.ModuleDict({
-            "embed": _params({"w": (cfg.vocab_padded, d)}, dtype, self.device),
+            "embed": _params({"w": self._shape((cfg.vocab_padded, d), spec("embed"))}, dtype, self.device),
             "final_norm": self._norm_params(1, dtype),
             "slots": nn.ModuleDict({
-                f"s{i}": self._block(k, self.n_groups, dtype, q8) for i, k in enumerate(pat)
+                f"s{i}": self._block(k, self.n_groups, dtype, q8, spec("slots", f"s{i}")) for i, k in enumerate(pat)
             }),
         })
         if self.tail:
             self.tree["tail"] = nn.ModuleDict({
-                f"s{i}": self._block(pat[i], 1, dtype, q8) for i in range(self.tail)
+                f"s{i}": self._block(pat[i], 1, dtype, q8, spec("tail", f"s{i}")) for i in range(self.tail)
             })
         if not cfg.tie_embeddings:
-            self.tree["unembed"] = _params({"w": (d, cfg.vocab_padded)}, dtype, self.device)
+            self.tree["unembed"] = _params({"w": self._shape((d, cfg.vocab_padded), spec("unembed"))}, dtype,
+                                           self.device)
         if cfg.learned_pos:
-            self.tree["pos_embed"] = _params({"w": (cfg.max_learned_pos, d)}, dtype, self.device)
+            self.tree["pos_embed"] = _params({"w": self._shape((cfg.max_learned_pos, d), spec("pos_embed"))}, dtype,
+                                             self.device)
         if cfg.enc_dec:  # JAX's tree: {"slots": {"s0": the bidir stack}, "final_norm"}
             self.tree["encoder"] = nn.ModuleDict({
-                "slots": nn.ModuleDict({"s0": self._block("bidir", cfg.enc_layers, dtype, q8)}),
+                "slots": nn.ModuleDict({"s0": self._block("bidir", cfg.enc_layers, dtype, q8,
+                                                          spec("encoder", "slots", "s0"))}),
                 "final_norm": self._norm_params(1, dtype),
             })
         self._layers: dict[str, list[tuple]] = {}  # serving's per-layer views, by stack
@@ -367,17 +481,29 @@ class StreamModel(nn.Module):
         shapes = {"w": (n, d), "b": (n, d)} if self.cfg.norm == "ln" else {"w": (n, d)}
         return _params(shapes, dtype, self.device, q8=q8)
 
-    def _block(self, kind: str, n: int, dtype, q8: bool = False) -> nn.ModuleDict:
+    def _shape(self, shape: tuple, spec) -> tuple:
+        """The shape of this rank's block of a leaf of ``shape`` (itself
+        without a spec)."""
+        return tuple(shape) if spec is None else SH.local_shape(shape, spec, self.mesh)
+
+    def _block(self, kind: str, n: int, dtype, q8: bool = False, specs: dict | None = None) -> nn.ModuleDict:
         """One slot's parameters, stacked over ``n`` layers (with ``q8``,
-        the leaves JAX's ``quantize_params`` picks as int8 pairs)."""
+        the leaves JAX's ``quantize_params`` picks as int8 pairs; with the
+        slot's ``specs`` on a mesh, this rank's blocks)."""
         cfg = self.cfg
         d, f = cfg.d_model, cfg.d_ff
         dev = self.device
+
+        def part(name: str, shapes: dict, f32: tuple[str, ...] = ()) -> nn.Module:
+            if specs is not None:  # this rank's blocks
+                shapes = {k: self._shape(v, specs[name][k]) for k, v in shapes.items()}
+            return _params(shapes, dtype, dev, f32=f32, q8=q8)
+
         block = nn.ModuleDict({"norm1": self._norm_params(n, dtype, q8)})
         if kind == "ssm":
-            block["mixer"] = _params(M.ssm_shapes(n, d, cfg.ssm), dtype, dev, f32=M.F32_LEAVES, q8=q8)
+            block["mixer"] = part("mixer", M.ssm_shapes(n, d, cfg.ssm), M.F32_LEAVES)
         elif kind == "rec":
-            block["mixer"] = _params(R.rglru_shapes(n, d, cfg.rglru), dtype, dev, f32=R.F32_LEAVES, q8=q8)
+            block["mixer"] = part("mixer", R.rglru_shapes(n, d, cfg.rglru), R.F32_LEAVES)
         else:
             hd = cfg.hd
             shapes = {
@@ -388,10 +514,10 @@ class StreamModel(nn.Module):
             }
             if cfg.attn_bias:  # qwen2: JAX's layers.attention_init
                 shapes.update(bq=(n, cfg.n_heads, hd), bk=(n, cfg.n_kv_heads, hd), bv=(n, cfg.n_kv_heads, hd))
-            block["mixer"] = _params(shapes, dtype, dev, q8=q8)
+            block["mixer"] = part("mixer", shapes)
             if kind == "encdec":  # whisper's decoder block: the cross attention's norm and weights
                 block["norm_x"] = self._norm_params(n, dtype, q8)
-                block["cross"] = _params(shapes, dtype, dev, q8=q8)
+                block["cross"] = part("cross", shapes)
         if cfg.post_norms:  # gemma2's sandwich norm of the mixer's output
             block["post1"] = self._norm_params(n, dtype, q8)
         if cfg.mlp_kind != "none" or cfg.moe is not None:
@@ -400,11 +526,11 @@ class StreamModel(nn.Module):
             if cfg.mlp_kind == "gated" or cfg.moe is not None:  # arctic's dense MLP is always gated
                 mlp_shapes["w_gate"] = (n, d, f)
             if cfg.moe is not None:  # the MoE FFN, with arctic's dense MLP beside it
-                block["moe"] = _params(moe_shapes(n, d, cfg.moe), dtype, dev, f32=MOE_F32, q8=q8)
+                block["moe"] = part("moe", moe_shapes(n, d, cfg.moe), MOE_F32)
                 if cfg.moe.dense_residual:
-                    block["mlp"] = _params(mlp_shapes, dtype, dev, q8=q8)
+                    block["mlp"] = part("mlp", mlp_shapes)
             else:
-                block["mlp"] = _params(mlp_shapes, dtype, dev, q8=q8)
+                block["mlp"] = part("mlp", mlp_shapes)
             if cfg.post_norms:  # ... and of the MLP's
                 block["post2"] = self._norm_params(n, dtype, q8)
         return block
@@ -470,20 +596,14 @@ class StreamModel(nn.Module):
         An int8 model draws each block stack one layer at a time in the
         parameter dtype and keeps that layer's codes, so the float model
         is never whole (the codes equal ``quantize_params`` of the layers
-        drawn). Returns the parameter tree (``param_tree()``), as the JAX
-        ``init`` returns its params."""
-        if isinstance(generator, int):
-            generator = torch.Generator(device=self.device).manual_seed(generator)
+        drawn). On a mesh of several ranks each leaf is drawn whole and
+        cut to this rank's block (:meth:`_init_blocks`). Returns the
+        parameter tree (``param_tree()``), as the JAX ``init`` returns its
+        params."""
+        if self.mesh is not None and self.mesh.world > 1:
+            return self._init_blocks(generator)
+        normal, uniform = self._drawers(generator)
         d = self.cfg.d_model
-
-        def normal(p, scale):
-            x = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=self.device)
-            p.copy_(x.mul_(scale))
-
-        def uniform(p, lo, hi):
-            x = torch.rand(p.shape, generator=generator, dtype=torch.float32, device=self.device)
-            p.copy_(x.mul_(hi - lo).add_(lo))
-
         tree = self.param_tree()
         normal(tree["embed"], 1.0 / math.sqrt(d))
         for norm in [tree["final_norm"]] + ([tree["encoder"]["final_norm"]] if "encoder" in tree else []):
@@ -508,6 +628,65 @@ class StreamModel(nn.Module):
             normal(tree["unembed"], 1.0 / math.sqrt(d))
         if "pos_embed" in tree:  # JAX's scale for learned positions
             normal(tree["pos_embed"], 0.02)
+        self._layers = {}
+        return tree
+
+    def _drawers(self, generator: torch.Generator | int):
+        """(normal, uniform): ``normal(t, scale)`` draws a scaled standard
+        normal into t, ``uniform(t, lo, hi)`` a uniform one, both in f32 on
+        the model's device from ``generator`` (an int seeds a new one)."""
+        if isinstance(generator, int):
+            generator = torch.Generator(device=self.device).manual_seed(generator)
+
+        def normal(p, scale):
+            x = torch.randn(p.shape, generator=generator, dtype=torch.float32, device=self.device)
+            p.copy_(x.mul_(scale))
+
+        def uniform(p, lo, hi):
+            x = torch.rand(p.shape, generator=generator, dtype=torch.float32, device=self.device)
+            p.copy_(x.mul_(hi - lo).add_(lo))
+
+        return normal, uniform
+
+    @torch.no_grad()
+    def _init_blocks(self, generator: torch.Generator | int) -> dict:
+        """:meth:`init` on a mesh of several ranks: every rank seeds the
+        same generator and draws every leaf whole, a stacked leaf one layer
+        at a time (as the int8 init does), and keeps its block of it. The
+        draws are not those of the mesh-free init, which draws a stack at
+        once: a mesh run that must equal a mesh-free one loads the same
+        weights (``load_params`` of ``sharding.shard_tree``)."""
+        normal, uniform = self._drawers(generator)
+        cfg, mesh, specs = self.cfg, self.mesh, self._specs
+        d = cfg.d_model
+
+        def whole(dst, shape, spec, scale):
+            x = torch.empty(shape, dtype=torch.float32, device=self.device)
+            normal(x, scale)
+            dst.copy_(SH.cut(x, spec, mesh))
+
+        tree = self.param_tree()
+        whole(tree["embed"], (cfg.vocab_padded, d), specs["embed"], 1.0 / math.sqrt(d))
+        for norm in [tree["final_norm"]] + ([tree["encoder"]["final_norm"]] if "encoder" in tree else []):
+            _init_norm(norm)
+        for sec, name, kind, _, n in self._blocks():
+            if sec == "encoder":
+                blk, bspec = tree[sec]["slots"][name], specs[sec]["slots"][name]
+            else:
+                blk, bspec = tree[sec][name], specs[sec][name]
+            one = self._block(kind, 1, torch_dtype(self.policy.param_dtype))
+            one = {part: dict(sub.items()) for part, sub in one.items()}
+            lspec = SH.layer_specs(bspec)
+            for i in range(n):
+                self._init_block(kind, one, normal, uniform)
+                for part, sub in blk.items():
+                    for k, dst in sub.items():
+                        dst[i].copy_(SH.cut(one[part][k][0], lspec[part][k], mesh))
+            del one
+        if "unembed" in tree:
+            whole(tree["unembed"], (d, cfg.vocab_padded), specs["unembed"], 1.0 / math.sqrt(d))
+        if "pos_embed" in tree:
+            whole(tree["pos_embed"], (cfg.max_learned_pos, d), specs["pos_embed"], 0.02)
         self._layers = {}
         return tree
 
@@ -582,6 +761,75 @@ class StreamModel(nn.Module):
             return L.layer_norm(x, p["w"], p["b"], self.cfg.norm_eps)
         return L.rms_norm(x, p["w"], self.cfg.norm_eps, plus_one=self.cfg.norm_plus_one)
 
+    # ---------------------------------------------------------------- a mesh
+    def param_pspecs(self) -> dict:
+        """The parameters' specs under the model's policy (:func:`param_pspecs`)."""
+        return param_pspecs(self.cfg, self.policy)
+
+    def _mesh_kw(self) -> dict:
+        return {} if self.mesh is None else {"mesh": self.mesh, "policy": self.policy}
+
+    def _tp_split(self, size: int) -> bool:
+        """Whether a dim of ``size`` splits over a model axis of several ranks."""
+        mesh, pol = self.mesh, self.policy
+        return mesh is not None and mesh.size(pol.tp_axis) > 1 and pol.tp(size) is not None
+
+    def _unsharded(self, t, spec):
+        """A leaf with its ZeRO-3 dims gathered (its model-axis dims stay blocks)."""
+        if self.mesh is None or not self.policy.fsdp_axes:
+            return t
+        return SH.gather_dims(t, spec, self.mesh, self.policy.fsdp_axes)
+
+    def _batch_axes(self) -> tuple[str, ...]:
+        return tuple(a for a in self.policy.batch_axes if a in self.mesh.sizes)
+
+    def _refuse_serving_on_mesh(self, what: str) -> None:
+        if self.mesh is not None and self.mesh.world > 1:
+            raise NotImplementedError(
+                f"{what} on a mesh of {self.mesh.world} ranks: serving on a mesh is not ported yet "
+                "(ROADMAP Queue 1 item 10b)"
+            )
+
+    def _mlp(self, p: dict, x, kind: str):
+        """The MLP; on a mesh whose model axis splits ``d_ff``, this rank's
+        columns and rows, summed over the axis (row-parallel)."""
+        y = L.mlp(p, x, kind, self.cfg.mlp_act)
+        return SH.all_reduce(y, self.mesh, self.policy.tp_axis) if self._tp_split(self.cfg.d_ff) else y
+
+    def _ssm(self, p: dict, h, st):
+        """The Mamba-2 mixer; on a mesh that splits its heads, this rank's
+        heads (K2 on them), the gated norm's mean square and the
+        out-projection summed over the model axis."""
+        cfg, mesh, tp = self.cfg, self.mesh, self.policy.tp_axis
+        sp = cfg.ssm
+        if not self._tp_split(sp.d_inner):
+            return M.ssm_mixer(p, h, sp, st, cfg.norm_eps)
+        if self.policy.tp(sp.n_heads) is None or sp.n_groups > 1:
+            raise NotImplementedError(f"{cfg.name}: the model axis splits d_inner but not the SSD heads and groups")
+        n = mesh.size(tp)
+
+        def norm(y, w, eps):  # rms_norm over the whole d_inner
+            yf = y.float()
+            var = SH.all_reduce(yf.square().sum(dim=-1, keepdim=True), mesh, tp) / sp.d_inner
+            return (yf * torch.rsqrt(var + eps) * w.float()).to(y.dtype)
+
+        out, new = M.ssm_mixer(p, h, dataclasses.replace(sp, d_inner=sp.d_inner // n), st, cfg.norm_eps, norm=norm)
+        return SH.all_reduce(out, mesh, tp), new
+
+    def _rec(self, p: dict, h, st):
+        """The RG-LRU mixer; on a mesh that splits its channels, this
+        rank's channels and gate blocks (K3 on them), the out-projection
+        summed over the model axis."""
+        cfg, mesh, tp = self.cfg, self.mesh, self.policy.tp_axis
+        rp = cfg.rglru
+        if not self._tp_split(rp.d_rnn):
+            return R.rglru_mixer(p, h, rp, st)
+        if self.policy.tp(rp.n_blocks) is None:
+            raise NotImplementedError(f"{cfg.name}: the model axis splits d_rnn but not the gates' blocks")
+        n = mesh.size(tp)
+        out, new = R.rglru_mixer(p, h, dataclasses.replace(rp, d_rnn=rp.d_rnn // n, n_blocks=rp.n_blocks // n), st)
+        return SH.all_reduce(out, mesh, tp), new
+
     def _layer(self, kind: str, blk: dict, x, positions, st: dict | None = None, enc=None):
         """One block: x plus its mixer, then plus its MLP or MoE FFN (each
         output through its sandwich norm first where the config has them).
@@ -596,13 +844,16 @@ class StreamModel(nn.Module):
         cfg = self.cfg
         if self.policy.weights_int8:
             blk = _dq_tree(blk, torch_dtype(self.policy.compute_dtype))
+        if self.mesh is not None:  # ZeRO-3: this layer's d_model dims gathered where it uses them
+            blk = self._unsharded(blk, self._layer_specs[kind])
+        kw = self._mesh_kw()
         h = self._norm(blk["norm1"], x)
         decode = st is not None and x.shape[1] == 1  # JAX: any one-token pass with a cache
         if kind in ("ssm", "rec"):
             if kind == "ssm":
-                out, new = M.ssm_mixer(blk["mixer"], h, cfg.ssm, st, cfg.norm_eps)
+                out, new = self._ssm(blk["mixer"], h, st)
             else:
-                out, new = R.rglru_mixer(blk["mixer"], h, cfg.rglru, st)
+                out, new = self._rec(blk["mixer"], h, st)
             if st is not None:
                 for k, v in new.items():
                     st[k].copy_(v)
@@ -620,7 +871,7 @@ class StreamModel(nn.Module):
                 out, k, v = L.attention(blk["mixer"], h, ap, positions, return_kv=True)
                 _fill_kv_cache(st, k, v)
             else:
-                out = L.attention(blk["mixer"], h, ap, positions)
+                out = L.attention(blk["mixer"], h, ap, positions, **kw)
         x = x + (self._norm(blk["post1"], out) if cfg.post_norms else out)
         if kind == "encdec":
             hx = self._norm(blk["norm_x"], x)
@@ -628,7 +879,10 @@ class StreamModel(nn.Module):
             if decode:
                 out, _, _ = L.decode_attention(blk["cross"], hx, st["xk"], st["xv"], st["pos"], capx)
             else:
-                out, xk, xv = L.attention(blk["cross"], hx, capx, return_kv=True, kv_source=enc)
+                if kw:  # training on a mesh: no cache to fill
+                    out = L.attention(blk["cross"], hx, capx, kv_source=enc, **kw)
+                else:
+                    out, xk, xv = L.attention(blk["cross"], hx, capx, return_kv=True, kv_source=enc)
                 if st is not None:  # the encoder's projections, cached once (JAX computes them again)
                     for key, new in (("xk", xk), ("xv", xv)):
                         cache_bits(st[key]).copy_(cache_bits(to_cache(new, st[key].dtype)))
@@ -638,10 +892,10 @@ class StreamModel(nn.Module):
         h2 = self._norm(blk["norm2"], x)
         aux = None
         if cfg.moe is not None:
-            dense = (lambda t: L.mlp(blk["mlp"], t, "gated", cfg.mlp_act)) if cfg.moe.dense_residual else None
-            y, aux = moe_ffn(blk["moe"], h2, cfg.moe, dense_mlp=dense)
+            dense = (lambda t: self._mlp(blk["mlp"], t, "gated")) if cfg.moe.dense_residual else None
+            y, aux = moe_ffn(blk["moe"], h2, cfg.moe, dense_mlp=dense, **kw)
         else:
-            y = L.mlp(blk["mlp"], h2, cfg.mlp_kind, cfg.mlp_act)
+            y = self._mlp(blk["mlp"], h2, cfg.mlp_kind)
         return x + (self._norm(blk["post2"], y) if cfg.post_norms else y), aux
 
     def _run_layers(self, layers, x, aux, positions, caches=None, enc=None):
@@ -724,7 +978,17 @@ class StreamModel(nn.Module):
         tokens = torch.as_tensor(tokens, device=self.device).long()
         dt = torch_dtype(self.policy.compute_dtype)
         embed = _dq_leaf(self.tree["embed"]["w"] if tree is None else tree["embed"], dt)  # never int8
-        x = embed[tokens].to(dt)
+        if self._tp_split(self.cfg.vocab_padded):  # vocab-parallel: this rank's rows, summed over the axis
+            embed = self._unsharded(embed, self._specs["embed"])
+            rows = embed.shape[0]
+            local = tokens - self.mesh.coord(self.policy.tp_axis) * rows
+            inside = (local >= 0) & (local < rows)
+            x = embed[torch.where(inside, local, 0)].to(dt)
+            x = SH.all_reduce(torch.where(inside[..., None], x, torch.zeros_like(x)), self.mesh, self.policy.tp_axis)
+        else:
+            if self.mesh is not None:
+                embed = self._unsharded(embed, self._specs["embed"])
+            x = embed[tokens].to(dt)
         if self.cfg.embed_scale:  # the scale rounded to the compute dtype, as in JAX
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype, device=x.device)
         return x
@@ -748,6 +1012,8 @@ class StreamModel(nn.Module):
             x = torch.cat([front, x], dim=1)
         if cfg.learned_pos:  # JAX adds the table's leaf as it is (its dtype promotes)
             pe = self.tree["pos_embed"]["w"] if tree is None else tree["pos_embed"]
+            if self.mesh is not None:
+                pe = self._unsharded(pe, self._specs["pos_embed"])
             x = x + pe[: x.shape[1]][None]
         if (frames is not None) != cfg.enc_dec:
             raise ValueError(f"{cfg.name} takes frames (B, S_enc, d) exactly when it has an encoder")
@@ -768,6 +1034,7 @@ class StreamModel(nn.Module):
         frontend, (B, P + S, vocab_padded) over ``patch_embeds`` (B, P, d)
         and the tokens; with an encoder, the tokens attend to the encoder's
         output of ``frames`` (B, S_enc, d)."""
+        self._refuse_serving_on_mesh("forward")
         x, enc = self._embed_inputs(tokens, patch_embeds, frames)
         positions = torch.arange(x.shape[1], device=self.device)
         return self._logits(self._run_stack(x, positions, enc=enc)[0])
@@ -791,7 +1058,14 @@ class StreamModel(nn.Module):
         not counted. With a patch frontend of ``frontend_len`` positions
         the last patch position predicts the first token, as in JAX:
         ``h[:, front - 1:-1]`` against every token. Returns (loss + aux,
-        {"loss": loss, "aux": aux})."""
+        {"loss": loss, "aux": aux}).
+
+        On a mesh ``batch`` is this rank's rows of the global batch and the
+        loss is the global batch's: the negative log-likelihoods and the
+        label count summed over the data axes, each rank's logits only its
+        block of the vocab where the model axis splits it (the log-sum-exp
+        and the label pick summed over that axis). The MoE aux is JAX's,
+        over the global batch."""
         cfg = self.cfg
         h, aux = self.hidden(params, batch)
         h = self._norm({k: v[0] for k, v in params["final_norm"].items()}, h)
@@ -800,6 +1074,9 @@ class StreamModel(nn.Module):
         pred_h, labels = (h[:, :-1], tokens[:, 1:]) if front == 0 else (h[:, front - 1:-1], tokens)
         n = pred_h.shape[1]
         w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        if self.mesh is not None:
+            w = (self._unsharded(params["embed"], self._specs["embed"]).T if cfg.tie_embeddings
+                 else self._unsharded(params["unembed"], self._specs["unembed"]))
         dt = torch.promote_types(h.dtype, w.dtype)  # the einsum's promotion in JAX
 
         def chunk_nll(hc, lc):
@@ -811,13 +1088,32 @@ class StreamModel(nn.Module):
             picked = torch.where(inside, picked, torch.zeros_like(picked))
             return ((lse - picked) * mask).sum(), mask.sum()
 
+        nll_fn = chunk_nll
+        if self._tp_split(cfg.vocab_padded):
+            mesh, tp = self.mesh, self.policy.tp_axis
+            v0, rows = mesh.coord(tp) * w.shape[1], w.shape[1]
+
+            def nll_fn(hc, lc):  # vocab-parallel
+                logits = L.softcap(hc.to(dt) @ w.to(dt), cfg.final_softcap).float()
+                mask = (lc < cfg.vocab).float()
+                m = SH.all_reduce_max(logits.detach().amax(dim=-1), mesh, tp)
+                lse = m + torch.log(SH.all_reduce(torch.exp(logits - m[..., None]).sum(dim=-1), mesh, tp))
+                local = lc - v0
+                inside = (local >= 0) & (local < rows)  # outside every rank's rows: no pick, as JAX's one_hot
+                picked = logits.gather(-1, torch.where(inside, local, 0)[..., None])[..., 0]
+                picked = SH.all_reduce(torch.where(inside, picked, torch.zeros_like(picked)), mesh, tp)
+                return ((lse - picked) * mask).sum(), mask.sum()
+
         chunk = min(loss_chunk, n)
         tot = cnt = torch.zeros((), dtype=torch.float32, device=self.device)
         for c0 in range(0, n, chunk):  # whole chunks, then the ragged tail, in the scan's order
             nll, k = torch.utils.checkpoint.checkpoint(
-                chunk_nll, pred_h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], use_reentrant=False,
+                nll_fn, pred_h[:, c0:c0 + chunk], labels[:, c0:c0 + chunk], use_reentrant=False,
             )
             tot, cnt = tot + nll, cnt + k
+        if self.mesh is not None:  # the global batch's sums
+            tot = SH.all_reduce(tot, self.mesh, self._batch_axes())
+            cnt = SH.all_reduce(cnt.detach(), self.mesh, self._batch_axes())
         loss = tot / torch.clamp(cnt, min=1.0)
         return loss + aux, {"loss": loss, "aux": aux}
 
@@ -926,6 +1222,7 @@ class StreamModel(nn.Module):
         of ``s_cache`` slots, return the last position's logits (B,
         vocab_padded) and the cache. A one-token prompt decodes, as in JAX
         (an ``encdec`` layer's cross K/V then stay zero)."""
+        self._refuse_serving_on_mesh("prefill")
         x, enc = self._embed_inputs(tokens, patch_embeds, frames)
         caches = self.init_cache(x.shape[0], s_cache, cache_dtype)
         positions = torch.arange(x.shape[1], device=self.device)
@@ -942,6 +1239,7 @@ class StreamModel(nn.Module):
         the first attention slot's cache position (the tokens already in
         it, per row for the paged cache). Returns (logits (B, 1,
         vocab_padded), caches)."""
+        self._refuse_serving_on_mesh("decode_step")
         x = self._embed_tokens(tokens)
         if self.cfg.learned_pos:
             if pos is None:

@@ -41,8 +41,17 @@ two gathers, each the other's transpose, and under grad mode each is a
 Serving (grad mode off) runs the plain gathers: the same code and bits as
 before the adjoints existed.
 
-The expert-parallel path (``_ep_moe``) and ``moe_pspecs`` belong to the
-mesh and are not ported.
+Expert parallelism (``moe_pspecs``, JAX's ``_ep_moe``). On a mesh whose
+model axis divides the experts each rank holds ``e_loc`` of them, from
+``e_start = coord(model) * e_loc`` (with ``ep_inner_axes`` a block of
+each expert's ``d_ff`` too); the tokens, the router and the routes are
+the same on every rank of a data shard, and each rank computes its own
+experts' slots and returns its part of the output, which the caller sums
+over the model axis (and the inner axes). The capacity comes from one
+data shard's tokens, as in JAX; ``DROPS`` counts each rank's dropped
+routes to its own experts, so every route is counted once across the
+ranks. The aux loss's token and probability fractions are means over the
+global batch: the caller passes their sum over the data axes.
 """
 
 from __future__ import annotations
@@ -53,7 +62,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["F32_LEAVES", "MoEParams", "moe_ffn", "moe_init", "moe_routes", "moe_shapes"]
+from repro_torch.models.policy import P, Policy
+from repro_torch.models.sharding import all_reduce, axes_of
+
+__all__ = ["F32_LEAVES", "MoEParams", "moe_ffn", "moe_init", "moe_pspecs", "moe_routes", "moe_shapes"]
 
 # leaves kept in f32 under any parameter dtype (moe.py:49 in JAX)
 F32_LEAVES = ("router",)
@@ -81,6 +93,21 @@ def moe_shapes(L: int, d: int, mp: MoEParams) -> dict[str, tuple[int, ...]]:
     """The MoE's parameter shapes, stacked over ``L`` layers."""
     e, f = mp.n_experts, mp.d_ff
     return {"router": (L, d, e), "w_in": (L, e, d, f), "w_gate": (L, e, d, f), "w_out": (L, e, f, d)}
+
+
+def moe_pspecs(policy: Policy, d: int, mp: MoEParams) -> dict:
+    """JAX's ``moe_pspecs``: experts over the model axis, each expert's
+    ``d_ff`` over ``ep_inner_axes`` (2D expert parallelism), ``d`` ZeRO-3
+    where the policy says; the router replicated."""
+    e = policy.tp(mp.n_experts)
+    f = policy.fsdp(d, has_tp=e is not None)
+    inner = policy.ep_inner(mp.d_ff)
+    return {
+        "router": P(None, None, None),
+        "w_in": P(None, e, f, inner),
+        "w_gate": P(None, e, f, inner),
+        "w_out": P(None, e, inner, f),
+    }
 
 
 @torch.no_grad()
@@ -176,8 +203,12 @@ def _local_moe(
     mp: MoEParams,
     capacity: int,
     tope: torch.Tensor | None = None,  # (T, k) expert ids to route by, else probs' top-k
+    e_start: int | None = None,  # expert parallelism: the first of this rank's experts
 ) -> torch.Tensor:
-    """Capacity dispatch, the expert products and the combine; returns (T, d)."""
+    """Capacity dispatch, the expert products and the combine; returns (T, d).
+    With ``e_start`` the weights are this rank's experts from ``e_start``
+    on, the routes to the other experts are not this rank's (weight 0), and
+    the result is this rank's part of the output."""
     t, d = x2.shape
     e = w_in.shape[0]
     k = mp.top_k
@@ -199,10 +230,18 @@ def _local_moe(
     rank = torch.empty_like(order)
     rank[order] = torch.arange(t * k, device=dev) - first
 
-    keep = rank < capacity
-    slot = torch.where(keep, flat_e * capacity + rank, e * capacity)  # drop row
-    if DROPS is not None and not RECOMPUTING:
-        DROPS.add_((~keep).sum())
+    if e_start is None:
+        keep = rank < capacity
+        slot = torch.where(keep, flat_e * capacity + rank, e * capacity)  # drop row
+        if DROPS is not None and not RECOMPUTING:
+            DROPS.add_((~keep).sum())
+    else:  # JAX's _local_moe on an expert-parallel shard: the local experts' routes
+        local_e = flat_e - e_start
+        mine = (local_e >= 0) & (local_e < e)
+        keep = mine & (rank < capacity)
+        slot = torch.where(keep, local_e * capacity + rank, e * capacity)
+        if DROPS is not None and not RECOMPUTING:
+            DROPS.add_((mine & ~keep).sum())
 
     # dispatch: each slot's token id (T: an all-zero pad row), then gather
     slot_tok = torch.full((e * capacity + 1,), t, dtype=torch.long, device=dev)
@@ -220,17 +259,25 @@ def _local_moe(
     return _combine(ye.reshape(e * capacity, d), slot, slot_route, flat_w * keep, t, k)
 
 
-def _router(p: dict, x: torch.Tensor, mp: MoEParams):
+def _router(p: dict, x: torch.Tensor, mp: MoEParams, data=None):
     """Router probabilities (B, S, E) in f32 (f64 for an f64 x) and the
-    load-balancing aux loss (Switch): E * sum(frac_tokens * frac_probs)."""
+    load-balancing aux loss (Switch): E * sum(frac_tokens * frac_probs).
+    With ``data`` (a mesh and the axes the batch splits over, of more than
+    one rank) both fractions are means over the global batch."""
     b, s, _ = x.shape
     logits = (x @ p["router"].to(x.dtype)).to(torch.promote_types(x.dtype, torch.float32))
     probs = torch.softmax(logits, dim=-1)
     top1 = probs.argmax(dim=-1).reshape(-1)
     ones = torch.ones(top1.shape, dtype=torch.float32, device=x.device)
     counts = torch.zeros(mp.n_experts, dtype=torch.float32, device=x.device).scatter_add_(0, top1, ones)
-    frac_tok = counts / (b * s)
-    frac_prob = probs.mean(dim=(0, 1))
+    if data is None:
+        frac_tok = counts / (b * s)
+        frac_prob = probs.mean(dim=(0, 1))
+    else:
+        mesh, axes = data
+        n = b * s * mesh.size(axes)
+        frac_tok = all_reduce(counts, mesh, axes) / n
+        frac_prob = all_reduce(probs.sum(dim=(0, 1)), mesh, axes) / n
     aux = mp.n_experts * torch.sum(frac_tok * frac_prob) * mp.router_aux_weight
     return probs, aux
 
@@ -242,20 +289,36 @@ def moe_routes(p: dict, x: torch.Tensor, mp: MoEParams) -> torch.Tensor:
     return _top_k(probs.reshape(-1, mp.n_experts), mp.top_k)[1]
 
 
-def moe_ffn(p: dict, x: torch.Tensor, mp: MoEParams, dense_mlp=None, routes: torch.Tensor | None = None):
+def moe_ffn(p: dict, x: torch.Tensor, mp: MoEParams, dense_mlp=None, routes: torch.Tensor | None = None,
+            *, mesh=None, policy=None):
     """MoE FFN over x (B, S, d); ``dense_mlp(x)`` (arctic's dense
     residual) is added where the config has one. ``routes`` ((B * S, k)
     expert ids, as :func:`moe_routes` gives them) routes by those experts,
     their weights taken from this call's probabilities, in place of this
-    call's top-k: a run in another precision routed alike. Returns (out,
-    aux_loss)."""
+    call's top-k: a run in another precision routed alike. On a ``mesh``
+    (with its ``policy``) x is one data shard's rows, ``p`` this rank's
+    blocks, and the experts split over the model axis where it divides
+    them (JAX's ``_ep_moe``); the output is summed over the ranks that
+    hold parts of it. Returns (out, aux_loss)."""
     b, s, d = x.shape
-    probs, aux = _router(p, x, mp)
+    data = None
+    ep, reduce_axes = False, ()
+    if mesh is not None:
+        batch = tuple(a for a in policy.batch_axes if a in mesh.sizes)
+        data = (mesh, batch) if mesh.size(batch) > 1 else None
+        tp = policy.tp_axis
+        ep = mesh.size(tp) > 1 and mp.n_experts % mesh.size(tp) == 0
+        inner = axes_of(policy.ep_inner(mp.d_ff))
+        reduce_axes = tuple(a for a in mesh.axis_names if (ep and a == tp) or a in inner)
+    probs, aux = _router(p, x, mp, data)
     capacity = _capacity(mp, max(b * s, 1))
     out = _local_moe(
         x.reshape(-1, d), probs.reshape(-1, mp.n_experts), p["w_in"], p["w_gate"], p["w_out"],
         mp=mp, capacity=capacity, tope=routes,
+        e_start=mesh.coord(policy.tp_axis) * p["w_in"].shape[0] if ep else None,
     ).reshape(b, s, d)
+    if reduce_axes:
+        out = all_reduce(out, mesh, reduce_axes)
     if mp.dense_residual and dense_mlp is not None:
         out = out + dense_mlp(x)
     return out, aux

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import rglru_op
+from repro_torch.models.policy import P, Policy
 from repro_torch.models.ssm import causal_conv
 
 __all__ = [
@@ -38,6 +39,7 @@ __all__ = [
     "rglru_init",
     "rglru_init_state",
     "rglru_mixer",
+    "rglru_pspecs",
     "rglru_shapes",
 ]
 
@@ -71,6 +73,26 @@ def rglru_shapes(L: int, d: int, rp: RGLRUParams) -> dict[str, tuple[int, ...]]:
         "b_i": (L, rp.d_rnn),
         "Lambda": (L, rp.d_rnn),
         "w_out": (L, rp.d_rnn, d),
+    }
+
+
+def rglru_pspecs(policy: Policy, d: int, rp: RGLRUParams) -> dict:
+    """JAX's ``rglru_pspecs``: the RG-LRU's channels and its gates'
+    diagonal blocks over the model axis (the recurrence needs no
+    collective), ``d`` ZeRO-3 where the policy says."""
+    tp_r = policy.tp(rp.d_rnn)
+    tp_b = policy.tp(rp.n_blocks)
+    f = policy.fsdp(d, has_tp=tp_r is not None)
+    return {
+        "w_x_branch": P(None, f, tp_r),
+        "w_gate_branch": P(None, f, tp_r),
+        "conv": P(None, None, tp_r),
+        "w_a": P(None, tp_b, None, None),
+        "b_a": P(None, tp_r),
+        "w_i": P(None, tp_b, None, None),
+        "b_i": P(None, tp_r),
+        "Lambda": P(None, tp_r),
+        "w_out": P(None, tp_r, f),
     }
 
 

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import ssd_op
 from repro_torch.models.layers import _proj, rms_norm
+from repro_torch.models.policy import P, Policy
 
 __all__ = [
     "F32_LEAVES",
@@ -33,6 +34,7 @@ __all__ = [
     "ssm_init",
     "ssm_init_state",
     "ssm_mixer",
+    "ssm_pspecs",
     "ssm_shapes",
 ]
 
@@ -71,6 +73,31 @@ def ssm_shapes(L: int, d: int, sp: SSMParams) -> dict[str, tuple[int, ...]]:
         "dt_bias": (L, h),
         "norm_w": (L, sp.d_inner),
         "w_out": (L, sp.d_inner, d),
+    }
+
+
+def ssm_pspecs(policy: Policy, d: int, sp: SSMParams) -> dict:
+    """JAX's ``ssm_pspecs``: ``d_inner`` and the heads over the model
+    axis, the group-shared B/C projections replicated, ``d`` ZeRO-3 where
+    the policy says."""
+    tp_in = policy.tp(sp.d_inner)
+    tp_h = policy.tp(sp.n_heads)
+    f_in = policy.fsdp(d, has_tp=tp_in is not None)
+    f_h = policy.fsdp(d, has_tp=tp_h is not None)
+    f = policy.fsdp(d)
+    return {
+        "w_z": P(None, f_in, tp_in),
+        "w_x": P(None, f_in, tp_in),
+        "w_B": P(None, f, None),
+        "w_C": P(None, f, None),
+        "w_dt": P(None, f_h, tp_h),
+        "conv_x": P(None, None, tp_in),
+        "conv_bc": P(None, None, None),
+        "A_log": P(None, tp_h),
+        "D": P(None, tp_h),
+        "dt_bias": P(None, tp_h),
+        "norm_w": P(None, tp_in),
+        "w_out": P(None, tp_in, f_in),
     }
 
 
@@ -116,8 +143,14 @@ def ssm_mixer(
     sp: SSMParams,
     state: dict | None = None,  # decode: {"conv": (B, W-1, C), "ssd": (B, H, N, P)}
     norm_eps: float = 1e-5,
+    *,
+    norm=None,
 ):
-    """Full Mamba-2 block (without the residual add). Returns (y, new_state)."""
+    """Full Mamba-2 block (without the residual add). Returns (y, new_state).
+
+    On a mesh the caller passes this rank's heads' parameters with ``sp``'s
+    ``d_inner`` cut to them, and ``norm(y, w, eps)``: the gated RMS norm
+    over the whole ``d_inner`` (its mean square summed over the ranks)."""
     b, s, _ = xin.shape
     gn = sp.n_groups * sp.state_dim
     z = _proj(xin, p["w_z"])
@@ -146,7 +179,7 @@ def ssm_mixer(
 
     y = y + xheads * p["D"][None, None, :, None].to(y.dtype)
     y = y.reshape(b, s, sp.d_inner)
-    y = rms_norm(y * F.silu(z), p["norm_w"], norm_eps)
+    y = (norm or rms_norm)(y * F.silu(z), p["norm_w"], norm_eps)
     out = _proj(y, p["w_out"])
     return out, {"conv": new_conv, "ssd": new_ssd}
 

@@ -17,6 +17,13 @@ into the template's own tensor (its dtype and device) in place and
 returns the template, so a restored state costs no second copy on the
 card; ``CheckpointManager.save_async`` copies the state to the host
 before it returns and writes on a background thread.
+
+On a mesh (``mesh`` and ``pspecs``, the state's specs) :func:`save`
+gathers the dense tree (every rank takes part) and rank 0 writes it, and
+:func:`restore` has each rank cut its blocks from the dense arrays: the
+elastic restart, onto a mesh of any shape (JAX's ``restore(...,
+shardings=)``). The format does not change, so a checkpoint saved on a
+mesh restores without one, in either package.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from repro_torch.models.sharding import cut, gather, map_tree
 
 __all__ = ["CheckpointManager", "latest_step", "restore", "save"]
 
@@ -71,10 +80,21 @@ def save(
     *,
     offsets: Mapping[str, int] | None = None,
     meta: Mapping[str, Any] | None = None,
+    mesh=None,
+    pspecs: Any = None,
 ) -> str:
-    """Synchronous atomic save. Returns the checkpoint path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Synchronous atomic save. Returns the checkpoint path. On a ``mesh``
+    every rank calls it with its blocks and ``pspecs``; rank 0 writes the
+    dense tree, the others wait for it."""
     final = os.path.join(ckpt_dir, f"step_{step}")
+    if mesh is not None:  # leaf by leaf to the host
+        dense = map_tree(lambda t, s: _to_numpy(gather(t, s, mesh)) if isinstance(t, torch.Tensor) else t,
+                         state, pspecs)
+        if mesh.rank == 0:
+            save(ckpt_dir, step, dense, offsets=offsets, meta=meta)
+        mesh.barrier()
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -110,13 +130,14 @@ def latest_step(ckpt_dir: str) -> int | None:
 
 @torch.no_grad()
 def restore(
-    ckpt_dir: str, template: Any, step: int | None = None
+    ckpt_dir: str, template: Any, step: int | None = None, *, mesh=None, pspecs: Any = None,
 ) -> tuple[Any, dict[str, int], dict[str, Any]]:
     """Restore (state, offsets, meta).
 
     ``template`` gives the tree; each of its tensors is filled in place
     (cast to its dtype, on its device) and the template is returned as
-    the state.
+    the state. On a ``mesh`` the template holds this rank's blocks and
+    each is cut from the dense array by its spec in ``pspecs``.
     """
     if step is None:
         step = latest_step(ckpt_dir)
@@ -129,6 +150,11 @@ def restore(
         for keys, leaf in _items(template):
             key = "/".join(keys)
             src = torch.from_numpy(np.array(z[key]))  # (ascontiguousarray would make a 0-d leaf 1-d)
+            if mesh is not None:
+                spec = pspecs
+                for k in keys:
+                    spec = spec[k]
+                src = cut(src, spec, mesh)
             if tuple(src.shape) != tuple(leaf.shape):
                 raise ValueError(f"{key}: checkpoint shape {tuple(src.shape)} != template {tuple(leaf.shape)}")
             leaf.copy_(src.to(leaf.dtype))

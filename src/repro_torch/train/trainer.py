@@ -2,8 +2,10 @@
 on one device.
 
 * :func:`build_train_step` — the train step for the model zoo, with
-  optional microbatch gradient accumulation (``_to_microbatches``, data
-  parallelism of 1 until the mesh is ported).
+  optional microbatch gradient accumulation (``_to_microbatches``), on
+  one device or, with ``mesh=``, on a device mesh (JAX's pjit'd step:
+  each rank its blocks of the state by :func:`state_pspecs`, its rows of
+  the batch).
 * :func:`dp_train_step` — pure data parallelism over a
   ``torch.distributed`` process group: parameters replicated, the batch's
   rows split among the ranks, the gradients' mean int8-compressed
@@ -44,18 +46,30 @@ from repro_torch.core.registry import Registry
 from repro_torch.data.pipeline import BatchIterator, StreamDataset, StreamingBatchIterator, device_feed
 from repro_torch.train import checkpoint as ckpt_lib
 from repro_torch.train.compression import compressed_psum_mean, psum_mean
+from repro_torch.models import sharding as SH
 from repro_torch.train.optimizer import Optimizer, adamw, tree_leaves, tree_unflatten
 
-__all__ = ["TrainResult", "TrainingJob", "build_train_step", "dp_train_step", "make_state"]
+__all__ = ["TrainResult", "TrainingJob", "build_train_step", "dp_train_step", "make_state", "state_pspecs"]
 
 
 def make_state(model, opt: Optimizer, generator: torch.Generator | int) -> dict:
     """Fresh weights from ``generator`` and a fresh optimizer state; the
-    parameters are set to require grad."""
+    parameters are set to require grad. On a model's mesh, this rank's
+    blocks of both."""
     params = model.init(generator)
     for p in tree_leaves(params):
         p.requires_grad_(True)
-    return {"params": params, "opt": opt.init(params)}
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return {"params": params, "opt": opt.init(params)}
+    return {"params": params, "opt": opt.init(params, mesh=mesh, pspecs=model.param_pspecs())}
+
+
+def state_pspecs(model, opt: Optimizer) -> dict:
+    """JAX's ``state_pspecs``: the parameters' specs and the optimizer
+    state's."""
+    pspecs = model.param_pspecs()
+    return {"params": pspecs, "opt": opt.state_pspecs(pspecs)}
 
 
 def _to_microbatches(x: torch.Tensor, k: int, dp: int = 1) -> torch.Tensor:
@@ -69,22 +83,44 @@ def _to_microbatches(x: torch.Tensor, k: int, dp: int = 1) -> torch.Tensor:
     return y.reshape((k, dp * bl) + tuple(x.shape[1:]))
 
 
-def _grads(loss: torch.Tensor, params) -> list[torch.Tensor]:
-    """d loss / d every leaf of ``params``, in JAX's leaf order."""
-    return list(torch.autograd.grad(loss, tree_leaves(params)))
+def _grads(loss: torch.Tensor, params, share: float | None = None) -> list[torch.Tensor]:
+    """d loss / d every leaf of ``params``, in JAX's leaf order; with
+    ``share``, of ``share * loss`` (a rank's share of a mesh's loss)."""
+    out = None if share is None else torch.full_like(loss, share)
+    return list(torch.autograd.grad(loss, tree_leaves(params), grad_outputs=out))
 
 
-def build_train_step(model, opt: Optimizer, *, microbatches: int = 1):
-    """Returns (step_fn, None). ``step_fn(state, batch) -> (state, metrics)``
-    updates ``state`` in place; ``batch`` holds tensors on the model's
-    device. With ``microbatches`` k > 1 the gradients of the k
+def build_train_step(model, opt: Optimizer, *, microbatches: int = 1, mesh: SH.Mesh | None = None):
+    """Returns (step_fn, state_specs). ``step_fn(state, batch) -> (state,
+    metrics)`` updates ``state`` in place; ``batch`` holds tensors on the
+    model's device. With ``microbatches`` k > 1 the gradients of the k
     microbatches are summed in f32 buffers, each divided by k, as the JAX
-    scan does (``.grad`` would sum in the parameters' dtype)."""
+    scan does (``.grad`` would sum in the parameters' dtype).
+
+    Without a mesh the step is the one-device step and ``state_specs`` is
+    None. With ``mesh`` (the model's) ``state`` holds this rank's blocks
+    (``state_specs``, JAX's shardings as specs) and ``batch`` this rank's
+    rows of the global batch, its data coordinate's (``ShardedFeeder``
+    deals them); the loss is the global batch's, each rank back-propagates
+    it divided by the world size, each leaf's gradient is summed over the
+    axes its spec does not split (``sharding.reduce_replicated_``), and
+    the optimizer updates the blocks with the mesh's global norm. A
+    microbatch is k's share of each rank's rows, so every microbatch spans
+    every data shard (``_to_microbatches`` with the data parallelism of
+    ``policy.dp_degree``)."""
+    specs = leaf_specs = share = None
+    dp = getattr(getattr(model, "policy", None), "dp_degree", 1)
+    if mesh is not None:
+        if model.mesh is not mesh:
+            raise ValueError("build_train_step(mesh=) takes the model's own mesh")
+        specs = state_pspecs(model, opt)
+        leaf_specs = tree_leaves(specs["params"])
+        share = None if mesh.world == 1 else 1.0 / mesh.world
+        dp = 1  # a rank holds its own rows
 
     def step(state, batch):
         params = state["params"]
         b0 = next(iter(batch.values())).shape[0]
-        dp = 1
         k = min(microbatches, max(b0 // max(dp, 1), 1))  # each microbatch must cover DP
         if k > 1:
             acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in tree_leaves(params)]
@@ -92,19 +128,23 @@ def build_train_step(model, opt: Optimizer, *, microbatches: int = 1):
             mbs = {key: _to_microbatches(x, k, dp) for key, x in batch.items()}
             for i in range(k):
                 loss, _ = model.loss(params, {key: x[i] for key, x in mbs.items()})
-                for a, g in zip(acc, _grads(loss, params)):
+                for a, g in zip(acc, _grads(loss, params, share)):
                     a.add_(g.float() / k)
                 loss_acc = loss_acc + loss.detach() / k
-            grads = tree_unflatten(params, acc)
+            grads = acc
             metrics = {"loss": loss_acc}
         else:
             loss, metrics = model.loss(params, batch)
-            grads = tree_unflatten(params, _grads(loss, params))
+            grads = _grads(loss, params, share)
             metrics = {key: v.detach() for key, v in metrics.items()}
-        opt.update(grads, state["opt"], params)
+        if mesh is None:
+            opt.update(tree_unflatten(params, grads), state["opt"], params)
+        else:
+            SH.reduce_replicated_(grads, leaf_specs, mesh)
+            opt.update(tree_unflatten(params, grads), state["opt"], params, mesh=mesh, pspecs=specs["params"])
         return state, {**metrics, "loss": metrics["loss"]}
 
-    return step, None
+    return step, specs
 
 
 # --------------------------------------------------------- manual-DP variant

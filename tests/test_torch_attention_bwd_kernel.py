@@ -78,46 +78,52 @@ def gqa_split(rep: int, d: int = 128) -> int:
     return g
 
 
-def kv_steps(s, causal, window, k0, bn=BN_KV, bq=BQ, sk=None):
+def kv_steps(s, causal, window, k0, bn=BN_KV, bq=BQ, sk=None, qoff=0):
     """The query steps (their first rows) the dK/dV block of keys [k0, k0 +
-    bn) walks; s queries and ``sk`` keys (s where None)."""
+    bn) walks; s queries at positions qoff.. and ``sk`` keys (s where
+    None). Empty where no query sees the block (``Mask::queries`` gives lo
+    > hi and the block walks no step)."""
     sk = s if sk is None else sk
     k_last = min(k0 + bn, sk) - 1
-    lo = k0 if causal else 0
-    hi = min(s - 1, k_last + window - 1) if window else s - 1
+    lo = max(0, k0 - qoff) if causal else 0
+    hi = min(s - 1, k_last + window - 1 - qoff) if window else s - 1
+    if hi < lo:
+        return range(0)
     return range(lo // bq * bq, hi + 1, bq)
 
 
-def q_tiles(s, causal, window, q0, bn, bm=BM, sk=None):
-    """The bn-key tiles the dQ block of queries [q0, q0 + bm) walks."""
+def q_tiles(s, causal, window, q0, bn, bm=BM, sk=None, qoff=0):
+    """The bn-key tiles the dQ block of queries [q0, q0 + bm) walks (the
+    forward's ``Mask::key_tiles`` too, at its tile sizes)."""
     sk = s if sk is None else sk
-    q_last = min(q0 + bm, s) - 1
+    q_last = min(q0 + bm, s) - 1 + qoff
     hi = min(q_last, sk - 1) // bn if causal else (sk - 1) // bn
-    lo = max(0, q0 - window + 1) // bn if window else 0
+    lo = max(0, q0 + qoff - window + 1) // bn if window else 0
     return range(lo, hi + 1)
 
 
-def interior_rows(s, causal, window, qw, k0, tk, sk=None):
+def interior_rows(s, causal, window, qw, k0, tk, sk=None, qoff=0):
     """``Mask::interior``: 64 query rows from qw against keys [k0, k0 + tk)."""
     sk = s if sk is None else sk
-    q_last = min(qw + 63, s - 1)
-    if k0 + tk > sk or (causal and k0 + tk - 1 > qw):
+    q_last = min(qw + 63, s - 1) + qoff
+    if k0 + tk > sk or (causal and k0 + tk - 1 > qw + qoff):
         return False
     return not (window and k0 <= q_last - window)
 
 
-def interior_keys(s, causal, window, kw, q0, tq=BQ, sk=None):
+def interior_keys(s, causal, window, kw, q0, tq=BQ, sk=None, qoff=0):
     """``Mask::interior_keys``: 64 keys from kw against queries [q0, q0 + tq)."""
     sk = s if sk is None else sk
-    if kw + 64 > sk or (causal and kw + 63 > q0):
+    if kw + 64 > sk or (causal and kw + 63 > q0 + qoff):
         return False
-    return not (window and kw <= min(q0 + tq, s) - 1 - window)
+    return not (window and kw <= min(q0 + tq, s) - 1 + qoff - window)
 
 
-def kept(s, causal, window, sk=None):
-    """(query, key) pairs the mask keeps, (S, Sk) bool: ``Mask::ok``."""
+def kept(s, causal, window, sk=None, qoff=0):
+    """(query, key) pairs the mask keeps, (S, Sk) bool: ``Mask::ok``, query
+    i at position qoff + i."""
     sk = s if sk is None else sk
-    q, k = np.arange(s)[:, None], np.arange(sk)[None, :]
+    q, k = np.arange(s)[:, None] + qoff, np.arange(sk)[None, :]
     ok = np.ones((s, sk), bool)
     if causal:
         ok &= k <= q
@@ -207,12 +213,13 @@ def test_gqa_split_at_head_dim_256(rep):
     assert sorted(heads) == list(range(rep))
 
 
-def _mask_t(s, causal, window, sk=None):
-    return torch.from_numpy(kept(s, causal, window, sk))
+def _mask_t(s, causal, window, sk=None, qoff=0):
+    return torch.from_numpy(kept(s, causal, window, sk, qoff))
 
 
-def kernel_model(q, k, v, do, causal, window, bf16=False, softcap=None):
-    """dq, dk, dv (q, do (B, H, Sq, D); k, v (B, Kv, Sk, D)) in the kernels' order."""
+def kernel_model(q, k, v, do, causal, window, bf16=False, softcap=None, qoff=0):
+    """dq, dk, dv (q, do (B, H, Sq, D) at positions qoff..; k, v (B, Kv,
+    Sk, D)) in the kernels' order."""
     b, h, s, d = q.shape
     kv, sk = k.shape[1], k.shape[2]
     rep, g = h // kv, gqa_split(h // kv, d)
@@ -222,10 +229,10 @@ def kernel_model(q, k, v, do, causal, window, bf16=False, softcap=None):
     rnd = (lambda x: x.bfloat16().float()) if bf16 else (lambda x: x)
     kr, vr = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
     # the forward's outputs: O and the base-2 row log-sum-exp of the scaled (capped) scores
-    out = ref.mha(q, kr, vr, causal=causal, window=window, softcap=softcap)
-    lse2 = torch.logsumexp(ref.scores(q, kr, causal=causal, window=window, softcap=softcap), -1) * LOG2E
+    out = ref.mha(q, kr, vr, causal=causal, window=window, softcap=softcap, q_offset=qoff)
+    lse2 = torch.logsumexp(ref.scores(q, kr, causal=causal, window=window, softcap=softcap, q_offset=qoff), -1) * LOG2E
     di = (do * out).sum(-1)  # Di, (B, H, Sq)
-    ok = _mask_t(s, causal, window, sk)
+    ok = _mask_t(s, causal, window, sk, qoff)
 
     def probs(raw, lse):
         """(P, the value dS takes for P) of raw dot products: the kernels'
@@ -242,7 +249,7 @@ def kernel_model(q, k, v, do, causal, window, bf16=False, softcap=None):
     dq = torch.zeros_like(q)
     for q0 in range(0, s, BM):
         rows = slice(q0, min(q0 + BM, s))
-        for kt in q_tiles(s, causal, window, q0, bn, sk=sk):
+        for kt in q_tiles(s, causal, window, q0, bn, sk=sk, qoff=qoff):
             cols = slice(kt * bn, min((kt + 1) * bn, sk))
             keep = ok[rows, cols]
             _, pf = probs(q[:, :, rows] @ kr[:, :, cols].transpose(-1, -2), lse2[:, :, rows, None])
@@ -260,7 +267,7 @@ def kernel_model(q, k, v, do, causal, window, bf16=False, softcap=None):
             for grp in range(g):
                 for i in range(rep // g):
                     hh = hk * rep + grp * (rep // g) + i
-                    for q0 in kv_steps(s, causal, window, k0, bn=bn_kv, sk=sk):
+                    for q0 in kv_steps(s, causal, window, k0, bn=bn_kv, sk=sk, qoff=qoff):
                         rows = slice(q0, min(q0 + BQ, s))
                         keep = ok[rows, cols].T
                         st = k[:, hk, cols] @ q[:, hh, rows].transpose(-1, -2)
@@ -284,21 +291,23 @@ def _inputs(seed, b, s, h, kv, d, sk=None):
                                                                         (b, s, h, d))]
 
 
-def _autograd(q, k, v, do, causal, window, softcap=None):
+def _autograd(q, k, v, do, causal, window, softcap=None, qoff=0):
     rep = q.shape[1] // k.shape[1]
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     out = ref.mha(leaves[0], leaves[1].repeat_interleave(rep, 1), leaves[2].repeat_interleave(rep, 1),
-                  causal=causal, window=window, softcap=softcap)
+                  causal=causal, window=window, softcap=softcap, q_offset=qoff)
     return torch.autograd.grad(out, leaves, do)
 
 
-def _jax_grads(arrays, causal, window, softcap=None):
-    """jax.grad of layers._chunked_attention on (B, S, heads, D) arrays, as (B, heads, S, D) torch tensors."""
+def _jax_grads(arrays, causal, window, softcap=None, qoff=None):
+    """jax.grad of layers._chunked_attention on (B, S, heads, D) arrays, as
+    (B, heads, S, D) torch tensors; with ``qoff`` the queries sit at
+    positions qoff.. (a context-parallel shard's ``qpos_l``) under the mask."""
     q, k, v, do = (jnp.asarray(a) for a in arrays)
     s, h, d = q.shape[1], q.shape[2], q.shape[3]
     ap = AttnParams(n_heads=h, n_kv=k.shape[2], head_dim=d, causal=causal, window=window, softcap=softcap,
-                    q_block=64, cross=k.shape[1] != s)
-    qp, kp = jnp.arange(s), jnp.arange(k.shape[1])
+                    q_block=64, cross=qoff is None and k.shape[1] != s)
+    qp, kp = jnp.arange(s) + (qoff or 0), jnp.arange(k.shape[1])
     _, vjp = jax.vjp(lambda q_, k_, v_: _chunked_attention(q_, k_, v_, qp, kp, ap, grouped=False), q, k, v)
     return [torch.from_numpy(np.array(g)).transpose(1, 2) for g in vjp(do)]
 
@@ -445,4 +454,101 @@ def test_kernel_model_cross_lengths_bf16_rounding_within_tolerance(sq, sk):
     got = kernel_model(q, k, v, do, False, None, bf16=True)
     want = _autograd(q, k, v, do, False, None)
     errs = [_rel(g, w) for g, w in zip(got, want)]
+    assert max(errs) <= BF16_TOL, errs
+
+
+# ------------------------------------------------------------ query offsets
+# Context parallelism: a rank of the model axis holds the Sq = S / tp
+# queries from q_offset over all Sk = S keys. The mirrors above take the
+# offset as the kernels' Mask does (query i at position qoff + i); the
+# forward's Mask::key_tiles and interior are the same formulas at its own
+# tile sizes (bf16: 128 queries over 128 keys, 64 at head dim 256; f32: 64
+# over 64).
+FWD_TILES = [(64, 64), (128, 128), (128, 64)]  # (queries, keys) a forward block walks
+OFFSET_CASES = [  # (Sq, Sk, q_offset): offset 0, a tile edge, mid-tile, the last block
+    (112, 448, 0), (112, 448, 112), (112, 448, 224), (112, 448, 336),  # whisper-tiny at model 4
+    (128, 1024, 0), (128, 1024, 64), (128, 1024, 37), (128, 1024, 896),  # qwen2-7b at model 8
+    (100, 300, 128), (100, 300, 200), (65, 257, 192), (1, 130, 129), (64, 64, 0),
+]
+OFFSET_MASKS = [(True, None), (True, 1), (True, 64), (True, 100), (False, 50)]
+
+
+@pytest.mark.parametrize("causal,window", OFFSET_MASKS)
+def test_walks_with_a_query_offset_cover_every_kept_pair(causal, window):
+    """With a query offset every kept pair lies in a step (dK/dV) and a key
+    tile (dQ, the forward) its block visits; every tile called interior
+    holds only kept pairs; a key block no query sees walks no step (its dK
+    and dV are the zeros the kernel writes)."""
+    for sq, sk, off in OFFSET_CASES:
+        ok = kept(sq, causal, window, sk, off)
+        for bn_kv in (BN_KV, BN_KV_D256):
+            for k0 in range(0, sk, bn_kv):
+                steps = list(kv_steps(sq, causal, window, k0, bn=bn_kv, sk=sk, qoff=off))
+                assert all(0 <= q0 < sq for q0 in steps)
+                need = {q // BQ * BQ for q in np.nonzero(ok[:, k0:k0 + bn_kv].any(1))[0]}
+                assert need <= set(steps), (sq, sk, off, k0, sorted(need - set(steps)))
+                if not ok[:, k0:k0 + bn_kv].any():
+                    assert not steps or not any(ok[q0:q0 + BQ, k0:k0 + bn_kv].any() for q0 in steps)
+                for kw in range(k0, min(k0 + bn_kv, sk), 64):
+                    for q0 in steps:
+                        if interior_keys(sq, causal, window, kw, q0, sk=sk, qoff=off):
+                            assert ok[q0:min(q0 + BQ, sq), kw:kw + 64].all(), (sq, sk, off, kw, q0)
+        for bm, bn in [(BM, DQ_KEYS), (BM, DQ_KEYS_D256)] + FWD_TILES:
+            for q0 in range(0, sq, bm):
+                tiles = list(q_tiles(sq, causal, window, q0, bn, bm=bm, sk=sk, qoff=off))
+                assert tiles and all(0 <= kt * bn < sk for kt in tiles), (sq, sk, off, q0)
+                need = {k // bn for k in np.nonzero(ok[q0:q0 + bm].any(0))[0]}
+                assert need <= set(tiles), (sq, sk, off, q0, sorted(need - set(tiles)))
+                for qw in range(q0, min(q0 + bm, sq), 64):
+                    for kt in tiles:
+                        if interior_rows(sq, causal, window, qw, kt * bn, bn, sk=sk, qoff=off):
+                            assert ok[qw:min(qw + 64, sq), kt * bn:(kt + 1) * bn].all(), (sq, sk, off, qw, kt)
+
+
+def test_every_row_keeps_a_key_under_an_offset():
+    """Each query keeps at least its own position's key (q_offset + Sq <=
+    Sk), so no row's denominator is 0 and a tile's masked leading rows are
+    wiped by the first kept score (the kernels' masked-whole-tile rule)."""
+    for sq, sk, off in OFFSET_CASES:
+        for causal, window in OFFSET_MASKS:
+            assert kept(sq, causal, window, sk, off).any(1).all(), (sq, sk, off, causal, window)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kv,d,causal,window,off", [
+    (1, 112, 448, 6, 6, 64, True, None, 224),      # whisper-tiny's decoder at model 4, rank 2
+    (2, 100, 300, 4, 2, 64, True, 70, 128),        # a window that binds, offset on a tile edge
+    (1, 65, 257, 8, 2, 128, True, None, 192),      # rep 4: G 2; the last block, ragged
+    (1, 64, 256, 4, 1, 256, True, 100, 37),        # head dim 256, mid-tile offset, keys no query sees
+    (1, 50, 120, 4, 4, 64, False, 30, 70),         # a window alone
+])
+def test_kernel_model_with_offset_matches_autograd_and_jax(b, sq, sk, h, kv, d, causal, window, off):
+    """The backward kernels' arithmetic with a query offset against autograd
+    through ``ref.mha(q_offset=)`` and ``jax.grad`` of JAX's
+    ``_chunked_attention`` at positions offset.. (what a context-parallel
+    shard computes); dk and dv of keys no query sees are 0."""
+    arrays = _inputs(37, b, sq, h, kv, d, sk=sk)
+    q, k, v, do = (torch.from_numpy(a).transpose(1, 2) for a in arrays)
+    got = kernel_model(q, k, v, do, causal, window, qoff=off)
+    want = _autograd(q, k, v, do, causal, window, qoff=off)
+    want_jax = _jax_grads(arrays, causal, window, qoff=off)
+    for name, g, w, wj in zip(("dq", "dk", "dv"), got, want, want_jax):
+        assert g.shape == w.shape == wj.shape
+        assert _rel(g, w) <= F32_TOL, (name, _rel(g, w))
+        assert _rel(g, wj) <= F32_TOL, (name, _rel(g, wj))
+    if causal:
+        unseen = slice(off + sq, sk)
+        assert not got[1][:, :, unseen].any() and not got[2][:, :, unseen].any()
+
+
+@pytest.mark.parametrize("off", [0, 112, 224, 336])
+def test_kernel_model_with_offset_bf16_rounding_within_tolerance(off):
+    """whisper-tiny's causal decoder call at model 4 (112 queries from each
+    offset over 448 keys, 6 heads of 64) with bf16 inputs and P and dS
+    rounded where the kernels round them: within the card's bf16 tolerance
+    of autograd."""
+    arrays = _inputs(38, 1, 112, 6, 6, 64, sk=448)
+    q, k, v, do = (torch.from_numpy(a).bfloat16().float().transpose(1, 2) for a in arrays)
+    got = kernel_model(q, k, v, do, True, None, bf16=True, qoff=off)
+    want = _autograd(q, k, v, do, True, None, qoff=off)
+    errs = [_rel(g, w) for g, w in zip(got, want) if w.abs().max() > 0]
     assert max(errs) <= BF16_TOL, errs

@@ -45,8 +45,8 @@ def test_lockcheck_finds_the_same_in_the_copies():
     assert sorted(f.id for f in got) == sorted(f.id for f in want)
 
 
-# data/pipeline.py: every definition but the mesh's ShardedFeeder and the
-# rewritten device_feed is a verbatim copy (the module's imports differ)
+# data/pipeline.py: every definition but the rewritten device_feed and
+# ShardedFeeder (the port's mesh) is a verbatim copy (the module's imports differ)
 PIPELINE_COPIES = [
     "ShortStreamError",
     "PrefetchIterator",
@@ -82,7 +82,7 @@ def test_pipeline_definition_is_verbatim(name):
 def test_pipeline_copies_all_but_the_device_code():
     original = set(_definitions(REPO / "src" / "repro" / "data" / "pipeline.py"))
     copy = set(_definitions(REPO / "src" / "repro_torch" / "data" / "pipeline.py"))
-    assert original - copy == {"ShardedFeeder"}
+    assert original - copy == set()
     assert copy - original == {"_CudaFeed"}
     assert original - {"ShardedFeeder", "device_feed"} == set(PIPELINE_COPIES)
 

@@ -1051,11 +1051,11 @@ def _bwd_case(seed, b, s, h, kv, d, dtype, device):
     return q, k, v, do.transpose(1, 2)
 
 
-def _plain_grads(q, k, v, do, causal, window, softcap=None):
+def _plain_grads(q, k, v, do, causal, window, softcap=None, q_offset=0):
     rep = q.shape[1] // k.shape[1]
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     out = ref.mha(leaves[0], leaves[1].repeat_interleave(rep, 1), leaves[2].repeat_interleave(rep, 1),
-                  causal=causal, window=window, softcap=softcap)
+                  causal=causal, window=window, softcap=softcap, q_offset=q_offset)
     return torch.autograd.grad(out, leaves, do)
 
 
@@ -1375,9 +1375,10 @@ def test_flash_attention_bwd_cross_lengths_is_deterministic(card, sq, sk, h, kv,
 
 @pytest.mark.parametrize("kw", [{"causal": True}, {"causal": False, "window": 64}])
 def test_flash_attention_cross_lengths_refuse_a_mask(card, kw):
-    """A causal mask or a window with Sq != Sk raises before any launch,
-    in the forward and in the backward."""
-    q, k, v, do = (t.transpose(1, 2) for t in _cross_case(42, 1, 64, 128, 4, 4, 64, "bfloat16", card))
+    """A causal mask or a window over more queries than keys (the queries
+    not within the keys) raises before any launch, in the forward and in
+    the backward."""
+    q, k, v, do = (t.transpose(1, 2) for t in _cross_case(42, 1, 192, 128, 4, 4, 64, "bfloat16", card))
     n_f, n_b = fa.LAUNCHES, fa.BWD_LAUNCHES
     with pytest.raises(ValueError, match="different lengths"):
         fa.flash_attention(q, k, v, **kw)
@@ -1889,3 +1890,78 @@ def test_int8_encode_on_card_matches_cpu(card, dtype, shape):
     assert float(want[1][0]) == 0.0 and float(want[1][1]) == 1.0
     dec = int8_decode(*got, shape, cpu.dtype)
     assert torch.equal(dec.cpu(), int8_decode(*want, shape, cpu.dtype))
+
+
+# ------------------------------------------------------------ query offsets
+# Context parallelism: S / tp queries from q_offset = r S / tp over all S
+# keys, causal (and a window), each offset of a mesh in turn.
+OFFSET_SWEEP = [  # (B, S, H, Kv, D, tp, window, softcap)
+    (2, 448, 6, 6, 64, 4, None, None),      # whisper-tiny's decoder at model 4
+    (1, 1024, 28, 4, 128, 8, None, None),   # qwen2-7b at model 8 (GQA 7)
+    (1, 1024, 8, 4, 256, 8, 300, 50.0),     # gemma2-2b's heads, a window that binds, the softcap
+    (1, 600, 16, 1, 256, 3, 200, None),     # recurrentgemma's heads: blocks of 200, mid-tile offsets
+    (2, 390, 4, 2, 64, 3, 64, None),        # ragged blocks of 130
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kv,d,tp,window,cap", OFFSET_SWEEP)
+def test_flash_attention_query_offset_sweep(card, dtype, b, s, h, kv, d, tp, window, cap):
+    """K1 forward and backward at every rank's offset against the plain
+    version with the offset (the forward at chip_smoke.py's criterion, the
+    backward at BWD_TOL of each gradient's largest element); dk and dv of
+    the keys past the last query are 0; one launch each, counted as an
+    offset launch past rank 0."""
+    rng = np.random.default_rng(s + tp)
+    blk = s // tp
+    k, v = (torch.from_numpy(rng.standard_normal((b, s, kv, d)).astype(np.float32)).to(card, getattr(torch, dtype))
+            .transpose(1, 2) for _ in "kv")
+    for r in range(tp):
+        off = r * blk
+        q, do = (torch.from_numpy(rng.standard_normal((b, blk, h, d)).astype(np.float32)).to(card, getattr(torch, dtype))
+                 .transpose(1, 2) for _ in "qo")
+        kw = dict(causal=True, window=window, softcap=cap, q_offset=off)
+        n_f, n_o = fa.LAUNCHES, fa.OFFSET_LAUNCHES
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        want = ref.mha(q, k.repeat_interleave(h // kv, 1), v.repeat_interleave(h // kv, 1), **kw)
+        torch.cuda.synchronize()
+        assert (fa.LAUNCHES - n_f, fa.OFFSET_LAUNCHES - n_o) == (1, int(off > 0))
+        tol = TOL[dtype]
+        assert bool(((out.float() - want.float()).abs() <= tol + tol * want.float().abs()).all()), (r, off)
+        got = fa.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        grads = _plain_grads(q, k, v, do, True, window, cap, q_offset=off)
+        for g, w in zip(got, grads):
+            err = float((g.float() - w.float()).abs().max() / w.float().abs().max())
+            assert err <= BWD_TOL[dtype], (r, off, err)
+        if off + blk < s:
+            assert not got[1][:, :, off + blk:].any() and not got[2][:, :, off + blk:].any()
+
+
+@pytest.mark.parametrize("b,s,h,kv,d,tp,window,cap", OFFSET_SWEEP[:3])
+def test_flash_attention_query_offset_bits_on_repeats(card, b, s, h, kv, d, tp, window, cap):
+    """In bf16, at each rank's offset, the forward, its lse and the
+    backward give the same bits on three calls; at offset 0 with Sq == Sk
+    the call without the argument gives the same bits as with it."""
+    rng = np.random.default_rng(7 * s + tp)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(card, torch.bfloat16).transpose(1, 2)
+
+    k, v, blk = t(b, s, kv, d), t(b, s, kv, d), s // tp
+    for off in (0, blk, (tp - 1) * blk):
+        q, do = t(b, blk, h, d), t(b, blk, h, d)
+        kw = dict(causal=True, window=window, softcap=cap, q_offset=off)
+        first = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        g0 = fa.flash_attention_bwd(q, k, v, first[0], do, first[1], **kw)
+        for _ in range(2):
+            again = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+            assert all(torch.equal(x, y) for x, y in zip(g0, fa.flash_attention_bwd(q, k, v, *first[:1], do,
+                                                                                      first[1], **kw)))
+    q, do = t(b, s, h, d), t(b, s, h, d)
+    kw = dict(causal=True, window=window, softcap=cap)
+    o0, l0 = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    o1, l1 = fa.flash_attention(q, k, v, return_lse=True, q_offset=0, **kw)
+    assert torch.equal(o0, o1) and torch.equal(l0, l1)
+    assert all(torch.equal(x, y) for x, y in zip(fa.flash_attention_bwd(q, k, v, o0, do, l0, **kw),
+                                                  fa.flash_attention_bwd(q, k, v, o0, do, l0, q_offset=0, **kw)))

@@ -213,9 +213,11 @@ def test_attention_op_cross_gradient_through_the_function():
 
 @pytest.mark.parametrize("kw", [{"causal": True}, {"causal": False, "window": 16}])
 def test_cross_lengths_refuse_a_mask(kw):
-    """Queries and keys of different lengths take no causal mask and no
-    window (no config needs one): the wrapper raises on either side."""
-    q, k, v, do = (torch.from_numpy(a).transpose(1, 2) for a in _cross_inputs(4, 10, 20, 1))
+    """Queries and keys of different lengths take a causal mask or a window
+    only where the queries lie within the keys (a context-parallel rank's
+    block, q_offset + Sq <= Sk): more queries than keys under a mask raise
+    on either side."""
+    q, k, v, do = (torch.from_numpy(a).transpose(1, 2) for a in _cross_inputs(4, 30, 20, 1))
     with pytest.raises(ValueError, match="different lengths"):
         fa.flash_attention(q, k, v, **kw)
     lse = torch.zeros(q.shape[:3])
