@@ -537,6 +537,44 @@ MESH_LOSS_RTOL = 1e-3  # whisper-tiny's bf16 losses on the mesh against the mesh
 # every gathered gradient leaf, its largest gap over its largest element
 # (2.9e-6 on four H100s: only the order of the sums over ranks differs)
 MESH_GRAD_RTOL = 1e-4
+# serving on a mesh (serve_mesh_rank: the same spawned ranks, after the
+# mesh's training). On one card yi-6b at all 32 layers on the (1, 1) mesh:
+# a request of each PROMPT_LENS length through build_prefill_step, then
+# MESH_DECODE greedy steps through build_serve_step, the mesh-free steps'
+# bits. On n cards (1, n): mistral-large-123b at all 88 layers in bf16
+# (heads 96/8, d_ff and vocab split n ways, each rank drawing its blocks a
+# layer at a time), MESH_MISTRAL_PROMPTS prompts of MESH_MISTRAL_LEN
+# tokens and MESH_DECODE greedy steps each, every token within
+# MESH_MISTRAL_SLACK of the mesh forward's teacher-forced logits;
+# gemma2-2b at all 26 layers in f32 with seq_axis="model" (the
+# flash-decode over its caches' slices) on each of MESH_G2_RUNS, against
+# the mesh-free model on rank 0 at MESH_G2_RTOL; qwen3-moe-30b-a3b at all
+# 48 layers in int8 (its experts split n ways, placed by quantized_pspecs)
+# on a request of each PROMPT_LENS length and MESH_DECODE greedy steps,
+# against the mesh-free int8 model on rank 0, fed the mesh's tokens
+MESH_DECODE = 16
+MESH_MISTRAL_PROMPTS, MESH_MISTRAL_LEN = 4, 1024
+# no f32 twin of 123 B parameters fits on four cards, so the served tokens
+# are held at the slack of the f32 twins, GREEDY_SLACK: the mesh's bf16
+# decode came 0.0469 from its own teacher-forced forward on four H100s
+# (the 88 random layers' bf16 drift stays small, unlike gemma2's)
+MESH_MISTRAL_SLACK = GREEDY_SLACK
+MESH_G2_RUNS = ((8000, 32), (100, 32))  # (prompt, decode steps): slots of rank 3; ranks 1-3 empty
+MESH_G2_CACHE = 8192
+# of each step's largest logit and each cache leaf's largest element: in
+# f32 the mesh sums the row-parallel products in another order (and the
+# flash-decode merges per-rank softmax statistics), and random gemma2's 26
+# layers amplify rounding (its bf16 drift needs a 6.0 slack); measured on
+# four H100s 6.9e-4 (logits) and 5.4e-4 (caches) at 8000 tokens, 9.5e-5
+# at 100 (the reduced model on the CPU: 4.5e-6)
+MESH_G2_RTOL = 2e-3
+# the int8 model on the mesh against the mesh-free one on rank 0, each
+# step fed the mesh's greedy token: bf16 row-parallel sums in another order
+# flip near-ties among the router's top-8 (and which routes the capacity
+# of 1.25 drops), and random logits over 151936 entries sit close together
+# (int8 against bf16 agrees on 0.8477 of argmaxes, INT8_AGREE_MIN); measured
+# on four H100s: argmax agreement 0.8235 over 68 rows, largest gap 0.4453
+MESH_MOE_AGREE_MIN, MESH_MOE_GAP_MAX = 0.7, 1.0
 
 
 def card_line() -> str:
@@ -2108,6 +2146,10 @@ def mesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
             del dense, grads
             torch.cuda.empty_cache()
         dist.barrier()
+        t0 = time.perf_counter()
+        out["serve"] = serve_mesh_rank(rank, world, dev, kernels)
+        dist.barrier()
+        out["serve"]["wall_s"] = time.perf_counter() - t0
         dist.destroy_process_group()
         out["ok"] = True
     except BaseException as e:  # noqa: BLE001  (the parent reads why the rank failed)
@@ -2116,6 +2158,236 @@ def mesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         path.write_text(json.dumps(out))
         raise
     path.write_text(json.dumps(out))
+
+
+def serve_mesh_rank(rank: int, world: int, dev: str, kernels: dict) -> dict:
+    """Serving on the mesh, in mesh_rank's process (its NCCL group up): on
+    one card yi-6b's (1, 1) steps against the mesh-free steps, to the bit;
+    on several mistral-large-123b, gemma2-2b and qwen3-moe-30b-a3b on
+    (1, n). Each model's main path runs with the launch counts set to 0
+    just before and read just after. Returns the rank's numbers."""
+    import gc as gc_
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import make_mesh
+    from repro_torch.models import sharding as SH
+    from repro_torch.models.layers import cache_bits
+    from repro_torch.models.model import StreamModel
+    from repro_torch.models.policy import Policy
+    from repro_torch.serve import build_prefill_step, build_serve_step
+
+    def tokens_of(cfg, n, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(0, cfg.vocab, (1, n), generator=gen, device=dev)
+
+    def greedy(model, mesh, prompt, steps, feed=None, s_cache=None, cache_dtype=None):
+        """A prefill (``build_prefill_step``'s bf16 cache, or one of
+        ``cache_dtype`` through ``prefill``) and ``steps`` decode steps,
+        each fed its greedy token (or ``feed``'s); the logits of each, the
+        tokens, the cache, ms."""
+        s_cache = s_cache or prompt.shape[1] + steps
+        pre = build_prefill_step(model, s_cache, mesh)
+        if cache_dtype is not None:
+            pre = lambda b: model.prefill(b["tokens"], s_cache, cache_dtype=cache_dtype)  # noqa: E731
+        step = build_serve_step(model, mesh)
+        step = step[0] if mesh is not None else step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = pre({"tokens": prompt})
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, toks = [lg], []
+        for i in range(steps):
+            tok = lg.argmax(-1)[:, None] if feed is None else feed[:, i:i + 1]
+            toks.append(tok)
+            lg, cache = step(cache, tok, prompt.shape[1] + i)
+            lg = lg[:, 0]
+            logits.append(lg)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return {"logits": torch.stack(logits), "tokens": torch.cat(toks, 1), "cache": cache,
+                "prefill_ms": (t1 - t0) * 1e3, "decode_ms": (t2 - t1) * 1e3 / max(steps, 1)}
+
+    def free():
+        gc_.collect()
+        torch.cuda.empty_cache()
+
+    out = {}
+    if world == 1:  # yi-6b at all 32 layers: the (1, 1) mesh's steps against the mesh-free steps
+        cfg = configs.get("yi-6b")
+        mesh = make_mesh((1, 1), ("data", "model"), device=dev)
+        meshed = StreamModel(cfg, Policy.for_mesh(mesh), generator=SEED, mesh=mesh)
+        prompts = [tokens_of(cfg, n, SEED + 60 + i) for i, n in enumerate(PROMPT_LENS)]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        runs = [greedy(meshed, mesh, p, MESH_DECODE) for p in prompts]
+        counts = read_counts(kernels)
+        peak = torch.cuda.max_memory_allocated()
+        del meshed
+        free()
+        plain = StreamModel(cfg, Policy(), device=dev, generator=SEED)
+        same = True
+        for p, r in zip(prompts, runs):
+            want = greedy(plain, None, p, MESH_DECODE)
+            same &= bool(torch.equal(r["logits"], want["logits"]) and torch.equal(r["tokens"], want["tokens"]))
+            for sec, slots in want["cache"].items():
+                for name, st in slots.items():
+                    same &= all(bool(torch.equal(cache_bits(v), cache_bits(r["cache"][sec][name][k])))
+                                for k, v in st.items())
+        del plain, runs
+        free()
+        out["yi-6b"] = {"layers": cfg.n_layers, "mesh": [1, 1], "prompts": list(PROMPT_LENS), "same_bits": same,
+                        "launches": counts, "peak_bytes": peak}
+        return out
+
+    mesh = make_mesh((1, world), ("data", "model"), device=dev)
+    # mistral-large-123b at all 88 layers, bf16: each rank its blocks, drawn a layer at a time
+    cfg = configs.get(MISTRAL)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = StreamModel(cfg, Policy.for_mesh(mesh), generator=SEED, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    prompts = [tokens_of(cfg, MESH_MISTRAL_LEN, SEED + 70 + i) for i in range(MESH_MISTRAL_PROMPTS)]
+    reset_counts(kernels)
+    runs = [greedy(model, mesh, p, MESH_DECODE) for p in prompts]
+    counts = read_counts(kernels)
+    worst = 0.0
+    for p, r in zip(prompts, runs):  # each served token against the mesh forward's teacher-forced logits
+        seq = torch.cat([p, r["tokens"][:, :-1]], 1)
+        fl = model(seq)[0, p.shape[1] - 1:]
+        assert bool(torch.isfinite(fl).all()) and bool(torch.isfinite(r["logits"]).all())
+        gap = fl.max(-1).values - fl.gather(-1, r["tokens"][0][:, None])[:, 0]
+        worst = max(worst, float(gap.max()))
+        del fl
+    out[MISTRAL] = {"layers": cfg.n_layers, "mesh": [1, world], "init_s": init_s, "init_peak_bytes": init_peak,
+                    "local_params": sum(p.numel() for p in model.parameters()), "launches": counts,
+                    "prefill_ms": [r["prefill_ms"] for r in runs], "decode_ms": [r["decode_ms"] for r in runs],
+                    "worst_gap": worst, "peak_bytes": torch.cuda.max_memory_allocated()}
+    del model, runs
+    free()
+    # gemma2-2b at all 26 layers in f32 with seq_axis="model": flash-decode on the card
+    cfg = configs.get(GEMMA2)
+    f32 = dict(param_dtype="float32", compute_dtype="float32", kv_cache_dtype="float32")
+    plain = StreamModel(cfg, Policy(**f32), device=dev, generator=SEED)
+    meshed = StreamModel(cfg, Policy.for_mesh(mesh, seq_axis="model", **f32), generator=None, mesh=mesh)
+    meshed.load_params(SH.shard_tree(plain.param_tree(), meshed.param_pspecs(), mesh))
+    if rank:
+        del plain
+    free()
+    g2 = {"mesh": [1, world], "runs": []}
+    for n, steps in MESH_G2_RUNS:
+        prompt, feed = tokens_of(cfg, n, SEED + 80 + n), tokens_of(cfg, steps, SEED + 81 + n)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(kernels)
+        got = greedy(meshed, mesh, prompt, steps, feed=feed, s_cache=MESH_G2_CACHE, cache_dtype=torch.float32)
+        run = {"prompt": n, "steps": steps, "launches": read_counts(kernels), "prefill_ms": got["prefill_ms"],
+               "decode_ms": got["decode_ms"], "peak_bytes": torch.cuda.max_memory_allocated()}
+        dense = meshed.gather_caches(got["cache"], 1)
+        if rank == 0:
+            want = greedy(plain, None, prompt, steps, feed=feed, s_cache=MESH_G2_CACHE, cache_dtype=torch.float32)
+            rel = (got["logits"] - want["logits"]).abs().amax(-1) / want["logits"].abs().amax(-1)
+            run["logit_rel"] = [float(x) for x in rel[:, 0]]
+            cache_rel = 0.0
+            for sec, slots in want["cache"].items():
+                for name, st in slots.items():
+                    for k, v in st.items():
+                        if k != "pos":
+                            d = float((dense[sec][name][k] - v).abs().max() / max(float(v.abs().max()), 1e-30))
+                            cache_rel = max(cache_rel, d)
+            run["cache_rel"] = cache_rel
+            del want
+        g2["runs"].append(run)
+        del got, dense
+        free()
+    out[GEMMA2] = g2
+    del meshed
+    if rank == 0:
+        del plain
+    free()
+    # qwen3-moe-30b-a3b at all 48 layers in int8, placed by quantized_pspecs
+    cfg = configs.get(MOE)
+    torch.cuda.reset_peak_memory_stats()
+    meshed = StreamModel(cfg, Policy.for_mesh(mesh, weights_int8=True), generator=SEED, mesh=mesh)
+    _, specs = build_serve_step(meshed, mesh)
+    mp = {"mesh": [1, world], "local_bytes": model_bytes(meshed)}
+    plain = StreamModel(cfg, Policy(weights_int8=True), device=dev, generator=SEED) if rank == 0 else None
+    same_codes = True  # each leaf's first layer gathered by its spec against the mesh-free codes
+    for part, sub in meshed.param_tree()["slots"]["s0"].items():
+        for k, leaf in sub.items():
+            leaves = leaf.items() if isinstance(leaf, dict) else [(None, leaf)]
+            for q, t in leaves:
+                sp = specs["slots"]["s0"][part][k]
+                sp = sp[q] if q else sp
+                dense = SH.gather(t[0], SH.layer_specs(sp), mesh)
+                if rank == 0:
+                    ref = plain.param_tree()["slots"]["s0"][part][k]
+                    same_codes &= bool(torch.equal(dense, (ref[q] if q else ref)[0]))
+                del dense
+    mp["same_codes"] = same_codes
+    prompts = [tokens_of(cfg, n, SEED + 90 + i) for i, n in enumerate(PROMPT_LENS)]
+    reset_counts(kernels)
+    runs = [greedy(meshed, mesh, p, MESH_DECODE) for p in prompts]
+    mp["launches"] = read_counts(kernels)
+    mp["prefill_ms"] = [r["prefill_ms"] for r in runs]
+    mp["decode_ms"] = [r["decode_ms"] for r in runs]
+    mp["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if rank == 0:
+        agree, rows, gap = 0, 0, 0.0
+        for p, r in zip(prompts, runs):
+            for key in ("cache",):
+                r.pop(key)
+            want = greedy(plain, None, p, MESH_DECODE, feed=r["tokens"])
+            agree += int((want["logits"].argmax(-1) == r["logits"].argmax(-1)).sum())
+            rows += want["logits"].shape[0] * want["logits"].shape[1]
+            gap = max(gap, float((want["logits"] - r["logits"]).abs().max()))
+            del want
+        mp["argmax_agree"] = agree / rows
+        mp["max_logit_gap"] = gap
+    out[MOE] = mp
+    del meshed, plain, runs
+    free()
+    return out
+
+
+def check_serve_mesh(card, ranks: list, world: int) -> None:
+    """Print and check serve_mesh_rank's numbers (in phase_train_mesh)."""
+    import numpy as np
+
+    from repro_torch import configs
+
+    if world == 1:
+        yi = ranks[0]["serve"]["yi-6b"]
+        print(f"[{card}] serving mesh (1, 1) yi-6b 32 layers: same bits as mesh-free {yi['same_bits']}, K1 "
+              f"{yi['launches']['flash_attention']}, peak {yi['peak_bytes']} bytes, {ranks[0]['serve']['wall_s']:.1f} s",
+              flush=True)
+        assert yi["same_bits"], yi
+        assert yi["launches"]["flash_attention"] == 32 * len(PROMPT_LENS), yi["launches"]
+        return
+    for r in ranks:
+        sv = r["serve"]
+        m, g2, mp = sv[MISTRAL], sv[GEMMA2], sv[MOE]
+        print(f"[{card}] serving mesh (1, {world}) rank {r['rank']}: mistral 88 layers K1 "
+              f"{m['launches']['flash_attention']}, init {m['init_s']:.1f} s (peak {m['init_peak_bytes']}), peak "
+              f"{m['peak_bytes']} bytes, prefill ms {np.round(m['prefill_ms'], 1).tolist()}, decode ms/step "
+              f"{np.round(m['decode_ms'], 2).tolist()}, worst gap {m['worst_gap']:.4f}; gemma2 "
+              f"{[(x['prompt'], x['launches']['flash_attention'], x.get('logit_rel') and max(x['logit_rel']), x.get('cache_rel')) for x in g2['runs']]}; "
+              f"qwen3-moe int8 K1 {mp['launches']['flash_attention']}, same codes {mp['same_codes']}, peak "
+              f"{mp['peak_bytes']}, agree {mp.get('argmax_agree')}, gap {mp.get('max_logit_gap')}; "
+              f"{sv['wall_s']:.1f} s", flush=True)
+        assert m["launches"]["flash_attention"] == configs.get(MISTRAL).n_layers * MESH_MISTRAL_PROMPTS, m["launches"]
+        assert m["worst_gap"] <= MESH_MISTRAL_SLACK, m["worst_gap"]
+        for x in g2["runs"]:
+            assert x["launches"]["flash_attention"] == configs.get(GEMMA2).n_layers, x["launches"]
+        assert mp["launches"]["flash_attention"] == configs.get(MOE).n_layers * len(PROMPT_LENS), mp["launches"]
+    r0 = ranks[0]["serve"]
+    for x in r0[GEMMA2]["runs"]:
+        assert max(x["logit_rel"]) <= MESH_G2_RTOL and x["cache_rel"] <= MESH_G2_RTOL, x
+    assert r0[MOE]["same_codes"], r0[MOE]
+    assert r0[MOE]["argmax_agree"] >= MESH_MOE_AGREE_MIN and r0[MOE]["max_logit_gap"] <= MESH_MOE_GAP_MAX, r0[MOE]
 
 
 def phase_train_mesh(card, kernels: dict) -> dict:
@@ -2193,16 +2465,19 @@ def phase_train_mesh(card, kernels: dict) -> dict:
               f"{w0['f32_grad_rel']}; qwen3-moe losses {ranks[0][MOE]['losses']}", flush=True)
         assert max(gaps) <= MESH_LOSS_RTOL, gaps
         assert w0["f32_grad_rel"]["max"] <= MESH_GRAD_RTOL, w0["f32_grad_rel"]
+    check_serve_mesh(card, ranks, world)
     return out
 
 
-def mesh_paths(card, fa, ref, mesh: dict, k1_offset: dict, train_fwd_main: dict, bwd_main: dict):
+def mesh_paths(card, fa, ref, mesh: dict, k1_offset: dict, train_fwd_main: dict, bwd_main: dict, serve_rows: list):
     """K1's and its backward's ``by_path`` entries of the mesh phase and of
     the offset calls: each offset call's timed rows with the launches a
     main path made with an offset (whisper-tiny's on a mesh of several
     cards; none runs qwen2-7b's or gemma2-2b's yet), and the mesh's own
     training calls (yi-6b's on one card: train_fwd_main's shape; on n
-    cards qwen3-moe's per-rank call, timed here) with their launches,
+    cards qwen3-moe's per-rank call, timed here) and serving calls (yi-6b's
+    prefills on one card: ``serve_rows``, its serving calls; on n cards
+    each model's per-rank prefill calls, timed here) with their launches,
     summed over the ranks. Returns (forward paths, backward paths)."""
     import torch
 
@@ -2217,10 +2492,18 @@ def mesh_paths(card, fa, ref, mesh: dict, k1_offset: dict, train_fwd_main: dict,
         n_b = total(WHISPER, "flash_attention_bwd_offset") if arch == WHISPER and world > 1 else 0
         fwd[f"{arch}-seq-offsets"] = path_summary(n_f, k1_offset[arch]["fwd"])
         bwd[f"{arch}-seq-offsets"] = path_summary(n_b, k1_offset[arch]["bwd"])
+    def served(arch):  # the serving phase's K1 launches, over the ranks (and gemma2's runs)
+        runs = [r["serve"][arch] for r in ranks]
+        return sum(sum(x["launches"]["flash_attention"] for x in s.get("runs", [s])) for s in runs)
+
     if world == 1:
         fwd["yi-6b-mesh"] = path_summary(total("yi-6b", "flash_attention"), [train_fwd_main])
         bwd["yi-6b-mesh"] = path_summary(total("yi-6b", "flash_attention_bwd"), [bwd_main])
+        fwd["yi-6b-serve-mesh"] = path_summary(served("yi-6b"), serve_rows)
     else:
+        rows = serve_mesh_rows(card, fa, ref, world)
+        for arch in (MISTRAL, GEMMA2, MOE):
+            fwd[f"{arch}{'-int8' if arch == MOE else ''}-serve-mesh"] = path_summary(served(arch), rows[arch])
         gen = torch.Generator(device="cuda").manual_seed(SEED + 43)
         b, s, h, kv, d = TRAIN_ATTN
         row = check_attention(card, fa, ref, b, s, h // world, kv // world, d, "bfloat16", True, None, None, gen, True)
@@ -2230,6 +2513,25 @@ def mesh_paths(card, fa, ref, mesh: dict, k1_offset: dict, train_fwd_main: dict,
         fwd[f"{WHISPER}-mesh"] = path_summary(total(WHISPER, "flash_attention"), k1_offset[WHISPER]["fwd"])
         bwd[f"{WHISPER}-mesh"] = path_summary(total(WHISPER, "flash_attention_bwd"), k1_offset[WHISPER]["bwd"])
     return fwd, bwd
+
+
+def serve_mesh_rows(card, fa, ref, world: int) -> dict:
+    """K1 at one rank's prefill calls of the serving mesh on ``world``
+    cards, each timed beside its plain version and library call:
+    mistral's (1, 1024, 96/n over 8/n, 128), gemma2's long prompt's local
+    (window 4096) and global calls (8/n over 4/n, 256, f32, cap 50) and
+    qwen3-moe's at each PROMPT_LENS length (32/n over 4/n, 128)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 47)
+    return {
+        MISTRAL: [check_attention(card, fa, ref, 1, MESH_MISTRAL_LEN, 96 // world, 8 // world, 128, "bfloat16", True,
+                                  None, None, gen, True)],
+        GEMMA2: [check_attention(card, fa, ref, 1, MESH_G2_RUNS[0][0], 8 // world, 4 // world, 256, "float32", True,
+                                 w, 50.0, gen, True) for w in (4096, None)],
+        MOE: [check_attention(card, fa, ref, 1, n, 32 // world, 4 // world, 128, "bfloat16", True, None, None, gen,
+                              True) for n in PROMPT_LENS],
+    }
 
 
 def opt8_bytes(p) -> int:
@@ -4185,7 +4487,8 @@ def main() -> int:
     # training on a mesh of every card present (a spawned NCCL rank each),
     # with nothing of this process's left on the card
     training_mesh = phase_train_mesh(card, kernels)
-    mesh_fwd, mesh_bwd = mesh_paths(card, flash_attention, ref, training_mesh, k1_offset, train_fwd_main, bwd_main)
+    mesh_fwd, mesh_bwd = mesh_paths(card, flash_attention, ref, training_mesh, k1_offset, train_fwd_main, bwd_main,
+                                    main_rows)
     serving, yi_cfg, yi_model = phase_serve(card, kernels)
     serving_group = phase_serve_group(card, kernels, yi_cfg, yi_model)
     deployment = phase_deploy_lm(card, kernels, yi_cfg, yi_model)
@@ -4288,7 +4591,10 @@ def main() -> int:
         "Sq %s, batch %d at %d: the encoder's (B,1500,6,64) bidirectional, the decoder's (B,Sq,6,64) causal and "
         "its cross (B,Sq over 1500,6,64), bf16) and its training calls (%d,1500), (%d,%d) causal and (%d,%d over "
         "1500); recurrentgemma's training call at all 38 layers and pixtral's at %d, both under remat full (each "
-        "grouped layer's forward again in the backward), and yi-6b's training call in dp_train_step, summed"
+        "grouped layer's forward again in the backward), yi-6b's training call in dp_train_step, and the serving "
+        "mesh's prefills (by_path *-serve-mesh: yi-6b's on one card; on n cards one rank's calls, mistral's "
+        "(1,1024,96/n,128) kv 8/n bf16, gemma2's (1,8000,8/n,256) kv 4/n f32 cap 50 with window 4096 and without, "
+        "qwen3-moe's (1,S,32/n,128) kv 4/n bf16), summed"
         % ("/".join(map(str, PROMPT_LENS)), TRAIN_BATCH, TRAIN_SEQ, DEPLOY_PER_PARTITION, DEPLOY_PROMPT,
            WAVE_REQUESTS, RG_PROMPT_LEN, TRAIN_BATCH, TRAIN_SEQ, RG_TRAIN_LAYERS, WAVE_REQUESTS, GEMMA2_PROMPT_LEN,
            TRAIN_BATCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_SEQ, MOE_TRAIN_LAYERS, PIXTRAL_TRAIN_ATTN[0],

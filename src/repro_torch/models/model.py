@@ -74,9 +74,20 @@ logits are never gathered). A trainer back-propagates the loss divided
 by the world size and sums each leaf's gradient over the axes its spec
 does not split (``train.trainer.build_train_step(mesh=)``). Without a
 mesh every path is the one of before; a mesh of one rank runs the same
-operations. Serving on a mesh (``forward``, ``prefill``,
-``decode_step``) is not ported (ROADMAP Queue 1 item 10b): those refuse
-a mesh of more than one rank.
+operations.
+
+Serving on a mesh (``forward``, ``prefill``, ``decode_step``): every
+rank passes the whole batch and gets the whole batch's logits; it runs
+the rows ``batch_spec`` gives it (the rows and the vocab-split logits
+gathered at the end) through the training strategies, and holds its
+block of the decode cache (:meth:`StreamModel.init_cache`). Where the
+cache lies follows what the decode reads (:meth:`_state_specs`): with
+``Policy.seq_axis`` each rank holds its slice of the sequence and every kv
+head, and the decode runs JAX's flash-decode (``layers._flash_decode``);
+without it the kv heads split as ``wk``'s do. :meth:`cache_pspecs` is
+JAX's, entry for entry (it can name the model axis twice; JAX places no
+cache by it either). int8 weights on a mesh are cut by
+:func:`quantized_pspecs`, and each rank dequantizes its blocks.
 """
 
 from __future__ import annotations
@@ -106,6 +117,7 @@ from repro_torch.models.ssm import SSMParams
 
 __all__ = [
     "BLOCK_SAVED", "ArchConfig", "StreamModel", "block_policy", "block_pspecs", "param_pspecs", "quantize_params",
+    "quantized_pspecs",
 ]
 
 # ``Policy.remat == "block"`` keeps the outputs of these ops, JAX's
@@ -181,6 +193,30 @@ class ArchConfig:
             bias=self.attn_bias,
             cross=kind == "cross",
         )
+
+    # ------------------------------------------------------------ accounting
+    def param_count(self) -> int:
+        """Every parameter of the tree ``init`` builds (JAX's
+        ``param_count``), counted on the meta device: no weight drawn."""
+        model = StreamModel(self, Policy(), device="meta", generator=None)
+        return sum(t.numel() for t in _leaves(model.param_tree()))
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        total = self.param_count()
+        if self.moe is None:
+            return total
+        per_expert = 3 * self.d_model * self.moe.d_ff
+        moe_total = self.n_layers * self.moe.n_experts * per_expert
+        moe_active = self.n_layers * self.moe.top_k * per_expert
+        return total - moe_total + moe_active
+
+
+def _leaves(tree) -> list:
+    """A nested dict's leaves, in key order."""
+    if isinstance(tree, dict):
+        return [leaf for k in tree for leaf in _leaves(tree[k])]
+    return [tree]
 
 
 _KINDS = ("attn", "local", "ssm", "rec", "bidir", "encdec")
@@ -262,6 +298,28 @@ def quantize_params(params: dict) -> dict:
     return {k: one(v) if k in _Q8_SUBTREES else v for k, v in params.items()}
 
 
+def _scale_spec(spec, ndim: int) -> P:
+    """An int8 leaf's scales' spec: its codes' spec with the trailing dim
+    whole (each scale covers a whole trailing row)."""
+    base = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+    return P(*base[:-1], None)
+
+
+def quantized_pspecs(params, pspecs: dict) -> dict:
+    """JAX's ``quantized_pspecs``: a parameter spec tree turned to match
+    ``quantize_params(params)``. ``params`` is the float tree (its shapes
+    and dtypes are read: tensors on the meta device do); a leaf that
+    ``_should_quantize`` picks gets ``{"q8": its spec, "scale": its spec
+    with the trailing dim whole}``."""
+
+    def one(leaf, spec):
+        if isinstance(leaf, dict):
+            return {k: one(leaf[k], spec[k]) for k in leaf}
+        return {"q8": spec, "scale": _scale_spec(spec, leaf.dim())} if _should_quantize(leaf) else spec
+
+    return {k: one(params[k], v) if k in _Q8_SUBTREES else v for k, v in pspecs.items()}
+
+
 def _dq_leaf(leaf, dtype):
     if _is_q8(leaf):
         return leaf["q8"].to(torch.float32).mul_(leaf["scale"]).to(dtype)
@@ -307,11 +365,13 @@ class _Part(nn.Module):
         return [(k, self[k]) for k in self.order]
 
 
-def _params(shapes: dict, dtype, device, f32: tuple[str, ...] = (), q8: bool = False) -> nn.Module:
+def _params(shapes: dict, dtype, device, f32: tuple[str, ...] = (), q8: bool = False, whole: dict | None = None
+            ) -> nn.Module:
     """Empty parameters of ``dtype``; the leaves named in ``f32`` are
     float32. With ``q8`` the leaves that ``_should_quantize`` would pick
-    are int8 ``_Q8`` pairs instead (then a ``_Part``)."""
-    big = [k for k, s in shapes.items() if q8 and _q8_shape(s)]
+    are int8 ``_Q8`` pairs instead (then a ``_Part``), picked by their
+    ``whole`` shapes where ``shapes`` are a rank's blocks of them."""
+    big = [k for k, s in (whole or shapes).items() if q8 and _q8_shape(s)]
     params = nn.ParameterDict({
         k: nn.Parameter(
             torch.empty(s, dtype=torch.float32 if k in f32 else dtype, device=device),
@@ -420,15 +480,6 @@ class StreamModel(nn.Module):
                     f"policy.mesh_axes {dict(policy.mesh_axes)} are not the mesh's {dict(mesh.sizes)}: "
                     "build the policy with Policy.for_mesh(mesh)"
                 )
-            if policy.weights_int8 and mesh.world > 1:
-                raise NotImplementedError(
-                    "int8 weights serve, and serving on a mesh is not ported yet (ROADMAP Queue 1 item 10b)"
-                )
-            if policy.size(policy.seq_axis) > 1:  # JAX reads it for the decode cache alone
-                raise NotImplementedError(
-                    f"seq_axis {policy.seq_axis!r} shards a decode cache's sequence, and serving on a mesh is not "
-                    "ported yet (ROADMAP Queue 1 item 10b)"
-                )
             self._specs = param_pspecs(cfg, policy)
             kinds = set(cfg.pattern) | ({"bidir"} if cfg.enc_dec else set())
             self._layer_specs = {k: SH.layer_specs(block_pspecs(cfg, policy, k)) for k in kinds}
@@ -472,6 +523,7 @@ class StreamModel(nn.Module):
                 "final_norm": self._norm_params(1, dtype),
             })
         self._layers: dict[str, list[tuple]] = {}  # serving's per-layer views, by stack
+        self._rows: tuple[str, ...] | None = None  # on a mesh, the axes a served batch's rows split over
         if generator is not None:
             self.init(generator)
 
@@ -495,9 +547,10 @@ class StreamModel(nn.Module):
         dev = self.device
 
         def part(name: str, shapes: dict, f32: tuple[str, ...] = ()) -> nn.Module:
+            whole = shapes
             if specs is not None:  # this rank's blocks
                 shapes = {k: self._shape(v, specs[name][k]) for k, v in shapes.items()}
-            return _params(shapes, dtype, dev, f32=f32, q8=q8)
+            return _params(shapes, dtype, dev, f32=f32, q8=q8, whole=whole)
 
         block = nn.ModuleDict({"norm1": self._norm_params(n, dtype, q8)})
         if kind == "ssm":
@@ -681,7 +734,12 @@ class StreamModel(nn.Module):
                 self._init_block(kind, one, normal, uniform)
                 for part, sub in blk.items():
                     for k, dst in sub.items():
-                        dst[i].copy_(SH.cut(one[part][k][0], lspec[part][k], mesh))
+                        if _is_q8(dst):  # the whole layer's codes and scales, cut as quantized_pspecs cuts them
+                            q8, scale = _quantize(one[part][k][0])
+                            dst["q8"][i].copy_(SH.cut(q8, lspec[part][k], mesh))
+                            dst["scale"][i].copy_(SH.cut(scale, _scale_spec(lspec[part][k], q8.dim()), mesh))
+                        else:
+                            dst[i].copy_(SH.cut(one[part][k][0], lspec[part][k], mesh))
             del one
         if "unembed" in tree:
             whole(tree["unembed"], (d, cfg.vocab_padded), specs["unembed"], 1.0 / math.sqrt(d))
@@ -766,6 +824,13 @@ class StreamModel(nn.Module):
         """The parameters' specs under the model's policy (:func:`param_pspecs`)."""
         return param_pspecs(self.cfg, self.policy)
 
+    def float_shapes(self) -> dict:
+        """The whole float parameter tree's shapes and dtypes (JAX's
+        ``eval_shape`` of ``init``): a mesh-free model of the same policy
+        without int8 weights, on the meta device, none drawn."""
+        pol = dataclasses.replace(self.policy, weights_int8=False, mesh_axes={})
+        return StreamModel(self.cfg, pol, device="meta", generator=None).param_tree()
+
     def _mesh_kw(self) -> dict:
         return {} if self.mesh is None else {"mesh": self.mesh, "policy": self.policy}
 
@@ -783,12 +848,20 @@ class StreamModel(nn.Module):
     def _batch_axes(self) -> tuple[str, ...]:
         return tuple(a for a in self.policy.batch_axes if a in self.mesh.sizes)
 
-    def _refuse_serving_on_mesh(self, what: str) -> None:
-        if self.mesh is not None and self.mesh.world > 1:
-            raise NotImplementedError(
-                f"{what} on a mesh of {self.mesh.world} ranks: serving on a mesh is not ported yet "
-                "(ROADMAP Queue 1 item 10b)"
-            )
+    def _row_axes(self, batch: int) -> tuple[str, ...]:
+        """The axes of more than one rank that a served batch of ``batch``
+        rows splits over (JAX's ``batch_spec``); () without a mesh."""
+        return () if self.mesh is None else L._row_axes(self.policy, self.mesh, batch)
+
+    def _my_rows(self, t, axes: tuple[str, ...]):
+        """This rank's rows of a batch tensor (or array) split over ``axes``,
+        on the model's device."""
+        t = torch.as_tensor(t, device=self.device)
+        return t if not axes else SH.local_block(t, 0, self.mesh, axes)
+
+    def _all_rows(self, t, axes: tuple[str, ...]):
+        """Every rank's rows of ``t`` joined in order (collective)."""
+        return t if not axes else SH.all_gather(t, 0, self.mesh, axes)
 
     def _mlp(self, p: dict, x, kind: str):
         """The MLP; on a mesh whose model axis splits ``d_ff``, this rank's
@@ -847,6 +920,7 @@ class StreamModel(nn.Module):
         if self.mesh is not None:  # ZeRO-3: this layer's d_model dims gathered where it uses them
             blk = self._unsharded(blk, self._layer_specs[kind])
         kw = self._mesh_kw()
+        rows = {"rows": self._rows} if kw and self._rows is not None else {}
         h = self._norm(blk["norm1"], x)
         decode = st is not None and x.shape[1] == 1  # JAX: any one-token pass with a cache
         if kind in ("ssm", "rec"):
@@ -861,15 +935,16 @@ class StreamModel(nn.Module):
             ap = cfg.attn_params("attn" if kind == "encdec" else kind)  # an encdec block's self attention
             if decode:
                 if "bt" in st:
-                    out, _, _ = L.paged_decode_attention(blk["mixer"], h, st["k"], st["v"], st["pos"], st["bt"], ap)
+                    out, _, _ = L.paged_decode_attention(
+                        blk["mixer"], h, st["k"], st["v"], st["pos"], st["bt"], ap, **kw)
                 else:
                     out, _, _ = L.decode_attention(
-                        blk["mixer"], h, st["k"], st["v"], st["pos"], ap, ring=kind == "local",
+                        blk["mixer"], h, st["k"], st["v"], st["pos"], ap, ring=kind == "local", **kw,
                     )
                 st["pos"].add_(1)
             elif st is not None:  # prefill: fill the cache while attending
-                out, k, v = L.attention(blk["mixer"], h, ap, positions, return_kv=True)
-                _fill_kv_cache(st, k, v)
+                out, k, v = L.attention(blk["mixer"], h, ap, positions, return_kv=True, **kw)
+                self._fill_kv_cache(st, k, v, ap)
             else:
                 out = L.attention(blk["mixer"], h, ap, positions, **kw)
         x = x + (self._norm(blk["post1"], out) if cfg.post_norms else out)
@@ -877,15 +952,13 @@ class StreamModel(nn.Module):
             hx = self._norm(blk["norm_x"], x)
             capx = cfg.attn_params("cross")
             if decode:
-                out, _, _ = L.decode_attention(blk["cross"], hx, st["xk"], st["xv"], st["pos"], capx)
-            else:
-                if kw:  # training on a mesh: no cache to fill
-                    out = L.attention(blk["cross"], hx, capx, kv_source=enc, **kw)
-                else:
-                    out, xk, xv = L.attention(blk["cross"], hx, capx, return_kv=True, kv_source=enc)
-                if st is not None:  # the encoder's projections, cached once (JAX computes them again)
-                    for key, new in (("xk", xk), ("xv", xv)):
-                        cache_bits(st[key]).copy_(cache_bits(to_cache(new, st[key].dtype)))
+                out, _, _ = L.decode_attention(blk["cross"], hx, st["xk"], st["xv"], st["pos"], capx, **kw)
+            elif st is None:
+                out = L.attention(blk["cross"], hx, capx, kv_source=enc, **kw)
+            else:  # the encoder's projections, cached once (JAX computes them again)
+                out, xk, xv = L.attention(blk["cross"], hx, capx, return_kv=True, kv_source=enc, **kw)
+                for key, new in (("xk", xk), ("xv", xv)):
+                    cache_bits(st[key]).copy_(cache_bits(to_cache(new, st[key].dtype)))
             x = x + out
         if cfg.mlp_kind == "none" and cfg.moe is None:
             return x, None
@@ -893,7 +966,7 @@ class StreamModel(nn.Module):
         aux = None
         if cfg.moe is not None:
             dense = (lambda t: self._mlp(blk["mlp"], t, "gated")) if cfg.moe.dense_residual else None
-            y, aux = moe_ffn(blk["moe"], h2, cfg.moe, dense_mlp=dense, **kw)
+            y, aux = moe_ffn(blk["moe"], h2, cfg.moe, dense_mlp=dense, **kw, **rows)
         else:
             y = self._mlp(blk["mlp"], h2, cfg.mlp_kind)
         return x + (self._norm(blk["post2"], y) if cfg.post_norms else y), aux
@@ -1020,12 +1093,25 @@ class StreamModel(nn.Module):
         return x, self._encode(frames, tree) if cfg.enc_dec else None
 
     def _logits(self, x):
+        """f32 logits of the final norm of x. On a mesh that splits the
+        vocab over the model axis each rank's block of the unembed gives
+        its columns, gathered over the axis (every rank gets them all)."""
         x = self._norm({k: v[0] for k, v in self.tree["final_norm"].items()}, x)
-        if self.cfg.tie_embeddings:
-            logits = x @ self.tree["embed"]["w"].to(x.dtype).T
-        else:
-            logits = x @ self.tree["unembed"]["w"].to(x.dtype)
-        return L.softcap(logits, self.cfg.final_softcap).float()
+        key = "embed" if self.cfg.tie_embeddings else "unembed"
+        w = self.tree[key]["w"]
+        if self.mesh is not None:
+            w = self._unsharded(w, self._specs[key])
+        logits = x @ (w.to(x.dtype).T if self.cfg.tie_embeddings else w.to(x.dtype))
+        logits = L.softcap(logits, self.cfg.final_softcap).float()
+        if self._tp_split(self.cfg.vocab_padded):
+            logits = SH.all_gather(logits, -1, self.mesh, self.policy.tp_axis)
+        return logits
+
+    def _serving(self, batch: int) -> tuple[str, ...]:
+        """The start of a served call of ``batch`` rows: on a mesh, the axes
+        its rows split over (kept for the MoE's capacity), else ()."""
+        self._rows = self._row_axes(batch)
+        return self._rows
 
     # ------------------------------------------------------------ public API
     @torch.no_grad()
@@ -1033,11 +1119,15 @@ class StreamModel(nn.Module):
         """Full forward to f32 logits (B, S, vocab_padded); with a patch
         frontend, (B, P + S, vocab_padded) over ``patch_embeds`` (B, P, d)
         and the tokens; with an encoder, the tokens attend to the encoder's
-        output of ``frames`` (B, S_enc, d)."""
-        self._refuse_serving_on_mesh("forward")
-        x, enc = self._embed_inputs(tokens, patch_embeds, frames)
+        output of ``frames`` (B, S_enc, d). On a mesh every rank passes the
+        whole batch and gets the whole batch's logits: each rank runs its
+        rows (the batch split as JAX's ``batch_spec`` splits it) through
+        the mesh's strategies, and the rows and the vocab are gathered."""
+        rows = self._serving(len(tokens))
+        mine = [None if t is None else self._my_rows(t, rows) for t in (tokens, patch_embeds, frames)]
+        x, enc = self._embed_inputs(*mine)
         positions = torch.arange(x.shape[1], device=self.device)
-        return self._logits(self._run_stack(x, positions, enc=enc)[0])
+        return self._all_rows(self._logits(self._run_stack(x, positions, enc=enc)[0]), rows)
 
     def hidden(self, params: dict, batch: dict):
         """Forward to the final hidden states (before the final norm) with
@@ -1045,6 +1135,7 @@ class StreamModel(nn.Module):
         (h (B, S, d), aux): the MoE layers' load-balancing losses summed
         (f32; 0 without an MoE). A patch frontend reads
         ``batch["patch_embeds"]``, an encoder ``batch["frames"]``."""
+        self._rows = None
         x, enc = self._embed_inputs(batch["tokens"], batch.get("patch_embeds"), batch.get("frames"), params)
         positions = torch.arange(x.shape[1], device=self.device)
         return self._run_stack(x, positions, tree=params, enc=enc)
@@ -1117,40 +1208,84 @@ class StreamModel(nn.Module):
         loss = tot / torch.clamp(cnt, min=1.0)
         return loss + aux, {"loss": loss, "aux": aux}
 
+    def _state_specs(self, kind: str, b: int) -> dict:
+        """Where one layer's decode state of ``b`` rows lies on the mesh: a
+        spec per leaf, without the group dim (mesh-free: every entry None).
+        The rows split as ``batch_spec`` splits them. An attention cache
+        with ``seq_axis`` holds the rank's slice of the sequence and every
+        kv head (the layout ``_flash_decode`` reads), else the kv heads
+        ``wk`` holds; the cross K/V those too. The SSM's and the RG-LRU's
+        states split over their heads and channels as the mixers' weights
+        do (an SSM conv state's spec covers its ``d_inner`` part: the B/C
+        channels after it are whole on every rank)."""
+        cfg, pol = self.cfg, self.policy
+        rows = self._row_axes(b) or None
+        tp = pol.tp_axis
+        if kind == "ssm":
+            h = tp if self._tp_split(cfg.ssm.d_inner) else None
+            return {"conv": P(rows, None, h), "ssd": P(rows, h, None, None)}
+        if kind == "rec":
+            c = tp if self._tp_split(cfg.rglru.d_rnn) else None
+            return {"conv": P(rows, None, c), "h": P(rows, c)}
+        if kind == "bidir":
+            raise ValueError("a bidir layer keeps no decode cache")
+        kv = tp if self._tp_split(cfg.n_kv_heads) else None
+        seq = pol.seq_axis if self.mesh is not None else None
+        if seq is not None and set(SH.axes_of(seq)) & set(rows or ()):
+            raise ValueError(f"seq_axis {seq!r} shares an axis with the batch's {rows}: a batch of {b} rows")
+        sp = {"k": P(rows, seq, None if seq else kv, None), "pos": P()}
+        sp["v"] = sp["k"]
+        if kind == "encdec":
+            sp["xk"] = sp["xv"] = P(rows, None, kv, None)
+        return sp
+
     def _slot_cache(self, kind: str, b: int, s_cache: int, dtype) -> dict:
         """One layer's zero cache: K/V of ``s_cache`` slots (``min(window,
         s_cache)`` ring slots for a local layer) and its position count,
         with an ``encdec`` layer's cross K/V ``xk`` / ``xv`` of the
         encoder's ``enc_seq`` positions beside them; or the SSM / RG-LRU
-        states (f32). A ``bidir`` layer decodes nothing (JAX raises too)."""
-        cfg = self.cfg
+        states (f32). A ``bidir`` layer decodes nothing (JAX raises too).
+        On a mesh, this rank's block of each (:meth:`_state_specs`)."""
+        cfg, mesh = self.cfg, self.mesh
+        specs = self._state_specs(kind, b)
+        if mesh is not None:
+            b //= mesh.size(specs["conv" if kind in ("ssm", "rec") else "k"][0])
+        n = 1 if mesh is None else mesh.size(self.policy.tp_axis)
         if kind == "ssm":
-            return M.ssm_init_state(b, cfg.ssm, self.device)
+            sp = cfg.ssm if specs["ssd"][1] is None else dataclasses.replace(cfg.ssm, d_inner=cfg.ssm.d_inner // n)
+            return M.ssm_init_state(b, sp, self.device)
         if kind == "rec":
-            return R.rglru_init_state(b, cfg.rglru, self.device)
-        if kind == "bidir":
-            raise ValueError("a bidir layer keeps no decode cache")
+            rp = cfg.rglru if specs["h"][1] is None else dataclasses.replace(cfg.rglru, d_rnn=cfg.rglru.d_rnn // n)
+            return R.rglru_init_state(b, rp, self.device)
         sz = min(cfg.window, s_cache) if kind == "local" and cfg.window else s_cache
-        kv = (b, sz, cfg.n_kv_heads, cfg.hd)
-        st = {
-            "k": torch.zeros(kv, dtype=dtype, device=self.device),
-            "v": torch.zeros(kv, dtype=dtype, device=self.device),
-            "pos": torch.zeros((), dtype=torch.int32, device=self.device),
-        }
+        shapes = {"k": (b, sz, cfg.n_kv_heads, cfg.hd)}
         if kind == "encdec":
-            xkv = (b, cfg.enc_seq, cfg.n_kv_heads, cfg.hd)
-            st["xk"] = torch.zeros(xkv, dtype=dtype, device=self.device)
-            st["xv"] = torch.zeros(xkv, dtype=dtype, device=self.device)
+            shapes["xk"] = (b, cfg.enc_seq, cfg.n_kv_heads, cfg.hd)
+        if mesh is not None:  # the rows are cut already
+            shapes = {k: SH.local_shape(v, P(None, *specs[k][1:]), mesh) for k, v in shapes.items()}
+        st = {"k": torch.zeros(shapes["k"], dtype=dtype, device=self.device),
+              "v": torch.zeros(shapes["k"], dtype=dtype, device=self.device),
+              "pos": torch.zeros((), dtype=torch.int32, device=self.device)}
+        if kind == "encdec":
+            st["xk"] = torch.zeros(shapes["xk"], dtype=dtype, device=self.device)
+            st["xv"] = torch.zeros(shapes["xk"], dtype=dtype, device=self.device)
         return st
+
+    def _kinds(self):
+        """(section, slot name, kind) of every cache stack."""
+        pat = self.cfg.pattern
+        yield from (("slots", f"s{i}", k) for i, k in enumerate(pat))
+        yield from (("tail", f"s{i}", pat[i]) for i in range(self.tail))
 
     def init_cache(self, batch_size: int, s_cache: int, dtype=None):
         """Contiguous decode cache per slot, stacked on the group dim
         (``slots/s{i}``: k/v (n_groups, B, sz, Kv, hd) and pos (n_groups,)
         for attention, with xk/xv (n_groups, B, enc_seq, Kv, hd) for an
         ``encdec`` slot, conv (n_groups, B, W-1, C) and ssd or h for the
-        SSM and RG-LRU states, f32) and unstacked for the tail."""
+        SSM and RG-LRU states, f32) and unstacked for the tail. On a mesh
+        each leaf is this rank's block of it (:meth:`_state_specs`;
+        :meth:`gather_caches` joins them)."""
         dtype = torch_dtype(self.policy.kv_cache_dtype) if dtype is None else dtype
-        pat = self.cfg.pattern
 
         def stack(st):  # an fp8 K/V through its bits
             return {
@@ -1158,19 +1293,94 @@ class StreamModel(nn.Module):
                 for k, v in st.items()
             }
 
-        caches = {"slots": {
-            f"s{i}": stack(self._slot_cache(k, batch_size, s_cache, dtype)) for i, k in enumerate(pat)
-        }}
-        if self.tail:
-            caches["tail"] = {
-                f"s{i}": self._slot_cache(pat[i], batch_size, s_cache, dtype) for i in range(self.tail)
-            }
+        caches: dict = {}
+        for sec, name, kind in self._kinds():
+            st = self._slot_cache(kind, batch_size, s_cache, dtype)
+            caches.setdefault(sec, {})[name] = stack(st) if sec == "slots" else st
         return caches
+
+    def cache_pspecs(self, batch_size: int) -> dict:
+        """JAX's ``cache_pspecs``, entry for entry: the specs JAX gives the
+        decode cache of ``batch_size`` rows (the tail's without the group
+        dim). Where ``seq_axis`` is the model axis and the kv heads divide
+        it, JAX names that axis twice (``P(None, batch, 'model', 'model',
+        None)``) and places no cache by it: its flash-decode reads the
+        cache as ``P(batch, seq_axis)`` with every kv head, which is where
+        the port's cache lies (:meth:`_state_specs`)."""
+        pol, cfg = self.policy, self.cfg
+        batch = pol.batch_spec(batch_size)
+        seq = pol.seq_axis
+        kv_tp = pol.tp(cfg.n_kv_heads)
+
+        def attn_spec():
+            return {"k": P(None, batch, seq, kv_tp, None), "v": P(None, batch, seq, kv_tp, None), "pos": P(None)}
+
+        def slot_spec(kind):
+            if kind in ("attn", "local"):
+                return attn_spec()
+            if kind == "ssm":
+                return {"conv": P(None, batch, None, pol.tp(cfg.ssm.d_inner)),
+                        "ssd": P(None, batch, pol.tp(cfg.ssm.n_heads), None, None)}
+            if kind == "rec":
+                return {"conv": P(None, batch, None, pol.tp(cfg.rglru.d_rnn)),
+                        "h": P(None, batch, pol.tp(cfg.rglru.d_rnn))}
+            if kind == "encdec":
+                sp = attn_spec()
+                sp["xk"] = P(None, batch, None, kv_tp, None)
+                sp["xv"] = P(None, batch, None, kv_tp, None)
+                return sp
+            raise ValueError(kind)
+
+        specs: dict = {"slots": {f"s{i}": slot_spec(k) for i, k in enumerate(cfg.pattern)}}
+        if self.tail:
+            specs["tail"] = {f"s{i}": {k: P(*sp[1:]) for k, sp in slot_spec(cfg.pattern[i]).items()}
+                             for i in range(self.tail)}
+        return specs
+
+    @torch.no_grad()
+    def gather_caches(self, caches, batch_size: int) -> dict:
+        """The dense cache of every rank's blocks of ``caches`` (an
+        ``init_cache`` of ``batch_size`` rows; collective: every rank calls
+        it and gets the whole cache). Mesh-free, a copy."""
+        if self.mesh is None:
+            return {sec: {name: {k: v.clone() for k, v in st.items()} for name, st in slots.items()}
+                    for sec, slots in caches.items()}
+        out: dict = {}
+        for sec, name, kind in self._kinds():
+            st, lead = caches[sec][name], (None,) if sec == "slots" else ()
+            specs = {k: P(*lead, *sp) for k, sp in self._state_specs(kind, batch_size).items()}
+            dense = {}
+            for k, t in st.items():
+                spec = specs[k] if t.dim() == len(specs[k]) else P()  # a per-row pos: every rank's copy
+                if kind == "ssm" and k == "conv":  # the d_inner part split, the B/C part whole
+                    d_loc = t.shape[-1] - 2 * self.cfg.ssm.n_groups * self.cfg.ssm.state_dim
+                    rows = P(*spec[:-1], None)
+                    t = torch.cat([SH.gather(t[..., :d_loc], spec, self.mesh), SH.gather(t[..., d_loc:], rows, self.mesh)],
+                                  dim=-1)
+                    dense[k] = t
+                else:
+                    dense[k] = SH.gather(cache_bits(t), spec, self.mesh).view(t.dtype)
+            out.setdefault(sec, {})[name] = dense
+        return out
+
+    def _fill_kv_cache(self, st: dict, k, v, ap: AttnParams) -> None:
+        """A prefill's K/V into a layer's cache view: on a mesh whose cache
+        splits the sequence, every kv head (gathered over the model axis
+        where ``wk`` held the rank's) written to the rank's slice of the
+        slots; else as they come (the kv heads ``wk`` holds)."""
+        seq = self.policy.seq_axis if self.mesh is not None else None
+        if seq is None:
+            return _fill_kv_cache(st, k, v)
+        if k.shape[2] != ap.n_kv:
+            k, v = (SH.all_gather(t, 2, self.mesh, self.policy.tp_axis) for t in (k, v))
+        n = st["k"].shape[1]
+        _fill_kv_cache(st, k, v, offset=self.mesh.coord(seq) * n, sz=n * self.mesh.size(seq))
 
     # ------------------------------------------------------------ paged cache
     # One physical pool of (n_blocks, block_size) KV blocks per layer, no
     # batch dim, plus per-row positions and block tables; block 0 is the
-    # scratch target of idle rows' discarded writes.
+    # scratch target of idle rows' discarded writes. On a mesh the pool
+    # holds the kv heads ``wk`` holds and every row.
     def init_paged_cache(
         self, batch_size: int, n_blocks: int, block_size: int, max_blocks: int, dtype=None,
     ):
@@ -1181,7 +1391,8 @@ class StreamModel(nn.Module):
             )
         dtype = torch_dtype(self.policy.kv_cache_dtype) if dtype is None else dtype
         n = self.n_groups
-        kv = (n, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
+        n_kv = cfg.n_kv_heads // self.mesh.size(self.policy.tp_axis) if self._tp_split(cfg.n_kv_heads) else cfg.n_kv_heads
+        kv = (n, n_blocks, block_size, n_kv, cfg.hd)
         return {"slots": {"s0": {
             "k": torch.zeros(kv, dtype=dtype, device=self.device),
             "v": torch.zeros(kv, dtype=dtype, device=self.device),
@@ -1193,14 +1404,22 @@ class StreamModel(nn.Module):
         """Admit one prefilled request: the batch-1 contiguous cache (padded
         to ``len(block_ids) * block_size``) is split into whole blocks and
         written to ``block_ids``; the row's position becomes ``plen`` and its
-        block table ``bt_row``. In place; returns ``caches``."""
+        block table ``bt_row``. In place; returns ``caches``. On a mesh
+        whose contiguous cache splits the sequence, its slices are gathered
+        first and the pool's kv heads taken from them (collective)."""
         dst, src = caches["slots"]["s0"], small_caches["slots"]["s0"]
         ids = torch.as_tensor(block_ids, device=self.device).long()
         ng, _, blk, kv, hd = dst["k"].shape
         nb = ids.shape[0]
+        seq = self.policy.seq_axis if self.mesh is not None else None
         for key in ("k", "v"):  # an fp8 pool through its bits, in JAX's cast
-            cache_bits(dst[key])[:, ids] = cache_bits(to_cache(src[key][:, 0], dst[key].dtype)).reshape(
-                ng, nb, blk, kv, hd)
+            bits = cache_bits(src[key])
+            if seq is not None:
+                bits = SH.all_gather(bits, 2, self.mesh, seq)
+                if bits.shape[3] != kv:
+                    bits = SH.local_block(bits, 3, self.mesh, self.policy.tp_axis)
+            new = bits[:, 0].view(src[key].dtype)
+            cache_bits(dst[key])[:, ids] = cache_bits(to_cache(new, dst[key].dtype)).reshape(ng, nb, blk, kv, hd)
         dst["pos"][:, row] = plen
         dst["bt"][:, row] = torch.as_tensor(bt_row, dtype=torch.int32, device=self.device)
         return caches
@@ -1221,13 +1440,17 @@ class StreamModel(nn.Module):
         enc_seq, d), encoded once and their cross K/V cached), fill a cache
         of ``s_cache`` slots, return the last position's logits (B,
         vocab_padded) and the cache. A one-token prompt decodes, as in JAX
-        (an ``encdec`` layer's cross K/V then stay zero)."""
-        self._refuse_serving_on_mesh("prefill")
-        x, enc = self._embed_inputs(tokens, patch_embeds, frames)
-        caches = self.init_cache(x.shape[0], s_cache, cache_dtype)
+        (an ``encdec`` layer's cross K/V then stay zero). On a mesh every
+        rank passes the whole batch and gets the whole batch's logits and
+        its blocks of the cache (:meth:`init_cache`)."""
+        b = len(tokens)
+        rows = self._serving(b)
+        mine = [None if t is None else self._my_rows(t, rows) for t in (tokens, patch_embeds, frames)]
+        x, enc = self._embed_inputs(*mine)
+        caches = self.init_cache(b, s_cache, cache_dtype)
         positions = torch.arange(x.shape[1], device=self.device)
         x, _ = self._run_stack(x, positions, caches, enc=enc)
-        return self._logits(x[:, -1:, :])[:, 0], caches
+        return self._all_rows(self._logits(x[:, -1:, :])[:, 0], rows), caches
 
     @torch.no_grad()
     def decode_step(self, caches, tokens, pos=None):
@@ -1238,35 +1461,46 @@ class StreamModel(nn.Module):
         embeddings, ``pos_embed[pos]`` added to the token's; left None, it is
         the first attention slot's cache position (the tokens already in
         it, per row for the paged cache). Returns (logits (B, 1,
-        vocab_padded), caches)."""
-        self._refuse_serving_on_mesh("decode_step")
-        x = self._embed_tokens(tokens)
+        vocab_padded), caches). On a mesh every rank passes the whole batch
+        and its blocks of the cache, and gets the whole batch's logits; a
+        paged cache keeps every row on every rank."""
+        paged = "bt" in caches.get("slots", {}).get("s0", {})
+        rows = self._serving(1 if paged else len(tokens))
+        x = self._embed_tokens(self._my_rows(tokens, rows))
         if self.cfg.learned_pos:
             if pos is None:
                 first = next(f"s{i}" for i, k in enumerate(self.cfg.pattern) if k in _ATTN_KINDS)
                 pos = caches["slots" if self.n_groups else "tail"][first]["pos"]
                 pos = pos[0] if self.n_groups else pos
             pos = torch.as_tensor(pos, device=self.device).long()
-            pe = self.tree["pos_embed"]["w"][pos]
+            if pos.dim() == 1 and pos.shape[0] != x.shape[0]:  # every row's: this rank's
+                pos = self._my_rows(pos, rows)
+            pe = self.tree["pos_embed"]["w"]
+            if self.mesh is not None:
+                pe = self._unsharded(pe, self._specs["pos_embed"])
+            pe = pe[pos]
             x = x + (pe[:, None] if pos.dim() == 1 else pe[None, None])
         x, _ = self._run_stack(x, None, caches)
-        return self._logits(x), caches
+        return self._all_rows(self._logits(x), rows), caches
 
 
-def _fill_kv_cache(st: dict, k, v) -> None:
-    """Write one layer's prefill K/V (B, S, Kv, D) into its cache view of
-    ``sz`` slots; with S >= sz keep the last sz positions rotated so that
-    slot == position % sz (the ring layout of the JAX function). Values
-    enter in JAX's cast, an fp8 cache through its bits."""
-    sz = st["k"].shape[1]
+def _fill_kv_cache(st: dict, k, v, offset: int = 0, sz: int | None = None) -> None:
+    """Write one layer's prefill K/V (B, S, Kv, D) into a cache of ``sz``
+    slots (the view's own where None) of which the view holds those from
+    ``offset`` on (a rank's slice of a sequence-split cache); with S >= sz
+    keep the last sz positions rotated so that slot == position % sz (the
+    ring layout of the JAX function). Values enter in JAX's cast, an fp8
+    cache through its bits."""
+    n = st["k"].shape[1]
+    sz = n if sz is None else sz
     s = k.shape[1]
     for key, new in (("k", k), ("v", v)):
         dst = cache_bits(st[key])
         new = cache_bits(to_cache(new[:, max(s - sz, 0):], st[key].dtype))
         if s >= sz:
-            dst.copy_(torch.roll(new, s % sz, dims=1))
-        else:
-            dst[:, :s] = new
+            dst.copy_(torch.roll(new, s % sz, dims=1)[:, offset:offset + n])
+        elif s > offset:
+            dst[:, :min(s - offset, n)] = new[:, offset:offset + n]
     st["pos"].fill_(s)
 
 

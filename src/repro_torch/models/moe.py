@@ -290,28 +290,33 @@ def moe_routes(p: dict, x: torch.Tensor, mp: MoEParams) -> torch.Tensor:
 
 
 def moe_ffn(p: dict, x: torch.Tensor, mp: MoEParams, dense_mlp=None, routes: torch.Tensor | None = None,
-            *, mesh=None, policy=None):
+            *, mesh=None, policy=None, rows=None):
     """MoE FFN over x (B, S, d); ``dense_mlp(x)`` (arctic's dense
     residual) is added where the config has one. ``routes`` ((B * S, k)
     expert ids, as :func:`moe_routes` gives them) routes by those experts,
     their weights taken from this call's probabilities, in place of this
     call's top-k: a run in another precision routed alike. On a ``mesh``
-    (with its ``policy``) x is one data shard's rows, ``p`` this rank's
-    blocks, and the experts split over the model axis where it divides
-    them (JAX's ``_ep_moe``); the output is summed over the ranks that
-    hold parts of it. Returns (out, aux_loss)."""
+    (with its ``policy``) x is this rank's rows of the batch, split over
+    the axes ``rows`` (the policy's batch axes where None: training's
+    data shards; serving's batch splits where it divides), ``p`` this
+    rank's blocks, and the experts split over the model axis where it
+    divides them (JAX's ``_ep_moe``); the output is summed over the ranks
+    that hold parts of it. The capacity is JAX's: the whole batch's
+    tokens over the data-parallel degree. Returns (out, aux_loss)."""
     b, s, d = x.shape
     data = None
     ep, reduce_axes = False, ()
+    n_tokens = b * s
     if mesh is not None:
-        batch = tuple(a for a in policy.batch_axes if a in mesh.sizes)
+        batch = tuple(a for a in (policy.batch_axes if rows is None else rows) if a in mesh.sizes)
         data = (mesh, batch) if mesh.size(batch) > 1 else None
+        n_tokens = b * s * mesh.size(batch) // policy.dp_degree
         tp = policy.tp_axis
         ep = mesh.size(tp) > 1 and mp.n_experts % mesh.size(tp) == 0
         inner = axes_of(policy.ep_inner(mp.d_ff))
         reduce_axes = tuple(a for a in mesh.axis_names if (ep and a == tp) or a in inner)
     probs, aux = _router(p, x, mp, data)
-    capacity = _capacity(mp, max(b * s, 1))
+    capacity = _capacity(mp, max(n_tokens, 1))
     out = _local_moe(
         x.reshape(-1, d), probs.reshape(-1, mp.n_experts), p["w_in"], p["w_gate"], p["w_out"],
         mp=mp, capacity=capacity, tope=routes,

@@ -17,8 +17,7 @@ each mesh axis to its size; the batch splits over ``batch_axes``; heads,
 parameters that have no tensor-parallel dim); ``ep_inner_axes`` splits
 each expert's ``d_ff`` (2D expert parallelism); ``seq_axis`` shards a
 decode cache's sequence (``seq`` and ``logical_to_pspec`` give its specs;
-``StreamModel`` refuses a ``seq_axis`` of several ranks on a mesh, since
-serving on a mesh is ROADMAP Queue 1 item 10b). A dim is split over an
+on a mesh the decode then runs JAX's flash-decode). A dim is split over an
 axis only where its size divides. JAX's ``unroll`` is not ported: torch has no scan to unroll.
 
 A spec is :class:`PartitionSpec`: per dim of a tensor, ``None``

@@ -47,7 +47,7 @@ from repro_torch.core.consumer import ConsumerGroup, RebalanceError
 from repro_torch.core.log import ProducerFenced, StreamBackend
 from repro_torch.core.registry import Registry, TrainedResult
 from repro_torch.data.formats import codec_from_control, decode_span_fields
-from repro_torch.models.model import StreamModel
+from repro_torch.models.model import StreamModel, quantized_pspecs
 
 __all__ = [
     "InferenceDeployment",
@@ -177,13 +177,6 @@ class TxnOutputPublisher:
 
 
 # ------------------------------------------------------------------ serve steps
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "serving across a device mesh is not ported (ROADMAP, Queue 1 item 10)"
-        )
-
-
 def build_serve_step(model: StreamModel, mesh=None):
     """Single-token decode step: ``step(caches, tokens, pos) -> (logits,
     caches)``, logits (B, 1, vocab_padded) f32.
@@ -193,13 +186,25 @@ def build_serve_step(model: StreamModel, mesh=None):
     layer's cache counts its own position, so ``pos`` is taken for the
     JAX signature and not read: the step decodes at the cache's position,
     which equals the ``pos`` the JAX loop passes (the prompt length plus
-    the tokens decoded so far). The cache is updated in place."""
-    _no_mesh(mesh)
+    the tokens decoded so far). The cache is updated in place.
+
+    With a ``mesh`` (the model's own: the model was built on it, each rank
+    holding its blocks) the step is the same call on every rank, and
+    ``(step, specs)`` is returned as JAX returns ``(jit, pshard)``:
+    ``specs`` are the specs of the model's parameter tree
+    (``param_pspecs``, through ``quantized_pspecs`` for int8 weights)."""
 
     def step(caches, tokens, pos):
         return model.decode_step(caches, tokens)
 
-    return step
+    if mesh is None:
+        return step
+    if mesh is not model.mesh:
+        raise ValueError("build_serve_step(model, mesh): the model was not built on this mesh")
+    specs = model.param_pspecs()
+    if model.policy.weights_int8:
+        specs = quantized_pspecs(model.float_shapes(), specs)
+    return step, specs
 
 
 def build_prefill_step(model: StreamModel, s_cache: int, mesh=None):
@@ -208,8 +213,11 @@ def build_prefill_step(model: StreamModel, s_cache: int, mesh=None):
     last position's (B, vocab_padded) f32 and the cache is a dense
     ``init_cache`` of ``s_cache`` slots in bf16, the JAX default. The
     JAX step is ``(params, batch)``; the model holds its weights here.
-    Attention runs the flash-attention kernel on the card."""
-    _no_mesh(mesh)
+    Attention runs the flash-attention kernel on the card. With a ``mesh``
+    (the model's own) every rank passes the whole batch and gets the whole
+    batch's logits and its blocks of the cache."""
+    if mesh is not None and mesh is not model.mesh:
+        raise ValueError("build_prefill_step(model, s_cache, mesh): the model was not built on this mesh")
 
     def step(batch):
         tokens = batch["tokens"]

@@ -175,8 +175,16 @@ class CheckpointManager:
         self._thread: threading.Thread | None = None
         os.makedirs(ckpt_dir, exist_ok=True)
 
-    def save_async(self, step: int, state: Any, *, offsets=None, meta=None) -> None:
+    def save_async(self, step: int, state: Any, *, offsets=None, meta=None, mesh=None, pspecs: Any = None) -> None:
+        """On a ``mesh`` every rank calls it with its blocks and the state's
+        ``pspecs``: the dense tree is gathered now (collective) and rank 0
+        writes it."""
         self.wait()
+        if mesh is not None:
+            dense = map_tree(lambda t, s: gather(t, s, mesh) if isinstance(t, torch.Tensor) else t, state, pspecs)
+            if mesh.rank != 0:
+                return
+            state = dense
         host_state = {"/".join(k): _to_numpy(v) for k, v in _items(state)}  # device -> host now
 
         def _write():

@@ -113,7 +113,7 @@ def test_engine_defines_what_the_jax_module_does():
     original = set(_definitions(REPO / "src" / "repro" / "serve" / "engine.py"))
     copy = set(_definitions(REPO / "src" / "repro_torch" / "serve" / "engine.py"))
     assert original - copy == set()
-    assert copy - original == {"_no_mesh", "_to_numpy"}
+    assert copy - original == {"_to_numpy"}
     assert original - {"InferenceReplica", "build_serve_step", "build_prefill_step"} == set(ENGINE_COPIES)
 
 

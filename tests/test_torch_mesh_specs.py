@@ -28,6 +28,7 @@ mesh paths that need no second process, on the CPU.
 
 from __future__ import annotations
 
+import math
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -151,6 +152,138 @@ def test_trainer_state_pspecs_match_jax(arch, size):
     for name, kw in POLICIES.items():
         m = StreamModel(tcfg, Policy(**kw), device="meta", generator=None)
         _assert_same(state_pspecs(m, adamw8bit()), jstate_pspecs(JModel(jcfg, JPolicy(**kw)), jadamw8bit()), name)
+
+
+# ------------------------------------------------------------ serving's specs
+CACHE_MESHES = {"1x4": {"data": 1, "model": 4}, "2x2": {"data": 2, "model": 2}, "4x1": {"data": 4, "model": 1}}
+
+
+@pytest.mark.parametrize("size", ["full", "reduced"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_pspecs_match_jax(arch, size):
+    """``StreamModel.cache_pspecs`` equals the reference's, entry for entry
+    (the doubled ``model`` of a split kv head count under ``seq_axis=
+    "model"`` included), on (1, 4), (2, 2) and (4, 1) with ``seq_axis``
+    None, ``"model"`` and ``"data"``, at batch sizes that split and that
+    do not."""
+    jcfg, tcfg = _cfgs(arch, size)
+    for mname, axes in CACHE_MESHES.items():
+        for seq in (None, "model", "data"):
+            kw = dict(mesh_axes=axes, seq_axis=seq)
+            m = StreamModel(tcfg, Policy(**kw), device="meta", generator=None)
+            jm = JModel(jcfg, JPolicy(**kw))
+            for b in (1, 4, 6):
+                _assert_same(m.cache_pspecs(b), jm.cache_pspecs(b), (mname, seq, b))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_quantized_pspecs_match_jax(arch):
+    """The reference's ``tests/test_quantized_serving.py:43`` for every
+    full-width config: ``quantized_pspecs`` of the float tree's shapes has
+    the tree of ``quantize_params``' output and equals the reference's
+    entry for entry (the scales' trailing dim whole), on (data 2, model
+    4); a model built with int8 weights gives its serve step's specs from
+    it."""
+    import jax
+
+    from repro.models.model import quantize_params as jquantize, quantized_pspecs as jquantized_pspecs
+    from repro_torch.models.model import quantized_pspecs
+
+    jcfg, tcfg = _cfgs(arch, "full")
+    kw = dict(mesh_axes={"data": 2, "model": 4})
+    jm = JModel(jcfg, JPolicy(**kw))
+    raw = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0)))
+    want = jquantized_pspecs(raw, jm.param_pspecs())
+    m = StreamModel(tcfg, Policy(**kw, weights_int8=True), device="meta", generator=None)
+    got = quantized_pspecs(m.float_shapes(), m.param_pspecs())
+    _assert_same(got, want, arch)
+    q = jax.eval_shape(jquantize, raw)
+    assert sorted(_flat(got)) == sorted("/".join(str(k.key) for k in path) for path, _ in
+                                        jax.tree_util.tree_flatten_with_path(q)[0])
+    assert sorted(_flat(got)) == sorted(_flat(jax.tree.map(lambda _: (), m.param_tree(),
+                                                             is_leaf=lambda x: isinstance(x, torch.Tensor))))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_counts_match_jax(arch):
+    """``ArchConfig.param_count`` and ``active_param_count`` (shapes on the
+    meta device) equal the reference's for the full-width config."""
+    jcfg, tcfg = _cfgs(arch, "full")
+    assert tcfg.param_count() == jcfg.param_count()
+    assert tcfg.active_param_count() == jcfg.active_param_count()
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_paged_cache_on_a_mesh_as_jax(arch):
+    """The paged cache on a (1, 1) mesh: a dense "attn" pattern gets its
+    pool (the kv heads ``wk`` holds), any other raises the reference's
+    NotImplementedError with the reference's text."""
+    from repro_torch.launch import make_mesh
+
+    jcfg, tcfg = _cfgs(arch, "reduced")
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    m = StreamModel(tcfg, Policy.for_mesh(mesh, param_dtype="float32", compute_dtype="float32"), generator=None,
+                    mesh=mesh)
+    try:
+        JModel(jcfg, JPolicy()).init_paged_cache(2, 4, 4, 2)
+    except NotImplementedError as e:
+        with pytest.raises(NotImplementedError) as got:
+            m.init_paged_cache(2, 4, 4, 2)
+        assert str(got.value) == str(e)
+        return
+    pool = m.init_paged_cache(2, 4, 4, 2)["slots"]["s0"]
+    assert tuple(pool["k"].shape) == (m.n_groups, 4, 4, tcfg.n_kv_heads, tcfg.hd)
+    assert tuple(pool["bt"].shape) == (m.n_groups, 2, 2)
+
+
+class _OneRankOf:
+    """Rank ``k`` of a sequence axis of ``n`` ranks whose collectives see
+    only itself: the rank's own flash-decode statistics, unmerged."""
+
+    axis_names = ("model",)
+
+    def __init__(self, n: int, k: int):
+        self.n, self.k = n, k
+
+    def size(self, axes) -> int:
+        return self.n if axes else 1
+
+    def coord(self, axes) -> int:
+        return self.k if axes else 0
+
+    def group(self, axes):
+        return None
+
+
+def test_flash_decode_masks_with_inf_and_guards_an_empty_shard():
+    """JAX's ``_flash_decode`` guards: scores outside a rank's valid slots
+    are ``-inf`` (not the plain path's -1e30, whose exponentials would be
+    1 on a rank with no valid slot), the max of a rank that holds none is
+    taken as 0, and its exponentials are 0: that rank's share is exactly
+    zero (no NaN, no stale values), and its cache is rewritten with what
+    it held. A rank that holds the slot writes the token there and its
+    share is the softmax over its valid slots."""
+    from repro_torch.models import layers as L
+
+    gen = torch.Generator().manual_seed(7)
+    ap = L.AttnParams(n_heads=4, n_kv=2, head_dim=8)
+    q, kn, vn = (torch.randn((1, 1, h, 8), generator=gen) for h in (4, 2, 2))
+    pos = torch.tensor(5)  # global slot 5 of 16: rank 1's of 4
+    for k in range(4):
+        ck, cv = (torch.randn((1, 4, 2, 8), generator=gen) for _ in range(2))
+        k0, v0 = ck.clone(), cv.clone()
+        out = L._flash_decode(q, kn, vn, ck, cv, pos, ap, _OneRankOf(4, k), "model", ring=False)
+        assert torch.isfinite(out).all()
+        if k > 1:  # slots 8..15: none valid at position 5
+            assert torch.equal(out, torch.zeros_like(out)) and torch.equal(ck, k0) and torch.equal(cv, v0)
+            continue
+        valid = 4 if k == 0 else 2  # rank 0 holds slots 0..3, rank 1 slots 4 and 5 of 4..7
+        if k == 1:
+            assert torch.equal(ck[:, 1], kn[:, 0]) and torch.equal(cv[:, 1], vn[:, 0])
+            assert torch.equal(ck[:, 2:], k0[:, 2:]) and torch.equal(ck[:, 0], k0[:, 0])
+        kr, vr = ck[:, :valid].repeat_interleave(2, dim=2), cv[:, :valid].repeat_interleave(2, dim=2)
+        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, kr) / math.sqrt(8), dim=-1)
+        torch.testing.assert_close(out, torch.einsum("bhqk,bkhd->bqhd", w, vr), rtol=1e-6, atol=1e-6)
 
 
 # ------------------------------------------------------------ one rank

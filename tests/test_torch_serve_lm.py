@@ -113,12 +113,42 @@ def test_prefill_step_logits_and_cache_match_jax(pair):
     assert (st["pos"] == PROMPT).all()
 
 
-def test_steps_refuse_a_mesh(pair):
+def test_steps_refuse_a_mesh(pair, tmp_path):
+    """Both built steps on a (1, 1) mesh of one gloo rank give the mesh-free
+    steps' bits: the prefill's logits and bf16 cache, then each greedy
+    step's logits and the cache after them. With the mesh the serve step
+    comes with its parameter specs, as JAX's comes with its shardings; a
+    mesh the model was not built on is refused."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_mesh
+
     _, _, tm = pair
-    for build in (lambda: build_serve_step(tm, mesh=object()),
-                  lambda: build_prefill_step(tm, 8, mesh=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            build()
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        pol = Policy.for_mesh(mesh, param_dtype="float32", compute_dtype="float32", kv_cache_dtype="float32")
+        mm = StreamModel(TC.get_reduced("yi-6b"), pol, device="cpu", generator=None, mesh=mesh)
+        mm.load_params(tm.param_tree())
+        prompts = _prompts(2, seed=3)
+        lf, cf = build_prefill_step(tm, PROMPT + GEN)({"tokens": prompts})
+        lm, cm = build_prefill_step(mm, PROMPT + GEN, mesh)({"tokens": prompts})
+        assert torch.equal(lf, lm)
+        free, (meshed, specs) = build_serve_step(tm), build_serve_step(mm, mesh)
+        assert specs == mm.param_pspecs()
+        tok = lf.argmax(-1)[:, None]
+        for i in range(GEN):
+            a, cf = free(cf, tok, PROMPT + i)
+            b, cm = meshed(cm, tok, PROMPT + i)
+            assert torch.equal(a, b), i
+            tok = a[:, 0].argmax(-1)[:, None]
+        for key in ("k", "v", "pos"):
+            assert torch.equal(cf["slots"]["s0"][key], cm["slots"]["s0"][key]), key
+        for build in (lambda: build_serve_step(tm, mesh), lambda: build_prefill_step(tm, 8, mesh)):
+            with pytest.raises(ValueError, match="not built on this mesh"):
+                build()
+    finally:
+        dist.destroy_process_group()
 
 
 def _deploy(pkg_core, deploy, predict, prompts, calls):
