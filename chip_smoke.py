@@ -150,12 +150,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.kernels.cost import (  # noqa: E402  the kernels' work, shared with the dry run
+    attention_bound, attention_bwd_bound, mask_pairs, norm_bound, opt8_bound, opt8_bytes, rglru_bound, rglru_bwd_bound,
+    ssd_bound, ssd_bwd_bound,
+)
+
 SEED = 0
 PROMPT_LENS = (512, 1000, 1536, 2000)  # the served requests' prompt lengths
 MAX_NEW = 16
 BLOCK = 16
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor cores; f32 CUDA cores
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}  # tests/test_kernels.py
 # K2: error relative to max(|want|.max(), 1), tests/test_kernels.py:66-74
 SSD_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
@@ -255,10 +258,6 @@ OPT8_MAX_NORM = 1.0
 # slice at a time), so relative to the norm within 1e-5 (at most a few
 # thousand terms a running sum here: errors of order 1e-7)
 NORM_RTOL = 1e-5
-# its operations an element: dequantize m (1) and v (6: two adds, a
-# product, exp2, a subtraction, a max), the m and v updates (3 + 4), u (7),
-# p (2), requantize m (6) and v (10), each counted once
-OPT8_OPS = 39
 # the first loss: ln(vocab) plus half the variance of random logits
 # (unembed, or mamba2's tied embed, 1/sqrt(d) on a unit-RMS hidden state:
 # about 0.5): ln(64000) = 11.07, ln(50280) = 10.83; recurrentgemma's final
@@ -627,31 +626,6 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def mask_pairs(s: int, causal: bool, window: int | None, sk: int | None = None, q_offset: int = 0) -> int:
-    """(query, key) pairs the mask lets through, s queries at positions
-    q_offset.. over ``sk`` keys (s where None; without a mask every query
-    sees all sk): the work this input needs."""
-    import numpy as np
-
-    sk = s if sk is None else sk
-    q = np.arange(s) + q_offset
-    hi = np.minimum(q, sk - 1) if causal else np.full(s, sk - 1)
-    lo = np.maximum(q - window + 1, 0) if window else np.zeros(s, np.int64)
-    return int(np.maximum(hi - lo + 1, 0).sum())
-
-
-def attention_bound(b, h, kv, s, d, dtype: str, causal, window, sk: int | None = None,
-                    q_offset: int = 0) -> tuple[float, str]:
-    """Least time for the function: max(bytes / HBM rate, flops / peak);
-    s queries (from position q_offset) over ``sk`` keys (s where None)."""
-    sk = s if sk is None else sk
-    elem = 2 if dtype == "bfloat16" else 4
-    nbytes = elem * b * d * (2 * h * s + 2 * kv * sk)  # q, k, v read once; o written once
-    flops = 4 * d * h * b * mask_pairs(s, causal, window, sk, q_offset)  # QK^T and PV
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
 _FLEX: dict = {}
 
 
@@ -819,21 +793,6 @@ def phase_kernels(card, fa, ref):
     family[PIXTRAL] = [check_attention(card, fa, ref, 1, 1024 + s, 32, 8, 128, "bfloat16", True, None, None, gen,
                                        True) for s in PROMPT_LENS]
     return rows, main, rg_main, deploy_main, family
-
-
-def attention_bwd_bound(b, h, kv, s, d, dtype: str, causal, window, sk: int | None = None,
-                        q_offset: int = 0) -> tuple[float, str]:
-    """Least time for K1's backward: max(bytes / HBM rate, operations /
-    peak). Operations: five products of 2 D a (query, key) pair and head
-    (S and dP again, dV, dQ, dK), 10 D H an unmasked pair. Bytes: q, k, v,
-    o, do and lse read once, dq, dk and dv written once; s queries over
-    ``sk`` keys (s where None)."""
-    sk = s if sk is None else sk
-    elem = 2 if dtype == "bfloat16" else 4
-    nbytes = elem * b * d * (3 * h * s + 2 * kv * sk) + elem * b * d * (h * s + 2 * kv * sk) + 4 * b * h * s
-    flops = 10 * d * h * b * mask_pairs(s, causal, window, sk, q_offset)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def check_attention_bwd(card, fa, ref, b, s, h, kv, d, dtype, causal, window, gen, timed, cap=None, sk=None):
@@ -1094,7 +1053,10 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     routes are counted (``moe.DROPS``). Under ``remat`` "full" or "block"
     (``Policy.remat``) each layer group's forward (and every encoder
     layer's) runs once more in each step's backward, and K1's, K2's and
-    K3's forward launches count it. Returns the phase's numbers and the
+    K3's forward launches count it. It records the bytes earlier phases
+    still hold (``base_bytes``) and this phase's own when its first step
+    starts (``state_bytes``: the parameters, the optimizer state and the
+    fed batches). Returns the phase's numbers and the
     trained first layer's weights, part by part (``{"mixer": {...}, ...}``;
     an encoder's first layer's under "encoder"; with ``whole``, (part,
     leaf), that stacked leaf whole under "whole")."""
@@ -1116,6 +1078,9 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     t0 = time.perf_counter()
     cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
     make_opt = {"adamw": adamw, "adamw8bit": adamw8bit}[opt_name]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    state_bytes = []  # this phase's bytes when its first step starts: the state and the fed batches
     model = StreamModel(cfg, Policy(remat=remat), device="cuda", generator=None)
     log, reg = StreamLog(), Registry()
     spec = reg.register_model(f"{arch}-train")
@@ -1129,6 +1094,8 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
     patch_gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
 
     def loss_fn(p, batch):
+        if not state_bytes:
+            state_bytes.append(torch.cuda.memory_allocated() - base)
         inputs = {"tokens": batch["data"]}
         if cfg.frontend == "patches":  # JAX's make_batch: standard normal patch embeddings
             shape = (batch["data"].shape[0], cfg.frontend_len, cfg.d_model)
@@ -1201,6 +1168,7 @@ def phase_train(card, kernels: dict, arch: str = "yi-6b", layers: int = TRAIN_LA
         "losses": losses, "eval_loss": res.eval_metrics.get("loss"), "eval_batches": eval_calls[0],
         "step_ms": step_ms, "median_step_ms": med_ms, "tokens_per_s": tokens / (med_ms / 1e3),
         "run_s": t_end - t_start, "setup_s": setup_s, "peak_bytes": peak, "peak_reserved_bytes": peak_reserved,
+        "base_bytes": base, "state_bytes": state_bytes[0],
         "launches": counts,
         "want_launches": want, "records": msg.total_msg, "loss_band": list(band),
         "frontend_len": cfg.frontend_len if cfg.frontend == "patches" else 0, "dropped_routes": drops,
@@ -1263,6 +1231,153 @@ def phase_train_recurrentgemma(card, kernels: dict):
     more). Returns the phase's numbers and the trained first layer's
     weights, part by part (its RG-LRU mixer among them)."""
     return phase_train(card, kernels, arch="recurrentgemma-9b", layers=RG_TRAIN_LAYERS, opt_name="adamw8bit")
+
+
+# the dry run (src/repro_torch/launch/dryrun.py) of three of the training
+# phases' own cells, TRAIN_BATCH x TRAIN_SEQ with adamw8bit on a (1, 1)
+# mesh: yi-6b at FULL_LAYERS (K1, its backward, the 8-bit update, the norm),
+# mamba2 at MAMBA2_LAYERS (K2 and its backward's scratch), recurrentgemma
+# at RG_TRAIN_LAYERS (K3, its backward, K1 at head dim 256); its
+# predictions against what those phases measured: the argument bytes
+# within DRYRUN_ARG_RTOL of the bytes the phase held when its first step
+# started, argument + temp within DRYRUN_PEAK_RTOL of the phase's peak
+DRYRUN_CELLS = (("yi-6b", FULL_LAYERS), ("mamba2-2.7b", MAMBA2_LAYERS), ("recurrentgemma-9b", RG_TRAIN_LAYERS))
+DRYRUN_ARG_RTOL = 0.01
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_TIMEOUT_S = 600.0
+# run as its own process: the dry run's fake process group is process-wide.
+# A cell: [name, arch, layers, kind, batch, seq, mesh shape over ("data",
+# "model")]; a train cell takes adamw8bit and no microbatching, every cell
+# Policy.for_mesh, as the phases on the card do
+DRYRUN_CODE = """
+import dataclasses, json, sys, time
+import repro_torch.configs as configs
+from repro_torch.launch import dryrun
+from repro_torch.models.policy import Policy
+from repro_torch.train.optimizer import adamw8bit
+
+out = {}
+for name, arch, layers, kind, batch, seq, shape in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    mesh = dryrun.dry_mesh(shape, ("data", "model"))
+    cfg = dataclasses.replace(configs.get(arch), n_layers=layers)
+    cell = configs.ShapeCell(name, seq, batch, kind)
+    kw = {"opt": adamw8bit(3e-4), "microbatches": 1} if kind == "train" else {}
+    counter, meta = dryrun.lower_cell(arch, name, mesh, cfg=cfg, shape=cell, policy=Policy.for_mesh(mesh), **kw)
+    out[name] = {**dryrun.analyze(counter, mesh, meta), "collectives": counter.collectives,
+                 "accounting_s": time.perf_counter() - t0}
+print(json.dumps(out))
+"""
+
+
+def start_dryrun(cells: list) -> tuple[subprocess.Popen, float]:
+    """The dry run of ``cells`` (DRYRUN_CODE's) in a process of its own on
+    the CPU (the meta device needs no card), started at once so that it
+    runs beside the card's phases; :func:`dryrun_result` collects it."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.Popen([sys.executable, "-c", DRYRUN_CODE, json.dumps(cells)], env=env, cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def dryrun_result(started: tuple) -> dict:
+    """A dry-run process's records by cell name; raises if it failed or
+    ran past DRYRUN_TIMEOUT_S."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=max(DRYRUN_TIMEOUT_S - (time.perf_counter() - t0), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"the dry run did not end within {DRYRUN_TIMEOUT_S} s")
+    assert proc.returncode == 0, f"the dry run failed ({proc.returncode}):\n{err[-4000:]}"
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def dryrun_row(card, name: str, pred: dict, state_bytes: int, peak_bytes: int, step_ms: float | None = None) -> dict:
+    """One cell's predictions against the card: the argument bytes against
+    ``state_bytes`` (the bytes held when the step starts) within
+    DRYRUN_ARG_RTOL, argument + temp against ``peak_bytes`` within
+    DRYRUN_PEAK_RTOL (each less what earlier work held); with ``step_ms``
+    the predicted operations over it as TFLOP/s (printed, no gate)."""
+    mem = pred["memory_analysis"]
+    args, peak = mem["argument_size_in_bytes"], mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    row = {
+        "cell": name, "predicted_argument_bytes": args, "measured_state_bytes": state_bytes,
+        "argument_rel_err": (args - state_bytes) / state_bytes, "predicted_peak_bytes": peak,
+        "measured_peak_bytes": peak_bytes, "peak_rel_err": (peak - peak_bytes) / peak_bytes,
+        "predicted_flops": pred["flops_per_device"], "predicted_bytes": pred["bytes_accessed_per_device"],
+        "predicted_transcendentals": pred["transcendentals"], "median_step_ms": step_ms,
+        "tflops_per_s": None if step_ms is None else pred["flops_per_device"] / (step_ms / 1e3) / 1e12,
+        "kernels": {k: v["calls"] for k, v in pred["kernels"].items()}, "accounting_s": pred["accounting_s"],
+    }
+    row["ok"] = abs(row["argument_rel_err"]) <= DRYRUN_ARG_RTOL and abs(row["peak_rel_err"]) <= DRYRUN_PEAK_RTOL
+    rate = "" if step_ms is None else (f"; {row['predicted_flops']:.4e} flops a step over the median "
+                                       f"{step_ms:.3f} ms: {row['tflops_per_s']:.1f} TFLOP/s")
+    print(f"[{card}] dry run {name}: arguments {args} predicted, {state_bytes} held "
+          f"({row['argument_rel_err']:+.4%}); argument + temp {peak} predicted, peak {peak_bytes} "
+          f"({row['peak_rel_err']:+.4%}){rate}; accounted in {row['accounting_s']:.1f} s", flush=True)
+    return row
+
+
+def check_scratch_mirrors(card) -> dict:
+    """The meta branches' scratch sizes (what the dry run allocates for a
+    kernel) against the C functions the card path asks: K1's backward's
+    (``repro_flash_attention_bwd_scratch``) at every GQA ratio of 1-16
+    and head dim 64 / 128 / 256 at the training calls' sizes, K2's
+    backward's (``repro_ssd_scan_bwd_scratch``) at mamba2's training call
+    and others, in bf16 and f32, and the norm's partial sums a leaf
+    (``repro_grad_sumsq_parts``). Raises on a difference."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa, grad_norm as gn, ssd_scan as ss
+
+    _, fa_scratch, _ = fa._bwd_kernel()
+    _, ss_scratch, _ = ss._bwd_kernel()
+    lib = gn._kernel()
+    n = 0
+    for dt, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+        for d in (64, 128, 256):
+            for h, kv in ((32, 4), (16, 1), (28, 4), (8, 4), (6, 6), (96, 8), (12, 4), (5, 1)):
+                for b, s, sk in ((4, 1024, 1024), (1, 777, 1500)):
+                    want = fa_scratch(code, b, h, kv, s, sk, d)
+                    got = fa._bwd_scratch_floats(dt, b, h, kv, s, sk, d)
+                    assert got == want, ("flash_attention_bwd scratch", dt, b, h, kv, s, sk, d, got, want)
+                    n += 1
+        for b, h, g, s, p, nn, q in ((4, 80, 1, 1024, 64, 128, 256), (2, 80, 1, 1000, 64, 128, 256),
+                                     (3, 24, 2, 500, 32, 64, 128), (1, 6, 3, 77, 16, 16, 16)):
+            want, got = ss_scratch(b, h, g, s, p, nn, q, code), ss._bwd_scratch_floats(b, h, g, s, p, nn, q, dt)
+            assert got == want, ("ssd_scan_bwd scratch", dt, b, h, g, s, p, nn, q, got, want)
+            n += 1
+    for numel in (1, 4096, 65535, 65536, 65537, 4096 * 11008, 32 * 4096 * 11008, 64000 * 4096, 1 << 31):
+        want, got = lib.repro_grad_sumsq_parts(numel), gn._parts(numel)
+        assert got == want, ("grad_norm parts", numel, got, want)
+        n += 1
+    print(f"[{card}] dry run: the meta branches' scratch sizes equal the card path's at {n} shapes", flush=True)
+    return {"checked": n}
+
+
+def phase_dryrun(card, started: tuple, measured: dict) -> dict:
+    """The dry run's predictions for DRYRUN_CELLS (``start_dryrun``'s
+    process) against the training phases that ran those cells on the card
+    (``measured``: arch -> phase_train's numbers), with no rerun
+    (:func:`dryrun_row`: the bytes the phase held when its first step
+    started, its peak, its median step), and the meta branches' scratch
+    sizes against the card path's. Raises on a miss or when the dry run
+    fails."""
+    preds = dryrun_result(started)
+    rows = {}
+    for arch, layers in DRYRUN_CELLS:
+        got = measured[arch]
+        assert got["layers"] == layers and got["optimizer"] == "adamw8bit", (arch, got["layers"], got["optimizer"])
+        rows[arch] = dryrun_row(card, f"{arch} {layers} layers", preds[arch], got["state_bytes"],
+                                got["peak_bytes"] - got["base_bytes"], got["median_step_ms"])
+    result = {"cells": rows, "scratch": check_scratch_mirrors(card), "wall_s": time.perf_counter() - started[1]}
+    bad = {a: r for a, r in rows.items() if not r["ok"]}
+    assert not bad, f"the dry run missed the card: {bad}"
+    return result
 
 
 def phase_train_moe_grads(card, trained: dict) -> dict:
@@ -2006,6 +2121,7 @@ def mesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
     qwen3-moe-30b-a3b and whisper-tiny on (1, world). Writes its numbers to
     ``out_dir/rank<rank>.json``; an exception writes its text there too
     and exits non-zero."""
+    import contextlib
     import dataclasses
     import datetime
     import os
@@ -2025,6 +2141,7 @@ def mesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         from repro_torch import configs
         from repro_torch.kernels import adamw8bit as k8, flash_attention as fa, grad_norm, rglru_scan, ssd_scan
         from repro_torch.launch import make_mesh
+        from repro_torch.launch.dryrun import Counter
         from repro_torch.models import moe
         from repro_torch.models import sharding as SH
         from repro_torch.models.model import StreamModel
@@ -2043,24 +2160,30 @@ def mesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
                 b["frames"] = torch.randn((rows, cfg.enc_seq, cfg.d_model), generator=gen, device=dev).bfloat16()
             return b
 
-        def train(model, opt, state, batch, steps, mesh=None):
+        def train(model, opt, state, batch, steps, mesh=None, inventory=False):
+            """``steps`` steps; with ``inventory`` the first one's collectives
+            counted by the dry run's mode (its collectives alone)."""
             step, _ = build_train_step(model, opt, mesh=mesh)
             reset_counts(kernels)
             fa.OFFSET_LAUNCHES = fa.BWD_OFFSET_LAUNCHES = 0
             torch.cuda.reset_peak_memory_stats()
             losses, ms = [], []
-            for _ in range(steps):
+            first = Counter(collectives_only=True)
+            for i in range(steps):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                state, met = step(state, batch)
+                with first if inventory and i == 0 else contextlib.nullcontext():
+                    state, met = step(state, batch)
                 losses.append(float(met["loss"]))
                 ms.append((time.perf_counter() - t0) * 1e3)
             torch.cuda.synchronize()
             counts = read_counts(kernels)
             counts["flash_attention_offset"] = fa.OFFSET_LAUNCHES
             counts["flash_attention_bwd_offset"] = fa.BWD_OFFSET_LAUNCHES
-            return state, {"losses": losses, "step_ms": ms, "launches": counts,
-                           "peak_bytes": torch.cuda.max_memory_allocated()}
+            res = {"losses": losses, "step_ms": ms, "launches": counts, "peak_bytes": torch.cuda.max_memory_allocated()}
+            if inventory:
+                res["collectives"] = first.collectives
+            return state, res
 
         if world == 1:  # yi-6b: the mesh-free step, then the (1, 1) mesh's, from the same seed
             cfg = dataclasses.replace(configs.get("yi-6b"), n_layers=MESH_LAYERS)
@@ -2084,11 +2207,16 @@ def mesh_rank(rank: int, world: int, store: str, out_dir: str) -> None:
         else:
             mesh = make_mesh((1, world), ("data", "model"), device=dev)
             cfg = configs.get(MOE)  # the published capacity factor
+            base = torch.cuda.memory_allocated()
             model = StreamModel(cfg, Policy.for_mesh(mesh), generator=None, mesh=mesh)
             opt = adamw8bit(3e-4)
             state = make_state(model, opt, SEED)
+            batch = batch_of(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED + 23)
+            state_bytes = torch.cuda.memory_allocated() - base  # the step's arguments: state and batch
             moe.DROPS = torch.zeros((), dtype=torch.int64, device=dev)
-            state, res = train(model, opt, state, batch_of(cfg, TRAIN_BATCH, TRAIN_SEQ, SEED + 23), MESH_MOE_STEPS, mesh)
+            state, res = train(model, opt, state, batch, MESH_MOE_STEPS, mesh, inventory=True)
+            res["base_bytes"], res["state_bytes"] = base, state_bytes
+            del batch
             res["dropped_routes"] = int(moe.DROPS)
             moe.DROPS = None
             res["local_params"] = sum(p.numel() for p in tree_leaves(state["params"]))
@@ -2166,12 +2294,14 @@ def serve_mesh_rank(rank: int, world: int, dev: str, kernels: dict) -> dict:
     on several mistral-large-123b, gemma2-2b and qwen3-moe-30b-a3b on
     (1, n). Each model's main path runs with the launch counts set to 0
     just before and read just after. Returns the rank's numbers."""
+    import contextlib
     import gc as gc_
 
     import torch
 
     from repro_torch import configs
     from repro_torch.launch import make_mesh
+    from repro_torch.launch.dryrun import Counter
     from repro_torch.models import sharding as SH
     from repro_torch.models.layers import cache_bits
     from repro_torch.models.model import StreamModel
@@ -2182,11 +2312,12 @@ def serve_mesh_rank(rank: int, world: int, dev: str, kernels: dict) -> dict:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return torch.randint(0, cfg.vocab, (1, n), generator=gen, device=dev)
 
-    def greedy(model, mesh, prompt, steps, feed=None, s_cache=None, cache_dtype=None):
+    def greedy(model, mesh, prompt, steps, feed=None, s_cache=None, cache_dtype=None, inventory=None):
         """A prefill (``build_prefill_step``'s bf16 cache, or one of
         ``cache_dtype`` through ``prefill``) and ``steps`` decode steps,
         each fed its greedy token (or ``feed``'s); the logits of each, the
-        tokens, the cache, ms."""
+        tokens, the cache, ms. With ``inventory`` (a dry-run ``Counter``)
+        the prefill runs under it."""
         s_cache = s_cache or prompt.shape[1] + steps
         pre = build_prefill_step(model, s_cache, mesh)
         if cache_dtype is not None:
@@ -2195,7 +2326,8 @@ def serve_mesh_rank(rank: int, world: int, dev: str, kernels: dict) -> dict:
         step = step[0] if mesh is not None else step
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lg, cache = pre({"tokens": prompt})
+        with inventory or contextlib.nullcontext():
+            lg, cache = pre({"tokens": prompt})
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         logits, toks = [lg], []
@@ -2246,14 +2378,20 @@ def serve_mesh_rank(rank: int, world: int, dev: str, kernels: dict) -> dict:
     # mistral-large-123b at all 88 layers, bf16: each rank its blocks, drawn a layer at a time
     cfg = configs.get(MISTRAL)
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = StreamModel(cfg, Policy.for_mesh(mesh), generator=SEED, mesh=mesh)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     init_peak = torch.cuda.max_memory_allocated()
     prompts = [tokens_of(cfg, MESH_MISTRAL_LEN, SEED + 70 + i) for i in range(MESH_MISTRAL_PROMPTS)]
+    state_bytes = torch.cuda.memory_allocated() - base  # the prefill's arguments: the weights and the prompts
     reset_counts(kernels)
-    runs = [greedy(model, mesh, p, MESH_DECODE) for p in prompts]
+    torch.cuda.reset_peak_memory_stats()  # the first prompt's peak, for the dry run's prefill cell
+    first = Counter(collectives_only=True)
+    runs = [greedy(model, mesh, prompts[0], MESH_DECODE, inventory=first)]
+    first_peak = torch.cuda.max_memory_allocated() - base
+    runs += [greedy(model, mesh, p, MESH_DECODE) for p in prompts[1:]]
     counts = read_counts(kernels)
     worst = 0.0
     for p, r in zip(prompts, runs):  # each served token against the mesh forward's teacher-forced logits
@@ -2266,7 +2404,9 @@ def serve_mesh_rank(rank: int, world: int, dev: str, kernels: dict) -> dict:
     out[MISTRAL] = {"layers": cfg.n_layers, "mesh": [1, world], "init_s": init_s, "init_peak_bytes": init_peak,
                     "local_params": sum(p.numel() for p in model.parameters()), "launches": counts,
                     "prefill_ms": [r["prefill_ms"] for r in runs], "decode_ms": [r["decode_ms"] for r in runs],
-                    "worst_gap": worst, "peak_bytes": torch.cuda.max_memory_allocated()}
+                    "worst_gap": worst, "peak_bytes": max(init_peak, torch.cuda.max_memory_allocated()),
+                    "base_bytes": base, "state_bytes": state_bytes, "first_prompt_peak_bytes": first_peak,
+                    "prefill_collectives": first.collectives}
     del model, runs
     free()
     # gemma2-2b at all 26 layers in f32 with seq_axis="model": flash-decode on the card
@@ -2413,6 +2553,12 @@ def phase_train_mesh(card, kernels: dict) -> dict:
     from repro_torch import configs
 
     world = torch.cuda.device_count()
+    dry = None
+    if world > 1:  # the dry run of the mesh's qwen3-moe training and mistral prefill, beside the ranks
+        dry = start_dryrun([
+            ["moe-train-mesh", MOE, configs.get(MOE).n_layers, "train", TRAIN_BATCH, TRAIN_SEQ, [1, world]],
+            ["mistral-prefill-mesh", MISTRAL, configs.get(MISTRAL).n_layers, "prefill", 1, MESH_MISTRAL_LEN,
+             [1, world]]])
     store, out_dir = tempfile.mkdtemp(prefix="mesh_store_"), tempfile.mkdtemp(prefix="mesh_out_")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=mesh_rank, args=(r, world, store, out_dir)) for r in range(world)]
@@ -2466,7 +2612,41 @@ def phase_train_mesh(card, kernels: dict) -> dict:
         assert max(gaps) <= MESH_LOSS_RTOL, gaps
         assert w0["f32_grad_rel"]["max"] <= MESH_GRAD_RTOL, w0["f32_grad_rel"]
     check_serve_mesh(card, ranks, world)
+    if dry is not None:
+        out["dryrun"] = check_mesh_dryrun(card, dryrun_result(dry), ranks[0])
     return out
+
+
+def check_mesh_dryrun(card, preds: dict, rank0: dict) -> dict:
+    """The dry run's (1, n) cells against rank 0 of the mesh phase
+    (:func:`dryrun_row`): qwen3-moe-30b-a3b's training (the state and batch
+    held when the first step starts, the training's peak, the median
+    step) and mistral-large-123b's prefill (its weights and prompts, the
+    first prompt's peak: its prefill and decode steps; the dry run's cache
+    holds the prompt's 1024 slots where the card's holds MESH_DECODE more,
+    a few MB); and rank 0's real collective inventory (each kind's calls
+    and result bytes, counted by the dry run's mode over the first
+    training step and the first prefill) equal to the fake group's.
+    Raises on a miss."""
+    moe_run, mistral = rank0[MOE], rank0["serve"][MISTRAL]
+    steady = sorted(moe_run["step_ms"][1:])
+    rows = {
+        "moe-train-mesh": dryrun_row(card, "qwen3-moe-30b-a3b 48 layers (1, n) train", preds["moe-train-mesh"],
+                                     moe_run["state_bytes"], moe_run["peak_bytes"] - moe_run["base_bytes"],
+                                     steady[len(steady) // 2]),
+        "mistral-prefill-mesh": dryrun_row(card, "mistral-large-123b 88 layers (1, n) prefill",
+                                           preds["mistral-prefill-mesh"], mistral["state_bytes"],
+                                           mistral["first_prompt_peak_bytes"]),
+    }
+    for name, real in (("moe-train-mesh", moe_run["collectives"]),
+                       ("mistral-prefill-mesh", mistral["prefill_collectives"])):
+        fake = preds[name]["collectives"]
+        rows[name]["collectives_equal"] = fake == real
+        print(f"[{card}] dry run {name}: collectives on the fake group {json.dumps(fake)}, on rank 0 "
+              f"{json.dumps(real)}", flush=True)
+    bad = {k: r for k, r in rows.items() if not (r["ok"] and r["collectives_equal"])}
+    assert not bad, f"the dry run missed the mesh: {bad}"
+    return rows
 
 
 def mesh_paths(card, fa, ref, mesh: dict, k1_offset: dict, train_fwd_main: dict, bwd_main: dict, serve_rows: list):
@@ -2534,22 +2714,6 @@ def serve_mesh_rows(card, fa, ref, world: int) -> dict:
     }
 
 
-def opt8_bytes(p) -> int:
-    """Bytes the 8-bit update of leaf ``p`` must move: p read and written,
-    g read, the m and v codes read and written, the m scale (4 bytes) and
-    the v pair (8) of each 256-block read and written."""
-    n_blocks = p.numel() // p.shape[-1] * (-(-p.shape[-1] // 256))
-    return p.numel() * (3 * p.element_size() + 4) + n_blocks * 2 * (4 + 8)
-
-
-def opt8_bound(leaves: list) -> tuple[float, str]:
-    """Least time for the 8-bit update of ``leaves``: max(bytes / HBM rate,
-    OPT8_OPS an element / the f32 rate)."""
-    t_bytes = sum(opt8_bytes(p) for p in leaves) / HBM_BYTES_PER_S
-    t_ops = OPT8_OPS * sum(p.numel() for p in leaves) / PEAK_FLOPS["float32"]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def opt8_scalars(step: int) -> dict:
     """The 8-bit update's keyword arguments at ``step`` (lr 3e-4, b1 0.9,
     b2 0.95): lr and the bias corrections as 0-d f32 host tensors."""
@@ -2577,14 +2741,6 @@ def opt8_compare(got: list, want: list, dtype: str, **where) -> dict:
     return {**where, "dtype": dtype, "p_max_abs_err": err, "p_bit_equal": bool(torch.equal(got[0], want[0])),
             "m_equal": m_ok, "v_codes_apart_share": share,
             "v_scales_max_abs_err": float((got[4] - want[4]).abs().max()), "ok": p_ok and m_ok and v_ok}
-
-
-def norm_bound(grads: list) -> tuple[float, str]:
-    """Least time for the global norm of ``grads``: max(each element read
-    once / HBM rate, a product and a sum an element / the f32 rate)."""
-    t_bytes = sum(g.numel() * g.element_size() for g in grads) / HBM_BYTES_PER_S
-    t_ops = 2 * sum(g.numel() for g in grads) / PEAK_FLOPS["float32"]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def check_norm_tree(gn, ref, grads: list, flat) -> dict:
@@ -2852,28 +3008,6 @@ def phase_train_grads(card, ref, mixer: dict, arch: str = "yi-6b", kind: str = "
     return row
 
 
-def ssd_bound(b, h, g, s, p, n, chunk, dtype: str, state: bool) -> tuple[float, str]:
-    """Least time for the SSD scan: max(bytes / HBM rate, flops / peak).
-
-    Bytes: x read and y written once (B S H P each, in the working
-    dtype), B and C read once per group (B S G N each), dt read once
-    (B S H f32), the initial state read (when given) and the final state
-    written (B H N P f32 each). Flops per (batch, head): each causal pair
-    (i, j) within a chunk costs 2N (C_i . B_j) + 2P (its share of y), and
-    each chunk of length L costs 4 L N P (the carried state's share of y
-    and the state update); the last chunk is ragged when chunk does not
-    divide S. The rate is the card's peak for the working dtype."""
-    elem = 2 if dtype == "bfloat16" else 4
-    nbytes = elem * b * s * (2 * h * p + 2 * g * n) + 4 * b * s * h
-    nbytes += 4 * b * h * n * p * (2 if state else 1)
-    q = min(chunk, s)
-    lens = [min(q, s - c0) for c0 in range(0, s, q)]
-    per_head = sum(ln * (ln + 1) // 2 * (2 * n + 2 * p) + 4 * ln * n * p for ln in lens)
-    flops = b * h * per_head
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def check_ssd(card, ref, b, s, h, p, n, g, chunk, dtype, state, gen, timed, model_decays=False):
     """K2 vs its plain version on one input (model layout, grouped B/C);
     with ``timed`` also times both. Raises if they disagree.
@@ -2967,29 +3101,6 @@ def phase_ssd_kernel(card, ref):
     main = check_ssd(card, ref, WAVE_REQUESTS, SSM_PROMPT_LEN, 80, 64, 128, 1, 256, "bfloat16",
                      "zero", gen, True, model_decays=True)
     return rows, main
-
-
-def ssd_bwd_bound(b, h, g, s, p, n, chunk, dtype: str, state: bool) -> tuple[float, str]:
-    """Least time for K2's backward: max(bytes / HBM rate, operations /
-    peak). Bytes: x and dy read and dx written (B S H P each, in the
-    working dtype), B and C read and dB and dC written (B S G N each), dt
-    read and ddt written (B S H f32), A read and dA written; with a state,
-    the initial state and d(final state) read and d(initial state) written
-    (B H N P f32 each). Operations per (batch, head): each causal pair
-    (i, j) within a chunk costs 6N + 4P (C_i . B_j, dy_i . u_j, and the
-    pair's shares of dC, dB and du), each chunk of length L 10 L N P (its
-    own state contribution and that of dy, and the state's shares of dC,
-    du and dB). The rate is the card's peak for the working dtype."""
-    elem = 2 if dtype == "bfloat16" else 4
-    nbytes = elem * b * s * (3 * h * p + 4 * g * n) + 8 * b * s * h + 8 * h
-    if state:
-        nbytes += 12 * b * h * n * p
-    q = min(chunk, s)
-    lens = [min(q, s - c0) for c0 in range(0, s, q)]
-    per_head = sum(ln * (ln + 1) // 2 * (6 * n + 4 * p) + 10 * ln * n * p for ln in lens)
-    flops = b * h * per_head
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dst0")
@@ -3942,18 +4053,6 @@ def phase_deploy_lm(card, kernels: dict, cfg, model):
     return out
 
 
-def rglru_bound(b, s, c, h0: bool) -> tuple[float, str]:
-    """Least time for the RG-LRU scan: max(bytes / HBM rate, ops / peak).
-
-    Bytes: x and log_a read and h written once (B S C f32 each), h0 read
-    when given and h_last written (B C f32). Operations: 8 an element (two
-    exps, the 1 - e, the max, the sqrt, the product with x, and the
-    chain's multiply-add) at the CUDA cores' f32 rate."""
-    nbytes = 4 * (3 * b * s * c + b * c * (2 if h0 else 1))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 8 * b * s * c / PEAK_FLOPS["float32"]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
-
 def rglru_inputs(b, s, c, gen, h0: str | None, model_decays: bool):
     """x, log_a and h0 on the card for one K3 call: log a = -|N| * 0.3 (the
     tests' decays) or log(u) r / 2, u ~ U(0.81, 0.998) per channel and r a
@@ -4019,20 +4118,6 @@ def check_rglru(card, ref, b, s, c, gen, h0: str | None, model_decays: bool, tim
     if not ok:
         raise AssertionError(f"rglru_scan disagrees with its plain version: {row}")
     return row
-
-
-def rglru_bwd_bound(b, s, c, h0: bool, dh_last: bool) -> tuple[float, str]:
-    """Least time for K3's backward: max(bytes / HBM rate, ops / peak).
-
-    Bytes: dh, x and log_a read, dx and dlog_a written (B S C f32 each),
-    and h read as h_{t-1}: its first S - 1 rows, then h0 when given; dh_last
-    read and dh0 written when given (B C f32 each). Operations: 20 an
-    element (two exps, the weight's expm1, clamp and sqrt, the chain's
-    add and multiply twice, dx's product, dlog_a's five and its division)
-    at the CUDA cores' f32 rate."""
-    nbytes = 4 * b * c * (6 * s - 1 + (2 if h0 else 0) + (1 if dh_last else 0))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 20 * b * s * c / PEAK_FLOPS["float32"]
-    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def check_rglru_bwd(card, K, ref, b, s, c, gen, h0: str | None, dh_last: bool, model_decays: bool, timed: bool):
@@ -4374,6 +4459,8 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__}, cuda {torch.version.cuda}", flush=True)
 
+    # the dry run of three training cells, on the CPU beside the card's phases
+    dryrun_started = start_dryrun([[a, a, n, "train", TRAIN_BATCH, TRAIN_SEQ, [1, 1]] for a, n in DRYRUN_CELLS])
     build_s = _build.build_all()
     print(f"build: {build_s:.3f} s", flush=True)
     for name, log in _build.BUILD_LOG.items():
@@ -4424,6 +4511,9 @@ def main() -> int:
     del trained_rec
     gc.collect()
     torch.cuda.empty_cache()
+    # the dry run's predictions for the three training cells above
+    dryrun = phase_dryrun(card, dryrun_started, {"yi-6b": training_full, "mamba2-2.7b": training_m2,
+                                                 "recurrentgemma-9b": training_rg})
     # gemma2-2b at all 26 layers and qwen2-7b at all 28 with the 8-bit
     # state, each then its trained first attention layer's gradients
     # (gemma2's local one, with its window and softcap): freed before the
@@ -4850,7 +4940,7 @@ def main() -> int:
         "whisper_kernel_checks": wh_rows, "whisper_kernel_paths": wh_paths, "training_whisper": training_wh,
         "training_whisper_grads": wh_grads, "serving_whisper": serving_wh, "remat_grads": remat_grads,
         "training_recurrentgemma_remat": training_rg_remat, "training_pixtral_remat": training_px_remat,
-        "training_dp": training_dp, "k1_offset": k1_offset, "training_mesh": training_mesh,
+        "training_dp": training_dp, "k1_offset": k1_offset, "training_mesh": training_mesh, "dryrun": dryrun,
         "kernels": kernels_line["kernels"],
     }, indent=1))
 

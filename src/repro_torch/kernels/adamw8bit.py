@@ -21,7 +21,9 @@ redux.sync for the block reductions, a persistent grid of 4 thread blocks
 an SM (the source's note holds the measurements).
 
 On a CPU tensor the wrapper computes the plain version instead; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. On meta tensors (the dry run,
+``launch/dryrun.py``) it records the update's work (``kernels/cost.py``),
+launching nothing and counting no launch: the update is in place.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, cost, ref
 
 __all__ = ["LAUNCHES", "adamw8bit_update", "check"]
 
@@ -61,8 +63,8 @@ def check(p, g, m_codes, m_scales, v_codes, v_scales) -> None:
     """Raise on what the update does not take: dtypes, shapes, devices."""
     if p.dim() == 0:
         raise ValueError("adamw8bit blocks the trailing dim: a 0-d leaf has none")
-    if p.dtype not in (torch.float32, torch.bfloat16) or g.dtype != p.dtype:
-        raise TypeError(f"p must be f32 or bf16 and g of its dtype, got {p.dtype} and {g.dtype}")
+    if p.dtype not in (torch.float32, torch.bfloat16) or g.dtype not in (p.dtype, torch.float32):
+        raise TypeError(f"p must be f32 or bf16 and g of its dtype or f32, got {p.dtype} and {g.dtype}")
     if m_codes.dtype != torch.int8 or v_codes.dtype != torch.int8:
         raise TypeError(f"codes must be int8, got {m_codes.dtype} and {v_codes.dtype}")
     if m_scales.dtype != torch.float32 or v_scales.dtype != torch.float32:
@@ -82,7 +84,7 @@ def check(p, g, m_codes, m_scales, v_codes, v_scales) -> None:
 
 def adamw8bit_update(
     p: torch.Tensor,  # (..., n) f32 or bf16, updated in place
-    g: torch.Tensor,  # (..., n) p's dtype, read only
+    g: torch.Tensor,  # (..., n) p's dtype (or f32 for a bf16 p), read only
     m_codes: torch.Tensor,  # (..., n) int8, in place
     m_scales: torch.Tensor,  # (..., nblk) f32, in place
     v_codes: torch.Tensor,  # (..., n) int8, in place
@@ -97,8 +99,10 @@ def adamw8bit_update(
     weight_decay: float,
     clip_scale: torch.Tensor | None = None,  # 0-d f32 on p's device: g's clip scale; None: g as given
 ) -> None:
-    """One leaf of ``adamw8bit``'s update, in place (nblk = ceil(n / 256))."""
-    global LAUNCHES
+    """One leaf of ``adamw8bit``'s update, in place (nblk = ceil(n / 256)).
+    g may be f32 for a bf16 p (a microbatched step's f32 sums): then each
+    layer slice of p is updated in f32 and rounded back, one launch a
+    slice."""
     check(p, g, m_codes, m_scales, v_codes, v_scales)
     if clip_scale is not None and (clip_scale.dtype != torch.float32 or clip_scale.numel() != 1
                                    or clip_scale.device != p.device):
@@ -108,12 +112,35 @@ def adamw8bit_update(
         ref.adamw8bit_update(p, g, m_codes, m_scales, v_codes, v_scales, lr=lr, bc1=bc1, bc2=bc2, b1=b1, b2=b2, eps=eps,
                              weight_decay=weight_decay, clip_scale=clip_scale)
         return
-    if p.device.type != "cuda":
+    if p.device.type not in ("cuda", "meta"):
         raise ValueError(f"adamw8bit_update runs on cuda or cpu tensors, not {p.device}")
     tensors = (p, g, m_codes, m_scales, v_codes, v_scales)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("adamw8bit_update updates contiguous leaves in place")
     if p.numel() == 0:
+        return
+    scalars = (lr, bc1, bc2, b1, b2, eps, weight_decay, clip_scale)
+    if g.dtype == p.dtype:
+        _update(tensors, scalars)
+        return
+    # f32 gradients of a bf16 leaf (a microbatched step sums them in f32, as
+    # JAX's does): the f32 kernel on an f32 copy of each layer slice of p,
+    # rounded back to bf16 to nearest even, as the bf16 kernel stores it
+    for ps, *rest in zip(*(ref.layer_slices(t, p) for t in tensors)):
+        pf = ps.float()
+        _update((pf, *rest), scalars)
+        ps.copy_(pf)
+
+
+def _update(tensors: tuple, scalars: tuple) -> None:
+    """One launch of the kernel on checked, contiguous, non-empty tensors
+    of one dtype; on meta tensors (the dry run) the update's work is
+    recorded instead, with no launch and no count."""
+    global LAUNCHES
+    p, g, m_codes, m_scales, v_codes, v_scales = tensors
+    lr, bc1, bc2, b1, b2, eps, weight_decay, clip_scale = scalars
+    if p.device.type == "meta":
+        cost.record("adamw8bit", cost.opt8_work([p]))
         return
     n = p.shape[-1]
     # 8 neighbouring elements a lane (16-byte loads) where every row starts

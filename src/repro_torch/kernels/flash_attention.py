@@ -31,7 +31,10 @@ pointer and batch / sequence / head strides that are positive multiples
 of 16 bytes (8 elements) where the extent is above 1;
 :func:`check_layout` states what the kernel takes and the wrapper raises
 on anything else. On a CPU tensor the wrapper computes the plain version
-instead; on a CUDA tensor it launches the kernel or raises.
+instead; on a CUDA tensor it launches the kernel or raises. On meta
+tensors (the dry run, ``launch/dryrun.py``) it allocates what the card
+path allocates and records the kernel's work (``kernels/cost.py``),
+launching nothing and counting no launch.
 
 The gradient. With ``return_lse=True`` the forward also returns each
 row's base-2 log-sum-exp (``lse2``, f32 (B, H, S)), and
@@ -73,7 +76,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, cost, ref
 
 __all__ = [
     "BWD_LAUNCHES",
@@ -196,6 +199,8 @@ def flash_attention(
             return out
         sc = ref.scores(q, kr, causal=causal, window=window, softcap=softcap, q_offset=q_offset)
         return out, torch.logsumexp(sc, dim=-1) * _LOG2E
+    if q.device.type == "meta":
+        return _meta_forward(q, k, v, causal, window, softcap, return_lse, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, not {q.device}")
     b, h, s, d = q.shape
@@ -233,6 +238,20 @@ def flash_attention(
 
 
 _LOG2E = 1.0 / math.log(2.0)
+
+
+def _meta_forward(q, k, v, causal, window, softcap, return_lse, q_offset):
+    """The card path's outputs on meta tensors, for the dry run: the same
+    (B, H, Sq, D) view of a (B, Sq, H, D) tensor and lse, and K1's work
+    recorded (``cost.record``); no launch, no count. Head dims and TMA
+    layouts are not checked: the dry run accounts for the call as the card
+    would make it."""
+    b, h, s, d = q.shape
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device) if return_lse else None
+    cost.record("flash_attention", cost.attention_work(
+        b, h, k.shape[1], s, d, cost.dtype_name(q.dtype), causal, window, k.shape[2], q_offset, softcap is not None))
+    return (out, lse) if return_lse else out
 
 
 def _repeat(q: torch.Tensor, kv: torch.Tensor) -> torch.Tensor:
@@ -324,6 +343,8 @@ def flash_attention_bwd(
             out = ref.mha(qq, _repeat(qq, kk), _repeat(qq, vv), causal=causal, window=window, softcap=softcap,
                           q_offset=q_offset)
             return torch.autograd.grad(out, (qq, kk, vv), do)
+    if q.device.type == "meta":
+        return _meta_backward(q, k, v, do, lse, causal, window, softcap, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd runs on cuda or cpu tensors, not {q.device}")
     if softcap is not None and q.shape[3] not in _BWD_SOFTCAP_HEAD_DIMS:
@@ -366,6 +387,42 @@ def flash_attention_bwd(
         raise RuntimeError(f"flash_attention_bwd launch failed: {err_str(rc).decode()} ({rc})")
     BWD_LAUNCHES += 1
     BWD_OFFSET_LAUNCHES += q_offset > 0
+    return dq, dk, dv
+
+
+def _bwd_scratch_floats(dtype: torch.dtype, b: int, h: int, kv: int, s: int, sk: int, d: int) -> int:
+    """``repro_flash_attention_bwd_scratch`` (``csrc/flash_attention_bwd.cu``)
+    in Python: Di (B H Sq, padded to 64 in bf16), then in bf16 with a GQA
+    split of G > 1 blocks the f32 partial dK and dV, G x 2 x B x Sk x Kv x D.
+    ``chip_smoke.py`` holds the two equal on the card."""
+    if dtype != torch.bfloat16:
+        return b * h * s
+    di = (b * h * s + 63) // 64 * 64
+    rep = h // kv
+    g = min(4 if d == 256 else 2, rep)  # gqa_split: the largest divisor of rep up to the cap
+    while rep % g:
+        g -= 1
+    return di + g * 2 * b * kv * sk * d if g > 1 else di
+
+
+def _meta_backward(q, k, v, do, lse, causal, window, softcap, q_offset):
+    """The card path's allocations on meta tensors, for the dry run: do
+    copied where the kernel would not take its layout, lse made
+    contiguous, dq / dk / dv as (B, heads, S, D) views of (B, S, heads, D)
+    tensors, and the f32 scratch (Di and the GQA split's partials);
+    K1's backward's work recorded; no launch, no count."""
+    if q.shape[3] in _BWD_HEAD_DIMS and not _fits_bwd(do):
+        do = do.contiguous()
+    lse = lse.contiguous()
+    b, h, s, d = q.shape
+    kv, sk = k.shape[1], k.shape[2]
+    dq = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dk = torch.empty((b, sk, kv, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    dv = torch.empty((b, sk, kv, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    delta = torch.empty(_bwd_scratch_floats(q.dtype, b, h, kv, s, sk, d), dtype=torch.float32, device=q.device)
+    cost.record("flash_attention_bwd", cost.attention_bwd_work(
+        b, h, kv, s, d, cost.dtype_name(q.dtype), causal, window, sk, q_offset, softcap is not None))
+    del delta  # the kernel's scratch, live for its span
     return dq, dk, dv
 
 

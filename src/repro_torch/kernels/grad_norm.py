@@ -15,7 +15,9 @@ What bounds it on the H100: the bytes of the gradients, each read once (2
 an element in bf16); 16-byte loads, four in flight a thread.
 
 On CPU tensors the wrapper computes the plain version instead; on CUDA
-tensors it launches the kernels or raises.
+tensors it launches the kernels or raises. On meta tensors (the dry run, ``launch/dryrun.py``) it allocates what
+the card path allocates and records the kernel's work
+(``kernels/cost.py``), launching nothing and counting no launch.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, cost, ref
 
 __all__ = ["LAUNCHES", "check", "global_norm"]
 
@@ -64,6 +66,25 @@ def check(leaves: list[torch.Tensor]) -> None:
             raise ValueError("global_norm's leaves must lie on one device")
 
 
+def _parts(numel: int) -> int:
+    """``repro_grad_sumsq_parts`` (``csrc/grad_norm.cu``) in Python: a
+    partial sum per PART_ELEMS (65536) elements, at most MAX_PARTS (1024)
+    a leaf; ``chip_smoke.py`` holds the two equal on the card."""
+    return min(-(-numel // 65536), 1024) if numel > 0 else 0
+
+
+def _meta_norm(leaves: list[torch.Tensor]) -> tuple[torch.Tensor, torch.Tensor]:
+    """The card path on meta tensors, for the dry run: the partial sums'
+    scratch and the (norm, scale) pair, and the norm's work recorded; no
+    launch, no count."""
+    dev = leaves[0].device
+    partials = torch.empty(max(sum(_parts(g.numel()) for g in leaves), 1), dtype=torch.float32, device=dev)
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    cost.record("grad_norm", cost.norm_work(leaves))
+    del partials  # the kernels' scratch, live for their span
+    return out[0], out[1]
+
+
 def global_norm(leaves: list[torch.Tensor], max_norm: float) -> tuple[torch.Tensor, torch.Tensor]:
     """(norm, scale) of the gradient ``leaves`` as 0-d f32 tensors on their
     device: scale = min(1, max_norm / (norm + 1e-9)) in ``ref.global_norm``'s
@@ -73,10 +94,12 @@ def global_norm(leaves: list[torch.Tensor], max_norm: float) -> tuple[torch.Tens
     dev = leaves[0].device
     if dev.type == "cpu":
         return ref.global_norm(leaves, max_norm)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"global_norm runs on cuda or cpu tensors, not {dev}")
     if not all(g.is_contiguous() for g in leaves):
         raise ValueError("global_norm reads contiguous leaves")
+    if dev.type == "meta":
+        return _meta_norm(leaves)
     lib = _kernel()
     parts = [lib.repro_grad_sumsq_parts(g.numel()) for g in leaves]
     partials = torch.empty(max(sum(parts), 1), dtype=torch.float32, device=dev)

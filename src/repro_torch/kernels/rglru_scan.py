@@ -24,7 +24,9 @@ differ in their last bits, which a long recurrence carries and sums, so
 at long S both are held to a float64 run of the plain version.
 
 On a CPU tensor the wrapper computes the plain version instead; on a CUDA
-tensor it launches the kernel or raises.
+tensor it launches the kernel or raises. On meta tensors (the dry run, ``launch/dryrun.py``) it allocates what
+the card path allocates and records the kernel's work
+(``kernels/cost.py``), launching nothing and counting no launch.
 
 The backward (:func:`rglru_scan_bwd`, ``csrc/rglru_scan_bwd.cu``) has no
 TPU kernel behind it: JAX differentiates its plain associative scan
@@ -43,7 +45,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, cost, ref
 
 __all__ = ["BWD_LAUNCHES", "LAUNCHES", "RGLRUScan", "rglru_scan", "rglru_scan_bwd"]
 
@@ -99,6 +101,8 @@ def rglru_scan(
         return RGLRUScan.apply(x, log_a, h0)
     if x.device.type == "cpu":
         return ref.rglru(x, log_a, h0)
+    if x.device.type == "meta":
+        return _meta_forward(x, log_a, h0)
     if x.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda or cpu tensors, not {x.device}")
     if x.stride(2) != 1 or log_a.stride(2) != 1:
@@ -127,6 +131,20 @@ def _launch(kernel, x, log_a, h0):
         )
     if rc != 0:
         raise RuntimeError(f"rglru_scan launch failed: {err_str(rc).decode()} ({rc})")
+    return h, h_last
+
+
+def _meta_forward(x, log_a, h0):
+    """The card path on meta tensors, for the dry run: its checks and h0's
+    copy, h and h_last, and K3's work recorded; no launch, no count."""
+    if x.stride(2) != 1 or log_a.stride(2) != 1:
+        raise ValueError("x and log_a must be contiguous along channels")
+    if h0 is not None and h0.stride(1) != 1:
+        h0 = h0.contiguous()
+    b, s, c = x.shape
+    h = torch.empty((b, s, c), dtype=torch.float32, device=x.device)
+    h_last = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    cost.record("rglru_scan", cost.rglru_work(b, s, c, h0 is not None))
     return h, h_last
 
 
@@ -174,6 +192,8 @@ def rglru_scan_bwd(
             raise ValueError(f"{name} must be f32 {shape} on {x.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
     if x.device.type == "cpu":
         return ref.rglru_bwd(x, log_a, h0, h, dh, dh_last)
+    if x.device.type == "meta":
+        return _meta_backward(x, log_a, h0, h, dh, dh_last)
     if x.device.type != "cuda":
         raise ValueError(f"rglru_scan_bwd runs on cuda or cpu tensors, not {x.device}")
     x, log_a, h0, h, dh, dh_last = (_channels_unit(t) for t in (x, log_a, h0, h, dh, dh_last))
@@ -196,6 +216,19 @@ def rglru_scan_bwd(
     if rc != 0:
         raise RuntimeError(f"rglru_scan_bwd launch failed: {err_str(rc).decode()} ({rc})")
     BWD_LAUNCHES += 1
+    return dx, dlog_a, dh0
+
+
+def _meta_backward(x, log_a, h0, h, dh, dh_last):
+    """The backward's card path on meta tensors, for the dry run: the
+    copies of inputs whose channel stride is not 1, dx, dlog_a and dh0,
+    and K3's backward's work recorded; no launch, no count."""
+    x, log_a, h0, h, dh, dh_last = (_channels_unit(t) for t in (x, log_a, h0, h, dh, dh_last))
+    b, s, c = x.shape
+    dx = torch.empty((b, s, c), dtype=torch.float32, device=x.device)
+    dlog_a = torch.empty((b, s, c), dtype=torch.float32, device=x.device)
+    dh0 = torch.empty((b, c), dtype=torch.float32, device=x.device) if h0 is not None else None
+    cost.record("rglru_scan_bwd", cost.rglru_bwd_work(b, s, c, h0 is not None, dh_last is not None))
     return dx, dlog_a, dh0
 
 

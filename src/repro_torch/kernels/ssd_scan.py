@@ -44,6 +44,9 @@ base and batch / sequence / head (group) strides in multiples of 8
 elements; :func:`check_layout` states what the kernel takes and the
 wrapper raises on anything else. On a CPU tensor the wrapper computes the
 plain version instead; on a CUDA tensor it launches the kernel or raises.
+On meta tensors (the dry run, ``launch/dryrun.py``) it allocates what
+the card path allocates and records the kernel's work
+(``kernels/cost.py``), launching nothing and counting no launch.
 
 The backward (:func:`ssd_scan_bwd`, ``csrc/ssd_scan_bwd.cu``) has no TPU
 kernel behind it: JAX differentiates its plain ``ssd_chunked``
@@ -70,7 +73,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, cost, ref
 
 __all__ = ["BWD_LAUNCHES", "LAUNCHES", "SSDScan", "check_layout", "layout_error", "ssd_scan", "ssd_scan_bwd"]
 
@@ -234,6 +237,8 @@ def ssd_scan(
         br = Bm.repeat_interleave(rep, dim=1) if rep > 1 else Bm
         cr = Cm.repeat_interleave(rep, dim=1) if rep > 1 else Cm
         return ref.ssd(x, dt, A, br, cr, init_state)
+    if x.device.type == "meta":
+        return _meta_forward(x, dt, A, Bm, Cm, init_state, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu tensors, not {x.device}")
     chunk = _check_kernel_shape(p, n, min(chunk, s))
@@ -306,6 +311,8 @@ def ssd_scan_bwd(
         raise ValueError("chunk must be positive")
     if x.device.type == "cpu":
         return ref.ssd_bwd(x, dt, A, Bm, Cm, init_state, dy, dfinal)
+    if x.device.type == "meta":
+        return _meta_backward(x, dt, A, Bm, Cm, init_state, dy, dfinal, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan_bwd runs on cuda or cpu tensors, not {x.device}")
     chunk = _check_kernel_shape(p, n, min(chunk, s))
@@ -343,6 +350,67 @@ def ssd_scan_bwd(
     if rc != 0:
         raise RuntimeError(f"ssd_scan_bwd launch failed: {err_str(rc).decode()} ({rc})")
     BWD_LAUNCHES += 1
+    return dx, ddt, dA, dB, dC, dst0
+
+
+def _meta_forward(x, dt, A, Bm, Cm, init_state, chunk):
+    """The card path on meta tensors, for the dry run: its checks, copies
+    and outputs (y a (B, H, S, P) view of (B, S, H, P), the f32 final
+    state), the bf16 path's per-chunk scratch, and K2's work recorded; no
+    launch, no count (a meta tensor's address is 0, so the alignment
+    checks pass)."""
+    b, h, s, p = x.shape
+    g, n = Bm.shape[1], Bm.shape[3]
+    chunk = _check_kernel_shape(p, n, min(chunk, s))
+    for name, t in (("x", x), ("dt", dt), ("Bm", Bm), ("Cm", Cm)):
+        check_layout(name, t.shape, t.stride(), t.data_ptr(), t.dtype)
+    A = A.contiguous()
+    init_state = _rows_of_states(init_state)
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device).transpose(1, 2)
+    st = torch.empty((b, h, n, p), dtype=torch.float32, device=x.device)
+    work = None
+    if x.dtype == torch.bfloat16:
+        work = torch.empty(b * h * -(-s // chunk) * (3 * n * p // 2 + 1), dtype=torch.float32, device=x.device)
+    cost.record("ssd_scan", cost.ssd_work(b, h, g, s, p, n, chunk, cost.dtype_name(x.dtype), init_state is not None))
+    del work, A, init_state  # the kernel's scratch and copies, live for its span
+    return y, st
+
+
+def _bwd_scratch_floats(b: int, h: int, g: int, s: int, p: int, n: int, q: int, dtype: torch.dtype) -> int:
+    """``repro_ssd_scan_bwd_scratch`` (``csrc/ssd_scan_bwd.cu``) in Python,
+    with its HEADS_PER_BLOCK (40) and THREADS (256); ``chip_smoke.py``
+    holds the two equal on the card."""
+    nc = -(-s // q)
+    if dtype != torch.bfloat16:
+        return 2 * b * h * nc * (n * p + 1) + 2 * b * h * s * n
+    nhb, nsb = -(-(h // g) // 40), -(-(n * p) // (4 * 256))
+    return 3 * b * h * nc * n * p + 2 * b * g * nhb * s * n + 4 * b * h * s + b * h * nc * (1 + nsb)
+
+
+def _meta_backward(x, dt, A, Bm, Cm, init_state, dy, dfinal, chunk):
+    """The backward's card path on meta tensors, for the dry run: its
+    checks and copies, the gradients in the card's layouts, the f32
+    scratch, and K2's backward's work recorded; no launch, no count."""
+    b, h, s, p = x.shape
+    g, n = Bm.shape[1], Bm.shape[3]
+    chunk = _check_kernel_shape(p, n, min(chunk, s))
+    if layout_error("dy", dy.shape, dy.stride(), dy.data_ptr(), dy.dtype):
+        dy = dy.clone(memory_format=torch.contiguous_format)
+    for name, t in (("x", x), ("Bm", Bm), ("Cm", Cm)):
+        check_layout(name, t.shape, t.stride(), t.data_ptr(), t.dtype)
+    A = A.contiguous()
+    init_state, dfinal = _rows_of_states(init_state), _rows_of_states(dfinal)
+    dev = x.device
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev).transpose(1, 2)
+    ddt = torch.empty((b, s, h), dtype=torch.float32, device=dev).transpose(1, 2)
+    dA = torch.empty((h,), dtype=torch.float32, device=dev)
+    dB = torch.empty((b, s, g, n), dtype=x.dtype, device=dev).transpose(1, 2)
+    dC = torch.empty((b, s, g, n), dtype=x.dtype, device=dev).transpose(1, 2)
+    dst0 = torch.empty((b, h, n, p), dtype=torch.float32, device=dev) if init_state is not None else None
+    work = torch.empty(_bwd_scratch_floats(b, h, g, s, p, n, chunk, x.dtype), dtype=torch.float32, device=dev)
+    cost.record("ssd_scan_bwd", cost.ssd_bwd_work(b, h, g, s, p, n, chunk, cost.dtype_name(x.dtype),
+                                                  init_state is not None))
+    del work, dy, A, dfinal  # the kernel's scratch and copies, live for its span
     return dx, ddt, dA, dB, dC, dst0
 
 

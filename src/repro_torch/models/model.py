@@ -1478,8 +1478,7 @@ class StreamModel(nn.Module):
             pe = self.tree["pos_embed"]["w"]
             if self.mesh is not None:
                 pe = self._unsharded(pe, self._specs["pos_embed"])
-            pe = pe[pos]
-            x = x + (pe[:, None] if pos.dim() == 1 else pe[None, None])
+            x = x + pe.index_select(0, pos.reshape(-1))[:, None]  # a gather: no host sync on a 0-d position
         x, _ = self._run_stack(x, None, caches)
         return self._all_rows(self._logits(x), rows), caches
 

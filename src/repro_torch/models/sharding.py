@@ -90,7 +90,9 @@ class Mesh:
             self.rank = dist.get_rank()
             from torch.distributed.device_mesh import init_device_mesh
 
-            self.device_mesh = init_device_mesh(self.device.type, self.shape, mesh_dim_names=self.axis_names)
+            # meta tensors (the dry run) take a CPU device mesh: meta has no backend
+            kind = "cpu" if self.device.type == "meta" else self.device.type
+            self.device_mesh = init_device_mesh(kind, self.shape, mesh_dim_names=self.axis_names)
             big = [a for a in self.axis_names if self.sizes[a] > 1]
             for n in range(2, len(big)):
                 for sub in itertools.combinations(big, n):

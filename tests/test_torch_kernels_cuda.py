@@ -1749,6 +1749,31 @@ def test_adamw8bit_kernel_with_clip_matches_plain(card, dtype, step, shape):
     _assert_update8_close(got, want, dtype)
 
 
+@pytest.mark.parametrize("clip", [False, True], ids=["as_given", "clipped"])
+@pytest.mark.parametrize("shape", [(3, 2, 300), (4, 4096), (77,)])
+def test_adamw8bit_kernel_takes_f32_gradients_of_a_bf16_leaf(card, clip, shape):
+    """A microbatched step's f32 gradient sums on a bf16 leaf: each layer
+    slice of p updated in f32 by the f32 kernel and rounded back, against
+    the plain version fed the same f32 g: p to the bit, the state within
+    chip_smoke's gate; one launch a layer slice."""
+    rng = np.random.default_rng(shape[-1] + len(shape))
+    p = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 0.02).to(card, torch.bfloat16)
+    g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 1e-1).to(card)
+    state = _state8(shape, False, 7, card)
+    kw = _scalars8(7)
+    if clip:
+        kw["clip_scale"] = GN.global_norm([g], 0.5)[1]
+    want = [t.clone() for t in (p, *state)]
+    ref.adamw8bit_update(want[0], g, *want[1:], **kw)
+    got = [t.clone() for t in (p, *state)]
+    n = K8.LAUNCHES
+    K8.adamw8bit_update(got[0], g, *got[1:], **kw)
+    torch.cuda.synchronize()
+    assert K8.LAUNCHES == n + (shape[0] if len(shape) >= 3 else 1)
+    assert got[0].dtype == torch.bfloat16 and torch.equal(got[0], want[0])
+    _assert_update8_close(got, want, torch.bfloat16)
+
+
 def test_adamw8bit_kernel_refuses_a_bad_clip_scale(card):
     p = torch.zeros((2, 256), device=card)
     state = _state8(p.shape, True, 0, card)
